@@ -1,0 +1,71 @@
+"""BLS12-381 on PyTorch and hand-written CUDA kernels for Hopper (H100).
+
+The port of `ark_blst_tpu` (JAX, Pallas on a TPU), slice by slice. This
+slice carries the G1 multi-scalar multiplication:
+
+* `msm_g1(points, scalars, device=...)` on stacked strict limb tensors;
+* `G1.msm(bases, scalars, device=...)` on affine int tuples.
+
+Entry points run on the card unless the caller asks for the CPU
+(`device="cpu"`), where every kernel is replaced by its plain PyTorch
+version. Asking for CUDA without a card raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .curves import msm_bucket as _MB
+from .curves.msm import MsmAborted
+from .ops import convert as _CV
+from .oracle.field import R as _R
+
+__all__ = ["G1", "MsmAborted", "msm_g1", "resolve_device"]
+
+
+def resolve_device(device) -> torch.device:
+    """The torch device an entry point runs on; raises for CUDA without a
+    card instead of carrying on on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA was asked for but no card is available; "
+                               "pass device='cpu' to run the plain versions")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+def msm_g1(points, scalars, *, device="cuda", c: int = 7, chunk: int | None = None,
+           maybe_abort=None):
+    """G1 multi-scalar multiplication sum_i scalars[i] * points[i].
+
+    points: strict projective (x, y, z) in Montgomery-R16 form, each a
+    (24, N) int32 tensor of 16-bit limbs (identity points allowed);
+    scalars: (16, N) int32 plain Fr limbs, each value < 2^255 (any scalar
+    reduced mod r qualifies). Returns the strict projective result, each
+    coordinate (24, 1), on `device`. `c` is the signed window width,
+    `chunk` the points per chunk (default: planned from free memory), and
+    `maybe_abort` a zero-argument callable polled before every chunk."""
+    dev = resolve_device(device)
+    points = tuple(x.to(dev, torch.int32) for x in points)
+    scalars = scalars.to(dev, torch.int32)
+    n = scalars.shape[-1]
+    if scalars.shape[0] != 16 or any(x.shape != (24, n) for x in points):
+        raise ValueError("msm_g1 wants (24, N) coordinates and (16, N) scalars")
+    return _MB.msm(points, scalars, c=c, chunk=chunk, maybe_abort=maybe_abort)
+
+
+class G1:
+    """G1 at the level of affine int tuples (None = the identity)."""
+
+    @staticmethod
+    def msm(bases, scalars, device="cuda"):
+        """sum_i scalars[i] * bases[i] as an affine tuple (or None); scalars
+        are ints, reduced mod r."""
+        if len(bases) != len(scalars):
+            raise ValueError(f"{len(bases)} bases but {len(scalars)} scalars")
+        dev = resolve_device(device)
+        points = _CV.g1_to_dev(list(bases))
+        scs = _CV.fr_to_dev([int(s) % _R for s in scalars])
+        return _CV.g1_from_dev(msm_g1(points, scs, device=dev))[0]

@@ -1,0 +1,50 @@
+"""The port stands alone: importing `ark_blst_tpu_torch` and every submodule
+loads neither JAX nor any module of the JAX package, and an entry point
+asked for CUDA without a card raises instead of running on the CPU."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(code):
+    return subprocess.run([sys.executable, "-c", textwrap.dedent(code)], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    proc = _run("""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None  # any import of jax now fails
+        import ark_blst_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        bad = [m for m, mod in sys.modules.items() if mod is not None and (
+            m == "ark_blst_tpu" or m.startswith("ark_blst_tpu.") or m.split(".")[0] == "jax")]
+        print(len(names), bad)
+        assert not bad, bad
+        assert "ark_blst_tpu_torch.curves.msm_bucket" in names, names
+    """)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("entry", ["msm_g1", "G1.msm"])
+def test_cuda_without_a_card_raises(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; this checks the behaviour without one")
+    import ark_blst_tpu_torch as T
+    from ark_blst_tpu_torch.ops import convert as CV
+    from ark_blst_tpu_torch.oracle.field import G1_GEN
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "msm_g1":
+            T.msm_g1(CV.g1_to_dev([G1_GEN]), CV.fr_to_dev([3]))  # default device: cuda
+        else:
+            T.G1.msm([G1_GEN], [3])
