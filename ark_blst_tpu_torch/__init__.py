@@ -1,10 +1,13 @@
 """BLS12-381 on PyTorch and hand-written CUDA kernels for Hopper (H100).
 
-The port of `ark_blst_tpu` (JAX, Pallas on a TPU), slice by slice. This
-slice carries the G1 multi-scalar multiplication:
+The port of `ark_blst_tpu` (JAX, Pallas on a TPU), slice by slice. The
+slices so far carry the G1 multi-scalar multiplication and the batched
+pairing:
 
 * `msm_g1(points, scalars, device=...)` on stacked strict limb tensors;
-* `G1.msm(bases, scalars, device=...)` on affine int tuples.
+* `G1.msm(bases, scalars, device=...)` on affine int tuples;
+* `Bls12.pairing_batch`, `Bls12.prepare_g2_batch` and `Bls12.multi_pairing`
+  on affine int tuples, and `pairing(p, q, ...)` on strict limb tensors.
 
 Entry points run on the card unless the caller asks for the CPU
 (`device="cpu"`), where every kernel is replaced by its plain PyTorch
@@ -15,25 +18,14 @@ from __future__ import annotations
 
 import torch
 
+from .bls12 import Bls12, pairing
 from .curves import msm_bucket as _MB
 from .curves.msm import MsmAborted
+from .device import resolve_device
 from .ops import convert as _CV
 from .oracle.field import R as _R
 
-__all__ = ["G1", "MsmAborted", "msm_g1", "resolve_device"]
-
-
-def resolve_device(device) -> torch.device:
-    """The torch device an entry point runs on; raises for CUDA without a
-    card instead of carrying on on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("CUDA was asked for but no card is available; "
-                               "pass device='cpu' to run the plain versions")
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
+__all__ = ["Bls12", "G1", "MsmAborted", "msm_g1", "pairing", "resolve_device"]
 
 
 def msm_g1(points, scalars, *, device="cuda", c: int = 7, chunk: int | None = None,

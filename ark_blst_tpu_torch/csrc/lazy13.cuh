@@ -10,10 +10,23 @@
 // <= 30*4129^2 = 5.1e8, of a canonical x canonical one <= 2.01e9), so no
 // signed operation below overflows. Folds rely on two's-complement `&` and
 // arithmetic `>>` of signed int32, which CUDA guarantees for `int`.
+//
+// The header also compiles as plain host C++ (no __CUDACC__): the CUDA
+// qualifiers then vanish, so the tests can run the same device functions on
+// the CPU (tests/test_torch_tower_host.py).
 #pragma once
 
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#define LZ_NOINLINE static __device__ __noinline__
+#else
+#define __device__
+#define __forceinline__ inline
+#define __constant__ static const
+#define LZ_NOINLINE static __attribute__((noinline))
+#endif
 
 namespace lz {
 
@@ -140,6 +153,8 @@ __device__ __forceinline__ void pack30(const int* d, int* dst, long long stride)
 
 }  // namespace lz
 
+#ifdef __CUDACC__
 extern "C" const char* ark_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+#endif

@@ -1,0 +1,425 @@
+// Device functions of the lazy Fp2/Fp6/Fp12 tower and the pairing's events.
+//
+// Every function mirrors the function of the same name in
+// ark_blst_tpu_torch/ops/tower_lazy.py (tower) or curves/pairing_steps.py
+// (events) digit for digit: the same products and the same folds on the
+// same operands. The digits depend on where each fold falls, so this code
+// follows the Python's dataflow, not the algebra; the order in which
+// independent products are computed does not matter. An element is one
+// struct of its 30 digits per Fp component, held by one thread (in
+// registers and local memory).
+//
+// Integer discipline (no signed int32 operation overflows, so the C++ has
+// no undefined behaviour and gives PyTorch's int32 digits):
+// * kernel inputs have |digit| <= 8191 (mul-ready |d| <= 4129, or
+//   canonical); every fold30 output has |digit| <= 4105 and every mont_mul
+//   output |digit| <= 4129 (lazy13.cuh); negation keeps those bounds;
+// * so every product operand has |digit| <= 8191 and every product column
+//   is <= 30 * 8191^2 = 2.01e9 < 2^31 (lazy13.cuh);
+// * sums fed to fold30 are at most 8 * 8191 = 65,528 (fp2_mul_small(t2, 8)
+//   of the doubling step is the largest scale; 3t +- 2z of the cyclotomic
+//   square is <= 5 * 4129; m2 - m0 - m1 <= 3 * 4129);
+// * the Barrett contraction: |x[29] * 5040| <= 8191 * 5040 = 4.13e7, so
+//   |q| <= 631 and |q * p_k| <= 631 * 8191 = 5.17e6.
+// fold30 drops the top carry on purpose (exact for |value| < 0.49 * 2^390,
+// which every value of the tower satisfies).
+#pragma once
+
+#include "lazy13.cuh"
+
+namespace tw {
+
+using lz::ELEM;
+
+struct Fp {
+  int d[ELEM];
+};
+struct Fp2 {
+  Fp c[2];
+};
+struct Fp6 {
+  Fp2 c[3];
+};
+struct Fp12 {
+  Fp6 c[2];
+};
+
+// Barrett constants of tower_lazy._contract_many: q = round(x / p) from the
+// top digit, K = round(2^(13*29+16) / p).
+constexpr int BARRETT_S = 16;
+constexpr int BARRETT_K = 5040;
+constexpr int BARRETT_HALF = 1 << (BARRETT_S - 1);
+
+// --- Fp -------------------------------------------------------------------
+
+// One balanced carry-release pass, truncated to 30 digits (top carry dropped).
+__device__ __forceinline__ Fp fold30(const Fp& t) {
+  Fp out;
+  int carry = 0;
+#pragma unroll
+  for (int k = 0; k < ELEM; ++k) {
+    const int u = t.d[k] + lz::HALF;
+    out.d[k] = ((u & lz::DMASK) - lz::HALF) + carry;
+    carry = u >> lz::RADIX;
+  }
+  return out;
+}
+
+__device__ __forceinline__ Fp fp_add(const Fp& a, const Fp& b) {
+  Fp t;
+#pragma unroll
+  for (int k = 0; k < ELEM; ++k) t.d[k] = a.d[k] + b.d[k];
+  return fold30(t);
+}
+
+__device__ __forceinline__ Fp fp_sub(const Fp& a, const Fp& b) {
+  Fp t;
+#pragma unroll
+  for (int k = 0; k < ELEM; ++k) t.d[k] = a.d[k] - b.d[k];
+  return fold30(t);
+}
+
+__device__ __forceinline__ Fp fp_neg(const Fp& a) {
+  Fp t;
+#pragma unroll
+  for (int k = 0; k < ELEM; ++k) t.d[k] = -a.d[k];
+  return t;
+}
+
+__device__ __forceinline__ Fp fp_mul_small(const Fp& a, int s) {
+  Fp t;
+#pragma unroll
+  for (int k = 0; k < ELEM; ++k) t.d[k] = a.d[k] * s;
+  return fold30(t);
+}
+
+// The one Montgomery product, out of line: every product of the tower calls
+// this single copy of the ~3K-instruction body.
+LZ_NOINLINE Fp fp_mul(const Fp& a, const Fp& b) {
+  Fp r;
+  lz::mont_mul(a.d, b.d, r.d);
+  return r;
+}
+
+// x - round(x / p) * p: the same residue, magnitude below 0.58p.
+__device__ __forceinline__ Fp contract(const Fp& x) {
+  const int q = (x.d[ELEM - 1] * BARRETT_K + BARRETT_HALF) >> BARRETT_S;
+  Fp t;
+#pragma unroll
+  for (int k = 0; k < ELEM; ++k) t.d[k] = x.d[k] - q * lz::P_DIGITS[k];
+  return fold30(fold30(t));
+}
+
+// --- Fp2 ------------------------------------------------------------------
+
+__device__ __forceinline__ Fp2 make2(const Fp& c0, const Fp& c1) {
+  Fp2 r;
+  r.c[0] = c0;
+  r.c[1] = c1;
+  return r;
+}
+
+LZ_NOINLINE Fp2 fp2_add(const Fp2& a, const Fp2& b) {
+  return make2(fp_add(a.c[0], b.c[0]), fp_add(a.c[1], b.c[1]));
+}
+
+LZ_NOINLINE Fp2 fp2_sub(const Fp2& a, const Fp2& b) {
+  return make2(fp_sub(a.c[0], b.c[0]), fp_sub(a.c[1], b.c[1]));
+}
+
+__device__ __forceinline__ Fp2 fp2_neg(const Fp2& a) {
+  return make2(fp_neg(a.c[0]), fp_neg(a.c[1]));
+}
+
+LZ_NOINLINE Fp2 fp2_mul_small(const Fp2& a, int s) {
+  return make2(fp_mul_small(a.c[0], s), fp_mul_small(a.c[1], s));
+}
+
+// xi = 1 + u: (c0 - c1, c0 + c1)
+LZ_NOINLINE Fp2 fp2_mul_by_nonresidue(const Fp2& a) {
+  return make2(fp_sub(a.c[0], a.c[1]), fp_add(a.c[0], a.c[1]));
+}
+
+// Karatsuba: m0 = a0 b0, m1 = a1 b1, m2 = (a0 + a1)(b0 + b1).
+LZ_NOINLINE Fp2 fp2_mul(const Fp2& a, const Fp2& b) {
+  const Fp m0 = fp_mul(a.c[0], b.c[0]);
+  const Fp m1 = fp_mul(a.c[1], b.c[1]);
+  const Fp m2 = fp_mul(fp_add(a.c[0], a.c[1]), fp_add(b.c[0], b.c[1]));
+  Fp t;
+#pragma unroll
+  for (int k = 0; k < ELEM; ++k) t.d[k] = m2.d[k] - m0.d[k] - m1.d[k];
+  return make2(fp_sub(m0, m1), fold30(t));
+}
+
+// (a0 + a1)(a0 - a1), a0 a1
+LZ_NOINLINE Fp2 fp2_sqr(const Fp2& a) {
+  const Fp s0 = fp_mul(fp_add(a.c[0], a.c[1]), fp_sub(a.c[0], a.c[1]));
+  const Fp s1 = fp_mul(a.c[0], a.c[1]);
+  return make2(s0, fp_add(s1, s1));
+}
+
+// --- Fp6 ------------------------------------------------------------------
+
+__device__ __forceinline__ Fp6 make6(const Fp2& a0, const Fp2& a1, const Fp2& a2) {
+  Fp6 r;
+  r.c[0] = a0;
+  r.c[1] = a1;
+  r.c[2] = a2;
+  return r;
+}
+
+LZ_NOINLINE Fp6 fp6_add(const Fp6& a, const Fp6& b) {
+  return make6(fp2_add(a.c[0], b.c[0]), fp2_add(a.c[1], b.c[1]), fp2_add(a.c[2], b.c[2]));
+}
+
+LZ_NOINLINE Fp6 fp6_sub(const Fp6& a, const Fp6& b) {
+  return make6(fp2_sub(a.c[0], b.c[0]), fp2_sub(a.c[1], b.c[1]), fp2_sub(a.c[2], b.c[2]));
+}
+
+// v * (a0 + a1 v + a2 v^2) = xi a2 + a0 v + a1 v^2
+__device__ __forceinline__ Fp6 fp6_mul_by_nonresidue(const Fp6& a) {
+  return make6(fp2_mul_by_nonresidue(a.c[2]), a.c[0], a.c[1]);
+}
+
+// tower_lazy.fp6_mul_many for one pair: 6 fp2 products.
+LZ_NOINLINE Fp6 fp6_mul(const Fp6& a, const Fp6& b) {
+  const Fp2 v0 = fp2_mul(a.c[0], b.c[0]);
+  const Fp2 v1 = fp2_mul(a.c[1], b.c[1]);
+  const Fp2 v2 = fp2_mul(a.c[2], b.c[2]);
+  const Fp2 m12 = fp2_mul(fp2_add(a.c[1], a.c[2]), fp2_add(b.c[1], b.c[2]));
+  const Fp2 m01 = fp2_mul(fp2_add(a.c[0], a.c[1]), fp2_add(b.c[0], b.c[1]));
+  const Fp2 m02 = fp2_mul(fp2_add(a.c[0], a.c[2]), fp2_add(b.c[0], b.c[2]));
+  const Fp2 c0 = fp2_add(v0, fp2_mul_by_nonresidue(fp2_sub(fp2_sub(m12, v1), v2)));
+  const Fp2 c1 = fp2_add(fp2_sub(fp2_sub(m01, v0), v1), fp2_mul_by_nonresidue(v2));
+  const Fp2 c2 = fp2_add(fp2_sub(fp2_sub(m02, v0), v2), v1);
+  return make6(c0, c1, c2);
+}
+
+// --- Fp12 -----------------------------------------------------------------
+
+__device__ __forceinline__ Fp12 make12(const Fp6& b0, const Fp6& b1) {
+  Fp12 r;
+  r.c[0] = b0;
+  r.c[1] = b1;
+  return r;
+}
+
+// tower_lazy.fp12_mul_many for one pair: Karatsuba over fp6, 54 base products.
+LZ_NOINLINE Fp12 fp12_mul(const Fp12& a, const Fp12& b) {
+  const Fp6 t0 = fp6_mul(a.c[0], b.c[0]);
+  const Fp6 t1 = fp6_mul(a.c[1], b.c[1]);
+  const Fp6 t2 = fp6_mul(fp6_add(a.c[0], a.c[1]), fp6_add(b.c[0], b.c[1]));
+  return make12(fp6_add(t0, fp6_mul_by_nonresidue(t1)), fp6_sub(fp6_sub(t2, t0), t1));
+}
+
+// Complex squaring: 2 fp6 products.
+LZ_NOINLINE Fp12 fp12_sqr(const Fp12& a) {
+  const Fp6 t = fp6_mul(a.c[0], a.c[1]);
+  const Fp6 m = fp6_mul(fp6_add(a.c[0], a.c[1]),
+                        fp6_add(a.c[0], fp6_mul_by_nonresidue(a.c[1])));
+  return make12(fp6_sub(fp6_sub(m, t), fp6_mul_by_nonresidue(t)), fp6_add(t, t));
+}
+
+// tower_lazy.fp12_mul_by_014_many for one item: f * ((c0 + c1 v) + (c4 v) w).
+LZ_NOINLINE Fp12 fp12_mul_by_014(const Fp12& f, const Fp2& c0, const Fp2& c1, const Fp2& c4) {
+  const Fp6& fa = f.c[0];
+  const Fp6& fb = f.c[1];
+  const Fp2 t00 = fp2_mul(fa.c[0], c0), t10 = fp2_mul(fa.c[1], c0), t20 = fp2_mul(fa.c[2], c0);
+  const Fp2 t21 = fp2_mul(fa.c[2], c1), t01 = fp2_mul(fa.c[0], c1), t11 = fp2_mul(fa.c[1], c1);
+  const Fp2 m2 = fp2_mul(fb.c[2], c4), m0 = fp2_mul(fb.c[0], c4), m1 = fp2_mul(fb.c[1], c4);
+  const Fp6 s = fp6_add(fa, fb);
+  const Fp2 c14 = fp2_add(c1, c4);
+  const Fp2 u00 = fp2_mul(s.c[0], c0), u10 = fp2_mul(s.c[1], c0), u20 = fp2_mul(s.c[2], c0);
+  const Fp2 u21 = fp2_mul(s.c[2], c14), u01 = fp2_mul(s.c[0], c14), u11 = fp2_mul(s.c[1], c14);
+  const Fp6 aa = make6(fp2_add(t00, fp2_mul_by_nonresidue(t21)), fp2_add(t01, t10),
+                       fp2_add(t11, t20));
+  const Fp6 bb = make6(fp2_mul_by_nonresidue(m2), m0, m1);
+  const Fp6 mid = make6(fp2_add(u00, fp2_mul_by_nonresidue(u21)), fp2_add(u01, u10),
+                        fp2_add(u11, u20));
+  return make12(fp6_add(fp6_mul_by_nonresidue(bb), aa), fp6_sub(fp6_sub(mid, aa), bb));
+}
+
+// tower_lazy._cyc_sqr_core: contraction, 9 fp2 squares, 3t +- 2z.
+LZ_NOINLINE Fp12 cyc_sqr_core(const Fp12& x) {
+  Fp12 a;
+#pragma unroll 1
+  for (int i = 0; i < 2; ++i)
+#pragma unroll 1
+    for (int j = 0; j < 3; ++j)
+#pragma unroll 1
+      for (int k = 0; k < 2; ++k) a.c[i].c[j].c[k] = contract(x.c[i].c[j].c[k]);
+  const Fp2 &a0 = a.c[0].c[0], &a1 = a.c[0].c[1], &a2 = a.c[0].c[2];
+  const Fp2 &b0 = a.c[1].c[0], &b1 = a.c[1].c[1], &b2 = a.c[1].c[2];
+  // fp4 squares of (a0, b1), (b0, a2), (a1, b2): c0^2, c1^2, (c0 + c1)^2
+  const Fp2 p0 = fp2_sqr(a0), p1 = fp2_sqr(b1), p2 = fp2_sqr(fp2_add(a0, b1));
+  const Fp2 p3 = fp2_sqr(b0), p4 = fp2_sqr(a2), p5 = fp2_sqr(fp2_add(b0, a2));
+  const Fp2 p6 = fp2_sqr(a1), p7 = fp2_sqr(b2), p8 = fp2_sqr(fp2_add(a1, b2));
+  const Fp2 t0 = fp2_add(fp2_mul_by_nonresidue(p1), p0), t1 = fp2_sub(fp2_sub(p2, p0), p1);
+  const Fp2 s0 = fp2_add(fp2_mul_by_nonresidue(p4), p3), s1 = fp2_sub(fp2_sub(p5, p3), p4);
+  const Fp2 r0 = fp2_add(fp2_mul_by_nonresidue(p7), p6), r1 = fp2_sub(fp2_sub(p8, p6), p7);
+  // even coefficients 3t - 2z, odd 3t + 2z
+  const Fp2 na0 = fp2_sub(fp2_mul_small(t0, 3), fp2_mul_small(a0, 2));
+  const Fp2 nb1 = fp2_add(fp2_mul_small(t1, 3), fp2_mul_small(b1, 2));
+  const Fp2 na1 = fp2_sub(fp2_mul_small(s0, 3), fp2_mul_small(a1, 2));
+  const Fp2 nb2 = fp2_add(fp2_mul_small(s1, 3), fp2_mul_small(b2, 2));
+  const Fp2 na2 = fp2_sub(fp2_mul_small(r0, 3), fp2_mul_small(a2, 2));
+  const Fp2 nb0 = fp2_add(fp2_mul_small(fp2_mul_by_nonresidue(r1), 3), fp2_mul_small(b0, 2));
+  return make12(make6(na0, na1, na2), make6(nb0, nb1, nb2));
+}
+
+// --- pairing events (curves/pairing_steps.py) ------------------------------
+
+struct G2Jac {
+  Fp2 x, y, z;
+};
+struct Line {
+  Fp2 c0, c1, c2;
+};
+
+LZ_NOINLINE void doubling_step(const G2Jac& r, G2Jac& nr, Line& line) {
+  const Fp2 t0 = fp2_sqr(r.x), t1 = fp2_sqr(r.y), zsq = fp2_sqr(r.z);
+  const Fp2 t2 = fp2_sqr(t1);
+  const Fp2 s = fp2_sqr(fp2_add(t1, r.x));
+  const Fp2 t3 = fp2_mul_small(fp2_sub(fp2_sub(s, t0), t2), 2);
+  const Fp2 t4 = fp2_mul_small(t0, 3);
+  const Fp2 t6 = fp2_add(r.x, t4);
+  const Fp2 t5 = fp2_sqr(t4);
+  const Fp2 nx = fp2_sub(t5, fp2_mul_small(t3, 2));
+  const Fp2 nz = fp2_sub(fp2_sub(fp2_sqr(fp2_add(r.z, r.y)), t1), zsq);
+  const Fp2 m0 = fp2_mul(fp2_sub(t3, nx), t4), m1 = fp2_mul(nz, zsq);
+  const Fp2 ny = fp2_sub(m0, fp2_mul_small(t2, 8));
+  line.c0 = fp2_mul_small(m1, 2);
+  const Fp2 m2 = fp2_mul(t4, zsq);
+  line.c1 = fp2_neg(fp2_mul_small(m2, 2));
+  line.c2 = fp2_sub(fp2_sub(fp2_sub(fp2_sqr(t6), t0), t5), fp2_mul_small(t1, 4));
+  nr.x = nx;
+  nr.y = ny;
+  nr.z = nz;
+}
+
+LZ_NOINLINE void addition_step(const G2Jac& r, const Fp2& qx, const Fp2& qy, G2Jac& nr,
+                               Line& line) {
+  const Fp2 zsq = fp2_sqr(r.z), ysq = fp2_sqr(qy);
+  const Fp2 t0 = fp2_mul(zsq, qx);
+  const Fp2 t1 = fp2_mul(fp2_sub(fp2_sub(fp2_sqr(fp2_add(qy, r.z)), ysq), zsq), zsq);
+  const Fp2 t2 = fp2_sub(t0, r.x);
+  const Fp2 t3 = fp2_sqr(t2);
+  const Fp2 t4 = fp2_mul_small(t3, 4);
+  const Fp2 t6 = fp2_sub(t1, fp2_mul_small(r.y, 2));
+  const Fp2 t5 = fp2_mul(t4, t2), t9 = fp2_mul(t6, qx), t7 = fp2_mul(t4, r.x);
+  const Fp2 nx = fp2_sub(fp2_sub(fp2_sqr(t6), t5), fp2_mul_small(t7, 2));
+  const Fp2 nz = fp2_sub(fp2_sub(fp2_sqr(fp2_add(r.z, t2)), zsq), t3);
+  const Fp2 t10 = fp2_add(qy, nz);
+  const Fp2 t8 = fp2_mul(fp2_sub(t7, nx), t6), m2 = fp2_mul(r.y, t5);
+  const Fp2 ny = fp2_sub(t8, fp2_mul_small(m2, 2));
+  const Fp2 t10b = fp2_sub(fp2_sub(fp2_sqr(t10), ysq), fp2_sqr(nz));
+  line.c2 = fp2_sub(fp2_mul_small(t9, 2), t10b);
+  line.c0 = fp2_mul_small(nz, 2);
+  line.c1 = fp2_mul_small(fp2_neg(t6), 2);
+  nr.x = nx;
+  nr.y = ny;
+  nr.z = nz;
+}
+
+// One Miller event: (f^2 if with_sqr) * line, the line scaled by P (_ell_legs).
+LZ_NOINLINE Fp12 miller_step(const Fp12& f, const Line& c, const Fp& px, const Fp& py,
+                             int with_sqr) {
+  const Fp12 g = with_sqr ? fp12_sqr(f) : f;
+  const Fp2 a1 = make2(fp_mul(c.c1.c[0], px), fp_mul(c.c1.c[1], px));
+  const Fp2 a4 = make2(fp_mul(c.c0.c[0], py), fp_mul(c.c0.c[1], py));
+  return fp12_mul_by_014(g, c.c2, a1, a4);
+}
+
+// --- element I/O: a stack (k, 30, n), element i, component-major ----------
+
+__device__ __forceinline__ Fp load_fp(const int* __restrict__ src, long long n, long long i) {
+  Fp r;
+#pragma unroll
+  for (int k = 0; k < ELEM; ++k) r.d[k] = src[k * n + i];
+  return r;
+}
+
+__device__ __forceinline__ void store_fp(const Fp& a, int* __restrict__ dst, long long n,
+                                         long long i) {
+#pragma unroll
+  for (int k = 0; k < ELEM; ++k) dst[k * n + i] = a.d[k];
+}
+
+// component c of a stack starts at c * 30 * n
+__device__ __forceinline__ Fp2 load_fp2(const int* src, int c, long long n, long long i) {
+  return make2(load_fp(src + c * ELEM * n, n, i), load_fp(src + (c + 1) * ELEM * n, n, i));
+}
+
+__device__ __forceinline__ void store_fp2(const Fp2& a, int* dst, int c, long long n, long long i) {
+  store_fp(a.c[0], dst + c * ELEM * n, n, i);
+  store_fp(a.c[1], dst + (c + 1) * ELEM * n, n, i);
+}
+
+__device__ __forceinline__ Fp12 load_fp12(const int* src, long long n, long long i) {
+  Fp12 r;
+#pragma unroll 1
+  for (int b = 0; b < 2; ++b)
+#pragma unroll 1
+    for (int j = 0; j < 3; ++j) r.c[b].c[j] = load_fp2(src, 6 * b + 2 * j, n, i);
+  return r;
+}
+
+__device__ __forceinline__ void store_fp12(const Fp12& a, int* dst, long long n, long long i) {
+#pragma unroll 1
+  for (int b = 0; b < 2; ++b)
+#pragma unroll 1
+    for (int j = 0; j < 3; ++j) store_fp2(a.c[b].c[j], dst, 6 * b + 2 * j, n, i);
+}
+
+// --- the kernels' per-element bodies ---------------------------------------
+
+// K3: x (12, 30, n) squared nsq times -> out.
+__device__ __forceinline__ void cyc_sqr_elem(const int* x, int* out, long long n, long long i,
+                                             int nsq) {
+  Fp12 v = load_fp12(x, n, i);
+#pragma unroll 1
+  for (int s = 0; s < nsq; ++s) v = cyc_sqr_core(v);
+  store_fp12(v, out, n, i);
+}
+
+// K4: a * b, (12, 30, n) each -> out.
+__device__ __forceinline__ void fp12_mul_elem(const int* a, const int* b, int* out, long long n,
+                                              long long i) {
+  store_fp12(fp12_mul(load_fp12(a, n, i), load_fp12(b, n, i)), out, n, i);
+}
+
+// K5: R (6, 30, n) [+ Q (4, 30, n) when is_add] -> out (12, 30, n): the new
+// point (x, y, z), then the line (c0, c1, c2).
+__device__ __forceinline__ void prepare_step_elem(const int* r, const int* q, int* out,
+                                                  long long n, long long i, int is_add) {
+  G2Jac pt, np;
+  Line line;
+  pt.x = load_fp2(r, 0, n, i);
+  pt.y = load_fp2(r, 2, n, i);
+  pt.z = load_fp2(r, 4, n, i);
+  if (is_add) {
+    addition_step(pt, load_fp2(q, 0, n, i), load_fp2(q, 2, n, i), np, line);
+  } else {
+    doubling_step(pt, np, line);
+  }
+  store_fp2(np.x, out, 0, n, i);
+  store_fp2(np.y, out, 2, n, i);
+  store_fp2(np.z, out, 4, n, i);
+  store_fp2(line.c0, out, 6, n, i);
+  store_fp2(line.c1, out, 8, n, i);
+  store_fp2(line.c2, out, 10, n, i);
+}
+
+// K6: F (12, 30, n), C (6, 30, n), PXY (2, 30, n) -> out (12, 30, n).
+__device__ __forceinline__ void miller_step_elem(const int* f, const int* c, const int* pxy,
+                                                 int* out, long long n, long long i,
+                                                 int with_sqr) {
+  Line line;
+  line.c0 = load_fp2(c, 0, n, i);
+  line.c1 = load_fp2(c, 2, n, i);
+  line.c2 = load_fp2(c, 4, n, i);
+  const Fp px = load_fp(pxy, n, i), py = load_fp(pxy + ELEM * n, n, i);
+  store_fp12(miller_step(load_fp12(f, n, i), line, px, py, with_sqr), out, n, i);
+}
+
+}  // namespace tw

@@ -5,11 +5,12 @@ card: the quickest proof that the port builds and runs its main path there.
     python3 chip_smoke.py
 
 Phases, one JSON line each:
-  1. env      the card's name and power limit; builds every kernel of the
-              path from the sources (one nvcc per source, in parallel) and
-              reports build seconds, registers and spills;
+  1. env      the card's name and power limit; builds all six kernels from
+              the sources (one nvcc per source, all in parallel) and reports
+              build seconds, registers, spills and static SASS counts;
   2. k1       K1 (mont_mul) against its plain PyTorch version at 2^22
-              elements, bit for bit, random and extreme digit patterns;
+              elements, bit for bit, random and extreme digit patterns,
+              and again timed at the pairing's batch (8192 elements);
   3. k2       K2 (bucket accumulation) against its plain version at the
               main path's inputs (2^22 points, c=7, W=37), bucket for bucket;
   4. msm      the G1 MSM at 2^22 distinct bases with c=7 (built on the card
@@ -20,8 +21,29 @@ Phases, one JSON line each:
               rerun one by one with a synchronize between them, once for
               the stage times and once under `torch.profiler` for each
               stage's device time, kernel launches and device busy share;
-then the `kernels` line (time, launches, bound and plain time per kernel)
-and, last, {"ok": true, "device": {...}}. Any failure raises: the script
+  5. k3-k6    the pairing's tower kernels against their plain versions at
+              the pairing batch (N = 8192), bit for bit: random mul-ready
+              digits with the extreme patterns of k1; K3 (cyclotomic
+              squares) at n = 1 and at the longest run of the exponent
+              ladder (32), K4 (fp12 product), K5 (prepare event) and K6
+              (Miller event) in both forms, K5 and K6 also on real event
+              inputs taken from the pipeline;
+  6. pairing  8192 pairings of 8 distinct (P, Q) pairs (P_i = P[i mod 8],
+              Q_i = Q[(3i+1) mod 8], the construction of the JAX package's
+              bench.py) with one identity P and one identity Q, through the
+              public entry `Bls12.pairing_batch`: every result checked
+              against the oracle pairing (the identity pairs against one),
+              the launches of K1 and K3-K6 in that call, pairings/s of a
+              warm call, the stages (ingest, prepare_g2, miller_loop,
+              final_exp, egress) rerun with a synchronize between them and
+              once more under `torch.profiler`, the peak device memory;
+              then the prepared path (`prepare_g2_batch` once,
+              `pairing_batch` against it), checked equal to the unprepared
+              results;
+then the `kernels` line (time, launches, bound and plain time per kernel;
+K1, on both paths, gives its MSM launches as `launches`, its pairing
+launches as `launches_pairing` and its times at 8192 elements as
+`at_pairing_batch`) and, last, {"ok": true, "device": {...}}. Any failure raises: the script
 then exits non-zero and prints no last line. Without CUDA it exits 1.
 
 Bound model (bound_ms): the larger of bytes / 3.35e12 B/s and int32
@@ -36,7 +58,12 @@ also count its scattered traffic, one bucket read and write and one point
 read per bucket add. Beside the bound each kernel line gives the IMAD-pipe
 floor: the IMAD instructions of the compiled kernel (`cuobjdump -sass`,
 static count; both kernels are straight-line code around their loops)
-over 132 SMs x 64 per clock x 1.98 GHz = 16.7e12 per s.
+over 132 SMs x 64 per clock x 1.98 GHz = 16.7e12 per s. The tower kernels
+K3-K6 count their base products times MONT_MUL_OPS plus the folded glue of
+each tower operation (the op model below), and bytes as each input read
+once and the output written once; their IMAD floor is the products alone:
+products x the IMAD instructions of K1's compiled product, the same
+`lz::mont_mul` body that the tower kernels call out of line.
 """
 
 from __future__ import annotations
@@ -55,6 +82,9 @@ IMAD_PER_S = 132 * 64 * 1.98e9
 LOG_N = 22
 C = 7
 SEED = 7
+PAIRING_N = 8192
+PAIRING_DISTINCT = 8
+IDENTITY_P_AT, IDENTITY_Q_AT = 3, 10
 
 
 def emit(obj) -> None:
@@ -84,6 +114,25 @@ MIXED_ADD_OPS = (
 )
 BUCKET_ADD_OPS = MIXED_ADD_OPS + 75 * 4 + 3 * (_fold(30) + _fold(31)) + 45 * 4  # + unpack/store/pack
 
+# the tower (csrc/tower13.cuh), per element
+_LIN = 30 + _fold(30)  # fp add / sub / small scale: the digit op, then fold30
+_LIN2 = 2 * _LIN  # the same on fp2 (and fp2_mul_by_nonresidue)
+FP2_MUL_OPS = 3 * MONT_MUL_OPS + 3 * _LIN + 60 + _fold(30)
+FP2_SQR_OPS = 2 * MONT_MUL_OPS + 3 * _LIN
+FP6_MUL_OPS = 6 * FP2_MUL_OPS + 17 * _LIN2
+FP12_MUL_OPS = 3 * FP6_MUL_OPS + 16 * _LIN2
+FP12_SQR_OPS = 2 * FP6_MUL_OPS + 17 * _LIN2
+MUL_BY_014_OPS = 15 * FP2_MUL_OPS + 23 * _LIN2
+CONTRACT_OPS = 3 + 2 * 30 + 2 * _fold(30)
+CYC_SQR_OPS = 12 * CONTRACT_OPS + 9 * FP2_SQR_OPS + 34 * _LIN2
+PREPARE_OPS = {False: 8 * FP2_SQR_OPS + 3 * FP2_MUL_OPS + 20 * _LIN2 + 60,  # doubling
+               True: 8 * FP2_SQR_OPS + 7 * FP2_MUL_OPS + 23 * _LIN2 + 60}  # addition
+MILLER_OPS = {True: FP12_SQR_OPS + 4 * MONT_MUL_OPS + MUL_BY_014_OPS,  # with the square
+              False: 4 * MONT_MUL_OPS + MUL_BY_014_OPS}
+PREPARE_PRODUCTS = {False: 25, True: 37}
+MILLER_PRODUCTS = {True: 85, False: 49}
+ELEM_BYTES = 30 * 4  # one Fp element of digits
+
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
@@ -105,15 +154,19 @@ def cuda_ms(torch, fn, reps: int) -> float:
 
 
 def _ptxas_summary(log: str) -> dict:
-    out = {}
+    """The kernel entry's registers and cumulative stack, and the spill
+    bytes summed over all functions of the library."""
+    out = {"spill_store_bytes": 0, "spill_load_bytes": 0}
     for line in log.splitlines():
-        if "registers" in line:
+        if "Used" in line and "registers" in line:
             out["registers"] = int(line.split("Used")[1].split("registers")[0])
+            if "cumulative stack size" in line:
+                out["stack_bytes"] = int(line.split("barriers,")[1].split("bytes")[0])
         if "spill stores" in line:
             parts = line.replace(",", "").split()
-            out["stack_bytes"] = int(parts[0])
-            out["spill_store_bytes"] = int(parts[4])
-            out["spill_load_bytes"] = int(parts[8])
+            out.setdefault("stack_bytes", int(parts[0]))
+            out["spill_store_bytes"] += int(parts[4])
+            out["spill_load_bytes"] += int(parts[8])
     return out
 
 
@@ -140,27 +193,54 @@ def imad_floor_ms(imads: float) -> float:
 
 # --- phases --------------------------------------------------------------------
 
+def all_kernels() -> dict:
+    """The six kernels by name: K1, K2 (the G1 MSM), K3-K6 (the pairing)."""
+    from ark_blst_tpu_torch.curves import msm_bucket as MB
+    from ark_blst_tpu_torch.curves import pairing_steps as PS
+    from ark_blst_tpu_torch.ops import cyc_sqr as K3
+    from ark_blst_tpu_torch.ops import fp12_mul as K4
+    from ark_blst_tpu_torch.ops import mont_mul as MM
+
+    return {"mont_mul": MM.KERNEL, "bucket_accumulate": MB.KERNEL, "cyc_sqr": K3.KERNEL,
+            "fp12_mul": K4.KERNEL, "prepare_step": PS.PREPARE_KERNEL,
+            "miller_step": PS.MILLER_KERNEL}
+
+
 def phase_env(torch):
     from ark_blst_tpu_torch import cuda as KC
-    from ark_blst_tpu_torch.curves import msm_bucket as MB
-    from ark_blst_tpu_torch.ops import mont_mul as MM
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     print(smi[0], flush=True)
+    kernels = list(all_kernels().values())
     t0 = time.perf_counter()
-    KC.build_all([MM.KERNEL, MB.KERNEL])
+    KC.build_all(kernels)
     build_s = time.perf_counter() - t0
-    sass = {k.source: _sass_counts(k) for k in (MM.KERNEL, MB.KERNEL)}
+    sass = {k.source: _sass_counts(k) for k in kernels}
     emit({
         "phase": "env", "gpu": smi[0], "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s,
-        "ptxas": {k.source: _ptxas_summary(k.build_log) for k in (MM.KERNEL, MB.KERNEL)},
+        "ptxas": {k.source: _ptxas_summary(k.build_log) for k in kernels},
         "sass": sass,
     })
     return sass
+
+
+def extreme_cases() -> list:
+    """Operand pairs of digit patterns at the engine's bounds."""
+    from ark_blst_tpu_torch.ops import lazy13 as LZ
+
+    F = LZ.F_BOUND
+    alt = [F if k % 2 else -F for k in range(30)]
+    edge = [int(v) for v in LZ.int_to_digits((LZ.R13 >> 1) - 1)]
+    return [
+        ([F] * 30, [F] * 30), ([-F] * 30, [-F] * 30),  # all +4129, all -4129
+        ([8191] * 30, [8191] * 30), (edge, edge),  # canonical maxima, the R13/2 edge
+        (alt, [F] * 30), (alt, alt),
+        ([0] * 29 + [F], [F] * 30), ([F] + [0] * 29, [F] + [0] * 29),
+    ]
 
 
 def phase_k1(torch, dev, sass: dict) -> dict:
@@ -175,14 +255,7 @@ def phase_k1(torch, dev, sass: dict) -> dict:
     def col(vals):
         return torch.tensor(vals, dtype=torch.int32, device=dev)
 
-    alt = [F if k % 2 else -F for k in range(30)]
-    edge = [int(v) for v in LZ.int_to_digits((LZ.R13 >> 1) - 1)]
-    cases = [
-        ([F] * 30, [F] * 30), ([-F] * 30, [-F] * 30),  # all +4129, all -4129
-        ([8191] * 30, [8191] * 30), (edge, edge),  # canonical maxima, the R13/2 edge
-        (alt, [F] * 30), (alt, alt),
-        ([0] * 29 + [F], [F] * 30), ([F] + [0] * 29, [F] + [0] * 29),
-    ]
+    cases = extreme_cases()
     for i, (x, y) in enumerate(cases):
         a[:, i], b[:, i] = col(x), col(y)
     got = MM.mont_mul(a, b)
@@ -194,9 +267,18 @@ def phase_k1(torch, dev, sass: dict) -> dict:
     plain_ms = cuda_ms(torch, lambda: MM.mont_mul_plain(a, b), 2)
     bms, by = bound_ms(n * 3 * 30 * 4, n * MONT_MUL_OPS)
     res = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "max_abs_err": err}
+    # the pairing's own launches: one Fp product (or a few concatenated) per
+    # batch element, N = PAIRING_N
+    ap, bp = a[:, :PAIRING_N].contiguous(), b[:, :PAIRING_N].contiguous()
+    errp = _held(torch, "K1", MM.mont_mul(ap, bp), MM.mont_mul_plain(ap, bp))
+    bmsp, byp = bound_ms(PAIRING_N * 3 * 30 * 4, PAIRING_N * MONT_MUL_OPS)
+    res["at_pairing_batch"] = {
+        "n": PAIRING_N, "max_abs_err": errp, "ms": cuda_ms(torch, lambda: MM.mont_mul(ap, bp), 10),
+        "plain_ms": cuda_ms(torch, lambda: MM.mont_mul_plain(ap, bp), 10),
+        "bound_ms": bmsp, "bound_by": byp}
     emit({"phase": "k1", "n": n, "extreme_cases": len(cases), "bit_equal": True, **res,
           "imad_floor_ms": imad_floor_ms(n * sass["imad"])})
-    del a, b, got, want
+    del a, b, got, want, ap, bp
     torch.cuda.empty_cache()
     return res
 
@@ -266,52 +348,283 @@ def phase_msm(torch, dev, points, scalars, expected) -> dict:
     return {"mont_mul": launches[0], "bucket_accumulate": launches[1]}
 
 
-def run_stages(torch, points, scalars, expected, profiled: bool):
-    """The MSM's four stages one by one, each ended by a synchronize; yields
-    (stage, summary) with the stage's host-clock time and, when profiled,
-    the device time of its kernels, their number, the device busy share and
-    the three kernels that took the most device time."""
+def _device_us(evt) -> float:
+    return float(getattr(evt, "self_device_time_total", 0.0))
+
+
+def _stage(torch, fn, profiled: bool, need_device: bool = True):
+    """Run fn() after a synchronize and up to the next one; returns (out,
+    summary) with the host-clock time and, when profiled, the device time
+    of its kernels, their number, the device busy share and the three
+    kernels that took the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    if not profiled:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {"wall_ms": 1e3 * (time.perf_counter() - t0)}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(_device_us(e) for e in kernels) / 1e3
+    check(device_ms > 0 or not need_device, "the profiler saw no device time")
+    top = sorted(kernels, key=_device_us, reverse=True)[:3]
+    return out, {
+        "wall_ms": wall_ms, "device_ms": device_ms,
+        "kernel_launches": sum(e.count for e in kernels), "busy_share": device_ms / wall_ms,
+        "top": [{"kernel": e.key[:60], "count": e.count, "device_ms": _device_us(e) / 1e3}
+                for e in top],
+    }
+
+
+def run_stages(torch, points, scalars, expected, profiled: bool):
+    """The MSM's four stages one by one, each ended by a synchronize; yields
+    (stage, summary) as `_stage` gives it."""
     from ark_blst_tpu_torch.curves import msm_bucket as MB
     from ark_blst_tpu_torch.ops import convert as CV
 
-    def device_us(evt):
-        return float(getattr(evt, "self_device_time_total", 0.0))
-
-    def stage(fn):
-        torch.cuda.synchronize()
-        if not profiled:
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            return out, {"wall_ms": 1e3 * (time.perf_counter() - t0)}
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        device_ms = sum(device_us(e) for e in kernels) / 1e3
-        check(device_ms > 0, "the profiler saw no device time")
-        top = sorted(kernels, key=device_us, reverse=True)[:3]
-        return out, {
-            "wall_ms": wall_ms, "device_ms": device_ms,
-            "kernel_launches": sum(e.count for e in kernels), "busy_share": device_ms / wall_ms,
-            "top": [{"kernel": e.key[:60], "count": e.count, "device_ms": device_us(e) / 1e3}
-                    for e in top],
-        }
-
-    (pts, digs), summary = stage(lambda: MB._prepare_inputs(points, scalars, C))
+    (pts, digs), summary = _stage(torch, lambda: MB._prepare_inputs(points, scalars, C), profiled)
     yield "prepare", summary
-    dump, summary = stage(lambda: MB.accumulate(pts, digs, C))
+    dump, summary = _stage(torch, lambda: MB.accumulate(pts, digs, C), profiled)
     yield "k2", summary
-    ws, summary = stage(lambda: MB._reduce_dump(dump))
+    ws, summary = _stage(torch, lambda: MB._reduce_dump(dump), profiled)
     yield "reduce", summary
-    out, summary = stage(lambda: MB._finish_host(ws, C))
+    out, summary = _stage(torch, lambda: MB._finish_host(ws, C), profiled)
     yield "finish", summary
     check(CV.g1_from_dev(out) == [expected], "staged MSM result differs")
+
+
+# --- the pairing's kernels and path -------------------------------------------
+
+def _held(torch, name: str, got, want) -> int:
+    """Hold a kernel's output against its plain version's, bit for bit."""
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    check(err == 0 and torch.equal(got, want), f"{name} differs from its plain version")
+    return err
+
+
+def _timed(torch, kernel_fn, plain_fn, n_bytes: int, ops: int, imads: int) -> dict:
+    """Kernel and plain times at the same inputs, with the bound and the
+    products' IMAD floor."""
+    bms, by = bound_ms(n_bytes, ops)
+    return {"ms": cuda_ms(torch, kernel_fn, 3), "plain_ms": cuda_ms(torch, plain_fn, 1),
+            "bound_ms": bms, "bound_by": by, "imad_floor_ms": imad_floor_ms(imads)}
+
+
+def digit_stacks(torch, dev, rows_list) -> list:
+    """Random mul-ready (rows, 30, N) stacks, N = PAIRING_N, with the extreme
+    patterns (one operand side each) in the first columns."""
+    from ark_blst_tpu_torch.ops import lazy13 as LZ
+
+    F = LZ.F_BOUND
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    out = []
+    for j, rows in enumerate(rows_list):
+        x = torch.randint(-F, F + 1, (rows, 30, PAIRING_N), generator=g, device=dev,
+                          dtype=torch.int32)
+        for i, case in enumerate(extreme_cases()):
+            x[:, :, i] = torch.tensor(case[j % 2], dtype=torch.int32, device=dev)[None, :]
+        out.append(x)
+    return out
+
+
+def phase_k3(torch, dev, imad_per_product: int) -> dict:
+    from ark_blst_tpu_torch.curves import pairing as PR
+    from ark_blst_tpu_torch.ops import cyc_sqr as K3
+
+    (x,) = digit_stacks(torch, dev, [12])
+    n = x.shape[-1]
+    runs = {}
+    for nsq in (1, max(r for r, _ in PR._X_SEGMENTS)):
+        err = _held(torch, "K3", K3.cyc_sqr(x, nsq), K3.cyc_sqr_plain(x, nsq))
+        runs[nsq] = {"max_abs_err": err, **_timed(
+            torch, lambda: K3.cyc_sqr(x, nsq), lambda: K3.cyc_sqr_plain(x, nsq),
+            n * 2 * 12 * ELEM_BYTES, n * nsq * CYC_SQR_OPS, n * nsq * 18 * imad_per_product)}
+    emit({"phase": "k3", "n": n, "bit_equal": True,
+          "runs": {f"squarings_{k}": v for k, v in runs.items()}})
+    return runs[max(runs)]
+
+
+def phase_k4(torch, dev, imad_per_product: int) -> dict:
+    from ark_blst_tpu_torch.ops import fp12_mul as K4
+
+    a, b = digit_stacks(torch, dev, [12, 12])
+    n = a.shape[-1]
+    err = _held(torch, "K4", K4.fp12_mul(a, b), K4.fp12_mul_plain(a, b))
+    res = {"max_abs_err": err, **_timed(
+        torch, lambda: K4.fp12_mul(a, b), lambda: K4.fp12_mul_plain(a, b),
+        n * 3 * 12 * ELEM_BYTES, n * FP12_MUL_OPS, n * 54 * imad_per_product)}
+    emit({"phase": "k4", "n": n, "bit_equal": True, **res})
+    return res
+
+
+def real_event_inputs(torch, p, q):
+    """K5's and K6's operands as the pipeline gives them: R after three
+    doubling events of `prepare_g2`, f after three Miller events, the
+    fourth event's line and P."""
+    from ark_blst_tpu_torch.curves import pairing as PR
+    from ark_blst_tpu_torch.curves import pairing_steps as PS
+    from ark_blst_tpu_torch.ops import tower_lazy as TL
+
+    qx, qy = TL.fp2_ingest(q[0]), TL.fp2_ingest(q[1])
+    one, zero = PR._fp2_one_zero_like(qx)
+    rs = torch.stack([qx[0], qx[1], qy[0], qy[1], one, zero])
+    qs = torch.stack([qx[0], qx[1], qy[0], qy[1]])
+    for _ in range(3):
+        rs = PS.prepare_step(rs)[:6]
+    coeffs = PR.prepare_g2(q, events=4)
+    px, py = TL.fp_ingest(p[0]), TL.fp_ingest(p[1])
+    pxy = torch.stack([px, py])
+    fs = TL.stack12(PR._fp12_one_like(px))
+    for i in range(3):
+        fs = PS.miller_step(fs, coeffs[i], pxy, True)
+    return rs, qs, fs, coeffs[3], pxy
+
+
+def phase_k5(torch, dev, imad_per_product: int, real) -> dict:
+    from ark_blst_tpu_torch.curves import pairing_steps as PS
+
+    r_rand, q_rand = digit_stacks(torch, dev, [6, 4])
+    r_real, q_real = real[0], real[1]
+    n = r_rand.shape[-1]
+    forms, err = {}, 0
+    for is_add in (False, True):
+        for r, q in ((r_rand, q_rand), (r_real, q_real)):
+            qq = q if is_add else None
+            err = max(err, _held(torch, "K5", PS.prepare_step(r, qq), PS.prepare_step_plain(r, qq)))
+        qq = q_rand if is_add else None
+        forms["addition" if is_add else "doubling"] = _timed(
+            torch, lambda: PS.prepare_step(r_rand, qq), lambda: PS.prepare_step_plain(r_rand, qq),
+            n * (6 + 4 * is_add + 12) * ELEM_BYTES, n * PREPARE_OPS[is_add],
+            n * PREPARE_PRODUCTS[is_add] * imad_per_product)
+    emit({"phase": "k5", "n": n, "bit_equal": True, "real_inputs": True, "max_abs_err": err,
+          **forms})
+    return {"max_abs_err": err, **forms["doubling"]}
+
+
+def phase_k6(torch, dev, imad_per_product: int, real) -> dict:
+    from ark_blst_tpu_torch.curves import pairing_steps as PS
+
+    f_rand, c_rand, p_rand = digit_stacks(torch, dev, [12, 6, 2])
+    n = f_rand.shape[-1]
+    forms, err = {}, 0
+    for with_sqr in (True, False):
+        for f, c, pxy in ((f_rand, c_rand, p_rand), real[2:]):
+            err = max(err, _held(torch, "K6", PS.miller_step(f, c, pxy, with_sqr),
+                                 PS.miller_step_plain(f, c, pxy, with_sqr)))
+        forms["with_square" if with_sqr else "line_only"] = _timed(
+            torch, lambda: PS.miller_step(f_rand, c_rand, p_rand, with_sqr),
+            lambda: PS.miller_step_plain(f_rand, c_rand, p_rand, with_sqr),
+            n * (12 + 6 + 2 + 12) * ELEM_BYTES, n * MILLER_OPS[with_sqr],
+            n * MILLER_PRODUCTS[with_sqr] * imad_per_product)
+    emit({"phase": "k6", "n": n, "bit_equal": True, "real_inputs": True, "max_abs_err": err,
+          **forms})
+    return {"max_abs_err": err, **forms["with_square"]}
+
+
+def pairing_instance():
+    """8192 (P, Q) pairs of 8 distinct pairs, one identity P and one
+    identity Q; returns (ps, qs, expected) with the oracle's values."""
+    import random
+
+    from ark_blst_tpu_torch.oracle import curve as OC
+    from ark_blst_tpu_torch.oracle import field as OF
+    from ark_blst_tpu_torch.oracle import pairing as OP
+
+    rng = random.Random(SEED)
+    k = PAIRING_DISTINCT
+    p8 = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(k)]
+    q8 = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(k)]
+    ps = [p8[i % k] for i in range(PAIRING_N)]
+    qs = [q8[(3 * i + 1) % k] for i in range(PAIRING_N)]
+    ps[IDENTITY_P_AT], qs[IDENTITY_Q_AT] = None, None
+    want = [OP.pairing(p8[a], q8[(3 * a + 1) % k]) for a in range(k)]
+    expected = [OF.FP12_ONE if i in (IDENTITY_P_AT, IDENTITY_Q_AT) else want[i % k]
+                for i in range(PAIRING_N)]
+    return ps, qs, expected
+
+
+def run_pairing_stages(torch, dev, ps, qs, expected, profiled: bool):
+    """The pairing's stages one by one: ingest (host codecs to strict limbs
+    on the card), prepare_g2, miller_loop (with the identity mask),
+    final_exp, egress (strict limbs back to host ints)."""
+    from ark_blst_tpu_torch import bls12 as B
+    from ark_blst_tpu_torch.curves import pairing as PR
+    from ark_blst_tpu_torch.ops import convert as CV
+
+    ((p, p_inf), (q, q_inf)), summary = _stage(
+        torch, lambda: (B._g1_batch(ps, dev), B._g2_batch(qs, dev)), profiled, need_device=False)
+    yield "ingest", summary
+    coeffs, summary = _stage(torch, lambda: PR.prepare_g2(q), profiled)
+    yield "prepare_g2", summary
+    f, summary = _stage(torch, lambda: PR._masked_miller(p, coeffs, p_inf, q_inf), profiled)
+    yield "miller_loop", summary
+    f, summary = _stage(torch, lambda: PR.final_exp(f), profiled)
+    yield "final_exp", summary
+    out, summary = _stage(torch, lambda: CV.fp12_from_dev(PR.egress(f)), profiled)
+    yield "egress", summary
+    check(out == expected, "staged pairing results differ from the oracle")
+
+
+def phase_pairing(torch, dev, ps, qs, expected) -> dict:
+    import ark_blst_tpu_torch as T
+
+    names = ("mont_mul", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step")
+    kernels = all_kernels()
+    n = len(ps)
+    T.Bls12.pairing_batch(ps, qs, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    got = T.Bls12.pairing_batch(ps, qs, device=dev)  # the main path
+    dt = time.perf_counter() - t0
+    launches = {name: kernels[name].launches for name in names}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    bad = sum(g != e for g, e in zip(got, expected))
+    check(len(got) == n and bad == 0, f"{bad} of {n} pairings differ from the oracle")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the path was not launched: {launches}")
+
+    stages = {name + "_ms": summary["wall_ms"]
+              for name, summary in run_pairing_stages(torch, dev, ps, qs, expected, False)}
+    profiled = dict(run_pairing_stages(torch, dev, ps, qs, expected, True))
+    wall = sum(v["wall_ms"] for v in profiled.values())
+    device = sum(v["device_ms"] for v in profiled.values())
+
+    t0 = time.perf_counter()
+    prep = T.Bls12.prepare_g2_batch(qs, device=dev)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    T.Bls12.pairing_batch(ps, prep, device=dev)  # warm-up
+    t0 = time.perf_counter()
+    got_prep = T.Bls12.pairing_batch(ps, prep, device=dev)
+    dt_prep = time.perf_counter() - t0
+    check(got_prep == got, "prepared pairings differ from the unprepared ones")
+
+    emit({"phase": "pairing", "n": n, "distinct": PAIRING_DISTINCT, "ok": True,
+          "identities_one": True, "seconds": dt, "pairings_per_s": n / dt,
+          "launches": launches, "stages": stages, "peak_mem_gib": peak_gib,
+          "prepared": {"ok": True, "prepare_s": prep_s, "seconds": dt_prep,
+                       "pairings_per_s": n / dt_prep}})
+    emit({"phase": "pairing_profile", "wall_ms": wall, "device_ms": device,
+          "busy_share": device / wall, "stages": profiled})
+    return launches
+
+
+def _kernel_line(name, source, replaces, launches, res, **extra) -> dict:
+    return {"name": name, "route": "cuda", "source": "ark_blst_tpu_torch/csrc/" + source,
+            "replaces": replaces, "launches": launches, "max_abs_err": res["max_abs_err"],
+            "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": None, **extra}
 
 
 def main() -> int:
@@ -325,6 +638,7 @@ def main() -> int:
     sass = phase_env(torch)
     k1 = phase_k1(torch, dev, sass["mont_mul.cu"])
 
+    from ark_blst_tpu_torch import bls12 as B
     from ark_blst_tpu_torch.curves import msm_bucket as MB
     from ark_blst_tpu_torch.curves.instance import distinct_bases
 
@@ -336,19 +650,39 @@ def main() -> int:
     k2 = phase_k2(torch, pts, digs, sass["bucket_accumulate.cu"])
     del pts, digs
     torch.cuda.empty_cache()
-    launches = phase_msm(torch, dev, points, scalars, expected)
+    msm_launches = phase_msm(torch, dev, points, scalars, expected)
+    del points, scalars
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ps, qs, pairs_expected = pairing_instance()
+    emit({"phase": "pairing_instance", "n": len(ps), "seconds": time.perf_counter() - t0})
+    (p, _), (q, _) = B._g1_batch(ps, dev), B._g2_batch(qs, dev)
+    real = real_event_inputs(torch, p, q)
+    imad_per_product = sass["mont_mul.cu"]["imad"]
+    k3 = phase_k3(torch, dev, imad_per_product)
+    k4 = phase_k4(torch, dev, imad_per_product)
+    k5 = phase_k5(torch, dev, imad_per_product, real)
+    k6 = phase_k6(torch, dev, imad_per_product, real)
+    del real
+    torch.cuda.empty_cache()
+    launches = phase_pairing(torch, dev, ps, qs, pairs_expected)
 
     emit({"kernels": [
-        {"name": "mont_mul", "route": "cuda", "source": "ark_blst_tpu_torch/csrc/mont_mul.cu",
-         "replaces": "ark_blst_tpu/ops/pallas_lazy.py:41", "launches": launches["mont_mul"],
-         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None},
-        {"name": "bucket_accumulate", "route": "cuda",
-         "source": "ark_blst_tpu_torch/csrc/bucket_accumulate.cu",
-         "replaces": "ark_blst_tpu/curves/msm_pallas2.py:359",
-         "launches": launches["bucket_accumulate"], "max_abs_err": k2["max_abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-         "bound_by": k2["bound_by"], "library_ms": None},
+        _kernel_line("mont_mul", "mont_mul.cu", "ark_blst_tpu/ops/pallas_lazy.py:41",
+                     msm_launches["mont_mul"], k1, launches_pairing=launches["mont_mul"],
+                     at_pairing_batch=k1["at_pairing_batch"]),
+        _kernel_line("bucket_accumulate", "bucket_accumulate.cu",
+                     "ark_blst_tpu/curves/msm_pallas2.py:359",
+                     msm_launches["bucket_accumulate"], k2),
+        _kernel_line("cyc_sqr", "cyc_sqr.cu", "ark_blst_tpu/ops/pallas_lazy.py:149",
+                     launches["cyc_sqr"], k3),
+        _kernel_line("fp12_mul", "fp12_mul.cu", "ark_blst_tpu/ops/pallas_lazy.py:63",
+                     launches["fp12_mul"], k4),
+        _kernel_line("prepare_step", "prepare_step.cu", "ark_blst_tpu/ops/pallas_lazy.py:63",
+                     launches["prepare_step"], k5),
+        _kernel_line("miller_step", "miller_step.cu", "ark_blst_tpu/ops/pallas_lazy.py:63",
+                     launches["miller_step"], k6),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

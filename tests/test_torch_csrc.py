@@ -9,10 +9,15 @@ import pytest
 
 from ark_blst_tpu_torch import cuda as KC
 from ark_blst_tpu_torch.curves import msm_bucket as MB
+from ark_blst_tpu_torch.curves import pairing_steps as PS
+from ark_blst_tpu_torch.ops import cyc_sqr as K3
+from ark_blst_tpu_torch.ops import fp12_mul as K4
 from ark_blst_tpu_torch.ops import lazy13 as LZ
 from ark_blst_tpu_torch.ops import mont_mul as MM
+from ark_blst_tpu_torch.ops import tower_lazy as TL
 
 HEADER = (KC.CSRC_DIR / "lazy13.cuh").read_text()
+TOWER = (KC.CSRC_DIR / "tower13.cuh").read_text()
 
 
 def _array(name):
@@ -34,13 +39,50 @@ def test_header_scalars(name, value):
     assert re.search(rf"constexpr int {name} = {value};", HEADER)
 
 
-@pytest.mark.parametrize("kernel", [MM.KERNEL, MB.KERNEL], ids=["mont_mul", "bucket"])
+@pytest.mark.parametrize("name,value", [
+    ("BARRETT_S", TL._BARRETT_S), ("BARRETT_K", TL._BARRETT_K),
+])
+def test_tower_header_constants(name, value):
+    assert re.search(rf"constexpr int {name} = {value};", TOWER)
+
+
+@pytest.mark.parametrize(
+    "kernel",
+    [MM.KERNEL, MB.KERNEL, K3.KERNEL, K4.KERNEL, PS.PREPARE_KERNEL, PS.MILLER_KERNEL],
+    ids=["mont_mul", "bucket", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step"])
 def test_kernel_sources_export_their_entry(kernel):
     src = (KC.CSRC_DIR / kernel.source).read_text()
     assert re.search(rf'extern "C" int {kernel.symbol}\(', src)
-    assert '#include "lazy13.cuh"' in src
+    assert '#include "lazy13.cuh"' in src or '#include "tower13.cuh"' in src
     assert kernel.lib_path.parent == KC.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in KC.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("bad", ["rows", "digits_or_batch", "dtype", "device"])
+@pytest.mark.parametrize("kernel", ["cyc_sqr", "fp12_mul", "prepare_step", "miller_step"])
+def test_tower_wrappers_reject_what_the_kernels_do_not_take(kernel, bad):
+    """Only (rows, 30, N) int32 stacks on one device reach a tower kernel,
+    and only CPU tensors take the plain version: a meta tensor raises."""
+    import torch
+
+    rows = {"cyc_sqr": [12], "fp12_mul": [12, 12], "prepare_step": [6, 4],
+            "miller_step": [12, 6, 2]}[kernel]
+    ops = [torch.zeros((r, 30, 4), dtype=torch.int32) for r in rows]
+    if bad == "rows":
+        ops[-1] = torch.zeros((rows[-1] + 1, 30, 4), dtype=torch.int32)
+    elif bad == "digits_or_batch":  # a batch that differs, or 29 digits for one operand
+        shape = (rows[-1], 30, 5) if len(rows) > 1 else (rows[-1], 29, 4)
+        ops[-1] = torch.zeros(shape, dtype=torch.int32)
+    elif bad == "dtype":
+        ops[0] = ops[0].long()
+    else:
+        ops = [x.to("meta") for x in ops]
+    call = {"cyc_sqr": lambda: K3.cyc_sqr(ops[0], 1),
+            "fp12_mul": lambda: K4.fp12_mul(*ops),
+            "prepare_step": lambda: PS.prepare_step(*ops),
+            "miller_step": lambda: PS.miller_step(*ops, True)}[kernel]
+    with pytest.raises(ValueError):
+        call()
 
 
 def test_identity_rows_decode_to_identity():

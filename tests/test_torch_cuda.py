@@ -1,5 +1,5 @@
 """The CUDA kernels on the card against their plain PyTorch versions, and the
-G1 MSM on the card against the host oracle. Needs an NVIDIA Hopper card and
+G1 MSM and the batched pairing on the card against the host oracle. Needs an NVIDIA Hopper card and
 nvcc; skipped without a card. Imports no JAX, so it runs on a machine
 without it:
 
@@ -12,12 +12,16 @@ import numpy as np
 import pytest
 import torch
 
-from ark_blst_tpu_torch import G1
+from ark_blst_tpu_torch import G1, Bls12
 from ark_blst_tpu_torch.curves import msm_bucket as MB
+from ark_blst_tpu_torch.curves import pairing_steps as PS
+from ark_blst_tpu_torch.ops import cyc_sqr as K3
+from ark_blst_tpu_torch.ops import fp12_mul as K4
 from ark_blst_tpu_torch.ops import lazy13 as LZ
 from ark_blst_tpu_torch.ops import mont_mul as MM
 from ark_blst_tpu_torch.oracle import curve as OC
 from ark_blst_tpu_torch.oracle import field as OF
+from ark_blst_tpu_torch.oracle import pairing as OP
 
 pytestmark = pytest.mark.cuda
 
@@ -76,3 +80,66 @@ def test_msm_on_card_matches_oracle(dev):
             agg[i % 8] += s
     want = OC.msm(base, agg)
     assert G1.msm(pts, scs, device=dev) == want
+
+
+def _stack(rng, rows, n, dev):
+    """(rows, 30, n) mul-ready digits with the extreme patterns in the first
+    columns."""
+    a = rng.integers(-F, F + 1, (rows, 30, n)).astype(np.int32)
+    a[:, :, 0], a[:, :, 1], a[:, :, 2] = F, -F, 8191
+    a[:, :, 3] = [F if k % 2 else -F for k in range(30)]
+    return torch.from_numpy(a).to(dev)
+
+
+def _launched_once(kernel, fn):
+    before = kernel.launches
+    out = fn()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    return out
+
+
+@pytest.mark.parametrize("nsq", [1, 32])
+def test_k3_bit_equal_to_plain(dev, nsq):
+    x = _stack(np.random.default_rng(4), 12, 1024, dev)
+    got = _launched_once(K3.KERNEL, lambda: K3.cyc_sqr(x, nsq))
+    assert torch.equal(got, K3.cyc_sqr_plain(x, nsq))
+
+
+def test_k4_bit_equal_to_plain(dev):
+    rng = np.random.default_rng(5)
+    a, b = _stack(rng, 12, 1024, dev), _stack(rng, 12, 1024, dev)
+    got = _launched_once(K4.KERNEL, lambda: K4.fp12_mul(a, b))
+    assert torch.equal(got, K4.fp12_mul_plain(a, b))
+
+
+@pytest.mark.parametrize("is_add", [False, True])
+def test_k5_bit_equal_to_plain(dev, is_add):
+    rng = np.random.default_rng(6)
+    r, q = _stack(rng, 6, 1024, dev), (_stack(rng, 4, 1024, dev) if is_add else None)
+    got = _launched_once(PS.PREPARE_KERNEL, lambda: PS.prepare_step(r, q))
+    assert torch.equal(got, PS.prepare_step_plain(r, q))
+
+
+@pytest.mark.parametrize("with_sqr", [False, True])
+def test_k6_bit_equal_to_plain(dev, with_sqr):
+    rng = np.random.default_rng(7)
+    f, c, pxy = _stack(rng, 12, 1024, dev), _stack(rng, 6, 1024, dev), _stack(rng, 2, 1024, dev)
+    got = _launched_once(PS.MILLER_KERNEL, lambda: PS.miller_step(f, c, pxy, with_sqr))
+    assert torch.equal(got, PS.miller_step_plain(f, c, pxy, with_sqr))
+
+
+def test_pairing_on_card_matches_oracle(dev):
+    rng = random.Random(8)
+    ps = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    qs = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    pb = [ps[i % 4] for i in range(64)]
+    qb = [qs[(3 * i + 1) % 4] for i in range(64)]
+    pb[5], qb[6] = None, None
+    kernels = (MM.KERNEL, K3.KERNEL, K4.KERNEL, PS.PREPARE_KERNEL, PS.MILLER_KERNEL)
+    before = [k.launches for k in kernels]
+    got = Bls12.pairing_batch(pb, qb, device=dev)
+    assert all(k.launches > b for k, b in zip(kernels, before))
+    want = {i: OP.pairing(ps[i], qs[(3 * i + 1) % 4]) for i in range(4)}
+    for i, g in enumerate(got):
+        assert g == (OF.FP12_ONE if i in (5, 6) else want[i % 4]), i

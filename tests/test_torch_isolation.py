@@ -31,20 +31,29 @@ def test_port_imports_no_jax_and_no_jax_package():
         print(len(names), bad)
         assert not bad, bad
         assert "ark_blst_tpu_torch.curves.msm_bucket" in names, names
+        assert "ark_blst_tpu_torch.curves.pairing" in names, names
     """)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("entry", ["msm_g1", "G1.msm"])
+@pytest.mark.parametrize("entry", ["msm_g1", "G1.msm", "pairing", "Bls12.pairing_batch",
+                                   "Bls12.prepare_g2_batch", "Bls12.multi_pairing"])
 def test_cuda_without_a_card_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present; this checks the behaviour without one")
     import ark_blst_tpu_torch as T
     from ark_blst_tpu_torch.ops import convert as CV
-    from ark_blst_tpu_torch.oracle.field import G1_GEN
+    from ark_blst_tpu_torch.oracle.field import G1_GEN, G2_GEN
 
+    p = (CV.fp_to_dev([G1_GEN[0]]), CV.fp_to_dev([G1_GEN[1]]))
+    q = (CV.fp2_to_dev([G2_GEN[0]]), CV.fp2_to_dev([G2_GEN[1]]))
+    calls = {  # each with the default device, cuda
+        "msm_g1": lambda: T.msm_g1(CV.g1_to_dev([G1_GEN]), CV.fr_to_dev([3])),
+        "G1.msm": lambda: T.G1.msm([G1_GEN], [3]),
+        "pairing": lambda: T.pairing(p, q),
+        "Bls12.pairing_batch": lambda: T.Bls12.pairing_batch([G1_GEN], [G2_GEN]),
+        "Bls12.prepare_g2_batch": lambda: T.Bls12.prepare_g2_batch([G2_GEN]),
+        "Bls12.multi_pairing": lambda: T.Bls12.multi_pairing([G1_GEN], [G2_GEN]),
+    }
     with pytest.raises(RuntimeError, match="CUDA"):
-        if entry == "msm_g1":
-            T.msm_g1(CV.g1_to_dev([G1_GEN]), CV.fr_to_dev([3]))  # default device: cuda
-        else:
-            T.G1.msm([G1_GEN], [3])
+        calls[entry]()

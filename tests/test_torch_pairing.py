@@ -1,0 +1,204 @@
+"""The port's batched pairing (curves/pairing.py, curves/pairing_steps.py,
+ops/cyc_sqr.py and the `Bls12` entry points) against the JAX package.
+
+The plain versions of K3, K5 and K6 and the truncated prepare_g2 /
+miller_loop are held against the JAX lazy tower digit for digit; the whole
+pairing on the CPU is held against the JAX package's oracle by value, and
+so is the port's own oracle copy. (The JAX package's own pairing tests are
+all in the slow lane; these are the tier-1 guard of the port's pairing.)
+"""
+
+import os
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from ark_blst_tpu.curves import pairing as DP
+from ark_blst_tpu.ops import convert as JCV
+from ark_blst_tpu.ops import tower_lazy as JTL
+from ark_blst_tpu.oracle import curve as JOC
+from ark_blst_tpu.oracle import field as JOF
+from ark_blst_tpu.oracle import pairing as JOP
+
+import ark_blst_tpu_torch as T
+from ark_blst_tpu_torch.curves import pairing as PR
+from ark_blst_tpu_torch.curves import pairing_steps as PS
+from ark_blst_tpu_torch.ops import convert as CV
+from ark_blst_tpu_torch.ops import cyc_sqr as K3
+from ark_blst_tpu_torch.ops import tower_lazy as TL
+from ark_blst_tpu_torch.oracle import curve as OC
+from ark_blst_tpu_torch.oracle import field as OF
+from ark_blst_tpu_torch.oracle import pairing as OP
+
+RNG = random.Random(2)
+PS4 = [OC.scalar_mul(OF.G1_GEN, RNG.randrange(1, OF.R)) for _ in range(4)]
+QS4 = [OC.g2_mul(OF.G2_GEN, RNG.randrange(1, OF.R)) for _ in range(4)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _share_cpu_among_workers():
+    """Split the cores among pytest-xdist workers while the module runs."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    prev = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    yield
+    torch.set_num_threads(prev)
+
+
+def _np(x):
+    return np.asarray(x).astype(np.int64)
+
+
+def _jax_p(pts):
+    return (JCV.fp_to_dev([p[0] for p in pts]), JCV.fp_to_dev([p[1] for p in pts]))
+
+
+def _jax_q(qs):
+    return (JCV.fp2_to_dev([q[0] for q in qs]), JCV.fp2_to_dev([q[1] for q in qs]))
+
+
+def _flat(r, c):
+    return [x for fp2 in tuple(r) + tuple(c) for x in fp2]
+
+
+def test_oracle_copy_matches_jax_oracle():
+    assert OP.X_BITS == JOP.X_BITS and OF._G1J == JOF._G1J and OF.G2_GEN == JOF.G2_GEN
+    assert OC.g2_mul(OF.G2_GEN, 12345) == JOC.g2_mul(JOF.G2_GEN, 12345)
+    assert OP.pairing(PS4[0], QS4[0]) == JOP.pairing(PS4[0], QS4[0])
+    assert OP.prepare_g2(QS4[1]) == JOP.prepare_g2(QS4[1])
+
+
+def test_schedules_match():
+    assert PR.MILLER_EVENTS == DP.MILLER_EVENTS and PR.NUM_EVENTS == 68
+    assert PR._X_SEGMENTS == DP._X_SEGMENTS and PR.X_ABS_BITS == DP.X_ABS_BITS
+
+
+def _jax_r_after_doubling():
+    """A JAX Jacobian G2 point with z != 1 (one doubling of Q) and Q."""
+    qx, qy = (JTL.fp2_ingest(c) for c in _jax_q(QS4))
+    r = (qx, qy, DP._fp2_one_zero_like(JTL, qx))
+    r, _ = DP._doubling_step(JTL, r)
+    return r, (qx, qy)
+
+
+@pytest.mark.parametrize("is_add", [False, True])
+def test_k5_plain_matches_jax_step(is_add):
+    r, q = _jax_r_after_doubling()
+    r_stk = torch.stack(CV.tree_from_jax(tuple(x for fp2 in r for x in fp2)))
+    q_stk = torch.stack(CV.tree_from_jax(tuple(x for fp2 in q for x in fp2)))
+    if is_add:
+        want = _flat(*DP._addition_step(JTL, r, q))
+        got = PS.prepare_step(r_stk, q_stk)
+    else:
+        want = _flat(*DP._doubling_step(JTL, r))
+        got = PS.prepare_step(r_stk)
+    assert (got.numpy() == np.stack([_np(x) for x in want])).all()
+
+
+@pytest.mark.parametrize("with_sqr", [True, False])
+def test_k6_plain_matches_jax_event(with_sqr):
+    """K6's plain version against the JAX Miller-event composition:
+    fp12_sqr, _ell_legs, fp12_mul_by_014_many."""
+    r, _ = _jax_r_after_doubling()
+    _, line = DP._doubling_step(JTL, r)
+    px, py = (JTL.fp_ingest(c) for c in _jax_p(PS4))
+    vals = [JOP.miller_loop(p, q) for p, q in zip(PS4, QS4)]
+    f = JTL.fp12_ingest(JCV.fp12_to_dev(vals))
+    g = JTL.fp12_sqr(f) if with_sqr else f
+    a0, a1, a4 = DP._ell_legs(JTL, line, px, py)
+    want = JTL._flat12(JTL.fp12_mul_by_014_many([(g, a0, a1, a4)])[0])
+    f_stk = torch.stack(CV.tree_from_jax(tuple(JTL._flat12(f))))
+    c_stk = torch.stack(CV.tree_from_jax(tuple(x for fp2 in line for x in fp2)))
+    pxy = torch.stack(CV.tree_from_jax((px, py)))
+    got = PS.miller_step(f_stk, c_stk, pxy, with_sqr)
+    assert (got.numpy() == np.stack([_np(x) for x in want])).all()
+
+
+@pytest.mark.parametrize("n", [1, max(r for r, _ in PR._X_SEGMENTS)])
+def test_k3_plain_matches_jax_core(n):
+    """n iterated squarings (the contraction keeps the run exact) against n
+    calls of the JAX _cyc_sqr_core, at n = 1 and at the ladder's longest
+    run."""
+    vals = [JOP.pairing(p, q) for p, q in zip(PS4[:2], QS4[:2])]
+    f = JTL.fp12_ingest(JCV.fp12_to_dev(vals))
+    x = torch.stack(CV.tree_from_jax(tuple(JTL._flat12(f))))
+    for _ in range(n):
+        f = JTL._cyc_sqr_core(f)
+    got = K3.cyc_sqr(x, n)
+    assert (got.numpy() == np.stack([_np(c) for c in JTL._flat12(f)])).all()
+    # in the cyclotomic subgroup the squares are squares by value
+    want = vals
+    for _ in range(n):
+        want = [OF.fp12_sqr(v) for v in want]
+    assert CV.fp12_from_dev(TL.fp12_egress(TL.unstack12(got))) == want
+
+
+def test_prepare_g2_and_miller_loop_truncated_match_jax():
+    events = 8
+    jq, jp = _jax_q(QS4), _jax_p(PS4)
+    jc = DP.prepare_g2(jq, fuse=False, engine="lazy", events=events)
+    got_c = PR.prepare_g2(CV.tree_from_jax(jq), events=events)
+    assert got_c.shape == (events, 6, 30, 4)
+    assert torch.equal(got_c, CV.coeffs_from_jax(jc))
+    jf = DP.miller_loop(jp, jc, fuse=False, engine="lazy", events=events)
+    got_f = PR.miller_loop(CV.tree_from_jax(jp), got_c, events=events)
+    assert got_f.shape == (12, 30, 4)
+    for g, w in zip(got_f, JTL._flat12(jf)):
+        assert (g.numpy() == _np(w)).all()
+
+
+def test_pairing_batch_cpu_matches_oracle():
+    ps = [PS4[0], None, PS4[2], PS4[3]]
+    qs = [QS4[0], QS4[1], None, QS4[3]]
+    got = T.Bls12.pairing_batch(ps, qs, device="cpu")
+    want = [JOP.pairing(p, q) for p, q in zip(ps, qs)]
+    assert got == want
+    assert got[1] == OF.FP12_ONE and got[2] == OF.FP12_ONE
+
+
+def test_prepared_equals_unprepared():
+    prep = T.Bls12.prepare_g2_batch(QS4, device="cpu")
+    assert prep.stacked.shape == (PR.NUM_EVENTS, 6, 30, 4)
+    ps = [PS4[1], PS4[0], None, PS4[3]]
+    got = T.Bls12.pairing_batch(ps, prep, device="cpu")
+    assert got == T.Bls12.pairing_batch(ps, QS4, device="cpu")
+    assert got[0] == JOP.pairing(PS4[1], QS4[0]) and got[2] == OF.FP12_ONE
+
+
+def test_multi_pairing_matches_oracle_product():
+    ps, qs = [PS4[0], PS4[1], None], [QS4[0], QS4[1], QS4[2]]
+    want = JOP.final_exp(JOP.multi_miller_loop(list(zip(ps, qs))))
+    assert T.Bls12.multi_pairing(ps, qs, device="cpu") == want
+    assert want == OF.fp12_mul(JOP.pairing(PS4[0], QS4[0]), JOP.pairing(PS4[1], QS4[1]))
+    mml = PR.multi_miller_loop(*[CV.tree_from_jax(x) for x in (_jax_p(ps[:2]), _jax_q(qs[:2]))])
+    assert CV.fp12_from_dev(mml) == [JOP.multi_miller_loop(list(zip(ps[:2], qs[:2])))]
+
+
+def test_bilinearity_through_the_tensor_entry():
+    """e(aP, Q) == e(P, aQ) == e(P, Q)^a, through the strict-tensor `pairing`."""
+    a = random.Random(9).randrange(1, OF.R)
+    ps = [OC.scalar_mul(PS4[0], a), PS4[0]]
+    qs = [QS4[0], OC.g2_mul(QS4[0], a)]
+    p = (CV.fp_to_dev([x[0] for x in ps]), CV.fp_to_dev([x[1] for x in ps]))
+    q = (CV.fp2_to_dev([x[0] for x in qs]), CV.fp2_to_dev([x[1] for x in qs]))
+    out = CV.fp12_from_dev(T.pairing(p, q, device="cpu"))
+    assert out[0] == out[1] != OF.FP12_ONE
+    e = JOP.pairing(PS4[0], QS4[0])
+    acc, base, k = OF.FP12_ONE, e, a
+    while k:
+        if k & 1:
+            acc = OF.fp12_mul(acc, base)
+        base, k = OF.fp12_sqr(base), k >> 1
+    assert out[0] == acc
+
+
+def test_entry_points_reject_mismatched_batches():
+    with pytest.raises(ValueError):
+        T.Bls12.pairing_batch([PS4[0]], QS4[:2], device="cpu")
+    prep = T.Bls12.prepare_g2_batch(QS4[:2], device="cpu")
+    with pytest.raises(ValueError):
+        T.Bls12.pairing_batch([PS4[0]], prep, device="cpu")
+    assert T.Bls12.pairing_batch([], [], device="cpu") == []
+    assert T.Bls12.multi_pairing([], [], device="cpu") == OF.FP12_ONE
