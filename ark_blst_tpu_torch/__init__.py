@@ -1,11 +1,13 @@
 """BLS12-381 on PyTorch and hand-written CUDA kernels for Hopper (H100).
 
 The port of `ark_blst_tpu` (JAX, Pallas on a TPU), slice by slice. The
-slices so far carry the G1 multi-scalar multiplication and the batched
-pairing:
+slices so far carry the G1 and G2 multi-scalar multiplications and the
+batched pairing:
 
-* `msm_g1(points, scalars, device=...)` on stacked strict limb tensors;
-* `G1.msm(bases, scalars, device=...)` on affine int tuples;
+* `msm_g1(points, scalars, device=...)` and `msm_g2(...)` on stacked
+  strict limb tensors;
+* `G1.msm(bases, scalars, device=...)` and `G2.msm(...)` on affine int
+  tuples;
 * `Bls12.pairing_batch`, `Bls12.prepare_g2_batch` and `Bls12.multi_pairing`
   on affine int tuples, and `pairing(p, q, ...)` on strict limb tensors.
 
@@ -25,7 +27,7 @@ from .device import resolve_device
 from .ops import convert as _CV
 from .oracle.field import R as _R
 
-__all__ = ["Bls12", "G1", "MsmAborted", "msm_g1", "pairing", "resolve_device"]
+__all__ = ["Bls12", "G1", "G2", "MsmAborted", "msm_g1", "msm_g2", "pairing", "resolve_device"]
 
 
 def msm_g1(points, scalars, *, device="cuda", c: int = 7, chunk: int | None = None,
@@ -45,7 +47,25 @@ def msm_g1(points, scalars, *, device="cuda", c: int = 7, chunk: int | None = No
     n = scalars.shape[-1]
     if scalars.shape[0] != 16 or any(x.shape != (24, n) for x in points):
         raise ValueError("msm_g1 wants (24, N) coordinates and (16, N) scalars")
-    return _MB.msm(points, scalars, c=c, chunk=chunk, maybe_abort=maybe_abort)
+    return _MB.msm(points, scalars, _MB.KC2_G1, c, chunk=chunk, maybe_abort=maybe_abort)
+
+
+def msm_g2(points, scalars, *, device="cuda", c: int = _MB.KC2_G2.c_default,
+           chunk: int | None = None, maybe_abort=None):
+    """G2 multi-scalar multiplication sum_i scalars[i] * points[i].
+
+    points: strict projective ((x0, x1), (y0, y1), (z0, z1)) over Fp2 in
+    Montgomery-R16 form, each component a (24, N) int32 tensor of 16-bit
+    limbs (identity points allowed); scalars as for `msm_g1`. Returns the
+    strict projective result in the same form with batch (1,), on
+    `device`. `c` defaults to 5, the JAX package's G2 default."""
+    dev = resolve_device(device)
+    points = tuple(tuple(x.to(dev, torch.int32) for x in coord) for coord in points)
+    scalars = scalars.to(dev, torch.int32)
+    n = scalars.shape[-1]
+    if scalars.shape[0] != 16 or any(x.shape != (24, n) for coord in points for x in coord):
+        raise ValueError("msm_g2 wants pairs of (24, N) coordinates and (16, N) scalars")
+    return _MB.msm(points, scalars, _MB.KC2_G2, c, chunk=chunk, maybe_abort=maybe_abort)
 
 
 class G1:
@@ -61,3 +81,18 @@ class G1:
         points = _CV.g1_to_dev(list(bases))
         scs = _CV.fr_to_dev([int(s) % _R for s in scalars])
         return _CV.g1_from_dev(msm_g1(points, scs, device=dev))[0]
+
+
+class G2:
+    """G2 at the level of affine Fp2 int tuples (None = the identity)."""
+
+    @staticmethod
+    def msm(bases, scalars, device="cuda"):
+        """sum_i scalars[i] * bases[i] as an affine tuple (or None); scalars
+        are ints, reduced mod r."""
+        if len(bases) != len(scalars):
+            raise ValueError(f"{len(bases)} bases but {len(scalars)} scalars")
+        dev = resolve_device(device)
+        points = _CV.g2_to_dev(list(bases))
+        scs = _CV.fr_to_dev([int(s) % _R for s in scalars])
+        return _CV.g2_from_dev(msm_g2(points, scs, device=dev))[0]

@@ -1,15 +1,16 @@
-"""RCB15 group formulas over the stacked lazy radix-13 engine (G1, Fp).
+"""RCB15 group formulas over the stacked lazy radix-13 engine (G1 and G2).
 
 Counterpart of `ark_blst_tpu/curves/lazy_group.py`, digit for digit:
 complete projective addition/doubling and the Z2=1 mixed variant
 (Renes-Costello-Batina 2015, Algorithms 7 and 9, a = 0), where each output
 coordinate pays ONE Montgomery reduction for its two-product linear
-combination.
+combination. One body of each formula serves both fields; the field
+adapter (`FP_LAZY` for G1, `FP2_LAZY` for G2) holds what differs.
 
-An element is a `(30, *batch)` int32 tensor with at least one batch axis;
-`mulp` and `red` batch a round's products by concatenating along the first
-batch axis (dim 1), as the JAX code concatenates along axis 0 of each digit
-array.
+An Fp element is a `(30, *batch)` int32 tensor with at least one batch
+axis, an Fp2 element a pair `(c0, c1)` of them; `mulp` and `red` batch a
+round's products by concatenating along the first batch axis (dim 1), as
+the JAX code concatenates along axis 0 of each digit array.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ def _split(val: torch.Tensor, parts: int):
 
 
 class LazyOps:
-    """Field adapter over the stacked lazy engine (Fp)."""
+    """Field adapter over the stacked lazy engine: Fp."""
 
     add = staticmethod(LZ.add)
     sub = staticmethod(LZ.sub)
@@ -62,10 +63,66 @@ class LazyOps:
         return (LZ.const(LZ.ONE13, like) + torch.zeros_like(like[: LZ.ELEM])).contiguous()
 
 
+class Fp2LazyOps:
+    """Field adapter over the stacked lazy engine: Fp2 = Fp[u]/(u^2+1)."""
+
+    add = staticmethod(LZ.fp2_add)
+    sub = staticmethod(LZ.fp2_sub)
+    neg = staticmethod(LZ.fp2_neg)
+    scale = staticmethod(LZ.fp2_scale)
+    fold_sum = staticmethod(LZ.fp2_fold_sum)
+    select = staticmethod(LZ.fp2_select)
+    wadd = staticmethod(LZ.fp2_add)
+    wsub = staticmethod(LZ.fp2_sub)
+
+    @staticmethod
+    def store30(a):
+        return (LZ.store30(a[0]), LZ.store30(a[1]))
+
+    @staticmethod
+    def mul_b3(a):
+        """3b = 12 (1 + u) on G2 (b = 4 (1 + u)): (a0 - a1, a0 + a1) * 12.
+        Returns the UNFOLDED sums (bound 24F)."""
+        return (LZ.scale(LZ.sub(a[0], a[1]), 12), LZ.scale(LZ.add(a[0], a[1]), 12))
+
+    @staticmethod
+    def mulp(pairs):
+        """Batched product round, Karatsuba at the leg level: the three legs
+        of every pair go through ONE wide product; returns prered pairs
+        (m0 - m1, m2 - (m0 + m1))."""
+        legs_a, legs_b = [], []
+        for a, b in pairs:
+            legs_a += [a[0], a[1], LZ.fold_sum(LZ.add(a[0], a[1]))]
+            legs_b += [b[0], b[1], LZ.fold_sum(LZ.add(b[0], b[1]))]
+        outs = _split(LZ.prered(LZ.mul_wide(torch.cat(legs_a, dim=1), torch.cat(legs_b, dim=1))),
+                      3 * len(pairs))
+        return [(LZ.sub(m0, m1), LZ.sub(m2, LZ.add(m0, m1)))
+                for m0, m1, m2 in zip(outs[0::3], outs[1::3], outs[2::3])]
+
+    @staticmethod
+    def red(wides):
+        """Batched reduction: all re parts, then all im parts, in one
+        concatenated reduction."""
+        n = len(wides)
+        flat = [w[0] for w in wides] + [w[1] for w in wides]
+        outs = _split(LZ.reduce_wide(torch.cat(flat, dim=1)), 2 * n)
+        return [(outs[i], outs[n + i]) for i in range(n)]
+
+    @staticmethod
+    def zero(like):
+        z = torch.zeros_like(like[0][: LZ.ELEM])
+        return (z, z.clone())
+
+    @staticmethod
+    def one(like):
+        return (LazyOps.one(like[0]), torch.zeros_like(like[0][: LZ.ELEM]))
+
+
 FP_LAZY = LazyOps()
+FP2_LAZY = Fp2LazyOps()
 
 
-def mixed_add(f: LazyOps, p1, p2):
+def mixed_add(f: LazyOps | Fp2LazyOps, p1, p2):
     """Complete addition P1 (projective) + P2 (affine, Z2=1): 11 field muls
     in two batched rounds, 8 reductions."""
     X1, Y1, Z1 = p1  # elements: F
@@ -93,7 +150,7 @@ def mixed_add(f: LazyOps, p1, p2):
     return (X3, Y3, Z3)
 
 
-def full_add(f: LazyOps, p1, p2):
+def full_add(f: LazyOps | Fp2LazyOps, p1, p2):
     """Complete projective + projective addition: 12 muls, 9 reductions."""
     X1, Y1, Z1 = p1
     X2, Y2, Z2 = p2
@@ -120,7 +177,7 @@ def full_add(f: LazyOps, p1, p2):
     return (X3, Y3, Z3)
 
 
-def double(f: LazyOps, p):
+def double(f: LazyOps | Fp2LazyOps, p):
     """Complete doubling (RCB15 Alg 9, a=0), lazily reduced: 8 muls."""
     X, Y, Z = p
     t0, tyz, tzz, txy = f.red(f.mulp([(Y, Y), (Y, Z), (Z, Z), (X, Y)]))

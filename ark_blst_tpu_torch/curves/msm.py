@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.limbs import FR, LIMB_BITS
-from .group import g1_identity
+from .group import g1_identity, g2_identity
 
 SCALAR_BITS = FR.num_limbs * LIMB_BITS  # 256
 
@@ -62,14 +62,22 @@ def window_digits_signed(scalars: torch.Tensor, c: int) -> torch.Tensor:
     return torch.stack(digs)
 
 
-def _pad_inputs(points, scalars: torch.Tensor, multiple: int):
-    """Pad the point axis to a multiple with (identity, scalar 0) pairs:
-    zero digits land in the dropped bucket 0."""
+def _cat_points(a, b):
+    """Concatenate two strict point batches (nested tuples of limb tensors)
+    along the batch axis."""
+    if isinstance(a, tuple):
+        return tuple(_cat_points(x, y) for x, y in zip(a, b))
+    return torch.cat([a, b], dim=-1)
+
+
+def _pad_inputs(curve: str, points, scalars: torch.Tensor, multiple: int):
+    """Pad the point axis to a multiple with (identity, scalar 0) pairs of
+    the curve ("g1" or "g2"): zero digits land in the dropped bucket 0."""
     n = scalars.shape[-1]
     pad = (-n) % multiple
     if pad == 0:
         return points, scalars
-    idp = g1_identity(pad, scalars.device)
-    points = tuple(torch.cat([x, i], dim=-1) for x, i in zip(points, idp))
+    identity = {"g1": g1_identity, "g2": g2_identity}[curve]
+    points = _cat_points(points, identity(pad, scalars.device))
     scalars = torch.nn.functional.pad(scalars, (0, pad))
     return points, scalars

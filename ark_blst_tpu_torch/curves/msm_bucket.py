@@ -1,32 +1,41 @@
-"""G1 MSM on the card: lazy radix-13 prepare, K2 bucket kernel, reduce, finish.
+"""G1 and G2 MSM on the card: lazy radix-13 prepare, K2 bucket kernel,
+reduce, finish.
 
-Counterpart of `ark_blst_tpu/curves/msm_pallas2.py` (G1 instance). Stages
-per chunk of points:
+Counterpart of `ark_blst_tpu/curves/msm_pallas2.py`. One pipeline serves both
+curves through a `KernelCurve2` (`KC2_G1`, `KC2_G2`, the JAX names): its
+row counts, codecs, field adapter and bucket kernel. Stages per chunk of
+points:
 
 1. `_prepare_inputs`: strict Montgomery-R16 projective limbs -> packed
-   affine points `(30, n)` and signed window digits `(W, n)`. The affine
-   conversion is a blocked batch inversion whose products run through K1
-   (`ops/mont_mul.py`); the R16 factors cancel in x/z and y/z, so the
-   affine coordinates land in the lazy R13 domain with no conversion
-   multiply. Identity points (z = 0) get digit 0, i.e. the dropped bucket 0.
-2. `accumulate` (K2, `csrc/bucket_accumulate.cu`): each of the S = 1024
-   streams (point n belongs to stream n mod S) adds its points into its own
-   B = 2^(c-1)+1 signed buckets per window -> packed dump `(W, B, 45, S)`.
+   affine points `(aff_rows, n)` and signed window digits `(W, n)`. The
+   affine conversion is a blocked batch inversion whose products run
+   through K1 (`ops/mont_mul.py`); G2 inverts the norm z0^2 + z1^2 in Fp.
+   The R16 factors cancel in x/z and y/z, so the affine coordinates land
+   in the lazy R13 domain with no conversion multiply. Identity points
+   (z = 0) get digit 0, i.e. the dropped bucket 0.
+2. `accumulate` (K2: `csrc/bucket_accumulate.cu` for G1,
+   `csrc/bucket_accumulate_g2.cu` for G2): each of the S = 1024 streams
+   (point n belongs to stream n mod S) adds its points into its own
+   B = 2^(c-1)+1 signed buckets per window -> packed dump
+   `(W, B, pt_rows, S)`.
 3. `_reduce_dump`: fold the S streams (a sequential pass over 64 groups,
    then a tree over 16), then the bucket suffix sums -> lazy window sums.
 4. `_finish_host`: window sums to canonical ints, Horner on the host.
 
-Layouts (int32 throughout, every word < 2^31):
-  points  (30, n)        packed affine x, y: 15 words each, two balanced
-                         digits per word, biased by 4129
-  digits  (W, n)         magnitude | sign << 15
-  dump    (W, B, 45, S)  packed projective x, y, z per bucket and stream
-  wsums   (90, W)        stacked lazy window sums (x, y, z digits)
+Layouts (int32 throughout, every word < 2^31), G1 / G2:
+  points  (30 / 60, n)          packed affine x, y: 15 words per Fp
+                                component, two balanced digits per word,
+                                biased by 4129
+  digits  (W, n)                magnitude | sign << 15
+  dump    (W, B, 45 / 90, S)    packed projective x, y, z per bucket and
+                                stream
+  wsums   (90 / 180, W)         stacked lazy window sums
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -40,8 +49,8 @@ from ..ops import lazy13 as LZ
 from ..ops import mont_mul as MM
 from ..ops.limbs import FP
 from . import msm as M
-from .group import g1_identity
-from .lazy_group import FP_LAZY, full_add, mixed_add
+from .group import g1_identity, g2_identity
+from .lazy_group import FP2_LAZY, FP_LAZY, full_add, mixed_add
 
 STREAMS = 1024  # point streams per window (the TPU kernel's 8 x 128 tile)
 SCAN_CHUNK = 64  # sequential steps of the stream fold (the JAX TPU path's)
@@ -87,30 +96,6 @@ def unpack15(words: torch.Tensor) -> torch.Tensor:
     return torch.stack([lo, hi], dim=1).reshape((LZ.ELEM,) + tuple(words.shape[1:]))
 
 
-# --- G1 kernel layout (the JAX package's KC2_G1 codec) ------------------------
-
-COORD_ROWS = 15  # packed rows per Fp coordinate
-AFF_ROWS = 2 * COORD_ROWS  # affine streamed point (x, y)
-PT_ROWS = 3 * COORD_ROWS  # projective bucket point (x, y, z)
-
-
-def rows_to_coords(rows):
-    """(15k, *batch) packed rows -> k lazy coordinates, each (30, *batch)."""
-    return tuple(unpack15(r) for r in rows.split(COORD_ROWS))
-
-
-def point_to_rows(pt) -> torch.Tensor:
-    return torch.cat([pack30(LZ.store30(coord)) for coord in pt])
-
-
-def identity_rows() -> np.ndarray:
-    """Host: packed rows (45,) of the projective identity (0 : one : 0)."""
-    zero = np.full(COORD_ROWS, BIAS | (BIAS << 16), np.int32)
-    oneb = int_to_digits_balanced(LZ.R13_MOD_P).astype(np.int64) + BIAS
-    onep = (oneb[0::2] | (oneb[1::2] << 16)).astype(np.int32)
-    return np.concatenate([zero, onep, zero])
-
-
 def _num_buckets(c: int) -> int:
     return (1 << (c - 1)) + 1  # signed windows
 
@@ -119,35 +104,137 @@ def _num_windows(c: int) -> int:
     return (256 + c - 1) // c  # no carry window (window_digits_signed)
 
 
-# --- K2: the bucket kernel ---------------------------------------------------
-
-KERNEL = CudaKernel(
-    "bucket_accumulate.cu",
-    "msm_bucket_accumulate",
-    [ctypes.c_void_p] * 4
-    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-)
+def _tree_map(fn, pt):
+    """Apply fn to every tensor of a lazy or strict point (nested tuples)."""
+    if isinstance(pt, tuple):
+        return tuple(_tree_map(fn, x) for x in pt)
+    return fn(pt)
 
 
-def _check_accumulate_args(pts, digs):
+# --- K2: the bucket kernels ---------------------------------------------------
+
+_ACCUMULATE_ARGS = [ctypes.c_void_p] * 4 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+KERNEL = CudaKernel("bucket_accumulate.cu", "msm_bucket_accumulate", _ACCUMULATE_ARGS)
+KERNEL_G2 = CudaKernel("bucket_accumulate_g2.cu", "msm_bucket_accumulate_g2", _ACCUMULATE_ARGS)
+
+
+# --- per-curve kernel layout (the JAX package's KernelCurve2) -----------------
+
+@dataclass(frozen=True)
+class KernelCurve2:
+    """Per-curve kernel layout and codecs. A coordinate is one Fp element
+    (G1) or an Fp2 pair (G2, re then im); each Fp component is 15 packed
+    rows."""
+
+    name: str
+    c_default: int
+
+    @property
+    def is_g2(self) -> bool:
+        return self.name == "g2"
+
+    @property
+    def f(self):
+        return FP2_LAZY if self.is_g2 else FP_LAZY
+
+    @property
+    def coord_rows(self) -> int:  # packed rows per field coordinate
+        return 30 if self.is_g2 else 15
+
+    @property
+    def pt_rows(self) -> int:  # projective bucket point (x, y, z)
+        return 3 * self.coord_rows
+
+    @property
+    def aff_rows(self) -> int:  # affine streamed point (x, y)
+        return 2 * self.coord_rows
+
+    @property
+    def n_fp(self) -> int:  # Fp components per point (3 coords x ext degree)
+        return 6 if self.is_g2 else 3
+
+    @property
+    def kernel(self) -> CudaKernel:
+        return KERNEL_G2 if self.is_g2 else KERNEL
+
+    def _coord_from_rows(self, rows):
+        if self.is_g2:
+            return (unpack15(rows[:15]), unpack15(rows[15:]))
+        return unpack15(rows)
+
+    def _coord_to_rows(self, coord) -> torch.Tensor:
+        stored = self.f.store30(coord)
+        comps = stored if self.is_g2 else (stored,)
+        return torch.cat([pack30(comp) for comp in comps])
+
+    def rows_to_point(self, rows):
+        """(pt_rows, *batch) packed rows -> lazy projective point."""
+        return tuple(self._coord_from_rows(r) for r in rows.split(self.coord_rows))
+
+    def rows_to_affine(self, rows):
+        """(aff_rows, *batch) packed rows -> lazy affine point (x, y)."""
+        return self.rows_to_point(rows)
+
+    def point_to_rows(self, pt) -> torch.Tensor:
+        """Lazy point (projective or affine) -> packed rows of its stored
+        digits."""
+        return torch.cat([self._coord_to_rows(coord) for coord in pt])
+
+    def components(self, pt) -> list:
+        """A point's n_fp Fp components in order (x, y, z; re before im)."""
+        return [comp for coord in pt for comp in (coord if self.is_g2 else (coord,))]
+
+    def stack_point(self, pt) -> torch.Tensor:
+        """Lazy projective point -> one (n_fp*30, *batch) tensor."""
+        return torch.cat(self.components(pt))
+
+    def nest(self, comps):
+        """The inverse of `components`: n_fp Fp components -> a point."""
+        if self.is_g2:
+            return tuple(tuple(comps[2 * i : 2 * i + 2]) for i in range(3))
+        return tuple(comps)
+
+    def unstack_point(self, arr):
+        return self.nest(arr.split(LZ.ELEM))
+
+    def identity_rows(self) -> np.ndarray:
+        """Host: packed rows of the projective identity (0 : one : 0)."""
+        zero = np.full(15, BIAS | (BIAS << 16), np.int32)
+        oneb = int_to_digits_balanced(LZ.R13_MOD_P).astype(np.int64) + BIAS
+        onep = (oneb[0::2] | (oneb[1::2] << 16)).astype(np.int32)
+        coords = [zero, zero, onep, zero, zero, zero] if self.is_g2 else [zero, onep, zero]
+        return np.concatenate(coords)
+
+    def identity(self, n: int, device):
+        """Strict projective identity, batch (n,)."""
+        return g2_identity(n, device) if self.is_g2 else g1_identity(n, device)
+
+
+KC2_G1 = KernelCurve2("g1", 7)
+KC2_G2 = KernelCurve2("g2", 5)
+
+
+def _check_accumulate_args(kc: KernelCurve2, pts, digs):
     if pts.dtype != torch.int32 or digs.dtype != torch.int32:
         raise ValueError("accumulate wants int32 points and digits")
-    if pts.dim() != 2 or pts.shape[0] != AFF_ROWS or digs.dim() != 2:
-        raise ValueError(f"accumulate wants ({AFF_ROWS}, n) points and (W, n) digits")
+    if pts.dim() != 2 or pts.shape[0] != kc.aff_rows or digs.dim() != 2:
+        raise ValueError(f"accumulate wants ({kc.aff_rows}, n) points and (W, n) digits")
     n = pts.shape[1]
     if digs.shape[1] != n or n % STREAMS:
         raise ValueError(f"point count {n} must match the digits and be a multiple of {STREAMS}")
 
 
-def accumulate_plain(pts: torch.Tensor, digs: torch.Tensor, c: int) -> torch.Tensor:
-    """The kernel's plain PyTorch version: a loop over the tiles of S points,
+def accumulate_plain(kc: KernelCurve2, pts: torch.Tensor, digs: torch.Tensor,
+                     c: int) -> torch.Tensor:
+    """The kernels' plain PyTorch version: a loop over the tiles of S points,
     each a batched mixed addition over all (window, stream) pairs, with the
     addressed bucket gathered and scattered back. Bucket 0 is left at the
-    identity, as the kernel leaves it."""
-    _check_accumulate_args(pts, digs)
+    identity, as the kernels leave it."""
+    _check_accumulate_args(kc, pts, digs)
     W, n = digs.shape
-    S, B, rows = STREAMS, _num_buckets(c), PT_ROWS
-    ident = torch.from_numpy(identity_rows()).to(pts.device)
+    S, B, rows, f = STREAMS, _num_buckets(c), kc.pt_rows, kc.f
+    ident = torch.from_numpy(kc.identity_rows()).to(pts.device)
     dump = ident[None, None, :, None].expand(W, B, rows, S).clone()
     for t in range(n // S):
         dig = digs[:, t * S : (t + 1) * S]
@@ -155,34 +242,34 @@ def accumulate_plain(pts: torch.Tensor, digs: torch.Tensor, c: int) -> torch.Ten
         sign = (dig >> SIGN_BIT) != 0
         idx = mag.long()[:, None, None, :].expand(W, 1, rows, S)
         cur_rows = dump.gather(1, idx)[:, 0].transpose(0, 1)  # (rows, W, S)
-        x2, y2 = (a[:, None, :].expand(-1, W, -1)
-                  for a in rows_to_coords(pts[:, t * S : (t + 1) * S]))
-        y2 = FP_LAZY.select(sign, FP_LAZY.neg(y2), y2)
-        new = mixed_add(FP_LAZY, rows_to_coords(cur_rows), (x2, y2))
-        new_rows = torch.where(mag == 0, cur_rows, point_to_rows(new))
+        x2, y2 = _tree_map(lambda a: a[:, None, :].expand(-1, W, -1),
+                           kc.rows_to_affine(pts[:, t * S : (t + 1) * S]))
+        y2 = f.select(sign, f.neg(y2), y2)
+        new = mixed_add(f, kc.rows_to_point(cur_rows), (x2, y2))
+        new_rows = torch.where(mag == 0, cur_rows, kc.point_to_rows(new))
         dump.scatter_(1, idx, new_rows.transpose(0, 1)[:, None])
     return dump
 
 
-def accumulate(pts: torch.Tensor, digs: torch.Tensor, c: int) -> torch.Tensor:
-    """pts (30, n) packed affine points, digs (W, n) signed digits ->
-    dump (W, B, 45, S): the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors."""
-    _check_accumulate_args(pts, digs)
+def accumulate(kc: KernelCurve2, pts: torch.Tensor, digs: torch.Tensor, c: int) -> torch.Tensor:
+    """pts (aff_rows, n) packed affine points, digs (W, n) signed digits ->
+    dump (W, B, pt_rows, S): the curve's CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    _check_accumulate_args(kc, pts, digs)
     if pts.device.type == "cpu" and digs.device.type == "cpu":
-        return accumulate_plain(pts, digs, c)
+        return accumulate_plain(kc, pts, digs, c)
     if not (pts.is_cuda and pts.device == digs.device):
         raise ValueError(f"accumulate operands on {pts.device} and {digs.device}")
     if not (pts.is_contiguous() and digs.is_contiguous()):
         raise ValueError("accumulate wants contiguous operands")
     W, n = digs.shape
     B = _num_buckets(c)
-    ident = torch.from_numpy(identity_rows()).to(pts.device)
-    dump = torch.empty((W, B, PT_ROWS, STREAMS), dtype=torch.int32, device=pts.device)
+    ident = torch.from_numpy(kc.identity_rows()).to(pts.device)
+    dump = torch.empty((W, B, kc.pt_rows, STREAMS), dtype=torch.int32, device=pts.device)
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream(pts.device).cuda_stream
-        KERNEL.launch(pts.data_ptr(), digs.data_ptr(), ident.data_ptr(), dump.data_ptr(),
-                      n, W, B, STREAMS, stream)
+        kc.kernel.launch(pts.data_ptr(), digs.data_ptr(), ident.data_ptr(), dump.data_ptr(),
+                         n, W, B, STREAMS, stream)
     return dump
 
 
@@ -234,17 +321,37 @@ def _spliced_f(arr):
     return LZ.fold(LZ.from_limbs16(arr))[: LZ.ELEM]
 
 
-def _prepare_inputs(points, scalars, c: int):
-    """points: strict Montgomery-R16 projective (x, y, z), each (24, n);
-    scalars: (16, n) plain Fr limbs, each < 2^255. Returns
-    (pts (30, n) packed affine, digs (W, n) signed digits)."""
+def _fp2_mul(a, b):
+    """Fp2 product from three K1 products (Karatsuba): linear combinations of
+    full Montgomery products are exact, so this equals LZ.fp2_mont_mul's
+    value at one more reduction."""
+    sa = LZ.fold_sum(LZ.add(a[0], a[1]))
+    sb = LZ.fold_sum(LZ.add(b[0], b[1]))
+    m0, m1, m2 = _mul(a[0], b[0]), _mul(a[1], b[1]), _mul(sa, sb)
+    return (LZ.fold_sum(LZ.sub(m0, m1)), LZ.fold_sum(LZ.sub(m2, LZ.add(m0, m1))))
+
+
+def _prepare_inputs(kc: KernelCurve2, points, scalars, c: int):
+    """points: strict Montgomery-R16 projective (x, y, z), each (24, n) (a
+    pair of them per G2 coordinate); scalars: (16, n) plain Fr limbs, each
+    < 2^255. Returns (pts (aff_rows, n) packed affine, digs (W, n) signed
+    digits)."""
     x, y, z = points
-    ident = FO.is_zero(z)
-    zl = _spliced_f(z)
-    zsafe = LZ.select(ident, FP_LAZY.one(zl), zl)
-    inv_z = _batch_inverse(zsafe)
-    aff = [_mul(_spliced_f(coord), inv_z) for coord in (x, y)]
-    pts = torch.cat([pack30(LZ.store30(a)) for a in aff]).contiguous()
+    if kc.is_g2:
+        # 1/(z0 + z1 u) = (z0 - z1 u) / (z0^2 + z1^2): one Fp batch inversion
+        ident = FO.is_zero(z[0]) & FO.is_zero(z[1])
+        zl = (_spliced_f(z[0]), _spliced_f(z[1]))
+        norm = LZ.fold_sum(LZ.add(_mul(zl[0], zl[0]), _mul(zl[1], zl[1])))
+        inv_norm = _batch_inverse(LZ.select(ident, FP_LAZY.one(norm), norm))
+        inv_z = (_mul(zl[0], inv_norm), LZ.neg(_mul(zl[1], inv_norm)))
+        aff = [_fp2_mul((_spliced_f(coord[0]), _spliced_f(coord[1])), inv_z)
+               for coord in (x, y)]
+    else:
+        ident = FO.is_zero(z)
+        zl = _spliced_f(z)
+        inv_z = _batch_inverse(LZ.select(ident, FP_LAZY.one(zl), zl))
+        aff = [_mul(_spliced_f(coord), inv_z) for coord in (x, y)]
+    pts = kc.point_to_rows(aff).contiguous()
     digits = M.window_digits_signed(scalars, c)
     digits = torch.where(ident, 0, digits).contiguous()  # identity -> bucket 0
     return pts, digits
@@ -252,97 +359,103 @@ def _prepare_inputs(points, scalars, c: int):
 
 # --- reduce: dump -> stacked lazy window sums --------------------------------
 
-def _dump_to_points(dump):
-    """(W, B, 45, S) packed dump -> lazy bucket points with batch (S, W*B)."""
+def _dump_to_points(kc: KernelCurve2, dump):
+    """(W, B, pt_rows, S) packed dump -> lazy bucket points with batch
+    (S, W*B)."""
     W, B, rows, S = dump.shape
-    mat = dump.permute(2, 3, 0, 1).reshape(rows, S, W * B)
-    return rows_to_coords(mat)
+    return kc.rows_to_point(dump.permute(2, 3, 0, 1).reshape(rows, S, W * B))
 
 
-def _fold_streams(pt):
+def _fold_streams(kc: KernelCurve2, pt):
     """Fold the stream axis (dim 1, size S) to one: a sequential pass over
     SCAN_CHUNK groups of S/SCAN_CHUNK streams, then a tree over the group.
     Values equal the JAX package's tree or scan folds; the redundant digits
     differ."""
-    S = pt[0].shape[1]
+    S = kc.components(pt)[0].shape[1]
     group = S // SCAN_CHUNK
-    pt = tuple(x.reshape((x.shape[0], SCAN_CHUNK, group) + tuple(x.shape[2:])) for x in pt)
-    acc = tuple(x[:, 0] for x in pt)
+    pt = _tree_map(lambda x: x.reshape((x.shape[0], SCAN_CHUNK, group) + tuple(x.shape[2:])), pt)
+    acc = _tree_map(lambda x: x[:, 0], pt)
     for i in range(1, SCAN_CHUNK):
-        acc = full_add(FP_LAZY, acc, tuple(x[:, i] for x in pt))
+        acc = full_add(kc.f, acc, _tree_map(lambda x: x[:, i], pt))
     size = group
     while size > 1:
         half = size // 2
-        acc = full_add(FP_LAZY, tuple(x[:, :half] for x in acc),
-                       tuple(x[:, half:size] for x in acc))
+        acc = full_add(kc.f, _tree_map(lambda x: x[:, :half], acc),
+                       _tree_map(lambda x: x[:, half:size], acc))
         size = half
-    return tuple(x[:, 0] for x in acc)
+    return _tree_map(lambda x: x[:, 0], acc)
 
 
-def _bucket_suffix(pt, B: int):
+def _bucket_suffix(kc: KernelCurve2, pt, B: int):
     """Suffix-accumulate buckets, highest magnitude first, bucket 0 dropped:
     window sum = sum_b b * S_b, batch (W, B) -> (W,)."""
-    running = tuple(x[..., B - 1] for x in pt)
+    running = _tree_map(lambda x: x[..., B - 1], pt)
     total = running
     for b in range(B - 2, 0, -1):
-        running = full_add(FP_LAZY, running, tuple(x[..., b] for x in pt))
-        total = full_add(FP_LAZY, total, running)
+        running = full_add(kc.f, running, _tree_map(lambda x: x[..., b], pt))
+        total = full_add(kc.f, total, running)
     return total
 
 
-def _reduce_dump(dump):
-    """dump (W, B, 45, S) -> stacked lazy window sums (90, W)."""
+def _reduce_dump(kc: KernelCurve2, dump):
+    """dump (W, B, pt_rows, S) -> stacked lazy window sums (n_fp*30, W)."""
     W, B = dump.shape[0], dump.shape[1]
-    folded = _fold_streams(_dump_to_points(dump))  # batch (W*B,)
-    folded = tuple(x.reshape(LZ.ELEM, W, B) for x in folded)
-    return torch.cat(_bucket_suffix(folded, B))
+    folded = _fold_streams(kc, _dump_to_points(kc, dump))  # batch (W*B,)
+    folded = _tree_map(lambda x: x.reshape(LZ.ELEM, W, B), folded)
+    return kc.stack_point(_bucket_suffix(kc, folded, B))
 
 
-def _add_wsums2(a, b):
+def _add_wsums2(kc: KernelCurve2, a, b):
     """Accumulate stacked window sums across chunks."""
-    return torch.cat(full_add(FP_LAZY, a.split(LZ.ELEM), b.split(LZ.ELEM)))
+    return kc.stack_point(full_add(kc.f, kc.unstack_point(a), kc.unstack_point(b)))
 
 
 # --- finish: window sums -> strict projective point --------------------------
 
-def _to_strict_stacked(pt) -> torch.Tensor:
-    """Lazy R13 projective point -> strict canonical R16 limbs (3, 24, batch)."""
+def _to_strict_stacked(kc: KernelCurve2, pt) -> torch.Tensor:
+    """Lazy R13 projective point -> strict canonical R16 limbs
+    (n_fp, 24, batch)."""
     return torch.stack([
         LZ.to_limbs16_strict(LZ.canonicalize(LZ.mont_mul_const(x, R16_DIGITS)))
-        for x in pt
+        for x in kc.components(pt)
     ])
 
 
-def _finish_host(ws_stacked, c: int):
+def _finish_host(kc: KernelCurve2, ws_stacked, c: int):
     """Horner over the W window sums on host ints: one egress of the
-    (3, 24, W) canonical limbs, then W*c doublings and W additions in the
+    (n_fp, 24, W) canonical limbs, then W*c doublings and W additions in the
     oracle. Returns the strict projective result, batch (1,)."""
-    arr = _to_strict_stacked(ws_stacked.split(LZ.ELEM))
-    pts = CV.g1_from_dev((arr[0], arr[1], arr[2]))
+    if kc.is_g2:
+        from_dev, add, double, to_dev = CV.g2_from_dev, OC.g2_add, OC.g2_double, CV.g2_to_dev
+    else:
+        from_dev, add, double, to_dev = CV.g1_from_dev, OC.add, OC.double, CV.g1_to_dev
+    strict = _to_strict_stacked(kc, kc.unstack_point(ws_stacked)).cpu()
+    pts = from_dev(kc.nest(strict.unbind(0)))
     total = None
     for w in range(len(pts) - 1, -1, -1):
         if total is not None:
             for _ in range(c):
-                total = OC.double(total)
-        total = OC.add(total, pts[w])
-    return tuple(t.to(ws_stacked.device) for t in CV.g1_to_dev([total]))
+                total = double(total)
+        total = add(total, pts[w])
+    return _tree_map(lambda t: t.to(ws_stacked.device), to_dev([total]))
 
 
 # --- driver -------------------------------------------------------------------
 
-def _window_sums2(points, scalars, c: int):
+def _window_sums2(kc: KernelCurve2, points, scalars, c: int):
     """One chunk up to (and including) the bucket reduction."""
-    pts, digs = _prepare_inputs(points, scalars, c)
-    return _reduce_dump(accumulate(pts, digs, c))
+    pts, digs = _prepare_inputs(kc, points, scalars, c)
+    return _reduce_dump(kc, accumulate(kc, pts, digs, c))
 
 
-def plan_chunk2(c: int, budget_bytes: int) -> int:
+def plan_chunk2(kc: KernelCurve2, c: int, budget_bytes: int) -> int:
     """Largest power-of-two chunk (multiple of S) whose footprint fits the
     budget: input limbs + packed affine copy + inversion intermediates +
     digits per point, plus the dump and its transpose."""
     W, B = _num_windows(c), _num_buckets(c)
-    fixed = 2 * W * B * PT_ROWS * STREAMS * 4
-    per_point = (3 * FP.num_limbs + AFF_ROWS + 4 * LZ.ELEM + W + 2) * 4
+    fixed = 2 * W * B * kc.pt_rows * STREAMS * 4
+    elem_words = LZ.ELEM * (2 if kc.is_g2 else 1)
+    per_point = (kc.n_fp * FP.num_limbs + kc.aff_rows + 4 * elem_words + W + 2) * 4
     budget = budget_bytes - fixed
     if budget <= per_point * STREAMS:
         raise ValueError(f"memory budget {budget_bytes} below one tile of points")
@@ -360,30 +473,32 @@ def _device_budget(device: torch.device) -> int:
     return 2 << 30
 
 
-def msm(points, scalars, c: int, chunk: int | None = None, maybe_abort=None):
-    """Chunked G1 MSM on the device of `scalars`.
+def msm(points, scalars, kc: KernelCurve2, c: int, chunk: int | None = None,
+        maybe_abort=None):
+    """Chunked G1 or G2 MSM on the device of `scalars`.
 
-    points: strict Montgomery-R16 projective (x, y, z), each (24, N) int32;
-    scalars: (16, N) plain Fr limbs, each value < 2^255. Returns the strict
-    projective result, each coordinate (24, 1). `maybe_abort`: zero-argument
-    callable polled before every chunk; a true answer raises MsmAborted."""
+    points: strict Montgomery-R16 projective (x, y, z), each (24, N) int32
+    (G2: each coordinate a pair of them); scalars: (16, N) plain Fr limbs,
+    each value < 2^255. Returns the strict projective result in the same
+    form with batch (1,). `maybe_abort`: zero-argument callable polled
+    before every chunk; a true answer raises MsmAborted."""
     if not 2 <= c <= 15:
         raise ValueError(f"MSM window c must be in [2, 15], got {c}")
     n = scalars.shape[-1]
     if n == 0:
-        return g1_identity(1, scalars.device)
+        return kc.identity(1, scalars.device)
     if chunk is None:
-        chunk = plan_chunk2(c, _device_budget(scalars.device))
+        chunk = plan_chunk2(kc, c, _device_budget(scalars.device))
     elif chunk <= 0 or chunk % STREAMS:
         raise ValueError(f"chunk must be a positive multiple of {STREAMS}, got {chunk}")
     chunk = min(chunk, -(-n // STREAMS) * STREAMS)
-    points, scalars = M._pad_inputs(points, scalars, chunk)
+    points, scalars = M._pad_inputs(kc.name, points, scalars, chunk)
     n_chunks = scalars.shape[-1] // chunk
     total = None
     for i in range(n_chunks):
         if maybe_abort is not None and maybe_abort():
             raise M.MsmAborted(f"aborted before chunk {i}/{n_chunks}")
         sl = slice(i * chunk, (i + 1) * chunk)
-        ws = _window_sums2(tuple(x[:, sl] for x in points), scalars[:, sl], c)
-        total = ws if total is None else _add_wsums2(total, ws)
-    return _finish_host(total, c)
+        ws = _window_sums2(kc, _tree_map(lambda x: x[:, sl], points), scalars[:, sl], c)
+        total = ws if total is None else _add_wsums2(kc, total, ws)
+    return _finish_host(kc, total, c)

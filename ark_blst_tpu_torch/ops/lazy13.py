@@ -224,6 +224,50 @@ def mont_mul_const(a, c_digits):
     return reduce_wide(prered(mul_const_wide(a, c_digits)))
 
 
+# --- Fp2 layer (for G2) ------------------------------------------------------
+# Fp2 = Fp[u]/(u^2+1). Values are pairs (c0, c1) of stacked elements.
+
+def fp2_add(a, b):
+    return (add(a[0], b[0]), add(a[1], b[1]))
+
+
+def fp2_sub(a, b):
+    return (sub(a[0], b[0]), sub(a[1], b[1]))
+
+
+def fp2_neg(a):
+    return (neg(a[0]), neg(a[1]))
+
+
+def fp2_scale(a, k: int):
+    return (scale(a[0], k), scale(a[1], k))
+
+
+def fp2_fold_sum(a):
+    return (fold_sum(a[0]), fold_sum(a[1]))
+
+
+def fp2_select(mask, a, b):
+    return (select(mask, a[0], b[0]), select(mask, a[1], b[1]))
+
+
+def fp2_mul_prered(a, b):
+    """Karatsuba -> pair of prered-combination wides (digit bounds re: 2F,
+    im: 3F; safe to combine once more, up to 6F in all, before fp2_reduce)."""
+    m0 = prered(mul_wide(a[0], b[0]))
+    m1 = prered(mul_wide(a[1], b[1]))
+    m2 = prered(mul_wide(fold_sum(add(a[0], a[1])), fold_sum(add(b[0], b[1]))))
+    return (sub(m0, m1), sub(m2, add(m0, m1)))
+
+
+def fp2_reduce(w):
+    return (reduce_wide(w[0]), reduce_wide(w[1]))
+
+
+def fp2_mont_mul(a, b):
+    return fp2_reduce(fp2_mul_prered(a, b))
+
+
 # --- stored (30-digit) form --------------------------------------------------
 
 def store30(d):

@@ -88,9 +88,25 @@ def msm(points, scalars):
 
 # --- G2 ----------------------------------------------------------------------
 
+def g2_neg(pt):
+    return _neg(_FP2, pt)
+
+
 def g2_add(p1, p2):
     return _add(_FP2, p1, p2)
 
 
+def g2_double(pt):
+    return g2_add(pt, pt)
+
+
 def g2_mul(pt, k: int):
     return _scalar_mul(_FP2, pt, k)
+
+
+def g2_msm(points, scalars):
+    """Naive G2 MSM fold: the differential oracle of the device G2 MSM."""
+    out = None
+    for pt, s in zip(points, scalars):
+        out = g2_add(out, g2_mul(pt, s % F.R))
+    return out

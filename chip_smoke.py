@@ -5,9 +5,10 @@ card: the quickest proof that the port builds and runs its main path there.
     python3 chip_smoke.py
 
 Phases, one JSON line each:
-  1. env      the card's name and power limit; builds all six kernels from
-              the sources (one nvcc per source, all in parallel) and reports
-              build seconds, registers, spills and static SASS counts;
+  1. env      the card's name and power limit; builds all seven kernels
+              from the sources (one nvcc per source, all in parallel) and
+              reports build seconds, registers, spills and static SASS
+              counts;
   2. k1       K1 (mont_mul) against its plain PyTorch version at 2^22
               elements, bit for bit, random and extreme digit patterns,
               and again timed at the pairing's batch (8192 elements);
@@ -21,14 +22,24 @@ Phases, one JSON line each:
               rerun one by one with a synchronize between them, once for
               the stage times and once under `torch.profiler` for each
               stage's device time, kernel launches and device busy share;
-  5. k3-k6    the pairing's tower kernels against their plain versions at
+  5. k2_g2    K2 over Fp2 (the G2 bucket kernel) against its plain version
+              at the G2 main path's inputs (2^20 points, c=5, W=52),
+              bucket for bucket;
+  6. msm_g2   the G2 MSM at 2^20 distinct bases with c=5 (the JAX
+              package's bench.py size, built on the card by
+              `curves/instance.py`, seed 11, with an identity point and a
+              zero scalar) through the public entry point `msm_g2`,
+              checked against the expected point, with the launch counts
+              of that run, its peak memory and its points/s, then the
+              stages rerun and profiled as in phase 4;
+  7. k3-k6    the pairing's tower kernels against their plain versions at
               the pairing batch (N = 8192), bit for bit: random mul-ready
               digits with the extreme patterns of k1; K3 (cyclotomic
               squares) at n = 1 and at the longest run of the exponent
               ladder (32), K4 (fp12 product), K5 (prepare event) and K6
               (Miller event) in both forms, K5 and K6 also on real event
               inputs taken from the pipeline;
-  6. pairing  8192 pairings of 8 distinct (P, Q) pairs (P_i = P[i mod 8],
+  8. pairing  8192 pairings of 8 distinct (P, Q) pairs (P_i = P[i mod 8],
               Q_i = Q[(3i+1) mod 8], the construction of the JAX package's
               bench.py) with one identity P and one identity Q, through the
               public entry `Bls12.pairing_batch`: every result checked
@@ -41,9 +52,10 @@ Phases, one JSON line each:
               `pairing_batch` against it), checked equal to the unprepared
               results;
 then the `kernels` line (time, launches, bound and plain time per kernel;
-K1, on both paths, gives its MSM launches as `launches`, its pairing
-launches as `launches_pairing` and its times at 8192 elements as
-`at_pairing_batch`) and, last, {"ok": true, "device": {...}}. Any failure raises: the script
+K1, on all three paths, gives its G1 MSM launches as `launches`, its G2
+MSM launches as `launches_msm_g2`, its pairing launches as
+`launches_pairing` and its times at 8192 elements as `at_pairing_batch`)
+and, last, {"ok": true, "device": {...}}. Any failure raises: the script
 then exits non-zero and prints no last line. Without CUDA it exits 1.
 
 Bound model (bound_ms): the larger of bytes / 3.35e12 B/s and int32
@@ -55,10 +67,14 @@ Instruction counts follow the kernels' straight-line code: a digit product
 or multiply-add is one, a balanced fold four per digit (add, and, add3,
 shift). K1's bytes read each input once and write the output once; K2's
 also count its scattered traffic, one bucket read and write and one point
-read per bucket add. Beside the bound each kernel line gives the IMAD-pipe
+read per bucket add; K2 over Fp2 counts its 33 products and 16 reductions
+the same way (G2_BUCKET_ADD_OPS). Beside the bound each kernel line gives the IMAD-pipe
 floor: the IMAD instructions of the compiled kernel (`cuobjdump -sass`,
 static count; both kernels are straight-line code around their loops)
-over 132 SMs x 64 per clock x 1.98 GHz = 16.7e12 per s. The tower kernels
+over 132 SMs x 64 per clock x 1.98 GHz = 16.7e12 per s; K2 over Fp2
+calls its product and its reduction out of line, so its floor counts
+what each add calls: 16 reduced products at K1's compiled IMAD count and
+17 more bare 30 x 30 column products of 900 IMAD each. The tower kernels
 K3-K6 count their base products times MONT_MUL_OPS plus the folded glue of
 each tower operation (the op model below), and bytes as each input read
 once and the output written once; their IMAD floor is the products alone:
@@ -82,6 +98,9 @@ IMAD_PER_S = 132 * 64 * 1.98e9
 LOG_N = 22
 C = 7
 SEED = 7
+G2_LOG_N = 20  # bench.py:bench_msm_g2
+G2_C = 5
+G2_SEED = 11
 PAIRING_N = 8192
 PAIRING_DISTINCT = 8
 IDENTITY_P_AT, IDENTITY_Q_AT = 3, 10
@@ -113,6 +132,15 @@ MIXED_ADD_OPS = (
     + 6 * _PRERED + 3 * 61 + 3 * _REDUCE  # round 2 and its three reductions
 )
 BUCKET_ADD_OPS = MIXED_ADD_OPS + 75 * 4 + 3 * (_fold(30) + _fold(31)) + 45 * 4  # + unpack/store/pack
+# over Fp2: a Karatsuba triple is 3 prered products, 2 folded leg sums and
+# the re/im combinations; 11 triples, 16 reductions
+_FP2_PRERED = 3 * _PRERED + 2 * (30 + _FOLD_SUM) + 3 * 61
+G2_MIXED_ADD_OPS = (
+    5 * (_FP2_PRERED + 2 * _REDUCE) + 4 * (30 + _FOLD_SUM)  # round 1 and its folded sums
+    + 2 * (8 * 30 + 7 * _FOLD_SUM) + 4 * 30  # the glue on both components, mul_b3's (1 + u)
+    + 6 * _FP2_PRERED + 6 * 61 + 6 * _REDUCE  # round 2 and its six reductions
+)
+G2_BUCKET_ADD_OPS = G2_MIXED_ADD_OPS + 150 * 4 + 6 * (_fold(30) + _fold(31)) + 90 * 4
 
 # the tower (csrc/tower13.cuh), per element
 _LIN = 30 + _fold(30)  # fp add / sub / small scale: the digit op, then fold30
@@ -194,14 +222,16 @@ def imad_floor_ms(imads: float) -> float:
 # --- phases --------------------------------------------------------------------
 
 def all_kernels() -> dict:
-    """The six kernels by name: K1, K2 (the G1 MSM), K3-K6 (the pairing)."""
+    """The seven kernels by name: K1, K2 (the G1 and G2 MSMs), K3-K6 (the
+    pairing)."""
     from ark_blst_tpu_torch.curves import msm_bucket as MB
     from ark_blst_tpu_torch.curves import pairing_steps as PS
     from ark_blst_tpu_torch.ops import cyc_sqr as K3
     from ark_blst_tpu_torch.ops import fp12_mul as K4
     from ark_blst_tpu_torch.ops import mont_mul as MM
 
-    return {"mont_mul": MM.KERNEL, "bucket_accumulate": MB.KERNEL, "cyc_sqr": K3.KERNEL,
+    return {"mont_mul": MM.KERNEL, "bucket_accumulate": MB.KERNEL,
+            "bucket_accumulate_g2": MB.KERNEL_G2, "cyc_sqr": K3.KERNEL,
             "fp12_mul": K4.KERNEL, "prepare_step": PS.PREPARE_KERNEL,
             "miller_step": PS.MILLER_KERNEL}
 
@@ -283,69 +313,82 @@ def phase_k1(torch, dev, sass: dict) -> dict:
     return res
 
 
-def phase_k2(torch, pts, digs, sass: dict) -> dict:
+def phase_k2(torch, phase: str, kc, c: int, pts, digs, imad: int, add_ops: int) -> dict:
+    """A bucket kernel against its plain version at the main path's inputs,
+    bucket for bucket, then timed."""
     from ark_blst_tpu_torch.curves import msm_bucket as MB
 
-    got = MB.accumulate(pts, digs, C)
+    got = MB.accumulate(kc, pts, digs, c)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    want = MB.accumulate_plain(pts, digs, C)
+    want = MB.accumulate_plain(kc, pts, digs, c)
     end.record()
     end.synchronize()
     plain_ms = start.elapsed_time(end)
     err = int((got.long() - want.long()).abs().max())
-    check(err == 0 and torch.equal(got, want), "K2 differs from its plain version")
-    del want
-    ms = cuda_ms(torch, lambda: MB.accumulate(pts, digs, C), 2)
+    check(err == 0 and torch.equal(got, want), f"{phase} differs from its plain version")
+    del got, want
+    ms = cuda_ms(torch, lambda: MB.accumulate(kc, pts, digs, c), 2)
     W, n = digs.shape
-    B = MB._num_buckets(C)
+    B = MB._num_buckets(c)
     adds = int(((digs & MB.MAG_MASK) != 0).sum())
     negs = int((((digs >> MB.SIGN_BIT) & 1) != 0).sum())
-    bytes_once = (pts.numel() + digs.numel() + W * B * MB.PT_ROWS * MB.STREAMS) * 4
-    scattered = adds * (2 * MB.PT_ROWS + MB.AFF_ROWS) * 4  # bucket read + write, point read
-    bms, by = bound_ms(bytes_once + scattered, adds * BUCKET_ADD_OPS + negs * 30)
+    bytes_once = (pts.numel() + digs.numel() + W * B * kc.pt_rows * MB.STREAMS) * 4
+    scattered = adds * (2 * kc.pt_rows + kc.aff_rows) * 4  # bucket read + write, point read
+    bms, by = bound_ms(bytes_once + scattered, adds * add_ops + negs * 30 * kc.n_fp // 3)
     res = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "max_abs_err": err}
-    emit({"phase": "k2", "n": n, "windows": W, "buckets": B, "adds": adds,
+    emit({"phase": phase, "n": n, "c": c, "windows": W, "buckets": B, "adds": adds,
           "buckets_equal": True, **res, "bytes_once": bytes_once, "bytes_scattered": scattered,
           "bytes_ms": 1e3 * (bytes_once + scattered) / HBM_BYTES_PER_S,
-          "imad_floor_ms": imad_floor_ms(adds * sass["imad"])})
+          "imad_floor_ms": imad_floor_ms(adds * imad)})
     return res
 
 
-def phase_msm(torch, dev, points, scalars, expected) -> dict:
+def phase_msm(torch, dev, phase: str, kc, c: int, points, scalars, expected) -> dict:
+    """The G1 or G2 MSM through its public entry (`msm_g1` / `msm_g2`),
+    checked, with its launches, peak memory, points/s and the staged and
+    profiled reruns."""
     import ark_blst_tpu_torch as T
-    from ark_blst_tpu_torch.curves import msm_bucket as MB
-    from ark_blst_tpu_torch.ops import convert as CV
     from ark_blst_tpu_torch.ops import mont_mul as MM
 
-    n = scalars.shape[1]
-    kernels = (MM.KERNEL, MB.KERNEL)
+    entry = T.msm_g2 if kc.is_g2 else T.msm_g1
+    names = ("mont_mul", kc.kernel.source[: -len(".cu")])
+    kernels = (MM.KERNEL, kc.kernel)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     for k in kernels:
         k.launches = 0
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = T.msm_g1(points, scalars, device=dev, c=C)  # the main path
+    out = entry(points, scalars, device=dev, c=c)  # the main path
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = [k.launches for k in kernels]
-    check(all(x.shape == (24, 1) and x.device == dev for x in out), "result shape")
-    check(CV.g1_from_dev(out) == [expected], "G1 MSM result differs from the expected point")
-    check(all(x > 0 for x in launches), f"a kernel of the path was not launched: {launches}")
-
+    launches = dict(zip(names, (k.launches for k in kernels)))
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    leaves = kc.components(out)
+    check(all(x.shape == (24, 1) and x.device == dev for x in leaves), "result shape")
+    check(_affine(kc, out) == [expected], f"{phase} result differs from the expected point")
+    check(all(x > 0 for x in launches.values()),
+          f"a kernel of the path was not launched: {launches}")
+
     stages = {}
-    for name, summary in run_stages(torch, points, scalars, expected, profiled=False):
+    for name, summary in run_stages(torch, kc, c, points, scalars, expected, profiled=False):
         stages[name + "_ms"] = summary["wall_ms"]
-    profiled = dict(run_stages(torch, points, scalars, expected, profiled=True))
+    profiled = dict(run_stages(torch, kc, c, points, scalars, expected, profiled=True))
     wall = sum(p["wall_ms"] for p in profiled.values())
     device = sum(p["device_ms"] for p in profiled.values())
-    emit({"phase": "msm", "n": n, "c": C, "ok": True, "seconds": dt, "points_per_s": n / dt,
-          "launches": {"mont_mul": launches[0], "bucket_accumulate": launches[1]},
-          "stages": stages, "peak_mem_gib": peak_gib})
-    emit({"phase": "msm_profile", "wall_ms": wall, "device_ms": device,
+    n = scalars.shape[1]
+    emit({"phase": phase, "n": n, "c": c, "ok": True, "seconds": dt, "points_per_s": n / dt,
+          "launches": launches, "stages": stages, "peak_mem_gib": peak_gib})
+    emit({"phase": phase + "_profile", "wall_ms": wall, "device_ms": device,
           "busy_share": device / wall, "stages": profiled})
-    return {"mont_mul": launches[0], "bucket_accumulate": launches[1]}
+    return launches
+
+
+def _affine(kc, pt) -> list:
+    from ark_blst_tpu_torch.ops import convert as CV
+
+    return CV.g2_from_dev(pt) if kc.is_g2 else CV.g1_from_dev(pt)
 
 
 def _device_us(evt) -> float:
@@ -383,21 +426,21 @@ def _stage(torch, fn, profiled: bool, need_device: bool = True):
     }
 
 
-def run_stages(torch, points, scalars, expected, profiled: bool):
+def run_stages(torch, kc, c: int, points, scalars, expected, profiled: bool):
     """The MSM's four stages one by one, each ended by a synchronize; yields
     (stage, summary) as `_stage` gives it."""
     from ark_blst_tpu_torch.curves import msm_bucket as MB
-    from ark_blst_tpu_torch.ops import convert as CV
 
-    (pts, digs), summary = _stage(torch, lambda: MB._prepare_inputs(points, scalars, C), profiled)
+    (pts, digs), summary = _stage(
+        torch, lambda: MB._prepare_inputs(kc, points, scalars, c), profiled)
     yield "prepare", summary
-    dump, summary = _stage(torch, lambda: MB.accumulate(pts, digs, C), profiled)
+    dump, summary = _stage(torch, lambda: MB.accumulate(kc, pts, digs, c), profiled)
     yield "k2", summary
-    ws, summary = _stage(torch, lambda: MB._reduce_dump(dump), profiled)
+    ws, summary = _stage(torch, lambda: MB._reduce_dump(kc, dump), profiled)
     yield "reduce", summary
-    out, summary = _stage(torch, lambda: MB._finish_host(ws, C), profiled)
+    out, summary = _stage(torch, lambda: MB._finish_host(kc, ws, c), profiled)
     yield "finish", summary
-    check(CV.g1_from_dev(out) == [expected], "staged MSM result differs")
+    check(_affine(kc, out) == [expected], "staged MSM result differs")
 
 
 # --- the pairing's kernels and path -------------------------------------------
@@ -642,17 +685,28 @@ def main() -> int:
     from ark_blst_tpu_torch.curves import msm_bucket as MB
     from ark_blst_tpu_torch.curves.instance import distinct_bases
 
-    t0 = time.perf_counter()
-    points, scalars, expected = distinct_bases(LOG_N, SEED, dev)
-    torch.cuda.synchronize()
-    emit({"phase": "instance", "n": scalars.shape[1], "seconds": time.perf_counter() - t0})
-    pts, digs = MB._prepare_inputs(points, scalars, C)
-    k2 = phase_k2(torch, pts, digs, sass["bucket_accumulate.cu"])
-    del pts, digs
-    torch.cuda.empty_cache()
-    msm_launches = phase_msm(torch, dev, points, scalars, expected)
-    del points, scalars
-    torch.cuda.empty_cache()
+    k2s, msm_launches = {}, {}
+    # IMADs per bucket add: G1 inlines its whole addition into the kernel;
+    # G2 calls its product and reduction out of line (the listing shows one
+    # copy), so count 16 of K1's products and 17 bare 30 x 30 column products
+    imad_per_add = {"g1": sass["bucket_accumulate.cu"]["imad"],
+                    "g2": 16 * sass["mont_mul.cu"]["imad"] + 17 * 30 * 30}
+    for kc, log_n, c, seed, k2_phase, msm_phase, add_ops in (
+            (MB.KC2_G1, LOG_N, C, SEED, "k2", "msm", BUCKET_ADD_OPS),
+            (MB.KC2_G2, G2_LOG_N, G2_C, G2_SEED, "k2_g2", "msm_g2", G2_BUCKET_ADD_OPS)):
+        t0 = time.perf_counter()
+        points, scalars, expected = distinct_bases(log_n, seed, dev, kc.name)
+        torch.cuda.synchronize()
+        emit({"phase": "instance", "curve": kc.name, "n": scalars.shape[1],
+              "seconds": time.perf_counter() - t0})
+        pts, digs = MB._prepare_inputs(kc, points, scalars, c)
+        k2s[kc.name] = phase_k2(torch, k2_phase, kc, c, pts, digs, imad_per_add[kc.name],
+                                add_ops)
+        del pts, digs
+        torch.cuda.empty_cache()
+        msm_launches[kc.name] = phase_msm(torch, dev, msm_phase, kc, c, points, scalars, expected)
+        del points, scalars
+        torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     ps, qs, pairs_expected = pairing_instance()
@@ -670,11 +724,16 @@ def main() -> int:
 
     emit({"kernels": [
         _kernel_line("mont_mul", "mont_mul.cu", "ark_blst_tpu/ops/pallas_lazy.py:41",
-                     msm_launches["mont_mul"], k1, launches_pairing=launches["mont_mul"],
+                     msm_launches["g1"]["mont_mul"], k1,
+                     launches_msm_g2=msm_launches["g2"]["mont_mul"],
+                     launches_pairing=launches["mont_mul"],
                      at_pairing_batch=k1["at_pairing_batch"]),
         _kernel_line("bucket_accumulate", "bucket_accumulate.cu",
                      "ark_blst_tpu/curves/msm_pallas2.py:359",
-                     msm_launches["bucket_accumulate"], k2),
+                     msm_launches["g1"]["bucket_accumulate"], k2s["g1"]),
+        _kernel_line("bucket_accumulate_g2", "bucket_accumulate_g2.cu",
+                     "ark_blst_tpu/curves/msm_pallas2.py:359 (KC2_G2)",
+                     msm_launches["g2"]["bucket_accumulate_g2"], k2s["g2"]),
         _kernel_line("cyc_sqr", "cyc_sqr.cu", "ark_blst_tpu/ops/pallas_lazy.py:149",
                      launches["cyc_sqr"], k3),
         _kernel_line("fp12_mul", "fp12_mul.cu", "ark_blst_tpu/ops/pallas_lazy.py:63",

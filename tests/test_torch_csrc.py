@@ -48,12 +48,14 @@ def test_tower_header_constants(name, value):
 
 @pytest.mark.parametrize(
     "kernel",
-    [MM.KERNEL, MB.KERNEL, K3.KERNEL, K4.KERNEL, PS.PREPARE_KERNEL, PS.MILLER_KERNEL],
-    ids=["mont_mul", "bucket", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step"])
+    [MM.KERNEL, MB.KERNEL, K3.KERNEL, K4.KERNEL, PS.PREPARE_KERNEL, PS.MILLER_KERNEL,
+     MB.KERNEL_G2],
+    ids=["mont_mul", "bucket", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step",
+         "bucket_g2"])
 def test_kernel_sources_export_their_entry(kernel):
     src = (KC.CSRC_DIR / kernel.source).read_text()
     assert re.search(rf'extern "C" int {kernel.symbol}\(', src)
-    assert '#include "lazy13.cuh"' in src or '#include "tower13.cuh"' in src
+    assert any(f'#include "{h}"' in src for h in ("lazy13.cuh", "tower13.cuh", "group13.cuh"))
     assert kernel.lib_path.parent == KC.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in KC.NVCC_FLAGS
 
@@ -88,8 +90,8 @@ def test_tower_wrappers_reject_what_the_kernels_do_not_take(kernel, bad):
 def test_identity_rows_decode_to_identity():
     import torch
 
-    rows = torch.from_numpy(MB.identity_rows())[:, None]
-    x, y, z = MB.rows_to_coords(rows)
+    rows = torch.from_numpy(MB.KC2_G1.identity_rows())[:, None]
+    x, y, z = MB.KC2_G1.rows_to_point(rows)
     assert LZ.digits_to_ints(x) == [0] and LZ.digits_to_ints(z) == [0]
     assert LZ.digits_to_ints(y) == [LZ.R13_MOD_P]
 
@@ -103,3 +105,12 @@ def test_build_without_nvcc_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernel.build()
     assert kernel.launches == 0
+
+
+def test_g2_identity_rows_decode_to_identity():
+    import torch
+
+    rows = torch.from_numpy(MB.KC2_G2.identity_rows())[:, None]
+    x, y, z = MB.KC2_G2.rows_to_point(rows)
+    assert [LZ.digits_to_ints(c) for c in x + z] == [[0]] * 4
+    assert LZ.digits_to_ints(y[0]) == [LZ.R13_MOD_P] and LZ.digits_to_ints(y[1]) == [0]

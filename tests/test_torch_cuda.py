@@ -1,5 +1,6 @@
 """The CUDA kernels on the card against their plain PyTorch versions, and the
-G1 MSM and the batched pairing on the card against the host oracle. Needs an NVIDIA Hopper card and
+G1 and G2 MSMs and the batched pairing on the card against the host oracle.
+Needs an NVIDIA Hopper card and
 nvcc; skipped without a card. Imports no JAX, so it runs on a machine
 without it:
 
@@ -12,13 +13,15 @@ import numpy as np
 import pytest
 import torch
 
-from ark_blst_tpu_torch import G1, Bls12
+import ark_blst_tpu_torch as T
+from ark_blst_tpu_torch import G1, G2, Bls12
 from ark_blst_tpu_torch.curves import msm_bucket as MB
 from ark_blst_tpu_torch.curves import pairing_steps as PS
 from ark_blst_tpu_torch.ops import cyc_sqr as K3
 from ark_blst_tpu_torch.ops import fp12_mul as K4
 from ark_blst_tpu_torch.ops import lazy13 as LZ
 from ark_blst_tpu_torch.ops import mont_mul as MM
+from ark_blst_tpu_torch.ops import convert as CV
 from ark_blst_tpu_torch.oracle import curve as OC
 from ark_blst_tpu_torch.oracle import field as OF
 from ark_blst_tpu_torch.oracle import pairing as OP
@@ -62,10 +65,10 @@ def test_k2_bucket_equal_to_plain(dev):
     digs = torch.from_numpy((mag | (sign << 15)).astype(np.int32))
     pts, digs = pts.to(dev).contiguous(), digs.to(dev)
     before = MB.KERNEL.launches
-    got = MB.accumulate(pts, digs, c)
+    got = MB.accumulate(MB.KC2_G1, pts, digs, c)
     torch.cuda.synchronize()
     assert MB.KERNEL.launches == before + 1
-    assert torch.equal(got, MB.accumulate_plain(pts, digs, c))
+    assert torch.equal(got, MB.accumulate_plain(MB.KC2_G1, pts, digs, c))
 
 
 def test_msm_on_card_matches_oracle(dev):
@@ -80,6 +83,46 @@ def test_msm_on_card_matches_oracle(dev):
             agg[i % 8] += s
     want = OC.msm(base, agg)
     assert G1.msm(pts, scs, device=dev) == want
+
+
+def test_k2_g2_bucket_equal_to_plain(dev):
+    rng = np.random.default_rng(12)
+    n, c = 2048, 4
+    W, B = MB._num_windows(c), MB._num_buckets(c)
+    d = rng.integers(-4096, 4096, (4, 30, n)).astype(np.int32)
+    pts = torch.cat([MB.pack30(torch.from_numpy(x)) for x in d])
+    mag = rng.integers(0, B, (W, n))
+    sign = rng.integers(0, 2, (W, n))
+    digs = torch.from_numpy((mag | (sign << 15)).astype(np.int32))
+    pts, digs = pts.to(dev).contiguous(), digs.to(dev)
+    before = MB.KERNEL_G2.launches
+    got = MB.accumulate(MB.KC2_G2, pts, digs, c)
+    torch.cuda.synchronize()
+    assert MB.KERNEL_G2.launches == before + 1
+    assert torch.equal(got, MB.accumulate_plain(MB.KC2_G2, pts, digs, c))
+
+
+def test_g2_msm_on_card_matches_oracle(dev):
+    rng = random.Random(13)
+    base = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    pts = [base[i % 4] for i in range(1500)]
+    scs = [rng.randrange(OF.R) for _ in range(1500)]
+    pts[10], scs[11] = None, 0
+    agg = [0] * 4
+    for i, s in enumerate(scs):
+        if pts[i] is not None:
+            agg[i % 4] += s
+    before = (MM.KERNEL.launches, MB.KERNEL_G2.launches)
+    assert G2.msm(pts, scs, device=dev) == OC.g2_msm(base, agg)
+    assert MM.KERNEL.launches > before[0] and MB.KERNEL_G2.launches == before[1] + 1
+
+
+def test_msm_g2_on_cpu_tensors_launches_nothing(dev):
+    pts = [OC.g2_mul(OF.G2_GEN, k) for k in (3, 5)]
+    before = (MM.KERNEL.launches, MB.KERNEL_G2.launches)
+    out = T.msm_g2(CV.g2_to_dev(pts), CV.fr_to_dev([7, 11]), device="cpu", c=3)
+    assert (MM.KERNEL.launches, MB.KERNEL_G2.launches) == before
+    assert CV.g2_from_dev(out) == [OC.g2_msm(pts, [7, 11])]
 
 
 def _stack(rng, rows, n, dev):

@@ -31,13 +31,15 @@ def test_port_imports_no_jax_and_no_jax_package():
         print(len(names), bad)
         assert not bad, bad
         assert "ark_blst_tpu_torch.curves.msm_bucket" in names, names
+        assert "ark_blst_tpu_torch.curves.instance" in names, names
         assert "ark_blst_tpu_torch.curves.pairing" in names, names
     """)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 @pytest.mark.parametrize("entry", ["msm_g1", "G1.msm", "pairing", "Bls12.pairing_batch",
-                                   "Bls12.prepare_g2_batch", "Bls12.multi_pairing"])
+                                   "Bls12.prepare_g2_batch", "Bls12.multi_pairing",
+                                   "msm_g2", "G2.msm"])
 def test_cuda_without_a_card_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present; this checks the behaviour without one")
@@ -54,6 +56,8 @@ def test_cuda_without_a_card_raises(entry):
         "Bls12.pairing_batch": lambda: T.Bls12.pairing_batch([G1_GEN], [G2_GEN]),
         "Bls12.prepare_g2_batch": lambda: T.Bls12.prepare_g2_batch([G2_GEN]),
         "Bls12.multi_pairing": lambda: T.Bls12.multi_pairing([G1_GEN], [G2_GEN]),
+        "msm_g2": lambda: T.msm_g2(CV.g2_to_dev([G2_GEN]), CV.fr_to_dev([3])),
+        "G2.msm": lambda: T.G2.msm([G2_GEN], [3]),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -91,7 +91,7 @@ def test_prepare_matches_jax():
     n, c = 1024, 4
     points, aff = _projective_instance(n, 11)
     _, scalars = _scalars(n, 12)
-    pts, digs = MB._prepare_inputs(points, torch.from_numpy(scalars), c)
+    pts, digs = MB._prepare_inputs(MB.KC2_G1, points, torch.from_numpy(scalars), c)
     jpts, jdigs = MP2._prepare_inputs.__wrapped__(
         tuple(jnp.asarray(x.numpy().astype(np.uint32)) for x in points),
         jnp.asarray(scalars.astype(np.uint32)), curve=JG1, c=c)
@@ -120,7 +120,7 @@ def test_pack_unpack_roundtrip_and_layout():
     assert torch.equal(MB.unpack15(w), d)
     jw = np.stack([np.asarray(x) for x in MP2.pack30([jnp.asarray(r) for r in d.numpy()])])
     assert (w.numpy() == jw.astype(np.int64)).all()
-    assert (MB.identity_rows() == MP2.KC2_G1.identity_rows().astype(np.int64)).all()
+    assert (MB.KC2_G1.identity_rows() == MP2.KC2_G1.identity_rows().astype(np.int64)).all()
 
 
 def test_msm_slice_matches_oracle():
@@ -170,9 +170,9 @@ def test_msm_edges():
 
 def test_plan_chunk2():
     for c in (4, 7):
-        chunk = MB.plan_chunk2(c, 8 << 30)
+        chunk = MB.plan_chunk2(MB.KC2_G1, c, 8 << 30)
         assert chunk % MB.STREAMS == 0 and chunk & (chunk - 1) == 0
-    assert MB.plan_chunk2(7, 80 << 30) > MB.plan_chunk2(7, 8 << 30)
-    assert MB.plan_chunk2(7, 8 << 30) == MP2.plan_chunk2(MP2.KC2_G1, 7, 8 << 30)
+    assert MB.plan_chunk2(MB.KC2_G1, 7, 80 << 30) > MB.plan_chunk2(MB.KC2_G1, 7, 8 << 30)
+    assert MB.plan_chunk2(MB.KC2_G1, 7, 8 << 30) == MP2.plan_chunk2(MP2.KC2_G1, 7, 8 << 30)
     with pytest.raises(ValueError):
-        MB.plan_chunk2(7, 1 << 20)
+        MB.plan_chunk2(MB.KC2_G1, 7, 1 << 20)

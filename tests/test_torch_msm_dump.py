@@ -48,8 +48,8 @@ def test_plain_k2_matches_pallas_interpret():
         MP2.INTERPRET = prev
     want = CV.from_jax(np.asarray(want), lead=3)  # (W, B, 45, 1024)
     before = MB.KERNEL.launches
-    got = MB.accumulate(pts, digs, c)
+    got = MB.accumulate(MB.KC2_G1, pts, digs, c)
     assert MB.KERNEL.launches == before  # a CPU tensor never reaches the kernel
     assert got.shape == want.shape == (W, B, 45, 1024)
     assert torch.equal(got[:, 1:], want[:, 1:])
-    assert (got[:, 0] == torch.from_numpy(MB.identity_rows())[:, None]).all()
+    assert (got[:, 0] == torch.from_numpy(MB.KC2_G1.identity_rows())[:, None]).all()

@@ -1,13 +1,14 @@
-"""The CUDA tower code of K3-K6 (csrc/tower13.cuh), compiled for the CPU with
-the host C++ compiler and undefined-behaviour checks, against the kernels'
-plain PyTorch versions, bit for bit.
+"""The CUDA code of K2-K6 compiled for the CPU with the host C++ compiler and
+undefined-behaviour checks, against the kernels' plain PyTorch versions,
+bit for bit: the tower (csrc/tower13.cuh, K3-K6) and the MSM bucket
+addition (csrc/group13.cuh, K2 over Fp and Fp2).
 
 The headers compile as plain C++ when __CUDACC__ is not defined; a small
 harness runs each kernel's per-element body over a batch. Built with
 `-fsanitize=undefined -fno-sanitize-recover`, so any signed int32 overflow
-in the tower's arithmetic aborts the harness and fails the test. (The
-kernels themselves run only on the card: tests/test_torch_cuda.py.)
-Skipped where no host C++ compiler is installed.
+in the arithmetic aborts the harness and fails the test. (The kernels
+themselves run only on the card: tests/test_torch_cuda.py.) Skipped where
+no host C++ compiler is installed.
 """
 
 import hashlib
@@ -20,8 +21,11 @@ import pytest
 import torch
 
 from ark_blst_tpu_torch import cuda as KC
+from ark_blst_tpu_torch.curves import lazy_group as LG
+from ark_blst_tpu_torch.curves import msm_bucket as MB
 from ark_blst_tpu_torch.curves import pairing as PR
 from ark_blst_tpu_torch.curves import pairing_steps as PS
+from ark_blst_tpu_torch.curves.instance import distinct_bases
 from ark_blst_tpu_torch.ops import convert as CV
 from ark_blst_tpu_torch.ops import cyc_sqr as K3
 from ark_blst_tpu_torch.ops import fp12_mul as K4
@@ -36,21 +40,65 @@ F = LZ.F_BOUND
 HARNESS = r"""
 #include <cstdio>
 #include <vector>
+#include "group13.cuh"
 #include "tower13.cuh"
 
-// stdin: op, n, param (int64 each), then the operand stacks (int32);
-// stdout: the (12, 30, n) result.
-int main() {
-  long long hdr[3];
-  if (fread(hdr, sizeof(long long), 3, stdin) != 3) return 2;
-  const long long op = hdr[0], n = hdr[1], param = hdr[2];
-  static const int in_rows[] = {12, 24, 6, 10, 20};
-  if (op < 0 || op > 4) return 2;
+// stdin: op, n, p1, p2 (int64 each), then the operand stacks (int32);
+// stdout: the result. Ops 0-4: the tower kernels (param p1), result
+// (12, 30, n). Ops 5/6: the G1/G2 mixed addition on (5 or 10, 30, n)
+// digits, result (3 or 6, 30, n) before the store. Ops 7/8: the G1/G2
+// bucket accumulation of W = p1 windows, B = p2 buckets, S = 1024 streams:
+// points (aff_rows, n), digits (W, n), identity (pt_rows), result the dump
+// (W, B, pt_rows, S).
+template <int NC>
+void mixed_add_batch(const int* x, int* out, long long n) {
   const long long plane = 30 * n;
-  std::vector<int> in(in_rows[op] * plane), out(12 * plane);
+  for (long long i = 0; i < n; ++i) {
+    gp::Coord<NC> in[5], res[3];
+    for (int c = 0; c < 5; ++c)
+      for (int j = 0; j < NC; ++j)
+        for (int k = 0; k < 30; ++k) in[c].c[j][k] = x[(c * NC + j) * plane + k * n + i];
+    gp::mixed_add(in[0], in[1], in[2], in[3], in[4], res[0], res[1], res[2]);
+    for (int c = 0; c < 3; ++c)
+      for (int j = 0; j < NC; ++j)
+        for (int k = 0; k < 30; ++k) out[(c * NC + j) * plane + k * n + i] = res[c].c[j][k];
+  }
+}
+
+int main() {
+  long long hdr[4];
+  if (fread(hdr, sizeof(long long), 4, stdin) != 4) return 2;
+  const long long op = hdr[0], n = hdr[1], param = hdr[2], B = hdr[3];
+  if (op < 0 || op > 8) return 2;
+  const long long plane = 30 * n, S = 1024;
+  const int nc = op == 7 ? 1 : 2;  // ops 7/8
+  size_t in_size, out_size;
+  if (op <= 4) {
+    static const int in_rows[] = {12, 24, 6, 10, 20};
+    in_size = in_rows[op] * plane;
+    out_size = 12 * plane;
+  } else if (op <= 6) {
+    in_size = (op == 5 ? 5 : 10) * plane;
+    out_size = (op == 5 ? 3 : 6) * plane;
+  } else {
+    in_size = 30 * nc * n + param * n + 45 * nc;
+    out_size = param * B * 45 * nc * S;
+  }
+  std::vector<int> in(in_size), out(out_size);
   if (fread(in.data(), sizeof(int), in.size(), stdin) != in.size()) return 3;
   const int* x = in.data();
-  for (long long i = 0; i < n; ++i) {
+  if (op == 5) mixed_add_batch<1>(x, out.data(), n);
+  if (op == 6) mixed_add_batch<2>(x, out.data(), n);
+  if (op >= 7) {
+    const int* digs = x + 30 * nc * n;
+    const int* ident = digs + param * n;
+    for (int w = 0; w < param; ++w)
+      for (int s = 0; s < S; ++s) {
+        if (op == 7) gp::accumulate_stream<1>(x, digs, ident, out.data(), n, B, S, w, s);
+        else gp::accumulate_stream<2>(x, digs, ident, out.data(), n, B, S, w, s);
+      }
+  }
+  for (long long i = 0; op <= 4 && i < n; ++i) {
     switch (op) {
       case 0: tw::cyc_sqr_elem(x, out.data(), n, i, static_cast<int>(param)); break;
       case 1: tw::fp12_mul_elem(x, x + 12 * plane, out.data(), n, i); break;
@@ -73,8 +121,8 @@ def harness():
     if cxx is None:
         pytest.skip("needs a host C++ compiler (g++)")
     h = hashlib.sha256(HARNESS.encode())
-    for name in ("lazy13.cuh", "tower13.cuh"):
-        h.update((KC.CSRC_DIR / name).read_bytes())
+    for path in sorted(KC.CSRC_DIR.glob("*.cuh")):
+        h.update(path.read_bytes())
     out_dir = KC.BUILD_DIR.parent / "host"
     exe = out_dir / f"tower_host-{h.hexdigest()[:12]}"
     if not exe.exists():
@@ -92,13 +140,16 @@ def harness():
     return str(exe)
 
 
-def run(exe, op, param, *stacks):
+def run(exe, op, param, *stacks, shape=None, buckets=0):
+    """Run harness op on the stacks; the result has `shape` (default
+    (12, 30, n), the tower's)."""
     n = stacks[0].shape[-1]
     data = b"".join(s.contiguous().numpy().astype(np.int32).tobytes() for s in stacks)
-    proc = subprocess.run([exe], input=np.array([op, n, param], np.int64).tobytes() + data,
-                          capture_output=True, timeout=600)
+    hdr = np.array([op, n, param, buckets], np.int64).tobytes()
+    proc = subprocess.run([exe], input=hdr + data, capture_output=True, timeout=600)
     assert proc.returncode == 0, proc.stderr.decode()
-    return torch.from_numpy(np.frombuffer(proc.stdout, np.int32).reshape(12, 30, n).copy())
+    out = np.frombuffer(proc.stdout, np.int32).reshape(shape or (12, 30, n))
+    return torch.from_numpy(out.copy())
 
 
 def digit_stacks(seed, *rows):
@@ -166,3 +217,47 @@ def test_miller_step_host(harness, with_sqr, source):
     f, c, pxy = digit_stacks(4, 12, 6, 2) if source == "random" else real_inputs()[2:]
     got = run(harness, 4, int(with_sqr), f, c, pxy)
     assert torch.equal(got, PS.miller_step_plain(f, c, pxy, with_sqr))
+
+
+# --- K2: the bucket addition over Fp and Fp2 (csrc/group13.cuh) --------------
+
+KCS = {"g1": MB.KC2_G1, "g2": MB.KC2_G2}
+
+
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_mixed_add_host(harness, curve):
+    """The raw addition on extreme digits: +-F_BOUND, canonical 8191s,
+    alternating signs, the R13/2 edge, and a column whose coordinates mix
+    all of them."""
+    kc = KCS[curve]
+    nc = 2 if kc.is_g2 else 1
+    (x,) = digit_stacks(6, 5 * nc)
+    pattern = [F, -F, 8191, -8191, 0]
+    x[:, :, 5] = torch.tensor([[pattern[(r + k) % 5] for k in range(30)] for r in range(5 * nc)])
+    coords = [tuple(x[c * nc : (c + 1) * nc]) if kc.is_g2 else x[c] for c in range(5)]
+    want = LG.mixed_add(kc.f, tuple(coords[:3]), tuple(coords[3:]))
+    got = run(harness, 6 if kc.is_g2 else 5, 0, x, shape=(3 * nc, 30, N))
+    assert torch.equal(got, torch.stack(kc.components(want)))
+
+
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_bucket_accumulate_host(harness, curve):
+    """The kernels' per-thread body on real points against the plain
+    version, dump for dump: six tiles of one window, c = 2, where tile 1
+    repeats tile 0 (a doubling through the addition), tile 2 repeats it
+    negated (the bucket falls back), and the other tiles are random."""
+    kc, c = KCS[curve], 2
+    B = MB._num_buckets(c)
+    points, scalars, _ = distinct_bases(10, 3, "cpu", curve)
+    pts, _ = MB._prepare_inputs(kc, points, scalars, c)
+    rng = np.random.default_rng(7)
+    mag = rng.integers(0, B, (6, MB.STREAMS))
+    sign = rng.integers(0, 2, (6, MB.STREAMS))
+    mag[1], sign[1] = mag[0], sign[0]
+    mag[2], sign[2] = mag[0], 1 - sign[0]
+    digs = torch.from_numpy((mag | (sign << MB.SIGN_BIT)).reshape(1, -1).astype(np.int32))
+    pts = pts.repeat(1, 6).contiguous()
+    ident = torch.from_numpy(kc.identity_rows())
+    got = run(harness, 8 if kc.is_g2 else 7, 1, pts, digs, ident,
+              shape=(1, B, kc.pt_rows, MB.STREAMS), buckets=B)
+    assert torch.equal(got, MB.accumulate_plain(kc, pts, digs, c))
