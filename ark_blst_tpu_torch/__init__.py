@@ -9,7 +9,10 @@ batched pairing:
 * `G1.msm(bases, scalars, device=...)` and `G2.msm(...)` on affine int
   tuples;
 * `Bls12.pairing_batch`, `Bls12.prepare_g2_batch` and `Bls12.multi_pairing`
-  on affine int tuples, and `pairing(p, q, ...)` on strict limb tensors.
+  on affine int tuples, and `pairing(p, q, ...)` on strict limb tensors;
+* the strict radix-16 engine's scan Pippenger MSM,
+  `curves.msm.msm(points, scalars, curve, device=...)` and `msm_naive`, on
+  the complete group law of `curves.group` (`G1`, `G2`).
 
 Entry points run on the card unless the caller asks for the CPU
 (`device="cpu"`), where every kernel is replaced by its plain PyTorch

@@ -105,10 +105,12 @@ class CudaKernel:
         self.launches += 1
 
 
-def build_all(kernels) -> None:
+def build_all(kernels) -> list:
     """Build several kernels at once: one nvcc per source, all started
-    together."""
-    procs = [(k, k.start_build()) for k in kernels]
+    together (kernels whose entry points share a source share its build).
+    Returns the kernels that own a build, one per source."""
+    owners = list({k.lib_path: k for k in kernels}.values())
+    procs = [(k, k.start_build()) for k in owners]
     errors = []
     for k, proc in procs:  # wait for every nvcc before raising
         try:
@@ -117,6 +119,7 @@ def build_all(kernels) -> None:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
+    return owners
 
 
 def stacked_operands(name: str, tensors, rows) -> bool:

@@ -4,6 +4,12 @@ A strict field element is stored as little-endian 16-bit limbs, limb axis
 first: `(L, *batch)` with L = 24 for Fp and 16 for Fr. The port keeps them
 as int32 tensors (every limb is < 2^16), since PyTorch supports few ops on
 uint32.
+
+The JAX package's array-layout engine (`ark_blst_tpu/ops/limbs.py`
+`normalize` .. `inv_mod`) is not ported: it exists there only to keep
+XLA:CPU compiles short. The port's strict engine is `fieldops.py`, whose
+functions are also the plain versions of the strict kernels
+(`strict_field.py`).
 """
 
 from __future__ import annotations
@@ -55,12 +61,16 @@ class FieldSpec:
     modulus: int
     num_limbs: int
     mont_r: int = field(init=False)
+    mont_r2: int = field(init=False)
+    ninv: int = field(init=False)  # (-modulus^-1) mod R, full width
 
     def __post_init__(self):
         r_mod = 1 << (LIMB_BITS * self.num_limbs)
         if not self.modulus < r_mod // 2:
             raise ValueError("need headroom: 2p < R")
         object.__setattr__(self, "mont_r", r_mod % self.modulus)
+        object.__setattr__(self, "mont_r2", self.mont_r**2 % self.modulus)
+        object.__setattr__(self, "ninv", (-pow(self.modulus, -1, r_mod)) % r_mod)
 
 
 FP = FieldSpec("fp", _P, 24)  # 384 bits of limbs for the 381-bit field

@@ -51,12 +51,38 @@ Phases, one JSON line each:
               then the prepared path (`prepare_g2_batch` once,
               `pairing_batch` against it), checked equal to the unprepared
               results;
+  9. k7_k10   the strict engine's kernels K7-K10 (mont_mul, add, sub, neg)
+              against their plain versions, bit for bit, at Fp (2^22
+              elements) and Fr (2^20): seeded random canonical values with
+              every pair of extreme values (0, 1, p-1, p-2, all-ones low
+              limbs below p) in the first columns; the plain versions run in
+              chunks of 2^20 elements; then once more on the MSM's broadcast
+              pair (24, 1024, 32, 1) x (24, 1024, 1, 1);
+ 10. fpmul    32 chained K7 products over 2^20 Fp elements (bench.py's
+              bench_fpmul), checked against the oracle, products/s;
+ 11. msm_scan the strict engine's scan Pippenger MSM (`curves/msm.py:msm`)
+              at 2^20 distinct G1 bases (`curves/instance.py`, with an
+              identity point and a zero scalar), c = 8, 1024 lanes, then
+              `G1.to_affine` of the result on the card, both checked
+              against the expected point, with the launches of K7-K10 in
+              that run, its peak memory and points/s; then the stages
+              (digits, accumulate, fold, reduce, horner) rerun with a
+              synchronize between them, and once more under
+              `torch.profiler`;
+ 12. msm_scan_g2  the same for G2 at 2^18 bases, c = 8, 256 lanes; its
+              `to_affine` inverts in Fp2, which launches K10;
+ 13. msm_naive   a 2^12 G1 instance through `msm_naive` and through `msm`,
+              both checked, and `G1.to_affine` of the 2^12 bases (one batch
+              inversion, one Fermat ladder at batch 1 on K7) checked point
+              for point against the host's affine values;
 then the `kernels` line (time, launches, bound and plain time per kernel;
 K1, on all three paths, gives its G1 MSM launches as `launches`, its G2
 MSM launches as `launches_msm_g2`, its pairing launches as
-`launches_pairing` and its times at 8192 elements as `at_pairing_batch`)
-and, last, {"ok": true, "device": {...}}. Any failure raises: the script
-then exits non-zero and prints no last line. Without CUDA it exits 1.
+`launches_pairing` and its times at 8192 elements as `at_pairing_batch`;
+K7-K10 give as `launches` the sum over the two scan MSM runs, each run's
+count beside it, and their Fp times at 2^22, Fr and broadcast times
+beside) and, last, {"ok": true, "device": {...}}. Any failure raises: the
+script then exits non-zero and prints no last line. Without CUDA it exits 1.
 
 Bound model (bound_ms): the larger of bytes / 3.35e12 B/s and int32
 instructions / 33.5e12 per s. The instruction rate is the float32 rate of
@@ -79,7 +105,12 @@ K3-K6 count their base products times MONT_MUL_OPS plus the folded glue of
 each tower operation (the op model below), and bytes as each input read
 once and the output written once; their IMAD floor is the products alone:
 products x the IMAD instructions of K1's compiled product, the same
-`lz::mont_mul` body that the tower kernels call out of line.
+`lz::mont_mul` body that the tower kernels call out of line. The strict
+kernels K7-K10 count bytes as 4 L per operand and result element (int32
+limbs), and instructions by `strict_ops`: three per 32 x 32-bit word
+product, two per word of a carry chain, three per word of the conditional
+subtraction, two per word packed or unpacked; every one of them is
+bytes-bound.
 """
 
 from __future__ import annotations
@@ -104,6 +135,14 @@ G2_SEED = 11
 PAIRING_N = 8192
 PAIRING_DISTINCT = 8
 IDENTITY_P_AT, IDENTITY_Q_AT = 3, 10
+STRICT_LOG_N = {"fp": 22, "fr": 20}
+STRICT_PLAIN_CHUNK = 1 << 20
+FPMUL_N, FPMUL_ITERS = 1 << 20, 32  # bench.py:bench_fpmul
+SCAN_C = 8  # the JAX package's msm default: W = 32, B = 256
+# curve: (log2 bases, lanes, seed); G2 is cut to 2^18 for the Fp2 fold's
+# temporaries (3x G1's per element) and the time limit
+SCAN = {"g1": (20, 1024, 17), "g2": (18, 256, 19)}
+NAIVE_LOG_N, NAIVE_SEED = 12, 23
 
 
 def emit(obj) -> None:
@@ -162,6 +201,19 @@ MILLER_PRODUCTS = {True: 85, False: 49}
 ELEM_BYTES = 30 * 4  # one Fp element of digits
 
 
+def strict_ops(op: str, limbs: int) -> int:
+    """int32 instructions per element of K7-K10 (csrc/strict16.cuh), W = L/2
+    words: the product's 2 W^2 + W(W+1)/2 word products at three each and
+    its W(W+1)/2 carry propagations at two; one carry chain (add, neg) or
+    two (sub) at two per word; the conditional subtraction at three per
+    word; packing two per word in, two per word out."""
+    W = limbs // 2
+    io = 2 * W * (1 if op == "neg" else 2) + 2 * W
+    if op == "mont_mul":
+        return 3 * (2 * W * W + W * (W + 1) // 2) + W * (W + 1) + 3 * W + io
+    return 2 * W * (2 if op == "sub" else 1) + 3 * W + io
+
+
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
@@ -184,10 +236,11 @@ def cuda_ms(torch, fn, reps: int) -> float:
 def _ptxas_summary(log: str) -> dict:
     """The kernel entry's registers and cumulative stack, and the spill
     bytes summed over all functions of the library."""
-    out = {"spill_store_bytes": 0, "spill_load_bytes": 0}
+    out = {"spill_store_bytes": 0, "spill_load_bytes": 0, "registers_max": 0}
     for line in log.splitlines():
         if "Used" in line and "registers" in line:
             out["registers"] = int(line.split("Used")[1].split("registers")[0])
+            out["registers_max"] = max(out["registers_max"], out["registers"])
             if "cumulative stack size" in line:
                 out["stack_bytes"] = int(line.split("barriers,")[1].split("bytes")[0])
         if "spill stores" in line:
@@ -222,18 +275,21 @@ def imad_floor_ms(imads: float) -> float:
 # --- phases --------------------------------------------------------------------
 
 def all_kernels() -> dict:
-    """The seven kernels by name: K1, K2 (the G1 and G2 MSMs), K3-K6 (the
-    pairing)."""
+    """The kernels by name: K1, K2 (the G1 and G2 MSMs), K3-K6 (the
+    pairing), K7-K10 (the strict engine; one source, four entry points)."""
     from ark_blst_tpu_torch.curves import msm_bucket as MB
     from ark_blst_tpu_torch.curves import pairing_steps as PS
     from ark_blst_tpu_torch.ops import cyc_sqr as K3
     from ark_blst_tpu_torch.ops import fp12_mul as K4
     from ark_blst_tpu_torch.ops import mont_mul as MM
 
+    from ark_blst_tpu_torch.ops import strict_field as SF
+
     return {"mont_mul": MM.KERNEL, "bucket_accumulate": MB.KERNEL,
             "bucket_accumulate_g2": MB.KERNEL_G2, "cyc_sqr": K3.KERNEL,
             "fp12_mul": K4.KERNEL, "prepare_step": PS.PREPARE_KERNEL,
-            "miller_step": PS.MILLER_KERNEL}
+            "miller_step": PS.MILLER_KERNEL,
+            **{"strict_" + op: k for op, k in SF.KERNELS.items()}}
 
 
 def phase_env(torch):
@@ -244,15 +300,14 @@ def phase_env(torch):
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     print(smi[0], flush=True)
-    kernels = list(all_kernels().values())
     t0 = time.perf_counter()
-    KC.build_all(kernels)
+    owners = KC.build_all(list(all_kernels().values()))  # one per source
     build_s = time.perf_counter() - t0
-    sass = {k.source: _sass_counts(k) for k in kernels}
+    sass = {k.source: _sass_counts(k) for k in owners}
     emit({
         "phase": "env", "gpu": smi[0], "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s,
-        "ptxas": {k.source: _ptxas_summary(k.build_log) for k in kernels},
+        "ptxas": {k.source: _ptxas_summary(k.build_log) for k in owners},
         "sass": sass,
     })
     return sass
@@ -385,21 +440,24 @@ def phase_msm(torch, dev, phase: str, kc, c: int, points, scalars, expected) -> 
     return launches
 
 
-def _affine(kc, pt) -> list:
+def _affine(curve, pt) -> list:
+    """A projective point batch of a `KernelCurve2` or a `CurveOps` (both
+    named "g1" or "g2") -> affine host tuples."""
     from ark_blst_tpu_torch.ops import convert as CV
 
-    return CV.g2_from_dev(pt) if kc.is_g2 else CV.g1_from_dev(pt)
-
-
-def _device_us(evt) -> float:
-    return float(getattr(evt, "self_device_time_total", 0.0))
+    return CV.g2_from_dev(pt) if curve.name == "g2" else CV.g1_from_dev(pt)
 
 
 def _stage(torch, fn, profiled: bool, need_device: bool = True):
     """Run fn() after a synchronize and up to the next one; returns (out,
     summary) with the host-clock time and, when profiled, the device time
     of its kernels, their number, the device busy share and the three
-    kernels that took the most device time."""
+    kernels that took the most device time. The device events are summed
+    from the profiler's raw event list: `key_averages()` builds a Python
+    object per event and took ~0.75 ms per launch on the card's host (45 s
+    for 60K launches), where a scan MSM launches hundreds of thousands."""
+    from collections import Counter
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -414,15 +472,18 @@ def _stage(torch, fn, profiled: bool, need_device: bool = True):
         out = fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_ms = sum(_device_us(e) for e in kernels) / 1e3
+    count, ns = Counter(), Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            count[e.name()] += 1
+            ns[e.name()] += e.duration_ns()
+    device_ms = sum(ns.values()) / 1e6
     check(device_ms > 0 or not need_device, "the profiler saw no device time")
-    top = sorted(kernels, key=_device_us, reverse=True)[:3]
     return out, {
         "wall_ms": wall_ms, "device_ms": device_ms,
-        "kernel_launches": sum(e.count for e in kernels), "busy_share": device_ms / wall_ms,
-        "top": [{"kernel": e.key[:60], "count": e.count, "device_ms": _device_us(e) / 1e3}
-                for e in top],
+        "kernel_launches": sum(count.values()), "busy_share": device_ms / wall_ms,
+        "top": [{"kernel": name[:60], "count": count[name], "device_ms": t / 1e6}
+                for name, t in ns.most_common(3)],
     }
 
 
@@ -663,6 +724,240 @@ def phase_pairing(torch, dev, ps, qs, expected) -> dict:
     return launches
 
 
+# --- the strict engine: K7-K10 and the scan MSM ---------------------------------
+
+def strict_edge_values(p: int, limbs: int) -> list:
+    """0, 1, p-1, p-2 and values with all-ones low limbs below p."""
+    return [0, 1, p - 1, p - 2] + [((p >> 16 * k) - 1 << 16 * k) | ((1 << 16 * k) - 1)
+                                   for k in (1, 4, limbs // 2)]
+
+
+def strict_operands(torch, dev, spec, n: int):
+    """Two (L, n) stacks of seeded random canonical limbs, every pair of
+    extreme values in the first columns."""
+    from ark_blst_tpu_torch.ops.limbs import ints_to_limbs
+
+    L, p = spec.num_limbs, spec.modulus
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    ops = [torch.randint(0, 1 << 16, (L, n), generator=g, device=dev, dtype=torch.int32)
+           for _ in range(2)]
+    top = p >> 16 * (L - 1)  # a top limb below p's keeps the value below p
+    edge = strict_edge_values(p, L)
+    pairs = ([x for x in edge for _ in edge], [y for _ in edge for y in edge])
+    for x, vals in zip(ops, pairs):
+        x[L - 1] = torch.randint(0, top, (n,), generator=g, device=dev, dtype=torch.int32)
+        x[:, : len(vals)] = torch.from_numpy(ints_to_limbs(vals, L).T.copy()).to(dev)
+    return ops
+
+
+def _plain_chunked(torch, op: str, spec, args):
+    from ark_blst_tpu_torch.ops import strict_field as SF
+
+    n = args[0].shape[1]
+    return torch.cat([SF.PLAIN[op](*(x[:, i : i + STRICT_PLAIN_CHUNK] for x in args), spec)
+                      for i in range(0, n, STRICT_PLAIN_CHUNK)], dim=1)
+
+
+def phase_k7_k10(torch, dev) -> dict:
+    """K7-K10 against their plain versions: Fp at 2^22, Fr at 2^20, then the
+    broadcast pair; returns per op its Fp numbers with the Fr and broadcast
+    numbers nested."""
+    from ark_blst_tpu_torch.ops import strict_field as SF
+    from ark_blst_tpu_torch.ops.limbs import FP, FR
+
+    res = {op: {} for op in SF.KERNELS}
+    for spec in (FP, FR):
+        n = 1 << STRICT_LOG_N[spec.name]
+        a, b = strict_operands(torch, dev, spec, n)
+        for op in SF.KERNELS:
+            fn, args = getattr(SF, op), ((a,) if op == "neg" else (a, b))
+            got = fn(*args, spec)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = _plain_chunked(torch, op, spec, args)
+            end.record()
+            end.synchronize()
+            err = _held(torch, f"K7-K10 {op} over {spec.name}", got, want)
+            del got, want
+            bms, by = bound_ms(n * spec.num_limbs * 4 * (len(args) + 1),
+                               n * strict_ops(op, spec.num_limbs))
+            res[op][spec.name] = {"n": n, "max_abs_err": err,
+                                  "ms": cuda_ms(torch, lambda: fn(*args, spec), 10),
+                                  "plain_ms": start.elapsed_time(end),
+                                  "bound_ms": bms, "bound_by": by}
+        del a, b
+        torch.cuda.empty_cache()
+    a, b = strict_operands(torch, dev, FP, 1024 * 32)
+    ab, bb = a.reshape(24, 1024, 32, 1), b[:, :1024].reshape(24, 1024, 1, 1)
+    for op in SF.KERNELS:
+        fn, args = getattr(SF, op), ((ab,) if op == "neg" else (ab, bb))
+        got = fn(*args, FP)
+        check(got.shape == (24, 1024, 32, 1), f"{op} broadcast shape {tuple(got.shape)}")
+        res[op]["broadcast"] = {"max_abs_err": _held(torch, f"{op} broadcast", got,
+                                                     SF.PLAIN[op](*args, FP)),
+                                "ms": cuda_ms(torch, lambda: fn(*args, FP), 10)}
+    for op, r in res.items():
+        emit({"phase": "k7_k10", "op": op, "bit_equal": True, **r})
+    return {op: {**r["fp"], "fr": r["fr"], "broadcast": r["broadcast"]} for op, r in res.items()}
+
+
+def phase_fpmul(torch, dev) -> dict:
+    """bench.py's bench_fpmul on K7: 32 chained products over 2^20 Fp
+    elements (1024 random values tiled, against themselves rolled by 7)."""
+    import random
+
+    from ark_blst_tpu_torch.ops import convert as CV
+    from ark_blst_tpu_torch.ops import strict_field as SF
+    from ark_blst_tpu_torch.ops.limbs import FP
+
+    rng = random.Random(0)
+    vals = [rng.randrange(FP.modulus) for _ in range(1 << 10)]
+    a = CV.fp_to_dev(vals).to(dev).repeat(1, FPMUL_N >> 10)
+    b = torch.roll(a, 7, dims=1)
+
+    def chain():
+        x = a
+        for _ in range(FPMUL_ITERS):
+            x = SF.mont_mul(x, b, FP)
+        return x
+
+    chain()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = chain()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    want = [vals[i] * pow(vals[(i - 7) % len(vals)], FPMUL_ITERS, FP.modulus) % FP.modulus
+            for i in range(64)]
+    check(CV.fp_from_dev(out[:, :64]) == want, "fpmul chain differs from the oracle")
+    ms = cuda_ms(torch, chain, 3)
+    res = {"phase": "fpmul", "n": FPMUL_N, "iters": FPMUL_ITERS, "ok": True, "seconds": dt,
+           "products_per_s": FPMUL_N * FPMUL_ITERS / dt, "device_ms": ms,
+           "device_products_per_s": FPMUL_N * FPMUL_ITERS / (ms / 1e3)}
+    emit(res)
+    return res
+
+
+def _strict_launches() -> dict:
+    from ark_blst_tpu_torch.ops import strict_field as SF
+
+    return {op: k.launches for op, k in SF.KERNELS.items()}
+
+
+def _reset_strict_launches() -> None:
+    from ark_blst_tpu_torch.ops import strict_field as SF
+
+    for k in SF.KERNELS.values():
+        k.launches = 0
+
+
+def _affine_of(curve, xa, ya, inf) -> list:
+    """Device affine coordinates -> host affine tuples (None = identity)."""
+    from ark_blst_tpu_torch.ops import convert as CV
+
+    dec = CV.fp2_from_dev if curve.name == "g2" else CV.fp_from_dev
+    return [None if i else (x, y) for x, y, i in zip(dec(xa), dec(ya), inf.tolist())]
+
+
+def run_scan_stages(torch, curve, lanes: int, points, scalars, expected, profiled: bool):
+    """The scan MSM's stages one by one (no padding: n is a multiple of
+    lanes), each ended by a synchronize; yields (stage, summary)."""
+    from ark_blst_tpu_torch.curves import msm as M
+
+    digs, summary = _stage(torch, lambda: M.window_digits(scalars, SCAN_C), profiled)
+    yield "digits", summary
+    bk, summary = _stage(
+        torch, lambda: M._bucket_accumulate(curve, points, digs, lanes, SCAN_C), profiled)
+    yield "accumulate", summary
+    bk, summary = _stage(torch, lambda: M._fold_axis(curve, bk, lanes), profiled)
+    yield "fold", summary
+    ws, summary = _stage(torch, lambda: M._bucket_reduce(curve, bk), profiled)
+    yield "reduce", summary
+    out, summary = _stage(torch, lambda: M._horner(curve, ws, SCAN_C), profiled)
+    yield "horner", summary
+    check(_affine(curve, out) == [expected], "staged scan MSM result differs")
+
+
+def phase_msm_scan(torch, dev, phase: str, curve_name: str) -> dict:
+    """The scan MSM at full width through `curves/msm.py:msm`, then
+    `to_affine` on the card: the slice's main path."""
+    from ark_blst_tpu_torch.curves import msm as M
+    from ark_blst_tpu_torch.curves.group import G1, G2
+    from ark_blst_tpu_torch.curves.instance import distinct_bases
+
+    curve = G2 if curve_name == "g2" else G1
+    log_n, lanes, seed = SCAN[curve_name]
+    t0 = time.perf_counter()
+    points, scalars, expected = distinct_bases(log_n, seed, dev, curve_name)
+    torch.cuda.synchronize()
+    emit({"phase": "instance", "curve": curve_name, "n": scalars.shape[1],
+          "seconds": time.perf_counter() - t0})
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_strict_launches()
+    t0 = time.perf_counter()
+    out = M.msm(points, scalars, curve, c=SCAN_C, lanes=lanes, device=dev)  # the main path
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    affine = curve.to_affine(out)
+    torch.cuda.synchronize()
+    dt_affine = time.perf_counter() - t0 - dt
+    launches = _strict_launches()
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(all(x.shape == (24, 1) and x.device == dev
+              for x in (out if curve_name == "g1" else sum(out, ()))), "result shape")
+    check(_affine(curve, out) == [expected], f"{phase} result differs from the expected point")
+    check(_affine_of(curve, *affine) == [expected], f"{phase}: to_affine differs")
+    needed = ("mont_mul", "add", "sub") + (("neg",) if curve_name == "g2" else ())
+    check(all(launches[k] > 0 for k in needed), f"a kernel of the path was not launched: {launches}")
+
+    stages = {name + "_ms": summary["wall_ms"] for name, summary in
+              run_scan_stages(torch, curve, lanes, points, scalars, expected, False)}
+    profiled = dict(run_scan_stages(torch, curve, lanes, points, scalars, expected, True))
+    wall = sum(v["wall_ms"] for v in profiled.values())
+    device = sum(v["device_ms"] for v in profiled.values())
+    n = scalars.shape[1]
+    emit({"phase": phase, "n": n, "c": SCAN_C, "lanes": lanes, "ok": True, "seconds": dt,
+          "points_per_s": n / dt, "to_affine_s": dt_affine, "launches": launches,
+          "stages": stages, "peak_mem_gib": peak_gib})
+    emit({"phase": phase + "_profile", "wall_ms": wall, "device_ms": device,
+          "busy_share": device / wall, "stages": profiled})
+    return launches
+
+
+def phase_msm_naive(torch, dev) -> dict:
+    """msm_naive and msm on a 2^12 G1 instance, then to_affine of its bases."""
+    from ark_blst_tpu_torch.curves import msm as M
+    from ark_blst_tpu_torch.curves.group import G1
+    from ark_blst_tpu_torch.curves.instance import distinct_bases
+
+    points, scalars, expected = distinct_bases(NAIVE_LOG_N, NAIVE_SEED, dev, "g1")
+    torch.cuda.synchronize()
+    _reset_strict_launches()
+    t0 = time.perf_counter()
+    naive = M.msm_naive(points, scalars, G1, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    scan = M.msm(points, scalars, G1, c=SCAN_C, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    affine = G1.to_affine(points)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = _strict_launches()
+    check(_affine(G1, naive) == [expected], "msm_naive differs from the expected point")
+    check(_affine(G1, scan) == [expected], "msm at 2^12 differs from the expected point")
+    got = _affine_of(G1, *affine)
+    want = _affine(G1, points)  # the host's division of the same points
+    bad = sum(g != w for g, w in zip(got, want))
+    check(len(got) == len(want) and bad == 0, f"to_affine: {bad} of {len(want)} points differ")
+    res = {"phase": "msm_naive", "n": scalars.shape[1], "ok": True, "naive_s": t1 - t0,
+           "msm_s": t2 - t1, "to_affine_s": t3 - t2, "to_affine_points": len(got),
+           "launches": launches}
+    emit(res)
+    return launches
+
+
 def _kernel_line(name, source, replaces, launches, res, **extra) -> dict:
     return {"name": name, "route": "cuda", "source": "ark_blst_tpu_torch/csrc/" + source,
             "replaces": replaces, "launches": launches, "max_abs_err": res["max_abs_err"],
@@ -721,6 +1016,27 @@ def main() -> int:
     del real
     torch.cuda.empty_cache()
     launches = phase_pairing(torch, dev, ps, qs, pairs_expected)
+    del ps, qs, pairs_expected
+    torch.cuda.empty_cache()
+
+    k7_k10 = phase_k7_k10(torch, dev)
+    torch.cuda.empty_cache()
+    phase_fpmul(torch, dev)
+    scan = {}
+    for name, phase in (("g1", "msm_scan"), ("g2", "msm_scan_g2")):
+        scan[name] = phase_msm_scan(torch, dev, phase, name)
+        torch.cuda.empty_cache()
+    naive = phase_msm_naive(torch, dev)
+    bodies = {"mont_mul": "_mul_body :39", "add": "_add_body :43", "sub": "_sub_body :48",
+              "neg": "_neg_body :56"}
+    strict_lines = [
+        _kernel_line("strict_" + op, "strict_field.cu",
+                     f"ark_blst_tpu/ops/pallas_field.py:66 ({bodies[op]})",
+                     scan["g1"][op] + scan["g2"][op], k7_k10[op],
+                     launches_msm_scan=scan["g1"][op], launches_msm_scan_g2=scan["g2"][op],
+                     launches_msm_naive=naive[op], fr=k7_k10[op]["fr"],
+                     broadcast=k7_k10[op]["broadcast"])
+        for op in bodies]
 
     emit({"kernels": [
         _kernel_line("mont_mul", "mont_mul.cu", "ark_blst_tpu/ops/pallas_lazy.py:41",
@@ -742,6 +1058,7 @@ def main() -> int:
                      launches["prepare_step"], k5),
         _kernel_line("miller_step", "miller_step.cu", "ark_blst_tpu/ops/pallas_lazy.py:63",
                      launches["miller_step"], k6),
+        *strict_lines,
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,5 +1,6 @@
-"""The CUDA sources against the Python engine they mirror: the constants
-compiled into csrc/lazy13.cuh, the kernels' C entry points and build flags.
+"""The CUDA sources against the Python engines they mirror: the constants
+compiled into csrc/lazy13.cuh and csrc/strict16.cuh, the kernels' C entry
+points and build flags, and the parallel build's one nvcc per source.
 (The kernels themselves compile and run only on the card:
 tests/test_torch_cuda.py.)"""
 
@@ -14,10 +15,13 @@ from ark_blst_tpu_torch.ops import cyc_sqr as K3
 from ark_blst_tpu_torch.ops import fp12_mul as K4
 from ark_blst_tpu_torch.ops import lazy13 as LZ
 from ark_blst_tpu_torch.ops import mont_mul as MM
+from ark_blst_tpu_torch.ops import strict_field as SF
 from ark_blst_tpu_torch.ops import tower_lazy as TL
+from ark_blst_tpu_torch.ops.limbs import FP, FR
 
 HEADER = (KC.CSRC_DIR / "lazy13.cuh").read_text()
 TOWER = (KC.CSRC_DIR / "tower13.cuh").read_text()
+STRICT = (KC.CSRC_DIR / "strict16.cuh").read_text()
 
 
 def _array(name):
@@ -46,16 +50,28 @@ def test_tower_header_constants(name, value):
     assert re.search(rf"constexpr int {name} = {value};", TOWER)
 
 
+@pytest.mark.parametrize("name,spec", [("FP", FP), ("FR", FR)])
+def test_strict_header_constants(name, spec):
+    """p and -p^-1 mod R in the 32-bit words of csrc/strict16.cuh."""
+    W = spec.num_limbs // 2
+    for const, value in (("P", spec.modulus), ("NINV", spec.ninv)):
+        m = re.search(rf"__constant__ uint32_t {name}_{const}\[{W}\] = \{{([^}}]*)\}};", STRICT)
+        assert m, f"{name}_{const} not found in strict16.cuh"
+        words = [int(v.strip().rstrip("u"), 16) for v in m.group(1).split(",")]
+        assert words == [(value >> 32 * k) & 0xFFFFFFFF for k in range(W)]
+
+
 @pytest.mark.parametrize(
     "kernel",
     [MM.KERNEL, MB.KERNEL, K3.KERNEL, K4.KERNEL, PS.PREPARE_KERNEL, PS.MILLER_KERNEL,
-     MB.KERNEL_G2],
+     MB.KERNEL_G2, *SF.KERNELS.values()],
     ids=["mont_mul", "bucket", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step",
-         "bucket_g2"])
+         "bucket_g2", *("strict_" + op for op in SF.KERNELS)])
 def test_kernel_sources_export_their_entry(kernel):
     src = (KC.CSRC_DIR / kernel.source).read_text()
     assert re.search(rf'extern "C" int {kernel.symbol}\(', src)
-    assert any(f'#include "{h}"' in src for h in ("lazy13.cuh", "tower13.cuh", "group13.cuh"))
+    assert any(f'#include "{h}"' in src
+               for h in ("lazy13.cuh", "tower13.cuh", "group13.cuh", "strict16.cuh"))
     assert kernel.lib_path.parent == KC.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in KC.NVCC_FLAGS
 
@@ -114,3 +130,12 @@ def test_g2_identity_rows_decode_to_identity():
     x, y, z = MB.KC2_G2.rows_to_point(rows)
     assert [LZ.digits_to_ints(c) for c in x + z] == [[0]] * 4
     assert LZ.digits_to_ints(y[0]) == [LZ.R13_MOD_P] and LZ.digits_to_ints(y[1]) == [0]
+
+
+def test_build_all_starts_one_nvcc_per_source(monkeypatch):
+    """K7-K10 share csrc/strict_field.cu: one build serves all four."""
+    started = []
+    monkeypatch.setattr(KC.CudaKernel, "start_build", lambda self: started.append(self) or None)
+    owners = KC.build_all([MM.KERNEL, *SF.KERNELS.values()])
+    assert sorted(k.source for k in owners) == ["mont_mul.cu", "strict_field.cu"]
+    assert started == owners

@@ -1,5 +1,6 @@
 """The CUDA kernels on the card against their plain PyTorch versions, and the
-G1 and G2 MSMs and the batched pairing on the card against the host oracle.
+G1 and G2 MSMs, the strict engine's scan MSM and the batched pairing on the
+card against the host oracle.
 Needs an NVIDIA Hopper card and
 nvcc; skipped without a card. Imports no JAX, so it runs on a machine
 without it:
@@ -15,6 +16,7 @@ import torch
 
 import ark_blst_tpu_torch as T
 from ark_blst_tpu_torch import G1, G2, Bls12
+from ark_blst_tpu_torch.curves import msm as M
 from ark_blst_tpu_torch.curves import msm_bucket as MB
 from ark_blst_tpu_torch.curves import pairing_steps as PS
 from ark_blst_tpu_torch.ops import cyc_sqr as K3
@@ -22,6 +24,8 @@ from ark_blst_tpu_torch.ops import fp12_mul as K4
 from ark_blst_tpu_torch.ops import lazy13 as LZ
 from ark_blst_tpu_torch.ops import mont_mul as MM
 from ark_blst_tpu_torch.ops import convert as CV
+from ark_blst_tpu_torch.ops import strict_field as SF
+from ark_blst_tpu_torch.ops.limbs import FP, FR, FieldSpec, ints_to_limbs
 from ark_blst_tpu_torch.oracle import curve as OC
 from ark_blst_tpu_torch.oracle import field as OF
 from ark_blst_tpu_torch.oracle import pairing as OP
@@ -186,3 +190,60 @@ def test_pairing_on_card_matches_oracle(dev):
     want = {i: OP.pairing(ps[i], qs[(3 * i + 1) % 4]) for i in range(4)}
     for i, g in enumerate(got):
         assert g == (OF.FP12_ONE if i in (5, 6) else want[i % 4]), i
+
+
+def _strict_stack(rng, spec, n, dev):
+    """(L, n) canonical limbs: the extreme values (0, 1, p-1, p-2, all-ones
+    low limbs below p) against each other, then random values below p."""
+    p, L = spec.modulus, spec.num_limbs
+    edge = [0, 1, p - 1, p - 2] + [((p >> 16 * k) - 1 << 16 * k) | ((1 << 16 * k) - 1)
+                                   for k in (1, 4, L // 2)]
+    xs = [x for x in edge for _ in edge] + [rng.randrange(p) for _ in range(n)]
+    ys = [y for _ in edge for y in edge] + [rng.randrange(p) for _ in range(n)]
+    return [torch.from_numpy(ints_to_limbs(v, L).T.copy()).to(dev) for v in (xs, ys)]
+
+
+@pytest.mark.parametrize("spec", [FP, FR], ids=["fp", "fr"])
+@pytest.mark.parametrize("op", ["mont_mul", "add", "sub", "neg"])
+def test_k7_k10_bit_equal_to_plain(dev, op, spec):
+    a, b = _strict_stack(random.Random(9), spec, 4000, dev)
+    args = (a,) if op == "neg" else (a, b)
+    got = _launched_once(SF.KERNELS[op], lambda: getattr(SF, op)(*args, spec))
+    assert torch.equal(got, SF.PLAIN[op](*args, spec))
+
+
+@pytest.mark.parametrize("op", ["mont_mul", "add", "sub", "neg"])
+def test_k7_k10_broadcast_pair(dev, op):
+    """The MSM accumulation's shapes: bucket (24, lanes, W, 1) against point
+    (24, lanes, 1, 1)."""
+    a, b = _strict_stack(random.Random(10), FP, 64 * 8, dev)
+    a = a[:, : 64 * 8].reshape(24, 64, 8, 1)
+    b = b[:, :64].reshape(24, 64, 1, 1)
+    args = (a,) if op == "neg" else (a, b)
+    got = _launched_once(SF.KERNELS[op], lambda: getattr(SF, op)(*args, FP))
+    assert got.shape == (24, 64, 8, 1)
+    assert torch.equal(got, SF.PLAIN[op](*args, FP))
+
+
+def test_strict_kernels_reject_other_fields(dev):
+    tiny = FieldSpec("tiny", (1 << 30) - 35, 2)
+    a = torch.zeros((2, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        SF.mont_mul(a, a, tiny)
+
+
+def test_scan_msm_on_card_matches_oracle(dev):
+    rng = random.Random(14)
+    base = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(8)]
+    pts = [base[i % 8] for i in range(2048)]
+    scs = [rng.randrange(OF.R) for _ in range(2048)]
+    pts[10], scs[11] = None, 0
+    agg = [0] * 8
+    for i, s in enumerate(scs):
+        if pts[i] is not None:
+            agg[i % 8] += s
+    before = {k: v.launches for k, v in SF.KERNELS.items()}
+    out = M.msm(CV.g1_to_dev(pts), CV.fr_to_dev(scs), c=4, device=dev)
+    torch.cuda.synchronize()
+    assert all(SF.KERNELS[k].launches > before[k] for k in ("mont_mul", "add", "sub"))
+    assert out[0].is_cuda and CV.g1_from_dev(out) == [OC.msm(base, agg)]

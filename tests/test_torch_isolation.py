@@ -33,17 +33,22 @@ def test_port_imports_no_jax_and_no_jax_package():
         assert "ark_blst_tpu_torch.curves.msm_bucket" in names, names
         assert "ark_blst_tpu_torch.curves.instance" in names, names
         assert "ark_blst_tpu_torch.curves.pairing" in names, names
+        for mod in ("ops.strict_field", "ops.dispatch", "ops.tower", "curves.group",
+                    "curves.msm"):
+            assert "ark_blst_tpu_torch." + mod in names, names
     """)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 @pytest.mark.parametrize("entry", ["msm_g1", "G1.msm", "pairing", "Bls12.pairing_batch",
                                    "Bls12.prepare_g2_batch", "Bls12.multi_pairing",
-                                   "msm_g2", "G2.msm"])
+                                   "msm_g2", "G2.msm", "curves.msm.msm",
+                                   "curves.msm.msm_naive"])
 def test_cuda_without_a_card_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present; this checks the behaviour without one")
     import ark_blst_tpu_torch as T
+    from ark_blst_tpu_torch.curves import msm as M
     from ark_blst_tpu_torch.ops import convert as CV
     from ark_blst_tpu_torch.oracle.field import G1_GEN, G2_GEN
 
@@ -58,6 +63,8 @@ def test_cuda_without_a_card_raises(entry):
         "Bls12.multi_pairing": lambda: T.Bls12.multi_pairing([G1_GEN], [G2_GEN]),
         "msm_g2": lambda: T.msm_g2(CV.g2_to_dev([G2_GEN]), CV.fr_to_dev([3])),
         "G2.msm": lambda: T.G2.msm([G2_GEN], [3]),
+        "curves.msm.msm": lambda: M.msm(CV.g1_to_dev([G1_GEN]), CV.fr_to_dev([3])),
+        "curves.msm.msm_naive": lambda: M.msm_naive(CV.g1_to_dev([G1_GEN]), CV.fr_to_dev([3])),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
