@@ -10,6 +10,8 @@ batched pairing:
   tuples;
 * `Bls12.pairing_batch`, `Bls12.prepare_g2_batch` and `Bls12.multi_pairing`
   on affine int tuples, and `pairing(p, q, ...)` on strict limb tensors;
+  `fuse=False` runs the unfused lazy pairing (K11, K12), and `pairing`'s
+  `engine="strict"` the pairing on the strict tower (K7-K10);
 * the strict radix-16 engine's scan Pippenger MSM,
   `curves.msm.msm(points, scalars, curve, device=...)` and `msm_naive`, on
   the complete group law of `curves.group` (`G1`, `G2`).

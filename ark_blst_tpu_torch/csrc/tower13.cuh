@@ -388,6 +388,19 @@ __device__ __forceinline__ void fp12_mul_elem(const int* a, const int* b, int* o
   store_fp12(fp12_mul(load_fp12(a, n, i), load_fp12(b, n, i)), out, n, i);
 }
 
+// K11: a^2, (12, 30, n) -> out.
+__device__ __forceinline__ void fp12_sqr_elem(const int* a, int* out, long long n, long long i) {
+  store_fp12(fp12_sqr(load_fp12(a, n, i)), out, n, i);
+}
+
+// K12: F (12, 30, n) times the sparse line C (6, 30, n), rows c0, c1, c4
+// (two Fp rows each) -> out (12, 30, n).
+__device__ __forceinline__ void fp12_mul_by_014_elem(const int* f, const int* c, int* out,
+                                                     long long n, long long i) {
+  const Fp2 c0 = load_fp2(c, 0, n, i), c1 = load_fp2(c, 2, n, i), c4 = load_fp2(c, 4, n, i);
+  store_fp12(fp12_mul_by_014(load_fp12(f, n, i), c0, c1, c4), out, n, i);
+}
+
 // K5: R (6, 30, n) [+ Q (4, 30, n) when is_add] -> out (12, 30, n): the new
 // point (x, y, z), then the line (c0, c1, c2).
 __device__ __forceinline__ void prepare_step_elem(const int* r, const int* q, int* out,

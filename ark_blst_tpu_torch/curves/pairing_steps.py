@@ -14,8 +14,10 @@ Counterparts of two `ark_blst_tpu/ops/pallas_lazy.py:tower_fused` instances:
   `csrc/miller_step.cu`.
 
 `_doubling_step`, `_addition_step` and `_ell_legs` are the port of the
-functions of those names in `ark_blst_tpu/curves/pairing.py` (lazy tower),
-digit for digit; the kernels' plain versions are built from them.
+functions of those names in `ark_blst_tpu/curves/pairing.py`, generic over
+the tower module T as there: on the lazy tower digit for digit (the
+kernels' plain versions and the unfused pipeline), on the strict tower
+limb for limb (the `engine="strict"` pairing).
 """
 
 from __future__ import annotations
@@ -41,60 +43,62 @@ MILLER_KERNEL = CudaKernel(
 
 # --- the event math -------------------------------------------------------------
 
-def _doubling_step(r):
-    """Jacobian doubling over Fp2; returns (new_r, (c0, c1, c2))."""
+def _doubling_step(T, r):
+    """Jacobian doubling over Fp2 on the tower module T (`tower_lazy` or
+    the strict `tower`); returns (new_r, (c0, c1, c2))."""
     x, y, z = r
-    t0, t1, zsq = TL.fp2_sqr_many([x, y, z])
-    t2 = TL.fp2_sqr(t1)
-    s = TL.fp2_sqr(TL.fp2_add(t1, x))
-    t3 = TL.fp2_mul_small(TL.fp2_sub(TL.fp2_sub(s, t0), t2), 2)
-    t4 = TL.fp2_mul_small(t0, 3)
-    t6 = TL.fp2_add(x, t4)
-    t5 = TL.fp2_sqr(t4)
-    nx = TL.fp2_sub(t5, TL.fp2_mul_small(t3, 2))
-    nz = TL.fp2_sub(TL.fp2_sub(TL.fp2_sqr(TL.fp2_add(z, y)), t1), zsq)
-    m0, m1 = TL.fp2_mul_many([(TL.fp2_sub(t3, nx), t4), (nz, zsq)])
-    ny = TL.fp2_sub(m0, TL.fp2_mul_small(t2, 8))
-    c0 = TL.fp2_mul_small(m1, 2)
-    (m2,) = TL.fp2_mul_many([(t4, zsq)])
-    c1 = TL.fp2_neg(TL.fp2_mul_small(m2, 2))
-    c2 = TL.fp2_sub(
-        TL.fp2_sub(TL.fp2_sub(TL.fp2_sqr(t6), t0), t5), TL.fp2_mul_small(t1, 4)
+    t0, t1, zsq = T.fp2_sqr_many([x, y, z])
+    t2 = T.fp2_sqr(t1)
+    s = T.fp2_sqr(T.fp2_add(t1, x))
+    t3 = T.fp2_mul_small(T.fp2_sub(T.fp2_sub(s, t0), t2), 2)
+    t4 = T.fp2_mul_small(t0, 3)
+    t6 = T.fp2_add(x, t4)
+    t5 = T.fp2_sqr(t4)
+    nx = T.fp2_sub(t5, T.fp2_mul_small(t3, 2))
+    nz = T.fp2_sub(T.fp2_sub(T.fp2_sqr(T.fp2_add(z, y)), t1), zsq)
+    m0, m1 = T.fp2_mul_many([(T.fp2_sub(t3, nx), t4), (nz, zsq)])
+    ny = T.fp2_sub(m0, T.fp2_mul_small(t2, 8))
+    c0 = T.fp2_mul_small(m1, 2)
+    (m2,) = T.fp2_mul_many([(t4, zsq)])
+    c1 = T.fp2_neg(T.fp2_mul_small(m2, 2))
+    c2 = T.fp2_sub(
+        T.fp2_sub(T.fp2_sub(T.fp2_sqr(t6), t0), t5), T.fp2_mul_small(t1, 4)
     )
     return (nx, ny, nz), (c0, c1, c2)
 
 
-def _addition_step(r, q):
-    """Mixed addition of the affine q to the Jacobian r, with its line."""
+def _addition_step(T, r, q):
+    """Mixed addition of the affine q to the Jacobian r, with its line, on
+    the tower module T."""
     x, y, z = r
     qx, qy = q
-    zsq, ysq = TL.fp2_sqr_many([z, qy])
-    t0, m1 = TL.fp2_mul_many(
-        [(zsq, qx), (TL.fp2_sub(TL.fp2_sub(TL.fp2_sqr(TL.fp2_add(qy, z)), ysq), zsq), zsq)]
+    zsq, ysq = T.fp2_sqr_many([z, qy])
+    t0, m1 = T.fp2_mul_many(
+        [(zsq, qx), (T.fp2_sub(T.fp2_sub(T.fp2_sqr(T.fp2_add(qy, z)), ysq), zsq), zsq)]
     )
     t1 = m1
-    t2 = TL.fp2_sub(t0, x)
-    t3 = TL.fp2_sqr(t2)
-    t4 = TL.fp2_mul_small(t3, 4)
-    t6 = TL.fp2_sub(t1, TL.fp2_mul_small(y, 2))
-    t5, t9, t7 = TL.fp2_mul_many([(t4, t2), (t6, qx), (t4, x)])
-    nx = TL.fp2_sub(TL.fp2_sub(TL.fp2_sqr(t6), t5), TL.fp2_mul_small(t7, 2))
-    nz = TL.fp2_sub(TL.fp2_sub(TL.fp2_sqr(TL.fp2_add(z, t2)), zsq), t3)
-    t10 = TL.fp2_add(qy, nz)
-    t8, m2 = TL.fp2_mul_many([(TL.fp2_sub(t7, nx), t6), (y, t5)])
-    ny = TL.fp2_sub(t8, TL.fp2_mul_small(m2, 2))
-    t10 = TL.fp2_sub(TL.fp2_sub(TL.fp2_sqr(t10), ysq), TL.fp2_sqr(nz))
-    t9 = TL.fp2_sub(TL.fp2_mul_small(t9, 2), t10)
-    c0 = TL.fp2_mul_small(nz, 2)
-    c1 = TL.fp2_mul_small(TL.fp2_neg(t6), 2)
+    t2 = T.fp2_sub(t0, x)
+    t3 = T.fp2_sqr(t2)
+    t4 = T.fp2_mul_small(t3, 4)
+    t6 = T.fp2_sub(t1, T.fp2_mul_small(y, 2))
+    t5, t9, t7 = T.fp2_mul_many([(t4, t2), (t6, qx), (t4, x)])
+    nx = T.fp2_sub(T.fp2_sub(T.fp2_sqr(t6), t5), T.fp2_mul_small(t7, 2))
+    nz = T.fp2_sub(T.fp2_sub(T.fp2_sqr(T.fp2_add(z, t2)), zsq), t3)
+    t10 = T.fp2_add(qy, nz)
+    t8, m2 = T.fp2_mul_many([(T.fp2_sub(t7, nx), t6), (y, t5)])
+    ny = T.fp2_sub(t8, T.fp2_mul_small(m2, 2))
+    t10 = T.fp2_sub(T.fp2_sub(T.fp2_sqr(t10), ysq), T.fp2_sqr(nz))
+    t9 = T.fp2_sub(T.fp2_mul_small(t9, 2), t10)
+    c0 = T.fp2_mul_small(nz, 2)
+    c1 = T.fp2_mul_small(T.fp2_neg(t6), 2)
     return (nx, ny, nz), (c0, c1, t9)
 
 
-def _ell_legs(coeff, px, py):
+def _ell_legs(T, coeff, px, py):
     """A line triple in mul_by_014 operand form: (c2, c1*px, c0*py), the
-    fp2-by-fp scaling 2 base products per component."""
+    fp2-by-fp scaling 2 base products per component, in one launch."""
     c0, c1, c2 = coeff
-    s0a, s0b, s1a, s1b = TL.fp_mul_many([(c0[0], py), (c0[1], py), (c1[0], px), (c1[1], px)])
+    s0a, s0b, s1a, s1b = T.fp_mul_many([(c0[0], py), (c0[1], py), (c1[0], px), (c1[1], px)])
     return c2, (s1a, s1b), (s0a, s0b)
 
 
@@ -109,9 +113,9 @@ def prepare_step_plain(r_stk: torch.Tensor, q_stk: torch.Tensor | None = None) -
     `_addition_step` when q is given, flattened to (12, 30, N)."""
     r = tuple(_fp2_rows(r_stk, k) for k in (0, 2, 4))
     if q_stk is None:
-        nr, c = _doubling_step(r)
+        nr, c = _doubling_step(TL, r)
     else:
-        nr, c = _addition_step(r, (_fp2_rows(q_stk, 0), _fp2_rows(q_stk, 2)))
+        nr, c = _addition_step(TL, r, (_fp2_rows(q_stk, 0), _fp2_rows(q_stk, 2)))
     return torch.stack([x for fp2 in nr + c for x in fp2])
 
 
@@ -142,7 +146,7 @@ def miller_step_plain(f_stk: torch.Tensor, c_stk: torch.Tensor, pxy: torch.Tenso
     if with_sqr:
         f = TL.fp12_sqr(f)
     c = tuple(_fp2_rows(c_stk, k) for k in (0, 2, 4))
-    a0, a1, a4 = _ell_legs(c, pxy[0], pxy[1])
+    a0, a1, a4 = _ell_legs(TL, c, pxy[0], pxy[1])
     return TL.stack12(TL.fp12_mul_by_014_many([(f, a0, a1, a4)])[0])
 
 

@@ -19,8 +19,9 @@ scales fold their outputs, so any two outputs multiply with no bound
 bookkeeping.
 
 Where the work goes: every Montgomery product is `_mul`, the K1 wrapper
-(`ops/mont_mul.py`), which runs its plain version on CPU tensors. The fused
-kernels K3-K6 take stacked operands and are called by the pairing
+(`ops/mont_mul.py`), which runs its plain version on CPU tensors. The tower
+kernels K3-K6, K11 (`fp12_sqr`) and K12 (`fp12_mul_by_014_many` of one
+item) take stacked operands and are called by the pairing
 (`curves/pairing.py`, `curves/pairing_steps.py`); their plain versions are
 the unfused functions here.
 """
@@ -194,6 +195,42 @@ def fp_inv(a):
     return r
 
 
+def fp_inv_batch(a):
+    """Invert every lane of a (30, *batch) element through a log-depth
+    product tree over the flat batch: pairwise products of the halves up to
+    one root, one Fermat ladder (`fp_inv`) on the width-1 root, then the
+    sibling products back down. ~3 full-batch products plus a width-1
+    ladder, against the ~570 full-batch products of `fp_inv`. Each level is
+    one K1 launch at its own width (the TPU's 1024-multiple reshape of the
+    JAX `_mul_flat` is a tile of that chip and is not kept).
+
+    An eager primitive: nothing on the pairing path calls it (the JAX
+    docstring records that it lost inside the fused pairing on the TPU).
+
+    PRECONDITION: every lane is nonzero mod p; a zero lane poisons the root
+    and so every lane, where `fp_inv` returns 0 for that lane alone."""
+    sh = a.shape
+    flat = a.reshape(LZ.L13, -1)
+    n = flat.shape[1]
+    m = 1 << max(0, n - 1).bit_length()
+    if m != n:  # pad to a power of two with rep(1) lanes (self-inverse)
+        one = _const_col(1, flat).expand(LZ.L13, m - n)
+        flat = torch.cat([flat, one], dim=1)
+    levels = [flat]
+    w = m
+    while w > 1:
+        w //= 2
+        cur = levels[-1]
+        levels.append(_mul(cur[:, :w], cur[:, w:]))
+    v = fp_inv(levels[-1])  # the width-1 root
+    for u in levels[-2::-1]:
+        w = u.shape[1] // 2
+        # inv(lo) = inv(parent) * hi, inv(hi) = inv(parent) * lo: one product
+        # at this level's full width
+        v = _mul(torch.cat([v, v], dim=1), torch.cat([u[:, w:], u[:, :w]], dim=1))
+    return v[:, :n].reshape(sh)
+
+
 # --- fp2 ----------------------------------------------------------------------
 
 def fp2_add(a, b):
@@ -325,6 +362,42 @@ def fp6_mul(a, b):
     return fp6_mul_many([(a, b)])[0]
 
 
+def fp6_sqr(a):
+    return fp6_mul(a, a)
+
+
+def fp6_mul_by_01_many(items):
+    """[(a, b0, b1)] -> a * (b0 + b1 v), sparse: 6 fp2 products in one
+    concatenated multiply."""
+    legs = []
+    for a, b0, b1 in items:
+        a0, a1, a2 = a
+        legs += [(a0, b0), (a1, b0), (a2, b0), (a2, b1), (a0, b1), (a1, b1)]
+    prods = fp2_mul_many(legs)
+    out = []
+    for i in range(len(items)):
+        t00, t10, t20, t21, t01, t11 = prods[6 * i : 6 * i + 6]
+        out.append((
+            fp2_add(t00, fp2_mul_by_nonresidue(t21)),
+            fp2_add(t01, t10),
+            fp2_add(t11, t20),
+        ))
+    return out
+
+
+def fp6_mul_by_1_many(items):
+    """[(a, b1)] -> a * (b1 v), sparse: 3 fp2 products."""
+    legs = []
+    for a, b1 in items:
+        legs += [(a[2], b1), (a[0], b1), (a[1], b1)]
+    prods = fp2_mul_many(legs)
+    out = []
+    for i in range(len(items)):
+        t2, t0, t1 = prods[3 * i : 3 * i + 3]
+        out.append((fp2_mul_by_nonresidue(t2), t0, t1))
+    return out
+
+
 def fp6_inv(a):
     a0, a1, a2 = a
     s0, s1, s2 = fp2_sqr_many([a0, a2, a1])  # a0^2, a2^2, a1^2
@@ -361,6 +434,14 @@ def stack12(a) -> torch.Tensor:
 def unstack12(x: torch.Tensor):
     """Stacked (12, 30, *batch) -> fp12 value (views of x)."""
     return _pack12([x[c] for c in range(12)])
+
+
+def fp12_add(a, b):
+    return (fp6_add(a[0], b[0]), fp6_add(a[1], b[1]))
+
+
+def fp12_sub(a, b):
+    return (fp6_sub(a[0], b[0]), fp6_sub(a[1], b[1]))
 
 
 def fp12_conj(a):

@@ -5,8 +5,8 @@ card: the quickest proof that the port builds and runs its main path there.
     python3 chip_smoke.py
 
 Phases, one JSON line each:
-  1. env      the card's name and power limit; builds all seven kernels
-              from the sources (one nvcc per source, all in parallel) and
+  1. env      the card's name and power limit; builds the kernels from
+              their ten sources (one nvcc per source, all in parallel) and
               reports build seconds, registers, spills and static SASS
               counts;
   2. k1       K1 (mont_mul) against its plain PyTorch version at 2^22
@@ -38,7 +38,10 @@ Phases, one JSON line each:
               squares) at n = 1 and at the longest run of the exponent
               ladder (32), K4 (fp12 product), K5 (prepare event) and K6
               (Miller event) in both forms, K5 and K6 also on real event
-              inputs taken from the pipeline;
+              inputs taken from the pipeline; then K11 (fp12 square) and
+              K12 (sparse line product) the same way, on random digits and
+              on f and the scaled line of a real Miller event, with their
+              registers and stack (phase `k11_k12`);
   8. pairing  8192 pairings of 8 distinct (P, Q) pairs (P_i = P[i mod 8],
               Q_i = Q[(3i+1) mod 8], the construction of the JAX package's
               bench.py) with one identity P and one identity Q, through the
@@ -51,6 +54,21 @@ Phases, one JSON line each:
               then the prepared path (`prepare_g2_batch` once,
               `pairing_batch` against it), checked equal to the unprepared
               results;
+     pairing_unfused  the same instance through `Bls12.pairing_batch(...,
+              fuse=False)`: every result checked against the oracle and the
+              fused results, K11 launched 63 and K12 68 times, K5/K6 never,
+              with pairings/s, stages and their launches, a profiled
+              rerun, peak memory and the prepared path with fuse=False;
+     pairing_strict  the same instance through the tensor entry
+              `pairing(..., engine="strict")`: limb for limb against the
+              lazy engine's output and against the oracle, on K7-K10 alone
+              (every other kernel at 0 launches), with stages, K7-K10
+              launches per stage, per Miller event (mean) and per
+              cyclotomic square, and a profiled rerun; then `multi_pairing` and
+              `multi_miller_loop_prepared` on both engines at 1024 pairs,
+              equal to each other and the first to the oracle's product;
+     fp_inv_batch  `tower_lazy.fp_inv_batch` against `fp_inv` at 8192
+              elements, both checked against the oracle's inverses, timed;
   9. k7_k10   the strict engine's kernels K7-K10 (mont_mul, add, sub, neg)
               against their plain versions, bit for bit, at Fp (2^22
               elements) and Fr (2^20): seeded random canonical values with
@@ -76,12 +94,14 @@ Phases, one JSON line each:
               inversion, one Fermat ladder at batch 1 on K7) checked point
               for point against the host's affine values;
 then the `kernels` line (time, launches, bound and plain time per kernel;
-K1, on all three paths, gives its G1 MSM launches as `launches`, its G2
-MSM launches as `launches_msm_g2`, its pairing launches as
-`launches_pairing` and its times at 8192 elements as `at_pairing_batch`;
+K1 gives its G1 MSM launches as `launches`, its G2 MSM launches as
+`launches_msm_g2`, its fused and unfused pairing launches as
+`launches_pairing` and `launches_pairing_unfused` and its times at 8192
+elements as `at_pairing_batch`; K3 and K4 give the fused pairing's
+launches, the unfused one's beside; K11 and K12 the unfused pairing's;
 K7-K10 give as `launches` the sum over the two scan MSM runs, each run's
-count beside it, and their Fp times at 2^22, Fr and broadcast times
-beside) and, last, {"ok": true, "device": {...}}. Any failure raises: the
+count and the strict pairing's beside it, and their Fp times at 2^22, Fr
+and broadcast times beside) and, last, {"ok": true, "device": {...}}. Any failure raises: the
 script then exits non-zero and prints no last line. Without CUDA it exits 1.
 
 Bound model (bound_ms): the larger of bytes / 3.35e12 B/s and int32
@@ -101,7 +121,8 @@ over 132 SMs x 64 per clock x 1.98 GHz = 16.7e12 per s; K2 over Fp2
 calls its product and its reduction out of line, so its floor counts
 what each add calls: 16 reduced products at K1's compiled IMAD count and
 17 more bare 30 x 30 column products of 900 IMAD each. The tower kernels
-K3-K6 count their base products times MONT_MUL_OPS plus the folded glue of
+K3-K6, K11 and K12 count their base products times MONT_MUL_OPS plus the
+folded glue of
 each tower operation (the op model below), and bytes as each input read
 once and the output written once; their IMAD floor is the products alone:
 products x the IMAD instructions of K1's compiled product, the same
@@ -135,6 +156,7 @@ G2_SEED = 11
 PAIRING_N = 8192
 PAIRING_DISTINCT = 8
 IDENTITY_P_AT, IDENTITY_Q_AT = 3, 10
+STRICT_MULTI_N = 1024  # multi_pairing / multi_miller_loop_prepared on both engines
 STRICT_LOG_N = {"fp": 22, "fr": 20}
 STRICT_PLAIN_CHUNK = 1 << 20
 FPMUL_N, FPMUL_ITERS = 1 << 20, 32  # bench.py:bench_fpmul
@@ -275,21 +297,24 @@ def imad_floor_ms(imads: float) -> float:
 # --- phases --------------------------------------------------------------------
 
 def all_kernels() -> dict:
-    """The kernels by name: K1, K2 (the G1 and G2 MSMs), K3-K6 (the
-    pairing), K7-K10 (the strict engine; one source, four entry points)."""
+    """The kernels by name: K1, K2 (the G1 and G2 MSMs), K3-K6 (the fused
+    pairing), K7-K10 (the strict engine; one source, four entry points),
+    K11 and K12 (the unfused pairing): ten sources."""
     from ark_blst_tpu_torch.curves import msm_bucket as MB
     from ark_blst_tpu_torch.curves import pairing_steps as PS
     from ark_blst_tpu_torch.ops import cyc_sqr as K3
     from ark_blst_tpu_torch.ops import fp12_mul as K4
+    from ark_blst_tpu_torch.ops import fp12_mul_by_014 as K12
+    from ark_blst_tpu_torch.ops import fp12_sqr as K11
     from ark_blst_tpu_torch.ops import mont_mul as MM
-
     from ark_blst_tpu_torch.ops import strict_field as SF
 
     return {"mont_mul": MM.KERNEL, "bucket_accumulate": MB.KERNEL,
             "bucket_accumulate_g2": MB.KERNEL_G2, "cyc_sqr": K3.KERNEL,
             "fp12_mul": K4.KERNEL, "prepare_step": PS.PREPARE_KERNEL,
             "miller_step": PS.MILLER_KERNEL,
-            **{"strict_" + op: k for op, k in SF.KERNELS.items()}}
+            **{"strict_" + op: k for op, k in SF.KERNELS.items()},
+            "fp12_sqr": K11.KERNEL, "fp12_mul_by_014": K12.KERNEL}
 
 
 def phase_env(torch):
@@ -304,13 +329,12 @@ def phase_env(torch):
     owners = KC.build_all(list(all_kernels().values()))  # one per source
     build_s = time.perf_counter() - t0
     sass = {k.source: _sass_counts(k) for k in owners}
+    ptxas = {k.source: _ptxas_summary(k.build_log) for k in owners}
     emit({
         "phase": "env", "gpu": smi[0], "torch": torch.__version__, "cuda": torch.version.cuda,
-        "build_s": build_s,
-        "ptxas": {k.source: _ptxas_summary(k.build_log) for k in owners},
-        "sass": sass,
+        "build_s": build_s, "sources": len(owners), "ptxas": ptxas, "sass": sass,
     })
-    return sass
+    return sass, ptxas
 
 
 def extreme_cases() -> list:
@@ -448,9 +472,14 @@ def _affine(curve, pt) -> list:
     return CV.g2_from_dev(pt) if curve.name == "g2" else CV.g1_from_dev(pt)
 
 
+def _launch_counts() -> dict:
+    return {name: k.launches for name, k in all_kernels().items()}
+
+
 def _stage(torch, fn, profiled: bool, need_device: bool = True):
     """Run fn() after a synchronize and up to the next one; returns (out,
-    summary) with the host-clock time and, when profiled, the device time
+    summary) with the host-clock time and the launches of each kernel of the
+    port (the counters' increments) or, when profiled, the device time
     of its kernels, their number, the device busy share and the three
     kernels that took the most device time. The device events are summed
     from the profiler's raw event list: `key_averages()` builds a Python
@@ -463,28 +492,48 @@ def _stage(torch, fn, profiled: bool, need_device: bool = True):
 
     torch.cuda.synchronize()
     if not profiled:
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, {"wall_ms": 1e3 * (time.perf_counter() - t0)}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        before = _launch_counts()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    count, ns = Counter(), Counter()
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA:
-            count[e.name()] += 1
-            ns[e.name()] += e.duration_ns()
-    device_ms = sum(ns.values()) / 1e6
-    check(device_ms > 0 or not need_device, "the profiler saw no device time")
-    return out, {
-        "wall_ms": wall_ms, "device_ms": device_ms,
-        "kernel_launches": sum(count.values()), "busy_share": device_ms / wall_ms,
-        "top": [{"kernel": name[:60], "count": count[name], "device_ms": t / 1e6}
-                for name, t in ns.most_common(3)],
-    }
+        launches = {k: n - before[k] for k, n in _launch_counts().items() if n != before[k]}
+        return out, {"wall_ms": wall_ms, "launches": launches}
+    # The profiler has once returned no device event for a stage that is one
+    # long kernel (K2 over Fp2, 3.9 s, in one run on the H100): it is run
+    # under it once more, and then timed between two CUDA events, which
+    # bound its device time from above; the summary says which it is.
+    for attempt in (1, 2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        count, ns = Counter(), Counter()
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                count[e.name()] += 1
+                ns[e.name()] += e.duration_ns()
+        device_ms = sum(ns.values()) / 1e6
+        if device_ms > 0 or not need_device:
+            break
+    summary = {"profile_attempts": attempt, "device_ms_from": "profiler",
+               "kernel_launches": sum(count.values()),
+               "top": [{"kernel": name[:60], "count": count[name], "device_ms": t / 1e6}
+                       for name, t in ns.most_common(3)]}
+    if device_ms == 0 and need_device:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        device_ms = start.elapsed_time(end)
+        summary.update(device_ms_from="cuda_events", kernel_launches=None, top=[])
+    check(device_ms > 0 or not need_device, "the stage ran nothing on the card")
+    return out, {"wall_ms": wall_ms, "device_ms": device_ms,
+                 "busy_share": device_ms / wall_ms, **summary}
 
 
 def run_stages(torch, kc, c: int, points, scalars, expected, profiled: bool):
@@ -570,9 +619,10 @@ def phase_k4(torch, dev, imad_per_product: int) -> dict:
 
 
 def real_event_inputs(torch, p, q):
-    """K5's and K6's operands as the pipeline gives them: R after three
-    doubling events of `prepare_g2`, f after three Miller events, the
-    fourth event's line and P."""
+    """K5's, K6's, K11's and K12's operands as the pipeline gives them: R
+    after three doubling events of `prepare_g2`, f after three Miller
+    events, the fourth event's line and P, and that line scaled by P
+    (`_ell_legs`, K12's rows) as the unfused Miller loop forms it."""
     from ark_blst_tpu_torch.curves import pairing as PR
     from ark_blst_tpu_torch.curves import pairing_steps as PS
     from ark_blst_tpu_torch.ops import tower_lazy as TL
@@ -589,7 +639,9 @@ def real_event_inputs(torch, p, q):
     fs = TL.stack12(PR._fp12_one_like(px))
     for i in range(3):
         fs = PS.miller_step(fs, coeffs[i], pxy, True)
-    return rs, qs, fs, coeffs[3], pxy
+    a0, a1, a4 = PS._ell_legs(TL, PR._line(coeffs[3]), px, py)
+    legs = torch.stack([a0[0], a0[1], a1[0], a1[1], a4[0], a4[1]])
+    return rs, qs, fs, coeffs[3], pxy, legs
 
 
 def phase_k5(torch, dev, imad_per_product: int, real) -> dict:
@@ -620,7 +672,7 @@ def phase_k6(torch, dev, imad_per_product: int, real) -> dict:
     n = f_rand.shape[-1]
     forms, err = {}, 0
     for with_sqr in (True, False):
-        for f, c, pxy in ((f_rand, c_rand, p_rand), real[2:]):
+        for f, c, pxy in ((f_rand, c_rand, p_rand), real[2:5]):
             err = max(err, _held(torch, "K6", PS.miller_step(f, c, pxy, with_sqr),
                                  PS.miller_step_plain(f, c, pxy, with_sqr)))
         forms["with_square" if with_sqr else "line_only"] = _timed(
@@ -631,6 +683,36 @@ def phase_k6(torch, dev, imad_per_product: int, real) -> dict:
     emit({"phase": "k6", "n": n, "bit_equal": True, "real_inputs": True, "max_abs_err": err,
           **forms})
     return {"max_abs_err": err, **forms["with_square"]}
+
+
+def phase_k11_k12(torch, dev, imad_per_product: int, real, ptxas: dict) -> tuple:
+    """K11 (fp12 square) and K12 (sparse line product) against their plain
+    versions at N = 8192, bit for bit: random mul-ready digits with the
+    extreme patterns, and real inputs (f after three Miller events, squared
+    for K12 as at a doubling event, and the fourth event's scaled line)."""
+    from ark_blst_tpu_torch.ops import fp12_mul_by_014 as K12
+    from ark_blst_tpu_torch.ops import fp12_sqr as K11
+
+    f_rand, c_rand = digit_stacks(torch, dev, [12, 6])
+    f_real, legs_real = real[2], real[5]
+    n = f_rand.shape[-1]
+    err11 = max(_held(torch, "K11", K11.fp12_sqr(f), K11.fp12_sqr_plain(f))
+                for f in (f_rand, f_real))
+    f_sq = K11.fp12_sqr(f_real)
+    err12 = max(_held(torch, "K12", K12.fp12_mul_by_014(f, c), K12.fp12_mul_by_014_plain(f, c))
+                for f, c in ((f_rand, c_rand), (f_sq, legs_real)))
+    k11 = {"max_abs_err": err11, **_timed(
+        torch, lambda: K11.fp12_sqr(f_rand), lambda: K11.fp12_sqr_plain(f_rand),
+        n * 2 * 12 * ELEM_BYTES, n * FP12_SQR_OPS, n * 36 * imad_per_product)}
+    k12 = {"max_abs_err": err12, **_timed(
+        torch, lambda: K12.fp12_mul_by_014(f_rand, c_rand),
+        lambda: K12.fp12_mul_by_014_plain(f_rand, c_rand),
+        n * (12 + 6 + 12) * ELEM_BYTES, n * MUL_BY_014_OPS, n * 45 * imad_per_product)}
+    regs = ("registers", "stack_bytes", "spill_store_bytes", "spill_load_bytes")
+    emit({"phase": "k11_k12", "n": n, "bit_equal": True, "real_inputs": True,
+          "fp12_sqr": {**k11, **{k: ptxas["fp12_sqr.cu"].get(k) for k in regs}},
+          "fp12_mul_by_014": {**k12, **{k: ptxas["fp12_mul_by_014.cu"].get(k) for k in regs}}})
+    return k11, k12
 
 
 def pairing_instance():
@@ -655,7 +737,8 @@ def pairing_instance():
     return ps, qs, expected
 
 
-def run_pairing_stages(torch, dev, ps, qs, expected, profiled: bool):
+def run_pairing_stages(torch, dev, ps, qs, expected, profiled: bool, fuse: bool = True,
+                       engine: str = "lazy"):
     """The pairing's stages one by one: ingest (host codecs to strict limbs
     on the card), prepare_g2, miller_loop (with the identity mask),
     final_exp, egress (strict limbs back to host ints)."""
@@ -666,15 +749,31 @@ def run_pairing_stages(torch, dev, ps, qs, expected, profiled: bool):
     ((p, p_inf), (q, q_inf)), summary = _stage(
         torch, lambda: (B._g1_batch(ps, dev), B._g2_batch(qs, dev)), profiled, need_device=False)
     yield "ingest", summary
-    coeffs, summary = _stage(torch, lambda: PR.prepare_g2(q), profiled)
+    coeffs, summary = _stage(torch, lambda: PR.prepare_g2(q, fuse, engine), profiled)
     yield "prepare_g2", summary
-    f, summary = _stage(torch, lambda: PR._masked_miller(p, coeffs, p_inf, q_inf), profiled)
+    f, summary = _stage(
+        torch, lambda: PR._masked_miller(p, coeffs, p_inf, q_inf, fuse, engine), profiled)
     yield "miller_loop", summary
-    f, summary = _stage(torch, lambda: PR.final_exp(f), profiled)
+    f, summary = _stage(torch, lambda: PR.final_exp(f, fuse, engine), profiled)
     yield "final_exp", summary
-    out, summary = _stage(torch, lambda: CV.fp12_from_dev(PR.egress(f)), profiled)
+    out, summary = _stage(torch, lambda: CV.fp12_from_dev(PR.egress(f, engine)), profiled,
+                          need_device=engine == "lazy")
     yield "egress", summary
     check(out == expected, "staged pairing results differ from the oracle")
+
+
+def _staged(torch, dev, ps, qs, expected, **pipeline) -> tuple:
+    """One unprofiled staged run: ({stage_ms: host ms}, {stage: launches})."""
+    summaries = dict(run_pairing_stages(torch, dev, ps, qs, expected, False, **pipeline))
+    return ({name + "_ms": v["wall_ms"] for name, v in summaries.items()},
+            {name: v["launches"] for name, v in summaries.items()})
+
+
+def _profile_totals(profiled: dict) -> dict:
+    wall = sum(v["wall_ms"] for v in profiled.values())
+    device = sum(v["device_ms"] for v in profiled.values())
+    return {"wall_ms": wall, "device_ms": device, "busy_share": device / wall,
+            "kernel_launches": sum(v["kernel_launches"] or 0 for v in profiled.values())}
 
 
 def phase_pairing(torch, dev, ps, qs, expected) -> dict:
@@ -721,7 +820,179 @@ def phase_pairing(torch, dev, ps, qs, expected) -> dict:
                        "pairings_per_s": n / dt_prep}})
     emit({"phase": "pairing_profile", "wall_ms": wall, "device_ms": device,
           "busy_share": device / wall, "stages": profiled})
+    return launches, got
+
+
+def _reset_launches() -> dict:
+    kernels = all_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    return kernels
+
+
+def phase_pairing_unfused(torch, dev, ps, qs, expected, fused) -> dict:
+    """The phase-8 instance through `Bls12.pairing_batch(..., fuse=False)`:
+    the prepare on the tower (K1), each Miller event K11 + legs (K1) + K12,
+    the exponent ladders one K3 square per bit; checked against the oracle
+    and the fused results, with launches, pairings/s, stages, a profiled
+    rerun, peak memory and the prepared path."""
+    import ark_blst_tpu_torch as T
+
+    names = ("mont_mul", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step", "fp12_sqr",
+             "fp12_mul_by_014")
+    n = len(ps)
+    T.Bls12.pairing_batch(ps, qs, fuse=False, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels = _reset_launches()
+    t0 = time.perf_counter()
+    got = T.Bls12.pairing_batch(ps, qs, fuse=False, device=dev)  # the main path
+    dt = time.perf_counter() - t0
+    launches = {name: kernels[name].launches for name in names}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    bad = sum(g != e for g, e in zip(got, expected))
+    check(len(got) == n and bad == 0, f"{bad} of {n} unfused pairings differ from the oracle")
+    check(got == fused, "unfused pairings differ from the fused ones")
+    check(launches["fp12_sqr"] == 63 and launches["fp12_mul_by_014"] == 68,
+          f"K11/K12 launches per batch: {launches}")
+    check(launches["prepare_step"] == 0 and launches["miller_step"] == 0,
+          f"the unfused path launched K5/K6: {launches}")
+    check(all(launches[k] > 0 for k in ("mont_mul", "cyc_sqr", "fp12_mul")),
+          f"a kernel of the path was not launched: {launches}")
+
+    stages, stage_launches = _staged(torch, dev, ps, qs, expected, fuse=False)
+    profiled = dict(run_pairing_stages(torch, dev, ps, qs, expected, True, fuse=False))
+
+    t0 = time.perf_counter()
+    prep = T.Bls12.prepare_g2_batch(qs, fuse=False, device=dev)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got_prep = T.Bls12.pairing_batch(ps, prep, fuse=False, device=dev)
+    dt_prep = time.perf_counter() - t0
+    check(got_prep == got, "unfused prepared pairings differ from the unprepared ones")
+
+    emit({"phase": "pairing_unfused", "n": n, "ok": True, "equal_to_fused": True,
+          "seconds": dt, "pairings_per_s": n / dt, "launches": launches, "stages": stages,
+          "stage_launches": stage_launches, "peak_mem_gib": peak_gib,
+          "prepared": {"ok": True, "prepare_s": prep_s, "seconds": dt_prep,
+                       "pairings_per_s": n / dt_prep}})
+    emit({"phase": "pairing_unfused_profile", **_profile_totals(profiled), "stages": profiled})
     return launches
+
+
+def _fp12_product(values) -> tuple:
+    from ark_blst_tpu_torch.oracle import field as OF
+
+    acc = OF.FP12_ONE
+    for v in values:
+        acc = OF.fp12_mul(acc, v)
+    return acc
+
+
+def phase_pairing_strict(torch, dev, ps, qs, expected) -> dict:
+    """The phase-8 instance through the tensor entry `pairing(...,
+    engine="strict")` on K7-K10 alone, limb for limb against the lazy
+    engine's output, with launches, stages and a profiled rerun; then
+    `multi_pairing` and `multi_miller_loop_prepared` on both engines at
+    STRICT_MULTI_N pairs."""
+    import ark_blst_tpu_torch as T
+    from ark_blst_tpu_torch import bls12 as B
+    from ark_blst_tpu_torch.curves import pairing as PR
+    from ark_blst_tpu_torch.ops import convert as CV
+    from ark_blst_tpu_torch.ops import strict_field as SF
+    from ark_blst_tpu_torch.ops import tower as TS
+
+    (p, p_inf), (q, q_inf) = B._g1_batch(ps, dev), B._g2_batch(qs, dev)
+    lazy = T.pairing(p, q, p_inf=p_inf, q_inf=q_inf, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels = _reset_launches()
+    t0 = time.perf_counter()
+    out = T.pairing(p, q, p_inf=p_inf, q_inf=q_inf, engine="strict", device=dev)  # the path
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    strict_names = {"strict_" + op for op in SF.KERNELS}
+    check(all(launches[k] > 0 for k in strict_names), f"K7-K10 not all launched: {launches}")
+    check(all(v == 0 for k, v in launches.items() if k not in strict_names),
+          f"the strict pairing launched a lazy kernel: {launches}")
+    leaves = lambda t: [x for a in t for b in a for x in b]  # noqa: E731
+    check(all(torch.equal(a, b) for a, b in zip(leaves(out), leaves(lazy))),
+          "strict pairing limbs differ from the lazy engine's")
+    check(CV.fp12_from_dev(out) == expected, "strict pairings differ from the oracle")
+
+    stages, stage_launches = _staged(torch, dev, ps, qs, expected, engine="strict")
+    profiled = dict(run_pairing_stages(torch, dev, ps, qs, expected, True, engine="strict"))
+    before = _launch_counts()
+    TS.fp12_cyclotomic_sqr(out)
+    per_cyc_sqr = {k: v - before[k] for k, v in _launch_counts().items() if v != before[k]}
+    per_event = {k: v / len(PR.MILLER_EVENTS) for k, v in stage_launches["miller_loop"].items()}
+
+    m = STRICT_MULTI_N
+    pm, qm = tuple(x[:, :m] for x in p), tuple(tuple(x[:, :m] for x in c) for c in q)
+    pim, qim = p_inf[:m], q_inf[:m]
+    want = _fp12_product(expected[:m])
+    multi = {}
+    for engine in ("lazy", "strict"):
+        t0 = time.perf_counter()
+        mp = PR.multi_pairing(pm, qm, pim, qim, engine=engine)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prep = PR.prepare_g2_device(qm, qim, engine=engine)
+        mml = PR.multi_miller_loop_prepared(pm, prep, pim)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(CV.fp12_from_dev(mp) == [want], f"{engine} multi_pairing differs from the oracle")
+        multi[engine] = {"multi_pairing_s": t1 - t0, "prepared_multi_miller_s": t2 - t1,
+                         "values": (leaves(mp), leaves(mml))}
+    for i, what in enumerate(("multi_pairing", "multi_miller_loop_prepared")):
+        check(all(torch.equal(a, b) for a, b in
+                  zip(multi["lazy"]["values"][i], multi["strict"]["values"][i])),
+              f"{what}: the engines disagree")
+    for v in multi.values():
+        del v["values"]
+
+    n = len(ps)
+    emit({"phase": "pairing_strict", "n": n, "ok": True, "equal_to_lazy": True,
+          "seconds": dt, "pairings_per_s": n / dt, "launches": launches,
+          "strict_launches": sum(launches[k] for k in strict_names), "stages": stages,
+          "stage_launches": stage_launches, "launches_per_miller_event": per_event,
+          "launches_per_cyclotomic_sqr": per_cyc_sqr, "peak_mem_gib": peak_gib, "multi": {"n": m, "engines_agree": True, **multi}})
+    emit({"phase": "pairing_strict_profile", **_profile_totals(profiled), "stages": profiled})
+    return {op: launches["strict_" + op] for op in SF.KERNELS}
+
+
+def phase_fp_inv_batch(torch, dev) -> dict:
+    """`tower_lazy.fp_inv_batch` (the log-depth tree) against `fp_inv` (the
+    per-lane Fermat ladder) at the pairing's batch: both checked against the
+    oracle's inverses and timed. A reading only: nothing calls it."""
+    import random
+
+    from ark_blst_tpu_torch.ops import convert as CV
+    from ark_blst_tpu_torch.ops import mont_mul as MM
+    from ark_blst_tpu_torch.ops import tower_lazy as TL
+    from ark_blst_tpu_torch.oracle import field as OF
+
+    rng = random.Random(SEED)
+    vals = [rng.randrange(1, OF.P) for _ in range(PAIRING_N)]
+    a = TL.fp_ingest(CV.fp_to_dev(vals).to(dev))
+    want = [pow(v, -1, OF.P) for v in vals]
+    res = {}
+    for name, fn in (("fp_inv_batch", TL.fp_inv_batch), ("fp_inv", TL.fp_inv)):
+        fn(a)  # warm-up
+        torch.cuda.synchronize()
+        MM.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        out = fn(a)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = MM.KERNEL.launches
+        check(CV.fp_from_dev(TL.fp_egress(out)) == want, f"{name} differs from the oracle")
+        res[name] = {"ms": ms, "k1_launches": launches}
+    emit({"phase": "fp_inv_batch", "n": PAIRING_N, "ok": True, **res})
+    return res
 
 
 # --- the strict engine: K7-K10 and the scan MSM ---------------------------------
@@ -973,7 +1244,7 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    sass = phase_env(torch)
+    sass, ptxas = phase_env(torch)
     k1 = phase_k1(torch, dev, sass["mont_mul.cu"])
 
     from ark_blst_tpu_torch import bls12 as B
@@ -1013,11 +1284,16 @@ def main() -> int:
     k4 = phase_k4(torch, dev, imad_per_product)
     k5 = phase_k5(torch, dev, imad_per_product, real)
     k6 = phase_k6(torch, dev, imad_per_product, real)
+    k11, k12 = phase_k11_k12(torch, dev, imad_per_product, real, ptxas)
     del real
     torch.cuda.empty_cache()
-    launches = phase_pairing(torch, dev, ps, qs, pairs_expected)
-    del ps, qs, pairs_expected
+    launches, fused = phase_pairing(torch, dev, ps, qs, pairs_expected)
+    unfused = phase_pairing_unfused(torch, dev, ps, qs, pairs_expected, fused)
     torch.cuda.empty_cache()
+    strict_pairing = phase_pairing_strict(torch, dev, ps, qs, pairs_expected)
+    del ps, qs, pairs_expected, fused
+    torch.cuda.empty_cache()
+    phase_fp_inv_batch(torch, dev)
 
     k7_k10 = phase_k7_k10(torch, dev)
     torch.cuda.empty_cache()
@@ -1034,7 +1310,8 @@ def main() -> int:
                      f"ark_blst_tpu/ops/pallas_field.py:66 ({bodies[op]})",
                      scan["g1"][op] + scan["g2"][op], k7_k10[op],
                      launches_msm_scan=scan["g1"][op], launches_msm_scan_g2=scan["g2"][op],
-                     launches_msm_naive=naive[op], fr=k7_k10[op]["fr"],
+                     launches_msm_naive=naive[op],
+                     launches_pairing_strict=strict_pairing[op], fr=k7_k10[op]["fr"],
                      broadcast=k7_k10[op]["broadcast"])
         for op in bodies]
 
@@ -1043,6 +1320,7 @@ def main() -> int:
                      msm_launches["g1"]["mont_mul"], k1,
                      launches_msm_g2=msm_launches["g2"]["mont_mul"],
                      launches_pairing=launches["mont_mul"],
+                     launches_pairing_unfused=unfused["mont_mul"],
                      at_pairing_batch=k1["at_pairing_batch"]),
         _kernel_line("bucket_accumulate", "bucket_accumulate.cu",
                      "ark_blst_tpu/curves/msm_pallas2.py:359",
@@ -1051,14 +1329,21 @@ def main() -> int:
                      "ark_blst_tpu/curves/msm_pallas2.py:359 (KC2_G2)",
                      msm_launches["g2"]["bucket_accumulate_g2"], k2s["g2"]),
         _kernel_line("cyc_sqr", "cyc_sqr.cu", "ark_blst_tpu/ops/pallas_lazy.py:149",
-                     launches["cyc_sqr"], k3),
-        _kernel_line("fp12_mul", "fp12_mul.cu", "ark_blst_tpu/ops/pallas_lazy.py:63",
-                     launches["fp12_mul"], k4),
+                     launches["cyc_sqr"], k3, launches_pairing_unfused=unfused["cyc_sqr"]),
+        _kernel_line("fp12_mul", "fp12_mul.cu",
+                     "ark_blst_tpu/ops/pallas_lazy.py:63 (ops/tower_lazy.py:567 mul12)",
+                     launches["fp12_mul"], k4, launches_pairing_unfused=unfused["fp12_mul"]),
         _kernel_line("prepare_step", "prepare_step.cu", "ark_blst_tpu/ops/pallas_lazy.py:63",
                      launches["prepare_step"], k5),
         _kernel_line("miller_step", "miller_step.cu", "ark_blst_tpu/ops/pallas_lazy.py:63",
                      launches["miller_step"], k6),
         *strict_lines,
+        _kernel_line("fp12_sqr", "fp12_sqr.cu",
+                     "ark_blst_tpu/ops/pallas_lazy.py:63 (ops/tower_lazy.py:570 sqr12)",
+                     unfused["fp12_sqr"], k11),
+        _kernel_line("fp12_mul_by_014", "fp12_mul_by_014.cu",
+                     "ark_blst_tpu/ops/pallas_lazy.py:63 (ops/tower_lazy.py:573 mul_by_014)",
+                     unfused["fp12_mul_by_014"], k12),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -13,6 +13,8 @@ from ark_blst_tpu_torch.curves import msm_bucket as MB
 from ark_blst_tpu_torch.curves import pairing_steps as PS
 from ark_blst_tpu_torch.ops import cyc_sqr as K3
 from ark_blst_tpu_torch.ops import fp12_mul as K4
+from ark_blst_tpu_torch.ops import fp12_mul_by_014 as K12
+from ark_blst_tpu_torch.ops import fp12_sqr as K11
 from ark_blst_tpu_torch.ops import lazy13 as LZ
 from ark_blst_tpu_torch.ops import mont_mul as MM
 from ark_blst_tpu_torch.ops import strict_field as SF
@@ -64,9 +66,9 @@ def test_strict_header_constants(name, spec):
 @pytest.mark.parametrize(
     "kernel",
     [MM.KERNEL, MB.KERNEL, K3.KERNEL, K4.KERNEL, PS.PREPARE_KERNEL, PS.MILLER_KERNEL,
-     MB.KERNEL_G2, *SF.KERNELS.values()],
+     MB.KERNEL_G2, *SF.KERNELS.values(), K11.KERNEL, K12.KERNEL],
     ids=["mont_mul", "bucket", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step",
-         "bucket_g2", *("strict_" + op for op in SF.KERNELS)])
+         "bucket_g2", *("strict_" + op for op in SF.KERNELS), "fp12_sqr", "fp12_mul_by_014"])
 def test_kernel_sources_export_their_entry(kernel):
     src = (KC.CSRC_DIR / kernel.source).read_text()
     assert re.search(rf'extern "C" int {kernel.symbol}\(', src)
@@ -77,14 +79,15 @@ def test_kernel_sources_export_their_entry(kernel):
 
 
 @pytest.mark.parametrize("bad", ["rows", "digits_or_batch", "dtype", "device"])
-@pytest.mark.parametrize("kernel", ["cyc_sqr", "fp12_mul", "prepare_step", "miller_step"])
+@pytest.mark.parametrize("kernel", ["cyc_sqr", "fp12_mul", "prepare_step", "miller_step",
+                                    "fp12_sqr", "fp12_mul_by_014"])
 def test_tower_wrappers_reject_what_the_kernels_do_not_take(kernel, bad):
     """Only (rows, 30, N) int32 stacks on one device reach a tower kernel,
     and only CPU tensors take the plain version: a meta tensor raises."""
     import torch
 
     rows = {"cyc_sqr": [12], "fp12_mul": [12, 12], "prepare_step": [6, 4],
-            "miller_step": [12, 6, 2]}[kernel]
+            "miller_step": [12, 6, 2], "fp12_sqr": [12], "fp12_mul_by_014": [12, 6]}[kernel]
     ops = [torch.zeros((r, 30, 4), dtype=torch.int32) for r in rows]
     if bad == "rows":
         ops[-1] = torch.zeros((rows[-1] + 1, 30, 4), dtype=torch.int32)
@@ -98,7 +101,9 @@ def test_tower_wrappers_reject_what_the_kernels_do_not_take(kernel, bad):
     call = {"cyc_sqr": lambda: K3.cyc_sqr(ops[0], 1),
             "fp12_mul": lambda: K4.fp12_mul(*ops),
             "prepare_step": lambda: PS.prepare_step(*ops),
-            "miller_step": lambda: PS.miller_step(*ops, True)}[kernel]
+            "miller_step": lambda: PS.miller_step(*ops, True),
+            "fp12_sqr": lambda: K11.fp12_sqr(ops[0]),
+            "fp12_mul_by_014": lambda: K12.fp12_mul_by_014(*ops)}[kernel]
     with pytest.raises(ValueError):
         call()
 
@@ -139,3 +144,15 @@ def test_build_all_starts_one_nvcc_per_source(monkeypatch):
     owners = KC.build_all([MM.KERNEL, *SF.KERNELS.values()])
     assert sorted(k.source for k in owners) == ["mont_mul.cu", "strict_field.cu"]
     assert started == owners
+
+
+def test_every_kernel_source_is_built_once(monkeypatch):
+    """The ten kernel sources of the port, one nvcc each: every `csrc/*.cu`
+    belongs to a kernel, and the tower kernels K11/K12 have their own."""
+    started = []
+    monkeypatch.setattr(KC.CudaKernel, "start_build", lambda self: started.append(self) or None)
+    kernels = [MM.KERNEL, MB.KERNEL, MB.KERNEL_G2, K3.KERNEL, K4.KERNEL, PS.PREPARE_KERNEL,
+               PS.MILLER_KERNEL, *SF.KERNELS.values(), K11.KERNEL, K12.KERNEL]
+    owners = KC.build_all(kernels)
+    assert sorted(k.source for k in owners) == sorted(p.name for p in KC.CSRC_DIR.glob("*.cu"))
+    assert len(owners) == 10 and started == owners

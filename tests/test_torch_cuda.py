@@ -1,6 +1,6 @@
 """The CUDA kernels on the card against their plain PyTorch versions, and the
-G1 and G2 MSMs, the strict engine's scan MSM and the batched pairing on the
-card against the host oracle.
+G1 and G2 MSMs, the strict engine's scan MSM and the batched pairing (fused,
+unfused and strict) on the card against the host oracle.
 Needs an NVIDIA Hopper card and
 nvcc; skipped without a card. Imports no JAX, so it runs on a machine
 without it:
@@ -21,6 +21,8 @@ from ark_blst_tpu_torch.curves import msm_bucket as MB
 from ark_blst_tpu_torch.curves import pairing_steps as PS
 from ark_blst_tpu_torch.ops import cyc_sqr as K3
 from ark_blst_tpu_torch.ops import fp12_mul as K4
+from ark_blst_tpu_torch.ops import fp12_mul_by_014 as K12
+from ark_blst_tpu_torch.ops import fp12_sqr as K11
 from ark_blst_tpu_torch.ops import lazy13 as LZ
 from ark_blst_tpu_torch.ops import mont_mul as MM
 from ark_blst_tpu_torch.ops import convert as CV
@@ -174,6 +176,50 @@ def test_k6_bit_equal_to_plain(dev, with_sqr):
     f, c, pxy = _stack(rng, 12, 1024, dev), _stack(rng, 6, 1024, dev), _stack(rng, 2, 1024, dev)
     got = _launched_once(PS.MILLER_KERNEL, lambda: PS.miller_step(f, c, pxy, with_sqr))
     assert torch.equal(got, PS.miller_step_plain(f, c, pxy, with_sqr))
+
+
+def test_k11_bit_equal_to_plain(dev):
+    a = _stack(np.random.default_rng(15), 12, 1024, dev)
+    got = _launched_once(K11.KERNEL, lambda: K11.fp12_sqr(a))
+    assert torch.equal(got, K11.fp12_sqr_plain(a))
+
+
+def test_k12_bit_equal_to_plain(dev):
+    rng = np.random.default_rng(16)
+    f, c = _stack(rng, 12, 1024, dev), _stack(rng, 6, 1024, dev)
+    got = _launched_once(K12.KERNEL, lambda: K12.fp12_mul_by_014(f, c))
+    assert torch.equal(got, K12.fp12_mul_by_014_plain(f, c))
+
+
+def test_unfused_and_strict_pairing_on_card_match_fused(dev):
+    """32 pairs with an identity on each side: the unfused pipeline (K11,
+    K12, no K5/K6) and the strict engine (K7-K10 alone) give the fused
+    path's results."""
+    rng = random.Random(17)
+    ps = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    qs = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    pb = [ps[i % 4] for i in range(32)]
+    qb = [qs[(i + 1) % 4] for i in range(32)]
+    pb[3], qb[4] = None, None
+    fused = Bls12.pairing_batch(pb, qb, device=dev)
+    assert fused[5] == OP.pairing(ps[1], qs[2]) and fused[3] == fused[4] == OF.FP12_ONE
+    tower = (PS.PREPARE_KERNEL, PS.MILLER_KERNEL, K11.KERNEL, K12.KERNEL)
+    before = [k.launches for k in tower]
+    assert Bls12.pairing_batch(pb, qb, fuse=False, device=dev) == fused
+    assert [k.launches - b for k, b in zip(tower, before)] == [0, 0, 63, 68]
+
+    from ark_blst_tpu_torch import bls12 as B
+
+    (p, p_inf), (q, q_inf) = B._g1_batch(pb, dev), B._g2_batch(qb, dev)
+    lazy = T.pairing(p, q, p_inf=p_inf, q_inf=q_inf, device=dev)
+    lazy_kernels = (MM.KERNEL, K3.KERNEL, K4.KERNEL) + tower
+    before = [k.launches for k in lazy_kernels] + [SF.KERNELS["mont_mul"].launches]
+    strict = T.pairing(p, q, p_inf=p_inf, q_inf=q_inf, engine="strict", device=dev)
+    torch.cuda.synchronize()
+    after = [k.launches for k in lazy_kernels] + [SF.KERNELS["mont_mul"].launches]
+    assert after[:-1] == before[:-1] and after[-1] > before[-1]
+    flat = lambda t: [x for a in t for b in a for x in b]  # noqa: E731
+    assert all(torch.equal(a, b) for a, b in zip(flat(strict), flat(lazy)))
 
 
 def test_pairing_on_card_matches_oracle(dev):

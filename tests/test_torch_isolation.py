@@ -34,7 +34,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         assert "ark_blst_tpu_torch.curves.instance" in names, names
         assert "ark_blst_tpu_torch.curves.pairing" in names, names
         for mod in ("ops.strict_field", "ops.dispatch", "ops.tower", "curves.group",
-                    "curves.msm"):
+                    "curves.msm", "ops.fp12_sqr", "ops.fp12_mul_by_014",
+                    "curves.pairing_steps"):
             assert "ark_blst_tpu_torch." + mod in names, names
     """)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -43,7 +44,9 @@ def test_port_imports_no_jax_and_no_jax_package():
 @pytest.mark.parametrize("entry", ["msm_g1", "G1.msm", "pairing", "Bls12.pairing_batch",
                                    "Bls12.prepare_g2_batch", "Bls12.multi_pairing",
                                    "msm_g2", "G2.msm", "curves.msm.msm",
-                                   "curves.msm.msm_naive"])
+                                   "curves.msm.msm_naive", "pairing[strict]",
+                                   "Bls12.pairing_batch[unfused]",
+                                   "Bls12.prepare_g2_batch[unfused]"])
 def test_cuda_without_a_card_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present; this checks the behaviour without one")
@@ -65,6 +68,10 @@ def test_cuda_without_a_card_raises(entry):
         "G2.msm": lambda: T.G2.msm([G2_GEN], [3]),
         "curves.msm.msm": lambda: M.msm(CV.g1_to_dev([G1_GEN]), CV.fr_to_dev([3])),
         "curves.msm.msm_naive": lambda: M.msm_naive(CV.g1_to_dev([G1_GEN]), CV.fr_to_dev([3])),
+        "pairing[strict]": lambda: T.pairing(p, q, engine="strict"),
+        "Bls12.pairing_batch[unfused]": lambda: T.Bls12.pairing_batch([G1_GEN], [G2_GEN],
+                                                                       fuse=False),
+        "Bls12.prepare_g2_batch[unfused]": lambda: T.Bls12.prepare_g2_batch([G2_GEN], fuse=False),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

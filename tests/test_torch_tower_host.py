@@ -1,7 +1,7 @@
-"""The CUDA code of K2-K6 compiled for the CPU with the host C++ compiler and
-undefined-behaviour checks, against the kernels' plain PyTorch versions,
-bit for bit: the tower (csrc/tower13.cuh, K3-K6) and the MSM bucket
-addition (csrc/group13.cuh, K2 over Fp and Fp2).
+"""The CUDA code of K2-K6, K11 and K12 compiled for the CPU with the host C++
+compiler and undefined-behaviour checks, against the kernels' plain
+PyTorch versions, bit for bit: the tower (csrc/tower13.cuh, K3-K6, K11,
+K12) and the MSM bucket addition (csrc/group13.cuh, K2 over Fp and Fp2).
 
 The headers compile as plain C++ when __CUDACC__ is not defined; a small
 harness runs each kernel's per-element body over a batch. Built with
@@ -29,6 +29,8 @@ from ark_blst_tpu_torch.curves.instance import distinct_bases
 from ark_blst_tpu_torch.ops import convert as CV
 from ark_blst_tpu_torch.ops import cyc_sqr as K3
 from ark_blst_tpu_torch.ops import fp12_mul as K4
+from ark_blst_tpu_torch.ops import fp12_mul_by_014 as K12
+from ark_blst_tpu_torch.ops import fp12_sqr as K11
 from ark_blst_tpu_torch.ops import lazy13 as LZ
 from ark_blst_tpu_torch.ops import tower_lazy as TL
 from ark_blst_tpu_torch.oracle import curve as OC
@@ -49,7 +51,8 @@ HARNESS = r"""
 // digits, result (3 or 6, 30, n) before the store. Ops 7/8: the G1/G2
 // bucket accumulation of W = p1 windows, B = p2 buckets, S = 1024 streams:
 // points (aff_rows, n), digits (W, n), identity (pt_rows), result the dump
-// (W, B, pt_rows, S).
+// (W, B, pt_rows, S). Ops 9/10: K11 (fp12 square) and K12 (the sparse line
+// product), result (12, 30, n).
 template <int NC>
 void mixed_add_batch(const int* x, int* out, long long n) {
   const long long plane = 30 * n;
@@ -69,12 +72,13 @@ int main() {
   long long hdr[4];
   if (fread(hdr, sizeof(long long), 4, stdin) != 4) return 2;
   const long long op = hdr[0], n = hdr[1], param = hdr[2], B = hdr[3];
-  if (op < 0 || op > 8) return 2;
+  if (op < 0 || op > 10) return 2;
+  const bool tower = op <= 4 || op >= 9;
   const long long plane = 30 * n, S = 1024;
   const int nc = op == 7 ? 1 : 2;  // ops 7/8
   size_t in_size, out_size;
-  if (op <= 4) {
-    static const int in_rows[] = {12, 24, 6, 10, 20};
+  if (tower) {
+    static const int in_rows[] = {12, 24, 6, 10, 20, 0, 0, 0, 0, 12, 18};
     in_size = in_rows[op] * plane;
     out_size = 12 * plane;
   } else if (op <= 6) {
@@ -98,8 +102,10 @@ int main() {
         else gp::accumulate_stream<2>(x, digs, ident, out.data(), n, B, S, w, s);
       }
   }
-  for (long long i = 0; op <= 4 && i < n; ++i) {
+  for (long long i = 0; tower && i < n; ++i) {
     switch (op) {
+      case 9: tw::fp12_sqr_elem(x, out.data(), n, i); break;
+      case 10: tw::fp12_mul_by_014_elem(x, x + 12 * plane, out.data(), n, i); break;
       case 0: tw::cyc_sqr_elem(x, out.data(), n, i, static_cast<int>(param)); break;
       case 1: tw::fp12_mul_elem(x, x + 12 * plane, out.data(), n, i); break;
       case 2: tw::prepare_step_elem(x, nullptr, out.data(), n, i, 0); break;
@@ -170,7 +176,8 @@ def digit_stacks(seed, *rows):
 
 def real_inputs():
     """Event operands as the pipeline gives them (P, Q ingested, R after
-    two doublings, f after two Miller events)."""
+    two doublings, f after two Miller events, the third event's line and P,
+    and that line scaled by P as K12 takes it)."""
     rng = np.random.default_rng(5)
     ks = [int(rng.integers(1, 1 << 62)) for _ in range(2 * N)]
     ps = [OC.scalar_mul(OF.G1_GEN, k) for k in ks[:N]]
@@ -187,7 +194,9 @@ def real_inputs():
     fs = TL.stack12(PR._fp12_one_like(pxy[0]))
     for i in range(2):
         fs = PS.miller_step(fs, coeffs[i], pxy, True)
-    return rs, torch.stack([qx[0], qx[1], qy[0], qy[1]]), fs, coeffs[2], pxy
+    a0, a1, a4 = PS._ell_legs(TL, PR._line(coeffs[2]), pxy[0], pxy[1])
+    legs = torch.stack([a0[0], a0[1], a1[0], a1[1], a4[0], a4[1]])
+    return rs, torch.stack([qx[0], qx[1], qy[0], qy[1]]), fs, coeffs[2], pxy, legs
 
 
 @pytest.mark.parametrize("nsq", [1, max(r for r, _ in PR._X_SEGMENTS)])
@@ -214,9 +223,25 @@ def test_prepare_step_host(harness, is_add, source):
 @pytest.mark.parametrize("source", ["random", "pipeline"])
 @pytest.mark.parametrize("with_sqr", [False, True])
 def test_miller_step_host(harness, with_sqr, source):
-    f, c, pxy = digit_stacks(4, 12, 6, 2) if source == "random" else real_inputs()[2:]
+    f, c, pxy = digit_stacks(4, 12, 6, 2) if source == "random" else real_inputs()[2:5]
     got = run(harness, 4, int(with_sqr), f, c, pxy)
     assert torch.equal(got, PS.miller_step_plain(f, c, pxy, with_sqr))
+
+
+@pytest.mark.parametrize("source", ["random", "pipeline"])
+def test_fp12_sqr_host(harness, source):
+    (f,) = digit_stacks(9, 12) if source == "random" else real_inputs()[2:3]
+    assert torch.equal(run(harness, 9, 0, f), K11.fp12_sqr_plain(f))
+
+
+@pytest.mark.parametrize("source", ["random", "pipeline"])
+def test_fp12_mul_by_014_host(harness, source):
+    if source == "random":
+        f, c = digit_stacks(10, 12, 6)
+    else:
+        inputs = real_inputs()
+        f, c = K11.fp12_sqr_plain(inputs[2]), inputs[5]
+    assert torch.equal(run(harness, 10, 0, f, c), K12.fp12_mul_by_014_plain(f, c))
 
 
 # --- K2: the bucket addition over Fp and Fp2 (csrc/group13.cuh) --------------
