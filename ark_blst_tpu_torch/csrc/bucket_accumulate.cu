@@ -23,7 +23,7 @@
 // across a warp (neighbouring streams); bucket reads and writes are
 // scattered by digit. The mixed addition keeps its operands in registers
 // and spills the rest to local memory. The per-thread body and the
-// addition are in group13.cuh, shared with the G2 kernel.
+// addition are in group13.cuh.
 #include "group13.cuh"
 
 namespace {
@@ -33,7 +33,7 @@ __global__ void __launch_bounds__(64) bucket_accumulate_kernel(
     int* __restrict__ dump, long long n, int W, int B, int S) {
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= static_cast<long long>(W) * S) return;
-  gp::accumulate_stream<1>(pts, digs, ident, dump, n, B, S, static_cast<int>(idx / S),
+  gp::accumulate_stream(pts, digs, ident, dump, n, B, S, static_cast<int>(idx / S),
                            static_cast<int>(idx % S));
 }
 

@@ -4,7 +4,9 @@ Each kernel is one `csrc/*.cu` file with a plain C entry point that launches
 on the given stream and returns `cudaGetLastError()`. It is compiled for
 sm_90a at first use into `build/kernels/` beside the package (a directory
 git ignores), under a name that hashes the sources and flags, so an edit
-rebuilds and an unchanged tree reuses the library.
+rebuilds and an unchanged tree reuses the library. The nvcc/ptxas output of
+each build is kept beside its library (`.log`), so a process that reuses the
+library still reads its registers, stack and spills.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
-        self.build_log = ""  # nvcc/ptxas output of a build made by this process
+        self.build_log = ""  # nvcc/ptxas output of the library's build, once built
         self._fn = None
         self._lib = None
         self._lock = threading.Lock()
@@ -57,10 +59,16 @@ class CudaKernel:
             h.update(f.read_bytes())
         return BUILD_DIR / f"{Path(self.source).stem}-{h.hexdigest()[:12]}.so"
 
+    @property
+    def log_path(self) -> Path:
+        return self.lib_path.with_suffix(".log")
+
     def start_build(self):
-        """Start nvcc for this kernel unless its library exists; returns the
-        process (or None) for `finish_build`."""
-        if self.lib_path.exists():
+        """Start nvcc for this kernel unless its library and build log exist
+        (then read the log); returns the process (or None) for
+        `finish_build`."""
+        if self.lib_path.exists() and self.log_path.exists():
+            self.build_log = self.log_path.read_text()
             return None
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -78,6 +86,9 @@ class CudaKernel:
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed for {self.source}:\n{log}")
+        tmp_log = tmp.with_suffix(".log")
+        tmp_log.write_text(log)
+        os.replace(tmp_log, self.log_path)
         os.replace(tmp, self.lib_path)
 
     def build(self) -> None:

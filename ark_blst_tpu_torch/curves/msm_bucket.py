@@ -17,7 +17,9 @@ points:
    `csrc/bucket_accumulate_g2.cu` for G2): each of the S = 1024 streams
    (point n belongs to stream n mod S) adds its points into its own
    B = 2^(c-1)+1 signed buckets per window -> packed dump
-   `(W, B, pt_rows, S)`.
+   `(W, B, pt_rows, S)`. K2-G2 computes on 32-bit Montgomery words
+   (`g2_point_words` converts the points first, on `KERNEL_G2_WORDS`) and
+   writes the same values as the plain version in other redundant digits.
 3. `_reduce_dump`: fold the S streams (a sequential pass over 64 groups,
    then a tree over 16), then the bucket suffix sums -> lazy window sums.
 4. `_finish_host`: window sums to canonical ints, Horner on the host.
@@ -56,6 +58,7 @@ STREAMS = 1024  # point streams per window (the TPU kernel's 8 x 128 tile)
 SCAN_CHUNK = 64  # sequential steps of the stream fold (the JAX TPU path's)
 
 BIAS = 4129  # balanced digits in [-4129, 4128] -> packed [0, 8257]
+FP_ROWS = LZ.ELEM // 2  # packed rows of one Fp component
 SIGN_BIT = 15
 MAG_MASK = (1 << SIGN_BIT) - 1
 
@@ -113,10 +116,15 @@ def _tree_map(fn, pt):
 
 # --- K2: the bucket kernels ---------------------------------------------------
 
-_ACCUMULATE_ARGS = [ctypes.c_void_p] * 4 + [
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-KERNEL = CudaKernel("bucket_accumulate.cu", "msm_bucket_accumulate", _ACCUMULATE_ARGS)
-KERNEL_G2 = CudaKernel("bucket_accumulate_g2.cu", "msm_bucket_accumulate_g2", _ACCUMULATE_ARGS)
+_SIZES = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+KERNEL = CudaKernel("bucket_accumulate.cu", "msm_bucket_accumulate",
+                    [ctypes.c_void_p] * 4 + _SIZES)
+KERNEL_G2 = CudaKernel("bucket_accumulate_g2.cu", "msm_bucket_accumulate_g2",
+                       [ctypes.c_void_p] * 3 + _SIZES)
+# K2-G2's first step, in the same library: the points to 32-bit words
+KERNEL_G2_WORDS = CudaKernel("bucket_accumulate_g2.cu", "msm_g2_point_words",
+                             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                              ctypes.c_void_p])
 
 
 # --- per-curve kernel layout (the JAX package's KernelCurve2) -----------------
@@ -251,10 +259,48 @@ def accumulate_plain(kc: KernelCurve2, pts: torch.Tensor, digs: torch.Tensor,
     return dump
 
 
+def _words32(limbs16: torch.Tensor) -> torch.Tensor:
+    """(..., 24, n) 16-bit limbs -> (..., 12, n) 32-bit words (limb pairs),
+    as int32 with the same bits."""
+    w = limbs16[..., 0::2, :].long() | (limbs16[..., 1::2, :].long() << 16)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def g2_point_words_plain(pts: torch.Tensor) -> torch.Tensor:
+    """(60, n) packed lazy affine G2 rows -> (48, n) int32 words: each of
+    x re, x im, y re, y im as the 12 words of its canonical Montgomery-R16
+    value (`_to_strict_stacked`'s limbs, pairs packed). The plain version
+    of `KERNEL_G2_WORDS`."""
+    strict = _to_strict_stacked(KC2_G2, KC2_G2.rows_to_affine(pts))
+    return _words32(strict).reshape(48, pts.shape[1])
+
+
+def g2_point_words(pts: torch.Tensor) -> torch.Tensor:
+    """K2-G2's first step, (60, n) packed rows -> (48, n) words:
+    `KERNEL_G2_WORDS` (csrc/group381.cuh:rows_to_words) for a CUDA tensor,
+    the plain version for a CPU tensor. Canonical words are unique, so both
+    give the same bits."""
+    if pts.dtype != torch.int32 or pts.dim() != 2 or pts.shape[0] != KC2_G2.aff_rows:
+        raise ValueError(f"g2_point_words wants ({KC2_G2.aff_rows}, n) int32 rows")
+    if pts.device.type == "cpu":
+        return g2_point_words_plain(pts)
+    if not (pts.is_cuda and pts.is_contiguous()):
+        raise ValueError(f"g2_point_words wants contiguous CUDA or CPU rows, got {pts.device}")
+    n = pts.shape[1]
+    words = torch.empty((48, n), dtype=torch.int32, device=pts.device)
+    with torch.cuda.device(pts.device):
+        KERNEL_G2_WORDS.launch(pts.data_ptr(), words.data_ptr(), n,
+                               torch.cuda.current_stream(pts.device).cuda_stream)
+    return words
+
+
 def accumulate(kc: KernelCurve2, pts: torch.Tensor, digs: torch.Tensor, c: int) -> torch.Tensor:
     """pts (aff_rows, n) packed affine points, digs (W, n) signed digits ->
     dump (W, B, pt_rows, S): the curve's CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors. K2 (G1) gives the plain version's digits;
+    K2-G2 runs on the points' 32-bit words (`g2_point_words`) and gives the
+    plain version's values in other redundant digits (compare with
+    `dump_values`)."""
     _check_accumulate_args(kc, pts, digs)
     if pts.device.type == "cpu" and digs.device.type == "cpu":
         return accumulate_plain(kc, pts, digs, c)
@@ -264,13 +310,31 @@ def accumulate(kc: KernelCurve2, pts: torch.Tensor, digs: torch.Tensor, c: int) 
         raise ValueError("accumulate wants contiguous operands")
     W, n = digs.shape
     B = _num_buckets(c)
-    ident = torch.from_numpy(kc.identity_rows()).to(pts.device)
     dump = torch.empty((W, B, kc.pt_rows, STREAMS), dtype=torch.int32, device=pts.device)
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream(pts.device).cuda_stream
-        kc.kernel.launch(pts.data_ptr(), digs.data_ptr(), ident.data_ptr(), dump.data_ptr(),
-                         n, W, B, STREAMS, stream)
+        if kc.is_g2:
+            words = g2_point_words(pts)
+            kc.kernel.launch(words.data_ptr(), digs.data_ptr(), dump.data_ptr(),
+                             n, W, B, STREAMS, stream)
+        else:
+            ident = torch.from_numpy(kc.identity_rows()).to(pts.device)
+            kc.kernel.launch(pts.data_ptr(), digs.data_ptr(), ident.data_ptr(),
+                             dump.data_ptr(), n, W, B, STREAMS, stream)
     return dump
+
+
+def max_dump_digit(dump: torch.Tensor) -> int:
+    """The largest |digit| in a packed dump (two biased digits a word)."""
+    return int(max(((dump & 0xFFFF) - BIAS).abs().max(), ((dump >> 16) - BIAS).abs().max()))
+
+
+def dump_values(kc: KernelCurve2, dump: torch.Tensor) -> torch.Tensor:
+    """(W, B, pt_rows, S) packed dump -> (n_fp, 30, W, B, S) canonical R13
+    digits of every bucket component: equal for two dumps that hold the same
+    field elements, whatever their redundant digits."""
+    comps = dump.permute(2, 0, 1, 3).split(FP_ROWS)
+    return torch.stack([LZ.canonicalize(unpack15(rows)) for rows in comps])
 
 
 # --- prepare: strict projective points -> kernel layout ----------------------

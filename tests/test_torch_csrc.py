@@ -1,5 +1,6 @@
 """The CUDA sources against the Python engines they mirror: the constants
-compiled into csrc/lazy13.cuh and csrc/strict16.cuh, the kernels' C entry
+compiled into csrc/lazy13.cuh and csrc/strict16.cuh (csrc/fp381.cuh's in
+tests/test_torch_fp381_host.py), the kernels' C entry
 points and build flags, and the parallel build's one nvcc per source.
 (The kernels themselves compile and run only on the card:
 tests/test_torch_cuda.py.)"""
@@ -66,14 +67,16 @@ def test_strict_header_constants(name, spec):
 @pytest.mark.parametrize(
     "kernel",
     [MM.KERNEL, MB.KERNEL, K3.KERNEL, K4.KERNEL, PS.PREPARE_KERNEL, PS.MILLER_KERNEL,
-     MB.KERNEL_G2, *SF.KERNELS.values(), K11.KERNEL, K12.KERNEL],
+     MB.KERNEL_G2, MB.KERNEL_G2_WORDS, *SF.KERNELS.values(), K11.KERNEL, K12.KERNEL],
     ids=["mont_mul", "bucket", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step",
-         "bucket_g2", *("strict_" + op for op in SF.KERNELS), "fp12_sqr", "fp12_mul_by_014"])
+         "bucket_g2", "g2_point_words", *("strict_" + op for op in SF.KERNELS), "fp12_sqr",
+         "fp12_mul_by_014"])
 def test_kernel_sources_export_their_entry(kernel):
     src = (KC.CSRC_DIR / kernel.source).read_text()
     assert re.search(rf'extern "C" int {kernel.symbol}\(', src)
     assert any(f'#include "{h}"' in src
-               for h in ("lazy13.cuh", "tower13.cuh", "group13.cuh", "strict16.cuh"))
+               for h in ("lazy13.cuh", "tower13.cuh", "group13.cuh", "group381.cuh",
+                         "strict16.cuh"))
     assert kernel.lib_path.parent == KC.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in KC.NVCC_FLAGS
 
@@ -156,3 +159,38 @@ def test_every_kernel_source_is_built_once(monkeypatch):
     owners = KC.build_all(kernels)
     assert sorted(k.source for k in owners) == sorted(p.name for p in KC.CSRC_DIR.glob("*.cu"))
     assert len(owners) == 10 and started == owners
+
+
+def test_cached_build_keeps_its_ptxas_log(monkeypatch, tmp_path):
+    """A process that finds a kernel's library already built still reads the
+    ptxas report of its build (registers, stack, spills), from the log kept
+    beside the library, and starts no nvcc; a library without its log is
+    rebuilt. A stand-in nvcc writes the library and a ptxas line."""
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f"echo run >> {calls}\n"
+        'while [ "$1" != "-o" ]; do shift; done\n'
+        'echo lib > "$2"\n'
+        "echo \"ptxas info    : Used 128 registers, used 0 barriers, 64 bytes cumulative"
+        " stack size\"\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(KC, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(KC, "BUILD_DIR", tmp_path / "kernels")
+
+    first = KC.CudaKernel("mont_mul.cu", "lz_mont_mul", [])
+    (owner,) = KC.build_all([first])
+    assert "Used 128 registers" in owner.build_log
+    assert owner.lib_path.exists() and owner.log_path.exists()
+
+    again = KC.CudaKernel("mont_mul.cu", "lz_mont_mul", [])
+    (owner,) = KC.build_all([again])
+    assert owner.build_log == first.build_log
+    assert calls.read_text().count("run") == 1
+
+    again.log_path.unlink()
+    rebuilt = KC.CudaKernel("mont_mul.cu", "lz_mont_mul", [])
+    rebuilt.build()
+    assert "Used 128 registers" in rebuilt.build_log
+    assert calls.read_text().count("run") == 2

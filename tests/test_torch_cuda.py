@@ -19,6 +19,7 @@ from ark_blst_tpu_torch import G1, G2, Bls12
 from ark_blst_tpu_torch.curves import msm as M
 from ark_blst_tpu_torch.curves import msm_bucket as MB
 from ark_blst_tpu_torch.curves import pairing_steps as PS
+from ark_blst_tpu_torch.curves.instance import distinct_bases
 from ark_blst_tpu_torch.ops import cyc_sqr as K3
 from ark_blst_tpu_torch.ops import fp12_mul as K4
 from ark_blst_tpu_torch.ops import fp12_mul_by_014 as K12
@@ -92,20 +93,20 @@ def test_msm_on_card_matches_oracle(dev):
 
 
 def test_k2_g2_bucket_equal_to_plain(dev):
-    rng = np.random.default_rng(12)
-    n, c = 2048, 4
-    W, B = MB._num_windows(c), MB._num_buckets(c)
-    d = rng.integers(-4096, 4096, (4, 30, n)).astype(np.int32)
-    pts = torch.cat([MB.pack30(torch.from_numpy(x)) for x in d])
-    mag = rng.integers(0, B, (W, n))
-    sign = rng.integers(0, 2, (W, n))
-    digs = torch.from_numpy((mag | (sign << 15)).astype(np.int32))
-    pts, digs = pts.to(dev).contiguous(), digs.to(dev)
-    before = MB.KERNEL_G2.launches
+    """K2-G2 against its plain versions on 2048 real points at c = 4: the
+    point conversion bit for bit, the bucket kernel (32-bit Montgomery
+    words) against the radix-13 digits by value, bucket for bucket."""
+    c = 4
+    points, scalars, _ = distinct_bases(11, 12, dev, "g2")
+    pts, digs = MB._prepare_inputs(MB.KC2_G2, points, scalars, c)
+    assert torch.equal(MB.g2_point_words(pts), MB.g2_point_words_plain(pts))
+    before = (MB.KERNEL_G2_WORDS.launches, MB.KERNEL_G2.launches)
     got = MB.accumulate(MB.KC2_G2, pts, digs, c)
     torch.cuda.synchronize()
-    assert MB.KERNEL_G2.launches == before + 1
-    assert torch.equal(got, MB.accumulate_plain(MB.KC2_G2, pts, digs, c))
+    assert (MB.KERNEL_G2_WORDS.launches, MB.KERNEL_G2.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    want = MB.accumulate_plain(MB.KC2_G2, pts, digs, c)
+    assert torch.equal(MB.dump_values(MB.KC2_G2, got), MB.dump_values(MB.KC2_G2, want))
 
 
 def test_g2_msm_on_card_matches_oracle(dev):
@@ -236,6 +237,17 @@ def test_pairing_on_card_matches_oracle(dev):
     want = {i: OP.pairing(ps[i], qs[(3 * i + 1) % 4]) for i in range(4)}
     for i, g in enumerate(got):
         assert g == (OF.FP12_ONE if i in (5, 6) else want[i % 4]), i
+
+
+def test_prepared_pairing_with_default_devices(dev):
+    """`prepare_g2_batch` and `pairing_batch` with their default device
+    ("cuda", no index) work together and equal the oracle."""
+    rng = random.Random(18)
+    ps = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    qs = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    prep = Bls12.prepare_g2_batch(qs)
+    assert prep.stacked.is_cuda
+    assert Bls12.pairing_batch(ps, prep) == [OP.pairing(p, q) for p, q in zip(ps, qs)]
 
 
 def _strict_stack(rng, spec, n, dev):

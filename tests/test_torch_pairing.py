@@ -167,6 +167,18 @@ def test_prepared_equals_unprepared():
     assert got[0] == JOP.pairing(PS4[1], QS4[0]) and got[2] == OF.FP12_ONE
 
 
+@pytest.mark.parametrize("prep_dev,pair_dev", [("cpu:0", "cpu:0"), ("cpu:0", "cpu"),
+                                               ("cpu", "cpu:0")])
+def test_prepared_on_an_indexed_device(prep_dev, pair_dev):
+    """A prepared batch made on one spelling of a device pairs on another:
+    `resolve_device` normalizes both as a tensor's `.device` reads."""
+    assert T.resolve_device(prep_dev) == T.resolve_device(pair_dev) == torch.device("cpu")
+    prep = T.Bls12.prepare_g2_batch(QS4[:2], device=prep_dev)
+    ps = [PS4[2], None]
+    got = T.Bls12.pairing_batch(ps, prep, device=pair_dev)
+    assert got == [JOP.pairing(PS4[2], QS4[0]), OF.FP12_ONE]
+
+
 def test_multi_pairing_matches_oracle_product():
     ps, qs = [PS4[0], PS4[1], None], [QS4[0], QS4[1], QS4[2]]
     want = JOP.final_exp(JOP.multi_miller_loop(list(zip(ps, qs))))
