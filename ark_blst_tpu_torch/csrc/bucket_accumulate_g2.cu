@@ -19,7 +19,7 @@
 // of digit and 576 bytes of bucket traffic.
 //
 // Design: one thread per (window, stream) looping over the stream's points,
-// as the G1 kernel (bucket_accumulate.cu). The field is the 32-bit
+// as the G1 kernel (bucket_accumulate.cu), on the same group code. The field is the 32-bit
 // Montgomery layer of fp381.cuh, not the radix-13 digits: an Fp2 value is
 // 24 registers instead of 60 and a product ~0.9K instructions instead of
 // ~3.7K, so the whole addition is inlined (the compiler still spills part
@@ -37,7 +37,7 @@ namespace {
 // 2^20-point, c = 5 G2 MSM (52 x 1024 threads) take one wave of the 1,056
 // block slots of 132 SMs. At 168 or 255 registers (6 or 4 blocks an SM) the
 // grid needs 1.05 or 1.58 waves and the kernel ran slower
-// (scripts/k2g2_probe.py).
+// (scripts/k2_probe.py --curve g2).
 constexpr int kThreads = 64;
 constexpr int kMinBlocks = 8;
 
@@ -57,8 +57,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) bucket_accumulate_g2_ker
     long long n, int W, int B, int S) {
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= static_cast<long long>(W) * S) return;
-  g381::accumulate_stream(words, digs, dump, n, B, S, static_cast<int>(idx / S),
-                          static_cast<int>(idx % S));
+  g381::accumulate_stream<f381::Fp2>(words, digs, dump, n, B, S, static_cast<int>(idx / S),
+                                     static_cast<int>(idx % S));
 }
 
 }  // namespace

@@ -104,6 +104,9 @@ __device__ __forceinline__ void mont_mul(const Fp& a, const Fp& b, Fp& r) {
   reduce_once(t, r.w);
 }
 
+// The coordinate field's product under one name for both curves' group code.
+__device__ __forceinline__ void mul(const Fp& a, const Fp& b, Fp& r) { mont_mul(a, b, r); }
+
 __device__ __forceinline__ void add(const Fp& a, const Fp& b, Fp& r) {
   u32 t[NW];
   u64 carry = 0;
@@ -163,6 +166,9 @@ __device__ __forceinline__ void mul_small(const Fp& a, Fp& r) {
     if constexpr (K % 2 == 1) add(r, a, r);
   }
 }
+
+// b3 * a with b3 = 12, G1's 3b (b = 4).
+__device__ __forceinline__ void mul_b3(const Fp& a, Fp& r) { mul_small<12>(a, r); }
 
 // --- Fp2 = Fp[u]/(u^2 + 1) -----------------------------------------------------
 

@@ -1,15 +1,17 @@
-// Device functions of the G2 bucket kernel (K2-G2) on the 32-bit Montgomery
-// layer of fp381.cuh: the complete mixed addition of RCB15 over Fp2, the
-// per-thread body, the accumulation of one (window, stream), and the
-// conversion of its buckets into the dump's packed radix-13 digits.
+// Device functions of the bucket kernels K2 (G1) and K2-G2 on the 32-bit
+// Montgomery layer of fp381.cuh, generic over the coordinate field F (Fp
+// for G1, Fp2 for G2): the complete mixed addition of RCB15, the points'
+// conversion to words, the per-thread body, the accumulation of one
+// (window, stream), and the conversion of its buckets into the dump's
+// packed radix-13 digits.
 //
 // Value parity: the addition computes the same algebraic expressions as
-// ark_blst_tpu_torch/curves/lazy_group.py:mixed_add over FP2_LAZY (and the
-// JAX package's), in exact field arithmetic, and each stream visits its
-// points in the same order. So every bucket coordinate equals the plain
-// version's (curves/msm_bucket.py:accumulate_plain) as a field element;
-// only the redundant digits of the dump differ. MB.dump_values compares
-// them.
+// ark_blst_tpu_torch/curves/lazy_group.py:mixed_add over FP_LAZY or
+// FP2_LAZY (and the JAX package's), in exact field arithmetic, and each
+// stream visits its points in the same order. So every bucket coordinate
+// equals the plain version's (curves/msm_bucket.py:accumulate_plain) as a
+// field element; only the redundant digits of the dump differ.
+// MB.dump_values compares them.
 //
 // Compiles as host C++ too (fp381.cuh, lazy13.cuh): tests/
 // test_torch_fp381_host.py and tests/test_torch_tower_host.py run it on the
@@ -26,8 +28,13 @@ using f381::Fp2;
 using f381::NW;
 
 constexpr int FP_ROWS = lz::ELEM / 2;  // packed dump rows of one Fp component
-constexpr int PT_ROWS = 6 * FP_ROWS;   // dump rows of one bucket (x, y, z; re, im)
-constexpr int PT_WORDS = 6 * NW;       // rows of a bucket in the internal form
+// Fp components of a coordinate in F: 1 for G1 (Fp), 2 for G2 (Fp2, re, im)
+template <class F>
+constexpr int NC = sizeof(F) / sizeof(Fp);
+template <class F>
+constexpr int PT_ROWS = 3 * NC<F> * FP_ROWS;  // dump rows of one bucket (x, y, z)
+template <class F>
+constexpr int PT_WORDS = 3 * NC<F> * NW;  // rows of a bucket in the internal form
 
 // Word rows <-> elements: row j of a component at src[j * stride].
 __device__ __forceinline__ void load(const int* src, long long stride, Fp& x) {
@@ -51,17 +58,19 @@ __device__ __forceinline__ void store(const Fp2& x, int* dst, long long stride) 
 }
 
 // Complete mixed addition (X : Y : Z) += (X2, Y2) (affine), RCB15 Algorithm 7
-// with Z2 = 1 and b3 = 12 (1 + u), in place:
+// with Z2 = 1 and b3 = 3b (12 on G1, 12 (1 + u) on G2: f381::mul_b3), in
+// place:
 //   t0 = X1 X2, t1 = Y1 Y2, u1 = Y2 Z1, u2 = X2 Z1, m3 = (X1 + Y1)(X2 + Y2)
 //   t3 = m3 - t0 - t1, t0t = 3 t0, t2b = b3 Z1, z3 = t1 + t2b,
 //   t1m = t1 - t2b, t4 = Y1 + u1, tyb = b3 (X1 + u2)
 //   X3 = t3 t1m - t4 tyb, Y3 = t1m z3 + tyb t0t, Z3 = z3 t4 + t0t t3
-// 11 Fp2 products (33 Fp products). Ordered so that each input dies early:
-// after the first round six Fp2 values are live (t3, tyb, t4, z3, t1m, t0t).
-__device__ __forceinline__ void mixed_add(Fp2& X, Fp2& Y, Fp2& Z, const Fp2& X2,
-                                          const Fp2& Y2) {
+// 11 products in F (33 Fp products on G2). Ordered so that each input dies
+// early: after the first round six values of F are live (t3, tyb, t4, z3,
+// t1m, t0t).
+template <class F>
+__device__ __forceinline__ void mixed_add(F& X, F& Y, F& Z, const F& X2, const F& Y2) {
   using namespace f381;
-  Fp2 t0, t1, t3, tyb, t4, s;
+  F t0, t1, t3, tyb, t4, s;
   mul(X, X2, t0);
   mul(Y, Y2, t1);
   add(X, Y, t3);
@@ -74,12 +83,12 @@ __device__ __forceinline__ void mixed_add(Fp2& X, Fp2& Y, Fp2& Z, const Fp2& X2,
   mul_b3(tyb, tyb);
   mul(Y2, Z, t4);  // u1
   add(Y, t4, t4);
-  Fp2 t2b, z3, t1m, t0t;
+  F t2b, z3, t1m, t0t;
   mul_b3(Z, t2b);
   add(t1, t2b, z3);
   sub(t1, t2b, t1m);
   mul_small<3>(t0, t0t);
-  Fp2 a;
+  F a;
   mul(t3, t1m, a);
   mul(t4, tyb, s);
   sub(a, s, X);
@@ -94,7 +103,7 @@ __device__ __forceinline__ void mixed_add(Fp2& X, Fp2& Y, Fp2& Z, const Fp2& X2,
 // 15 packed rows of one lazy component (balanced radix-13 digits, biased
 // by 4129, R13 domain, any value the 30 digits can hold) -> its canonical
 // R16 words, as the wrapper's plain version (curves/msm_bucket.py:
-// g2_point_words_plain) gives them. W = (the biased digits' sum) + DIGIT_BIAS_FIX
+// point_words_plain) gives them. W = (the biased digits' sum) + DIGIT_BIAS_FIX
 // is nonnegative, has the value's residue and is below 2^11 p; subtracting
 // 2^k p for k = 10 .. 0 where it fits leaves W mod p, and a Montgomery
 // product by 2^378 takes it from x 2^390 to x 2^384.
@@ -172,27 +181,34 @@ __device__ __forceinline__ void store_r13(const Fp& x, int* dst, long long strid
 }
 
 // The B buckets of one (window, stream), from their column's first word
-// `base` (bucket b at base + b * 90 S): each <- (0 : R mod p : 0) in the
-// internal form, component k (x re, x im, y re, y im, z re, z im) at rows
-// [12 k, 12 k + 12) of the bucket's 90.
+// `base` (bucket b at base + b * PT_ROWS S, 45 rows on G1, 90 on G2): each
+// <- (0 : R mod p : 0) in the internal form, component k (x, y, z; re
+// before im on G2) at rows [12 k, 12 k + 12) of the bucket's PT_ROWS. R
+// mod p goes into y's first component, component NC: rows [12, 24) on G1,
+// [24, 36) on G2.
+template <class F>
 __device__ __forceinline__ void init_buckets(int* base, int B, int S) {
   for (int b = 0; b < B; ++b) {
-    int* bk = base + static_cast<long long>(b) * PT_ROWS * S;
+    int* bk = base + static_cast<long long>(b) * PT_ROWS<F> * S;
 #pragma unroll 1
-    for (int r = 0; r < PT_WORDS; ++r) bk[r * S] = 0;
+    for (int r = 0; r < PT_WORDS<F>; ++r) bk[r * S] = 0;
 #pragma unroll
-    for (int j = 0; j < NW; ++j) bk[(2 * NW + j) * S] = static_cast<int>(f381::R_MOD_P[j]);
+    for (int j = 0; j < NW; ++j)
+      bk[(NC<F> * NW + j) * S] = static_cast<int>(f381::R_MOD_P[j]);
   }
 }
 
 // The same buckets, internal form -> the dump's packed R13 digits in place:
 // component k to rows [15 k, 15 k + 15), highest k first, so that it never
-// overwrites a component it has still to read.
+// overwrites a component it has still to read (component k reads rows
+// [12 k, 12 k + 12) whole before it writes; the rows it writes start at
+// 15 k >= 12 k, above every lower component's).
+template <class F>
 __device__ __forceinline__ void buckets_to_dump(int* base, int B, int S) {
   for (int b = 0; b < B; ++b) {
-    int* bk = base + static_cast<long long>(b) * PT_ROWS * S;
+    int* bk = base + static_cast<long long>(b) * PT_ROWS<F> * S;
 #pragma unroll 1
-    for (int k = 5; k >= 0; --k) {
+    for (int k = 3 * NC<F> - 1; k >= 0; --k) {
       Fp x;
       load(bk + k * NW * S, S, x);
       store_r13(x, bk + k * FP_ROWS * S, S);
@@ -207,16 +223,19 @@ __device__ __forceinline__ void buckets_to_dump(int* base, int B, int S) {
 //     (x2, y2) <- the affine point, y2 <- p - y2 (or 0) if sign
 //     buckets[w, mag] <- mixed_add(buckets[w, mag], (x2, y2))
 //   then every bucket to the dump's packed R13 digits, in place.
-// words (48, n): the points' canonical R16 words (x re, x im, y re, y im);
-// digs (W, n); dump (W, B, 90, S). The buckets live in the thread's own
-// column dump[w, :, :, s], in the internal form until the end.
+// words (2 NC NW, n): the points' canonical R16 words (x, y; re before im
+// on G2), 24 rows on G1, 48 on G2; digs (W, n); dump (W, B, PT_ROWS, S).
+// The buckets live in the thread's own column dump[w, :, :, s], in the
+// internal form until the end.
+template <class F>
 __device__ __forceinline__ void accumulate_stream(const int* __restrict__ words,
                                                   const int* __restrict__ digs,
                                                   int* __restrict__ dump, long long n, int B,
                                                   int S, int w, int s) {
-  int* base = dump + static_cast<long long>(w) * B * PT_ROWS * S + s;
-  const long long bstride = static_cast<long long>(PT_ROWS) * S;
-  init_buckets(base, B, S);
+  constexpr int CW = NC<F> * NW;  // rows of one coordinate
+  int* base = dump + static_cast<long long>(w) * B * PT_ROWS<F> * S + s;
+  const long long bstride = static_cast<long long>(PT_ROWS<F>) * S;
+  init_buckets<F>(base, B, S);
 
   const long long T = n / S;
   const int* dig_row = digs + static_cast<long long>(w) * n;
@@ -225,22 +244,22 @@ __device__ __forceinline__ void accumulate_stream(const int* __restrict__ words,
     const int dig = dig_row[p];
     const int mag = dig & 0x7FFF;
     if (mag == 0) continue;
-    Fp2 X2, Y2;
+    F X2, Y2;
     load(words + p, n, X2);
-    load(words + 2 * NW * n + p, n, Y2);
+    load(words + CW * n + p, n, Y2);
     if ((dig >> 15) & 1) f381::neg(Y2, Y2);
     int* bk = base + mag * bstride;
-    Fp2 X, Y, Z;
+    F X, Y, Z;
     load(bk, S, X);
-    load(bk + 2 * NW * S, S, Y);
-    load(bk + 4 * NW * S, S, Z);
+    load(bk + CW * S, S, Y);
+    load(bk + 2 * CW * S, S, Z);
     mixed_add(X, Y, Z, X2, Y2);
     store(X, bk, S);
-    store(Y, bk + 2 * NW * S, S);
-    store(Z, bk + 4 * NW * S, S);
+    store(Y, bk + CW * S, S);
+    store(Z, bk + 2 * CW * S, S);
   }
 
-  buckets_to_dump(base, B, S);
+  buckets_to_dump<F>(base, B, S);
 }
 
 }  // namespace g381

@@ -63,27 +63,6 @@ __device__ __forceinline__ void fold(int* t) {
   t[N] = carry;
 }
 
-// fold_sum: one balanced fold of a 30-digit sum, clamped back to 30 digits.
-__device__ __forceinline__ void fold_sum(const int* a, int* out) {
-  int t[ELEM + 1];
-#pragma unroll
-  for (int k = 0; k < ELEM; ++k) t[k] = a[k];
-  fold<ELEM>(t);
-#pragma unroll
-  for (int k = 0; k < ELEM; ++k) out[k] = t[k];
-}
-
-// store30: fold2 truncated to 30 digits (exact for |value| <= 20p).
-__device__ __forceinline__ void store30(const int* a, int* out) {
-  int t[ELEM + 2];
-#pragma unroll
-  for (int k = 0; k < ELEM; ++k) t[k] = a[k];
-  fold<ELEM>(t);
-  fold<ELEM + 1>(t);
-#pragma unroll
-  for (int k = 0; k < ELEM; ++k) out[k] = t[k];
-}
-
 // Schoolbook product columns c[0..59) = a * b (the true convolution).
 __device__ __forceinline__ void mul_cols(const int* a, const int* b, int* c) {
 #pragma unroll
@@ -135,16 +114,6 @@ __device__ __forceinline__ void mont_mul(const int* a, const int* b, int* out) {
 }
 
 // Packed words: two balanced digits per int32, biased into [0, 8257].
-__device__ __forceinline__ void unpack15(const int* __restrict__ src, long long stride,
-                                         int* d) {
-#pragma unroll
-  for (int r = 0; r < ELEM / 2; ++r) {
-    const int w = src[r * stride];
-    d[2 * r] = (w & 0xFFFF) - BIAS;
-    d[2 * r + 1] = (w >> 16) - BIAS;
-  }
-}
-
 __device__ __forceinline__ void pack30(const int* d, int* dst, long long stride) {
 #pragma unroll
   for (int r = 0; r < ELEM / 2; ++r)

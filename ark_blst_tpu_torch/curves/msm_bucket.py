@@ -14,12 +14,13 @@ points:
    in the lazy R13 domain with no conversion multiply. Identity points
    (z = 0) get digit 0, i.e. the dropped bucket 0.
 2. `accumulate` (K2: `csrc/bucket_accumulate.cu` for G1,
-   `csrc/bucket_accumulate_g2.cu` for G2): each of the S = 1024 streams
-   (point n belongs to stream n mod S) adds its points into its own
-   B = 2^(c-1)+1 signed buckets per window -> packed dump
-   `(W, B, pt_rows, S)`. K2-G2 computes on 32-bit Montgomery words
-   (`g2_point_words` converts the points first, on `KERNEL_G2_WORDS`) and
-   writes the same values as the plain version in other redundant digits.
+   `csrc/bucket_accumulate_g2.cu` for G2, both on `csrc/group381.cuh`):
+   each of the S = 1024 streams (point n belongs to stream n mod S) adds
+   its points into its own B = 2^(c-1)+1 signed buckets per window ->
+   packed dump `(W, B, pt_rows, S)`. Both kernels compute on 32-bit
+   Montgomery words (`point_words` converts the points first, on
+   `KERNEL_G1_WORDS` or `KERNEL_G2_WORDS`) and write the same values as
+   the plain version in other redundant digits.
 3. `_reduce_dump`: fold the S streams (a sequential pass over 64 groups,
    then a tree over 16), then the bucket suffix sums -> lazy window sums.
 4. `_finish_host`: window sums to canonical ints, Horner on the host.
@@ -117,14 +118,14 @@ def _tree_map(fn, pt):
 # --- K2: the bucket kernels ---------------------------------------------------
 
 _SIZES = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_WORDS_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
 KERNEL = CudaKernel("bucket_accumulate.cu", "msm_bucket_accumulate",
-                    [ctypes.c_void_p] * 4 + _SIZES)
+                    [ctypes.c_void_p] * 3 + _SIZES)
 KERNEL_G2 = CudaKernel("bucket_accumulate_g2.cu", "msm_bucket_accumulate_g2",
                        [ctypes.c_void_p] * 3 + _SIZES)
-# K2-G2's first step, in the same library: the points to 32-bit words
-KERNEL_G2_WORDS = CudaKernel("bucket_accumulate_g2.cu", "msm_g2_point_words",
-                             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                              ctypes.c_void_p])
+# each bucket kernel's first step, in its library: the points to 32-bit words
+KERNEL_G1_WORDS = CudaKernel("bucket_accumulate.cu", "msm_g1_point_words", _WORDS_ARGS)
+KERNEL_G2_WORDS = CudaKernel("bucket_accumulate_g2.cu", "msm_g2_point_words", _WORDS_ARGS)
 
 
 # --- per-curve kernel layout (the JAX package's KernelCurve2) -----------------
@@ -165,6 +166,14 @@ class KernelCurve2:
     @property
     def kernel(self) -> CudaKernel:
         return KERNEL_G2 if self.is_g2 else KERNEL
+
+    @property
+    def words_kernel(self) -> CudaKernel:
+        return KERNEL_G2_WORDS if self.is_g2 else KERNEL_G1_WORDS
+
+    @property
+    def word_rows(self) -> int:  # affine point as 32-bit words, 12 per Fp component
+        return 48 if self.is_g2 else 24
 
     def _coord_from_rows(self, rows):
         if self.is_g2:
@@ -266,41 +275,41 @@ def _words32(limbs16: torch.Tensor) -> torch.Tensor:
     return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
 
 
-def g2_point_words_plain(pts: torch.Tensor) -> torch.Tensor:
-    """(60, n) packed lazy affine G2 rows -> (48, n) int32 words: each of
-    x re, x im, y re, y im as the 12 words of its canonical Montgomery-R16
-    value (`_to_strict_stacked`'s limbs, pairs packed). The plain version
-    of `KERNEL_G2_WORDS`."""
-    strict = _to_strict_stacked(KC2_G2, KC2_G2.rows_to_affine(pts))
-    return _words32(strict).reshape(48, pts.shape[1])
+def point_words_plain(kc: KernelCurve2, pts: torch.Tensor) -> torch.Tensor:
+    """(aff_rows, n) packed lazy affine rows -> (word_rows, n) int32 words:
+    each Fp component (x, y; re before im on G2) as the 12 words of its
+    canonical Montgomery-R16 value (`_to_strict_stacked`'s limbs, pairs
+    packed). The plain version of the curve's `words_kernel`."""
+    strict = _to_strict_stacked(kc, kc.rows_to_affine(pts))
+    return _words32(strict).reshape(kc.word_rows, pts.shape[1])
 
 
-def g2_point_words(pts: torch.Tensor) -> torch.Tensor:
-    """K2-G2's first step, (60, n) packed rows -> (48, n) words:
-    `KERNEL_G2_WORDS` (csrc/group381.cuh:rows_to_words) for a CUDA tensor,
-    the plain version for a CPU tensor. Canonical words are unique, so both
-    give the same bits."""
-    if pts.dtype != torch.int32 or pts.dim() != 2 or pts.shape[0] != KC2_G2.aff_rows:
-        raise ValueError(f"g2_point_words wants ({KC2_G2.aff_rows}, n) int32 rows")
+def point_words(kc: KernelCurve2, pts: torch.Tensor) -> torch.Tensor:
+    """The bucket kernel's first step, (aff_rows, n) packed rows ->
+    (word_rows, n) words: `KERNEL_G1_WORDS` or `KERNEL_G2_WORDS`
+    (csrc/group381.cuh:rows_to_words) for a CUDA tensor, the plain version
+    for a CPU tensor. Canonical words are unique, so both give the same
+    bits."""
+    if pts.dtype != torch.int32 or pts.dim() != 2 or pts.shape[0] != kc.aff_rows:
+        raise ValueError(f"point_words wants ({kc.aff_rows}, n) int32 rows for {kc.name}")
     if pts.device.type == "cpu":
-        return g2_point_words_plain(pts)
+        return point_words_plain(kc, pts)
     if not (pts.is_cuda and pts.is_contiguous()):
-        raise ValueError(f"g2_point_words wants contiguous CUDA or CPU rows, got {pts.device}")
+        raise ValueError(f"point_words wants contiguous CUDA or CPU rows, got {pts.device}")
     n = pts.shape[1]
-    words = torch.empty((48, n), dtype=torch.int32, device=pts.device)
+    words = torch.empty((kc.word_rows, n), dtype=torch.int32, device=pts.device)
     with torch.cuda.device(pts.device):
-        KERNEL_G2_WORDS.launch(pts.data_ptr(), words.data_ptr(), n,
+        kc.words_kernel.launch(pts.data_ptr(), words.data_ptr(), n,
                                torch.cuda.current_stream(pts.device).cuda_stream)
     return words
 
 
 def accumulate(kc: KernelCurve2, pts: torch.Tensor, digs: torch.Tensor, c: int) -> torch.Tensor:
     """pts (aff_rows, n) packed affine points, digs (W, n) signed digits ->
-    dump (W, B, pt_rows, S): the curve's CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. K2 (G1) gives the plain version's digits;
-    K2-G2 runs on the points' 32-bit words (`g2_point_words`) and gives the
-    plain version's values in other redundant digits (compare with
-    `dump_values`)."""
+    dump (W, B, pt_rows, S): the curve's CUDA kernels for CUDA tensors, the
+    plain version for CPU tensors. Both bucket kernels run on the points'
+    32-bit words (`point_words`) and give the plain version's values in
+    other redundant digits (compare with `dump_values`)."""
     _check_accumulate_args(kc, pts, digs)
     if pts.device.type == "cpu" and digs.device.type == "cpu":
         return accumulate_plain(kc, pts, digs, c)
@@ -311,16 +320,10 @@ def accumulate(kc: KernelCurve2, pts: torch.Tensor, digs: torch.Tensor, c: int) 
     W, n = digs.shape
     B = _num_buckets(c)
     dump = torch.empty((W, B, kc.pt_rows, STREAMS), dtype=torch.int32, device=pts.device)
+    words = point_words(kc, pts)
     with torch.cuda.device(pts.device):
-        stream = torch.cuda.current_stream(pts.device).cuda_stream
-        if kc.is_g2:
-            words = g2_point_words(pts)
-            kc.kernel.launch(words.data_ptr(), digs.data_ptr(), dump.data_ptr(),
-                             n, W, B, STREAMS, stream)
-        else:
-            ident = torch.from_numpy(kc.identity_rows()).to(pts.device)
-            kc.kernel.launch(pts.data_ptr(), digs.data_ptr(), ident.data_ptr(),
-                             dump.data_ptr(), n, W, B, STREAMS, stream)
+        kc.kernel.launch(words.data_ptr(), digs.data_ptr(), dump.data_ptr(), n, W, B, STREAMS,
+                         torch.cuda.current_stream(pts.device).cuda_stream)
     return dump
 
 

@@ -12,8 +12,15 @@ Phases, one JSON line each:
   2. k1       K1 (mont_mul) against its plain PyTorch version at 2^22
               elements, bit for bit, random and extreme digit patterns,
               and again timed at the pairing's batch (8192 elements);
-  3. k2       K2 (bucket accumulation) against its plain version at the
-              main path's inputs (2^22 points, c=7, W=37), bucket for bucket;
+  3. k2       K2 (G1 bucket accumulation) at the main path's inputs (2^22
+              points, c=7, W=37): its first kernel, the points' conversion
+              to R16 words (`point_words`), against its plain version bit
+              for bit; its bucket kernel (32-bit Montgomery words) against
+              the plain version (radix-13 digits) by canonical value,
+              bucket for bucket, with its dump digits within 4096; each
+              kernel timed alone and the wrapper with both; registers,
+              stack, spills and launch shape (blocks, waves); the bound
+              beside the bound of the same work on radix-13 digits;
   4. msm      the G1 MSM at 2^22 distinct bases with c=7 (built on the card
               by `curves/instance.py`, with an identity point and a zero
               scalar in the stream) through the public entry point
@@ -23,14 +30,7 @@ Phases, one JSON line each:
               the stage times and once under `torch.profiler` for each
               stage's device time, kernel launches and device busy share;
   5. k2_g2    K2-G2 at the G2 main path's inputs (2^20 points, c=5,
-              W=52): its first kernel, the points' conversion to R16 words
-              (`g2_point_words`), against its plain version bit for bit;
-              its bucket kernel (32-bit Montgomery words) against the plain
-              version (radix-13 digits) by canonical value, bucket for
-              bucket, with its dump digits within 4096; each kernel timed
-              alone and the wrapper with both; registers, stack, spills and
-              launch shape (blocks, waves); the bound beside the bound of
-              the same work on radix-13 digits;
+              W=52), checked and measured as K2 in phase 3;
   6. msm_g2   the G2 MSM at 2^20 distinct bases with c=5 (the JAX
               package's bench.py size, built on the card by
               `curves/instance.py`, seed 11, with an identity point and a
@@ -117,24 +117,26 @@ the H100's data sheet (67 TFLOP/s, an FMA counted as two) in instructions:
 the issue ceiling with the IMAD and integer-ALU pipes both busy.
 Instruction counts follow the kernels' straight-line code: a digit product
 or multiply-add is one, a balanced fold four per digit (add, and, add3,
-shift). K1's bytes read each input once and write the output once; K2's
-also count its scattered traffic, one bucket read and write and one point
-read per bucket add. K2-G2 runs on 12 x 32-bit words: a CIOS Montgomery
-product is 912 instructions (three per 32 x 32 -> 64-bit multiply-add
-with its carry, 2 x 144 of them, and the final subtraction), a modular sum
-60, a G2 bucket add 36,348 (G2_BUCKET_ADD_OPS: 33 products, 46 Fp sums
-and the Fp2 Karatsuba glue), and once per bucket component its
-conversion to the dump's digits; its bytes count the points' words, the
-digits and the dump once, and 72 bucket words read and written and 48
-point words read per add. Its line also gives the bound of the same work
-as the radix-13 kernel it replaced counted it (94,039 a bucket add,
-G2_R13_BUCKET_ADD_OPS). Its first kernel, the points' conversion to
-words (`g2_point_words`), counts G2_POINT_COMPONENT_OPS per component and
-the packed rows read and the words written once. Beside the bound each
-kernel line gives the IMAD-pipe floor: the IMAD instructions of the
-compiled kernel (`cuobjdump -sass`, static count; both kernels are
-straight-line code around their loops; K2-G2's count is its library's,
-which also holds the two conversions, a product each)
+shift). K1's bytes read each input once and write the output once. K2
+and K2-G2 run on 12 x 32-bit words: a CIOS Montgomery product is 912
+instructions (three per 32 x 32 -> 64-bit multiply-add with its carry,
+2 x 144 of them, and the final subtraction), a modular sum 60, a G1
+bucket add 11,388 (G1_BUCKET_ADD_OPS: 11 products, 21 Fp sums, 96 words
+loaded and stored), a G2 bucket add 36,348 (G2_BUCKET_ADD_OPS: 33
+products, 46 Fp sums and the Fp2 Karatsuba glue), and once per bucket
+component its conversion to the dump's digits; their bytes count the
+points' words, the digits and the dump once, and per add a bucket read
+and written (36 or 72 words) and a point read (24 or 48 words). Their
+lines also give the bound of the same work as the radix-13 kernels they
+replaced counted it (36,735 a G1 bucket add, G1_R13_BUCKET_ADD_OPS;
+94,039 a G2 one, G2_R13_BUCKET_ADD_OPS). Their first kernels, the points'
+conversion to words (`g1_point_words`, `g2_point_words`), count
+POINT_COMPONENT_OPS per component and the packed rows read and the words
+written once. Beside the bound each kernel line gives the IMAD-pipe
+floor: the IMAD instructions of the compiled kernel (`cuobjdump -sass`,
+static count; both kernels are straight-line code around their loops; a
+bucket kernel's count is its library's, which also holds the two
+conversions, a product each)
 over 132 SMs x 64 per clock x 1.98 GHz = 16.7e12 per s. The tower kernels
 K3-K6, K11 and K12 count their base products times MONT_MUL_OPS plus the
 folded glue of
@@ -208,10 +210,11 @@ MIXED_ADD_OPS = (
     + 8 * 30 + 7 * _FOLD_SUM  # the linear glue between the rounds
     + 6 * _PRERED + 3 * 61 + 3 * _REDUCE  # round 2 and its three reductions
 )
-BUCKET_ADD_OPS = MIXED_ADD_OPS + 75 * 4 + 3 * (_fold(30) + _fold(31)) + 45 * 4  # + unpack/store/pack
-# The same G2 addition on radix-13 digits (the K2-G2 it replaced, kept as
-# the yardstick of the redesign): a Karatsuba triple is 3 prered products, 2
-# folded leg sums and the re/im combinations; 11 triples, 16 reductions
+# The G1 and G2 additions on radix-13 digits (the kernels they replaced,
+# kept as the yardstick of the redesign). G2: a Karatsuba triple is 3
+# prered products, 2 folded leg sums and the re/im combinations; 11
+# triples, 16 reductions
+G1_R13_BUCKET_ADD_OPS = MIXED_ADD_OPS + 75 * 4 + 3 * (_fold(30) + _fold(31)) + 45 * 4
 _FP2_PRERED = 3 * _PRERED + 2 * (30 + _FOLD_SUM) + 3 * 61
 G2_R13_MIXED_ADD_OPS = (
     5 * (_FP2_PRERED + 2 * _REDUCE) + 4 * (30 + _FOLD_SUM)  # round 1 and its folded sums
@@ -220,8 +223,8 @@ G2_R13_MIXED_ADD_OPS = (
 )
 G2_R13_BUCKET_ADD_OPS = G2_R13_MIXED_ADD_OPS + 150 * 4 + 6 * (_fold(30) + _fold(31)) + 90 * 4
 
-# K2-G2 on the 32-bit Montgomery layer (csrc/fp381.cuh, csrc/group381.cuh),
-# 12 words an element: a 32 x 32 -> 64-bit multiply-add with its carry is
+# K2 and K2-G2 on the 32-bit Montgomery layer (csrc/fp381.cuh,
+# csrc/group381.cuh), 12 words an element: a 32 x 32 -> 64-bit multiply-add with its carry is
 # three instructions (IMAD.WIDE.U32 and a two-word add), a word of a carry
 # chain two, a select or mask one
 _NW = 12
@@ -234,13 +237,20 @@ FP2_MUL32_OPS = 3 * MONT_MUL32_OPS + 5 * ADD32_OPS  # Karatsuba: 2 leg sums, 3 d
 # by four doublings: 20), 3 t0 (4), and t3's two differences (4)
 G2_MIXED_ADD32_OPS = 11 * FP2_MUL32_OPS + 46 * ADD32_OPS
 G2_BUCKET_ADD_OPS = G2_MIXED_ADD32_OPS + 2 * 72 + 48  # + bucket load/store, point load
+# 11 Fp products and 21 Fp sums: four sums of round 1, t3's two
+# differences, z3 and t1m (8), two mul_b3 (12x by four doublings: 8), 3 t0
+# (2) and the three sums of round 2
+G1_MIXED_ADD32_OPS = 11 * MONT_MUL32_OPS + 21 * ADD32_OPS
+G1_BUCKET_ADD_OPS = G1_MIXED_ADD32_OPS + 2 * 36 + 24  # + bucket load/store, point load
+BUCKET_ADD_OPS = {"g1": G1_BUCKET_ADD_OPS, "g2": G2_BUCKET_ADD_OPS}
+R13_BUCKET_ADD_OPS = {"g1": G1_R13_BUCKET_ADD_OPS, "g2": G2_R13_BUCKET_ADD_OPS}
 # one bucket component into the dump's digits: the product by 2^390 mod p,
 # 30 digits cut out (three instructions each), one balanced fold, packing
-G2_DUMP_COMPONENT_OPS = MONT_MUL32_OPS + 30 * 3 + _fold(30) + 15 * 3
+DUMP_COMPONENT_OPS = MONT_MUL32_OPS + 30 * 3 + _fold(30) + 15 * 3
 # one point component into words: 30 digits placed (six instructions each),
 # the carries (two a word), 11 conditional subtractions of 2^k p (four a
 # word of 13), the product by 2^378
-G2_POINT_COMPONENT_OPS = 30 * 6 + 2 * 13 + 11 * 4 * 13 + MONT_MUL32_OPS
+POINT_COMPONENT_OPS = 30 * 6 + 2 * 13 + 11 * 4 * 13 + MONT_MUL32_OPS
 
 # the tower (csrc/tower13.cuh), per element
 _LIN = 30 + _fold(30)  # fp add / sub / small scale: the digit op, then fold30
@@ -344,8 +354,8 @@ def imad_floor_ms(imads: float) -> float:
 # --- phases --------------------------------------------------------------------
 
 def all_kernels() -> dict:
-    """The kernels by name: K1, K2 (the G1 and G2 MSMs; K2-G2's source also
-    holds its point conversion), K3-K6 (the fused pairing), K7-K10 (the
+    """The kernels by name: K1, K2 (the G1 and G2 MSMs; each bucket
+    kernel's source also holds its point conversion), K3-K6 (the fused pairing), K7-K10 (the
     strict engine; one source, four entry points), K11 and K12 (the unfused
     pairing): ten sources."""
     from ark_blst_tpu_torch.curves import msm_bucket as MB
@@ -358,6 +368,7 @@ def all_kernels() -> dict:
     from ark_blst_tpu_torch.ops import strict_field as SF
 
     return {"mont_mul": MM.KERNEL, "bucket_accumulate": MB.KERNEL,
+            "g1_point_words": MB.KERNEL_G1_WORDS,
             "bucket_accumulate_g2": MB.KERNEL_G2, "g2_point_words": MB.KERNEL_G2_WORDS,
             "cyc_sqr": K3.KERNEL,
             "fp12_mul": K4.KERNEL, "prepare_step": PS.PREPARE_KERNEL,
@@ -441,72 +452,37 @@ def phase_k1(torch, dev, sass: dict) -> dict:
     return res
 
 
-def phase_k2(torch, kc, c: int, pts, digs, imad: int) -> dict:
-    """K2 (G1) against its plain version at the main path's inputs, bucket
-    for bucket, then timed."""
-    from ark_blst_tpu_torch.curves import msm_bucket as MB
-
-    got = MB.accumulate(kc, pts, digs, c)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    want = MB.accumulate_plain(kc, pts, digs, c)
-    end.record()
-    end.synchronize()
-    plain_ms = start.elapsed_time(end)
-    err = int((got.long() - want.long()).abs().max())
-    check(err == 0 and torch.equal(got, want), "k2 differs from its plain version")
-    del got, want
-    ms = cuda_ms(torch, lambda: MB.accumulate(kc, pts, digs, c), 2)
-    W, n = digs.shape
-    B = MB._num_buckets(c)
-    adds = int(((digs & MB.MAG_MASK) != 0).sum())
-    negs = int((((digs >> MB.SIGN_BIT) & 1) != 0).sum())
-    bytes_once = (pts.numel() + digs.numel() + W * B * kc.pt_rows * MB.STREAMS) * 4
-    scattered = adds * (2 * kc.pt_rows + kc.aff_rows) * 4  # bucket read + write, point read
-    bms, by = bound_ms(bytes_once + scattered, adds * BUCKET_ADD_OPS + negs * 30)
-    res = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "max_abs_err": err}
-    emit({"phase": "k2", "n": n, "c": c, "windows": W, "buckets": B, "adds": adds,
-          "buckets_equal": True, **res, "bytes_once": bytes_once, "bytes_scattered": scattered,
-          "bytes_ms": 1e3 * (bytes_once + scattered) / HBM_BYTES_PER_S,
-          "imad_floor_ms": imad_floor_ms(adds * imad)})
-    return res
-
-
-def _g2_launch_shape(torch, total_threads: int) -> dict:
-    """K2-G2's bucket kernel: its block size and the blocks an SM holds
-    (both from its C entry `msm_bucket_accumulate_g2_shape`, the occupancy
-    API at the compiled registers and stack), and the waves its grid makes
-    on the card's SMs."""
-    from ark_blst_tpu_torch.curves import msm_bucket as MB
-
-    fn = ctypes.CDLL(str(MB.KERNEL_G2.lib_path)).msm_bucket_accumulate_g2_shape
+def _launch_shape(torch, kc, total_threads: int) -> dict:
+    """A bucket kernel's block size and the blocks an SM holds (both from
+    its C entry `<symbol>_shape`, the occupancy API at the compiled
+    registers and stack), and the waves its grid makes on the card's SMs."""
+    fn = getattr(ctypes.CDLL(str(kc.kernel.lib_path)), kc.kernel.symbol + "_shape")
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     fn.restype = ctypes.c_int
     threads, per_sm = ctypes.c_int(), ctypes.c_int()
     err = fn(ctypes.byref(threads), ctypes.byref(per_sm))
-    check(err == 0, f"msm_bucket_accumulate_g2_shape: CUDA error {err}")
+    check(err == 0, f"{kc.kernel.symbol}_shape: CUDA error {err}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks = -(-total_threads // threads.value)
     return {"threads": threads.value, "blocks": blocks, "blocks_per_sm": per_sm.value,
             "sms": sms, "waves": blocks / (sms * per_sm.value)}
 
 
-def phase_k2_g2(torch, kc, c: int, pts, digs, imad: int, ptxas: dict) -> tuple:
-    """K2-G2 at the G2 main path's inputs: its point conversion
-    (`g2_point_words`) against the plain version bit for bit (canonical
-    words are unique), its bucket kernel (32-bit Montgomery words) against
-    the plain version (radix-13 digits) by canonical value, bucket for
-    bucket; then each timed alone and the wrapper with both. Returns the
-    two kernels' results."""
+def phase_k2(torch, phase: str, kc, c: int, pts, digs, imad: int, ptxas: dict) -> tuple:
+    """K2 (G1) or K2-G2 at the curve's main-path inputs: its point
+    conversion (`point_words`) against the plain version bit for bit
+    (canonical words are unique), its bucket kernel (32-bit Montgomery
+    words) against the plain version (radix-13 digits) by canonical value,
+    bucket for bucket; then each timed alone and the wrapper with both.
+    Returns the two kernels' results."""
     from ark_blst_tpu_torch.curves import msm_bucket as MB
 
-    words = MB.g2_point_words(pts)
-    words_plain = MB.g2_point_words_plain(pts)
+    words = MB.point_words(kc, pts)
+    words_plain = MB.point_words_plain(kc, pts)
     torch.cuda.synchronize()
     werr = int((words.long() - words_plain.long()).abs().max())
     check(werr == 0 and torch.equal(words, words_plain),
-          "g2_point_words differs from its plain version")
+          f"{kc.name}_point_words differs from its plain version")
     del words_plain
     got = MB.accumulate(kc, pts, digs, c)
     torch.cuda.synchronize()
@@ -519,8 +495,8 @@ def phase_k2_g2(torch, kc, c: int, pts, digs, imad: int, ptxas: dict) -> tuple:
     max_digit = MB.max_dump_digit(got)
     got_v, want_v = MB.dump_values(kc, got), MB.dump_values(kc, want)
     err = int((got_v.long() - want_v.long()).abs().max())
-    check(err == 0 and torch.equal(got_v, want_v), "k2_g2 differs from its plain version")
-    check(max_digit <= 4096, f"k2_g2 dump digit {max_digit} above 4096")
+    check(err == 0 and torch.equal(got_v, want_v), f"{phase} differs from its plain version")
+    check(max_digit <= 4096, f"{phase} dump digit {max_digit} above 4096")
     del got, want, got_v, want_v
     torch.cuda.empty_cache()
 
@@ -528,34 +504,37 @@ def phase_k2_g2(torch, kc, c: int, pts, digs, imad: int, ptxas: dict) -> tuple:
     B, S = MB._num_buckets(c), MB.STREAMS
     dump = torch.empty((W, B, kc.pt_rows, S), dtype=torch.int32, device=pts.device)
     stream = torch.cuda.current_stream().cuda_stream
-    ms = cuda_ms(torch, lambda: MB.KERNEL_G2.launch(
+    ms = cuda_ms(torch, lambda: kc.kernel.launch(
         words.data_ptr(), digs.data_ptr(), dump.data_ptr(), n, W, B, S, stream), 2)
     wrapper_ms = cuda_ms(torch, lambda: MB.accumulate(kc, pts, digs, c), 2)
-    words_ms = cuda_ms(torch, lambda: MB.g2_point_words(pts), 10)
-    words_plain_ms = cuda_ms(torch, lambda: MB.g2_point_words_plain(pts), 2)
+    words_ms = cuda_ms(torch, lambda: MB.point_words(kc, pts), 10)
+    words_plain_ms = cuda_ms(torch, lambda: MB.point_words_plain(kc, pts), 2)
     del dump, words
     adds = int(((digs & MB.MAG_MASK) != 0).sum())
     negs = int((((digs >> MB.SIGN_BIT) & 1) != 0).sum())
     buckets = W * B * S
+    comps = kc.n_fp // 3  # Fp components of a coordinate
     # bytes: the words, the digits and the dump once; per add a bucket read
-    # and write (72 words) and a point read (48 words)
-    bytes_once = (48 * n + digs.numel() + buckets * kc.pt_rows) * 4
-    scattered = adds * (2 * 72 + 48) * 4
-    bms, by = bound_ms(bytes_once + scattered, adds * G2_BUCKET_ADD_OPS + negs * 2 * NEG32_OPS
-                       + buckets * 6 * G2_DUMP_COMPONENT_OPS)
+    # and write (36 words a component) and a point read (24 a component)
+    bytes_once = (kc.word_rows * n + digs.numel() + buckets * kc.pt_rows) * 4
+    scattered = adds * comps * (2 * 36 + 24) * 4
+    bms, by = bound_ms(bytes_once + scattered, adds * BUCKET_ADD_OPS[kc.name]
+                       + negs * comps * NEG32_OPS + buckets * kc.n_fp * DUMP_COMPONENT_OPS)
     # the same work on radix-13 digits, as the kernel it replaced bounded it
     r13_bytes = (pts.numel() + digs.numel() + buckets * kc.pt_rows) * 4 + adds * (
         2 * kc.pt_rows + kc.aff_rows) * 4
-    bms_r13, by_r13 = bound_ms(r13_bytes, adds * G2_R13_BUCKET_ADD_OPS + negs * 60)
-    shape = _g2_launch_shape(torch, W * S)
+    bms_r13, by_r13 = bound_ms(r13_bytes, adds * R13_BUCKET_ADD_OPS[kc.name] + negs * comps * 30)
+    shape = _launch_shape(torch, kc, W * S)
     res = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "max_abs_err": err,
            "wrapper_ms": wrapper_ms, "bound_radix13_ms": bms_r13, "bound_radix13_by": by_r13}
-    wbms, wby = bound_ms((kc.aff_rows + 48) * n * 4, 4 * n * G2_POINT_COMPONENT_OPS)
+    wbms, wby = bound_ms((kc.aff_rows + kc.word_rows) * n * 4,
+                         2 * comps * n * POINT_COMPONENT_OPS)
     words_res = {"ms": words_ms, "plain_ms": words_plain_ms, "bound_ms": wbms, "bound_by": wby,
                  "max_abs_err": werr}
-    emit({"phase": "k2_g2", "n": n, "c": c, "windows": W, "buckets": B, "adds": adds,
+    emit({"phase": phase, "n": n, "c": c, "windows": W, "buckets": B, "adds": adds,
           "value_equal": True, "max_dump_digit": max_digit, **res,
-          "ops_per_add": G2_BUCKET_ADD_OPS, "ops_per_add_radix13": G2_R13_BUCKET_ADD_OPS,
+          "ops_per_add": BUCKET_ADD_OPS[kc.name],
+          "ops_per_add_radix13": R13_BUCKET_ADD_OPS[kc.name],
           "bytes_once": bytes_once, "bytes_scattered": scattered,
           "bytes_ms": 1e3 * (bytes_once + scattered) / HBM_BYTES_PER_S,
           "imad_per_add": imad, "imad_floor_ms": imad_floor_ms(adds * imad),
@@ -572,10 +551,8 @@ def phase_msm(torch, dev, phase: str, kc, c: int, points, scalars, expected) -> 
     from ark_blst_tpu_torch.ops import mont_mul as MM
 
     entry = T.msm_g2 if kc.is_g2 else T.msm_g1
-    names = ("mont_mul", kc.kernel.source[: -len(".cu")])
-    kernels = (MM.KERNEL, kc.kernel)
-    if kc.is_g2:
-        names, kernels = names + ("g2_point_words",), kernels + (MB.KERNEL_G2_WORDS,)
+    names = ("mont_mul", kc.kernel.source[: -len(".cu")], kc.name + "_point_words")
+    kernels = (MM.KERNEL, kc.kernel, kc.words_kernel)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for k in kernels:
@@ -1403,22 +1380,20 @@ def main() -> int:
     from ark_blst_tpu_torch.curves.instance import distinct_bases
 
     k2s, msm_launches = {}, {}
-    # IMADs per bucket add: each kernel inlines its whole addition (K2-G2's
-    # static count also holds the one product of its dump conversion)
-    for kc, log_n, c, seed, msm_phase in ((MB.KC2_G1, LOG_N, C, SEED, "msm"),
-                                          (MB.KC2_G2, G2_LOG_N, G2_C, G2_SEED, "msm_g2")):
+    # IMADs per bucket add: each kernel inlines its whole addition (the
+    # static count also holds the products of its two conversions)
+    for kc, log_n, c, seed, k2_phase, msm_phase in (
+            (MB.KC2_G1, LOG_N, C, SEED, "k2", "msm"),
+            (MB.KC2_G2, G2_LOG_N, G2_C, G2_SEED, "k2_g2", "msm_g2")):
         t0 = time.perf_counter()
         points, scalars, expected = distinct_bases(log_n, seed, dev, kc.name)
         torch.cuda.synchronize()
         emit({"phase": "instance", "curve": kc.name, "n": scalars.shape[1],
               "seconds": time.perf_counter() - t0})
         pts, digs = MB._prepare_inputs(kc, points, scalars, c)
-        if kc.is_g2:
-            k2s["g2"], k2s["g2_words"] = phase_k2_g2(torch, kc, c, pts, digs,
-                                                     sass["bucket_accumulate_g2.cu"]["imad"],
-                                                     ptxas["bucket_accumulate_g2.cu"])
-        else:
-            k2s[kc.name] = phase_k2(torch, kc, c, pts, digs, sass["bucket_accumulate.cu"]["imad"])
+        source = kc.kernel.source
+        k2s[kc.name], k2s[kc.name + "_words"] = phase_k2(
+            torch, k2_phase, kc, c, pts, digs, sass[source]["imad"], ptxas[source])
         del pts, digs
         torch.cuda.empty_cache()
         msm_launches[kc.name] = phase_msm(torch, dev, msm_phase, kc, c, points, scalars, expected)
@@ -1474,8 +1449,13 @@ def main() -> int:
                      launches_pairing_unfused=unfused["mont_mul"],
                      at_pairing_batch=k1["at_pairing_batch"]),
         _kernel_line("bucket_accumulate", "bucket_accumulate.cu",
-                     "ark_blst_tpu/curves/msm_pallas2.py:359",
-                     msm_launches["g1"]["bucket_accumulate"], k2s["g1"]),
+                     "ark_blst_tpu/curves/msm_pallas2.py:359 (KC2_G1)",
+                     msm_launches["g1"]["bucket_accumulate"], k2s["g1"],
+                     wrapper_ms=k2s["g1"]["wrapper_ms"],
+                     bound_radix13_ms=k2s["g1"]["bound_radix13_ms"]),
+        _kernel_line("g1_point_words", "bucket_accumulate.cu",
+                     "ark_blst_tpu/curves/msm_pallas2.py:359 (KC2_G1; K2's point input)",
+                     msm_launches["g1"]["g1_point_words"], k2s["g1_words"]),
         _kernel_line("bucket_accumulate_g2", "bucket_accumulate_g2.cu",
                      "ark_blst_tpu/curves/msm_pallas2.py:359 (KC2_G2)",
                      msm_launches["g2"]["bucket_accumulate_g2"], k2s["g2"],

@@ -67,16 +67,16 @@ def test_strict_header_constants(name, spec):
 @pytest.mark.parametrize(
     "kernel",
     [MM.KERNEL, MB.KERNEL, K3.KERNEL, K4.KERNEL, PS.PREPARE_KERNEL, PS.MILLER_KERNEL,
-     MB.KERNEL_G2, MB.KERNEL_G2_WORDS, *SF.KERNELS.values(), K11.KERNEL, K12.KERNEL],
+     MB.KERNEL_G2, MB.KERNEL_G2_WORDS, *SF.KERNELS.values(), K11.KERNEL, K12.KERNEL,
+     MB.KERNEL_G1_WORDS],
     ids=["mont_mul", "bucket", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step",
          "bucket_g2", "g2_point_words", *("strict_" + op for op in SF.KERNELS), "fp12_sqr",
-         "fp12_mul_by_014"])
+         "fp12_mul_by_014", "g1_point_words"])
 def test_kernel_sources_export_their_entry(kernel):
     src = (KC.CSRC_DIR / kernel.source).read_text()
     assert re.search(rf'extern "C" int {kernel.symbol}\(', src)
     assert any(f'#include "{h}"' in src
-               for h in ("lazy13.cuh", "tower13.cuh", "group13.cuh", "group381.cuh",
-                         "strict16.cuh"))
+               for h in ("lazy13.cuh", "tower13.cuh", "group381.cuh", "strict16.cuh"))
     assert kernel.lib_path.parent == KC.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in KC.NVCC_FLAGS
 
@@ -194,3 +194,24 @@ def test_cached_build_keeps_its_ptxas_log(monkeypatch, tmp_path):
     rebuilt.build()
     assert "Used 128 registers" in rebuilt.build_log
     assert calls.read_text().count("run") == 2
+
+
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_point_words_wrapper(curve):
+    """`MB.point_words` on CPU rows is its plain version, and it raises for
+    rows the conversion kernels do not take: another row count, another
+    dtype, a device that is neither the CPU nor CUDA."""
+    import numpy as np
+    import torch
+
+    kc = MB.KC2_G2 if curve == "g2" else MB.KC2_G1
+    rng = np.random.default_rng(5)
+    comps = [torch.from_numpy(rng.integers(-4096, 4097, (30, 64)).astype(np.int32))
+             for _ in range(kc.aff_rows // 15)]
+    pts = torch.cat([MB.pack30(d) for d in comps])
+    words = MB.point_words(kc, pts)
+    assert words.shape == (kc.word_rows, 64) and words.dtype == torch.int32
+    assert torch.equal(words, MB.point_words_plain(kc, pts))
+    for bad in (pts[1:], pts.long(), pts.to("meta")):
+        with pytest.raises(ValueError):
+            MB.point_words(kc, bad)

@@ -1,14 +1,16 @@
-"""The 32-bit Montgomery field layer (csrc/fp381.cuh) and the G2 bucket
-kernel's body (csrc/group381.cuh, K2-G2) compiled for the CPU with the host
-C++ compiler and undefined-behaviour checks.
+"""The 32-bit Montgomery field layer (csrc/fp381.cuh) and the bucket
+kernels' body (csrc/group381.cuh, K2 over Fp and K2-G2 over Fp2) compiled
+for the CPU with the host C++ compiler and undefined-behaviour checks.
 
 The field operations are held against Python ints on random values and on
 the edges 0, 1, p-1 and R mod p; the header's constants against their
 definitions; the conversion of a bucket component into the dump's packed
-radix-13 digits by value and digit bound; the bucket body at c = 5 on one
-window against the plain version (`MB.accumulate_plain`) by value; and a
-small G2 MSM whose dump comes from the compiled body, reduced and finished
-by the unchanged Python stages, against the oracle. The kernel itself runs
+radix-13 digits by value and digit bound; for each curve, the points'
+conversion to words against the plain version, the bucket body at the
+curve's MSM window (G1 c = 7, G2 c = 5) on one window against the plain
+version (`MB.accumulate_plain`) by value, and a small MSM whose dump
+comes from the compiled body, reduced and finished by the unchanged Python
+stages, against the oracle. The kernel itself runs
 only on the card (tests/test_torch_cuda.py). Skipped where no host C++
 compiler is installed.
 """
@@ -35,7 +37,7 @@ from ark_blst_tpu_torch.oracle import field as OF
 P = OF.P
 R = 1 << 384
 NW = 12
-KC2 = MB.KC2_G2
+KCS = {"g1": MB.KC2_G1, "g2": MB.KC2_G2}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -59,10 +61,10 @@ HARNESS = r"""
 // stdout: the result. Elements are (12, n) word stacks, Fp2 values
 // (2, 12, n). Ops: 0 mont_mul(a, b), 1 add(a, b), 2 sub(a, b), 3 neg(a),
 // 4 3a, 5 12a, 6 Fp2 mul(a, b), 7 mul_b3(a) on Fp2, 8 store_r13(a) ->
-// (15, n) packed rows; 9 the bucket accumulation of W = p1 windows,
-// B = p2 buckets, S = 1024 streams: point words (48, n), digits (W, n),
-// result the dump (W, B, 90, S); 10 rows_to_words on (15, n) packed rows
-// -> (12, n) words.
+// (15, n) packed rows; 9 and 11 the G2 and G1 bucket accumulation of
+// W = p1 windows, B = p2 buckets, S = 1024 streams: point words (48 or 24,
+// n), digits (W, n), result the dump (W, B, 90 or 45, S); 10 rows_to_words
+// on (15, n) packed rows -> (12, n) words.
 using f381::Fp;
 using f381::Fp2;
 
@@ -73,20 +75,25 @@ int main() {
   long long hdr[4];
   if (fread(hdr, sizeof(long long), 4, stdin) != 4) return 2;
   const long long op = hdr[0], n = hdr[1], W = hdr[2], B = hdr[3], S = 1024;
-  if (op < 0 || op > 10 || n < 1) return 2;
-  static const int in_rows[] = {24, 24, 24, 12, 12, 12, 48, 24, 12, 0, 15};
-  static const int out_rows[] = {12, 12, 12, 12, 12, 12, 24, 24, 15, 0, 12};
-  const size_t in_size = op == 9 ? (48 + W) * n : in_rows[op] * n;
-  const size_t out_size = op == 9 ? W * B * 90 * S : out_rows[op] * n;
+  if (op < 0 || op > 11 || n < 1) return 2;
+  static const int in_rows[] = {24, 24, 24, 12, 12, 12, 48, 24, 12, 0, 15, 0};
+  static const int out_rows[] = {12, 12, 12, 12, 12, 12, 24, 24, 15, 0, 12, 0};
+  const bool bucket = op == 9 || op == 11;
+  const long long wrows = op == 9 ? 48 : 24, prows = op == 9 ? 90 : 45;
+  const size_t in_size = bucket ? (wrows + W) * n : in_rows[op] * n;
+  const size_t out_size = bucket ? W * B * prows * S : out_rows[op] * n;
   std::vector<int> in(in_size), out(out_size);
   if (fread(in.data(), sizeof(int), in.size(), stdin) != in.size()) return 3;
   const int* x = in.data();
-  if (op == 9) {
-    for (int w = 0; w < W; ++w)
-      for (int s = 0; s < S; ++s)
-        g381::accumulate_stream(x, x + 48 * n, out.data(), n, static_cast<int>(B),
-                                static_cast<int>(S), w, s);
-  }
+  for (int w = 0; bucket && w < W; ++w)
+    for (int s = 0; s < S; ++s) {
+      if (op == 9)
+        g381::accumulate_stream<Fp2>(x, x + wrows * n, out.data(), n, static_cast<int>(B),
+                                     static_cast<int>(S), w, s);
+      else
+        g381::accumulate_stream<Fp>(x, x + wrows * n, out.data(), n, static_cast<int>(B),
+                                    static_cast<int>(S), w, s);
+    }
   for (long long i = 0; op == 10 && i < n; ++i) g381::rows_to_words(x + i, n, out.data() + i, n);
   for (long long i = 0; op < 9 && i < n; ++i) {
     int* o = out.data() + i;
@@ -251,12 +258,14 @@ def test_dump_conversion_host(harness):
     assert LZ.digits_to_ints(digits) == [x * (1 << 6) % P for x in xs]
 
 
-def test_point_conversion_host(harness):
-    """rows_to_words (K2-G2's first step): 15 packed rows of lazy digits ->
-    the canonical R16 words of their value, against host ints and against
-    the plain version (`MB.g2_point_words_plain`), on random digits in the whole
-    packed range [-4129, 4128], the extremes of that range, and the edge
-    values 0, 1, p-1 and R13 mod p (balanced, as stored)."""
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_point_conversion_host(harness, curve):
+    """rows_to_words (the bucket kernels' first step): 15 packed rows of
+    lazy digits -> the canonical R16 words of their value, against host ints
+    and against the plain version (`MB.point_words_plain`, stacked as the
+    curve's two or four components), on random digits in the whole packed
+    range [-4129, 4128], the extremes of that range, and the edge values 0,
+    1, p-1 and R13 mod p (balanced, as stored)."""
     rng = np.random.default_rng(13)
     d = rng.integers(-4129, 4129, (30, 64)).astype(np.int32)
     d[:, 0], d[:, 1] = 4128, -4129
@@ -267,47 +276,61 @@ def test_point_conversion_host(harness):
     got = run(harness, 10, rows, shape=(NW, d.shape[1]))
     vals = LZ.digits_to_ints(torch.from_numpy(d))
     assert ints(got) == [v * pow(2, -6, P) % P for v in vals]
-    four = torch.cat([rows] * 4)
-    assert torch.equal(torch.cat([got] * 4), MB.g2_point_words_plain(four))
+    kc = KCS[curve]
+    comps = kc.word_rows // NW
+    stacked = torch.cat([rows] * comps)
+    assert torch.equal(torch.cat([got] * comps), MB.point_words_plain(kc, stacked))
 
 
-def _dump(harness, pts, digs, c):
+def _dump(harness, kc, pts, digs, c):
     W = digs.shape[0]
     B = MB._num_buckets(c)
-    return run(harness, 9, MB.g2_point_words_plain(pts), digs, windows=W, buckets=B,
-               shape=(W, B, KC2.pt_rows, MB.STREAMS))
+    return run(harness, 9 if kc.is_g2 else 11, MB.point_words_plain(kc, pts), digs, windows=W,
+               buckets=B, shape=(W, B, kc.pt_rows, MB.STREAMS))
 
 
-def test_bucket_accumulate_c5_host(harness):
-    """The per-thread body at the G2 MSM's c = 5 on one window of real
-    digits (the fourth), four tiles: tile 1 repeats tile 0 (a doubling
-    through the addition), tile 2 repeats it negated (the bucket falls
-    back), tile 3 is the instance's second tile. Value-equal to the plain
-    version, bucket for bucket; digits within 4096."""
-    c = 5
-    points, scalars, _ = distinct_bases(11, 4, "cpu", "g2")
-    pts, digs = MB._prepare_inputs(KC2, points, scalars, c)
+@pytest.mark.parametrize("curve,c", [("g1", 7), ("g2", 5)], ids=["g1-c7", "g2-c5"])
+def test_bucket_accumulate_main_c_host(harness, curve, c):
+    """The per-thread body at the curve's MSM window (G1 c = 7, G2 c = 5) on
+    one window of real digits (the fourth), four tiles: tile 1 repeats tile
+    0 (a doubling through the addition), tile 2 repeats it negated (the
+    bucket falls back), tile 3 is the instance's second tile. Value-equal to
+    the plain version, bucket for bucket; digits within 4096."""
+    kc = KCS[curve]
+    points, scalars, _ = distinct_bases(11, 4, "cpu", curve)
+    pts, digs = MB._prepare_inputs(kc, points, scalars, c)
     t0, t1 = pts[:, :MB.STREAMS], pts[:, MB.STREAMS:]
     d0, d1 = digs[3:4, :MB.STREAMS], digs[3:4, MB.STREAMS:]
     neg = d0 ^ torch.where((d0 & MB.MAG_MASK) != 0, 1 << MB.SIGN_BIT, 0).to(torch.int32)
     pts = torch.cat([t0, t0, t0, t1], 1).contiguous()
     digs = torch.cat([d0, d0, neg, d1], 1).contiguous()
-    got = _dump(harness, pts, digs, c)
+    got = _dump(harness, kc, pts, digs, c)
     assert MB.max_dump_digit(got) <= 4096
-    want = MB.accumulate_plain(KC2, pts, digs, c)
-    assert torch.equal(MB.dump_values(KC2, got), MB.dump_values(KC2, want))
+    want = MB.accumulate_plain(kc, pts, digs, c)
+    assert torch.equal(MB.dump_values(kc, got), MB.dump_values(kc, want))
 
 
-def test_g2_msm_from_host_dump(harness):
-    """The G2 slice with the compiled body in the kernel's place: prepare,
-    the host-compiled K2-G2 dump, the unchanged `_reduce_dump` and
+# curve: (c, windows filled, generator, scalar multiple, codecs, oracle MSM)
+MSM_CASES = {
+    "g1": (7, 4, OF.G1_GEN, OC.scalar_mul, CV.g1_to_dev, CV.g1_from_dev, OC.msm),
+    "g2": (5, 8, OF.G2_GEN, OC.g2_mul, CV.g2_to_dev, CV.g2_from_dev, OC.g2_msm),
+}
+
+
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_msm_from_host_dump(harness, curve):
+    """The MSM slice with the compiled body in the kernel's place: prepare,
+    the host-compiled K2 or K2-G2 dump, the unchanged `_reduce_dump` and
     `_finish_host`, against the oracle's MSM. 2048 points over 8 bases, an
-    identity point and a zero scalar, c = 5; scalars below 2^39 fill the
-    first 8 of the 52 windows, the others hold only zero digits and are
-    left out of the dump."""
-    c, windows, n = 5, 8, 2048
+    identity point and a zero scalar, at the curve's window (G1 c = 7, G2
+    c = 5); scalars below 2^(c windows - 1) fill the first windows (G1 4 of
+    37, G2 8 of 52), the others hold only zero digits and are left out of
+    the dump."""
+    kc = KCS[curve]
+    c, windows, gen, smul, to_dev, from_dev, msm = MSM_CASES[curve]
+    n = 2048
     rng = random.Random(31)
-    base = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(8)]
+    base = [smul(gen, rng.randrange(1, OF.R)) for _ in range(8)]
     pts = [base[i % 8] for i in range(n)]
     scs = [rng.randrange(1 << (c * windows - 1)) for _ in range(n)]
     pts[10], scs[11] = None, 0
@@ -315,8 +338,8 @@ def test_g2_msm_from_host_dump(harness):
     for i, s in enumerate(scs):
         if pts[i] is not None:
             agg[i % 8] += s
-    rows, digs = MB._prepare_inputs(KC2, CV.g2_to_dev(pts), CV.fr_to_dev(scs), c)
+    rows, digs = MB._prepare_inputs(kc, to_dev(pts), CV.fr_to_dev(scs), c)
     assert not digs[windows:].any()
-    dump = _dump(harness, rows, digs[:windows].contiguous(), c)
-    out = MB._finish_host(KC2, MB._reduce_dump(KC2, dump), c)
-    assert CV.g2_from_dev(out) == [OC.g2_msm(base, agg)]
+    dump = _dump(harness, kc, rows, digs[:windows].contiguous(), c)
+    out = MB._finish_host(kc, MB._reduce_dump(kc, dump), c)
+    assert from_dev(out) == [msm(base, agg)]

@@ -1,8 +1,8 @@
 """The CUDA code of K2-K6, K11 and K12 compiled for the CPU with the host C++
 compiler and undefined-behaviour checks, against the kernels' plain
-PyTorch versions: the tower (csrc/tower13.cuh, K3-K6, K11, K12) and the G1
-bucket addition (csrc/group13.cuh, K2) bit for bit, the G2 bucket addition
-(csrc/group381.cuh, K2-G2 on 32-bit Montgomery words) by value.
+PyTorch versions: the tower (csrc/tower13.cuh, K3-K6, K11, K12) bit for
+bit, the G1 and G2 bucket additions (csrc/group381.cuh, K2 and K2-G2 on
+32-bit Montgomery words) by value.
 
 The headers compile as plain C++ when __CUDACC__ is not defined; a small
 harness runs each kernel's per-element body over a batch. Built with
@@ -44,35 +44,22 @@ F = LZ.F_BOUND
 HARNESS = r"""
 #include <cstdio>
 #include <vector>
-#include "group13.cuh"
 #include "group381.cuh"
 #include "tower13.cuh"
 
 // stdin: op, n, p1, p2 (int64 each), then the operand stacks (int32);
 // stdout: the result. Ops 0-4: the tower kernels (param p1), result
-// (12, 30, n). Op 5: the G1 mixed addition on (5, 30, n) digits, result
-// (3, 30, n) before the store. Op 6: the G2 mixed addition of K2-G2 on
-// (10, 12, n) canonical R16 words, result (6, 12, n). Ops 7/8: the G1/G2
-// bucket accumulation of W = p1 windows, B = p2 buckets, S = 1024 streams:
-// points (30, n) packed rows (G1) or (48, n) words (G2), digits (W, n),
-// identity (45) (G1 only), result the dump (W, B, 45 or 90, S). Ops 9/10:
-// K11 (fp12 square) and K12 (the sparse line product), result (12, 30, n).
-void g1_mixed_add_batch(const int* x, int* out, long long n) {
-  const long long plane = 30 * n;
+// (12, 30, n). Ops 5/6: the G1/G2 mixed addition of K2/K2-G2 on (5, 12, n)
+// or (10, 12, n) canonical R16 words, result (3, 12, n) or (6, 12, n).
+// Ops 7/8: the G1/G2 bucket accumulation of W = p1 windows, B = p2
+// buckets, S = 1024 streams: points (24, n) or (48, n) words, digits (W, n),
+// result the dump (W, B, 45 or 90, S). Ops 9/10: K11 (fp12 square) and K12
+// (the sparse line product), result (12, 30, n).
+template <class F>
+void mixed_add_batch(const int* x, int* out, long long n) {
+  const long long plane = g381::NC<F> * 12 * n;
   for (long long i = 0; i < n; ++i) {
-    int in[5][30], res[3][30];
-    for (int c = 0; c < 5; ++c)
-      for (int k = 0; k < 30; ++k) in[c][k] = x[c * plane + k * n + i];
-    gp::mixed_add(in[0], in[1], in[2], in[3], in[4], res[0], res[1], res[2]);
-    for (int c = 0; c < 3; ++c)
-      for (int k = 0; k < 30; ++k) out[c * plane + k * n + i] = res[c][k];
-  }
-}
-
-void g2_mixed_add_batch(const int* x, int* out, long long n) {
-  const long long plane = 24 * n;
-  for (long long i = 0; i < n; ++i) {
-    f381::Fp2 v[5];
+    F v[5];
     for (int c = 0; c < 5; ++c) g381::load(x + c * plane + i, n, v[c]);
     g381::mixed_add(v[0], v[1], v[2], v[3], v[4]);
     for (int c = 0; c < 3; ++c) g381::store(v[c], out + c * plane + i, n);
@@ -91,30 +78,26 @@ int main() {
     static const int in_rows[] = {12, 24, 6, 10, 20, 0, 0, 0, 0, 12, 18};
     in_size = in_rows[op] * plane;
     out_size = 12 * plane;
-  } else if (op == 5) {
-    in_size = 5 * plane;
-    out_size = 3 * plane;
-  } else if (op == 6) {
-    in_size = 10 * 12 * n;
-    out_size = 6 * 12 * n;
-  } else if (op == 7) {
-    in_size = 30 * n + param * n + 45;
-    out_size = param * B * 45 * S;
+  } else if (op == 5 || op == 6) {  // NC = 1 or 2 Fp components a coordinate
+    const long long nc = op - 4;
+    in_size = 5 * nc * 12 * n;
+    out_size = 3 * nc * 12 * n;
   } else {
-    in_size = 48 * n + param * n;
-    out_size = param * B * 90 * S;
+    const long long nc = op - 6;
+    in_size = 24 * nc * n + param * n;
+    out_size = param * B * 45 * nc * S;
   }
   std::vector<int> in(in_size), out(out_size);
   if (fread(in.data(), sizeof(int), in.size(), stdin) != in.size()) return 3;
   const int* x = in.data();
-  if (op == 5) g1_mixed_add_batch(x, out.data(), n);
-  if (op == 6) g2_mixed_add_batch(x, out.data(), n);
+  if (op == 5) mixed_add_batch<f381::Fp>(x, out.data(), n);
+  if (op == 6) mixed_add_batch<f381::Fp2>(x, out.data(), n);
   if (op == 7 || op == 8) {
-    const int* digs = x + (op == 7 ? 30 : 48) * n;
+    const int* digs = x + (op == 7 ? 24 : 48) * n;
     for (int w = 0; w < param; ++w)
       for (int s = 0; s < S; ++s) {
-        if (op == 7) gp::accumulate_stream(x, digs, digs + param * n, out.data(), n, B, S, w, s);
-        else g381::accumulate_stream(x, digs, out.data(), n, B, S, w, s);
+        if (op == 7) g381::accumulate_stream<f381::Fp>(x, digs, out.data(), n, B, S, w, s);
+        else g381::accumulate_stream<f381::Fp2>(x, digs, out.data(), n, B, S, w, s);
       }
   }
   for (long long i = 0; tower && i < n; ++i) {
@@ -259,14 +242,15 @@ def test_fp12_mul_by_014_host(harness, source):
     assert torch.equal(run(harness, 10, 0, f, c), K12.fp12_mul_by_014_plain(f, c))
 
 
-# --- K2: the bucket addition over Fp and Fp2 (csrc/group13.cuh) --------------
+# --- K2: the bucket addition over Fp and Fp2 (csrc/group381.cuh) -------------
 
 KCS = {"g1": MB.KC2_G1, "g2": MB.KC2_G2}
 
 
 def words_of(stack: torch.Tensor) -> torch.Tensor:
     """(k, 30, n) lazy R13 digits -> (k, 12, n) int32 words of the same field
-    elements as K2-G2 holds them: canonical, Montgomery R16 (by host ints)."""
+    elements as K2 and K2-G2 hold them: canonical, Montgomery R16 (by host
+    ints)."""
     k, _, n = stack.shape
     vals = [[LZ.digits_to_int(stack[i, :, j].numpy()) * R16_OVER_R13 % OF.P for j in range(n)]
             for i in range(k)]
@@ -278,56 +262,52 @@ def words_of(stack: torch.Tensor) -> torch.Tensor:
 R16_OVER_R13 = pow(2, -6, OF.P)
 
 
-def g2_add_operands(seed):
-    """(10, 30, N) balanced R13 digits of five Fp2 coordinates X1, Y1, Z1,
-    X2, Y2 that are field elements (K2-G2 takes canonical values, so its
-    case is value parity on the lazy engine's valid inputs): column 0 the
-    identity bucket (0 : 1 : 0) plus a real point, column 1 a doubling
-    (P1 = P2, Z1 = 1), column 2 a cancellation (P1 = -P2), columns 3-6 the
-    edges 0, 1, p-1 and R13 mod p in every component, the rest random."""
+def add_operands(kc, seed):
+    """(5 nc, 30, N) balanced R13 digits of five coordinates X1, Y1, Z1, X2,
+    Y2 (nc = 1 Fp component each on G1, 2 on G2) that are field elements
+    (K2 and K2-G2 take canonical values, so their case is value parity on
+    the lazy engine's valid inputs): column 0 the identity bucket (0 : 1 :
+    0) plus a real point, column 1 a doubling (P1 = P2, Z1 = 1), column 2 a
+    cancellation (P1 = -P2), columns 3-6 the edges 0, 1, p-1 and R13 mod p
+    in every component, the rest random."""
     rng = random.Random(seed)
     P = OF.P
-    q = OC.g2_mul(OF.G2_GEN, 5)
-    cols = [[0, 0, 1, 0, 0, 0, *q[0], *q[1]],
-            [*q[0], *q[1], 1, 0, *q[0], *q[1]],
-            [*q[0], *OF.fp2_neg(q[1]), 1, 0, *q[0], *q[1]]]
-    cols += [[e] * 10 for e in (0, 1, P - 1, LZ.R13_MOD_P)]
-    cols += [[rng.randrange(P) for _ in range(10)] for _ in range(N - len(cols))]
+    if kc.is_g2:
+        q = OC.g2_mul(OF.G2_GEN, 5)
+        x, y, negy, zero, one = [*q[0]], [*q[1]], [*OF.fp2_neg(q[1])], [0, 0], [1, 0]
+    else:
+        q = OC.scalar_mul(OF.G1_GEN, 5)
+        x, y, negy, zero, one = [q[0]], [q[1]], [-q[1] % P], [0], [1]
+    cols = [zero + one + zero + x + y, x + y + one + x + y, x + negy + one + x + y]
+    rows = 5 * len(one)
+    cols += [[e] * rows for e in (0, 1, P - 1, LZ.R13_MOD_P)]
+    cols += [[rng.randrange(P) for _ in range(rows)] for _ in range(N - len(cols))]
     arr = np.stack([[MB.int_to_digits_balanced(v * LZ.R13 % P) for v in col] for col in cols])
     return torch.from_numpy(np.ascontiguousarray(arr.transpose(1, 2, 0)))
 
 
 @pytest.mark.parametrize("curve", ["g1", "g2"])
 def test_mixed_add_host(harness, curve):
-    """The raw addition. G1 (lazy digits) bit for bit on extreme digits:
-    +-F_BOUND, canonical 8191s, alternating signs, the R13/2 edge, and a
-    column whose coordinates mix all of them. G2 (K2-G2's 32-bit words) by
-    value on the field elements of `g2_add_operands`."""
+    """The raw addition of K2 (over Fp) and K2-G2 (over Fp2), on 32-bit
+    words, by value against the lazy addition on the field elements of
+    `add_operands`: the identity bucket, a doubling, a cancellation, the
+    edges 0, 1, p-1 and R13 mod p, random values."""
     kc = KCS[curve]
     nc = 2 if kc.is_g2 else 1
-    if kc.is_g2:
-        x = g2_add_operands(6)
-    else:
-        (x,) = digit_stacks(6, 5)
-        pattern = [F, -F, 8191, -8191, 0]
-        x[:, :, 5] = torch.tensor([[pattern[(r + k) % 5] for k in range(30)] for r in range(5)])
+    x = add_operands(kc, 6)
     coords = [tuple(x[c * nc : (c + 1) * nc]) if kc.is_g2 else x[c] for c in range(5)]
     want = torch.stack(kc.components(LG.mixed_add(kc.f, tuple(coords[:3]), tuple(coords[3:]))))
-    if kc.is_g2:
-        got = run(harness, 6, 0, words_of(x), shape=(6, 12, N))
-        assert torch.equal(got, words_of(want))
-    else:
-        assert torch.equal(run(harness, 5, 0, x, shape=(3, 30, N)), want)
+    got = run(harness, 6 if kc.is_g2 else 5, 0, words_of(x), shape=(3 * nc, 12, N))
+    assert torch.equal(got, words_of(want))
 
 
 @pytest.mark.parametrize("curve", ["g1", "g2"])
 def test_bucket_accumulate_host(harness, curve):
-    """The kernels' per-thread body on real points against the plain
-    version, dump for dump: six tiles of one window, c = 2, where tile 1
+    """The kernels' per-thread body (K2 and K2-G2 on the 32-bit layer) on
+    real points against the plain version, dump for dump by value, its
+    digits within 4096: six tiles of one window, c = 2, where tile 1
     repeats tile 0 (a doubling through the addition), tile 2 repeats it
-    negated (the bucket falls back), and the other tiles are random. G1 bit
-    for bit; G2 (K2-G2 on the 32-bit layer) by value, its digits within
-    4096."""
+    negated (the bucket falls back), and the other tiles are random."""
     kc, c = KCS[curve], 2
     B = MB._num_buckets(c)
     points, scalars, _ = distinct_bases(10, 3, "cpu", curve)
@@ -340,12 +320,7 @@ def test_bucket_accumulate_host(harness, curve):
     digs = torch.from_numpy((mag | (sign << MB.SIGN_BIT)).reshape(1, -1).astype(np.int32))
     pts = pts.repeat(1, 6).contiguous()
     want = MB.accumulate_plain(kc, pts, digs, c)
-    shape = (1, B, kc.pt_rows, MB.STREAMS)
-    if kc.is_g2:
-        got = run(harness, 8, 1, MB.g2_point_words_plain(pts), digs, shape=shape,
-                  buckets=B)
-        assert MB.max_dump_digit(got) <= 4096
-        assert torch.equal(MB.dump_values(kc, got), MB.dump_values(kc, want))
-    else:
-        ident = torch.from_numpy(kc.identity_rows())
-        assert torch.equal(run(harness, 7, 1, pts, digs, ident, shape=shape, buckets=B), want)
+    got = run(harness, 8 if kc.is_g2 else 7, 1, MB.point_words_plain(kc, pts), digs,
+              shape=(1, B, kc.pt_rows, MB.STREAMS), buckets=B)
+    assert MB.max_dump_digit(got) <= 4096
+    assert torch.equal(MB.dump_values(kc, got), MB.dump_values(kc, want))
