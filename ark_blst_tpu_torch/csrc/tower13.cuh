@@ -1,4 +1,7 @@
-// Device functions of the lazy Fp2/Fp6/Fp12 tower and the pairing's events.
+// Device functions of the lazy Fp2/Fp6/Fp12 tower on radix-13 digits and the
+// pairing's prepare events, for K4 (fp12_mul.cu), K5 (prepare_step.cu), K11
+// (fp12_sqr.cu) and K12 (fp12_mul_by_014.cu). (K3 and K6 run on the 32-bit
+// Montgomery words of tower381.cuh.)
 //
 // Every function mirrors the function of the same name in
 // ark_blst_tpu_torch/ops/tower_lazy.py (tower) or curves/pairing_steps.py
@@ -17,10 +20,7 @@
 // * so every product operand has |digit| <= 8191 and every product column
 //   is <= 30 * 8191^2 = 2.01e9 < 2^31 (lazy13.cuh);
 // * sums fed to fold30 are at most 8 * 8191 = 65,528 (fp2_mul_small(t2, 8)
-//   of the doubling step is the largest scale; 3t +- 2z of the cyclotomic
-//   square is <= 5 * 4129; m2 - m0 - m1 <= 3 * 4129);
-// * the Barrett contraction: |x[29] * 5040| <= 8191 * 5040 = 4.13e7, so
-//   |q| <= 631 and |q * p_k| <= 631 * 8191 = 5.17e6.
+//   of the doubling step is the largest scale; m2 - m0 - m1 <= 3 * 4129).
 // fold30 drops the top carry on purpose (exact for |value| < 0.49 * 2^390,
 // which every value of the tower satisfies).
 #pragma once
@@ -43,12 +43,6 @@ struct Fp6 {
 struct Fp12 {
   Fp6 c[2];
 };
-
-// Barrett constants of tower_lazy._contract_many: q = round(x / p) from the
-// top digit, K = round(2^(13*29+16) / p).
-constexpr int BARRETT_S = 16;
-constexpr int BARRETT_K = 5040;
-constexpr int BARRETT_HALF = 1 << (BARRETT_S - 1);
 
 // --- Fp -------------------------------------------------------------------
 
@@ -99,15 +93,6 @@ LZ_NOINLINE Fp fp_mul(const Fp& a, const Fp& b) {
   Fp r;
   lz::mont_mul(a.d, b.d, r.d);
   return r;
-}
-
-// x - round(x / p) * p: the same residue, magnitude below 0.58p.
-__device__ __forceinline__ Fp contract(const Fp& x) {
-  const int q = (x.d[ELEM - 1] * BARRETT_K + BARRETT_HALF) >> BARRETT_S;
-  Fp t;
-#pragma unroll
-  for (int k = 0; k < ELEM; ++k) t.d[k] = x.d[k] - q * lz::P_DIGITS[k];
-  return fold30(fold30(t));
 }
 
 // --- Fp2 ------------------------------------------------------------------
@@ -239,34 +224,6 @@ LZ_NOINLINE Fp12 fp12_mul_by_014(const Fp12& f, const Fp2& c0, const Fp2& c1, co
   return make12(fp6_add(fp6_mul_by_nonresidue(bb), aa), fp6_sub(fp6_sub(mid, aa), bb));
 }
 
-// tower_lazy._cyc_sqr_core: contraction, 9 fp2 squares, 3t +- 2z.
-LZ_NOINLINE Fp12 cyc_sqr_core(const Fp12& x) {
-  Fp12 a;
-#pragma unroll 1
-  for (int i = 0; i < 2; ++i)
-#pragma unroll 1
-    for (int j = 0; j < 3; ++j)
-#pragma unroll 1
-      for (int k = 0; k < 2; ++k) a.c[i].c[j].c[k] = contract(x.c[i].c[j].c[k]);
-  const Fp2 &a0 = a.c[0].c[0], &a1 = a.c[0].c[1], &a2 = a.c[0].c[2];
-  const Fp2 &b0 = a.c[1].c[0], &b1 = a.c[1].c[1], &b2 = a.c[1].c[2];
-  // fp4 squares of (a0, b1), (b0, a2), (a1, b2): c0^2, c1^2, (c0 + c1)^2
-  const Fp2 p0 = fp2_sqr(a0), p1 = fp2_sqr(b1), p2 = fp2_sqr(fp2_add(a0, b1));
-  const Fp2 p3 = fp2_sqr(b0), p4 = fp2_sqr(a2), p5 = fp2_sqr(fp2_add(b0, a2));
-  const Fp2 p6 = fp2_sqr(a1), p7 = fp2_sqr(b2), p8 = fp2_sqr(fp2_add(a1, b2));
-  const Fp2 t0 = fp2_add(fp2_mul_by_nonresidue(p1), p0), t1 = fp2_sub(fp2_sub(p2, p0), p1);
-  const Fp2 s0 = fp2_add(fp2_mul_by_nonresidue(p4), p3), s1 = fp2_sub(fp2_sub(p5, p3), p4);
-  const Fp2 r0 = fp2_add(fp2_mul_by_nonresidue(p7), p6), r1 = fp2_sub(fp2_sub(p8, p6), p7);
-  // even coefficients 3t - 2z, odd 3t + 2z
-  const Fp2 na0 = fp2_sub(fp2_mul_small(t0, 3), fp2_mul_small(a0, 2));
-  const Fp2 nb1 = fp2_add(fp2_mul_small(t1, 3), fp2_mul_small(b1, 2));
-  const Fp2 na1 = fp2_sub(fp2_mul_small(s0, 3), fp2_mul_small(a1, 2));
-  const Fp2 nb2 = fp2_add(fp2_mul_small(s1, 3), fp2_mul_small(b2, 2));
-  const Fp2 na2 = fp2_sub(fp2_mul_small(r0, 3), fp2_mul_small(a2, 2));
-  const Fp2 nb0 = fp2_add(fp2_mul_small(fp2_mul_by_nonresidue(r1), 3), fp2_mul_small(b0, 2));
-  return make12(make6(na0, na1, na2), make6(nb0, nb1, nb2));
-}
-
 // --- pairing events (curves/pairing_steps.py) ------------------------------
 
 struct G2Jac {
@@ -321,15 +278,6 @@ LZ_NOINLINE void addition_step(const G2Jac& r, const Fp2& qx, const Fp2& qy, G2J
   nr.z = nz;
 }
 
-// One Miller event: (f^2 if with_sqr) * line, the line scaled by P (_ell_legs).
-LZ_NOINLINE Fp12 miller_step(const Fp12& f, const Line& c, const Fp& px, const Fp& py,
-                             int with_sqr) {
-  const Fp12 g = with_sqr ? fp12_sqr(f) : f;
-  const Fp2 a1 = make2(fp_mul(c.c1.c[0], px), fp_mul(c.c1.c[1], px));
-  const Fp2 a4 = make2(fp_mul(c.c0.c[0], py), fp_mul(c.c0.c[1], py));
-  return fp12_mul_by_014(g, c.c2, a1, a4);
-}
-
 // --- element I/O: a stack (k, 30, n), element i, component-major ----------
 
 __device__ __forceinline__ Fp load_fp(const int* __restrict__ src, long long n, long long i) {
@@ -373,15 +321,6 @@ __device__ __forceinline__ void store_fp12(const Fp12& a, int* dst, long long n,
 
 // --- the kernels' per-element bodies ---------------------------------------
 
-// K3: x (12, 30, n) squared nsq times -> out.
-__device__ __forceinline__ void cyc_sqr_elem(const int* x, int* out, long long n, long long i,
-                                             int nsq) {
-  Fp12 v = load_fp12(x, n, i);
-#pragma unroll 1
-  for (int s = 0; s < nsq; ++s) v = cyc_sqr_core(v);
-  store_fp12(v, out, n, i);
-}
-
 // K4: a * b, (12, 30, n) each -> out.
 __device__ __forceinline__ void fp12_mul_elem(const int* a, const int* b, int* out, long long n,
                                               long long i) {
@@ -421,18 +360,6 @@ __device__ __forceinline__ void prepare_step_elem(const int* r, const int* q, in
   store_fp2(line.c0, out, 6, n, i);
   store_fp2(line.c1, out, 8, n, i);
   store_fp2(line.c2, out, 10, n, i);
-}
-
-// K6: F (12, 30, n), C (6, 30, n), PXY (2, 30, n) -> out (12, 30, n).
-__device__ __forceinline__ void miller_step_elem(const int* f, const int* c, const int* pxy,
-                                                 int* out, long long n, long long i,
-                                                 int with_sqr) {
-  Line line;
-  line.c0 = load_fp2(c, 0, n, i);
-  line.c1 = load_fp2(c, 2, n, i);
-  line.c2 = load_fp2(c, 4, n, i);
-  const Fp px = load_fp(pxy, n, i), py = load_fp(pxy + ELEM * n, n, i);
-  store_fp12(miller_step(load_fp12(f, n, i), line, px, py, with_sqr), out, n, i);
 }
 
 }  // namespace tw

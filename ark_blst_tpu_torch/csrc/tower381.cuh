@@ -1,0 +1,503 @@
+// Device functions of the Fp12 tower on the 32-bit Montgomery layer of
+// fp381.cuh, for the kernels that split each element's work over a block's
+// threads: K3 (n cyclotomic squares, cyc_sqr.cu) and K6 (one Miller event,
+// miller_step.cu).
+//
+// The tower: Fp6 = Fp2[v]/(v^3 - xi), Fp12 = Fp6[w]/(w^2 - v), xi = 1 + u,
+// an fp12 (a0 + a1 v + a2 v^2) + (b0 + b1 v + b2 v^2) w held as six Fp2
+// values in the component order of ops/tower_lazy.py:stack12: a0, a1, a2,
+// b0, b1, b2, each re then im.
+//
+// Value parity: every kernel computes the same field elements as its plain
+// version (tower_lazy._cyc_sqr_core, pairing_steps.miller_step_plain) from
+// the same algebra -- the Granger-Scott square pairing the Fp2 components as
+// (a0, b1), (b0, a2), (a1, b2) with xi on r1 into nb0; the complex square of
+// tower_lazy.fp12_sqr over the 6-leg Karatsuba of fp6_mul_many; the 15
+// Fp2 products of fp12_mul_by_014_many; the line scaled by P as
+// pairing_steps._ell_legs -- in exact field arithmetic on canonical words,
+// so only the redundant digits differ. (The plain versions are field
+// operations on the values the tower produces, |value| far below 2^390;
+// their folds truncate larger values.)
+//
+// The block's program: an element's state lives in shared memory as Fp2
+// "slots" of 24 words, word-major with the block's E elements interleaved
+// (word k of slot s of element e at smem[(24 s + k) E + e]), so that the
+// threads of a warp, on neighbouring elements, hit neighbouring banks. A
+// kernel is a fixed sequence of phases; each phase is a list of independent
+// operations on one element's slots (`LinOp`: a signed sum of small
+// multiples of slots, some times xi; `MulOp`: one Fp2 product, square or
+// scaling by an Fp, of two such sums). The block's threads take the
+// phase's (operation, element) jobs in turn, operation-major, and a
+// barrier ends the phase. Each job is one thread's and holds a few Fp2
+// values in registers, where the first versions held a whole fp12 and its
+// intermediates a thread. The conversions at the kernel's edges are
+// phases too, one job an Fp component.
+//
+// Compiles as host C++ too (no __CUDACC__, unsigned arithmetic only):
+// tests/test_torch_tower_host.py runs each kernel's phases in order, job by
+// job, under -fsanitize=undefined.
+#pragma once
+
+#include "fp381.cuh"
+#include "lazy13.cuh"
+
+namespace t381 {
+
+using f381::Fp;
+using f381::Fp2;
+using f381::NW;
+using f381::u32;
+using f381::u64;
+
+constexpr int SLOT = 2 * NW;  // words of one Fp2 slot
+constexpr int DIGITS = lz::ELEM;
+
+// (-8192 (2^390 - 1) / 8191) mod p, little-endian words: added to
+// sum_k (d_k + 8192) 2^(13 k) it gives a nonnegative number of the same
+// residue as the digits' value sum_k d_k 2^(13 k), for any |d_k| <= 8191
+// (pinned against Python ints by tests/test_torch_tower_host.py).
+__constant__ u32 DIGIT8192_FIX[NW] = {0xfb2d8b7d, 0x7378ff7f, 0x0e0bbf51, 0x99d3fbc7,
+                                      0xfe2e3303, 0x591728bf, 0x1d0035bf, 0xa18b20b4,
+                                      0x9f8506d8, 0x202a5a3f, 0x3a3d662f, 0x16a31853};
+
+// --- the conversions at the kernel's edges -------------------------------------
+
+// 30 balanced digits at src[k * stride], |d| <= 8191, R13 domain (x 2^390,
+// any value the digits hold) -> canonical R16 words (x 2^384). W = sum of the
+// digits biased by 8192 (each in [1, 16383]) + DIGIT8192_FIX has the value's
+// residue and lies in [0, 2^391 + p) < 2^12 p; subtracting 2^k p for
+// k = 11 .. 0 where it fits leaves W mod p, and a Montgomery product by
+// 2^378 takes it from x 2^390 to x 2^384.
+__device__ __forceinline__ void digits_to_words(const int* src, long long stride, Fp& r) {
+  constexpr int TW = NW + 1;  // W < 2^392: 13 words
+  u64 acc[TW];
+#pragma unroll
+  for (int j = 0; j < NW; ++j) acc[j] = DIGIT8192_FIX[j];
+  acc[NW] = 0;
+#pragma unroll
+  for (int k = 0; k < DIGITS; ++k) {
+    const int bit = lz::RADIX * k, j = bit / 32;
+    const u64 e = static_cast<u32>(src[k * stride] + 8192);  // in [1, 16383]
+    const u64 v = e << (bit % 32);                             // < 2^46
+    acc[j] += v & 0xFFFFFFFF;
+    acc[j + 1] += v >> 32;
+  }
+  u32 t[TW];
+  u64 carry = 0;
+#pragma unroll
+  for (int j = 0; j < TW; ++j) {
+    carry += acc[j];
+    t[j] = static_cast<u32>(carry);
+    carry >>= 32;
+  }
+#pragma unroll
+  for (int k = 11; k >= 0; --k) {  // t -= 2^k p where t >= 2^k p
+    u32 d[TW];
+    u64 borrow = 0;
+#pragma unroll
+    for (int j = 0; j < TW; ++j) {
+      const u32 lo = j < NW ? f381::P[j] << k : 0;
+      const u32 hi = (k > 0 && j > 0) ? f381::P[j - 1] >> (32 - k) : 0;
+      const u64 s = static_cast<u64>(t[j]) - (lo | hi) - borrow;
+      d[j] = static_cast<u32>(s);
+      borrow = (s >> 32) & 1;
+    }
+#pragma unroll
+    for (int j = 0; j < TW; ++j) t[j] = borrow ? t[j] : d[j];
+  }
+  Fp x, c;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    x.w[j] = t[j];
+    c.w[j] = f381::R378_MOD_P[j];
+  }
+  f381::mont_mul(x, c, r);
+}
+
+// Canonical R16 words -> 30 balanced digits at dst[k * stride], R13 domain:
+// times 2^390 mod p by a Montgomery product, cut into radix-13 digits, one
+// balanced fold (|d| <= 4096; the carry out is 0 for a value below p). The
+// digits are mul-ready for K3, K4, K6 and the tower's plain code.
+__device__ __forceinline__ void words_to_digits(const Fp& x, int* dst, long long stride) {
+  Fp c, v;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) c.w[j] = f381::R390_MOD_P[j];
+  f381::mont_mul(x, c, v);
+  int d[DIGITS + 1];
+#pragma unroll
+  for (int k = 0; k < DIGITS; ++k) {
+    const int bit = lz::RADIX * k, j = bit / 32, sh = bit % 32;
+    u32 u = v.w[j] >> sh;
+    if (sh > 32 - lz::RADIX && j + 1 < NW) u |= v.w[j + 1] << (32 - sh);
+    d[k] = static_cast<int>(u & lz::DMASK);
+  }
+  lz::fold<DIGITS>(d);
+#pragma unroll
+  for (int k = 0; k < DIGITS; ++k) dst[k * stride] = d[k];
+}
+
+// --- Fp2 operations beyond fp381.cuh -----------------------------------------
+
+// xi a = (1 + u) a = (a0 - a1) + (a0 + a1) u. r may alias a.
+__device__ __forceinline__ void mul_by_xi(const Fp2& a, Fp2& r) {
+  Fp d;
+  f381::sub(a.c0, a.c1, d);
+  f381::add(a.c0, a.c1, r.c1);
+  r.c0 = d;
+}
+
+// a^2 = (a0 + a1)(a0 - a1) + 2 a0 a1 u.
+__device__ __forceinline__ void sqr(const Fp2& a, Fp2& r) {
+  Fp s, d, m;
+  f381::add(a.c0, a.c1, s);
+  f381::sub(a.c0, a.c1, d);
+  f381::mont_mul(a.c0, a.c1, m);
+  f381::mont_mul(s, d, r.c0);
+  f381::add(m, m, r.c1);
+}
+
+// --- one element's slots in shared memory -----------------------------------
+
+struct Elem {
+  u32* s;  // word k of slot q at s[(SLOT q + k) E]
+  int E;
+};
+
+__device__ __forceinline__ void load(const Elem& m, int q, Fp2& v) {
+  const u32* p = m.s + static_cast<long long>(q) * SLOT * m.E;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    v.c0.w[k] = p[k * m.E];
+    v.c1.w[k] = p[(NW + k) * m.E];
+  }
+}
+
+__device__ __forceinline__ void store(const Elem& m, int q, const Fp2& v) {
+  u32* p = m.s + static_cast<long long>(q) * SLOT * m.E;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    p[k * m.E] = v.c0.w[k];
+    p[(NW + k) * m.E] = v.c1.w[k];
+  }
+}
+
+// Fp component h (0 re, 1 im) of slot q.
+__device__ __forceinline__ void load_fp(const Elem& m, int q, int h, Fp& v) {
+  const u32* p = m.s + (static_cast<long long>(q) * SLOT + h * NW) * m.E;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) v.w[k] = p[k * m.E];
+}
+
+__device__ __forceinline__ void store_fp(const Elem& m, int q, int h, const Fp& v) {
+  u32* p = m.s + (static_cast<long long>(q) * SLOT + h * NW) * m.E;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) p[k * m.E] = v.w[k];
+}
+
+// --- the program's operations --------------------------------------------------
+
+// coef * (xi if xi else 1) * slot; coef 0 ends a term list.
+struct Term {
+  signed char slot, coef, xi;
+};
+
+constexpr int LIN_TERMS = 5;
+constexpr int MUL_TERMS = 4;
+
+// dst <- sum of the terms.
+struct LinOp {
+  signed char dst;
+  Term t[LIN_TERMS];
+};
+
+enum MulKind : signed char { MUL = 0, SQR = 1, SCALE_RE = 2, SCALE_IM = 3 };
+
+// dst <- X Y (MUL), X^2 (SQR, K3's squares, run_sqr), or X times the re /
+// im Fp component of Y's first slot (SCALE_RE / SCALE_IM); X and Y sums of
+// terms.
+struct MulOp {
+  signed char dst, kind;
+  Term x[MUL_TERMS], y[MUL_TERMS];
+};
+
+// acc <- sum of up to n terms.
+__device__ __forceinline__ void sum_terms(const Elem& m, const Term* t, int n, Fp2& acc) {
+#pragma unroll
+  for (int k = 0; k < NW; ++k) acc.c0.w[k] = acc.c1.w[k] = 0;
+#pragma unroll 1
+  for (int i = 0; i < n && t[i].coef != 0; ++i) {
+    Fp2 v;
+    load(m, t[i].slot, v);
+    if (t[i].xi) mul_by_xi(v, v);
+    const int c = t[i].coef;
+#pragma unroll 1
+    for (int k = c < 0 ? -c : c; k > 0; --k) {
+      if (c > 0) f381::add(acc, v, acc);
+      else f381::sub(acc, v, acc);
+    }
+  }
+}
+
+__device__ __forceinline__ void run(const Elem& m, const LinOp& op) {
+  Fp2 acc;
+  sum_terms(m, op.t, LIN_TERMS, acc);
+  store(m, op.dst, acc);
+}
+
+__device__ __forceinline__ void run_sqr(const Elem& m, const MulOp& op) {
+  Fp2 x, r;
+  sum_terms(m, op.x, MUL_TERMS, x);
+  sqr(x, r);
+  store(m, op.dst, r);
+}
+
+// A MUL or SCALE op (K6's products).
+__device__ __forceinline__ void run(const Elem& m, const MulOp& op) {
+  Fp2 x, r;
+  sum_terms(m, op.x, MUL_TERMS, x);
+  if (op.kind == MUL) {
+    Fp2 y;
+    sum_terms(m, op.y, MUL_TERMS, y);
+    f381::mul(x, y, r);
+  } else {
+    Fp y;
+    load_fp(m, op.y[0].slot, op.kind == SCALE_IM, y);
+    f381::mont_mul(x.c0, y, r.c0);
+    f381::mont_mul(x.c1, y, r.c1);
+  }
+  store(m, op.dst, r);
+}
+
+// --- K3: the cyclotomic square (tower_lazy._cyc_sqr_core) ------------------------
+//
+// Slots: 0-5 the element (a0, a1, a2, b0, b1, b2), 6-14 the nine Fp2
+// squares p0 .. p8 of the Fp4 pairs (a0, b1), (b0, a2), (a1, b2): c0^2,
+// c1^2, (c0 + c1)^2 each. Then in place: even coefficients 3t - 2z, odd
+// 3t + 2z, with t0 = p0 + xi p1, t1 = p2 - p0 - p1 (and s, r likewise) and
+// nb0 = 3 xi r1 + 2 b0. Each output reads only its own slot of the
+// element, so the recombination writes over it.
+
+constexpr int CYC_SLOTS = 15;
+
+__constant__ MulOp CYC_SQUARES[9] = {
+    {6, SQR, {{0, 1, 0}}, {}},              // p0 = a0^2
+    {7, SQR, {{4, 1, 0}}, {}},              // p1 = b1^2
+    {8, SQR, {{0, 1, 0}, {4, 1, 0}}, {}},   // p2 = (a0 + b1)^2
+    {9, SQR, {{3, 1, 0}}, {}},              // p3 = b0^2
+    {10, SQR, {{2, 1, 0}}, {}},             // p4 = a2^2
+    {11, SQR, {{3, 1, 0}, {2, 1, 0}}, {}},  // p5 = (b0 + a2)^2
+    {12, SQR, {{1, 1, 0}}, {}},             // p6 = a1^2
+    {13, SQR, {{5, 1, 0}}, {}},             // p7 = b2^2
+    {14, SQR, {{1, 1, 0}, {5, 1, 0}}, {}},  // p8 = (a1 + b2)^2
+};
+
+__constant__ LinOp CYC_RECOMBINE[6] = {
+    {0, {{6, 3, 0}, {7, 3, 1}, {0, -2, 0}}},                // na0 = 3 t0 - 2 a0
+    {4, {{8, 3, 0}, {6, -3, 0}, {7, -3, 0}, {4, 2, 0}}},    // nb1 = 3 t1 + 2 b1
+    {1, {{9, 3, 0}, {10, 3, 1}, {1, -2, 0}}},               // na1 = 3 s0 - 2 a1
+    {5, {{11, 3, 0}, {9, -3, 0}, {10, -3, 0}, {5, 2, 0}}},  // nb2 = 3 s1 + 2 b2
+    {2, {{12, 3, 0}, {13, 3, 1}, {2, -2, 0}}},              // na2 = 3 r0 - 2 a2
+    {3, {{14, 3, 1}, {12, -3, 1}, {13, -3, 1}, {3, 2, 0}}}, // nb0 = 3 xi r1 + 2 b0
+};
+
+// --- K6: one Miller event (pairing_steps.miller_step_plain) ----------------------
+//
+// Slots: 0-5 f (then g = f^2, then the result), 6-8 the line c0, c1, c2,
+// 9 P (px re, py im), 10 c1 px and 11 c0 py (_ell_legs' a1 and a4; a0 is
+// c2), 12-29 products and sums. With the square:
+//   MILLER_SQR_PRODUCTS  the 12 Fp2 products of fp12_sqr's two fp6_mul
+//                        (t = f0 f1 and m = (f0 + f1)(f0 + v f1), six
+//                        Karatsuba legs each, the leg sums taken in the
+//                        job) and the two line scalings (4 Fp products)
+//   MILLER_SQR_FP6       t and m from their legs
+//   MILLER_SQR_RESULT    g = (m - t - v t, 2 t) into slots 0-5
+// then, and alone without the square (after MILLER_LEGS):
+//   MILLER_014_PRODUCTS  the 15 Fp2 products of fp12_mul_by_014(g, c2,
+//                        c1 px, c0 py)
+//   MILLER_014_RESULT    their combination into slots 0-5.
+
+constexpr int MILLER_SLOTS = 30;
+constexpr int MILLER_INPUTS = 20;  // Fp components: f 12, the line 6, P 2
+
+__constant__ MulOp MILLER_LEGS[2] = {
+    {10, SCALE_RE, {{7, 1, 0}}, {{9, 1, 0}}},  // a1 = c1 px
+    {11, SCALE_IM, {{6, 1, 0}}, {{9, 1, 0}}},  // a4 = c0 py
+};
+
+// f0 = (a0, a1, a2) in slots 0-2, f1 = (b0, b1, b2) in 3-5; A = f0 + f1,
+// B = f0 + v f1 = (a0 + xi b2, a1 + b0, a2 + b1).
+__constant__ MulOp MILLER_SQR_PRODUCTS[14] = {
+    {12, MUL, {{0, 1, 0}}, {{3, 1, 0}}},                          // v0 = a0 b0
+    {13, MUL, {{1, 1, 0}}, {{4, 1, 0}}},                          // v1 = a1 b1
+    {14, MUL, {{2, 1, 0}}, {{5, 1, 0}}},                          // v2 = a2 b2
+    {15, MUL, {{1, 1, 0}, {2, 1, 0}}, {{4, 1, 0}, {5, 1, 0}}},    // m12
+    {16, MUL, {{0, 1, 0}, {1, 1, 0}}, {{3, 1, 0}, {4, 1, 0}}},    // m01
+    {17, MUL, {{0, 1, 0}, {2, 1, 0}}, {{3, 1, 0}, {5, 1, 0}}},    // m02
+    {18, MUL, {{0, 1, 0}, {3, 1, 0}}, {{0, 1, 0}, {5, 1, 1}}},    // V0 = A0 B0
+    {19, MUL, {{1, 1, 0}, {4, 1, 0}}, {{1, 1, 0}, {3, 1, 0}}},    // V1 = A1 B1
+    {20, MUL, {{2, 1, 0}, {5, 1, 0}}, {{2, 1, 0}, {4, 1, 0}}},    // V2 = A2 B2
+    {21, MUL, {{1, 1, 0}, {4, 1, 0}, {2, 1, 0}, {5, 1, 0}},       // M12 = (A1 + A2)
+     {{1, 1, 0}, {3, 1, 0}, {2, 1, 0}, {4, 1, 0}}},               //       (B1 + B2)
+    {22, MUL, {{0, 1, 0}, {3, 1, 0}, {1, 1, 0}, {4, 1, 0}},       // M01 = (A0 + A1)
+     {{0, 1, 0}, {5, 1, 1}, {1, 1, 0}, {3, 1, 0}}},               //       (B0 + B1)
+    {23, MUL, {{0, 1, 0}, {3, 1, 0}, {2, 1, 0}, {5, 1, 0}},       // M02 = (A0 + A2)
+     {{0, 1, 0}, {5, 1, 1}, {2, 1, 0}, {4, 1, 0}}},               //       (B0 + B2)
+    {10, SCALE_RE, {{7, 1, 0}}, {{9, 1, 0}}},                     // a1 = c1 px
+    {11, SCALE_IM, {{6, 1, 0}}, {{9, 1, 0}}},                     // a4 = c0 py
+};
+
+// fp6_mul's interpolation: c0 = v0 + xi (m12 - v1 - v2), c1 = m01 - v0 -
+// v1 + xi v2, c2 = m02 - v0 - v2 + v1; t into 24-26, m into 27-29.
+__constant__ LinOp MILLER_SQR_FP6[6] = {
+    {24, {{12, 1, 0}, {15, 1, 1}, {13, -1, 1}, {14, -1, 1}}},
+    {25, {{16, 1, 0}, {12, -1, 0}, {13, -1, 0}, {14, 1, 1}}},
+    {26, {{17, 1, 0}, {12, -1, 0}, {14, -1, 0}, {13, 1, 0}}},
+    {27, {{18, 1, 0}, {21, 1, 1}, {19, -1, 1}, {20, -1, 1}}},
+    {28, {{22, 1, 0}, {18, -1, 0}, {19, -1, 0}, {20, 1, 1}}},
+    {29, {{23, 1, 0}, {18, -1, 0}, {20, -1, 0}, {19, 1, 0}}},
+};
+
+// g0 = m - t - v t = (m0 - t0 - xi t2, m1 - t1 - t0, m2 - t2 - t1), g1 = 2 t.
+__constant__ LinOp MILLER_SQR_RESULT[6] = {
+    {0, {{27, 1, 0}, {24, -1, 0}, {26, -1, 1}}},
+    {1, {{28, 1, 0}, {25, -1, 0}, {24, -1, 0}}},
+    {2, {{29, 1, 0}, {26, -1, 0}, {25, -1, 0}}},
+    {3, {{24, 2, 0}}},
+    {4, {{25, 2, 0}}},
+    {5, {{26, 2, 0}}},
+};
+
+// fp12_mul_by_014(g, c0 = c2 (slot 8), c1 = a1 (10), c4 = a4 (11)), s = g0 + g1,
+// c14 = a1 + a4: t00 .. t11 into 12-17, m2, m0, m1 into 18-20, u00 .. u11
+// into 21-26.
+__constant__ MulOp MILLER_014_PRODUCTS[15] = {
+    {12, MUL, {{0, 1, 0}}, {{8, 1, 0}}},                        // t00 = g0_0 c0
+    {13, MUL, {{1, 1, 0}}, {{8, 1, 0}}},                        // t10 = g0_1 c0
+    {14, MUL, {{2, 1, 0}}, {{8, 1, 0}}},                        // t20 = g0_2 c0
+    {15, MUL, {{2, 1, 0}}, {{10, 1, 0}}},                       // t21 = g0_2 c1
+    {16, MUL, {{0, 1, 0}}, {{10, 1, 0}}},                       // t01 = g0_0 c1
+    {17, MUL, {{1, 1, 0}}, {{10, 1, 0}}},                       // t11 = g0_1 c1
+    {18, MUL, {{5, 1, 0}}, {{11, 1, 0}}},                       // m2 = g1_2 c4
+    {19, MUL, {{3, 1, 0}}, {{11, 1, 0}}},                       // m0 = g1_0 c4
+    {20, MUL, {{4, 1, 0}}, {{11, 1, 0}}},                       // m1 = g1_1 c4
+    {21, MUL, {{0, 1, 0}, {3, 1, 0}}, {{8, 1, 0}}},             // u00 = s0 c0
+    {22, MUL, {{1, 1, 0}, {4, 1, 0}}, {{8, 1, 0}}},             // u10 = s1 c0
+    {23, MUL, {{2, 1, 0}, {5, 1, 0}}, {{8, 1, 0}}},             // u20 = s2 c0
+    {24, MUL, {{2, 1, 0}, {5, 1, 0}}, {{10, 1, 0}, {11, 1, 0}}},  // u21 = s2 c14
+    {25, MUL, {{0, 1, 0}, {3, 1, 0}}, {{10, 1, 0}, {11, 1, 0}}},  // u01 = s0 c14
+    {26, MUL, {{1, 1, 0}, {4, 1, 0}}, {{10, 1, 0}, {11, 1, 0}}},  // u11 = s1 c14
+};
+
+// aa = (t00 + xi t21, t01 + t10, t11 + t20), bb = (xi m2, m0, m1), mid = (u00
+// + xi u21, u01 + u10, u11 + u20): f0 = v bb + aa, f1 = mid - aa - bb.
+__constant__ LinOp MILLER_014_RESULT[6] = {
+    {0, {{12, 1, 0}, {15, 1, 1}, {20, 1, 1}}},
+    {1, {{16, 1, 0}, {13, 1, 0}, {18, 1, 1}}},
+    {2, {{17, 1, 0}, {14, 1, 0}, {19, 1, 0}}},
+    {3, {{21, 1, 0}, {24, 1, 1}, {12, -1, 0}, {15, -1, 1}, {18, -1, 1}}},
+    {4, {{25, 1, 0}, {22, 1, 0}, {16, -1, 0}, {13, -1, 0}, {19, -1, 0}}},
+    {5, {{26, 1, 0}, {23, 1, 0}, {17, -1, 0}, {14, -1, 0}, {20, -1, 0}}},
+};
+
+// --- the kernels' phases ---------------------------------------------------------
+//
+// A block holds elements [i0, i0 + E) of the batch, n elements in all; the
+// stacks are (rows, 30, n) digits, Fp component c of element i at
+// src[c 30 n + i] (digit k at + k n). A phase's jobs are (op, e), numbered
+// op E + e, so that neighbouring threads take neighbouring elements of one
+// operation: the loads and stores of a digit row coalesce. Jobs of an
+// element outside the batch load zeros and store nothing.
+
+struct Block {
+  u32* smem;  // E elements' slots, E * slots * SLOT words
+  int E;
+  long long i0, n;
+  __device__ __forceinline__ Elem elem(int e) const { return Elem{smem + e, E}; }
+};
+
+// Row `row` of the stack src -> Fp component c (slot c / 2, half c % 2).
+__device__ __forceinline__ void load_component(const Block& b, const int* src, int row, int c,
+                                               int e) {
+  const long long i = b.i0 + e;
+  Fp x;
+  if (i < b.n) {
+    digits_to_words(src + static_cast<long long>(row) * DIGITS * b.n + i, b.n, x);
+  } else {
+#pragma unroll
+    for (int k = 0; k < NW; ++k) x.w[k] = 0;
+  }
+  store_fp(b.elem(e), c / 2, c % 2, x);
+}
+
+// Fp component c (slots 0-5) -> row c of the stack dst.
+__device__ __forceinline__ void store_component(const Block& b, int* dst, int c, int e) {
+  const long long i = b.i0 + e;
+  if (i >= b.n) return;
+  Fp x;
+  load_fp(b.elem(e), c / 2, c % 2, x);
+  words_to_digits(x, dst + static_cast<long long>(c) * DIGITS * b.n + i, b.n);
+}
+
+// K3: phase 0 loads x, phases 1 + 2 s and 2 + 2 s are square s's nine
+// squares and recombination, phase 1 + 2 nsq stores.
+__device__ __forceinline__ int cyc_sqr_phases(int nsq) { return 2 * nsq + 2; }
+
+__device__ __forceinline__ int cyc_sqr_jobs(int ph, int nsq) {
+  if (ph == 0 || ph == 2 * nsq + 1) return 12;
+  return ph % 2 ? 9 : 6;
+}
+
+__device__ __forceinline__ void cyc_sqr_job(const Block& b, const int* x, int* out, int nsq,
+                                            int ph, int op, int e) {
+  if (ph == 0) load_component(b, x, op, op, e);
+  else if (ph == 2 * nsq + 1) store_component(b, out, op, e);
+  else if (ph % 2) run_sqr(b.elem(e), CYC_SQUARES[op]);
+  else run(b.elem(e), CYC_RECOMBINE[op]);
+}
+
+// K6's steps in order: with the square LOAD, SQR_PRODUCTS, SQR_FP6,
+// SQR_RESULT, then P014, R014, STORE; without it LOAD, LEGS, P014, R014,
+// STORE.
+enum MillerStep { LOAD, LEGS, SQR_PRODUCTS, SQR_FP6, SQR_RESULT, P014, R014, STORE };
+
+__device__ __forceinline__ int miller_phases(int with_sqr) { return with_sqr ? 7 : 5; }
+
+__device__ __forceinline__ MillerStep miller_step_of(int ph, int with_sqr) {
+  if (ph == 0) return LOAD;
+  if (with_sqr) return static_cast<MillerStep>(ph + 1);
+  return ph == 1 ? LEGS : static_cast<MillerStep>(ph + 3);
+}
+
+__device__ __forceinline__ int miller_jobs(int ph, int with_sqr) {
+  switch (miller_step_of(ph, with_sqr)) {
+    case LOAD: return MILLER_INPUTS;
+    case LEGS: return 2;
+    case SQR_PRODUCTS: return 14;
+    case P014: return 15;
+    case STORE: return 12;
+    default: return 6;
+  }
+}
+
+// f, c, pxy: the input stacks (12, 6 and 2 rows), components 0-11, 12-17
+// and 18-19 of the element's slots.
+__device__ __forceinline__ void miller_job(const Block& b, const int* f, const int* c,
+                                           const int* pxy, int* out, int with_sqr, int ph,
+                                           int op, int e) {
+  switch (miller_step_of(ph, with_sqr)) {
+    case LOAD:
+      if (op < 12) load_component(b, f, op, op, e);
+      else if (op < 18) load_component(b, c, op - 12, op, e);
+      else load_component(b, pxy, op - 18, op, e);
+      break;
+    case LEGS: run(b.elem(e), MILLER_LEGS[op]); break;
+    case SQR_PRODUCTS: run(b.elem(e), MILLER_SQR_PRODUCTS[op]); break;
+    case SQR_FP6: run(b.elem(e), MILLER_SQR_FP6[op]); break;
+    case SQR_RESULT: run(b.elem(e), MILLER_SQR_RESULT[op]); break;
+    case P014: run(b.elem(e), MILLER_014_PRODUCTS[op]); break;
+    case R014: run(b.elem(e), MILLER_014_RESULT[op]); break;
+    case STORE: store_component(b, out, op, e); break;
+  }
+}
+
+}  // namespace t381

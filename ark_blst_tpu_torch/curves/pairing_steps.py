@@ -11,7 +11,9 @@ Counterparts of two `ark_blst_tpu/ops/pallas_lazy.py:tower_fused` instances:
   event, f <- (f^2 if with_sqr) * line(P): the line triple C `(6, 30, N)`
   scaled by P = (px, py) `(2, 30, N)` (`_ell_legs`), then the sparse
   product `fp12_mul_by_014`. F `(12, 30, N)` -> `(12, 30, N)`. Source
-  `csrc/miller_step.cu`.
+  `csrc/miller_step.cu` on `csrc/tower381.cuh` (32-bit Montgomery words in
+  shared memory, the event's work split over a block's threads): the same
+  field elements as `miller_step_plain`, in other digits (within 4096).
 
 `_doubling_step`, `_addition_step` and `_ell_legs` are the port of the
 functions of those names in `ark_blst_tpu/curves/pairing.py`, generic over

@@ -1,11 +1,14 @@
 """K3: n cyclotomic squarings of an fp12 as one hand-written CUDA kernel.
 
 Counterpart of `ark_blst_tpu/ops/pallas_lazy.py:cyc_sqr_stacked`: a stacked
-`(12, 30, N)` fp12 batch squared n times (Granger-Scott, each square a
-Barrett contraction, 18 base products and the 3t +- 2z recombination), the
-value held by the thread between squarings. The kernel source is
-`csrc/cyc_sqr.cu`; `cyc_sqr_plain` is its plain PyTorch version, n times
-`tower_lazy._cyc_sqr_core`.
+`(12, 30, N)` fp12 batch squared n times (Granger-Scott: 18 base products
+and the 3t +- 2z recombination). The kernel (`csrc/cyc_sqr.cu` on
+`csrc/tower381.cuh`) holds each element in shared memory as 32-bit
+Montgomery words for all n squares, its work split over a block's threads,
+and returns balanced digits within 4096: the same field elements as
+`cyc_sqr_plain`, its plain PyTorch version (n times
+`tower_lazy._cyc_sqr_core`, a Barrett contraction before each square), not
+the same digits.
 """
 
 from __future__ import annotations

@@ -360,3 +360,11 @@ def canonicalize(d: torch.Tensor) -> torch.Tensor:
         v = FO.normalize_list(limbs + const(comp, limbs), _N16 + 1)
         limbs = torch.where(v[_N16] == 1, v[:_N16], limbs)
     return from_limbs16(limbs[:L16])[:L13]
+
+
+def canonicalize_rows(x: torch.Tensor) -> torch.Tensor:
+    """Stacked (k, 30, *batch) mul-ready elements -> the canonical digits of
+    each row's value mod p: equal for two stacks that hold the same field
+    elements, whatever their redundant digits. A Montgomery product by one
+    first brings any mul-ready value below 8p, `canonicalize`'s domain."""
+    return canonicalize(mont_mul_const(x.transpose(0, 1), ONE13)).transpose(0, 1)

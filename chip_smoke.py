@@ -39,12 +39,18 @@ Phases, one JSON line each:
               of that run, its peak memory and its points/s, then the
               stages rerun and profiled as in phase 4;
   7. k3-k6    the pairing's tower kernels against their plain versions at
-              the pairing batch (N = 8192), bit for bit: random mul-ready
-              digits with the extreme patterns of k1; K3 (cyclotomic
-              squares) at n = 1 and at the longest run of the exponent
-              ladder (32), K4 (fp12 product), K5 (prepare event) and K6
-              (Miller event) in both forms, K5 and K6 also on real event
-              inputs taken from the pipeline; then K11 (fp12 square) and
+              the pairing batch (N = 8192): random mul-ready digits with
+              the extreme patterns of k1; K3 (cyclotomic squares) at n = 1
+              and at the longest run of the exponent ladder (32), K4 (fp12
+              product), K5 (prepare event) and K6 (Miller event) in both
+              forms, K3, K5 and K6 also on real event inputs taken from the
+              pipeline; K4 and K5 bit for bit, K3 and K6 (32-bit Montgomery
+              words inside, csrc/tower381.cuh) by canonical value, their
+              digits within 4096, K6's random operands with the top digit
+              bounded (|value| < 8p, where the plain version is a field
+              operation), each with its registers, stack, shared memory and
+              launch shape and its bound beside the radix-13 one; then K11
+              (fp12 square) and
               K12 (sparse line product) the same way, on random digits and
               on f and the scaled line of a real Miller event, with their
               registers and stack (phase `k11_k12`);
@@ -143,7 +149,17 @@ folded glue of
 each tower operation (the op model below), and bytes as each input read
 once and the output written once; their IMAD floor is the products alone:
 products x the IMAD instructions of K1's compiled product, the same
-`lz::mont_mul` body that the tower kernels call out of line. The strict
+`lz::mont_mul` body that the tower kernels call out of line. K3 and K6
+run on 12 x 32-bit words (csrc/tower381.cuh): CYC_SQR32_OPS a square
+(18 CIOS products and 107 modular sums), MILLER32_OPS an event (85 or 49
+products and 277 or 119 sums), and per launch the conversion of each
+input Fp component from digits to words (DIGITS_TO_WORDS_OPS) and of each
+output one back (WORDS_TO_DIGITS_OPS); their lines give the radix-13 work's
+bound beside (`bound_radix13_ms`), and their IMAD floor counts the
+launch's products (conversions included) at the IMAD instructions of one
+product of their own library: its static IMAD count (moves left out) over
+the CIOS bodies it compiles (its wide multiply-adds over the 288 of one
+product). The strict
 kernels K7-K10 count bytes as 4 L per operand and result element (int32
 limbs), and instructions by `strict_ops`: three per 32 x 32-bit word
 product, two per word of a carry chain, three per word of the conditional
@@ -267,6 +283,23 @@ PREPARE_OPS = {False: 8 * FP2_SQR_OPS + 3 * FP2_MUL_OPS + 20 * _LIN2 + 60,  # do
                True: 8 * FP2_SQR_OPS + 7 * FP2_MUL_OPS + 23 * _LIN2 + 60}  # addition
 MILLER_OPS = {True: FP12_SQR_OPS + 4 * MONT_MUL_OPS + MUL_BY_014_OPS,  # with the square
               False: 4 * MONT_MUL_OPS + MUL_BY_014_OPS}
+# K3 and K6 on the 32-bit tower (csrc/tower381.cuh), per element. A square:
+# 18 products and 107 Fp sums (the nine Fp2 squares' 27, the three pair
+# sums' 6, t, s and r with xi 26, 3t +- 2z 48). An event: the fp12 square's
+# 36 products and 158 sums (the legs' operand sums 38, twelve Fp2 Karatsuba
+# recombinations 60, two fp6 interpolations 40, g 20), the line's 4
+# products, and the sparse product's 45 products and 119 sums (fifteen
+# recombinations 75, s and c14 8, the combination 36).
+CYC_SQR32_OPS = 18 * MONT_MUL32_OPS + 107 * ADD32_OPS
+MILLER32_OPS = {True: 85 * MONT_MUL32_OPS + 277 * ADD32_OPS,
+                False: 49 * MONT_MUL32_OPS + 119 * ADD32_OPS}
+# one Fp component in: 30 digits biased and placed (six instructions each),
+# the carries (two a word of 13), 12 conditional subtractions of 2^k p (four
+# a word of 13), the product by 2^378; out: the product by 2^390, 30 digits
+# cut out (three each), one balanced fold
+DIGITS_TO_WORDS_OPS = 30 * 6 + 2 * 13 + 12 * 4 * 13 + MONT_MUL32_OPS
+WORDS_TO_DIGITS_OPS = MONT_MUL32_OPS + 30 * 3 + _fold(30)
+CIOS_WIDE_MULS = 2 * _NW * _NW  # a_j b_i and m p_j, 32 x 32 -> 64 bits each
 PREPARE_PRODUCTS = {False: 25, True: 37}
 MILLER_PRODUCTS = {True: 85, False: 49}
 ELEM_BYTES = 30 * 4  # one Fp element of digits
@@ -335,7 +368,9 @@ _SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)
 
 def _sass_counts(kernel) -> dict:
     """Static instruction counts of a built kernel library: all but NOPs,
-    the IMAD family, and of it the IMAD.MOV register moves."""
+    the IMAD family, of it the IMAD.MOV register moves and the 32 x 32 ->
+    64-bit multiply-adds (IMAD.WIDE.U32 or IMAD.HI.U32, 288 in each
+    12-word CIOS product)."""
     from ark_blst_tpu_torch import cuda as KC
 
     cuobjdump = os.path.join(os.path.dirname(KC._nvcc()), "cuobjdump")
@@ -344,7 +379,8 @@ def _sass_counts(kernel) -> dict:
     ops = [m.group(1) for m in _SASS_OP.finditer(sass)]
     ops = [op for op in ops if op != "NOP"]
     return {"instructions": len(ops), "imad": sum(op.startswith("IMAD") for op in ops),
-            "imad_mov": sum(op.startswith("IMAD.MOV") for op in ops)}
+            "imad_mov": sum(op.startswith("IMAD.MOV") for op in ops),
+            "imad_wide": sum(op.startswith(("IMAD.WIDE.U32", "IMAD.HI.U32")) for op in ops)}
 
 
 def imad_floor_ms(imads: float) -> float:
@@ -688,12 +724,13 @@ def _held(torch, name: str, got, want) -> int:
     return err
 
 
-def _timed(torch, kernel_fn, plain_fn, n_bytes: int, ops: int, imads: int) -> dict:
+def _timed(torch, kernel_fn, plain_fn, n_bytes: int, ops: int, imads) -> dict:
     """Kernel and plain times at the same inputs, with the bound and the
-    products' IMAD floor."""
+    products' IMAD floor (None where not measured)."""
     bms, by = bound_ms(n_bytes, ops)
     return {"ms": cuda_ms(torch, kernel_fn, 3), "plain_ms": cuda_ms(torch, plain_fn, 1),
-            "bound_ms": bms, "bound_by": by, "imad_floor_ms": imad_floor_ms(imads)}
+            "bound_ms": bms, "bound_by": by,
+            "imad_floor_ms": None if imads is None else imad_floor_ms(imads)}
 
 
 def digit_stacks(torch, dev, rows_list) -> list:
@@ -713,20 +750,74 @@ def digit_stacks(torch, dev, rows_list) -> list:
     return out
 
 
-def phase_k3(torch, dev, imad_per_product: int) -> dict:
+def _held_values(torch, name: str, got, want) -> int:
+    """Hold a kernel on 32-bit words (K3, K6) against its plain version by
+    value: the same field element in every Fp row (canonical digits), the
+    kernel's digits within 4096. Returns the largest |digit| difference of
+    the canonical digits (0)."""
+    from ark_blst_tpu_torch.ops import lazy13 as LZ
+
+    torch.cuda.synchronize()
+    cg, cw = LZ.canonicalize_rows(got), LZ.canonicalize_rows(want)
+    err = int((cg.long() - cw.long()).abs().max())
+    check(err == 0 and torch.equal(cg, cw), f"{name} differs from its plain version by value")
+    top = int(got.abs().max())
+    check(top <= 4096, f"{name} output digit {top} above 4096")
+    return err
+
+
+def _tower32_shape(torch, kernel, n: int) -> dict:
+    """K3's or K6's launch shape from its C entry `<symbol>_shape`:
+    elements and threads a block, shared bytes a block, the blocks an SM
+    holds (the occupancy API), and the grid's waves and warps an SM at n."""
+    fn = getattr(ctypes.CDLL(str(kernel.lib_path)), kernel.symbol + "_shape")
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.restype = ctypes.c_int
+    vals = [ctypes.c_int() for _ in range(4)]
+    err = fn(*(ctypes.byref(v) for v in vals))
+    check(err == 0, f"{kernel.symbol}_shape: CUDA error {err}")
+    elems, threads, smem, per_sm = (v.value for v in vals)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = -(-n // elems)
+    return {"elements_per_block": elems, "threads": threads, "smem_bytes": smem,
+            "blocks": blocks, "blocks_per_sm": per_sm, "sms": sms,
+            "waves": blocks / (sms * per_sm),
+            "warps_per_sm": min(blocks / sms, per_sm) * -(-threads // 32)}
+
+
+def _tower32_imad(sass: dict) -> float | None:
+    """IMAD instructions of one CIOS product in a 32-bit tower library: its
+    static IMAD count (moves left out) over the CIOS bodies it compiles
+    (its wide multiply-adds over the 288 of one product); None where the
+    SASS shows none."""
+    bodies = sass["imad_wide"] / CIOS_WIDE_MULS
+    return (sass["imad"] - sass["imad_mov"]) / bodies if bodies else None
+
+
+def phase_k3(torch, dev, real, sass: dict, ptxas: dict) -> dict:
     from ark_blst_tpu_torch.curves import pairing as PR
     from ark_blst_tpu_torch.ops import cyc_sqr as K3
 
     (x,) = digit_stacks(torch, dev, [12])
     n = x.shape[-1]
+    imad = _tower32_imad(sass)
     runs = {}
     for nsq in (1, max(r for r, _ in PR._X_SEGMENTS)):
-        err = _held(torch, "K3", K3.cyc_sqr(x, nsq), K3.cyc_sqr_plain(x, nsq))
+        err = max(_held_values(torch, "K3", K3.cyc_sqr(v, nsq), K3.cyc_sqr_plain(v, nsq))
+                  for v in (x, real[2]))
+        nbytes = n * 2 * 12 * ELEM_BYTES
+        conv = 12 * (DIGITS_TO_WORDS_OPS + WORDS_TO_DIGITS_OPS)
         runs[nsq] = {"max_abs_err": err, **_timed(
             torch, lambda: K3.cyc_sqr(x, nsq), lambda: K3.cyc_sqr_plain(x, nsq),
-            n * 2 * 12 * ELEM_BYTES, n * nsq * CYC_SQR_OPS, n * nsq * 18 * imad_per_product)}
-    emit({"phase": "k3", "n": n, "bit_equal": True,
-          "runs": {f"squarings_{k}": v for k, v in runs.items()}})
+            nbytes, n * (nsq * CYC_SQR32_OPS + conv),
+            None if imad is None else n * (18 * nsq + 24) * imad)}
+        runs[nsq]["bound_radix13_ms"], runs[nsq]["bound_radix13_by"] = bound_ms(
+            nbytes, n * nsq * CYC_SQR_OPS)
+    emit({"phase": "k3", "n": n, "value_equal": True, "real_inputs": True,
+          "runs": {f"squarings_{k}": v for k, v in runs.items()},
+          "ops_per_square": CYC_SQR32_OPS, "ops_per_square_radix13": CYC_SQR_OPS,
+          "imad_per_product": imad, "ptxas": ptxas["cyc_sqr.cu"],
+          "launch": _tower32_shape(torch, K3.KERNEL, n)})
     return runs[max(runs)]
 
 
@@ -790,23 +881,39 @@ def phase_k5(torch, dev, imad_per_product: int, real) -> dict:
     return {"max_abs_err": err, **forms["doubling"]}
 
 
-def phase_k6(torch, dev, imad_per_product: int, real) -> dict:
+def phase_k6(torch, dev, real, sass: dict, ptxas: dict) -> dict:
     from ark_blst_tpu_torch.curves import pairing_steps as PS
 
     f_rand, c_rand, p_rand = digit_stacks(torch, dev, [12, 6, 2])
     n = f_rand.shape[-1]
+    # the top digit in [-100, 100]: |value| < 8p, where the plain version is a
+    # field operation (its folds truncate values near 2^390)
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    for x in (f_rand, c_rand, p_rand):
+        x[:, 29, :] = torch.randint(-100, 101, (x.shape[0], n), generator=g, device=dev,
+                                    dtype=torch.int32)
+    imad = _tower32_imad(sass)
     forms, err = {}, 0
     for with_sqr in (True, False):
         for f, c, pxy in ((f_rand, c_rand, p_rand), real[2:5]):
-            err = max(err, _held(torch, "K6", PS.miller_step(f, c, pxy, with_sqr),
-                                 PS.miller_step_plain(f, c, pxy, with_sqr)))
-        forms["with_square" if with_sqr else "line_only"] = _timed(
+            err = max(err, _held_values(torch, "K6", PS.miller_step(f, c, pxy, with_sqr),
+                                        PS.miller_step_plain(f, c, pxy, with_sqr)))
+        nbytes = n * (12 + 6 + 2 + 12) * ELEM_BYTES
+        conv = 20 * DIGITS_TO_WORDS_OPS + 12 * WORDS_TO_DIGITS_OPS
+        form = _timed(
             torch, lambda: PS.miller_step(f_rand, c_rand, p_rand, with_sqr),
             lambda: PS.miller_step_plain(f_rand, c_rand, p_rand, with_sqr),
-            n * (12 + 6 + 2 + 12) * ELEM_BYTES, n * MILLER_OPS[with_sqr],
-            n * MILLER_PRODUCTS[with_sqr] * imad_per_product)
-    emit({"phase": "k6", "n": n, "bit_equal": True, "real_inputs": True, "max_abs_err": err,
-          **forms})
+            nbytes, n * (MILLER32_OPS[with_sqr] + conv),
+            None if imad is None else n * (MILLER_PRODUCTS[with_sqr] + 32) * imad)
+        form["bound_radix13_ms"], form["bound_radix13_by"] = bound_ms(
+            nbytes, n * MILLER_OPS[with_sqr])
+        forms["with_square" if with_sqr else "line_only"] = form
+    emit({"phase": "k6", "n": n, "value_equal": True, "real_inputs": True, "max_abs_err": err,
+          **forms, "ops_per_event": MILLER32_OPS[True],
+          "ops_per_event_radix13": MILLER_OPS[True],
+          "ops_conversions": 20 * DIGITS_TO_WORDS_OPS + 12 * WORDS_TO_DIGITS_OPS,
+          "imad_per_product": imad, "ptxas": ptxas["miller_step.cu"],
+          "launch": _tower32_shape(torch, PS.MILLER_KERNEL, n)})
     return {"max_abs_err": err, **forms["with_square"]}
 
 
@@ -1406,10 +1513,10 @@ def main() -> int:
     (p, _), (q, _) = B._g1_batch(ps, dev), B._g2_batch(qs, dev)
     real = real_event_inputs(torch, p, q)
     imad_per_product = sass["mont_mul.cu"]["imad"]
-    k3 = phase_k3(torch, dev, imad_per_product)
+    k3 = phase_k3(torch, dev, real, sass["cyc_sqr.cu"], ptxas)
     k4 = phase_k4(torch, dev, imad_per_product)
     k5 = phase_k5(torch, dev, imad_per_product, real)
-    k6 = phase_k6(torch, dev, imad_per_product, real)
+    k6 = phase_k6(torch, dev, real, sass["miller_step.cu"], ptxas)
     k11, k12 = phase_k11_k12(torch, dev, imad_per_product, real, ptxas)
     del real
     torch.cuda.empty_cache()
@@ -1465,14 +1572,15 @@ def main() -> int:
                      "ark_blst_tpu/curves/msm_pallas2.py:359 (KC2_G2; K2-G2's point input)",
                      msm_launches["g2"]["g2_point_words"], k2s["g2_words"]),
         _kernel_line("cyc_sqr", "cyc_sqr.cu", "ark_blst_tpu/ops/pallas_lazy.py:149",
-                     launches["cyc_sqr"], k3, launches_pairing_unfused=unfused["cyc_sqr"]),
+                     launches["cyc_sqr"], k3, launches_pairing_unfused=unfused["cyc_sqr"],
+                     bound_radix13_ms=k3["bound_radix13_ms"]),
         _kernel_line("fp12_mul", "fp12_mul.cu",
                      "ark_blst_tpu/ops/pallas_lazy.py:63 (ops/tower_lazy.py:567 mul12)",
                      launches["fp12_mul"], k4, launches_pairing_unfused=unfused["fp12_mul"]),
         _kernel_line("prepare_step", "prepare_step.cu", "ark_blst_tpu/ops/pallas_lazy.py:63",
                      launches["prepare_step"], k5),
         _kernel_line("miller_step", "miller_step.cu", "ark_blst_tpu/ops/pallas_lazy.py:63",
-                     launches["miller_step"], k6),
+                     launches["miller_step"], k6, bound_radix13_ms=k6["bound_radix13_ms"]),
         *strict_lines,
         _kernel_line("fp12_sqr", "fp12_sqr.cu",
                      "ark_blst_tpu/ops/pallas_lazy.py:63 (ops/tower_lazy.py:570 sqr12)",

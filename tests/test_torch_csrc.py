@@ -1,6 +1,6 @@
 """The CUDA sources against the Python engines they mirror: the constants
-compiled into csrc/lazy13.cuh and csrc/strict16.cuh (csrc/fp381.cuh's in
-tests/test_torch_fp381_host.py), the kernels' C entry
+compiled into csrc/lazy13.cuh, csrc/tower381.cuh and csrc/strict16.cuh
+(csrc/fp381.cuh's in tests/test_torch_fp381_host.py), the kernels' C entry
 points and build flags, and the parallel build's one nvcc per source.
 (The kernels themselves compile and run only on the card:
 tests/test_torch_cuda.py.)"""
@@ -19,11 +19,10 @@ from ark_blst_tpu_torch.ops import fp12_sqr as K11
 from ark_blst_tpu_torch.ops import lazy13 as LZ
 from ark_blst_tpu_torch.ops import mont_mul as MM
 from ark_blst_tpu_torch.ops import strict_field as SF
-from ark_blst_tpu_torch.ops import tower_lazy as TL
 from ark_blst_tpu_torch.ops.limbs import FP, FR
 
 HEADER = (KC.CSRC_DIR / "lazy13.cuh").read_text()
-TOWER = (KC.CSRC_DIR / "tower13.cuh").read_text()
+TOWER = (KC.CSRC_DIR / "tower381.cuh").read_text()
 STRICT = (KC.CSRC_DIR / "strict16.cuh").read_text()
 
 
@@ -47,10 +46,15 @@ def test_header_scalars(name, value):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("BARRETT_S", TL._BARRETT_S), ("BARRETT_K", TL._BARRETT_K),
+    # with the digits biased by 8192, the residue of the digits' own value
+    ("DIGIT8192_FIX", -8192 * ((LZ.R13 - 1) // 8191) % LZ.P),
 ])
 def test_tower_header_constants(name, value):
-    assert re.search(rf"constexpr int {name} = {value};", TOWER)
+    """The 32-bit tower's word constants (csrc/tower381.cuh)."""
+    m = re.search(rf"__constant__ u32 {name}\[NW\] = \{{([^}}]*)\}};", TOWER)
+    assert m, f"{name} not found in tower381.cuh"
+    words = [int(v.strip(), 16) for v in m.group(1).split(",")]
+    assert words == [(value >> 32 * k) & 0xFFFFFFFF for k in range(12)]
 
 
 @pytest.mark.parametrize("name,spec", [("FP", FP), ("FR", FR)])
@@ -76,7 +80,8 @@ def test_kernel_sources_export_their_entry(kernel):
     src = (KC.CSRC_DIR / kernel.source).read_text()
     assert re.search(rf'extern "C" int {kernel.symbol}\(', src)
     assert any(f'#include "{h}"' in src
-               for h in ("lazy13.cuh", "tower13.cuh", "group381.cuh", "strict16.cuh"))
+               for h in ("lazy13.cuh", "tower13.cuh", "tower381.cuh", "group381.cuh",
+                     "strict16.cuh"))
     assert kernel.lib_path.parent == KC.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in KC.NVCC_FLAGS
 

@@ -133,13 +133,29 @@ def test_msm_g2_on_cpu_tensors_launches_nothing(dev):
     assert CV.g2_from_dev(out) == [OC.g2_msm(pts, [7, 11])]
 
 
-def _stack(rng, rows, n, dev):
+def _stack(rng, rows, n, dev, top=None):
     """(rows, 30, n) mul-ready digits with the extreme patterns in the first
-    columns."""
+    columns; with `top`, the top digit redrawn in [-top, top] in every
+    column (the patterns kept in the other 29)."""
     a = rng.integers(-F, F + 1, (rows, 30, n)).astype(np.int32)
     a[:, :, 0], a[:, :, 1], a[:, :, 2] = F, -F, 8191
     a[:, :, 3] = [F if k % 2 else -F for k in range(30)]
+    if top is not None:
+        a[:, 29, :] = rng.integers(-top, top + 1, (rows, n))
     return torch.from_numpy(a).to(dev)
+
+
+# K6's random operands keep |value| < 101 * 2^377 < 8p, the lazy engine's
+# mul-ready domain, where its plain version is a field operation (its folds
+# truncate values near 2^390; K3's plain version contracts its input first).
+TOP_8P = 100
+
+
+def _value_equal(got, want):
+    """K3 and K6 (32-bit words inside) against their plain versions: the same
+    field element in every Fp row, the kernel's digits within 4096."""
+    assert int(got.abs().max()) <= 4096
+    assert torch.equal(LZ.canonicalize_rows(got), LZ.canonicalize_rows(want))
 
 
 def _launched_once(kernel, fn):
@@ -151,10 +167,10 @@ def _launched_once(kernel, fn):
 
 
 @pytest.mark.parametrize("nsq", [1, 32])
-def test_k3_bit_equal_to_plain(dev, nsq):
+def test_k3_value_equal_to_plain(dev, nsq):
     x = _stack(np.random.default_rng(4), 12, 1024, dev)
     got = _launched_once(K3.KERNEL, lambda: K3.cyc_sqr(x, nsq))
-    assert torch.equal(got, K3.cyc_sqr_plain(x, nsq))
+    _value_equal(got, K3.cyc_sqr_plain(x, nsq))
 
 
 def test_k4_bit_equal_to_plain(dev):
@@ -173,11 +189,11 @@ def test_k5_bit_equal_to_plain(dev, is_add):
 
 
 @pytest.mark.parametrize("with_sqr", [False, True])
-def test_k6_bit_equal_to_plain(dev, with_sqr):
+def test_k6_value_equal_to_plain(dev, with_sqr):
     rng = np.random.default_rng(7)
-    f, c, pxy = _stack(rng, 12, 1024, dev), _stack(rng, 6, 1024, dev), _stack(rng, 2, 1024, dev)
+    f, c, pxy = (_stack(rng, r, 1024, dev, top=TOP_8P) for r in (12, 6, 2))
     got = _launched_once(PS.MILLER_KERNEL, lambda: PS.miller_step(f, c, pxy, with_sqr))
-    assert torch.equal(got, PS.miller_step_plain(f, c, pxy, with_sqr))
+    _value_equal(got, PS.miller_step_plain(f, c, pxy, with_sqr))
 
 
 def test_k11_bit_equal_to_plain(dev):

@@ -1,11 +1,14 @@
 """The CUDA code of K2-K6, K11 and K12 compiled for the CPU with the host C++
 compiler and undefined-behaviour checks, against the kernels' plain
-PyTorch versions: the tower (csrc/tower13.cuh, K3-K6, K11, K12) bit for
-bit, the G1 and G2 bucket additions (csrc/group381.cuh, K2 and K2-G2 on
-32-bit Montgomery words) by value.
+PyTorch versions: the radix-13 tower (csrc/tower13.cuh, K4, K5, K11, K12)
+bit for bit; K3 and K6 on the 32-bit tower (csrc/tower381.cuh) and the G1
+and G2 bucket additions (csrc/group381.cuh, K2 and K2-G2), all on 32-bit
+Montgomery words, by value.
 
 The headers compile as plain C++ when __CUDACC__ is not defined; a small
-harness runs each kernel's per-element body over a batch. Built with
+harness runs each kernel's per-element body over a batch, or, for K3 and
+K6, one block's phases in order, job by job, as the card's threads run
+them between their barriers. Built with
 `-fsanitize=undefined -fno-sanitize-recover`, so any signed int32 overflow
 in the arithmetic aborts the harness and fails the test. (The kernels
 themselves run only on the card: tests/test_torch_cuda.py.) Skipped where
@@ -46,15 +49,39 @@ HARNESS = r"""
 #include <vector>
 #include "group381.cuh"
 #include "tower13.cuh"
+#include "tower381.cuh"
 
 // stdin: op, n, p1, p2 (int64 each), then the operand stacks (int32);
 // stdout: the result. Ops 0-4: the tower kernels (param p1), result
-// (12, 30, n). Ops 5/6: the G1/G2 mixed addition of K2/K2-G2 on (5, 12, n)
+// (12, 30, n); K3 (op 0) and K6 (op 4) run blocks of |p2| elements, each
+// phase's jobs in reverse order when p2 < 0. Ops 11/12: tower381.cuh's
+// conversions of p1 Fp rows, digits (p1, 30, n) -> words (p1, 12, n) and
+// back. Ops 5/6: the G1/G2 mixed addition of K2/K2-G2 on (5, 12, n)
 // or (10, 12, n) canonical R16 words, result (3, 12, n) or (6, 12, n).
 // Ops 7/8: the G1/G2 bucket accumulation of W = p1 windows, B = p2
 // buckets, S = 1024 streams: points (24, n) or (48, n) words, digits (W, n),
 // result the dump (W, B, 45 or 90, S). Ops 9/10: K11 (fp12 square) and K12
 // (the sparse line product), result (12, 30, n).
+// One block program over the batch: blocks of E elements, each phase's jobs
+// in order (reversed if asked), with the slots' memory filled with a
+// pattern first, so that a job reading a slot no earlier phase wrote goes
+// wrong.
+template <class Jobs, class Job>
+void run_blocks(long long n, long long block, int slots, int phases, Jobs jobs, Job job) {
+  const int E = static_cast<int>(block < 0 ? -block : block);
+  std::vector<uint32_t> smem(static_cast<size_t>(E) * slots * t381::SLOT, 0xA5A5A5A5u);
+  for (long long i0 = 0; i0 < n; i0 += E) {
+    const t381::Block b{smem.data(), E, i0, n};
+    for (int ph = 0; ph < phases; ++ph) {
+      const int total = jobs(ph) * E;
+      for (int k = 0; k < total; ++k) {
+        const int j = block < 0 ? total - 1 - k : k;
+        job(b, ph, j / E, j % E);
+      }
+    }
+  }
+}
+
 template <class F>
 void mixed_add_batch(const int* x, int* out, long long n) {
   const long long plane = g381::NC<F> * 12 * n;
@@ -70,14 +97,17 @@ int main() {
   long long hdr[4];
   if (fread(hdr, sizeof(long long), 4, stdin) != 4) return 2;
   const long long op = hdr[0], n = hdr[1], param = hdr[2], B = hdr[3];
-  if (op < 0 || op > 10) return 2;
-  const bool tower = op <= 4 || op >= 9;
+  if (op < 0 || op > 12) return 2;
+  const bool tower = op <= 4 || op == 9 || op == 10;
   const long long plane = 30 * n, S = 1024;
   size_t in_size, out_size;
   if (tower) {
     static const int in_rows[] = {12, 24, 6, 10, 20, 0, 0, 0, 0, 12, 18};
     in_size = in_rows[op] * plane;
     out_size = 12 * plane;
+  } else if (op == 11 || op == 12) {
+    in_size = param * (op == 11 ? 30 : 12) * n;
+    out_size = param * (op == 11 ? 12 : 30) * n;
   } else if (op == 5 || op == 6) {  // NC = 1 or 2 Fp components a coordinate
     const long long nc = op - 4;
     in_size = 5 * nc * 12 * n;
@@ -100,17 +130,38 @@ int main() {
         else g381::accumulate_stream<f381::Fp2>(x, digs, out.data(), n, B, S, w, s);
       }
   }
-  for (long long i = 0; tower && i < n; ++i) {
+  for (long long r = 0; (op == 11 || op == 12) && r < param; ++r)
+    for (long long i = 0; i < n; ++i) {
+      f381::Fp v;
+      if (op == 11) {
+        t381::digits_to_words(x + r * 30 * n + i, n, v);
+        g381::store(v, out.data() + r * 12 * n + i, n);
+      } else {
+        g381::load(x + r * 12 * n + i, n, v);
+        t381::words_to_digits(v, out.data() + r * 30 * n + i, n);
+      }
+    }
+  const int p1 = static_cast<int>(param);
+  int* o = out.data();
+  if (op == 0)
+    run_blocks(n, B, t381::CYC_SLOTS, t381::cyc_sqr_phases(p1),
+               [&](int ph) { return t381::cyc_sqr_jobs(ph, p1); },
+               [&](const t381::Block& b, int ph, int j, int e) {
+                 t381::cyc_sqr_job(b, x, o, p1, ph, j, e);
+               });
+  if (op == 4)
+    run_blocks(n, B, t381::MILLER_SLOTS, t381::miller_phases(p1),
+               [&](int ph) { return t381::miller_jobs(ph, p1); },
+               [&](const t381::Block& b, int ph, int j, int e) {
+                 t381::miller_job(b, x, x + 12 * plane, x + 18 * plane, o, p1, ph, j, e);
+               });
+  for (long long i = 0; tower && op != 0 && op != 4 && i < n; ++i) {
     switch (op) {
-      case 9: tw::fp12_sqr_elem(x, out.data(), n, i); break;
-      case 10: tw::fp12_mul_by_014_elem(x, x + 12 * plane, out.data(), n, i); break;
-      case 0: tw::cyc_sqr_elem(x, out.data(), n, i, static_cast<int>(param)); break;
-      case 1: tw::fp12_mul_elem(x, x + 12 * plane, out.data(), n, i); break;
-      case 2: tw::prepare_step_elem(x, nullptr, out.data(), n, i, 0); break;
-      case 3: tw::prepare_step_elem(x, x + 6 * plane, out.data(), n, i, 1); break;
-      default:
-        tw::miller_step_elem(x, x + 12 * plane, x + 18 * plane, out.data(), n, i,
-                             static_cast<int>(param));
+      case 9: tw::fp12_sqr_elem(x, o, n, i); break;
+      case 10: tw::fp12_mul_by_014_elem(x, x + 12 * plane, o, n, i); break;
+      case 1: tw::fp12_mul_elem(x, x + 12 * plane, o, n, i); break;
+      case 2: tw::prepare_step_elem(x, nullptr, o, n, i, 0); break;
+      default: tw::prepare_step_elem(x, x + 6 * plane, o, n, i, 1);
     }
   }
   fwrite(out.data(), sizeof(int), out.size(), stdout);
@@ -156,10 +207,11 @@ def run(exe, op, param, *stacks, shape=None, buckets=0):
     return torch.from_numpy(out.copy())
 
 
-def digit_stacks(seed, *rows):
+def digit_stacks(seed, *rows, top=None):
     """Random mul-ready stacks with the extreme patterns in the first
     columns: +-F_BOUND, canonical maxima, alternating signs, the R13/2
-    edge."""
+    edge; with `top`, the top digit redrawn in [-top, top] in every column
+    (the patterns kept in the other 29)."""
     rng = np.random.default_rng(seed)
     edge = [int(v) for v in LZ.int_to_digits((LZ.R13 >> 1) - 1)]
     out = []
@@ -168,6 +220,8 @@ def digit_stacks(seed, *rows):
         a[:, :, 0], a[:, :, 1], a[:, :, 2] = F, -F, 8191
         a[:, :, 3] = [F if k % 2 else -F for k in range(30)]
         a[:, :, 4] = edge
+        if top is not None:
+            a[:, 29, :] = rng.integers(-top, top + 1, (r, N))
         out.append(torch.from_numpy(a))
     return out
 
@@ -197,10 +251,67 @@ def real_inputs():
     return rs, torch.stack([qx[0], qx[1], qy[0], qy[1]]), fs, coeffs[2], pxy, legs
 
 
+# --- K3 and K6 on the 32-bit tower (csrc/tower381.cuh), by value -------------
+
+BLOCK = 8  # elements a block in the harness: two blocks over N = 12, the second ragged
+# The top digit's bound for K6's random operands: |value| < 101 * 2^377 <
+# 8p, the lazy engine's mul-ready domain (LZ.canonicalize's), on which the
+# plain version is a field operation; its folds truncate values near 2^390.
+TOP_8P = 100
+
+
+def values(stack: torch.Tensor) -> list:
+    """(k, 30, n) digits -> each Fp row's value mod p (host ints)."""
+    return [[LZ.digits_to_int(stack[r, :, j].numpy()) % OF.P for j in range(stack.shape[2])]
+            for r in range(stack.shape[0])]
+
+
+def assert_value_equal(got: torch.Tensor, want: torch.Tensor) -> None:
+    """The kernel's digits hold the plain version's field elements, within 4096;
+    LZ.canonicalize_rows (the card tests' check) agrees with the host ints."""
+    assert int(got.abs().max()) <= 4096
+    assert values(got) == values(want)
+    assert torch.equal(LZ.canonicalize_rows(got), LZ.canonicalize_rows(want))
+
+
 @pytest.mark.parametrize("nsq", [1, max(r for r, _ in PR._X_SEGMENTS)])
 def test_cyc_sqr_host(harness, nsq):
     (x,) = digit_stacks(1, 12)
-    assert torch.equal(run(harness, 0, nsq, x), K3.cyc_sqr_plain(x, nsq))
+    assert_value_equal(run(harness, 0, nsq, x, buckets=BLOCK), K3.cyc_sqr_plain(x, nsq))
+
+
+def cyclotomic_elements(n: int) -> list:
+    """n elements of the cyclotomic subgroup by the oracle: f^((p^6 - 1)(p^2 +
+    1)) for random f."""
+    rng = random.Random(12)
+    out = []
+    for _ in range(n):
+        f = tuple(tuple(tuple(rng.randrange(OF.P) for _ in range(2)) for _ in range(3))
+                  for _ in range(2))
+        g = OF.fp12_mul(OF.fp12_conj(f), OF.fp12_inv(f))
+        out.append(OF.fp12_mul(OF.fp12_frobenius(g, 2), g))
+    return out
+
+
+def fp12_stack(elems) -> torch.Tensor:
+    """Oracle fp12 values -> (12, 30, n) canonical R13 digits."""
+    flat = [[c for b in e for a in b for c in a] for e in elems]
+    arr = np.array([[LZ.int_to_digits(v[r] * LZ.R13 % OF.P) for v in flat] for r in range(12)])
+    return torch.from_numpy(np.ascontiguousarray(arr.transpose(0, 2, 1)).astype(np.int32))
+
+
+@pytest.mark.parametrize("nsq", [1, 3])
+def test_cyc_sqr_host_oracle(harness, nsq):
+    """tower381.cuh's K3 on real cyclotomic elements: nsq plain squares by the
+    oracle's Python ints (its general fp12 square)."""
+    elems = cyclotomic_elements(N)
+    assert all(OF.fp12_cyclotomic_sqr(e) == OF.fp12_sqr(e) for e in elems[:2])
+    want = elems
+    for _ in range(nsq):
+        want = [OF.fp12_sqr(e) for e in want]
+    got = run(harness, 0, nsq, fp12_stack(elems), buckets=BLOCK)
+    assert int(got.abs().max()) <= 4096
+    assert values(got) == values(fp12_stack(want))
 
 
 def test_fp12_mul_host(harness):
@@ -221,9 +332,44 @@ def test_prepare_step_host(harness, is_add, source):
 @pytest.mark.parametrize("source", ["random", "pipeline"])
 @pytest.mark.parametrize("with_sqr", [False, True])
 def test_miller_step_host(harness, with_sqr, source):
-    f, c, pxy = digit_stacks(4, 12, 6, 2) if source == "random" else real_inputs()[2:5]
-    got = run(harness, 4, int(with_sqr), f, c, pxy)
-    assert torch.equal(got, PS.miller_step_plain(f, c, pxy, with_sqr))
+    if source == "random":
+        f, c, pxy = digit_stacks(4, 12, 6, 2, top=TOP_8P)
+    else:
+        f, c, pxy = real_inputs()[2:5]
+    got = run(harness, 4, int(with_sqr), f, c, pxy, buckets=BLOCK)
+    assert_value_equal(got, PS.miller_step_plain(f, c, pxy, with_sqr))
+
+
+@pytest.mark.parametrize("kernel", ["cyc_sqr", "miller_sqr", "miller_line"])
+def test_tower381_phases_have_no_hazards(harness, kernel):
+    """Each phase's jobs are independent: run in reverse order they give the
+    same digits (on the card they run at once)."""
+    if kernel == "cyc_sqr":
+        args = (0, 2, *digit_stacks(13, 12))
+    else:
+        args = (4, int(kernel == "miller_sqr"), *digit_stacks(14, 12, 6, 2, top=TOP_8P))
+    assert torch.equal(run(harness, *args, buckets=BLOCK), run(harness, *args, buckets=-BLOCK))
+
+
+def test_tower381_conversions_host(harness):
+    """digits -> words -> digits: the words are the digits' value, canonical
+    in the R16 domain, for every |d| <= 8191 (random digits and the
+    extreme patterns); the digits back hold the same value within 4096."""
+    rng = np.random.default_rng(11)
+    d = rng.integers(-8191, 8192, (6, 30, N)).astype(np.int32)
+    edge = [int(v) for v in LZ.int_to_digits((LZ.R13 >> 1) - 1)]
+    pm1 = [int(v) for v in LZ.int_to_digits(OF.P - 1)]
+    patterns = [[F] * 30, [-F] * 30, [8191] * 30, [-8191] * 30,
+                [F if k % 2 else -F for k in range(30)],
+                [8191 if k % 2 else -8191 for k in range(30)], edge, pm1, [0] * 30]
+    for i, pat in enumerate(patterns):
+        d[:, :, i] = pat
+    d = torch.from_numpy(d)
+    words = run(harness, 11, 6, d, shape=(6, 12, N))
+    assert torch.equal(words, words_of(d))
+    back = run(harness, 12, 6, words, shape=(6, 30, N))
+    assert int(back.abs().max()) <= 4096
+    assert values(back) == values(d)
 
 
 @pytest.mark.parametrize("source", ["random", "pipeline"])
