@@ -3,38 +3,106 @@
 // Replaces the mul12 instance of the TPU kernel
 // ark_blst_tpu/ops/pallas_lazy.py:tower_fused (built by
 // ark_blst_tpu/ops/tower_lazy.py:_fused_op("mul12")). Here: a, b
-// (12, 30, N) int32 -> out (12, 30, N), bit-equal to
-// tower_lazy.fp12_mul_many([(a, b)]) (ops/fp12_mul.py:fp12_mul_plain).
+// (12, 30, N) int32 digits -> out (12, 30, N): a * b, equal to
+// tower_lazy.fp12_mul_many([(a, b)]) (ops/fp12_mul.py:fp12_mul_plain) by
+// canonical value, its digits within 4096.
 //
-// What bounds it: operations. 54 Montgomery products (~3.7K int32
-// instructions each) and ~150 folded sums per element, against 3 x 1,440
-// bytes read and written once.
+// What bounds it: operations. 54 Montgomery products of 12 x 32-bit words
+// (~0.9K instructions each) and ~220 modular sums, and the conversions of
+// 24 Fp components in and 12 out (a product each, and the reduction of the
+// digits' sum), which are nearly half the work, against 36 x 120 bytes per
+// element read and written once.
 //
-// Design (first version): one thread per element, the Karatsuba tree of
-// tower13.cuh (fp6_mul -> fp2_mul -> fp_mul, each one out-of-line copy)
-// with the operands in registers and local memory; coalesced loads and
-// stores; 32 threads a block.
-#include "tower13.cuh"
+// Design (tower381.cuh): each element's state lives in shared memory as
+// canonical Montgomery words, 30 Fp2 slots (2,880 bytes); a block holds E
+// elements, and its threads run the product as phases of independent jobs
+// with a barrier between: the conversions in (24 jobs an element), the 18
+// Fp2 Karatsuba legs of the three fp6 products t0 = a0 b0, t1 = a1 b1 and
+// t2 = (a0 + a1)(b0 + b1), the leg sums taken in the job (18), their three
+// fp6 interpolations (9), the result c0 = t0 + v t1, c1 = t2 - t0 - t1
+// (6), the conversions out (12). A job holds a few Fp2 values in
+// registers, so many warps share an SM to hide the latency of the
+// products' carry chains (the first version, one thread an element on
+// radix-13 digits at ~255 registers and 11-17 KB of stack, kept ~2 warps
+// an SM). The digit stacks are read and written once, neighbouring
+// threads on neighbouring elements. Tensor cores do not apply: a 384-bit
+// modular product has no wgmma form here; the IMAD pipe carries the
+// products.
+#include "tower381.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(32) fp12_mul_kernel(const int* __restrict__ a,
-                                                      const int* __restrict__ b,
-                                                      int* __restrict__ out, long long n) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  tw::fp12_mul_elem(a, b, out, n, i);
+// The launch shape: E elements a block, kThreads threads (six an element:
+// the 18 products in three rounds), and the kernel bounded by it:
+// kMinBlocks blocks an SM (as many as shared memory holds), hence at most
+// 168 registers a thread, no spills. scripts/tower_probe.py builds the
+// kernel at other bounds (K4_THREADS, K4_MIN_BLOCKS) and times it at their
+// shapes (PERF.md): 256 threads, capped at 128 registers, spill and run
+// no faster.
+#ifndef K4_THREADS
+#define K4_THREADS 192
+#endif
+#ifndef K4_MIN_BLOCKS
+#define K4_MIN_BLOCKS 2
+#endif
+constexpr int kElems = 32;
+constexpr int kThreads = K4_THREADS;
+constexpr int kMinBlocks = K4_MIN_BLOCKS;
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks) fp12_mul_kernel(
+    const int* __restrict__ a, const int* __restrict__ b, int* __restrict__ out, long long n,
+    int E, int edges_only) {
+  extern __shared__ t381::u32 smem[];
+  const t381::Block blk{smem, E, static_cast<long long>(blockIdx.x) * E, n};
+  for (int ph = 0; ph < t381::FP12_MUL_PHASES; ++ph) {
+    if (edges_only && ph != t381::M12_LOAD && ph != t381::M12_STORE) continue;
+    const int jobs = t381::fp12_mul_jobs(ph) * E;
+    for (int j = threadIdx.x; j < jobs; j += blockDim.x)
+      t381::fp12_mul_job(blk, a, b, out, edges_only, ph, j / E, j % E);
+    __syncthreads();
+  }
 }
 
+int smem_bytes(int E) { return E * t381::FP12_MUL_SLOTS * t381::SLOT * 4; }
+
 }  // namespace
+
+// fp12_mul at a given shape: E elements and `threads` threads a block
+// (threads <= kThreads); with edges_only, the conversions alone (out = a,
+// the cost of the kernel's edges, for scripts/tower_probe.py). Returns
+// cudaGetLastError() after the launch.
+extern "C" int tower_fp12_mul_shaped(const int* a, const int* b, int* out, long long n, int E,
+                                     int threads, int edges_only, void* stream) {
+  if (n <= 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(fp12_mul_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem_bytes(E));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = (n + E - 1) / E;
+  fp12_mul_kernel<<<static_cast<unsigned>(blocks), threads, smem_bytes(E),
+                    static_cast<cudaStream_t>(stream)>>>(a, b, out, n, E, edges_only);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // a, b, out: (12, 30, n) int32, contiguous, on the device of `stream`.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int tower_fp12_mul(const int* a, const int* b, int* out, long long n, void* stream) {
-  if (n <= 0) return 0;
-  constexpr int threads = 32;
-  const long long blocks = (n + threads - 1) / threads;
-  fp12_mul_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(a, b, out, n);
-  return static_cast<int>(cudaGetLastError());
+  return tower_fp12_mul_shaped(a, b, out, n, kElems, kThreads, 0, stream);
+}
+
+// A launch shape and the blocks an SM holds at it (the occupancy API at the
+// compiled registers and the shape's shared memory): on entry, elems and
+// threads > 0 name the shape, 0 the default, which they then hold. Returns
+// the CUDA error of the query (0 on success).
+extern "C" int tower_fp12_mul_shape(int* elems, int* threads, int* smem, int* blocks_per_sm) {
+  if (*elems <= 0 || *threads <= 0) {
+    *elems = kElems;
+    *threads = kThreads;
+  }
+  *smem = smem_bytes(*elems);
+  cudaError_t err = cudaFuncSetAttribute(fp12_mul_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, fp12_mul_kernel, *threads, *smem));
 }

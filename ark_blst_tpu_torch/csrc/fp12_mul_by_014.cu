@@ -13,9 +13,10 @@
 // ~3.7K int32 instructions each) and ~70 folded sums per element, against
 // (12 + 6 + 12) x 120 bytes read and written once.
 //
-// Design (first version), as K4: one thread per element, the tower13.cuh
-// body that K6 calls after its square, one out-of-line copy of each tower
-// operation; coalesced loads and stores; 32 threads a block.
+// Design (first version), as K11: one thread per element, the tower13.cuh
+// body (the 15 Fp2 products that K6 runs on 32-bit words after its
+// square), one out-of-line copy of each tower operation; coalesced loads
+// and stores; 32 threads a block.
 #include "tower13.cuh"
 
 namespace {

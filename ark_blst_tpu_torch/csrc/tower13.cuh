@@ -1,12 +1,10 @@
-// Device functions of the lazy Fp2/Fp6/Fp12 tower on radix-13 digits and the
-// pairing's prepare events, for K4 (fp12_mul.cu), K5 (prepare_step.cu), K11
-// (fp12_sqr.cu) and K12 (fp12_mul_by_014.cu). (K3 and K6 run on the 32-bit
-// Montgomery words of tower381.cuh.)
+// Device functions of the lazy Fp2/Fp6/Fp12 tower on radix-13 digits, for
+// K11 (fp12_sqr.cu) and K12 (fp12_mul_by_014.cu), the unfused Miller loop's
+// kernels. (K3-K6 run on the 32-bit Montgomery words of tower381.cuh.)
 //
 // Every function mirrors the function of the same name in
-// ark_blst_tpu_torch/ops/tower_lazy.py (tower) or curves/pairing_steps.py
-// (events) digit for digit: the same products and the same folds on the
-// same operands. The digits depend on where each fold falls, so this code
+// ark_blst_tpu_torch/ops/tower_lazy.py digit for digit: the same products
+// and the same folds on the same operands. The digits depend on where each fold falls, so this code
 // follows the Python's dataflow, not the algebra; the order in which
 // independent products are computed does not matter. An element is one
 // struct of its 30 digits per Fp component, held by one thread (in
@@ -16,11 +14,11 @@
 // no undefined behaviour and gives PyTorch's int32 digits):
 // * kernel inputs have |digit| <= 8191 (mul-ready |d| <= 4129, or
 //   canonical); every fold30 output has |digit| <= 4105 and every mont_mul
-//   output |digit| <= 4129 (lazy13.cuh); negation keeps those bounds;
+//   output |digit| <= 4129 (lazy13.cuh);
 // * so every product operand has |digit| <= 8191 and every product column
 //   is <= 30 * 8191^2 = 2.01e9 < 2^31 (lazy13.cuh);
-// * sums fed to fold30 are at most 8 * 8191 = 65,528 (fp2_mul_small(t2, 8)
-//   of the doubling step is the largest scale; m2 - m0 - m1 <= 3 * 4129).
+// * sums fed to fold30 are at most 2 * 8191 (a sum of two operands;
+//   m2 - m0 - m1 <= 3 * 4129).
 // fold30 drops the top carry on purpose (exact for |value| < 0.49 * 2^390,
 // which every value of the tower satisfies).
 #pragma once
@@ -73,20 +71,6 @@ __device__ __forceinline__ Fp fp_sub(const Fp& a, const Fp& b) {
   return fold30(t);
 }
 
-__device__ __forceinline__ Fp fp_neg(const Fp& a) {
-  Fp t;
-#pragma unroll
-  for (int k = 0; k < ELEM; ++k) t.d[k] = -a.d[k];
-  return t;
-}
-
-__device__ __forceinline__ Fp fp_mul_small(const Fp& a, int s) {
-  Fp t;
-#pragma unroll
-  for (int k = 0; k < ELEM; ++k) t.d[k] = a.d[k] * s;
-  return fold30(t);
-}
-
 // The one Montgomery product, out of line: every product of the tower calls
 // this single copy of the ~3K-instruction body.
 LZ_NOINLINE Fp fp_mul(const Fp& a, const Fp& b) {
@@ -112,14 +96,6 @@ LZ_NOINLINE Fp2 fp2_sub(const Fp2& a, const Fp2& b) {
   return make2(fp_sub(a.c[0], b.c[0]), fp_sub(a.c[1], b.c[1]));
 }
 
-__device__ __forceinline__ Fp2 fp2_neg(const Fp2& a) {
-  return make2(fp_neg(a.c[0]), fp_neg(a.c[1]));
-}
-
-LZ_NOINLINE Fp2 fp2_mul_small(const Fp2& a, int s) {
-  return make2(fp_mul_small(a.c[0], s), fp_mul_small(a.c[1], s));
-}
-
 // xi = 1 + u: (c0 - c1, c0 + c1)
 LZ_NOINLINE Fp2 fp2_mul_by_nonresidue(const Fp2& a) {
   return make2(fp_sub(a.c[0], a.c[1]), fp_add(a.c[0], a.c[1]));
@@ -134,13 +110,6 @@ LZ_NOINLINE Fp2 fp2_mul(const Fp2& a, const Fp2& b) {
 #pragma unroll
   for (int k = 0; k < ELEM; ++k) t.d[k] = m2.d[k] - m0.d[k] - m1.d[k];
   return make2(fp_sub(m0, m1), fold30(t));
-}
-
-// (a0 + a1)(a0 - a1), a0 a1
-LZ_NOINLINE Fp2 fp2_sqr(const Fp2& a) {
-  const Fp s0 = fp_mul(fp_add(a.c[0], a.c[1]), fp_sub(a.c[0], a.c[1]));
-  const Fp s1 = fp_mul(a.c[0], a.c[1]);
-  return make2(s0, fp_add(s1, s1));
 }
 
 // --- Fp6 ------------------------------------------------------------------
@@ -189,14 +158,6 @@ __device__ __forceinline__ Fp12 make12(const Fp6& b0, const Fp6& b1) {
   return r;
 }
 
-// tower_lazy.fp12_mul_many for one pair: Karatsuba over fp6, 54 base products.
-LZ_NOINLINE Fp12 fp12_mul(const Fp12& a, const Fp12& b) {
-  const Fp6 t0 = fp6_mul(a.c[0], b.c[0]);
-  const Fp6 t1 = fp6_mul(a.c[1], b.c[1]);
-  const Fp6 t2 = fp6_mul(fp6_add(a.c[0], a.c[1]), fp6_add(b.c[0], b.c[1]));
-  return make12(fp6_add(t0, fp6_mul_by_nonresidue(t1)), fp6_sub(fp6_sub(t2, t0), t1));
-}
-
 // Complex squaring: 2 fp6 products.
 LZ_NOINLINE Fp12 fp12_sqr(const Fp12& a) {
   const Fp6 t = fp6_mul(a.c[0], a.c[1]);
@@ -222,60 +183,6 @@ LZ_NOINLINE Fp12 fp12_mul_by_014(const Fp12& f, const Fp2& c0, const Fp2& c1, co
   const Fp6 mid = make6(fp2_add(u00, fp2_mul_by_nonresidue(u21)), fp2_add(u01, u10),
                         fp2_add(u11, u20));
   return make12(fp6_add(fp6_mul_by_nonresidue(bb), aa), fp6_sub(fp6_sub(mid, aa), bb));
-}
-
-// --- pairing events (curves/pairing_steps.py) ------------------------------
-
-struct G2Jac {
-  Fp2 x, y, z;
-};
-struct Line {
-  Fp2 c0, c1, c2;
-};
-
-LZ_NOINLINE void doubling_step(const G2Jac& r, G2Jac& nr, Line& line) {
-  const Fp2 t0 = fp2_sqr(r.x), t1 = fp2_sqr(r.y), zsq = fp2_sqr(r.z);
-  const Fp2 t2 = fp2_sqr(t1);
-  const Fp2 s = fp2_sqr(fp2_add(t1, r.x));
-  const Fp2 t3 = fp2_mul_small(fp2_sub(fp2_sub(s, t0), t2), 2);
-  const Fp2 t4 = fp2_mul_small(t0, 3);
-  const Fp2 t6 = fp2_add(r.x, t4);
-  const Fp2 t5 = fp2_sqr(t4);
-  const Fp2 nx = fp2_sub(t5, fp2_mul_small(t3, 2));
-  const Fp2 nz = fp2_sub(fp2_sub(fp2_sqr(fp2_add(r.z, r.y)), t1), zsq);
-  const Fp2 m0 = fp2_mul(fp2_sub(t3, nx), t4), m1 = fp2_mul(nz, zsq);
-  const Fp2 ny = fp2_sub(m0, fp2_mul_small(t2, 8));
-  line.c0 = fp2_mul_small(m1, 2);
-  const Fp2 m2 = fp2_mul(t4, zsq);
-  line.c1 = fp2_neg(fp2_mul_small(m2, 2));
-  line.c2 = fp2_sub(fp2_sub(fp2_sub(fp2_sqr(t6), t0), t5), fp2_mul_small(t1, 4));
-  nr.x = nx;
-  nr.y = ny;
-  nr.z = nz;
-}
-
-LZ_NOINLINE void addition_step(const G2Jac& r, const Fp2& qx, const Fp2& qy, G2Jac& nr,
-                               Line& line) {
-  const Fp2 zsq = fp2_sqr(r.z), ysq = fp2_sqr(qy);
-  const Fp2 t0 = fp2_mul(zsq, qx);
-  const Fp2 t1 = fp2_mul(fp2_sub(fp2_sub(fp2_sqr(fp2_add(qy, r.z)), ysq), zsq), zsq);
-  const Fp2 t2 = fp2_sub(t0, r.x);
-  const Fp2 t3 = fp2_sqr(t2);
-  const Fp2 t4 = fp2_mul_small(t3, 4);
-  const Fp2 t6 = fp2_sub(t1, fp2_mul_small(r.y, 2));
-  const Fp2 t5 = fp2_mul(t4, t2), t9 = fp2_mul(t6, qx), t7 = fp2_mul(t4, r.x);
-  const Fp2 nx = fp2_sub(fp2_sub(fp2_sqr(t6), t5), fp2_mul_small(t7, 2));
-  const Fp2 nz = fp2_sub(fp2_sub(fp2_sqr(fp2_add(r.z, t2)), zsq), t3);
-  const Fp2 t10 = fp2_add(qy, nz);
-  const Fp2 t8 = fp2_mul(fp2_sub(t7, nx), t6), m2 = fp2_mul(r.y, t5);
-  const Fp2 ny = fp2_sub(t8, fp2_mul_small(m2, 2));
-  const Fp2 t10b = fp2_sub(fp2_sub(fp2_sqr(t10), ysq), fp2_sqr(nz));
-  line.c2 = fp2_sub(fp2_mul_small(t9, 2), t10b);
-  line.c0 = fp2_mul_small(nz, 2);
-  line.c1 = fp2_mul_small(fp2_neg(t6), 2);
-  nr.x = nx;
-  nr.y = ny;
-  nr.z = nz;
 }
 
 // --- element I/O: a stack (k, 30, n), element i, component-major ----------
@@ -321,12 +228,6 @@ __device__ __forceinline__ void store_fp12(const Fp12& a, int* dst, long long n,
 
 // --- the kernels' per-element bodies ---------------------------------------
 
-// K4: a * b, (12, 30, n) each -> out.
-__device__ __forceinline__ void fp12_mul_elem(const int* a, const int* b, int* out, long long n,
-                                              long long i) {
-  store_fp12(fp12_mul(load_fp12(a, n, i), load_fp12(b, n, i)), out, n, i);
-}
-
 // K11: a^2, (12, 30, n) -> out.
 __device__ __forceinline__ void fp12_sqr_elem(const int* a, int* out, long long n, long long i) {
   store_fp12(fp12_sqr(load_fp12(a, n, i)), out, n, i);
@@ -338,28 +239,6 @@ __device__ __forceinline__ void fp12_mul_by_014_elem(const int* f, const int* c,
                                                      long long n, long long i) {
   const Fp2 c0 = load_fp2(c, 0, n, i), c1 = load_fp2(c, 2, n, i), c4 = load_fp2(c, 4, n, i);
   store_fp12(fp12_mul_by_014(load_fp12(f, n, i), c0, c1, c4), out, n, i);
-}
-
-// K5: R (6, 30, n) [+ Q (4, 30, n) when is_add] -> out (12, 30, n): the new
-// point (x, y, z), then the line (c0, c1, c2).
-__device__ __forceinline__ void prepare_step_elem(const int* r, const int* q, int* out,
-                                                  long long n, long long i, int is_add) {
-  G2Jac pt, np;
-  Line line;
-  pt.x = load_fp2(r, 0, n, i);
-  pt.y = load_fp2(r, 2, n, i);
-  pt.z = load_fp2(r, 4, n, i);
-  if (is_add) {
-    addition_step(pt, load_fp2(q, 0, n, i), load_fp2(q, 2, n, i), np, line);
-  } else {
-    doubling_step(pt, np, line);
-  }
-  store_fp2(np.x, out, 0, n, i);
-  store_fp2(np.y, out, 2, n, i);
-  store_fp2(np.z, out, 4, n, i);
-  store_fp2(line.c0, out, 6, n, i);
-  store_fp2(line.c1, out, 8, n, i);
-  store_fp2(line.c2, out, 10, n, i);
 }
 
 }  // namespace tw

@@ -1,7 +1,8 @@
 // Device functions of the Fp12 tower on the 32-bit Montgomery layer of
 // fp381.cuh, for the kernels that split each element's work over a block's
-// threads: K3 (n cyclotomic squares, cyc_sqr.cu) and K6 (one Miller event,
-// miller_step.cu).
+// threads: K3 (n cyclotomic squares, cyc_sqr.cu), K4 (the fp12 product,
+// fp12_mul.cu), K5 (one G2 prepare event, prepare_step.cu) and K6 (one
+// Miller event, miller_step.cu).
 //
 // The tower: Fp6 = Fp2[v]/(v^3 - xi), Fp12 = Fp6[w]/(w^2 - v), xi = 1 + u,
 // an fp12 (a0 + a1 v + a2 v^2) + (b0 + b1 v + b2 v^2) w held as six Fp2
@@ -9,15 +10,18 @@
 // b0, b1, b2, each re then im.
 //
 // Value parity: every kernel computes the same field elements as its plain
-// version (tower_lazy._cyc_sqr_core, pairing_steps.miller_step_plain) from
+// version (tower_lazy._cyc_sqr_core, tower_lazy.fp12_mul_many,
+// pairing_steps.prepare_step_plain, pairing_steps.miller_step_plain) from
 // the same algebra -- the Granger-Scott square pairing the Fp2 components as
-// (a0, b1), (b0, a2), (a1, b2) with xi on r1 into nb0; the complex square of
-// tower_lazy.fp12_sqr over the 6-leg Karatsuba of fp6_mul_many; the 15
-// Fp2 products of fp12_mul_by_014_many; the line scaled by P as
-// pairing_steps._ell_legs -- in exact field arithmetic on canonical words,
-// so only the redundant digits differ. (The plain versions are field
-// operations on the values the tower produces, |value| far below 2^390;
-// their folds truncate larger values.)
+// (a0, b1), (b0, a2), (a1, b2) with xi on r1 into nb0; the Karatsuba
+// product over fp6 of fp12_mul_many with the 6-leg Karatsuba of
+// fp6_mul_many in each of its three fp6 products; the complex square of
+// tower_lazy.fp12_sqr; the 15 Fp2 products of fp12_mul_by_014_many; the
+// line scaled by P as pairing_steps._ell_legs; the Jacobian doubling and
+// mixed addition of pairing_steps._doubling_step / _addition_step -- in
+// exact field arithmetic on canonical words, so only the redundant digits
+// differ. (The plain versions are field operations on the values the tower
+// produces, |value| far below 2^390; their folds truncate larger values.)
 //
 // The block's program: an element's state lives in shared memory as Fp2
 // "slots" of 24 words, word-major with the block's E elements interleaved
@@ -26,7 +30,8 @@
 // kernel is a fixed sequence of phases; each phase is a list of independent
 // operations on one element's slots (`LinOp`: a signed sum of small
 // multiples of slots, some times xi; `MulOp`: one Fp2 product, square or
-// scaling by an Fp, of two such sums). The block's threads take the
+// scaling by an Fp, of two such sums). No operation reads a slot that
+// another operation of its phase writes. The block's threads take the
 // phase's (operation, element) jobs in turn, operation-major, and a
 // barrier ends the phase. Each job is one thread's and holds a few Fp2
 // values in registers, where the first versions held a whole fp12 and its
@@ -212,7 +217,7 @@ struct LinOp {
 
 enum MulKind : signed char { MUL = 0, SQR = 1, SCALE_RE = 2, SCALE_IM = 3 };
 
-// dst <- X Y (MUL), X^2 (SQR, K3's squares, run_sqr), or X times the re /
+// dst <- X Y (MUL), X^2 (SQR, run_sqr: K3's and K5's squares), or X times the re /
 // im Fp component of Y's first slot (SCALE_RE / SCALE_IM); X and Y sums of
 // terms.
 struct MulOp {
@@ -248,6 +253,17 @@ __device__ __forceinline__ void run_sqr(const Elem& m, const MulOp& op) {
   Fp2 x, r;
   sum_terms(m, op.x, MUL_TERMS, x);
   sqr(x, r);
+  store(m, op.dst, r);
+}
+
+// A MUL op alone (K4's and K5's products): with no scaling path compiled
+// in, K5 runs ~10% faster than on run() at the same launch bound, and K4
+// 2-4% (scripts/tower_probe.py, PERF.md).
+__device__ __forceinline__ void run_mul(const Elem& m, const MulOp& op) {
+  Fp2 x, y, r;
+  sum_terms(m, op.x, MUL_TERMS, x);
+  sum_terms(m, op.y, MUL_TERMS, y);
+  f381::mul(x, y, r);
   store(m, op.dst, r);
 }
 
@@ -399,6 +415,148 @@ __constant__ LinOp MILLER_014_RESULT[6] = {
     {5, {{26, 1, 0}, {23, 1, 0}, {17, -1, 0}, {14, -1, 0}, {20, -1, 0}}},
 };
 
+// --- K4: the fp12 product (tower_lazy.fp12_mul_many) -----------------------------
+//
+// Slots: 0-5 a = (a0, a1), 6-11 b = (b0, b1), 12-29 the 18 Fp2 products:
+// fp6_mul's six Karatsuba legs (v0, v1, v2, m12, m01, m02) of t0 = a0 b0
+// into 12-17, of t1 = a1 b1 into 18-23 and of t2 = (a0 + a1)(b0 + b1) into
+// 24-29 (its leg operands sums of up to four slots). Then t0, t1, t2 from
+// their legs into the dead slots 0-8, and the result c0 = t0 + v t1, c1 =
+// t2 - t0 - t1 into 12-17, whence the store.
+
+constexpr int FP12_MUL_SLOTS = 30;
+constexpr int FP12_MUL_OUT = 12;  // the result's first slot
+
+__constant__ MulOp FP12_MUL_PRODUCTS[18] = {
+    {12, MUL, {{0, 1, 0}}, {{6, 1, 0}}},                        // t0: v0 = a00 b00
+    {13, MUL, {{1, 1, 0}}, {{7, 1, 0}}},                        //     v1 = a01 b01
+    {14, MUL, {{2, 1, 0}}, {{8, 1, 0}}},                        //     v2 = a02 b02
+    {15, MUL, {{1, 1, 0}, {2, 1, 0}}, {{7, 1, 0}, {8, 1, 0}}},  //     m12
+    {16, MUL, {{0, 1, 0}, {1, 1, 0}}, {{6, 1, 0}, {7, 1, 0}}},  //     m01
+    {17, MUL, {{0, 1, 0}, {2, 1, 0}}, {{6, 1, 0}, {8, 1, 0}}},  //     m02
+    {18, MUL, {{3, 1, 0}}, {{9, 1, 0}}},                        // t1: v0 = a10 b10
+    {19, MUL, {{4, 1, 0}}, {{10, 1, 0}}},                       //     v1
+    {20, MUL, {{5, 1, 0}}, {{11, 1, 0}}},                       //     v2
+    {21, MUL, {{4, 1, 0}, {5, 1, 0}}, {{10, 1, 0}, {11, 1, 0}}},  //   m12
+    {22, MUL, {{3, 1, 0}, {4, 1, 0}}, {{9, 1, 0}, {10, 1, 0}}},   //   m01
+    {23, MUL, {{3, 1, 0}, {5, 1, 0}}, {{9, 1, 0}, {11, 1, 0}}},   //   m02
+    {24, MUL, {{0, 1, 0}, {3, 1, 0}}, {{6, 1, 0}, {9, 1, 0}}},    // t2 on A = a0 + a1,
+    {25, MUL, {{1, 1, 0}, {4, 1, 0}}, {{7, 1, 0}, {10, 1, 0}}},   //    B = b0 + b1: v0,
+    {26, MUL, {{2, 1, 0}, {5, 1, 0}}, {{8, 1, 0}, {11, 1, 0}}},   //    v1, v2,
+    {27, MUL, {{1, 1, 0}, {4, 1, 0}, {2, 1, 0}, {5, 1, 0}},       //    m12 = (A1 + A2)
+     {{7, 1, 0}, {10, 1, 0}, {8, 1, 0}, {11, 1, 0}}},             //          (B1 + B2),
+    {28, MUL, {{0, 1, 0}, {3, 1, 0}, {1, 1, 0}, {4, 1, 0}},       //    m01,
+     {{6, 1, 0}, {9, 1, 0}, {7, 1, 0}, {10, 1, 0}}},
+    {29, MUL, {{0, 1, 0}, {3, 1, 0}, {2, 1, 0}, {5, 1, 0}},       //    m02
+     {{6, 1, 0}, {9, 1, 0}, {8, 1, 0}, {11, 1, 0}}},
+};
+
+// fp6_mul's interpolation of each product's legs (v0 .. m02 at l .. l + 5):
+// c0 = v0 + xi (m12 - v1 - v2), c1 = m01 - v0 - v1 + xi v2, c2 = m02 - v0 -
+// v2 + v1; t0 into 0-2, t1 into 3-5, t2 into 6-8.
+__constant__ LinOp FP12_MUL_FP6[9] = {
+    {0, {{12, 1, 0}, {15, 1, 1}, {13, -1, 1}, {14, -1, 1}}},
+    {1, {{16, 1, 0}, {12, -1, 0}, {13, -1, 0}, {14, 1, 1}}},
+    {2, {{17, 1, 0}, {12, -1, 0}, {14, -1, 0}, {13, 1, 0}}},
+    {3, {{18, 1, 0}, {21, 1, 1}, {19, -1, 1}, {20, -1, 1}}},
+    {4, {{22, 1, 0}, {18, -1, 0}, {19, -1, 0}, {20, 1, 1}}},
+    {5, {{23, 1, 0}, {18, -1, 0}, {20, -1, 0}, {19, 1, 0}}},
+    {6, {{24, 1, 0}, {27, 1, 1}, {25, -1, 1}, {26, -1, 1}}},
+    {7, {{28, 1, 0}, {24, -1, 0}, {25, -1, 0}, {26, 1, 1}}},
+    {8, {{29, 1, 0}, {24, -1, 0}, {26, -1, 0}, {25, 1, 0}}},
+};
+
+// c0 = t0 + v t1 = (t0_0 + xi t1_2, t0_1 + t1_0, t0_2 + t1_1), c1 = t2 - t0 - t1.
+__constant__ LinOp FP12_MUL_RESULT[6] = {
+    {12, {{0, 1, 0}, {5, 1, 1}}},
+    {13, {{1, 1, 0}, {3, 1, 0}}},
+    {14, {{2, 1, 0}, {4, 1, 0}}},
+    {15, {{6, 1, 0}, {0, -1, 0}, {3, -1, 0}}},
+    {16, {{7, 1, 0}, {1, -1, 0}, {4, -1, 0}}},
+    {17, {{8, 1, 0}, {2, -1, 0}, {5, -1, 0}}},
+};
+
+// --- K5: one G2 prepare event (pairing_steps._doubling_step, _addition_step) -----
+//
+// Slots: 0-2 R = (x, y, z), 3-4 Q = (qx, qy) (the addition), then the
+// event's squares and products, and the output, (nx, ny, nz, c0, c1, c2),
+// in 20-25. The plain code's linear steps are folded into the operand sums
+// of the products that read them and into the last phase's sums.
+//
+// The doubling, 25 Fp products in three phases: t0 = x^2 (3), t1 = y^2 (4),
+// zsq = z^2 (5), w = (z + y)^2 (6); t2 = t1^2 (7), s = (t1 + x)^2 (8), t5 =
+// (3 t0)^2 (9), u = (x + 3 t0)^2 = t6^2 (10), m1 = nz zsq (11) with nz = w -
+// t1 - zsq, m2 = 3 t0 zsq (12); m0 = (t3 - nx) 3 t0 (13), where t3 = 2 (s -
+// t0 - t2) and nx = t5 - 2 t3, so t3 - nx = 6 s - 6 t0 - 6 t2 - t5.
+
+constexpr int PREPARE_SLOTS = 26;
+constexpr int PREPARE_OUT = 20;  // nx, ny, nz, c0, c1, c2 in 20-25
+
+__constant__ MulOp PREPARE_DBL_PRODUCTS[11] = {
+    {3, SQR, {{0, 1, 0}}, {}},                                          // t0 = x^2
+    {4, SQR, {{1, 1, 0}}, {}},                                          // t1 = y^2
+    {5, SQR, {{2, 1, 0}}, {}},                                          // zsq = z^2
+    {6, SQR, {{2, 1, 0}, {1, 1, 0}}, {}},                               // w = (z + y)^2
+    {7, SQR, {{4, 1, 0}}, {}},                                          // t2 = t1^2
+    {8, SQR, {{4, 1, 0}, {0, 1, 0}}, {}},                               // s = (t1 + x)^2
+    {9, SQR, {{3, 3, 0}}, {}},                                          // t5 = t4^2
+    {10, SQR, {{0, 1, 0}, {3, 3, 0}}, {}},                              // u = t6^2
+    {11, MUL, {{6, 1, 0}, {4, -1, 0}, {5, -1, 0}}, {{5, 1, 0}}},        // m1 = nz zsq
+    {12, MUL, {{3, 3, 0}}, {{5, 1, 0}}},                                // m2 = t4 zsq
+    {13, MUL, {{8, 6, 0}, {3, -6, 0}, {7, -6, 0}, {9, -1, 0}}, {{3, 3, 0}}},  // m0
+};
+
+// nx = t5 - 2 t3, ny = m0 - 8 t2, nz = w - t1 - zsq, c0 = 2 m1, c1 = -2 m2,
+// c2 = t6^2 - t0 - t5 - 4 t1.
+__constant__ LinOp PREPARE_DBL_RESULT[6] = {
+    {20, {{9, 1, 0}, {8, -4, 0}, {3, 4, 0}, {7, 4, 0}}},
+    {21, {{13, 1, 0}, {7, -8, 0}}},
+    {22, {{6, 1, 0}, {4, -1, 0}, {5, -1, 0}}},
+    {23, {{11, 2, 0}}},
+    {24, {{12, -2, 0}}},
+    {25, {{10, 1, 0}, {3, -1, 0}, {9, -1, 0}, {4, -4, 0}}},
+};
+
+// The mixed addition, 37 Fp products in five phases: zsq = z^2 (5), ysq =
+// qy^2 (6), w = (qy + z)^2 (7); t0 = zsq qx (8), t1 = (w - ysq - zsq) zsq
+// (9); with t2 = t0 - x and t6 = t1 - 2 y: t3 = t2^2 (10), h = (z + t2)^2
+// (11), t6^2 (12), t9 = t6 qx (13); with t4 = 4 t3 and nz = h - zsq - t3:
+// t5 = t4 t2 (14), t7 = t4 x (15), g = (qy + nz)^2 (16), nz^2 (17); t8 =
+// (t7 - nx) t6 (18) with nx = t6^2 - t5 - 2 t7, so t7 - nx = 3 t7 - t6^2 +
+// t5, and m2 = y t5 (19).
+__constant__ MulOp PREPARE_ADD_PRODUCTS[15] = {
+    {5, SQR, {{2, 1, 0}}, {}},                                          // zsq
+    {6, SQR, {{4, 1, 0}}, {}},                                          // ysq
+    {7, SQR, {{4, 1, 0}, {2, 1, 0}}, {}},                               // w
+    {8, MUL, {{5, 1, 0}}, {{3, 1, 0}}},                                 // t0
+    {9, MUL, {{7, 1, 0}, {6, -1, 0}, {5, -1, 0}}, {{5, 1, 0}}},         // t1
+    {10, SQR, {{8, 1, 0}, {0, -1, 0}}, {}},                             // t3
+    {11, SQR, {{2, 1, 0}, {8, 1, 0}, {0, -1, 0}}, {}},                  // h
+    {12, SQR, {{9, 1, 0}, {1, -2, 0}}, {}},                             // t6^2
+    {13, MUL, {{9, 1, 0}, {1, -2, 0}}, {{3, 1, 0}}},                    // t9
+    {14, MUL, {{10, 4, 0}}, {{8, 1, 0}, {0, -1, 0}}},                   // t5
+    {15, MUL, {{10, 4, 0}}, {{0, 1, 0}}},                               // t7
+    {16, SQR, {{4, 1, 0}, {11, 1, 0}, {5, -1, 0}, {10, -1, 0}}, {}},    // g
+    {17, SQR, {{11, 1, 0}, {5, -1, 0}, {10, -1, 0}}, {}},               // nz^2
+    {18, MUL, {{15, 3, 0}, {12, -1, 0}, {14, 1, 0}}, {{9, 1, 0}, {1, -2, 0}}},  // t8
+    {19, MUL, {{1, 1, 0}}, {{14, 1, 0}}},                               // m2
+};
+
+// nx = t6^2 - t5 - 2 t7, ny = t8 - 2 m2, nz = h - zsq - t3, c0 = 2 nz, c1 =
+// -2 t6, c2 = 2 t9 - (g - ysq - nz^2).
+__constant__ LinOp PREPARE_ADD_RESULT[6] = {
+    {20, {{12, 1, 0}, {14, -1, 0}, {15, -2, 0}}},
+    {21, {{18, 1, 0}, {19, -2, 0}}},
+    {22, {{11, 1, 0}, {5, -1, 0}, {10, -1, 0}}},
+    {23, {{11, 2, 0}, {5, -2, 0}, {10, -2, 0}}},
+    {24, {{9, -2, 0}, {1, 4, 0}}},
+    {25, {{13, 2, 0}, {16, -1, 0}, {6, 1, 0}, {17, 1, 0}}},
+};
+
+// The product phases of each form: PREPARE_*_PRODUCTS[first[k] .. first[k + 1]).
+__constant__ signed char PREPARE_DBL_FIRST[4] = {0, 4, 10, 11};
+__constant__ signed char PREPARE_ADD_FIRST[6] = {0, 3, 5, 9, 13, 15};
+
 // --- the kernels' phases ---------------------------------------------------------
 //
 // A block holds elements [i0, i0 + E) of the batch, n elements in all; the
@@ -429,12 +587,13 @@ __device__ __forceinline__ void load_component(const Block& b, const int* src, i
   store_fp(b.elem(e), c / 2, c % 2, x);
 }
 
-// Fp component c (slots 0-5) -> row c of the stack dst.
-__device__ __forceinline__ void store_component(const Block& b, int* dst, int c, int e) {
+// Fp component `from` (slot from / 2, half from % 2) -> row c of the stack dst.
+__device__ __forceinline__ void store_component(const Block& b, int* dst, int c, int from,
+                                                int e) {
   const long long i = b.i0 + e;
   if (i >= b.n) return;
   Fp x;
-  load_fp(b.elem(e), c / 2, c % 2, x);
+  load_fp(b.elem(e), from / 2, from % 2, x);
   words_to_digits(x, dst + static_cast<long long>(c) * DIGITS * b.n + i, b.n);
 }
 
@@ -450,7 +609,7 @@ __device__ __forceinline__ int cyc_sqr_jobs(int ph, int nsq) {
 __device__ __forceinline__ void cyc_sqr_job(const Block& b, const int* x, int* out, int nsq,
                                             int ph, int op, int e) {
   if (ph == 0) load_component(b, x, op, op, e);
-  else if (ph == 2 * nsq + 1) store_component(b, out, op, e);
+  else if (ph == 2 * nsq + 1) store_component(b, out, op, op, e);
   else if (ph % 2) run_sqr(b.elem(e), CYC_SQUARES[op]);
   else run(b.elem(e), CYC_RECOMBINE[op]);
 }
@@ -496,7 +655,80 @@ __device__ __forceinline__ void miller_job(const Block& b, const int* f, const i
     case SQR_RESULT: run(b.elem(e), MILLER_SQR_RESULT[op]); break;
     case P014: run(b.elem(e), MILLER_014_PRODUCTS[op]); break;
     case R014: run(b.elem(e), MILLER_014_RESULT[op]); break;
-    case STORE: store_component(b, out, op, e); break;
+    case STORE: store_component(b, out, op, op, e); break;
+  }
+}
+
+// K4: LOAD (a into components 0-11, b into 12-23), PRODUCTS, FP6, RESULT,
+// STORE from slot FP12_MUL_OUT (or, when the kernel runs its edges alone,
+// a from slot 0).
+enum Fp12MulStep { M12_LOAD, M12_PRODUCTS, M12_FP6, M12_RESULT, M12_STORE };
+
+constexpr int FP12_MUL_PHASES = 5;
+
+__device__ __forceinline__ int fp12_mul_jobs(int ph) {
+  switch (ph) {
+    case M12_LOAD: return 24;
+    case M12_PRODUCTS: return 18;
+    case M12_FP6: return 9;
+    case M12_RESULT: return 6;
+    default: return 12;
+  }
+}
+
+__device__ __forceinline__ void fp12_mul_job(const Block& b, const int* x, const int* y, int* out,
+                                             int edges_only, int ph, int op, int e) {
+  switch (ph) {
+    case M12_LOAD:
+      if (op < 12) load_component(b, x, op, op, e);
+      else load_component(b, y, op - 12, op, e);
+      break;
+    case M12_PRODUCTS: run_mul(b.elem(e), FP12_MUL_PRODUCTS[op]); break;
+    case M12_FP6: run(b.elem(e), FP12_MUL_FP6[op]); break;
+    case M12_RESULT: run(b.elem(e), FP12_MUL_RESULT[op]); break;
+    default: store_component(b, out, op, edges_only ? op : 2 * FP12_MUL_OUT + op, e); break;
+  }
+}
+
+// K5: phase 0 loads R (components 0-5) and, for the addition, Q (6-9);
+// then the product phases (3 for the doubling, 5 for the addition), the
+// result's sums, and the store from slot PREPARE_OUT (or, when the kernel
+// runs its edges alone, row c from the loaded component c mod 6, or mod 10
+// for the addition: R, and Q after it, repeated).
+__device__ __forceinline__ int prepare_products(int is_add) { return is_add ? 5 : 3; }
+
+__device__ __forceinline__ int prepare_inputs(int is_add) { return is_add ? 10 : 6; }
+
+__device__ __forceinline__ int prepare_phases(int is_add) {
+  return prepare_products(is_add) + 3;
+}
+
+__device__ __forceinline__ int prepare_jobs(int ph, int is_add) {
+  const int np = prepare_products(is_add);
+  if (ph == 0) return prepare_inputs(is_add);
+  if (ph == np + 1) return 6;
+  if (ph == np + 2) return 12;
+  const signed char* first = is_add ? PREPARE_ADD_FIRST : PREPARE_DBL_FIRST;
+  return first[ph] - first[ph - 1];
+}
+
+__device__ __forceinline__ void prepare_job(const Block& b, const int* r, const int* q, int* out,
+                                            int is_add, int edges_only, int ph, int op,
+                                            int e) {
+  const int np = prepare_products(is_add);
+  if (ph == 0) {
+    if (op < 6) load_component(b, r, op, op, e);
+    else load_component(b, q, op - 6, op, e);
+  } else if (ph == np + 1) {
+    run(b.elem(e), is_add ? PREPARE_ADD_RESULT[op] : PREPARE_DBL_RESULT[op]);
+  } else if (ph == np + 2) {
+    store_component(b, out, op, edges_only ? op % prepare_inputs(is_add) : 2 * PREPARE_OUT + op,
+                    e);
+  } else {
+    const MulOp& m = is_add ? PREPARE_ADD_PRODUCTS[PREPARE_ADD_FIRST[ph - 1] + op]
+                            : PREPARE_DBL_PRODUCTS[PREPARE_DBL_FIRST[ph - 1] + op];
+    if (m.kind == SQR) run_sqr(b.elem(e), m);
+    else run_mul(b.elem(e), m);
   }
 }
 

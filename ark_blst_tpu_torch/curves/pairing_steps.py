@@ -6,7 +6,9 @@ Counterparts of two `ark_blst_tpu/ops/pallas_lazy.py:tower_fused` instances:
   doubling of R, or one mixed addition of the affine Q, with its line
   triple. R `(6, 30, N)` = x, y, z fp2 components [+ Q `(4, 30, N)` =
   qx, qy] -> `(12, 30, N)`: rows 0-5 the new point, rows 6-11 the line
-  coefficients c0, c1, c2. Source `csrc/prepare_step.cu`.
+  coefficients c0, c1, c2. Source `csrc/prepare_step.cu` on
+  `csrc/tower381.cuh`, as K6: the same field elements as
+  `prepare_step_plain`, in other digits (within 4096).
 * K6 `miller_step` (`curves/pairing.py:_fused_miller_step`): one Miller
   event, f <- (f^2 if with_sqr) * line(P): the line triple C `(6, 30, N)`
   scaled by P = (px, py) `(2, 30, N)` (`_ell_legs`), then the sparse

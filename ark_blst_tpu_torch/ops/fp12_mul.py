@@ -3,8 +3,11 @@
 Counterpart of the `mul12` instance of `ark_blst_tpu/ops/pallas_lazy.py:
 tower_fused` (`ops/tower_lazy.py:_fused_op("mul12")`): two stacked
 `(12, 30, N)` fp12 batches -> their product, Karatsuba over fp6 (54 base
-products). The kernel source is `csrc/fp12_mul.cu`; `fp12_mul_plain` is
-its plain PyTorch version, `tower_lazy.fp12_mul_many([(a, b)])`.
+products). The kernel (`csrc/fp12_mul.cu` on `csrc/tower381.cuh`) holds
+each element in shared memory as 32-bit Montgomery words, its work split
+over a block's threads, and returns balanced digits within 4096: the same
+field elements as `fp12_mul_plain`, its plain PyTorch version
+(`tower_lazy.fp12_mul_many([(a, b)])`), not the same digits.
 """
 
 from __future__ import annotations

@@ -43,12 +43,12 @@ Phases, one JSON line each:
               the extreme patterns of k1; K3 (cyclotomic squares) at n = 1
               and at the longest run of the exponent ladder (32), K4 (fp12
               product), K5 (prepare event) and K6 (Miller event) in both
-              forms, K3, K5 and K6 also on real event inputs taken from the
-              pipeline; K4 and K5 bit for bit, K3 and K6 (32-bit Montgomery
-              words inside, csrc/tower381.cuh) by canonical value, their
-              digits within 4096, K6's random operands with the top digit
-              bounded (|value| < 8p, where the plain version is a field
-              operation), each with its registers, stack, shared memory and
+              forms, each also on real event inputs taken from the
+              pipeline; all four (32-bit Montgomery words inside,
+              csrc/tower381.cuh) by canonical value, their digits within
+              4096, the random operands of K4-K6 with the top digit
+              bounded (|value| < 8p, where the plain versions are field
+              operations), each with its registers, stack, shared memory and
               launch shape and its bound beside the radix-13 one; then K11
               (fp12 square) and
               K12 (sparse line product) the same way, on random digits and
@@ -143,28 +143,29 @@ floor: the IMAD instructions of the compiled kernel (`cuobjdump -sass`,
 static count; both kernels are straight-line code around their loops; a
 bucket kernel's count is its library's, which also holds the two
 conversions, a product each)
-over 132 SMs x 64 per clock x 1.98 GHz = 16.7e12 per s. The tower kernels
-K3-K6, K11 and K12 count their base products times MONT_MUL_OPS plus the
-folded glue of
-each tower operation (the op model below), and bytes as each input read
-once and the output written once; their IMAD floor is the products alone:
-products x the IMAD instructions of K1's compiled product, the same
-`lz::mont_mul` body that the tower kernels call out of line. K3 and K6
-run on 12 x 32-bit words (csrc/tower381.cuh): CYC_SQR32_OPS a square
-(18 CIOS products and 107 modular sums), MILLER32_OPS an event (85 or 49
-products and 277 or 119 sums), and per launch the conversion of each
-input Fp component from digits to words (DIGITS_TO_WORDS_OPS) and of each
-output one back (WORDS_TO_DIGITS_OPS); their lines give the radix-13 work's
-bound beside (`bound_radix13_ms`), and their IMAD floor counts the
-launch's products (conversions included) at the IMAD instructions of one
-product of their own library: its static IMAD count (moves left out) over
-the CIOS bodies it compiles (its wide multiply-adds over the 288 of one
-product). The strict
-kernels K7-K10 count bytes as 4 L per operand and result element (int32
-limbs), and instructions by `strict_ops`: three per 32 x 32-bit word
-product, two per word of a carry chain, three per word of the conditional
-subtraction, two per word packed or unpacked; every one of them is
-bytes-bound.
+over 132 SMs x 64 per clock x 1.98 GHz = 16.7e12 per s. The radix-13
+tower kernels K11 and K12 (and the radix-13 bounds of K3-K6) count their
+base products times MONT_MUL_OPS plus the folded glue of each tower
+operation (the op model below), and bytes as each input read once and
+the output written once; the IMAD floor of K11 and K12 is the products
+alone: products x the IMAD instructions of K1's compiled product, the
+same `lz::mont_mul` body that they call out of line. K3-K6 run on 12 x
+32-bit words (csrc/tower381.cuh): CYC_SQR32_OPS a square (18 CIOS
+products and 107 modular sums), FP12_MUL32_OPS a product of fp12s (54
+and 224), PREPARE32_OPS a doubling (25, 87 and 2 negations) or an
+addition (37, 107 and 2), MILLER32_OPS an event (85 or 49 products and
+277 or 119 sums), and per launch the conversion of each input Fp component from digits to
+words (DIGITS_TO_WORDS_OPS) and of each output one back
+(WORDS_TO_DIGITS_OPS); their lines give the radix-13 work's bound beside
+(`bound_radix13_ms`), and their IMAD floor counts the launch's products
+(conversions included) at the IMAD instructions of one product of their
+own library: its static IMAD count (moves left out) over the CIOS bodies
+it compiles (its wide multiply-adds over the 288 of one product). The
+strict kernels K7-K10 count bytes as 4 L per operand and result element
+(int32 limbs), and instructions by `strict_ops`: three per 32 x 32-bit
+word product, two per word of a carry chain, three per word of the
+conditional subtraction, two per word packed or unpacked; every one of
+them is bytes-bound.
 """
 
 from __future__ import annotations
@@ -268,7 +269,8 @@ DUMP_COMPONENT_OPS = MONT_MUL32_OPS + 30 * 3 + _fold(30) + 15 * 3
 # word of 13), the product by 2^378
 POINT_COMPONENT_OPS = 30 * 6 + 2 * 13 + 11 * 4 * 13 + MONT_MUL32_OPS
 
-# the tower (csrc/tower13.cuh), per element
+# the tower on radix-13 digits (csrc/tower13.cuh: K11, K12, and the radix-13
+# yardstick of K3-K6), per element
 _LIN = 30 + _fold(30)  # fp add / sub / small scale: the digit op, then fold30
 _LIN2 = 2 * _LIN  # the same on fp2 (and fp2_mul_by_nonresidue)
 FP2_MUL_OPS = 3 * MONT_MUL_OPS + 3 * _LIN + 60 + _fold(30)
@@ -293,6 +295,18 @@ MILLER_OPS = {True: FP12_SQR_OPS + 4 * MONT_MUL_OPS + MUL_BY_014_OPS,  # with th
 CYC_SQR32_OPS = 18 * MONT_MUL32_OPS + 107 * ADD32_OPS
 MILLER32_OPS = {True: 85 * MONT_MUL32_OPS + 277 * ADD32_OPS,
                 False: 49 * MONT_MUL32_OPS + 119 * ADD32_OPS}
+# K4 and K5 on the 32-bit tower, per element, their sums counted as the
+# plain code's algebra needs them, as K3's and K6's: a sum of W terms is
+# W - 1 Fp2 additions, a shared sum counted once, a small multiple by
+# doublings, xi two Fp sums. K4: 54 products and 224 Fp sums (the 18 Fp2
+# Karatsuba recombinations 90; the operand sums 48, a0 + a1 and b0 + b1 12
+# and the three fp6 products' leg sums 36; three fp6 interpolations 66; the
+# result 20). The doubling (pairing_steps._doubling_step): 25 products, 87
+# sums (the squares' and products' recombinations 39, the linear steps 48)
+# and 2 negations (c1 = -2 m2); the addition: 37, 107 (59, 48) and 2.
+FP12_MUL32_OPS = 54 * MONT_MUL32_OPS + 224 * ADD32_OPS
+PREPARE32_OPS = {False: 25 * MONT_MUL32_OPS + 87 * ADD32_OPS + 2 * NEG32_OPS,
+                 True: 37 * MONT_MUL32_OPS + 107 * ADD32_OPS + 2 * NEG32_OPS}
 # one Fp component in: 30 digits biased and placed (six instructions each),
 # the carries (two a word of 13), 12 conditional subtractions of 2^k p (four
 # a word of 13), the product by 2^378; out: the product by 2^390, 30 digits
@@ -301,6 +315,7 @@ DIGITS_TO_WORDS_OPS = 30 * 6 + 2 * 13 + 12 * 4 * 13 + MONT_MUL32_OPS
 WORDS_TO_DIGITS_OPS = MONT_MUL32_OPS + 30 * 3 + _fold(30)
 CIOS_WIDE_MULS = 2 * _NW * _NW  # a_j b_i and m p_j, 32 x 32 -> 64 bits each
 PREPARE_PRODUCTS = {False: 25, True: 37}
+PREPARE_INPUTS = {False: 6, True: 10}  # Fp components: R, and Q for the addition
 MILLER_PRODUCTS = {True: 85, False: 49}
 ELEM_BYTES = 30 * 4  # one Fp element of digits
 
@@ -678,7 +693,7 @@ def _stage(torch, fn, profiled: bool, need_device: bool = True, expect: tuple = 
     summary = {"profile_attempts": attempt, "device_ms_from": "profiler",
                "kernel_launches": sum(count.values()),
                "top": [{"kernel": name[:60], "count": count[name], "device_ms": t / 1e6}
-                       for name, t in ns.most_common(3)]}
+                       for name, t in ns.most_common(5)]}
     if not seen and need_device:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -751,7 +766,7 @@ def digit_stacks(torch, dev, rows_list) -> list:
 
 
 def _held_values(torch, name: str, got, want) -> int:
-    """Hold a kernel on 32-bit words (K3, K6) against its plain version by
+    """Hold a kernel on 32-bit words (K3-K6) against its plain version by
     value: the same field element in every Fp row (canonical digits), the
     kernel's digits within 4096. Returns the largest |digit| difference of
     the canonical digits (0)."""
@@ -767,7 +782,7 @@ def _held_values(torch, name: str, got, want) -> int:
 
 
 def _tower32_shape(torch, kernel, n: int) -> dict:
-    """K3's or K6's launch shape from its C entry `<symbol>_shape`:
+    """The launch shape of K3, K4, K5 or K6 from its C entry `<symbol>_shape`:
     elements and threads a block, shared bytes a block, the blocks an SM
     holds (the occupancy API), and the grid's waves and warps an SM at n."""
     fn = getattr(ctypes.CDLL(str(kernel.lib_path)), kernel.symbol + "_shape")
@@ -821,16 +836,39 @@ def phase_k3(torch, dev, real, sass: dict, ptxas: dict) -> dict:
     return runs[max(runs)]
 
 
-def phase_k4(torch, dev, imad_per_product: int) -> dict:
+def _below_8p(torch, dev, stacks, seed: int) -> None:
+    """Redraw the top digit of each random stack in [-100, 100]: |value| <
+    8p, where the plain versions of K4-K6 are field operations (their folds
+    truncate values near 2^390)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for x in stacks:
+        x[:, 29, :] = torch.randint(-100, 101, (x.shape[0], x.shape[-1]), generator=g,
+                                    device=dev, dtype=torch.int32)
+
+
+def phase_k4(torch, dev, real, sass: dict, ptxas: dict) -> dict:
+    from ark_blst_tpu_torch.curves import pairing_steps as PS
     from ark_blst_tpu_torch.ops import fp12_mul as K4
 
     a, b = digit_stacks(torch, dev, [12, 12])
+    _below_8p(torch, dev, (a, b), SEED + 4)
     n = a.shape[-1]
-    err = _held(torch, "K4", K4.fp12_mul(a, b), K4.fp12_mul_plain(a, b))
+    # real operands: f after three Miller events and after a fourth
+    f_real = real[2]
+    g_real = PS.miller_step(f_real, real[3], real[4], True)
+    err = max(_held_values(torch, "K4", K4.fp12_mul(x, y), K4.fp12_mul_plain(x, y))
+              for x, y in ((a, b), (f_real, g_real)))
+    imad = _tower32_imad(sass)
+    nbytes = n * 3 * 12 * ELEM_BYTES
+    conv = 24 * DIGITS_TO_WORDS_OPS + 12 * WORDS_TO_DIGITS_OPS
     res = {"max_abs_err": err, **_timed(
         torch, lambda: K4.fp12_mul(a, b), lambda: K4.fp12_mul_plain(a, b),
-        n * 3 * 12 * ELEM_BYTES, n * FP12_MUL_OPS, n * 54 * imad_per_product)}
-    emit({"phase": "k4", "n": n, "bit_equal": True, **res})
+        nbytes, n * (FP12_MUL32_OPS + conv), None if imad is None else n * (54 + 36) * imad)}
+    res["bound_radix13_ms"], res["bound_radix13_by"] = bound_ms(nbytes, n * FP12_MUL_OPS)
+    emit({"phase": "k4", "n": n, "value_equal": True, "real_inputs": True, **res,
+          "ops_per_product": FP12_MUL32_OPS, "ops_per_product_radix13": FP12_MUL_OPS,
+          "ops_conversions": conv, "imad_per_product": imad, "ptxas": ptxas["fp12_mul.cu"],
+          "launch": _tower32_shape(torch, K4.KERNEL, n)})
     return res
 
 
@@ -860,25 +898,36 @@ def real_event_inputs(torch, p, q):
     return rs, qs, fs, coeffs[3], pxy, legs
 
 
-def phase_k5(torch, dev, imad_per_product: int, real) -> dict:
+def phase_k5(torch, dev, real, sass: dict, ptxas: dict) -> dict:
     from ark_blst_tpu_torch.curves import pairing_steps as PS
 
     r_rand, q_rand = digit_stacks(torch, dev, [6, 4])
+    _below_8p(torch, dev, (r_rand, q_rand), SEED + 5)
     r_real, q_real = real[0], real[1]
     n = r_rand.shape[-1]
+    imad = _tower32_imad(sass)
     forms, err = {}, 0
     for is_add in (False, True):
         for r, q in ((r_rand, q_rand), (r_real, q_real)):
             qq = q if is_add else None
-            err = max(err, _held(torch, "K5", PS.prepare_step(r, qq), PS.prepare_step_plain(r, qq)))
+            err = max(err, _held_values(torch, "K5", PS.prepare_step(r, qq),
+                                        PS.prepare_step_plain(r, qq)))
         qq = q_rand if is_add else None
-        forms["addition" if is_add else "doubling"] = _timed(
+        nbytes = n * (PREPARE_INPUTS[is_add] + 12) * ELEM_BYTES
+        conv = PREPARE_INPUTS[is_add] * DIGITS_TO_WORDS_OPS + 12 * WORDS_TO_DIGITS_OPS
+        form = _timed(
             torch, lambda: PS.prepare_step(r_rand, qq), lambda: PS.prepare_step_plain(r_rand, qq),
-            n * (6 + 4 * is_add + 12) * ELEM_BYTES, n * PREPARE_OPS[is_add],
-            n * PREPARE_PRODUCTS[is_add] * imad_per_product)
-    emit({"phase": "k5", "n": n, "bit_equal": True, "real_inputs": True, "max_abs_err": err,
-          **forms})
-    return {"max_abs_err": err, **forms["doubling"]}
+            nbytes, n * (PREPARE32_OPS[is_add] + conv),
+            None if imad is None
+            else n * (PREPARE_PRODUCTS[is_add] + PREPARE_INPUTS[is_add] + 12) * imad)
+        form["bound_radix13_ms"], form["bound_radix13_by"] = bound_ms(
+            nbytes, n * PREPARE_OPS[is_add])
+        form["ops_per_event"], form["ops_conversions"] = PREPARE32_OPS[is_add], conv
+        forms["addition" if is_add else "doubling"] = form
+    emit({"phase": "k5", "n": n, "value_equal": True, "real_inputs": True, "max_abs_err": err,
+          **forms, "imad_per_product": imad, "ptxas": ptxas["prepare_step.cu"],
+          "launch": _tower32_shape(torch, PS.PREPARE_KERNEL, n)})
+    return {"max_abs_err": err, **forms["doubling"], "addition": forms["addition"]}
 
 
 def phase_k6(torch, dev, real, sass: dict, ptxas: dict) -> dict:
@@ -886,12 +935,7 @@ def phase_k6(torch, dev, real, sass: dict, ptxas: dict) -> dict:
 
     f_rand, c_rand, p_rand = digit_stacks(torch, dev, [12, 6, 2])
     n = f_rand.shape[-1]
-    # the top digit in [-100, 100]: |value| < 8p, where the plain version is a
-    # field operation (its folds truncate values near 2^390)
-    g = torch.Generator(device=dev).manual_seed(SEED + 6)
-    for x in (f_rand, c_rand, p_rand):
-        x[:, 29, :] = torch.randint(-100, 101, (x.shape[0], n), generator=g, device=dev,
-                                    dtype=torch.int32)
+    _below_8p(torch, dev, (f_rand, c_rand, p_rand), SEED + 6)
     imad = _tower32_imad(sass)
     forms, err = {}, 0
     for with_sqr in (True, False):
@@ -1514,8 +1558,8 @@ def main() -> int:
     real = real_event_inputs(torch, p, q)
     imad_per_product = sass["mont_mul.cu"]["imad"]
     k3 = phase_k3(torch, dev, real, sass["cyc_sqr.cu"], ptxas)
-    k4 = phase_k4(torch, dev, imad_per_product)
-    k5 = phase_k5(torch, dev, imad_per_product, real)
+    k4 = phase_k4(torch, dev, real, sass["fp12_mul.cu"], ptxas)
+    k5 = phase_k5(torch, dev, real, sass["prepare_step.cu"], ptxas)
     k6 = phase_k6(torch, dev, real, sass["miller_step.cu"], ptxas)
     k11, k12 = phase_k11_k12(torch, dev, imad_per_product, real, ptxas)
     del real
@@ -1576,9 +1620,13 @@ def main() -> int:
                      bound_radix13_ms=k3["bound_radix13_ms"]),
         _kernel_line("fp12_mul", "fp12_mul.cu",
                      "ark_blst_tpu/ops/pallas_lazy.py:63 (ops/tower_lazy.py:567 mul12)",
-                     launches["fp12_mul"], k4, launches_pairing_unfused=unfused["fp12_mul"]),
+                     launches["fp12_mul"], k4, launches_pairing_unfused=unfused["fp12_mul"],
+                     bound_radix13_ms=k4["bound_radix13_ms"]),
         _kernel_line("prepare_step", "prepare_step.cu", "ark_blst_tpu/ops/pallas_lazy.py:63",
-                     launches["prepare_step"], k5),
+                     launches["prepare_step"], k5, bound_radix13_ms=k5["bound_radix13_ms"],
+                     addition_ms=k5["addition"]["ms"],
+                     addition_bound_ms=k5["addition"]["bound_ms"],
+                     addition_bound_radix13_ms=k5["addition"]["bound_radix13_ms"]),
         _kernel_line("miller_step", "miller_step.cu", "ark_blst_tpu/ops/pallas_lazy.py:63",
                      launches["miller_step"], k6, bound_radix13_ms=k6["bound_radix13_ms"]),
         *strict_lines,

@@ -1,23 +1,33 @@
 #!/usr/bin/env python3
-"""K3 (`ark_blst_tpu_torch/csrc/cyc_sqr.cu`) and K6 (`csrc/miller_step.cu`)
-at other launch shapes, on one NVIDIA card: each shape is E elements and T
-threads a block (`tower_cyc_sqr_shaped`, `pairing_miller_step_shaped`; the
-shape is an argument of the kernel, so the probe changes no code), and
-K6's edges alone (the conversions of its 20 input and 12 output Fp
-components, `edges_only`).
+"""K3 (`ark_blst_tpu_torch/csrc/cyc_sqr.cu`), K4 (`csrc/fp12_mul.cu`), K5
+(`csrc/prepare_step.cu`) and K6 (`csrc/miller_step.cu`) at other launch
+shapes, on one NVIDIA card: each shape is E elements and T threads a block
+(`tower_cyc_sqr_shaped`, `tower_fp12_mul_shaped`,
+`pairing_prepare_step_shaped`, `pairing_miller_step_shaped`), and the
+edges of K4, K5 and K6 alone (the conversions of their input and output
+Fp components, `edges_only`). K3 and K6 run every shape in the library's
+own build (`__launch_bounds__(512)`). K4 and K5 are bounded by their
+launch shape, so each of their shapes gets a build of its own, bounded by
+it: T threads and as many blocks an SM as the shape's shared memory holds
+(`-DK4_THREADS=T -DK4_MIN_BLOCKS=M`, `K5_*` likewise), with its ptxas
+registers and spills.
 
-    python3 scripts/tower_probe.py [--k3 32x288,16x144] [--k6 32x256,16x128]
+    python3 scripts/tower_probe.py [--k3 32x288,16x144] [--k4 32x192] \
+        [--k5 32x192,16x96] [--k6 32x256,16x128]
 
-Builds the two kernels from the checkout's sources (`cuda.build_all`), makes
-the pairing batch's inputs as chip_smoke.py makes them (N = 8192 random
-mul-ready digits, seed 7; K6's top digit bounded), and prints the card's
-name and power limit, then one JSON line per shape: the blocks an SM holds
-(the occupancy API at the compiled registers and the shape's shared
-memory), the grid's waves, the time (the mean of three launches after one
-warm-up, CUDA events) of K3 at n = 1 and n = 32 squares or K6 with and
-without the square, and whether the output equals the default shape's bit
-for bit (every shape computes the same words). Needs a card; imports no
-JAX.
+Builds the four kernels from the checkout's sources (`cuda.build_all`)
+and the shapes' builds of K4 and K5 beside them, all at once, into
+`build/tower_probe/`; makes the pairing batch's inputs as chip_smoke.py
+makes them (N = 8192 random mul-ready digits, seed 7; the top digit of the
+operands of K4-K6 bounded), and prints the card's name and power limit,
+then one JSON line per shape: the blocks an SM holds (the occupancy API at
+the compiled registers and the shape's shared memory), the grid's waves,
+the time (the mean of three launches after one warm-up, CUDA events) of
+K3 at n = 1 and n = 32 squares, K4, K5's doubling and addition, or K6
+with and without the square, each with its edges alone, and whether the
+output equals the library's default shape's bit for bit (every shape
+computes the same words; the edges alone store their inputs' values).
+Needs a card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -34,10 +44,36 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 N, SEED = 8192, 7
 K3_SHAPES = "32x288,32x96,32x192,16x144,16x288,64x288"
 K6_SHAPES = "32x256,32x128,32x480,16x128,16x240,64x512"
+K4_SHAPES = "32x192,32x256,32x128,16x128,16x96"
+K5_SHAPES = "32x192,32x128,16x96,16x64,64x384"
+SMEM_RESERVED = 1024  # shared memory the card reserves a block
 
 
 def _shapes(arg: str) -> list:
     return [tuple(int(v) for v in s.split("x")) for s in arg.split(",") if s]
+
+
+def _bounded_builds(KC, props, kernels: dict) -> tuple:
+    """Start one nvcc for each bound that the shapes of K4 and K5 ask
+    for; kernels maps "k4"/"k5" to (source, macro prefix, slot bytes an
+    element, shapes). Returns {(which, E, T): (library, min blocks)} and
+    {library: process}, one build for each bound."""
+    smem_sm = getattr(props, "shared_memory_per_multiprocessor", 228 * 1024)
+    out_dir = KC.BUILD_DIR.parent / "tower_probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    shapes_of, procs = {}, {}
+    for which, (source, macro, elem_bytes, shapes) in kernels.items():
+        for E, T in shapes:
+            blocks = max(1, min(smem_sm // (E * elem_bytes + SMEM_RESERVED), 2048 // T))
+            lib = out_dir / f"{which}_{T}x{blocks}.so"
+            shapes_of[(which, E, T)] = (lib, blocks)
+            if lib not in procs:
+                cmd = [KC._nvcc(), *KC.NVCC_FLAGS, f"-D{macro}_THREADS={T}",
+                       f"-D{macro}_MIN_BLOCKS={blocks}", "-I", str(KC.CSRC_DIR), "-o",
+                       str(lib), str(KC.CSRC_DIR / source)]
+                procs[lib] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True)
+    return shapes_of, procs
 
 
 def main() -> int:
@@ -48,6 +84,8 @@ def main() -> int:
         return 1
     ap = argparse.ArgumentParser()
     ap.add_argument("--k3", default=K3_SHAPES)
+    ap.add_argument("--k4", default=K4_SHAPES)
+    ap.add_argument("--k5", default=K5_SHAPES)
     ap.add_argument("--k6", default=K6_SHAPES)
     args = ap.parse_args()
 
@@ -55,37 +93,60 @@ def main() -> int:
     from ark_blst_tpu_torch import cuda as KC
     from ark_blst_tpu_torch.curves import pairing_steps as PS
     from ark_blst_tpu_torch.ops import cyc_sqr as K3
+    from ark_blst_tpu_torch.ops import fp12_mul as K4
     from ark_blst_tpu_torch.ops import lazy13 as LZ
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout
     print(smi.strip().splitlines()[0], flush=True)
     dev = torch.device("cuda", 0)
-    KC.build_all([K3.KERNEL, PS.MILLER_KERNEL])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kernels = {"k3": K3.KERNEL, "k4": K4.KERNEL, "k5": PS.PREPARE_KERNEL,
+               "k6": PS.MILLER_KERNEL}
+    props = torch.cuda.get_device_properties(0)
+    slot_bytes = 12 * 2 * 4  # one Fp2 slot of 32-bit words
+    bounded, procs = _bounded_builds(KC, props, {
+        "k4": ("fp12_mul.cu", "K4", 30 * slot_bytes, _shapes(args.k4)),
+        "k5": ("prepare_step.cu", "K5", 26 * slot_bytes, _shapes(args.k5))})
+    KC.build_all(list(kernels.values()))  # the library, while the shapes build
+    sms = props.multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream
-    ptxas = {k.source: CS._ptxas_summary(k.build_log) for k in (K3.KERNEL, PS.MILLER_KERNEL)}
+    ptxas = {k.source: CS._ptxas_summary(k.build_log) for k in kernels.values()}
     print(json.dumps({"ptxas": ptxas}), flush=True)
+    logs = {}
+    for path, proc in procs.items():
+        logs[path], _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {path.name}:\n{logs[path]}")
+    shape_ptxas = {key: {"min_blocks": blocks, **CS._ptxas_summary(logs[path])}
+                   for key, (path, blocks) in bounded.items()}
 
-    x, f, c, pxy = CS.digit_stacks(torch, dev, [12, 12, 6, 2])
-    for t in (f, c, pxy):  # K6's operands below 8p, as chip_smoke.py's k6 phase
-        t[:, 29, :] = torch.randint(-100, 101, (t.shape[0], N), device=dev, dtype=torch.int32)
+    x, f, c, pxy, a, b, r, q = CS.digit_stacks(torch, dev, [12, 12, 6, 2, 12, 12, 6, 4])
+    # the operands of K4-K6 below 8p, as chip_smoke.py's phases make them
+    CS._below_8p(torch, dev, (f, c, pxy, a, b, r, q), SEED)
 
-    def lib(kernel, name, argtypes):
-        fn = getattr(ctypes.CDLL(str(kernel.lib_path)), name)
+    def lib(path, name, argtypes):
+        fn = getattr(ctypes.CDLL(str(path)), name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         return fn
 
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    k3 = lib(K3.KERNEL, "tower_cyc_sqr_shaped", [vp, vp, i64, i32, i32, i32, vp])
-    k6 = lib(PS.MILLER_KERNEL, "pairing_miller_step_shaped",
-             [vp, vp, vp, vp, i64, i32, i32, i32, i32, vp])
-    occ = {k: lib(kernel, kernel.symbol + "_shape", [ctypes.POINTER(ctypes.c_int)] * 4)
-           for k, kernel in (("k3", K3.KERNEL), ("k6", PS.MILLER_KERNEL))}
+    entries = {"k3": ("tower_cyc_sqr_shaped", [vp, vp, i64, i32, i32, i32, vp]),
+               "k4": ("tower_fp12_mul_shaped", [vp, vp, vp, i64, i32, i32, i32, vp]),
+               "k5": ("pairing_prepare_step_shaped", [vp, vp, vp, i64, i32, i32, i32, i32, vp]),
+               "k6": ("pairing_miller_step_shaped",
+                      [vp, vp, vp, vp, i64, i32, i32, i32, i32, vp])}
 
-    def occupancy(which, E, T):
+    def shaped(which, E, T):
+        """The shaped entry and the occupancy entry of the build that runs
+        the shape: its own for K4 and K5, the library's for K3 and K6."""
+        path = bounded[(which, E, T)][0] if (which, E, T) in bounded \
+            else kernels[which].lib_path
+        return (lib(path, *entries[which]),
+                lib(path, kernels[which].symbol + "_shape", [ctypes.POINTER(ctypes.c_int)] * 4))
+
+    def occupancy(occ, E, T):
         vals = [ctypes.c_int(E), ctypes.c_int(T), ctypes.c_int(), ctypes.c_int()]
-        err = occ[which](*(ctypes.byref(v) for v in vals))
+        err = occ(*(ctypes.byref(v) for v in vals))
         return {"smem_bytes": vals[2].value, "blocks_per_sm": vals[3].value, "error": err}
 
     def launch(fn, *a):
@@ -96,22 +157,60 @@ def main() -> int:
     def timed(fn):
         return CS.cuda_ms(torch, fn, 3)
 
+    def shape_line(which, E, T):
+        fn, occ = shaped(which, E, T)
+        res = {"kernel": which, "shape": f"{E}x{T}", **occupancy(occ, E, T)}
+        res["waves"] = -(-N // E) / (sms * max(res["blocks_per_sm"], 1))
+        if (which, E, T) in shape_ptxas:
+            res["ptxas"] = shape_ptxas[(which, E, T)]
+        return fn, res
+
+    def edges_hold(inputs):
+        """The edges alone store their inputs' values: output row c holds
+        input component c mod the inputs' rows."""
+        src = torch.cat(inputs)
+        rows = [c % src.shape[0] for c in range(12)]
+        return bool(torch.equal(LZ.canonicalize_rows(out),
+                                LZ.canonicalize_rows(src[rows])))
+
     out = torch.empty_like(x)
     ref3 = {n: K3.cyc_sqr(x, n) for n in (1, 32)}
+    ref4 = K4.fp12_mul(a, b)
+    ref5 = {add: PS.prepare_step(r, q if add else None) for add in (False, True)}
     ref6 = {w: PS.miller_step(f, c, pxy, w) for w in (True, False)}
     for E, T in _shapes(args.k3):
-        res = {"kernel": "k3", "shape": f"{E}x{T}", **occupancy("k3", E, T)}
-        blocks = -(-N // E)
-        res["waves"] = blocks / (sms * max(res["blocks_per_sm"], 1))
+        k3, res = shape_line("k3", E, T)
         for n in (1, 32):
             run = lambda n=n: launch(k3, x.data_ptr(), out.data_ptr(), N, n, E, T, stream)  # noqa: E731
             res[f"ms_{n}"] = timed(run)
             res[f"equal_{n}"] = bool(torch.equal(out, ref3[n]))
         print(json.dumps(res), flush=True)
+    for E, T in _shapes(args.k4):
+        k4, res = shape_line("k4", E, T)
+        for edges in (0, 1):
+            run = lambda e=edges, k4=k4: launch(k4, a.data_ptr(), b.data_ptr(),  # noqa: E731
+                                                out.data_ptr(), N, E, T, e, stream)
+            res["ms_edges_only" if edges else "ms"] = timed(run)
+            if edges:
+                res["edges_value_equal"] = edges_hold([a])
+            else:
+                res["equal"] = bool(torch.equal(out, ref4))
+        print(json.dumps(res), flush=True)
+    for E, T in _shapes(args.k5):
+        k5, res = shape_line("k5", E, T)
+        for add in (False, True):
+            key = "addition" if add else "doubling"
+            for edges in (0, 1):
+                run = lambda e=edges, add=add, k5=k5: launch(  # noqa: E731
+                    k5, r.data_ptr(), q.data_ptr(), out.data_ptr(), N, int(add), E, T, e, stream)
+                res[f"ms_{key}_edges_only" if edges else f"ms_{key}"] = timed(run)
+                if edges:
+                    res[f"{key}_edges_value_equal"] = edges_hold([r, q] if add else [r])
+                else:
+                    res[f"equal_{key}"] = bool(torch.equal(out, ref5[add]))
+        print(json.dumps(res), flush=True)
     for E, T in _shapes(args.k6):
-        res = {"kernel": "k6", "shape": f"{E}x{T}", **occupancy("k6", E, T)}
-        blocks = -(-N // E)
-        res["waves"] = blocks / (sms * max(res["blocks_per_sm"], 1))
+        k6, res = shape_line("k6", E, T)
         for w in (True, False):
             run = lambda w=w: launch(k6, f.data_ptr(), c.data_ptr(), pxy.data_ptr(),  # noqa: E731
                                      out.data_ptr(), N, int(w), E, T, 0, stream)
@@ -121,8 +220,7 @@ def main() -> int:
         run = lambda: launch(k6, f.data_ptr(), c.data_ptr(), pxy.data_ptr(),  # noqa: E731
                              out.data_ptr(), N, 1, E, T, 1, stream)
         res["ms_edges_only"] = timed(run)
-        res["edges_value_equal"] = bool(torch.equal(LZ.canonicalize_rows(out),
-                                                    LZ.canonicalize_rows(f)))
+        res["edges_value_equal"] = edges_hold([f])
         print(json.dumps(res), flush=True)
     return 0
 

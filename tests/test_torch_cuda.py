@@ -138,21 +138,22 @@ def _stack(rng, rows, n, dev, top=None):
     columns; with `top`, the top digit redrawn in [-top, top] in every
     column (the patterns kept in the other 29)."""
     a = rng.integers(-F, F + 1, (rows, 30, n)).astype(np.int32)
-    a[:, :, 0], a[:, :, 1], a[:, :, 2] = F, -F, 8191
-    a[:, :, 3] = [F if k % 2 else -F for k in range(30)]
+    for i, pattern in enumerate([F, -F, 8191, [F if k % 2 else -F for k in range(30)]][:n]):
+        a[:, :, i] = pattern
     if top is not None:
         a[:, 29, :] = rng.integers(-top, top + 1, (rows, n))
     return torch.from_numpy(a).to(dev)
 
 
-# K6's random operands keep |value| < 101 * 2^377 < 8p, the lazy engine's
-# mul-ready domain, where its plain version is a field operation (its folds
-# truncate values near 2^390; K3's plain version contracts its input first).
+# The random operands of K4-K6 keep |value| < 101 * 2^377 < 8p, the lazy
+# engine's mul-ready domain, where their plain versions are field
+# operations (their folds truncate values near 2^390; K3's plain version
+# contracts its input first).
 TOP_8P = 100
 
 
 def _value_equal(got, want):
-    """K3 and K6 (32-bit words inside) against their plain versions: the same
+    """K3-K6 (32-bit words inside) against their plain versions: the same
     field element in every Fp row, the kernel's digits within 4096."""
     assert int(got.abs().max()) <= 4096
     assert torch.equal(LZ.canonicalize_rows(got), LZ.canonicalize_rows(want))
@@ -173,19 +174,22 @@ def test_k3_value_equal_to_plain(dev, nsq):
     _value_equal(got, K3.cyc_sqr_plain(x, nsq))
 
 
-def test_k4_bit_equal_to_plain(dev):
+@pytest.mark.parametrize("n", [1024, 37, 1])
+def test_k4_value_equal_to_plain(dev, n):
+    """Also ragged and single-element blocks, as `_fold_mul` launches it."""
     rng = np.random.default_rng(5)
-    a, b = _stack(rng, 12, 1024, dev), _stack(rng, 12, 1024, dev)
+    a, b = _stack(rng, 12, n, dev, top=TOP_8P), _stack(rng, 12, n, dev, top=TOP_8P)
     got = _launched_once(K4.KERNEL, lambda: K4.fp12_mul(a, b))
-    assert torch.equal(got, K4.fp12_mul_plain(a, b))
+    _value_equal(got, K4.fp12_mul_plain(a, b))
 
 
 @pytest.mark.parametrize("is_add", [False, True])
-def test_k5_bit_equal_to_plain(dev, is_add):
+def test_k5_value_equal_to_plain(dev, is_add):
     rng = np.random.default_rng(6)
-    r, q = _stack(rng, 6, 1024, dev), (_stack(rng, 4, 1024, dev) if is_add else None)
+    r = _stack(rng, 6, 1024, dev, top=TOP_8P)
+    q = _stack(rng, 4, 1024, dev, top=TOP_8P) if is_add else None
     got = _launched_once(PS.PREPARE_KERNEL, lambda: PS.prepare_step(r, q))
-    assert torch.equal(got, PS.prepare_step_plain(r, q))
+    _value_equal(got, PS.prepare_step_plain(r, q))
 
 
 @pytest.mark.parametrize("with_sqr", [False, True])

@@ -1,13 +1,14 @@
 """The CUDA code of K2-K6, K11 and K12 compiled for the CPU with the host C++
 compiler and undefined-behaviour checks, against the kernels' plain
-PyTorch versions: the radix-13 tower (csrc/tower13.cuh, K4, K5, K11, K12)
-bit for bit; K3 and K6 on the 32-bit tower (csrc/tower381.cuh) and the G1
+PyTorch versions: the radix-13 tower (csrc/tower13.cuh, K11, K12) bit for
+bit; K3, K4, K5 and K6 on the 32-bit tower (csrc/tower381.cuh) and the G1
 and G2 bucket additions (csrc/group381.cuh, K2 and K2-G2), all on 32-bit
-Montgomery words, by value.
+Montgomery words, by value; K3, K4 and K5's chained events also against
+the oracle.
 
 The headers compile as plain C++ when __CUDACC__ is not defined; a small
-harness runs each kernel's per-element body over a batch, or, for K3 and
-K6, one block's phases in order, job by job, as the card's threads run
+harness runs each kernel's per-element body over a batch, or, for K3-K6,
+one block's phases in order, job by job, as the card's threads run
 them between their barriers. Built with
 `-fsanitize=undefined -fno-sanitize-recover`, so any signed int32 overflow
 in the arithmetic aborts the harness and fails the test. (The kernels
@@ -40,6 +41,7 @@ from ark_blst_tpu_torch.ops import lazy13 as LZ
 from ark_blst_tpu_torch.ops import tower_lazy as TL
 from ark_blst_tpu_torch.oracle import curve as OC
 from ark_blst_tpu_torch.oracle import field as OF
+from ark_blst_tpu_torch.oracle import pairing as OP
 
 N = 12
 F = LZ.F_BOUND
@@ -52,9 +54,10 @@ HARNESS = r"""
 #include "tower381.cuh"
 
 // stdin: op, n, p1, p2 (int64 each), then the operand stacks (int32);
-// stdout: the result. Ops 0-4: the tower kernels (param p1), result
-// (12, 30, n); K3 (op 0) and K6 (op 4) run blocks of |p2| elements, each
-// phase's jobs in reverse order when p2 < 0. Ops 11/12: tower381.cuh's
+// stdout: the result. Ops 0-4: the tower kernels on tower381.cuh, K3
+// (op 0, p1 squares), K4 (op 1), K5 (op 2 the doubling, op 3 the addition)
+// and K6 (op 4, p1 with the square), result (12, 30, n), in blocks of |p2|
+// elements, each phase's jobs in reverse order when p2 < 0. Ops 11/12: tower381.cuh's
 // conversions of p1 Fp rows, digits (p1, 30, n) -> words (p1, 12, n) and
 // back. Ops 5/6: the G1/G2 mixed addition of K2/K2-G2 on (5, 12, n)
 // or (10, 12, n) canonical R16 words, result (3, 12, n) or (6, 12, n).
@@ -155,14 +158,24 @@ int main() {
                [&](const t381::Block& b, int ph, int j, int e) {
                  t381::miller_job(b, x, x + 12 * plane, x + 18 * plane, o, p1, ph, j, e);
                });
-  for (long long i = 0; tower && op != 0 && op != 4 && i < n; ++i) {
-    switch (op) {
-      case 9: tw::fp12_sqr_elem(x, o, n, i); break;
-      case 10: tw::fp12_mul_by_014_elem(x, x + 12 * plane, o, n, i); break;
-      case 1: tw::fp12_mul_elem(x, x + 12 * plane, o, n, i); break;
-      case 2: tw::prepare_step_elem(x, nullptr, o, n, i, 0); break;
-      default: tw::prepare_step_elem(x, x + 6 * plane, o, n, i, 1);
-    }
+  if (op == 1)
+    run_blocks(n, B, t381::FP12_MUL_SLOTS, t381::FP12_MUL_PHASES,
+               [&](int ph) { return t381::fp12_mul_jobs(ph); },
+               [&](const t381::Block& b, int ph, int j, int e) {
+                 t381::fp12_mul_job(b, x, x + 12 * plane, o, 0, ph, j, e);
+               });
+  if (op == 2 || op == 3) {
+    const int is_add = op == 3;
+    const int* q = is_add ? x + 6 * plane : nullptr;
+    run_blocks(n, B, t381::PREPARE_SLOTS, t381::prepare_phases(is_add),
+               [&](int ph) { return t381::prepare_jobs(ph, is_add); },
+               [&](const t381::Block& b, int ph, int j, int e) {
+                 t381::prepare_job(b, x, q, o, is_add, 0, ph, j, e);
+               });
+  }
+  for (long long i = 0; (op == 9 || op == 10) && i < n; ++i) {
+    if (op == 9) tw::fp12_sqr_elem(x, o, n, i);
+    else tw::fp12_mul_by_014_elem(x, x + 12 * plane, o, n, i);
   }
   fwrite(out.data(), sizeof(int), out.size(), stdout);
   return 0;
@@ -251,12 +264,13 @@ def real_inputs():
     return rs, torch.stack([qx[0], qx[1], qy[0], qy[1]]), fs, coeffs[2], pxy, legs
 
 
-# --- K3 and K6 on the 32-bit tower (csrc/tower381.cuh), by value -------------
+# --- K3-K6 on the 32-bit tower (csrc/tower381.cuh), by value ----------------
 
 BLOCK = 8  # elements a block in the harness: two blocks over N = 12, the second ragged
-# The top digit's bound for K6's random operands: |value| < 101 * 2^377 <
-# 8p, the lazy engine's mul-ready domain (LZ.canonicalize's), on which the
-# plain version is a field operation; its folds truncate values near 2^390.
+# The top digit's bound for the random operands of K4, K5 and K6: |value| <
+# 101 * 2^377 < 8p, the lazy engine's mul-ready domain (LZ.canonicalize's),
+# on which the plain versions are field operations; their folds truncate
+# values near 2^390.
 TOP_8P = 100
 
 
@@ -280,24 +294,35 @@ def test_cyc_sqr_host(harness, nsq):
     assert_value_equal(run(harness, 0, nsq, x, buckets=BLOCK), K3.cyc_sqr_plain(x, nsq))
 
 
+def random_fp12(rng: random.Random):
+    """A random canonical fp12 element as the oracle holds it."""
+    return tuple(tuple(tuple(rng.randrange(OF.P) for _ in range(2)) for _ in range(3))
+                 for _ in range(2))
+
+
 def cyclotomic_elements(n: int) -> list:
     """n elements of the cyclotomic subgroup by the oracle: f^((p^6 - 1)(p^2 +
     1)) for random f."""
     rng = random.Random(12)
     out = []
     for _ in range(n):
-        f = tuple(tuple(tuple(rng.randrange(OF.P) for _ in range(2)) for _ in range(3))
-                  for _ in range(2))
+        f = random_fp12(rng)
         g = OF.fp12_mul(OF.fp12_conj(f), OF.fp12_inv(f))
         out.append(OF.fp12_mul(OF.fp12_frobenius(g, 2), g))
     return out
 
 
+def fp_rows(cols) -> torch.Tensor:
+    """Oracle Fp values, one list of k rows per element -> (k, 30, n)
+    canonical R13 digits."""
+    arr = np.array([[LZ.int_to_digits(v[r] * LZ.R13 % OF.P) for v in cols]
+                    for r in range(len(cols[0]))])
+    return torch.from_numpy(np.ascontiguousarray(arr.transpose(0, 2, 1)).astype(np.int32))
+
+
 def fp12_stack(elems) -> torch.Tensor:
     """Oracle fp12 values -> (12, 30, n) canonical R13 digits."""
-    flat = [[c for b in e for a in b for c in a] for e in elems]
-    arr = np.array([[LZ.int_to_digits(v[r] * LZ.R13 % OF.P) for v in flat] for r in range(12)])
-    return torch.from_numpy(np.ascontiguousarray(arr.transpose(0, 2, 1)).astype(np.int32))
+    return fp_rows([[c for b in e for a in b for c in a] for e in elems])
 
 
 @pytest.mark.parametrize("nsq", [1, 3])
@@ -315,18 +340,52 @@ def test_cyc_sqr_host_oracle(harness, nsq):
 
 
 def test_fp12_mul_host(harness):
-    a, b = digit_stacks(2, 12, 12)
-    assert torch.equal(run(harness, 1, 0, a, b), K4.fp12_mul_plain(a, b))
+    a, b = digit_stacks(2, 12, 12, top=TOP_8P)
+    assert_value_equal(run(harness, 1, 0, a, b, buckets=BLOCK), K4.fp12_mul_plain(a, b))
+
+
+def test_fp12_mul_host_oracle(harness):
+    """tower381.cuh's K4 on random canonical elements against the oracle's
+    fp12_mul (its schoolbook fp6 products, not the kernel's Karatsuba)."""
+    rng = random.Random(21)
+    a = [random_fp12(rng) for _ in range(N)]
+    b = [random_fp12(rng) for _ in range(N)]
+    got = run(harness, 1, 0, fp12_stack(a), fp12_stack(b), buckets=BLOCK)
+    assert int(got.abs().max()) <= 4096
+    assert values(got) == values(fp12_stack([OF.fp12_mul(x, y) for x, y in zip(a, b)]))
 
 
 @pytest.mark.parametrize("source", ["random", "pipeline"])
 @pytest.mark.parametrize("is_add", [False, True])
 def test_prepare_step_host(harness, is_add, source):
-    r, q = digit_stacks(3, 6, 4) if source == "random" else real_inputs()[:2]
+    r, q = digit_stacks(3, 6, 4, top=TOP_8P) if source == "random" else real_inputs()[:2]
     if is_add:
-        assert torch.equal(run(harness, 3, 0, r, q), PS.prepare_step_plain(r, q))
+        got, want = run(harness, 3, 0, r, q, buckets=BLOCK), PS.prepare_step_plain(r, q)
     else:
-        assert torch.equal(run(harness, 2, 0, r), PS.prepare_step_plain(r))
+        got, want = run(harness, 2, 0, r, buckets=BLOCK), PS.prepare_step_plain(r)
+    assert_value_equal(got, want)
+
+
+def test_prepare_g2_host_chain(harness):
+    """K5's 68 events chained on tower381.cuh, each event's R (its digits as
+    the kernel wrote them) the next one's input, for five points, against
+    the oracle's prepare_g2: every event's line by value in the R13
+    domain."""
+    rng = np.random.default_rng(8)
+    qs = [OC.g2_mul(OF.G2_GEN, int(rng.integers(1, 1 << 62))) for _ in range(5)]
+    want = [OP.prepare_g2(q) for q in qs]
+    r = fp_rows([[*q[0], *q[1], 1, 0] for q in qs])
+    q = fp_rows([[*q[0], *q[1]] for q in qs])
+    k = 0
+    for bit in OP.X_BITS:
+        for is_add in (False, True)[: 1 + bit]:
+            out = run(harness, 3, 0, r, q, buckets=BLOCK) if is_add else \
+                run(harness, 2, 0, r, buckets=BLOCK)
+            assert int(out.abs().max()) <= 4096
+            line = fp_rows([[v for c in w[k] for v in c] for w in want])
+            assert values(out[6:]) == values(line), f"event {k}"
+            r, k = out[:6].contiguous(), k + 1
+    assert k == 68
 
 
 @pytest.mark.parametrize("source", ["random", "pipeline"])
@@ -340,12 +399,18 @@ def test_miller_step_host(harness, with_sqr, source):
     assert_value_equal(got, PS.miller_step_plain(f, c, pxy, with_sqr))
 
 
-@pytest.mark.parametrize("kernel", ["cyc_sqr", "miller_sqr", "miller_line"])
+@pytest.mark.parametrize("kernel", ["cyc_sqr", "miller_sqr", "miller_line", "fp12_mul",
+                                    "prepare_dbl", "prepare_add"])
 def test_tower381_phases_have_no_hazards(harness, kernel):
     """Each phase's jobs are independent: run in reverse order they give the
     same digits (on the card they run at once)."""
     if kernel == "cyc_sqr":
         args = (0, 2, *digit_stacks(13, 12))
+    elif kernel == "fp12_mul":
+        args = (1, 0, *digit_stacks(15, 12, 12, top=TOP_8P))
+    elif kernel.startswith("prepare"):
+        is_add = kernel == "prepare_add"
+        args = (2 + is_add, 0, *digit_stacks(16, 6, 4, top=TOP_8P)[: 1 + is_add])
     else:
         args = (4, int(kernel == "miller_sqr"), *digit_stacks(14, 12, 6, 2, top=TOP_8P))
     assert torch.equal(run(harness, *args, buckets=BLOCK), run(harness, *args, buckets=-BLOCK))
