@@ -1,8 +1,9 @@
 // Device functions of the Fp12 tower on the 32-bit Montgomery layer of
 // fp381.cuh, for the kernels that split each element's work over a block's
 // threads: K3 (n cyclotomic squares, cyc_sqr.cu), K4 (the fp12 product,
-// fp12_mul.cu), K5 (one G2 prepare event, prepare_step.cu) and K6 (one
-// Miller event, miller_step.cu).
+// fp12_mul.cu), K5 (one G2 prepare event, prepare_step.cu), K6 (one
+// Miller event, miller_step.cu), K11 (the fp12 square, fp12_sqr.cu) and
+// K12 (the sparse line product, fp12_mul_by_014.cu).
 //
 // The tower: Fp6 = Fp2[v]/(v^3 - xi), Fp12 = Fp6[w]/(w^2 - v), xi = 1 + u,
 // an fp12 (a0 + a1 v + a2 v^2) + (b0 + b1 v + b2 v^2) w held as six Fp2
@@ -11,7 +12,8 @@
 //
 // Value parity: every kernel computes the same field elements as its plain
 // version (tower_lazy._cyc_sqr_core, tower_lazy.fp12_mul_many,
-// pairing_steps.prepare_step_plain, pairing_steps.miller_step_plain) from
+// pairing_steps.prepare_step_plain, pairing_steps.miller_step_plain,
+// tower_lazy.fp12_sqr, tower_lazy.fp12_mul_by_014_many) from
 // the same algebra -- the Granger-Scott square pairing the Fp2 components as
 // (a0, b1), (b0, a2), (a1, b2) with xi on r1 into nb0; the Karatsuba
 // product over fp6 of fp12_mul_many with the 6-leg Karatsuba of
@@ -557,6 +559,22 @@ __constant__ LinOp PREPARE_ADD_RESULT[6] = {
 __constant__ signed char PREPARE_DBL_FIRST[4] = {0, 4, 10, 11};
 __constant__ signed char PREPARE_ADD_FIRST[6] = {0, 3, 5, 9, 13, 15};
 
+// --- K11 and K12: K6's two halves on its tables --------------------------------
+//
+// K11, the fp12 square (tower_lazy.fp12_sqr): f in slots 0-5, the first
+// FP12_SQR_LEGS ops of MILLER_SQR_PRODUCTS (the Karatsuba legs of t and m
+// into 12-23; the last two, the line's scalings, read slots 6, 7 and 9,
+// which K11 never loads), MILLER_SQR_FP6 (t and m into 24-29),
+// MILLER_SQR_RESULT (the square into 0-5). K12, f times the sparse line
+// (tower_lazy.fp12_mul_by_014_many): f in slots 0-5 and the line's rows c0,
+// c1, c4 in slots 8, 10 and 11, where K6's LEGS leave c2, c1 px and c0 py;
+// MILLER_014_PRODUCTS (12-26), MILLER_014_RESULT (the product into 0-5).
+// Both run the phases in K6's order and store slots 0-5.
+
+constexpr int FP12_SQR_SLOTS = MILLER_SLOTS;
+constexpr int FP12_SQR_LEGS = 12;
+constexpr int MUL_BY_014_SLOTS = 27;
+
 // --- the kernels' phases ---------------------------------------------------------
 //
 // A block holds elements [i0, i0 + E) of the batch, n elements in all; the
@@ -729,6 +747,61 @@ __device__ __forceinline__ void prepare_job(const Block& b, const int* r, const 
                             : PREPARE_DBL_PRODUCTS[PREPARE_DBL_FIRST[ph - 1] + op];
     if (m.kind == SQR) run_sqr(b.elem(e), m);
     else run_mul(b.elem(e), m);
+  }
+}
+
+// K11: LOAD (f into components 0-11), PRODUCTS, FP6, RESULT, STORE (slots
+// 0-5; when the kernel runs its edges alone, out = f).
+enum Fp12SqrStep { S12_LOAD, S12_PRODUCTS, S12_FP6, S12_RESULT, S12_STORE };
+
+constexpr int FP12_SQR_PHASES = 5;
+
+__device__ __forceinline__ int fp12_sqr_jobs(int ph) {
+  switch (ph) {
+    case S12_PRODUCTS: return FP12_SQR_LEGS;
+    case S12_FP6:
+    case S12_RESULT: return 6;
+    default: return 12;
+  }
+}
+
+__device__ __forceinline__ void fp12_sqr_job(const Block& b, const int* x, int* out, int ph,
+                                             int op, int e) {
+  switch (ph) {
+    case S12_LOAD: load_component(b, x, op, op, e); break;
+    case S12_PRODUCTS: run_mul(b.elem(e), MILLER_SQR_PRODUCTS[op]); break;
+    case S12_FP6: run(b.elem(e), MILLER_SQR_FP6[op]); break;
+    case S12_RESULT: run(b.elem(e), MILLER_SQR_RESULT[op]); break;
+    default: store_component(b, out, op, op, e); break;
+  }
+}
+
+// K12: LOAD (f into components 0-11; the line's rows c0[0], c0[1] into 16-17,
+// c1[0], c1[1] into 20-21, c4[0], c4[1] into 22-23), PRODUCTS, RESULT, STORE
+// (slots 0-5; when the kernel runs its edges alone, out = f).
+enum MulBy014Step { B014_LOAD, B014_PRODUCTS, B014_RESULT, B014_STORE };
+
+constexpr int MUL_BY_014_PHASES = 4;
+
+__device__ __forceinline__ int mul_by_014_jobs(int ph) {
+  switch (ph) {
+    case B014_LOAD: return 18;
+    case B014_PRODUCTS: return 15;
+    case B014_RESULT: return 6;
+    default: return 12;
+  }
+}
+
+__device__ __forceinline__ void mul_by_014_job(const Block& b, const int* f, const int* c,
+                                               int* out, int ph, int op, int e) {
+  switch (ph) {
+    case B014_LOAD:
+      if (op < 12) load_component(b, f, op, op, e);
+      else load_component(b, c, op - 12, op < 14 ? op + 4 : op + 6, e);
+      break;
+    case B014_PRODUCTS: run_mul(b.elem(e), MILLER_014_PRODUCTS[op]); break;
+    case B014_RESULT: run(b.elem(e), MILLER_014_RESULT[op]); break;
+    default: store_component(b, out, op, op, e); break;
   }
 }
 

@@ -140,7 +140,7 @@ def stacked_operands(name: str, tensors, rows) -> bool:
     CUDA tensors (the caller launches the kernel); raises for anything
     else, so nothing falls back. The digits are not checked: the kernels
     take |digit| <= 8191 (mul-ready or canonical), which every value of the
-    lazy tower satisfies (csrc/tower13.cuh, csrc/tower381.cuh)."""
+    lazy tower satisfies (csrc/tower381.cuh)."""
     n = tensors[0].shape[-1]
     for t, r in zip(tensors, rows):
         if t.dim() != 3 or tuple(t.shape) != (r, 30, n):

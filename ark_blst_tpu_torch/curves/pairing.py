@@ -14,8 +14,10 @@ per element). Two engines and two styles, as there:
     prepare steps on the tower (K1 through `tower_lazy._mul`); each Miller
     event K11 (the square, at a doubling), `_ell_legs` (one K1), K12 (the
     sparse line product); the ladder one K3 square per bit and K4 at the
-    set bits. Its digits equal the fused path's: K6 = K11 + legs + K12,
-    and a K3 run of n is n single squares.
+    set bits. Its values equal the fused path's: K6 = K11 + legs + K12,
+    and a K3 run of n is n single squares. On the CPU (the plain versions)
+    its digits do too; on the card the kernels on 32-bit words (K3-K6,
+    K11, K12) return their own digits of the same field elements.
 * `engine="strict"`: the strict radix-16 tower (`ops/tower.py`, every op a
   K7-K10 launch), f the nested fp12 tuple of `(24, N)` limb tensors,
   coefficients `(E, 6, 24, N)`; ingest and egress do nothing, and `fuse`

@@ -6,9 +6,12 @@ single-item `tower_lazy.fp12_mul_by_014_many` for a blockable operand):
 f * ((c0 + c1 v) + (c4 v) w) for a stacked `(12, 30, N)` fp12 batch F and
 the line `(6, 30, N)` C, rows `[c0[0], c0[1], c1[0], c1[1], c4[0], c4[1]]`
 (the scaled legs that `_ell_legs` returns, in the order of
-`tower_lazy.py:656`); 15 fp2 products (45 base products). The kernel source
-is `csrc/fp12_mul_by_014.cu`; `fp12_mul_by_014_plain` is its plain PyTorch
-version. The unfused Miller loop (`curves/pairing.py`, `fuse=False`) calls
+`tower_lazy.py:656`); 15 fp2 products (45 base products). The kernel
+(`csrc/fp12_mul_by_014.cu` on `csrc/tower381.cuh`) holds each element in
+shared memory as 32-bit Montgomery words, its work split over a block's
+threads, and returns balanced digits within 4096: the same field elements
+as `fp12_mul_by_014_plain`, its plain PyTorch version, not the same
+digits. The unfused Miller loop (`curves/pairing.py`, `fuse=False`) calls
 it at every event.
 """
 

@@ -4,8 +4,11 @@ Counterpart of the `sqr12` instance of `ark_blst_tpu/ops/pallas_lazy.py:
 tower_fused` (`ops/tower_lazy.py:_fused_op("sqr12")`, taken by
 `tower_lazy.fp12_sqr` for a blockable operand): a stacked `(12, 30, N)`
 fp12 batch -> its square, the complex squaring (2 fp6 products, 36 base
-products). The kernel source is `csrc/fp12_sqr.cu`; `fp12_sqr_plain` is its
-plain PyTorch version, `tower_lazy.fp12_sqr`. The unfused Miller loop
+products). The kernel (`csrc/fp12_sqr.cu` on `csrc/tower381.cuh`) holds
+each element in shared memory as 32-bit Montgomery words, its work split
+over a block's threads, and returns balanced digits within 4096: the same
+field elements as `fp12_sqr_plain`, its plain PyTorch version
+(`tower_lazy.fp12_sqr`), not the same digits. The unfused Miller loop
 (`curves/pairing.py`, `fuse=False`) calls it at every doubling event.
 """
 

@@ -44,16 +44,15 @@ Phases, one JSON line each:
               and at the longest run of the exponent ladder (32), K4 (fp12
               product), K5 (prepare event) and K6 (Miller event) in both
               forms, each also on real event inputs taken from the
-              pipeline; all four (32-bit Montgomery words inside,
-              csrc/tower381.cuh) by canonical value, their digits within
-              4096, the random operands of K4-K6 with the top digit
-              bounded (|value| < 8p, where the plain versions are field
-              operations), each with its registers, stack, shared memory and
-              launch shape and its bound beside the radix-13 one; then K11
-              (fp12 square) and
-              K12 (sparse line product) the same way, on random digits and
-              on f and the scaled line of a real Miller event, with their
-              registers and stack (phase `k11_k12`);
+              pipeline; then K11 (fp12 square) and K12 (sparse line
+              product, phase `k11_k12`) on random digits and on f and the
+              scaled line of a real Miller event; all six (32-bit
+              Montgomery words inside, csrc/tower381.cuh) by canonical
+              value, their digits within 4096, the random operands of
+              K4-K6, K11 and K12 with the top digit bounded (|value| < 8p,
+              where the plain versions are field operations), each with
+              its registers, stack, shared memory and launch shape and its
+              bound beside the radix-13 one;
   8. pairing  8192 pairings of 8 distinct (P, Q) pairs (P_i = P[i mod 8],
               Q_i = Q[(3i+1) mod 8], the construction of the JAX package's
               bench.py) with one identity P and one identity Q, through the
@@ -68,7 +67,9 @@ Phases, one JSON line each:
               results;
      pairing_unfused  the same instance through `Bls12.pairing_batch(...,
               fuse=False)`: every result checked against the oracle and the
-              fused results, K11 launched 63 and K12 68 times, K5/K6 never,
+              fused results (the two paths' digits differ on the card, K11
+              and K12 on 32-bit words, their values agree), K11 launched
+              63 and K12 68 times, K5/K6 never,
               with pairings/s, stages and their launches, a profiled
               rerun, peak memory and the prepared path with fuse=False;
      pairing_strict  the same instance through the tensor entry
@@ -144,17 +145,16 @@ static count; both kernels are straight-line code around their loops; a
 bucket kernel's count is its library's, which also holds the two
 conversions, a product each)
 over 132 SMs x 64 per clock x 1.98 GHz = 16.7e12 per s. The radix-13
-tower kernels K11 and K12 (and the radix-13 bounds of K3-K6) count their
-base products times MONT_MUL_OPS plus the folded glue of each tower
-operation (the op model below), and bytes as each input read once and
-the output written once; the IMAD floor of K11 and K12 is the products
-alone: products x the IMAD instructions of K1's compiled product, the
-same `lz::mont_mul` body that they call out of line. K3-K6 run on 12 x
-32-bit words (csrc/tower381.cuh): CYC_SQR32_OPS a square (18 CIOS
-products and 107 modular sums), FP12_MUL32_OPS a product of fp12s (54
-and 224), PREPARE32_OPS a doubling (25, 87 and 2 negations) or an
-addition (37, 107 and 2), MILLER32_OPS an event (85 or 49 products and
-277 or 119 sums), and per launch the conversion of each input Fp component from digits to
+bounds of the tower kernels count their base products times
+MONT_MUL_OPS plus the folded glue of each tower operation (the op model
+below), and bytes as each input read once and the output written once.
+K3-K6, K11 and K12 run on 12 x 32-bit words (csrc/tower381.cuh):
+CYC_SQR32_OPS a square (18 CIOS products and 107 modular sums),
+FP12_MUL32_OPS a product of fp12s (54 and 224), PREPARE32_OPS a doubling
+(25, 87 and 2 negations) or an addition (37, 107 and 2), MILLER32_OPS an
+event (85 or 49 products and 277 or 119 sums), FP12_SQR32_OPS an fp12
+square (36 and 158), MUL_BY_014_32_OPS a sparse line product (45 and
+119), and per launch the conversion of each input Fp component from digits to
 words (DIGITS_TO_WORDS_OPS) and of each output one back
 (WORDS_TO_DIGITS_OPS); their lines give the radix-13 work's bound beside
 (`bound_radix13_ms`), and their IMAD floor counts the launch's products
@@ -269,8 +269,9 @@ DUMP_COMPONENT_OPS = MONT_MUL32_OPS + 30 * 3 + _fold(30) + 15 * 3
 # word of 13), the product by 2^378
 POINT_COMPONENT_OPS = 30 * 6 + 2 * 13 + 11 * 4 * 13 + MONT_MUL32_OPS
 
-# the tower on radix-13 digits (csrc/tower13.cuh: K11, K12, and the radix-13
-# yardstick of K3-K6), per element
+# the tower's work on radix-13 digits, per element: the yardstick
+# (`bound_radix13_ms`) of K3-K6, K11 and K12, which ran on such digits
+# before they moved to 32-bit words
 _LIN = 30 + _fold(30)  # fp add / sub / small scale: the digit op, then fold30
 _LIN2 = 2 * _LIN  # the same on fp2 (and fp2_mul_by_nonresidue)
 FP2_MUL_OPS = 3 * MONT_MUL_OPS + 3 * _LIN + 60 + _fold(30)
@@ -285,16 +286,20 @@ PREPARE_OPS = {False: 8 * FP2_SQR_OPS + 3 * FP2_MUL_OPS + 20 * _LIN2 + 60,  # do
                True: 8 * FP2_SQR_OPS + 7 * FP2_MUL_OPS + 23 * _LIN2 + 60}  # addition
 MILLER_OPS = {True: FP12_SQR_OPS + 4 * MONT_MUL_OPS + MUL_BY_014_OPS,  # with the square
               False: 4 * MONT_MUL_OPS + MUL_BY_014_OPS}
-# K3 and K6 on the 32-bit tower (csrc/tower381.cuh), per element. A square:
-# 18 products and 107 Fp sums (the nine Fp2 squares' 27, the three pair
-# sums' 6, t, s and r with xi 26, 3t +- 2z 48). An event: the fp12 square's
-# 36 products and 158 sums (the legs' operand sums 38, twelve Fp2 Karatsuba
-# recombinations 60, two fp6 interpolations 40, g 20), the line's 4
-# products, and the sparse product's 45 products and 119 sums (fifteen
-# recombinations 75, s and c14 8, the combination 36).
+# K3, K6, K11 and K12 on the 32-bit tower (csrc/tower381.cuh), per element.
+# A cyclotomic square: 18 products and 107 Fp sums (the nine Fp2 squares'
+# 27, the three pair sums' 6, t, s and r with xi 26, 3t +- 2z 48). The fp12
+# square (K11, K6's first half): 36 products and 158 sums (the legs'
+# operand sums 38, twelve Fp2 Karatsuba recombinations 60, two fp6
+# interpolations 40, g 20). The sparse product (K12, K6's second half): 45
+# products and 119 sums (fifteen recombinations 75, s and c14 8, the
+# combination 36). An event: the square, the line's 4 products, the sparse
+# product.
 CYC_SQR32_OPS = 18 * MONT_MUL32_OPS + 107 * ADD32_OPS
-MILLER32_OPS = {True: 85 * MONT_MUL32_OPS + 277 * ADD32_OPS,
-                False: 49 * MONT_MUL32_OPS + 119 * ADD32_OPS}
+FP12_SQR32_OPS = 36 * MONT_MUL32_OPS + 158 * ADD32_OPS
+MUL_BY_014_32_OPS = 45 * MONT_MUL32_OPS + 119 * ADD32_OPS
+MILLER32_OPS = {True: FP12_SQR32_OPS + 4 * MONT_MUL32_OPS + MUL_BY_014_32_OPS,
+                False: 4 * MONT_MUL32_OPS + MUL_BY_014_32_OPS}
 # K4 and K5 on the 32-bit tower, per element, their sums counted as the
 # plain code's algebra needs them, as K3's and K6's: a sum of W terms is
 # W - 1 Fp2 additions, a shared sum counted once, a small multiple by
@@ -766,10 +771,10 @@ def digit_stacks(torch, dev, rows_list) -> list:
 
 
 def _held_values(torch, name: str, got, want) -> int:
-    """Hold a kernel on 32-bit words (K3-K6) against its plain version by
-    value: the same field element in every Fp row (canonical digits), the
-    kernel's digits within 4096. Returns the largest |digit| difference of
-    the canonical digits (0)."""
+    """Hold a kernel on 32-bit words (K3-K6, K11, K12) against its plain
+    version by value: the same field element in every Fp row (canonical
+    digits), the kernel's digits within 4096. Returns the largest |digit|
+    difference of the canonical digits (0)."""
     from ark_blst_tpu_torch.ops import lazy13 as LZ
 
     torch.cuda.synchronize()
@@ -782,9 +787,10 @@ def _held_values(torch, name: str, got, want) -> int:
 
 
 def _tower32_shape(torch, kernel, n: int) -> dict:
-    """The launch shape of K3, K4, K5 or K6 from its C entry `<symbol>_shape`:
-    elements and threads a block, shared bytes a block, the blocks an SM
-    holds (the occupancy API), and the grid's waves and warps an SM at n."""
+    """The launch shape of K3-K6, K11 or K12 from its C entry
+    `<symbol>_shape`: elements and threads a block, shared bytes a block,
+    the blocks an SM holds (the occupancy API), and the grid's waves and
+    warps an SM at n."""
     fn = getattr(ctypes.CDLL(str(kernel.lib_path)), kernel.symbol + "_shape")
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
     fn.restype = ctypes.c_int
@@ -838,8 +844,8 @@ def phase_k3(torch, dev, real, sass: dict, ptxas: dict) -> dict:
 
 def _below_8p(torch, dev, stacks, seed: int) -> None:
     """Redraw the top digit of each random stack in [-100, 100]: |value| <
-    8p, where the plain versions of K4-K6 are field operations (their folds
-    truncate values near 2^390)."""
+    8p, where the plain versions of K4-K6, K11 and K12 are field operations
+    (their folds truncate values near 2^390)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     for x in stacks:
         x[:, 29, :] = torch.randint(-100, 101, (x.shape[0], x.shape[-1]), generator=g,
@@ -961,34 +967,46 @@ def phase_k6(torch, dev, real, sass: dict, ptxas: dict) -> dict:
     return {"max_abs_err": err, **forms["with_square"]}
 
 
-def phase_k11_k12(torch, dev, imad_per_product: int, real, ptxas: dict) -> tuple:
+def phase_k11_k12(torch, dev, real, sass: dict, ptxas: dict) -> tuple:
     """K11 (fp12 square) and K12 (sparse line product) against their plain
-    versions at N = 8192, bit for bit: random mul-ready digits with the
-    extreme patterns, and real inputs (f after three Miller events, squared
-    for K12 as at a doubling event, and the fourth event's scaled line)."""
+    versions at N = 8192, by value: random mul-ready digits with the
+    extreme patterns and the top digit bounded (|value| < 8p), and real
+    inputs (f after three Miller events, squared for K12 as at a doubling
+    event, and the fourth event's scaled line)."""
     from ark_blst_tpu_torch.ops import fp12_mul_by_014 as K12
     from ark_blst_tpu_torch.ops import fp12_sqr as K11
 
     f_rand, c_rand = digit_stacks(torch, dev, [12, 6])
+    _below_8p(torch, dev, (f_rand, c_rand), SEED + 11)
     f_real, legs_real = real[2], real[5]
     n = f_rand.shape[-1]
-    err11 = max(_held(torch, "K11", K11.fp12_sqr(f), K11.fp12_sqr_plain(f))
+    err11 = max(_held_values(torch, "K11", K11.fp12_sqr(f), K11.fp12_sqr_plain(f))
                 for f in (f_rand, f_real))
     f_sq = K11.fp12_sqr(f_real)
-    err12 = max(_held(torch, "K12", K12.fp12_mul_by_014(f, c), K12.fp12_mul_by_014_plain(f, c))
+    err12 = max(_held_values(torch, "K12", K12.fp12_mul_by_014(f, c),
+                             K12.fp12_mul_by_014_plain(f, c))
                 for f, c in ((f_rand, c_rand), (f_sq, legs_real)))
-    k11 = {"max_abs_err": err11, **_timed(
-        torch, lambda: K11.fp12_sqr(f_rand), lambda: K11.fp12_sqr_plain(f_rand),
-        n * 2 * 12 * ELEM_BYTES, n * FP12_SQR_OPS, n * 36 * imad_per_product)}
-    k12 = {"max_abs_err": err12, **_timed(
-        torch, lambda: K12.fp12_mul_by_014(f_rand, c_rand),
-        lambda: K12.fp12_mul_by_014_plain(f_rand, c_rand),
-        n * (12 + 6 + 12) * ELEM_BYTES, n * MUL_BY_014_OPS, n * 45 * imad_per_product)}
-    regs = ("registers", "stack_bytes", "spill_store_bytes", "spill_load_bytes")
-    emit({"phase": "k11_k12", "n": n, "bit_equal": True, "real_inputs": True,
-          "fp12_sqr": {**k11, **{k: ptxas["fp12_sqr.cu"].get(k) for k in regs}},
-          "fp12_mul_by_014": {**k12, **{k: ptxas["fp12_mul_by_014.cu"].get(k) for k in regs}}})
-    return k11, k12
+    out, line = {}, {}
+    for name, kernel, err, kernel_fn, plain_fn, rows_in, ops, ops13, products in (
+            ("fp12_sqr", K11.KERNEL, err11, lambda: K11.fp12_sqr(f_rand),
+             lambda: K11.fp12_sqr_plain(f_rand), 12, FP12_SQR32_OPS, FP12_SQR_OPS, 36),
+            ("fp12_mul_by_014", K12.KERNEL, err12, lambda: K12.fp12_mul_by_014(f_rand, c_rand),
+             lambda: K12.fp12_mul_by_014_plain(f_rand, c_rand), 18, MUL_BY_014_32_OPS,
+             MUL_BY_014_OPS, 45)):
+        imad = _tower32_imad(sass[kernel.source])
+        nbytes = n * (rows_in + 12) * ELEM_BYTES
+        conv = rows_in * DIGITS_TO_WORDS_OPS + 12 * WORDS_TO_DIGITS_OPS
+        res = {"max_abs_err": err, **_timed(
+            torch, kernel_fn, plain_fn, nbytes, n * (ops + conv),
+            None if imad is None else n * (products + rows_in + 12) * imad)}
+        res["bound_radix13_ms"], res["bound_radix13_by"] = bound_ms(nbytes, n * ops13)
+        out[name] = res
+        line[name] = {**res, "ops_per_element": ops, "ops_per_element_radix13": ops13,
+                      "ops_conversions": conv, "imad_per_product": imad,
+                      "ptxas": ptxas[kernel.source],
+                      "launch": _tower32_shape(torch, kernel, n)}
+    emit({"phase": "k11_k12", "n": n, "value_equal": True, "real_inputs": True, **line})
+    return out["fp12_sqr"], out["fp12_mul_by_014"]
 
 
 def pairing_instance():
@@ -1556,12 +1574,11 @@ def main() -> int:
     emit({"phase": "pairing_instance", "n": len(ps), "seconds": time.perf_counter() - t0})
     (p, _), (q, _) = B._g1_batch(ps, dev), B._g2_batch(qs, dev)
     real = real_event_inputs(torch, p, q)
-    imad_per_product = sass["mont_mul.cu"]["imad"]
     k3 = phase_k3(torch, dev, real, sass["cyc_sqr.cu"], ptxas)
     k4 = phase_k4(torch, dev, real, sass["fp12_mul.cu"], ptxas)
     k5 = phase_k5(torch, dev, real, sass["prepare_step.cu"], ptxas)
     k6 = phase_k6(torch, dev, real, sass["miller_step.cu"], ptxas)
-    k11, k12 = phase_k11_k12(torch, dev, imad_per_product, real, ptxas)
+    k11, k12 = phase_k11_k12(torch, dev, real, sass, ptxas)
     del real
     torch.cuda.empty_cache()
     launches, fused = phase_pairing(torch, dev, ps, qs, pairs_expected)
@@ -1632,10 +1649,11 @@ def main() -> int:
         *strict_lines,
         _kernel_line("fp12_sqr", "fp12_sqr.cu",
                      "ark_blst_tpu/ops/pallas_lazy.py:63 (ops/tower_lazy.py:570 sqr12)",
-                     unfused["fp12_sqr"], k11),
+                     unfused["fp12_sqr"], k11, bound_radix13_ms=k11["bound_radix13_ms"]),
         _kernel_line("fp12_mul_by_014", "fp12_mul_by_014.cu",
                      "ark_blst_tpu/ops/pallas_lazy.py:63 (ops/tower_lazy.py:573 mul_by_014)",
-                     unfused["fp12_mul_by_014"], k12),
+                     unfused["fp12_mul_by_014"], k12,
+                     bound_radix13_ms=k12["bound_radix13_ms"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,31 +1,35 @@
 #!/usr/bin/env python3
 """K3 (`ark_blst_tpu_torch/csrc/cyc_sqr.cu`), K4 (`csrc/fp12_mul.cu`), K5
-(`csrc/prepare_step.cu`) and K6 (`csrc/miller_step.cu`) at other launch
+(`csrc/prepare_step.cu`), K6 (`csrc/miller_step.cu`), K11
+(`csrc/fp12_sqr.cu`) and K12 (`csrc/fp12_mul_by_014.cu`) at other launch
 shapes, on one NVIDIA card: each shape is E elements and T threads a block
 (`tower_cyc_sqr_shaped`, `tower_fp12_mul_shaped`,
-`pairing_prepare_step_shaped`, `pairing_miller_step_shaped`), and the
-edges of K4, K5 and K6 alone (the conversions of their input and output
-Fp components, `edges_only`). K3 and K6 run every shape in the library's
-own build (`__launch_bounds__(512)`). K4 and K5 are bounded by their
-launch shape, so each of their shapes gets a build of its own, bounded by
-it: T threads and as many blocks an SM as the shape's shared memory holds
-(`-DK4_THREADS=T -DK4_MIN_BLOCKS=M`, `K5_*` likewise), with its ptxas
-registers and spills.
+`pairing_prepare_step_shaped`, `pairing_miller_step_shaped`,
+`tower_fp12_sqr_shaped`, `tower_fp12_mul_by_014_shaped`), and the edges
+of K4, K5, K6, K11 and K12 alone (the conversions of their input and
+output Fp components, `edges_only`). K3 and K6 run every shape in the
+library's own build (`__launch_bounds__(512)`). K4, K5, K11 and K12 are
+bounded by their launch shape, so each of their shapes gets a build of
+its own, bounded by it: T threads and as many blocks an SM as the
+shape's shared memory holds (`-DK4_THREADS=T -DK4_MIN_BLOCKS=M`, `K5_*`,
+`K11_*`, `K12_*` likewise), with its ptxas registers and spills.
 
     python3 scripts/tower_probe.py [--k3 32x288,16x144] [--k4 32x192] \
-        [--k5 32x192,16x96] [--k6 32x256,16x128]
+        [--k5 32x192,16x96] [--k6 32x256,16x128] [--k11 32x192] \
+        [--k12 32x256,24x192]
 
-Builds the four kernels from the checkout's sources (`cuda.build_all`)
-and the shapes' builds of K4 and K5 beside them, all at once, into
-`build/tower_probe/`; makes the pairing batch's inputs as chip_smoke.py
-makes them (N = 8192 random mul-ready digits, seed 7; the top digit of the
-operands of K4-K6 bounded), and prints the card's name and power limit,
-then one JSON line per shape: the blocks an SM holds (the occupancy API at
-the compiled registers and the shape's shared memory), the grid's waves,
-the time (the mean of three launches after one warm-up, CUDA events) of
-K3 at n = 1 and n = 32 squares, K4, K5's doubling and addition, or K6
-with and without the square, each with its edges alone, and whether the
-output equals the library's default shape's bit for bit (every shape
+An empty list (`--k3 ""`) skips a kernel's shapes. Builds the six kernels
+from the checkout's sources (`cuda.build_all`) and the shapes' builds of
+K4, K5, K11 and K12 beside them, all at once, into `build/tower_probe/`;
+makes the pairing batch's inputs as chip_smoke.py makes them (N = 8192
+random mul-ready digits, seed 7; the top digit of the operands of K4-K6,
+K11 and K12 bounded), and prints the card's name and power limit, then
+one JSON line per shape: the blocks an SM holds (the occupancy API at the
+compiled registers and the shape's shared memory), the grid's waves, the
+time (the mean of three launches after one warm-up, CUDA events) of K3
+at n = 1 and n = 32 squares, K4, K5's doubling and addition, K6 with and
+without the square, K11 or K12, each with its edges alone, and whether
+the output equals the library's default shape's bit for bit (every shape
 computes the same words; the edges alone store their inputs' values).
 Needs a card; imports no JAX.
 """
@@ -46,6 +50,8 @@ K3_SHAPES = "32x288,32x96,32x192,16x144,16x288,64x288"
 K6_SHAPES = "32x256,32x128,32x480,16x128,16x240,64x512"
 K4_SHAPES = "32x192,32x256,32x128,16x128,16x96"
 K5_SHAPES = "32x192,32x128,16x96,16x64,64x384"
+K11_SHAPES = "32x192,32x256,32x384,24x144,16x96,16x192"
+K12_SHAPES = "32x256,32x192,32x320,24x192,24x128,16x128"
 SMEM_RESERVED = 1024  # shared memory the card reserves a block
 
 
@@ -54,9 +60,9 @@ def _shapes(arg: str) -> list:
 
 
 def _bounded_builds(KC, props, kernels: dict) -> tuple:
-    """Start one nvcc for each bound that the shapes of K4 and K5 ask
-    for; kernels maps "k4"/"k5" to (source, macro prefix, slot bytes an
-    element, shapes). Returns {(which, E, T): (library, min blocks)} and
+    """Start one nvcc for each bound that the shapes of K4, K5, K11 and
+    K12 ask for; kernels maps "k4", "k5", "k11", "k12" to (source, macro
+    prefix, slot bytes an element, shapes). Returns {(which, E, T): (library, min blocks)} and
     {library: process}, one build for each bound."""
     smem_sm = getattr(props, "shared_memory_per_multiprocessor", 228 * 1024)
     out_dir = KC.BUILD_DIR.parent / "tower_probe"
@@ -87,6 +93,8 @@ def main() -> int:
     ap.add_argument("--k4", default=K4_SHAPES)
     ap.add_argument("--k5", default=K5_SHAPES)
     ap.add_argument("--k6", default=K6_SHAPES)
+    ap.add_argument("--k11", default=K11_SHAPES)
+    ap.add_argument("--k12", default=K12_SHAPES)
     args = ap.parse_args()
 
     import chip_smoke as CS
@@ -94,6 +102,8 @@ def main() -> int:
     from ark_blst_tpu_torch.curves import pairing_steps as PS
     from ark_blst_tpu_torch.ops import cyc_sqr as K3
     from ark_blst_tpu_torch.ops import fp12_mul as K4
+    from ark_blst_tpu_torch.ops import fp12_mul_by_014 as K12
+    from ark_blst_tpu_torch.ops import fp12_sqr as K11
     from ark_blst_tpu_torch.ops import lazy13 as LZ
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -101,12 +111,14 @@ def main() -> int:
     print(smi.strip().splitlines()[0], flush=True)
     dev = torch.device("cuda", 0)
     kernels = {"k3": K3.KERNEL, "k4": K4.KERNEL, "k5": PS.PREPARE_KERNEL,
-               "k6": PS.MILLER_KERNEL}
+               "k6": PS.MILLER_KERNEL, "k11": K11.KERNEL, "k12": K12.KERNEL}
     props = torch.cuda.get_device_properties(0)
     slot_bytes = 12 * 2 * 4  # one Fp2 slot of 32-bit words
     bounded, procs = _bounded_builds(KC, props, {
         "k4": ("fp12_mul.cu", "K4", 30 * slot_bytes, _shapes(args.k4)),
-        "k5": ("prepare_step.cu", "K5", 26 * slot_bytes, _shapes(args.k5))})
+        "k5": ("prepare_step.cu", "K5", 26 * slot_bytes, _shapes(args.k5)),
+        "k11": ("fp12_sqr.cu", "K11", 30 * slot_bytes, _shapes(args.k11)),
+        "k12": ("fp12_mul_by_014.cu", "K12", 27 * slot_bytes, _shapes(args.k12))})
     KC.build_all(list(kernels.values()))  # the library, while the shapes build
     sms = props.multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream
@@ -121,7 +133,7 @@ def main() -> int:
                    for key, (path, blocks) in bounded.items()}
 
     x, f, c, pxy, a, b, r, q = CS.digit_stacks(torch, dev, [12, 12, 6, 2, 12, 12, 6, 4])
-    # the operands of K4-K6 below 8p, as chip_smoke.py's phases make them
+    # the operands of K4-K6, K11 and K12 below 8p, as chip_smoke.py's phases make them
     CS._below_8p(torch, dev, (f, c, pxy, a, b, r, q), SEED)
 
     def lib(path, name, argtypes):
@@ -134,11 +146,14 @@ def main() -> int:
                "k4": ("tower_fp12_mul_shaped", [vp, vp, vp, i64, i32, i32, i32, vp]),
                "k5": ("pairing_prepare_step_shaped", [vp, vp, vp, i64, i32, i32, i32, i32, vp]),
                "k6": ("pairing_miller_step_shaped",
-                      [vp, vp, vp, vp, i64, i32, i32, i32, i32, vp])}
+                      [vp, vp, vp, vp, i64, i32, i32, i32, i32, vp]),
+               "k11": ("tower_fp12_sqr_shaped", [vp, vp, i64, i32, i32, i32, vp]),
+               "k12": ("tower_fp12_mul_by_014_shaped", [vp, vp, vp, i64, i32, i32, i32, vp])}
 
     def shaped(which, E, T):
         """The shaped entry and the occupancy entry of the build that runs
-        the shape: its own for K4 and K5, the library's for K3 and K6."""
+        the shape: its own for K4, K5, K11 and K12, the library's for K3
+        and K6."""
         path = bounded[(which, E, T)][0] if (which, E, T) in bounded \
             else kernels[which].lib_path
         return (lib(path, *entries[which]),
@@ -178,6 +193,7 @@ def main() -> int:
     ref4 = K4.fp12_mul(a, b)
     ref5 = {add: PS.prepare_step(r, q if add else None) for add in (False, True)}
     ref6 = {w: PS.miller_step(f, c, pxy, w) for w in (True, False)}
+    ref11, ref12 = K11.fp12_sqr(f), K12.fp12_mul_by_014(f, c)
     for E, T in _shapes(args.k3):
         k3, res = shape_line("k3", E, T)
         for n in (1, 32):
@@ -222,6 +238,20 @@ def main() -> int:
         res["ms_edges_only"] = timed(run)
         res["edges_value_equal"] = edges_hold([f])
         print(json.dumps(res), flush=True)
+    for which, shapes, operands, ref in (("k11", args.k11, (f,), ref11),
+                                         ("k12", args.k12, (f, c), ref12)):
+        for E, T in _shapes(shapes):
+            fn, res = shape_line(which, E, T)
+            ptrs = [x.data_ptr() for x in operands]
+            for edges in (0, 1):
+                run = lambda e=edges, fn=fn, ptrs=ptrs: launch(  # noqa: E731
+                    fn, *ptrs, out.data_ptr(), N, E, T, e, stream)
+                res["ms_edges_only" if edges else "ms"] = timed(run)
+                if edges:
+                    res["edges_value_equal"] = edges_hold([f])
+                else:
+                    res["equal"] = bool(torch.equal(out, ref))
+            print(json.dumps(res), flush=True)
     return 0
 
 

@@ -80,8 +80,7 @@ def test_kernel_sources_export_their_entry(kernel):
     src = (KC.CSRC_DIR / kernel.source).read_text()
     assert re.search(rf'extern "C" int {kernel.symbol}\(', src)
     assert any(f'#include "{h}"' in src
-               for h in ("lazy13.cuh", "tower13.cuh", "tower381.cuh", "group381.cuh",
-                     "strict16.cuh"))
+               for h in ("lazy13.cuh", "tower381.cuh", "group381.cuh", "strict16.cuh"))
     assert kernel.lib_path.parent == KC.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in KC.NVCC_FLAGS
 

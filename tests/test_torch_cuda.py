@@ -145,16 +145,17 @@ def _stack(rng, rows, n, dev, top=None):
     return torch.from_numpy(a).to(dev)
 
 
-# The random operands of K4-K6 keep |value| < 101 * 2^377 < 8p, the lazy
-# engine's mul-ready domain, where their plain versions are field
-# operations (their folds truncate values near 2^390; K3's plain version
-# contracts its input first).
+# The random operands of K4-K6, K11 and K12 keep |value| < 101 * 2^377 <
+# 8p, the lazy engine's mul-ready domain, where their plain versions are
+# field operations (their folds truncate values near 2^390; K3's plain
+# version contracts its input first).
 TOP_8P = 100
 
 
 def _value_equal(got, want):
-    """K3-K6 (32-bit words inside) against their plain versions: the same
-    field element in every Fp row, the kernel's digits within 4096."""
+    """K3-K6, K11 and K12 (32-bit words inside) against their plain
+    versions: the same field element in every Fp row, the kernel's digits
+    within 4096."""
     assert int(got.abs().max()) <= 4096
     assert torch.equal(LZ.canonicalize_rows(got), LZ.canonicalize_rows(want))
 
@@ -200,17 +201,49 @@ def test_k6_value_equal_to_plain(dev, with_sqr):
     _value_equal(got, PS.miller_step_plain(f, c, pxy, with_sqr))
 
 
-def test_k11_bit_equal_to_plain(dev):
-    a = _stack(np.random.default_rng(15), 12, 1024, dev)
+def _real_f_and_legs(dev):
+    """f after three Miller events and the fourth event's line scaled by P
+    (`_ell_legs`, K12's rows) as the unfused Miller loop forms them, for 64
+    pairs of 4 distinct points."""
+    from ark_blst_tpu_torch import bls12 as B
+    from ark_blst_tpu_torch.curves import pairing as PR
+    from ark_blst_tpu_torch.ops import tower_lazy as TL
+
+    rng = random.Random(18)
+    ps = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    qs = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    (p, _), (q, _) = B._g1_batch([ps[i % 4] for i in range(64)], dev), \
+        B._g2_batch([qs[(i + 1) % 4] for i in range(64)], dev)
+    coeffs = PR.prepare_g2(q, events=4)
+    px, py = TL.fp_ingest(p[0]), TL.fp_ingest(p[1])
+    pxy = torch.stack([px, py])
+    f = TL.stack12(PR._fp12_one_like(px))
+    for i in range(3):
+        f = PS.miller_step(f, coeffs[i], pxy, True)
+    a0, a1, a4 = PS._ell_legs(TL, PR._line(coeffs[3]), px, py)
+    return f, torch.stack([a0[0], a0[1], a1[0], a1[1], a4[0], a4[1]])
+
+
+@pytest.mark.parametrize("source", ["random", "pipeline"])
+def test_k11_value_equal_to_plain(dev, source):
+    if source == "random":
+        a = _stack(np.random.default_rng(15), 12, 1024, dev, top=TOP_8P)
+    else:
+        a = _real_f_and_legs(dev)[0]
     got = _launched_once(K11.KERNEL, lambda: K11.fp12_sqr(a))
-    assert torch.equal(got, K11.fp12_sqr_plain(a))
+    _value_equal(got, K11.fp12_sqr_plain(a))
 
 
-def test_k12_bit_equal_to_plain(dev):
-    rng = np.random.default_rng(16)
-    f, c = _stack(rng, 12, 1024, dev), _stack(rng, 6, 1024, dev)
+@pytest.mark.parametrize("source", ["random", "pipeline"])
+def test_k12_value_equal_to_plain(dev, source):
+    if source == "random":
+        rng = np.random.default_rng(16)
+        f, c = _stack(rng, 12, 1024, dev, top=TOP_8P), _stack(rng, 6, 1024, dev, top=TOP_8P)
+    else:
+        f, c = _real_f_and_legs(dev)
+        f = K11.fp12_sqr(f)  # as at a doubling event
     got = _launched_once(K12.KERNEL, lambda: K12.fp12_mul_by_014(f, c))
-    assert torch.equal(got, K12.fp12_mul_by_014_plain(f, c))
+    _value_equal(got, K12.fp12_mul_by_014_plain(f, c))
 
 
 def test_unfused_and_strict_pairing_on_card_match_fused(dev):

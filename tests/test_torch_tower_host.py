@@ -1,15 +1,15 @@
 """The CUDA code of K2-K6, K11 and K12 compiled for the CPU with the host C++
 compiler and undefined-behaviour checks, against the kernels' plain
-PyTorch versions: the radix-13 tower (csrc/tower13.cuh, K11, K12) bit for
-bit; K3, K4, K5 and K6 on the 32-bit tower (csrc/tower381.cuh) and the G1
-and G2 bucket additions (csrc/group381.cuh, K2 and K2-G2), all on 32-bit
-Montgomery words, by value; K3, K4 and K5's chained events also against
-the oracle.
+PyTorch versions: K3, K4, K5, K6, K11 and K12 on the 32-bit tower
+(csrc/tower381.cuh) and the G1 and G2 bucket additions
+(csrc/group381.cuh, K2 and K2-G2), all on 32-bit Montgomery words, by
+value; K3, K4, K11 and K12 also against the oracle, and K5's chained
+events.
 
 The headers compile as plain C++ when __CUDACC__ is not defined; a small
-harness runs each kernel's per-element body over a batch, or, for K3-K6,
-one block's phases in order, job by job, as the card's threads run
-them between their barriers. Built with
+harness runs each bucket kernel's per-thread body over a batch, or, for
+the tower kernels, one block's phases in order, job by job, as the card's
+threads run them between their barriers. Built with
 `-fsanitize=undefined -fno-sanitize-recover`, so any signed int32 overflow
 in the arithmetic aborts the harness and fails the test. (The kernels
 themselves run only on the card: tests/test_torch_cuda.py.) Skipped where
@@ -50,7 +50,6 @@ HARNESS = r"""
 #include <cstdio>
 #include <vector>
 #include "group381.cuh"
-#include "tower13.cuh"
 #include "tower381.cuh"
 
 // stdin: op, n, p1, p2 (int64 each), then the operand stacks (int32);
@@ -64,7 +63,8 @@ HARNESS = r"""
 // Ops 7/8: the G1/G2 bucket accumulation of W = p1 windows, B = p2
 // buckets, S = 1024 streams: points (24, n) or (48, n) words, digits (W, n),
 // result the dump (W, B, 45 or 90, S). Ops 9/10: K11 (fp12 square) and K12
-// (the sparse line product), result (12, 30, n).
+// (the sparse line product) on tower381.cuh, result (12, 30, n), in blocks
+// as ops 0-4.
 // One block program over the batch: blocks of E elements, each phase's jobs
 // in order (reversed if asked), with the slots' memory filled with a
 // pattern first, so that a job reading a slot no earlier phase wrote goes
@@ -173,10 +173,18 @@ int main() {
                  t381::prepare_job(b, x, q, o, is_add, 0, ph, j, e);
                });
   }
-  for (long long i = 0; (op == 9 || op == 10) && i < n; ++i) {
-    if (op == 9) tw::fp12_sqr_elem(x, o, n, i);
-    else tw::fp12_mul_by_014_elem(x, x + 12 * plane, o, n, i);
-  }
+  if (op == 9)
+    run_blocks(n, B, t381::FP12_SQR_SLOTS, t381::FP12_SQR_PHASES,
+               [&](int ph) { return t381::fp12_sqr_jobs(ph); },
+               [&](const t381::Block& b, int ph, int j, int e) {
+                 t381::fp12_sqr_job(b, x, o, ph, j, e);
+               });
+  if (op == 10)
+    run_blocks(n, B, t381::MUL_BY_014_SLOTS, t381::MUL_BY_014_PHASES,
+               [&](int ph) { return t381::mul_by_014_jobs(ph); },
+               [&](const t381::Block& b, int ph, int j, int e) {
+                 t381::mul_by_014_job(b, x, x + 12 * plane, o, ph, j, e);
+               });
   fwrite(out.data(), sizeof(int), out.size(), stdout);
   return 0;
 }
@@ -400,7 +408,7 @@ def test_miller_step_host(harness, with_sqr, source):
 
 
 @pytest.mark.parametrize("kernel", ["cyc_sqr", "miller_sqr", "miller_line", "fp12_mul",
-                                    "prepare_dbl", "prepare_add"])
+                                    "prepare_dbl", "prepare_add", "fp12_sqr", "mul_by_014"])
 def test_tower381_phases_have_no_hazards(harness, kernel):
     """Each phase's jobs are independent: run in reverse order they give the
     same digits (on the card they run at once)."""
@@ -411,6 +419,10 @@ def test_tower381_phases_have_no_hazards(harness, kernel):
     elif kernel.startswith("prepare"):
         is_add = kernel == "prepare_add"
         args = (2 + is_add, 0, *digit_stacks(16, 6, 4, top=TOP_8P)[: 1 + is_add])
+    elif kernel == "fp12_sqr":
+        args = (9, 0, *digit_stacks(17, 12, top=TOP_8P))
+    elif kernel == "mul_by_014":
+        args = (10, 0, *digit_stacks(18, 12, 6, top=TOP_8P))
     else:
         args = (4, int(kernel == "miller_sqr"), *digit_stacks(14, 12, 6, 2, top=TOP_8P))
     assert torch.equal(run(harness, *args, buckets=BLOCK), run(harness, *args, buckets=-BLOCK))
@@ -439,18 +451,40 @@ def test_tower381_conversions_host(harness):
 
 @pytest.mark.parametrize("source", ["random", "pipeline"])
 def test_fp12_sqr_host(harness, source):
-    (f,) = digit_stacks(9, 12) if source == "random" else real_inputs()[2:3]
-    assert torch.equal(run(harness, 9, 0, f), K11.fp12_sqr_plain(f))
+    (f,) = digit_stacks(9, 12, top=TOP_8P) if source == "random" else real_inputs()[2:3]
+    assert_value_equal(run(harness, 9, 0, f, buckets=BLOCK), K11.fp12_sqr_plain(f))
 
 
 @pytest.mark.parametrize("source", ["random", "pipeline"])
 def test_fp12_mul_by_014_host(harness, source):
     if source == "random":
-        f, c = digit_stacks(10, 12, 6)
+        f, c = digit_stacks(10, 12, 6, top=TOP_8P)
     else:
         inputs = real_inputs()
         f, c = K11.fp12_sqr_plain(inputs[2]), inputs[5]
-    assert torch.equal(run(harness, 10, 0, f, c), K12.fp12_mul_by_014_plain(f, c))
+    assert_value_equal(run(harness, 10, 0, f, c, buckets=BLOCK), K12.fp12_mul_by_014_plain(f, c))
+
+
+@pytest.mark.parametrize("kernel", ["fp12_sqr", "mul_by_014"])
+def test_fp12_sqr_and_mul_by_014_host_oracle(harness, kernel):
+    """tower381.cuh's K11 and K12 on random canonical elements against the
+    oracle's fp12_sqr and fp12_mul (K12's line as the fp12 ((c0, c1, 0),
+    (0, c4, 0)), the layout the rows' names give it)."""
+    rng = random.Random(23)
+    f = [random_fp12(rng) for _ in range(N)]
+    if kernel == "fp12_sqr":
+        got = run(harness, 9, 0, fp12_stack(f), buckets=BLOCK)
+        want = [OF.fp12_sqr(x) for x in f]
+    else:
+        lines = [tuple(tuple(rng.randrange(OF.P) for _ in range(2)) for _ in range(3))
+                 for _ in range(N)]
+        c = fp_rows([[v for fp2 in line for v in fp2] for line in lines])
+        got = run(harness, 10, 0, fp12_stack(f), c, buckets=BLOCK)
+        zero = (0, 0)
+        want = [OF.fp12_mul(x, ((c0, c1, zero), (zero, c4, zero)))
+                for x, (c0, c1, c4) in zip(f, lines)]
+    assert int(got.abs().max()) <= 4096
+    assert values(got) == values(fp12_stack(want))
 
 
 # --- K2: the bucket addition over Fp and Fp2 (csrc/group381.cuh) -------------
