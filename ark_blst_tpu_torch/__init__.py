@@ -1,15 +1,26 @@
 """BLS12-381 on PyTorch and hand-written CUDA kernels for Hopper (H100).
 
-The port of `ark_blst_tpu` (JAX, Pallas on a TPU), slice by slice. The
-slices so far carry the G1 and G2 multi-scalar multiplications and the
-batched pairing:
+The port of `ark_blst_tpu` (JAX, Pallas on a TPU), slice by slice. It
+exports every name of the JAX package's arkworks surface, as its own
+classes:
+
+* the fields `Fp`, `Scalar`, `Fp2`, `Fp6`, `Fp12` (`Gt`) and `field_cast`
+  (`fields.py`);
+* the groups `G1Affine`, `G1Projective`, `G2Affine`, `G2Projective` and
+  `G2Prepared` with ZCash serialization (`groups.py`); `msm` runs the
+  card's bucket MSM by default;
+* the engine `Bls12` and `MillerLoopOutput` (`bls12.py`), whose
+  `multi_miller_loop`, `prepare_g2_batch` and `pairing_batch` run the
+  card's pairing by default.
+
+Beside them, the port's own entry points:
 
 * `msm_g1(points, scalars, device=...)` and `msm_g2(...)` on stacked
   strict limb tensors;
 * `G1.msm(bases, scalars, device=...)` and `G2.msm(...)` on affine int
   tuples;
-* `Bls12.pairing_batch`, `Bls12.prepare_g2_batch` and `Bls12.multi_pairing`
-  on affine int tuples, and `pairing(p, q, ...)` on strict limb tensors;
+* `pairing(p, q, ...)` on strict limb tensors, and `bls12.pairing_batch`,
+  `bls12.prepare_g2_batch`, `bls12.multi_pairing` on affine int tuples;
   `fuse=False` runs the unfused lazy pairing (K11, K12), and `pairing`'s
   `engine="strict"` the pairing on the strict tower (K7-K10);
 * the strict radix-16 engine's scan Pippenger MSM,
@@ -25,14 +36,21 @@ from __future__ import annotations
 
 import torch
 
-from .bls12 import Bls12, pairing
+from .bls12 import Bls12, MillerLoopOutput, pairing
 from .curves import msm_bucket as _MB
 from .curves.msm import MsmAborted
 from .device import resolve_device
+from .fields import Fp, Fp2, Fp6, Fp12, Gt, Scalar, field_cast
+from .groups import G1Affine, G1Projective, G2Affine, G2Prepared, G2Projective
 from .ops import convert as _CV
 from .oracle.field import R as _R
 
-__all__ = ["Bls12", "G1", "G2", "MsmAborted", "msm_g1", "msm_g2", "pairing", "resolve_device"]
+__all__ = [
+    "Fp", "Fp2", "Fp6", "Fp12", "Gt", "Scalar", "field_cast",
+    "G1Affine", "G1Projective", "G2Affine", "G2Projective", "G2Prepared",
+    "Bls12", "MillerLoopOutput",
+    "G1", "G2", "MsmAborted", "msm_g1", "msm_g2", "pairing", "resolve_device",
+]
 
 
 def msm_g1(points, scalars, *, device="cuda", c: int = 7, chunk: int | None = None,

@@ -11,8 +11,9 @@ tensors, an fp6 batch three fp2 batches, an fp12 batch two fp6 batches.
 package's arrays as numpy (strict limbs, lazy digit stacks or lists, the
 MSM kernel's packed point/digit/dump arrays) and returns the port's
 tensors, so tests can feed both packages identical inputs. `tree_from_jax`
-does the same for the JAX tower's nested tuples, and `coeffs_from_jax` for
-its stacked Miller-loop line coefficients.
+does the same for the JAX tower's nested tuples, `coeffs_from_jax` for
+its stacked Miller-loop line coefficients, and `value_from_jax` for its
+API objects (fields, points, `G2Prepared`, `MillerLoopOutput`).
 """
 
 from __future__ import annotations
@@ -149,3 +150,23 @@ def coeffs_from_jax(coeffs) -> torch.Tensor:
     tensor, rows c0[0], c0[1], c1[0], c1[1], c2[0], c2[1]."""
     leaves = [c[k] for c in coeffs for k in range(2)]
     return torch.stack([from_jax(x, lead=2) for x in leaves], dim=1)
+
+
+def value_from_jax(obj):
+    """A JAX-package API object -> the port's counterpart, by canonical
+    value: a field element (`Fp`, `Scalar`, `Fp2`, `Fp6`, `Fp12`/`Gt`) by
+    `.v`, a point by `.p`, a `G2Prepared` by `.coeffs`, a
+    `MillerLoopOutput` by `.f`. Duck-typed on the class's `_name` or
+    `__name__`; imports nothing of the JAX package."""
+    from .. import bls12, fields, groups
+
+    name = getattr(type(obj), "_name", type(obj).__name__)
+    if name in ("Fp", "Scalar", "Fp2", "Fp6", "Fp12"):
+        return getattr(fields, name)(obj.v)
+    if name in ("G1Affine", "G1Projective", "G2Affine", "G2Projective"):
+        return getattr(groups, name)(obj.p)
+    if name == "G2Prepared":
+        return groups.G2Prepared(obj.coeffs)
+    if name == "MillerLoopOutput":
+        return bls12.MillerLoopOutput(fields.Fp12(obj.f.v))
+    raise TypeError(f"no port counterpart for {type(obj).__name__}")

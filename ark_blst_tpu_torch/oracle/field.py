@@ -1,9 +1,12 @@
 """Pure-Python BLS12-381 field oracle: Fp and the Fp2/Fp6/Fp12 tower (host ints).
 
 The port's own copy of what it needs from the JAX package's field oracle:
-the moduli and generators, the Fp operations of the MSM's host finish and
-the codecs, and the tower that the pairing's oracle (`oracle/pairing.py`)
-and the lazy tower's Frobenius constants (`ops/tower_lazy.py`) use.
+the moduli, generators and curve constants, the Fp operations of the MSM's
+host finish and the codecs, the tower that the pairing's oracle
+(`oracle/pairing.py`) and the lazy tower's Frobenius constants
+(`ops/tower_lazy.py`) use, and the square roots, Legendre symbols, sign
+rule and Frobenius maps of the API's value classes (`fields.py`,
+`oracle/serialize.py`).
 
 Representation (plain Python ints, no Montgomery form):
   Fp   : int in [0, P)
@@ -23,10 +26,29 @@ R = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
 # BLS parameter x (negative, low Hamming weight).
 BLS_X = -0xD201000000010000
 
+# E/Fp: y^2 = x^3 + 4;  the twist E'/Fp2: y^2 = x^3 + 4(u + 1).
+B_G1 = 4
 XI = (1, 1)  # the Fp6/Fp2 non-residue u + 1
+B_G2 = (4, 4)
 
 assert R == BLS_X**4 - BLS_X**2 + 1
 assert P == (BLS_X - 1) ** 2 // 3 * R + BLS_X
+
+# Cofactors and their inverses mod r.
+H_G1 = (BLS_X - 1) ** 2 // 3
+assert H_G1 == 0x396C8C005555E1568C00AAAB0000AAAB
+H_G2 = (
+    BLS_X**8 - 4 * BLS_X**7 + 5 * BLS_X**6 - 4 * BLS_X**4 + 6 * BLS_X**3
+    - 4 * BLS_X**2 - 4 * BLS_X + 13
+) // 9
+H_G1_INV_MOD_R = pow(H_G1, -1, R)
+H_G2_INV_MOD_R = pow(H_G2, -1, R)
+
+# The scalar field's FFT constants: r - 1 = q * 2^32 with q odd.
+FR_TWO_ADICITY = 32
+assert (R - 1) % (1 << FR_TWO_ADICITY) == 0 and (R - 1) % (1 << 33) != 0
+FR_GENERATOR = 7
+FR_ROOT_OF_UNITY = pow(FR_GENERATOR, (R - 1) >> FR_TWO_ADICITY, R)
 
 # Generator of G1: y^2 = x^3 + 4 over Fp.
 G1_GEN = (
@@ -48,6 +70,10 @@ G2_GEN = (
 
 # --- Fp ----------------------------------------------------------------------
 
+def fp_add(a, b):
+    return (a + b) % P
+
+
 def fp_sub(a, b):
     return (a - b) % P
 
@@ -64,6 +90,18 @@ def fp_inv(a):
     if a == 0:
         raise ZeroDivisionError("fp inverse of zero")
     return pow(a, -1, P)
+
+
+def fp_sqrt(a):
+    """Square root in Fp (p = 3 mod 4); None if a is not a square."""
+    s = pow(a, (P + 1) // 4, P)
+    return s if s * s % P == a else None
+
+
+def fp_legendre(a):
+    if a == 0:
+        return 0
+    return 1 if pow(a, (P - 1) // 2, P) == 1 else -1
 
 
 # --- Fp2 ---------------------------------------------------------------------
@@ -128,6 +166,28 @@ def fp2_is_zero(a):
     return a[0] == 0 and a[1] == 0
 
 
+def fp2_lexicographically_largest(a):
+    """The ZCash sign rule: c1 > (p-1)/2, or c1 == 0 and c0 > (p-1)/2."""
+    half = (P - 1) // 2
+    return a[1] > half or (a[1] == 0 and a[0] > half)
+
+
+def fp2_sqrt(a):
+    """Square root in Fp2 for p = 3 mod 4 (the Adj-Rodriguez-Henriquez
+    method); None when a is not a square."""
+    if fp2_is_zero(a):
+        return (0, 0)
+    a1 = fp2_pow(a, (P - 3) // 4)
+    x0 = fp2_mul(a1, a)
+    alpha = fp2_mul(a1, x0)
+    if alpha == (P - 1, 0):  # alpha == -1
+        x = fp2_mul((0, 1), x0)
+    else:
+        b = fp2_pow(fp2_add(FP2_ONE, alpha), (P - 1) // 2)
+        x = fp2_mul(b, x0)
+    return x if fp2_sqr(x) == a else None
+
+
 # --- Fp6 ---------------------------------------------------------------------
 
 FP6_ZERO = (FP2_ZERO, FP2_ZERO, FP2_ZERO)
@@ -185,7 +245,20 @@ def fp6_inv(a):
 
 # --- Fp12 --------------------------------------------------------------------
 
+FP12_ZERO = (FP6_ZERO, FP6_ZERO)
 FP12_ONE = (FP6_ONE, FP6_ZERO)
+
+
+def fp12_add(a, b):
+    return (fp6_add(a[0], b[0]), fp6_add(a[1], b[1]))
+
+
+def fp12_sub(a, b):
+    return (fp6_sub(a[0], b[0]), fp6_sub(a[1], b[1]))
+
+
+def fp12_neg(a):
+    return (fp6_neg(a[0]), fp6_neg(a[1]))
 
 
 def fp12_mul(a, b):
@@ -220,6 +293,10 @@ def fp12_inv(a):
 # computed from first principles.
 
 _G1J = [fp2_pow(XI, j * (P - 1) // 6) for j in range(6)]
+
+
+def fp2_frobenius(a, power=1):
+    return a if power % 2 == 0 else fp2_conj(a)
 
 
 def fp6_frobenius(a, power=1):

@@ -56,7 +56,7 @@ Phases, one JSON line each:
   8. pairing  8192 pairings of 8 distinct (P, Q) pairs (P_i = P[i mod 8],
               Q_i = Q[(3i+1) mod 8], the construction of the JAX package's
               bench.py) with one identity P and one identity Q, through the
-              public entry `Bls12.pairing_batch`: every result checked
+              public entry `bls12.pairing_batch`: every result checked
               against the oracle pairing (the identity pairs against one),
               the launches of K1 and K3-K6 in that call, pairings/s of a
               warm call, the stages (ingest, prepare_g2, miller_loop,
@@ -65,7 +65,7 @@ Phases, one JSON line each:
               then the prepared path (`prepare_g2_batch` once,
               `pairing_batch` against it), checked equal to the unprepared
               results;
-     pairing_unfused  the same instance through `Bls12.pairing_batch(...,
+     pairing_unfused  the same instance through `bls12.pairing_batch(...,
               fuse=False)`: every result checked against the oracle and the
               fused results (the two paths' digits differ on the card, K11
               and K12 on 32-bit words, their values agree), K11 launched
@@ -80,6 +80,23 @@ Phases, one JSON line each:
               cyclotomic square, and a profiled rerun; then `multi_pairing` and
               `multi_miller_loop_prepared` on both engines at 1024 pairs,
               equal to each other and the first to the oracle's product;
+     api      the arkworks API's batch entries with their defaults (the
+              card's routes): `G1Projective.msm` over 2^20 G1Affine bases
+              of `curves/instance.py` (made affine on the card, brought to
+              the host, the identity and the zero scalar included) with
+              Scalar scalars, and `G2Projective.msm` over 2^16, each
+              checked against the instance's expected point, with the
+              call's seconds split into host ingest, `msm_g1`/`msm_g2`
+              and egress (`_CallClock`), points/s and K1/K2 launches; the
+              phase-8 instance through `Bls12.pairing_batch` on
+              G1Affine/G2Projective, plain and prepared, equal to phase
+              8's checked results, its split and pairings/s beside a
+              tuple-level call's; `Bls12.multi_miller_loop` then
+              `final_exponentiation` over the first 1024 pairs against the
+              oracle's product; the generator pairing's bytes and every
+              `msm_g1` vector of `tests/vectors/bls12_381.json` through
+              the device routes; a validated compressed round trip of the
+              MSM results and 64 bases a curve;
      fp_inv_batch  `tower_lazy.fp_inv_batch` against `fp_inv` at 8192
               elements, both checked against the oracle's inverses, timed;
   9. k7_k10   the strict engine's kernels K7-K10 (mont_mul, add, sub, neg)
@@ -200,6 +217,11 @@ SCAN_C = 8  # the JAX package's msm default: W = 32, B = 256
 # temporaries (3x G1's per element) and the time limit
 SCAN = {"g1": (20, 1024, 17), "g2": (18, 256, 19)}
 NAIVE_LOG_N, NAIVE_SEED = 12, 23
+# the API phase: curve -> (log2 bases, seed); 2^20 is a KZG/Groth16 size, 2^22
+# would spend ~2 minutes in the host codecs alone
+API_MSM = {"g1": (20, 29), "g2": (16, 31)}
+API_MULTI_N = 1024
+API_ROUNDTRIP = 64
 
 
 def emit(obj) -> None:
@@ -1071,18 +1093,18 @@ def _profile_totals(profiled: dict) -> dict:
 
 
 def phase_pairing(torch, dev, ps, qs, expected) -> dict:
-    import ark_blst_tpu_torch as T
+    from ark_blst_tpu_torch import bls12 as B
 
     names = ("mont_mul", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step")
     kernels = all_kernels()
     n = len(ps)
-    T.Bls12.pairing_batch(ps, qs, device=dev)  # warm-up
+    B.pairing_batch(ps, qs, device=dev)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for k in kernels.values():
         k.launches = 0
     t0 = time.perf_counter()
-    got = T.Bls12.pairing_batch(ps, qs, device=dev)  # the main path
+    got = B.pairing_batch(ps, qs, device=dev)  # the main path
     dt = time.perf_counter() - t0
     launches = {name: kernels[name].launches for name in names}
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -1098,16 +1120,16 @@ def phase_pairing(torch, dev, ps, qs, expected) -> dict:
     device = sum(v["device_ms"] for v in profiled.values())
 
     t0 = time.perf_counter()
-    prep = T.Bls12.prepare_g2_batch(qs, device=dev)
+    prep = B.prepare_g2_batch(qs, device=dev)
     torch.cuda.synchronize()
     prep_s = time.perf_counter() - t0
-    T.Bls12.pairing_batch(ps, prep, device=dev)  # warm-up
+    B.pairing_batch(ps, prep, device=dev)  # warm-up
     t0 = time.perf_counter()
-    got_prep = T.Bls12.pairing_batch(ps, prep, device=dev)
+    got_prep = B.pairing_batch(ps, prep, device=dev)
     dt_prep = time.perf_counter() - t0
     check(got_prep == got, "prepared pairings differ from the unprepared ones")
     # both entry points with their default device ("cuda", no index)
-    got_default = T.Bls12.pairing_batch(ps, T.Bls12.prepare_g2_batch(qs))
+    got_default = B.pairing_batch(ps, B.prepare_g2_batch(qs))
     check(got_default == got, "default-device prepared pairings differ")
 
     emit({"phase": "pairing", "n": n, "distinct": PAIRING_DISTINCT, "ok": True,
@@ -1128,22 +1150,22 @@ def _reset_launches() -> dict:
 
 
 def phase_pairing_unfused(torch, dev, ps, qs, expected, fused) -> dict:
-    """The phase-8 instance through `Bls12.pairing_batch(..., fuse=False)`:
+    """The phase-8 instance through `bls12.pairing_batch(..., fuse=False)`:
     the prepare on the tower (K1), each Miller event K11 + legs (K1) + K12,
     the exponent ladders one K3 square per bit; checked against the oracle
     and the fused results, with launches, pairings/s, stages, a profiled
     rerun, peak memory and the prepared path."""
-    import ark_blst_tpu_torch as T
+    from ark_blst_tpu_torch import bls12 as B
 
     names = ("mont_mul", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step", "fp12_sqr",
              "fp12_mul_by_014")
     n = len(ps)
-    T.Bls12.pairing_batch(ps, qs, fuse=False, device=dev)  # warm-up
+    B.pairing_batch(ps, qs, fuse=False, device=dev)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kernels = _reset_launches()
     t0 = time.perf_counter()
-    got = T.Bls12.pairing_batch(ps, qs, fuse=False, device=dev)  # the main path
+    got = B.pairing_batch(ps, qs, fuse=False, device=dev)  # the main path
     dt = time.perf_counter() - t0
     launches = {name: kernels[name].launches for name in names}
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -1161,11 +1183,11 @@ def phase_pairing_unfused(torch, dev, ps, qs, expected, fused) -> dict:
     profiled = dict(run_pairing_stages(torch, dev, ps, qs, expected, True, fuse=False))
 
     t0 = time.perf_counter()
-    prep = T.Bls12.prepare_g2_batch(qs, fuse=False, device=dev)
+    prep = B.prepare_g2_batch(qs, fuse=False, device=dev)
     torch.cuda.synchronize()
     prep_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    got_prep = T.Bls12.pairing_batch(ps, prep, fuse=False, device=dev)
+    got_prep = B.pairing_batch(ps, prep, fuse=False, device=dev)
     dt_prep = time.perf_counter() - t0
     check(got_prep == got, "unfused prepared pairings differ from the unprepared ones")
 
@@ -1259,6 +1281,217 @@ def phase_pairing_strict(torch, dev, ps, qs, expected) -> dict:
           "launches_per_cyclotomic_sqr": per_cyc_sqr, "peak_mem_gib": peak_gib, "multi": {"n": m, "engines_agree": True, **multi}})
     emit({"phase": "pairing_strict_profile", **_profile_totals(profiled), "stages": profiled})
     return {op: launches["strict_" + op] for op in SF.KERNELS}
+
+
+# --- the arkworks API surface on the card's MSM and pairing paths --------------
+
+def _bulk_ints(torch, x) -> list:
+    """(L, N) int32 16-bit limbs on any device -> N ints, through one byte
+    buffer (the codecs' per-limb loop takes ~8 us a value)."""
+    raw = x.cpu().numpy().astype("<u2").T.copy().tobytes()
+    width = 2 * x.shape[0]
+    return [int.from_bytes(raw[i:i + width], "little") for i in range(0, len(raw), width)]
+
+
+def api_msm_instance(torch, dev, curve_name: str, log_n: int, seed: int):
+    """`curves/instance.py`'s known-answer instance as the API's objects:
+    the bases made affine on the card (`curves.group`'s batch inversion),
+    brought to the host in bulk and wrapped as G1Affine/G2Affine (the
+    identity at IDENTITY_AT included), the scalars as Scalar (the zero one
+    included); returns (bases, scalars, expected affine tuple)."""
+    from ark_blst_tpu_torch import G1Affine, G2Affine, Scalar
+    from ark_blst_tpu_torch.curves.group import G1, G2
+    from ark_blst_tpu_torch.curves.instance import distinct_bases
+    from ark_blst_tpu_torch.ops.limbs import FP
+    from ark_blst_tpu_torch.oracle.field import P
+
+    points, scalars, expected = distinct_bases(log_n, seed, dev, curve_name)
+    g2 = curve_name == "g2"
+    xa, ya, inf = (G2 if g2 else G1).to_affine(points)
+    rinv = pow(FP.mont_r, -1, P)
+
+    def fp(t):
+        return [v * rinv % P for v in _bulk_ints(torch, t)]
+
+    def dec(t):
+        return list(zip(fp(t[0]), fp(t[1]))) if g2 else fp(t)
+
+    aff = G2Affine if g2 else G1Affine
+    bases = [aff(None) if i else aff((x, y)) for x, y, i in zip(dec(xa), dec(ya), inf.tolist())]
+    return bases, [Scalar(v) for v in _bulk_ints(torch, scalars)], expected
+
+
+class _CallClock:
+    """While in use, times every call of the given module functions (label
+    -> seconds summed over calls, each ended by a synchronize, so a call's
+    device work is inside its time) and puts the functions back after. A
+    call made inside a timed one counts toward the outer one only (the MSM's
+    host finish calls the codecs too)."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets = torch, targets
+        self.seconds = {label: 0.0 for _, _, label in targets}
+        self.depth = 0
+
+    def __enter__(self):
+        self.saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in self.targets]
+        for (mod, attr, fn), (_, _, label) in zip(self.saved, self.targets):
+            setattr(mod, attr, self._timed(fn, label))
+        return self.seconds
+
+    def _timed(self, fn, label):
+        def timed(*args, **kwargs):
+            if self.depth:
+                return fn(*args, **kwargs)
+            self.depth += 1
+            try:
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                self.torch.cuda.synchronize()
+                self.seconds[label] += time.perf_counter() - t0
+            finally:
+                self.depth -= 1
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+
+def _api_msm(torch, dev, curve_name: str) -> tuple:
+    """`G*Projective.msm` with the default backend and device on the
+    known-answer instance: checked, with the call's seconds split into host
+    ingest, the device MSM and egress, its points/s and launches."""
+    import ark_blst_tpu_torch as T
+    from ark_blst_tpu_torch.curves import msm_bucket as MB
+    from ark_blst_tpu_torch.ops import convert as CV
+
+    log_n, seed = API_MSM[curve_name]
+    g2 = curve_name == "g2"
+    t0 = time.perf_counter()
+    bases, scalars, expected = api_msm_instance(torch, dev, curve_name, log_n, seed)
+    setup_s = time.perf_counter() - t0
+    proj = T.G2Projective if g2 else T.G1Projective
+    to_dev, entry, back = ("g2_to_dev", "msm_g2", "g2_from_dev") if g2 else (
+        "g1_to_dev", "msm_g1", "g1_from_dev")
+    names = ("mont_mul", "bucket_accumulate" + ("_g2" if g2 else ""), curve_name + "_point_words")
+    kernels = _reset_launches()
+    clock = _CallClock(torch, [(CV, to_dev, "ingest_points"), (CV, "fr_to_dev", "ingest_scalars"),
+                               (T, entry, entry), (CV, back, "egress")])
+    torch.cuda.synchronize()
+    with clock as split:
+        t0 = time.perf_counter()
+        out = proj.msm(bases, scalars)  # the API's main path: default backend, device "cuda"
+        dt = time.perf_counter() - t0
+    launches = {name: kernels[name].launches for name in names}
+    check(type(out) is proj and out.p == expected,
+          f"api {curve_name} MSM differs from the expected point")
+    check(all(v > 0 for v in launches.values()), f"a kernel of the API MSM was not launched: {launches}")
+    res = {"n": len(bases), "c": (MB.KC2_G2 if g2 else MB.KC2_G1).c_default, "ok": True,
+           "seconds": dt,
+           "points_per_s": len(bases) / dt, **{k + "_s": v for k, v in split.items()},
+           "unwrap_s": dt - sum(split.values()), "launches": launches,
+           "instance_setup_s": setup_s}
+    return res, bases, out
+
+
+def phase_api(torch, dev, ps, qs, expected, fused) -> None:
+    """The arkworks API's batch entries on the card: G1Projective.msm at
+    2^20 and G2Projective.msm at 2^16 on the known-answer instances; the
+    phase-8 instance through `Bls12.pairing_batch`, plain and prepared,
+    equal to phase 8's checked results; `Bls12.multi_miller_loop` and
+    `final_exponentiation` at 1024 pairs; the repo's vectors (the
+    generator pairing, the msm_g1 vectors) byte for byte; and a compressed,
+    validated serialization round trip of the MSM results and 64 bases of
+    each curve."""
+    import ark_blst_tpu_torch as T
+    from ark_blst_tpu_torch import bls12 as B
+    from ark_blst_tpu_torch.curves import pairing as PR
+    from ark_blst_tpu_torch.ops import convert as CV
+
+    t_phase = time.perf_counter()
+    msm = {}
+    round_trip = []
+    for curve_name in ("g1", "g2"):
+        msm[curve_name], bases, out = _api_msm(torch, dev, curve_name)
+        emit({"phase": "api_msm_" + curve_name, **msm[curve_name]})
+        round_trip += [out] + bases[:API_ROUNDTRIP]
+        del bases
+        torch.cuda.empty_cache()
+
+    # pairings: the tuple-level call, then the API's, plain and prepared
+    gp = [T.G1Affine(p) for p in ps]
+    gq = [T.G2Projective(q) for q in qs]
+    t0 = time.perf_counter()
+    B.pairing_batch(ps, qs, device=dev)
+    tuple_s = time.perf_counter() - t0
+    names = ("mont_mul", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step")
+    kernels = _reset_launches()
+    clock = _CallClock(torch, [(B, "_g1_batch", "ingest_g1"), (B, "_g2_batch", "ingest_g2"),
+                               (PR, "pairing", "device"), (CV, "fp12_from_dev", "egress")])
+    with clock as split:
+        t0 = time.perf_counter()
+        got = T.Bls12.pairing_batch(gp, gq)  # default device "cuda"
+        dt = time.perf_counter() - t0
+    launches = {name: kernels[name].launches for name in names}
+    check(all(isinstance(g, T.Gt) for g in got) and [g.v for g in got] == fused,
+          "api pairing_batch differs from phase 8's results")
+    check(all(v > 0 for v in launches.values()), f"a kernel of the API pairing was not launched: {launches}")
+    t0 = time.perf_counter()
+    prep = T.Bls12.prepare_g2_batch(gq)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got_prep = T.Bls12.pairing_batch(gp, prep)
+    dt_prep = time.perf_counter() - t0
+    check(got_prep == got, "api prepared pairings differ from the unprepared ones")
+    n = len(ps)
+    emit({"phase": "api_pairing", "n": n, "ok": True, "equal_to_phase_pairing": True,
+          "seconds": dt, "pairings_per_s": n / dt, **{k + "_s": v for k, v in split.items()},
+          "unwrap_s": dt - sum(split.values()), "launches": launches,
+          "tuple_level_seconds": tuple_s, "tuple_level_pairings_per_s": n / tuple_s,
+          "prepared": {"ok": True, "prepare_s": prep_s, "seconds": dt_prep,
+                       "pairings_per_s": n / dt_prep}})
+
+    # Miller loop on the card, final exponentiation on the host
+    m = API_MULTI_N
+    kernels = _reset_launches()
+    t0 = time.perf_counter()
+    mlo = T.Bls12.multi_miller_loop(gp[:m], gq[:m])  # backend None: the device route
+    t1 = time.perf_counter()
+    e = T.Bls12.final_exponentiation(mlo)
+    t2 = time.perf_counter()
+    launches = {k: kernels[k].launches for k in ("fp12_mul", "prepare_step", "miller_step")}
+    check(isinstance(mlo, T.MillerLoopOutput) and e.v == _fp12_product(expected[:m]),
+          "api multi_miller_loop + final_exponentiation differs from the oracle's product")
+    check(all(v > 0 for v in launches.values()), f"a kernel of the API Miller loop was not launched: {launches}")
+    emit({"phase": "api_miller", "n": m, "ok": True, "multi_miller_loop_s": t1 - t0,
+          "final_exponentiation_host_s": t2 - t1, "launches": launches})
+    del gp, gq, prep
+
+    # the repo's vectors, through the device routes
+    t0 = time.perf_counter()
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "vectors",
+                           "bls12_381.json")) as fh:
+        vecs = json.load(fh)
+    e = T.Bls12.pairing(T.G1Affine.generator(), T.G2Affine.generator())
+    check(e.serialize().hex() == vecs["pairing"]["e_g1gen_g2gen"], "generator pairing bytes differ")
+    for v in vecs["msm_g1"]:
+        pts = [T.G1Affine.deserialize_compressed(bytes.fromhex(h)) for h in v["points_compressed"]]
+        scs = [T.Scalar(int(s, 16)) for s in v["scalars"]]
+        out = T.G1Projective.msm(pts, scs, backend="device")
+        check(out.into_affine().serialize_compressed().hex() == v["result_compressed"],
+              "an msm_g1 vector differs")
+    vectors_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for pt in round_trip:
+        back = type(pt).deserialize_compressed(pt.serialize_compressed(), validate=True)
+        check(back == pt, f"compressed round trip of a {type(pt).__name__} differs")
+    emit({"phase": "api_vectors", "ok": True, "generator_pairing_bytes_equal": True,
+          "msm_g1_vectors": len(vecs["msm_g1"]), "vectors_s": vectors_s,
+          "round_trip_points": len(round_trip), "round_trip_s": time.perf_counter() - t0})
+    emit({"phase": "api", "ok": True, "seconds": time.perf_counter() - t_phase})
 
 
 def phase_fp_inv_batch(torch, dev) -> dict:
@@ -1585,6 +1818,8 @@ def main() -> int:
     unfused = phase_pairing_unfused(torch, dev, ps, qs, pairs_expected, fused)
     torch.cuda.empty_cache()
     strict_pairing = phase_pairing_strict(torch, dev, ps, qs, pairs_expected)
+    torch.cuda.empty_cache()
+    phase_api(torch, dev, ps, qs, pairs_expected, fused)
     del ps, qs, pairs_expected, fused
     torch.cuda.empty_cache()
     phase_fp_inv_batch(torch, dev)

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card against their plain PyTorch versions, and the
 G1 and G2 MSMs, the strict engine's scan MSM and the batched pairing (fused,
-unfused and strict) on the card against the host oracle.
+unfused and strict) on the card against the host oracle; the arkworks API's
+device routes against the checked-in vectors and its host route.
 Needs an NVIDIA Hopper card and
 nvcc; skipped without a card. Imports no JAX, so it runs on a machine
 without it:
@@ -8,6 +9,8 @@ without it:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import json
+import os
 import random
 
 import numpy as np
@@ -15,7 +18,8 @@ import pytest
 import torch
 
 import ark_blst_tpu_torch as T
-from ark_blst_tpu_torch import G1, G2, Bls12
+from ark_blst_tpu_torch import G1, G2
+from ark_blst_tpu_torch import bls12 as B
 from ark_blst_tpu_torch.curves import msm as M
 from ark_blst_tpu_torch.curves import msm_bucket as MB
 from ark_blst_tpu_torch.curves import pairing_steps as PS
@@ -205,7 +209,6 @@ def _real_f_and_legs(dev):
     """f after three Miller events and the fourth event's line scaled by P
     (`_ell_legs`, K12's rows) as the unfused Miller loop forms them, for 64
     pairs of 4 distinct points."""
-    from ark_blst_tpu_torch import bls12 as B
     from ark_blst_tpu_torch.curves import pairing as PR
     from ark_blst_tpu_torch.ops import tower_lazy as TL
 
@@ -256,14 +259,13 @@ def test_unfused_and_strict_pairing_on_card_match_fused(dev):
     pb = [ps[i % 4] for i in range(32)]
     qb = [qs[(i + 1) % 4] for i in range(32)]
     pb[3], qb[4] = None, None
-    fused = Bls12.pairing_batch(pb, qb, device=dev)
+    fused = B.pairing_batch(pb, qb, device=dev)
     assert fused[5] == OP.pairing(ps[1], qs[2]) and fused[3] == fused[4] == OF.FP12_ONE
     tower = (PS.PREPARE_KERNEL, PS.MILLER_KERNEL, K11.KERNEL, K12.KERNEL)
     before = [k.launches for k in tower]
-    assert Bls12.pairing_batch(pb, qb, fuse=False, device=dev) == fused
+    assert B.pairing_batch(pb, qb, fuse=False, device=dev) == fused
     assert [k.launches - b for k, b in zip(tower, before)] == [0, 0, 63, 68]
 
-    from ark_blst_tpu_torch import bls12 as B
 
     (p, p_inf), (q, q_inf) = B._g1_batch(pb, dev), B._g2_batch(qb, dev)
     lazy = T.pairing(p, q, p_inf=p_inf, q_inf=q_inf, device=dev)
@@ -286,7 +288,7 @@ def test_pairing_on_card_matches_oracle(dev):
     pb[5], qb[6] = None, None
     kernels = (MM.KERNEL, K3.KERNEL, K4.KERNEL, PS.PREPARE_KERNEL, PS.MILLER_KERNEL)
     before = [k.launches for k in kernels]
-    got = Bls12.pairing_batch(pb, qb, device=dev)
+    got = B.pairing_batch(pb, qb, device=dev)
     assert all(k.launches > b for k, b in zip(kernels, before))
     want = {i: OP.pairing(ps[i], qs[(3 * i + 1) % 4]) for i in range(4)}
     for i, g in enumerate(got):
@@ -299,9 +301,9 @@ def test_prepared_pairing_with_default_devices(dev):
     rng = random.Random(18)
     ps = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
     qs = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
-    prep = Bls12.prepare_g2_batch(qs)
+    prep = B.prepare_g2_batch(qs)
     assert prep.stacked.is_cuda
-    assert Bls12.pairing_batch(ps, prep) == [OP.pairing(p, q) for p, q in zip(ps, qs)]
+    assert B.pairing_batch(ps, prep) == [OP.pairing(p, q) for p, q in zip(ps, qs)]
 
 
 def _strict_stack(rng, spec, n, dev):
@@ -359,3 +361,38 @@ def test_scan_msm_on_card_matches_oracle(dev):
     torch.cuda.synchronize()
     assert all(SF.KERNELS[k].launches > before[k] for k in ("mont_mul", "add", "sub"))
     assert out[0].is_cuda and CV.g1_from_dev(out) == [OC.msm(base, agg)]
+
+
+VEC_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "vectors", "bls12_381.json")
+
+
+def test_api_generator_pairing_bytes_on_card(dev):
+    with open(VEC_PATH) as fh:
+        want = json.load(fh)["pairing"]["e_g1gen_g2gen"]
+    g1, g2 = T.G1Affine.generator(), T.G2Affine.generator()
+    assert T.Bls12.pairing(g1, g2, device=dev).serialize().hex() == want
+    got = T.Bls12.pairing_batch([g1, T.G1Affine.zero()], [g2, g2], device=dev)
+    assert got[0].serialize().hex() == want and got[1].is_one()
+
+
+def test_api_msm_vectors_on_card(dev):
+    with open(VEC_PATH) as fh:
+        vecs = json.load(fh)["msm_g1"]
+    for v in vecs:
+        pts = [T.G1Affine.deserialize_compressed(bytes.fromhex(h)) for h in v["points_compressed"]]
+        scs = [T.Scalar(int(s, 16)) for s in v["scalars"]]
+        before = MB.KC2_G1.kernel.launches
+        out = T.G1Projective.msm(pts, scs, backend="device", device=dev)
+        assert MB.KC2_G1.kernel.launches > before
+        assert out.into_affine().serialize_compressed().hex() == v["result_compressed"]
+
+
+def test_api_g2_msm_on_card_matches_host_route(dev):
+    rng = random.Random(16)
+    bases = [T.G2Affine.rand(rng) for _ in range(6)] + [T.G2Affine.zero()]
+    scalars = [T.Scalar.rand(rng) for _ in range(6)] + [T.Scalar(5)]
+    scalars[2] = T.Scalar.zero()
+    before = MB.KC2_G2.kernel.launches
+    got = T.G2Projective.msm(bases, scalars, device=dev)
+    assert MB.KC2_G2.kernel.launches > before
+    assert got == T.G2Projective.msm(bases, scalars, backend="host")

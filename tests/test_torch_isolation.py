@@ -35,43 +35,61 @@ def test_port_imports_no_jax_and_no_jax_package():
         assert "ark_blst_tpu_torch.curves.pairing" in names, names
         for mod in ("ops.strict_field", "ops.dispatch", "ops.tower", "curves.group",
                     "curves.msm", "ops.fp12_sqr", "ops.fp12_mul_by_014",
-                    "curves.pairing_steps"):
+                    "curves.pairing_steps", "fields", "groups", "oracle.serialize"):
             assert "ark_blst_tpu_torch." + mod in names, names
     """)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("entry", ["msm_g1", "G1.msm", "pairing", "Bls12.pairing_batch",
-                                   "Bls12.prepare_g2_batch", "Bls12.multi_pairing",
+@pytest.mark.parametrize("entry", ["msm_g1", "G1.msm", "pairing", "bls12.pairing_batch",
+                                   "bls12.prepare_g2_batch", "bls12.multi_pairing",
                                    "msm_g2", "G2.msm", "curves.msm.msm",
                                    "curves.msm.msm_naive", "pairing[strict]",
+                                   "bls12.pairing_batch[unfused]",
+                                   "bls12.prepare_g2_batch[unfused]",
+                                   "bls12.multi_miller_loop", "G1Projective.msm",
+                                   "G2Projective.msm", "Bls12.pairing_batch",
+                                   "Bls12.prepare_g2_batch", "Bls12.multi_miller_loop",
+                                   "Bls12.pairing", "Bls12.multi_pairing",
                                    "Bls12.pairing_batch[unfused]",
-                                   "Bls12.prepare_g2_batch[unfused]"])
+                                   "Bls12.prepare_g2_batch[unfused]", "G1Projective.msm[empty]"])
 def test_cuda_without_a_card_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present; this checks the behaviour without one")
     import ark_blst_tpu_torch as T
+    from ark_blst_tpu_torch import bls12 as B
     from ark_blst_tpu_torch.curves import msm as M
     from ark_blst_tpu_torch.ops import convert as CV
     from ark_blst_tpu_torch.oracle.field import G1_GEN, G2_GEN
 
     p = (CV.fp_to_dev([G1_GEN[0]]), CV.fp_to_dev([G1_GEN[1]]))
     q = (CV.fp2_to_dev([G2_GEN[0]]), CV.fp2_to_dev([G2_GEN[1]]))
+    g1, g2 = T.G1Affine.generator(), T.G2Projective.generator()
     calls = {  # each with the default device, cuda
         "msm_g1": lambda: T.msm_g1(CV.g1_to_dev([G1_GEN]), CV.fr_to_dev([3])),
         "G1.msm": lambda: T.G1.msm([G1_GEN], [3]),
         "pairing": lambda: T.pairing(p, q),
-        "Bls12.pairing_batch": lambda: T.Bls12.pairing_batch([G1_GEN], [G2_GEN]),
-        "Bls12.prepare_g2_batch": lambda: T.Bls12.prepare_g2_batch([G2_GEN]),
-        "Bls12.multi_pairing": lambda: T.Bls12.multi_pairing([G1_GEN], [G2_GEN]),
+        "bls12.pairing_batch": lambda: B.pairing_batch([G1_GEN], [G2_GEN]),
+        "bls12.prepare_g2_batch": lambda: B.prepare_g2_batch([G2_GEN]),
+        "bls12.multi_pairing": lambda: B.multi_pairing([G1_GEN], [G2_GEN]),
         "msm_g2": lambda: T.msm_g2(CV.g2_to_dev([G2_GEN]), CV.fr_to_dev([3])),
         "G2.msm": lambda: T.G2.msm([G2_GEN], [3]),
         "curves.msm.msm": lambda: M.msm(CV.g1_to_dev([G1_GEN]), CV.fr_to_dev([3])),
         "curves.msm.msm_naive": lambda: M.msm_naive(CV.g1_to_dev([G1_GEN]), CV.fr_to_dev([3])),
         "pairing[strict]": lambda: T.pairing(p, q, engine="strict"),
-        "Bls12.pairing_batch[unfused]": lambda: T.Bls12.pairing_batch([G1_GEN], [G2_GEN],
-                                                                       fuse=False),
-        "Bls12.prepare_g2_batch[unfused]": lambda: T.Bls12.prepare_g2_batch([G2_GEN], fuse=False),
+        "bls12.pairing_batch[unfused]": lambda: B.pairing_batch([G1_GEN], [G2_GEN], fuse=False),
+        "bls12.prepare_g2_batch[unfused]": lambda: B.prepare_g2_batch([G2_GEN], fuse=False),
+        "bls12.multi_miller_loop": lambda: B.multi_miller_loop([G1_GEN], [G2_GEN]),
+        "G1Projective.msm": lambda: T.G1Projective.msm([g1], [T.Scalar(3)]),
+        "G2Projective.msm": lambda: T.G2Projective.msm([g2], [T.Scalar(3)]),
+        "G1Projective.msm[empty]": lambda: T.G1Projective.msm([], []),
+        "Bls12.pairing_batch": lambda: T.Bls12.pairing_batch([g1], [g2]),
+        "Bls12.prepare_g2_batch": lambda: T.Bls12.prepare_g2_batch([g2]),
+        "Bls12.multi_miller_loop": lambda: T.Bls12.multi_miller_loop([g1], [g2]),
+        "Bls12.pairing": lambda: T.Bls12.pairing(g1, g2),
+        "Bls12.multi_pairing": lambda: T.Bls12.multi_pairing([g1], [g2]),
+        "Bls12.pairing_batch[unfused]": lambda: T.Bls12.pairing_batch([g1], [g2], fuse=False),
+        "Bls12.prepare_g2_batch[unfused]": lambda: T.Bls12.prepare_g2_batch([g2], fuse=False),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -1,5 +1,5 @@
 """The port's batched pairing (curves/pairing.py, curves/pairing_steps.py,
-ops/cyc_sqr.py and the `Bls12` entry points) against the JAX package.
+ops/cyc_sqr.py and the tuple-level entry points of `bls12.py`) against the JAX package.
 
 The plain versions of K3, K5 and K6 and the truncated prepare_g2 /
 miller_loop are held against the JAX lazy tower digit for digit; the whole
@@ -23,6 +23,7 @@ from ark_blst_tpu.oracle import field as JOF
 from ark_blst_tpu.oracle import pairing as JOP
 
 import ark_blst_tpu_torch as T
+from ark_blst_tpu_torch import bls12 as B
 from ark_blst_tpu_torch.curves import pairing as PR
 from ark_blst_tpu_torch.curves import pairing_steps as PS
 from ark_blst_tpu_torch.ops import convert as CV
@@ -152,18 +153,18 @@ def test_prepare_g2_and_miller_loop_truncated_match_jax():
 def test_pairing_batch_cpu_matches_oracle():
     ps = [PS4[0], None, PS4[2], PS4[3]]
     qs = [QS4[0], QS4[1], None, QS4[3]]
-    got = T.Bls12.pairing_batch(ps, qs, device="cpu")
+    got = B.pairing_batch(ps, qs, device="cpu")
     want = [JOP.pairing(p, q) for p, q in zip(ps, qs)]
     assert got == want
     assert got[1] == OF.FP12_ONE and got[2] == OF.FP12_ONE
 
 
 def test_prepared_equals_unprepared():
-    prep = T.Bls12.prepare_g2_batch(QS4, device="cpu")
+    prep = B.prepare_g2_batch(QS4, device="cpu")
     assert prep.stacked.shape == (PR.NUM_EVENTS, 6, 30, 4)
     ps = [PS4[1], PS4[0], None, PS4[3]]
-    got = T.Bls12.pairing_batch(ps, prep, device="cpu")
-    assert got == T.Bls12.pairing_batch(ps, QS4, device="cpu")
+    got = B.pairing_batch(ps, prep, device="cpu")
+    assert got == B.pairing_batch(ps, QS4, device="cpu")
     assert got[0] == JOP.pairing(PS4[1], QS4[0]) and got[2] == OF.FP12_ONE
 
 
@@ -173,16 +174,16 @@ def test_prepared_on_an_indexed_device(prep_dev, pair_dev):
     """A prepared batch made on one spelling of a device pairs on another:
     `resolve_device` normalizes both as a tensor's `.device` reads."""
     assert T.resolve_device(prep_dev) == T.resolve_device(pair_dev) == torch.device("cpu")
-    prep = T.Bls12.prepare_g2_batch(QS4[:2], device=prep_dev)
+    prep = B.prepare_g2_batch(QS4[:2], device=prep_dev)
     ps = [PS4[2], None]
-    got = T.Bls12.pairing_batch(ps, prep, device=pair_dev)
+    got = B.pairing_batch(ps, prep, device=pair_dev)
     assert got == [JOP.pairing(PS4[2], QS4[0]), OF.FP12_ONE]
 
 
 def test_multi_pairing_matches_oracle_product():
     ps, qs = [PS4[0], PS4[1], None], [QS4[0], QS4[1], QS4[2]]
     want = JOP.final_exp(JOP.multi_miller_loop(list(zip(ps, qs))))
-    assert T.Bls12.multi_pairing(ps, qs, device="cpu") == want
+    assert B.multi_pairing(ps, qs, device="cpu") == want
     assert want == OF.fp12_mul(JOP.pairing(PS4[0], QS4[0]), JOP.pairing(PS4[1], QS4[1]))
     mml = PR.multi_miller_loop(*[CV.tree_from_jax(x) for x in (_jax_p(ps[:2]), _jax_q(qs[:2]))])
     assert CV.fp12_from_dev(mml) == [JOP.multi_miller_loop(list(zip(ps[:2], qs[:2])))]
@@ -208,9 +209,9 @@ def test_bilinearity_through_the_tensor_entry():
 
 def test_entry_points_reject_mismatched_batches():
     with pytest.raises(ValueError):
-        T.Bls12.pairing_batch([PS4[0]], QS4[:2], device="cpu")
-    prep = T.Bls12.prepare_g2_batch(QS4[:2], device="cpu")
+        B.pairing_batch([PS4[0]], QS4[:2], device="cpu")
+    prep = B.prepare_g2_batch(QS4[:2], device="cpu")
     with pytest.raises(ValueError):
-        T.Bls12.pairing_batch([PS4[0]], prep, device="cpu")
-    assert T.Bls12.pairing_batch([], [], device="cpu") == []
-    assert T.Bls12.multi_pairing([], [], device="cpu") == OF.FP12_ONE
+        B.pairing_batch([PS4[0]], prep, device="cpu")
+    assert B.pairing_batch([], [], device="cpu") == []
+    assert B.multi_pairing([], [], device="cpu") == OF.FP12_ONE

@@ -6,7 +6,7 @@ squares) against the JAX package and against the port's fused pipeline.
 * the truncated unfused prepare/Miller loop against JAX `fuse=False,
   engine="lazy"`, digit for digit (exact);
 * every stage of the unfused pipeline against the fused one, digit for
-  digit (exact), and `Bls12.pairing_batch(..., fuse=False)` against the
+  digit (exact), and `bls12.pairing_batch(..., fuse=False)` against the
   oracle by value;
 * `tower_lazy.fp_inv_batch` by value against the oracle's inverses: the
   JAX `fp_inv_batch` compiles its width-1 Fermat `lax.scan` for minutes on
@@ -27,6 +27,7 @@ from ark_blst_tpu.ops import tower_lazy as JTL
 from ark_blst_tpu.oracle import pairing as JOP
 
 import ark_blst_tpu_torch as T
+from ark_blst_tpu_torch import bls12 as B
 from ark_blst_tpu_torch.curves import pairing as PR
 from ark_blst_tpu_torch.curves import pairing_steps as PS
 from ark_blst_tpu_torch.ops import convert as CV
@@ -154,11 +155,11 @@ def test_unfused_pipeline_equals_fused_digit_for_digit():
 
 def test_pairing_batch_unfused_matches_oracle():
     ps, qs = [PS2[0], None, PS2[1]], [QS2[1], QS2[0], QS2[0]]
-    got = T.Bls12.pairing_batch(ps, qs, fuse=False, device="cpu")
+    got = B.pairing_batch(ps, qs, fuse=False, device="cpu")
     assert got == [JOP.pairing(PS2[0], QS2[1]), OF.FP12_ONE, JOP.pairing(PS2[1], QS2[0])]
-    prep = T.Bls12.prepare_g2_batch(qs, fuse=False, device="cpu")
+    prep = B.prepare_g2_batch(qs, fuse=False, device="cpu")
     assert prep.engine == "lazy" and prep.stacked.shape == (PR.NUM_EVENTS, 6, 30, 3)
-    assert T.Bls12.pairing_batch([None, PS2[1], PS2[0]], prep, fuse=False, device="cpu") == [
+    assert B.pairing_batch([None, PS2[1], PS2[0]], prep, fuse=False, device="cpu") == [
         OF.FP12_ONE, JOP.pairing(PS2[1], QS2[0]), JOP.pairing(PS2[0], QS2[0])]
 
 
