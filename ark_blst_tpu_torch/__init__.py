@@ -25,7 +25,13 @@ Beside them, the port's own entry points:
   `engine="strict"` the pairing on the strict tower (K7-K10);
 * the strict radix-16 engine's scan Pippenger MSM,
   `curves.msm.msm(points, scalars, curve, device=...)` and `msm_naive`, on
-  the complete group law of `curves.group` (`G1`, `G2`).
+  the complete group law of `curves.group` (`G1`, `G2`), and
+  `curves.msm.msm_auto`, the bucket MSM on the card or the scan MSM at the
+  plan of `config.plan_msm` on the CPU;
+* multi-device on `torch.distributed` (`distributed.py`, not exported,
+  as in the JAX package): `initialize`, `global_mesh` and the collectives
+  `msm_distributed`, `curves.msm_bucket.msm_sharded2`,
+  `curves.msm.msm_sharded` and `curves.pairing.multi_pairing_sharded`.
 
 Entry points run on the card unless the caller asks for the CPU
 (`device="cpu"`), where every kernel is replaced by its plain PyTorch

@@ -17,17 +17,29 @@ scan pipeline `msm` with `msm_naive`, on the RCB15 group law of
   batch of one.
 
 The JAX `use_jit`/`fuse` switch collapses to the eager branch of its
-`_scan`: PyTorch runs eagerly, one launch per field op. `msm_sharded`,
-`msm_auto` and its planner are not ported yet (ROADMAP A10).
+`_scan`: PyTorch runs eagerly, one launch per field op.
+
+Beside it, as in the JAX module:
+
+* `msm_sharded`: the scan pipeline on every rank of a `torch.distributed`
+  mesh (`distributed.global_mesh`), the ranks' window sums gathered and
+  folded in rank order (`_fold_leading_scan`), then Horner on the device
+  or on host ints (`_horner_host`);
+* `msm_auto`: on the card the bucket MSM (`msm_bucket.msm`, K2) at the
+  curve's default window, on the CPU this scan MSM at the (c, lanes) of
+  the memory-budgeted planner (`config.plan_msm`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..config import plan_msm
 from ..device import resolve_device
+from ..ops import convert as CV
 from ..ops import tower as T
-from ..ops.limbs import FR, LIMB_BITS
+from ..ops.limbs import FP, FR, LIMB_BITS
+from ..oracle import curve as OC
 from .group import G1, CurveOps, g1_identity, g2_identity
 
 SCALAR_BITS = FR.num_limbs * LIMB_BITS  # 256
@@ -234,3 +246,89 @@ def msm_naive(points, scalars, curve: CurveOps = G1, *, device="cuda"):
         prods = curve.add(lo, hi)
         size = half
     return prods  # batch (1,)
+
+
+# --- strategy choice and multi-device ----------------------------------------
+
+def msm_auto(points, scalars, curve: CurveOps = G1, hbm_budget_bytes: int = 6 << 30,
+             maybe_abort=None, *, device="cuda"):
+    """MSM with the execution strategy chosen by where it runs.
+
+    On the card (the JAX package's TPU branch): the bucket MSM
+    (`msm_bucket.msm`, K1 and K2 or K2-G2) at the curve's default signed
+    window (G1 c = 7, G2 c = 5), chunked within `hbm_budget_bytes`, with
+    `maybe_abort` polled before every chunk; scalars must then be < 2^255
+    (any scalar reduced mod r qualifies). On the CPU (its off-TPU branch):
+    one poll of `maybe_abort`, then the scan MSM above at the (c, lanes) of
+    `config.plan_msm` for the budget. Inputs as for `msm`; returns the
+    strict projective result, batch (1,), on `device`."""
+    points, scalars = _to_device(points, scalars, device)
+    if scalars.device.type == "cuda":
+        from . import msm_bucket as MB
+
+        kc = MB.KC2_G2 if curve.name == "g2" else MB.KC2_G1
+        chunk = MB.plan_chunk2(kc, kc.c_default, hbm_budget_bytes)
+        return MB.msm(points, scalars, kc, kc.c_default, chunk=chunk, maybe_abort=maybe_abort)
+    if maybe_abort is not None and maybe_abort():
+        raise MsmAborted("aborted before dispatch")
+    limbs = FP.num_limbs * (2 if curve.name == "g2" else 1)
+    plan = plan_msm(max(1, scalars.shape[-1]), hbm_budget_bytes, coords=3, limbs=limbs)
+    return msm(points, scalars, curve, c=plan.c, lanes=plan.lanes, device=scalars.device)
+
+
+def _fold_leading_scan(curve: CurveOps, pt):
+    """Fold the rank axis (dim 1) of leaves (L, world, W) with strict
+    additions, rank 0 first -> leaves (L, W)."""
+    acc = T.tree_map(lambda x: x[:, 0], pt)
+    world = (pt[0][0] if isinstance(pt[0], tuple) else pt[0]).shape[1]
+    for r in range(1, world):
+        acc = curve.add(acc, T.tree_map(lambda x: x[:, r], pt))
+    return acc
+
+
+def _horner_host(curve: CurveOps, window_sums, c: int):
+    """Horner over the W window sums on host ints with the oracle's group
+    law, as `msm_bucket._finish_host` finishes the bucket MSM: one egress,
+    W*c doublings and W additions. `window_sums`: strict projective batch,
+    leaves (L, W). Returns the strict projective result, batch (1,), on the
+    window sums' device."""
+    if curve.name == "g2":
+        from_dev, add, double, to_dev = CV.g2_from_dev, OC.g2_add, OC.g2_double, CV.g2_to_dev
+    else:
+        from_dev, add, double, to_dev = CV.g1_from_dev, OC.add, OC.double, CV.g1_to_dev
+    pts = from_dev(window_sums)
+    total = None
+    for w in range(len(pts) - 1, -1, -1):
+        if total is not None:
+            for _ in range(c):
+                total = double(total)
+        total = add(total, pts[w])
+    leaf = window_sums[0][0] if isinstance(window_sums[0], tuple) else window_sums[0]
+    return T.tree_map(lambda t: t.to(leaf.device), to_dev([total]))
+
+
+def msm_sharded(points, scalars, mesh, curve: CurveOps = G1, c: int = 8, lanes: int = 1024,
+                axis: str = "data", finish: str = "device"):
+    """Multi-device scan MSM, a collective: every rank of `mesh`
+    (`distributed.global_mesh`) calls it with the same global inputs, as
+    for `msm`, and gets the same strict projective result, batch (1,), on
+    its device.
+
+    The points are padded to a multiple of the world; rank r runs the scan
+    pipeline up to the window sums (`_msm_local`) on its contiguous shard.
+    The ranks gather their (W,) partials, fold them in rank order
+    (`_fold_leading_scan`), and finish with Horner on the device
+    (`finish="device"`) or on host ints (`finish="host"`, `_horner_host`:
+    the bucket MSM's finish)."""
+    if finish not in ("device", "host"):
+        raise ValueError(f"finish is 'device' or 'host', not {finish!r}")
+    world, dev = mesh.shape[axis], mesh.device
+    points, scalars = _pad_inputs(curve.name, points, scalars, world)
+    m = scalars.shape[-1] // world
+    sl = slice(mesh.rank * m, (mesh.rank + 1) * m)
+    shard = T.tree_map(lambda x: x[:, sl].to(dev, torch.int32), points)
+    sums = _msm_local(curve, shard, scalars[:, sl].to(dev, torch.int32), c, lanes)
+    folded = _fold_leading_scan(curve, mesh.all_gather_tree(sums))
+    if finish == "host":
+        return _horner_host(curve, folded, c)
+    return _horner(curve, folded, c)

@@ -25,6 +25,10 @@ points:
    then a tree over 16), then the bucket suffix sums -> lazy window sums.
 4. `_finish_host`: window sums to canonical ints, Horner on the host.
 
+`msm_sharded2` runs stages 1-3 on every rank of a `torch.distributed` mesh
+over its shard, gathers the ranks' window sums, folds them
+(`_fold_device_wsums`) and finishes once.
+
 Layouts (int32 throughout, every word < 2^31), G1 / G2:
   points  (30 / 60, n)          packed affine x, y: 15 words per Fp
                                 component, two balanced digits per word,
@@ -509,9 +513,13 @@ def _finish_host(kc: KernelCurve2, ws_stacked, c: int):
 
 # --- driver -------------------------------------------------------------------
 
-def _window_sums2(kc: KernelCurve2, points, scalars, c: int):
-    """One chunk up to (and including) the bucket reduction."""
+def _window_sums2(kc: KernelCurve2, points, scalars, c: int, max_windows: int | None = None):
+    """One chunk up to (and including) the bucket reduction. `max_windows`
+    truncates the window schedule: sound ONLY when every scalar is below
+    2^(c*(max_windows-1)); it keeps the CPU tests small."""
     pts, digs = _prepare_inputs(kc, points, scalars, c)
+    if max_windows is not None:
+        digs = digs[:max_windows].contiguous()
     return _reduce_dump(kc, accumulate(kc, pts, digs, c))
 
 
@@ -540,22 +548,21 @@ def _device_budget(device: torch.device) -> int:
     return 2 << 30
 
 
-def msm(points, scalars, kc: KernelCurve2, c: int, chunk: int | None = None,
-        maybe_abort=None):
-    """Chunked G1 or G2 MSM on the device of `scalars`.
-
-    points: strict Montgomery-R16 projective (x, y, z), each (24, N) int32
-    (G2: each coordinate a pair of them); scalars: (16, N) plain Fr limbs,
-    each value < 2^255. Returns the strict projective result in the same
-    form with batch (1,). `maybe_abort`: zero-argument callable polled
-    before every chunk; a true answer raises MsmAborted."""
+def _check_window(c: int, max_windows: int | None) -> None:
     if not 2 <= c <= 15:
         raise ValueError(f"MSM window c must be in [2, 15], got {c}")
+    if max_windows is not None and max_windows < 1:
+        raise ValueError(f"max_windows must be >= 1, got {max_windows}")
+
+
+def _chunked_window_sums(kc: KernelCurve2, points, scalars, c: int, chunk: int | None,
+                         budget_bytes: int, maybe_abort=None, max_windows: int | None = None):
+    """Stacked lazy window sums of n >= 1 points on the device of `scalars`,
+    chunk by chunk (`chunk` points each; default: planned from
+    `budget_bytes`), summed across chunks."""
     n = scalars.shape[-1]
-    if n == 0:
-        return kc.identity(1, scalars.device)
     if chunk is None:
-        chunk = plan_chunk2(kc, c, _device_budget(scalars.device))
+        chunk = plan_chunk2(kc, c, budget_bytes)
     elif chunk <= 0 or chunk % STREAMS:
         raise ValueError(f"chunk must be a positive multiple of {STREAMS}, got {chunk}")
     chunk = min(chunk, -(-n // STREAMS) * STREAMS)
@@ -566,6 +573,73 @@ def msm(points, scalars, kc: KernelCurve2, c: int, chunk: int | None = None,
         if maybe_abort is not None and maybe_abort():
             raise M.MsmAborted(f"aborted before chunk {i}/{n_chunks}")
         sl = slice(i * chunk, (i + 1) * chunk)
-        ws = _window_sums2(kc, _tree_map(lambda x: x[:, sl], points), scalars[:, sl], c)
+        ws = _window_sums2(kc, _tree_map(lambda x: x[:, sl], points), scalars[:, sl], c,
+                           max_windows)
         total = ws if total is None else _add_wsums2(kc, total, ws)
+    return total
+
+
+def msm(points, scalars, kc: KernelCurve2, c: int, chunk: int | None = None,
+        maybe_abort=None, max_windows: int | None = None):
+    """Chunked G1 or G2 MSM on the device of `scalars`.
+
+    points: strict Montgomery-R16 projective (x, y, z), each (24, N) int32
+    (G2: each coordinate a pair of them); scalars: (16, N) plain Fr limbs,
+    each value < 2^255. Returns the strict projective result in the same
+    form with batch (1,). `maybe_abort`: zero-argument callable polled
+    before every chunk; a true answer raises MsmAborted. `max_windows`
+    truncates the windows as in `_window_sums2`."""
+    _check_window(c, max_windows)
+    if scalars.shape[-1] == 0:
+        return kc.identity(1, scalars.device)
+    total = _chunked_window_sums(kc, points, scalars, c, chunk, _device_budget(scalars.device),
+                                 maybe_abort, max_windows)
     return _finish_host(kc, total, c)
+
+
+# --- multi-device: the bucket pipeline on every rank --------------------------
+
+def _fold_device_wsums(ws: torch.Tensor, kc: KernelCurve2) -> torch.Tensor:
+    """Log-depth fold of the ranks' stacked window sums (world, n_fp*30, W)
+    -> (n_fp*30, W): each level adds the lower half of the ranks to the upper
+    half pair by pair in one batched `full_add`, an odd last rank carried
+    to the next level, as JAX
+    `_fold_device_wsums_jit`. Every rank folds the same gathered tensor, so
+    every rank gets the same digits."""
+    while ws.shape[0] > 1:
+        half = ws.shape[0] // 2
+        lo = kc.unstack_point(ws[:half].movedim(0, -1))
+        hi = kc.unstack_point(ws[half : 2 * half].movedim(0, -1))
+        folded = kc.stack_point(full_add(kc.f, lo, hi)).movedim(-1, 0)
+        ws = torch.cat([folded, ws[2 * half :]])
+    return ws[0]
+
+
+def msm_sharded2(points, scalars, mesh, kc: KernelCurve2 = KC2_G1, c: int | None = None,
+                 axis: str = "data", max_windows: int | None = None, chunk: int | None = None):
+    """Multi-device G1 or G2 MSM with the bucket kernels on every rank, a
+    collective: every rank of `mesh` (`distributed.global_mesh`) calls it
+    with the same global inputs, as for `msm`, and gets the same strict
+    projective result, batch (1,), on its device.
+
+    The points are padded to a multiple of S * world (JAX: TILE * ndev);
+    rank r takes the r-th contiguous shard and runs prepare, K2 (or K2-G2)
+    and the reduce on it through `msm`'s chunk loop, so a 2^24+ shard fits
+    (`chunk` points a chunk; default: planned from the rank's share of its
+    card, `_device_budget` over the ranks that share it). The ranks gather
+    their (n_fp*30, W) stacked window sums, fold them in a log-depth tree
+    (`_fold_device_wsums`) and finish on the host once. `max_windows` as
+    in `_window_sums2`."""
+    if c is None:
+        c = kc.c_default
+    _check_window(c, max_windows)
+    world, dev = mesh.shape[axis], mesh.device
+    if scalars.shape[-1] == 0:
+        return kc.identity(1, dev)
+    points, scalars = M._pad_inputs(kc.name, points, scalars, STREAMS * world)
+    m = scalars.shape[-1] // world
+    sl = slice(mesh.rank * m, (mesh.rank + 1) * m)
+    pts = _tree_map(lambda x: x[:, sl].to(dev, torch.int32), points)
+    ws = _chunked_window_sums(kc, pts, scalars[:, sl].to(dev, torch.int32), c, chunk,
+                              _device_budget(dev) // mesh.sharing, max_windows=max_windows)
+    return _finish_host(kc, _fold_device_wsums(mesh.all_gather(ws), kc), c)

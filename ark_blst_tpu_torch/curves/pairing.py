@@ -310,10 +310,10 @@ def _skip_mask(p_inf, q_inf):
     return p_inf if q_inf is None else (p_inf | q_inf)
 
 
-def _masked_miller(p, coeffs, p_inf, q_inf, fuse=True, engine="lazy"):
+def _masked_miller(p, coeffs, p_inf, q_inf, fuse=True, engine="lazy", events=None):
     """Miller loop, then the pairs holding an identity set to one (before
     any final exponentiation sees them)."""
-    f = miller_loop(p, coeffs, fuse, engine)
+    f = miller_loop(p, coeffs, fuse, engine, events)
     skip = _skip_mask(p_inf, q_inf)
     if skip is None:
         return f
@@ -348,6 +348,50 @@ def pairing(p, q, p_inf=None, q_inf=None, fuse=True, engine="lazy"):
     a strict fp12 batch (24, N) leaves. Identity inputs yield one."""
     f = _masked_miller(p, prepare_g2(q, fuse, engine), p_inf, q_inf, fuse, engine)
     return egress(final_exp(f, fuse, engine), engine)
+
+
+# --- sharded multi-pairing -----------------------------------------------------
+
+def _gather_fp12(mesh, f, engine):
+    """One fp12 (batch 1) of the engine's form on every rank -> the world's,
+    batch `world` in rank order, in one gather."""
+    tree = TL.unstack12(f) if engine == "lazy" else f
+    got = TS.tree_map(lambda x: x[..., 0], mesh.all_gather_tree(tree))
+    return TL.stack12(got) if engine == "lazy" else got
+
+
+def multi_pairing_sharded(p, q, mesh, p_inf=None, q_inf=None, axis: str = "data",
+                          engine="lazy", final=True, events=None, fuse=True):
+    """prod_i e(P_i, Q_i) with the batch sharded over a `torch.distributed`
+    mesh (`distributed.global_mesh`), a collective: every rank calls it
+    with the same global inputs, as for `multi_pairing`, and gets the same
+    strict fp12 of batch 1 on its device.
+
+    Rank r takes the r-th contiguous shard of the N pairs and runs
+    `prepare_g2`, `miller_loop`, the identity mask and `_fold_mul` on it:
+    one fp12 per rank. The ranks gather those, every rank multiplies them
+    (`_fold_mul`) and runs one `final_exp` (if `final`) and the egress.
+    `events` truncates the Miller loop to its first events, as in
+    `prepare_g2`. N must be a multiple of the world (pad with identity
+    pairs and masks otherwise): where the JAX package asserts, this raises
+    `ValueError`."""
+    _tower(engine)
+    n = p[0].shape[-1]
+    world, dev = mesh.shape[axis], mesh.device
+    if n % world:
+        raise ValueError(f"{n} pairs do not split over {world} ranks: pad the batch")
+    m = n // world
+    cut = lambda x: x[..., mesh.rank * m : (mesh.rank + 1) * m].to(dev)  # noqa: E731
+    ps, qs = TS.tree_map(cut, p), TS.tree_map(cut, q)
+    skip = _skip_mask(p_inf, q_inf)
+    if skip is not None:
+        skip = cut(skip)
+    coeffs = prepare_g2(qs, fuse, engine, events)
+    f = _masked_miller(ps, coeffs, skip, None, fuse, engine, events)
+    f = _fold_mul(_gather_fp12(mesh, _fold_mul(f, m, engine), engine), world, engine)
+    if final:
+        f = final_exp(f, fuse, engine)
+    return egress(f, engine)
 
 
 # --- prepared G2 reuse ----------------------------------------------------------

@@ -123,6 +123,41 @@ Phases, one JSON line each:
               both checked, and `G1.to_affine` of the 2^12 bases (one batch
               inversion, one Fermat ladder at batch 1 on K7) checked point
               for point against the host's affine values;
+phase distributed, the sharded entries on `torch.distributed`, in lines
+`distributed_*` among the phases above, each path's launches counted from
+0 just before it and read just after:
+     distributed_init  a world of one over NCCL in this process
+              (`distributed.initialize`, `global_mesh`), formed before
+              phase msm so that the instances below are reused;
+     distributed_msm, distributed_msm_g2  `msm_distributed` (backend
+              "pallas": K1, K2 or K2-G2 and its point conversion on the
+              rank) on phase msm's 2^22 G1 instance at c = 7 and phase
+              msm_g2's 2^20 G2 instance at c = 5 before they are freed,
+              checked against the expected point, its warm seconds in
+              turns with the single-device entry's (sharded, single,
+              single, sharded), the gather's bytes and time, and a
+              profiled rerun (device time, busy share);
+     distributed_pairing  `multi_pairing_sharded` over the phase-8
+              instance (8192 pairs, fused, 68 events, the final
+              exponentiation) after phase api: equal to the oracle's
+              product of the checked pairings and, limb for limb, to the
+              unsharded `multi_pairing`, timed in turns with it, with K1
+              and K3-K6 launches, the gather and a profiled rerun;
+     distributed_msm_scan  `msm_sharded` (the scan MSM, K7-K10) at 2^16
+              G1 bases, c = 8, 1024 lanes, `finish="host"`;
+     distributed_msm_auto  `msm_auto` at 2^20 G1 bases on the card: one K2
+              launch (the bucket route), no strict kernel, the point
+              checked; then the world of one is destroyed;
+     distributed_two_ranks  two ranks over gloo on the one card (NCCL
+              refuses two ranks on one device): this script twice more,
+              `--rank R --world 2 --port P --out FILE`, each rank on cuda:0
+              running the sharded G1 MSM at 2^20, c = 7, chunk 2^19 (K1,
+              K2 on its shard), and the sharded pairing over the first 1024
+              pairs of the phase-8 instance with the final exponentiation;
+              both ranks' results equal to each other and to the expected
+              point and the oracle's product; a rank that fails or passes
+              300 s fails the phase (every child killed);
+     distributed  the phase's seconds, part by part;
 then the `kernels` line (time, launches, bound and plain time per kernel;
 K1 gives its G1 MSM launches as `launches`, its G2 MSM launches as
 `launches_msm_g2`, its fused and unfused pairing launches as
@@ -131,7 +166,8 @@ elements as `at_pairing_batch`; K3 and K4 give the fused pairing's
 launches, the unfused one's beside; K11 and K12 the unfused pairing's;
 K7-K10 give as `launches` the sum over the two scan MSM runs, each run's
 count and the strict pairing's beside it, and their Fp times at 2^22, Fr
-and broadcast times beside) and, last, {"ok": true, "device": {...}}. Any failure raises: the
+and broadcast times beside; every kernel phase distributed launches gives
+those launches per path as `launches_distributed`) and, last, {"ok": true, "device": {...}}. Any failure raises: the
 script then exits non-zero and prints no last line. Without CUDA it exits 1.
 
 Bound model (bound_ms): the larger of bytes / 3.35e12 B/s and int32
@@ -222,6 +258,15 @@ NAIVE_LOG_N, NAIVE_SEED = 12, 23
 API_MSM = {"g1": (20, 29), "g2": (16, 31)}
 API_MULTI_N = 1024
 API_ROUNDTRIP = 64
+# phase distributed: the sharded scan MSM and msm_auto instances (log2 bases,
+# seed), the two-rank world's G1 MSM (log2 bases, seed, chunk a rank) and
+# pairs, its timeout, and the gathers timed per measurement
+DIST_SCAN_LOG_N, DIST_SCAN_SEED = 16, 37
+DIST_AUTO_LOG_N, DIST_AUTO_SEED = 20, 41
+TWO_RANK_LOG_N, TWO_RANK_SEED, TWO_RANK_CHUNK = 20, 43, 1 << 19
+TWO_RANK_PAIRS = 1024
+TWO_RANK_TIMEOUT = 300
+GATHER_REPS = 10
 
 
 def emit(obj) -> None:
@@ -1031,14 +1076,13 @@ def phase_k11_k12(torch, dev, real, sass: dict, ptxas: dict) -> tuple:
     return out["fp12_sqr"], out["fp12_mul_by_014"]
 
 
-def pairing_instance():
+def pairing_inputs():
     """8192 (P, Q) pairs of 8 distinct pairs, one identity P and one
-    identity Q; returns (ps, qs, expected) with the oracle's values."""
+    identity Q: (ps, qs, p8, q8)."""
     import random
 
     from ark_blst_tpu_torch.oracle import curve as OC
     from ark_blst_tpu_torch.oracle import field as OF
-    from ark_blst_tpu_torch.oracle import pairing as OP
 
     rng = random.Random(SEED)
     k = PAIRING_DISTINCT
@@ -1047,6 +1091,17 @@ def pairing_instance():
     ps = [p8[i % k] for i in range(PAIRING_N)]
     qs = [q8[(3 * i + 1) % k] for i in range(PAIRING_N)]
     ps[IDENTITY_P_AT], qs[IDENTITY_Q_AT] = None, None
+    return ps, qs, p8, q8
+
+
+def pairing_instance():
+    """The pairs of `pairing_inputs`; returns (ps, qs, expected) with the
+    oracle's values."""
+    from ark_blst_tpu_torch.oracle import field as OF
+    from ark_blst_tpu_torch.oracle import pairing as OP
+
+    ps, qs, p8, q8 = pairing_inputs()
+    k = PAIRING_DISTINCT
     want = [OP.pairing(p8[a], q8[(3 * a + 1) % k]) for a in range(k)]
     expected = [OF.FP12_ONE if i in (IDENTITY_P_AT, IDENTITY_Q_AT) else want[i % k]
                 for i in range(PAIRING_N)]
@@ -1759,6 +1814,323 @@ def phase_msm_naive(torch, dev) -> dict:
     return launches
 
 
+# --- phase distributed: the sharded entries on torch.distributed --------------
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _gather_ms(torch, mesh, like) -> float:
+    """Mean milliseconds of one `mesh.all_gather` of a tensor like the
+    partials a call gathers (a collective: every rank runs it)."""
+    mesh.all_gather(like)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GATHER_REPS):
+        mesh.all_gather(like)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / GATHER_REPS
+
+
+def distributed_init(torch):
+    """Phase distributed, first part: a world of one over NCCL in this
+    process, on the card every other phase uses."""
+    from ark_blst_tpu_torch import distributed as D
+
+    t0 = time.perf_counter()
+    D.initialize(f"localhost:{_free_port()}", 1, 0, device="cuda")
+    mesh = D.global_mesh()
+    torch.cuda.synchronize()
+    check(mesh.backend == "nccl" and mesh.shape == {"data": 1} and mesh.device.type == "cuda",
+          f"world of one: {mesh}")
+    dt = time.perf_counter() - t0
+    emit({"phase": "distributed_init", "collective": str(mesh.backend), "world": mesh.size,
+          "device": str(mesh.device), "seconds": dt})
+    return mesh, dt
+
+
+def _in_turns(torch, sharded, single, first_s: float) -> dict:
+    """After a first timed call of `sharded` (`first_s`), time `single`,
+    `single`, `sharded` (the order sharded, single, single, sharded, so a
+    drift of the host's speed falls on both): each call's seconds and the
+    means."""
+    times = {"sharded": [first_s], "single": []}
+    for name, fn in (("single", single), ("single", single), ("sharded", sharded)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+    mean = {k: sum(v) / len(v) for k, v in times.items()}
+    return {"seconds": mean["sharded"], "single_device_seconds": mean["single"],
+            "over_single_s": mean["sharded"] - mean["single"], "in_turns_s": times}
+
+
+def distributed_msm(torch, dev, mesh, kc, c: int, points, scalars, expected) -> tuple:
+    """`msm_distributed` in the world of one (backend "pallas": K2 or K2-G2
+    on the rank) on the instance of phase msm / msm_g2, checked against its
+    expected point, with its launches, its warm seconds in turns with the
+    single-device entry's (`msm_g1` / `msm_g2`), the gather's bytes and
+    time, and a profiled rerun."""
+    import ark_blst_tpu_torch as T
+    from ark_blst_tpu_torch import distributed as D
+    from ark_blst_tpu_torch.curves import msm_bucket as MB
+    from ark_blst_tpu_torch.curves.group import G1, G2
+
+    names = ("mont_mul", kc.kernel.source[: -len(".cu")], kc.name + "_point_words")
+    run = lambda: D.msm_distributed(points, scalars, curve=G2 if kc.is_g2 else G1,  # noqa: E731
+                                    c=c, mesh=mesh)
+    entry = T.msm_g2 if kc.is_g2 else T.msm_g1
+    kernels = _reset_launches()
+    gathers, nbytes = mesh.gathers, mesh.gather_bytes
+    t0 = time.perf_counter()
+    out = run()  # the sharded path
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: kernels[name].launches for name in names}
+    check(_affine(kc, out) == [expected],
+          f"distributed {kc.name} MSM differs from the expected point")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the path was not launched: {launches}")
+    check(mesh.gathers == gathers + 1, "the world of one did not gather")
+    res = {"backend": "pallas", "collective": str(mesh.backend), "world": mesh.size,
+           "n": scalars.shape[1], "c": c, "ok": True, "launches": launches,
+           "gather_bytes": mesh.gather_bytes - nbytes,
+           **_in_turns(torch, run, lambda: entry(points, scalars, device=dev, c=c), dt)}
+    res["points_per_s"] = scalars.shape[1] / res["seconds"]
+    like = torch.zeros((kc.n_fp * 30, MB._num_windows(c)), dtype=torch.int32, device=dev)
+    res["gather_ms"] = _gather_ms(torch, mesh, like)
+    kernel_name = kc.kernel.source[: -len(".cu")] + "_kernel"
+    _, prof = _stage(torch, run, profiled=True, expect=(kernel_name,))
+    res["profile"] = {k: prof[k] for k in ("wall_ms", "device_ms", "busy_share", "device_ms_from")}
+    return res, launches
+
+
+def distributed_pairing(torch, dev, mesh, ps, qs, expected) -> tuple:
+    """`multi_pairing_sharded` in the world of one over the phase-8 instance,
+    fused, all 68 events and the final exponentiation: equal to the
+    oracle's product of the checked pairings and, limb for limb, to the
+    unsharded `multi_pairing`."""
+    from ark_blst_tpu_torch import bls12 as B
+    from ark_blst_tpu_torch.curves import pairing as PR
+    from ark_blst_tpu_torch.ops import convert as CV
+
+    (p, p_inf), (q, q_inf) = B._g1_batch(ps, dev), B._g2_batch(qs, dev)
+    want = _fp12_product(expected)
+    names = ("mont_mul", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step")
+    run = lambda: PR.multi_pairing_sharded(p, q, mesh, p_inf=p_inf, q_inf=q_inf)  # noqa: E731
+    kernels = _reset_launches()
+    gathers, nbytes = mesh.gathers, mesh.gather_bytes
+    t0 = time.perf_counter()
+    got = run()  # the sharded path
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: kernels[name].launches for name in names}
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the path was not launched: {launches}")
+    check(CV.fp12_from_dev(got) == [want],
+          "sharded multi-pairing differs from the oracle's product")
+    check(mesh.gathers == gathers + 1, "the world of one did not gather")
+    single = PR.multi_pairing(p, q, p_inf=p_inf, q_inf=q_inf)
+    flat = lambda t: [x for a in t for b in a for x in b]  # noqa: E731
+    check(all(torch.equal(a, b) for a, b in zip(flat(got), flat(single))),
+          "sharded multi-pairing differs from multi_pairing")
+    like = torch.zeros((12, 30, 1), dtype=torch.int32, device=dev)
+    res = {"engine": "lazy", "fuse": True, "events": 68, "final": True,
+           "collective": str(mesh.backend), "world": mesh.size, "n": len(ps), "ok": True,
+           "equal_to_oracle_product": True, "equal_to_multi_pairing": True,
+           "launches": launches, "gather_bytes": mesh.gather_bytes - nbytes,
+           **_in_turns(torch, run, lambda: PR.multi_pairing(p, q, p_inf=p_inf, q_inf=q_inf), dt),
+           "gather_ms": _gather_ms(torch, mesh, like)}
+    _, prof = _stage(torch, run, profiled=True)
+    res["profile"] = {k: prof[k] for k in ("wall_ms", "device_ms", "busy_share", "device_ms_from")}
+    return res, launches
+
+
+def distributed_scan_and_auto(torch, dev, mesh) -> tuple:
+    """`msm_sharded` (the scan MSM, K7-K10) in the world of one at 2^16 with
+    the host finish, and `msm_auto` on the card at 2^20, which must take the
+    bucket route (one K2 launch, no strict kernel); both against their
+    instances' expected points."""
+    from ark_blst_tpu_torch.curves import msm as M
+    from ark_blst_tpu_torch.curves.group import G1
+    from ark_blst_tpu_torch.curves.instance import distinct_bases
+
+    points, scalars, expected = distinct_bases(DIST_SCAN_LOG_N, DIST_SCAN_SEED, dev, "g1")
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = M.msm_sharded(points, scalars, mesh, G1, c=SCAN_C, lanes=SCAN["g1"][1],
+                        finish="host")  # the sharded scan path
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    scan_launches = _strict_launches()
+    check(_affine(G1, out) == [expected], "sharded scan MSM differs from the expected point")
+    check(all(scan_launches[k] > 0 for k in ("mont_mul", "add", "sub")),
+          f"a kernel of the path was not launched: {scan_launches}")
+    scan = {"backend": "scan", "collective": str(mesh.backend), "world": mesh.size,
+            "n": scalars.shape[1], "c": SCAN_C, "lanes": SCAN["g1"][1], "finish": "host",
+            "ok": True, "seconds": dt, "launches": scan_launches}
+    del points, scalars
+
+    points, scalars, expected = distinct_bases(DIST_AUTO_LOG_N, DIST_AUTO_SEED, dev, "g1")
+    kernels = _reset_launches()
+    t0 = time.perf_counter()
+    out = M.msm_auto(points, scalars, G1, device=dev)  # the card's route of msm_auto
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    auto_launches = {name: kernels[name].launches
+                     for name in ("mont_mul", "bucket_accumulate", "g1_point_words")}
+    check(_affine(G1, out) == [expected], "msm_auto differs from the expected point")
+    check(auto_launches["bucket_accumulate"] == 1 and not any(_strict_launches().values()),
+          f"msm_auto did not take the bucket route: {auto_launches}")
+    auto = {"route": "bucket", "n": scalars.shape[1], "ok": True, "seconds": dt,
+            "launches": auto_launches}
+    return scan, auto, scan_launches, auto_launches
+
+
+def distributed_two_ranks(torch, pair_want) -> dict:
+    """Two ranks over gloo on the one card: this script twice more, with
+    `--rank`, each on cuda:0 running the kernels on its shard (the G1 MSM
+    at 2^20, c = 7, chunk 2^19; the sharded pairing over the first 1024
+    pairs of the phase-8 instance with the final exponentiation). Both
+    ranks' results must be equal and right; a rank that fails or passes its
+    timeout fails the phase, and every child is killed."""
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_world")
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")  # the rendezvous is on localhost
+    port = _free_port()
+    procs, logs, outs = [], [], []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(2):
+            outs.append(os.path.join(out_dir, f"rank{rank}.json"))
+            if os.path.exists(outs[-1]):
+                os.remove(outs[-1])
+            logs.append(open(os.path.join(out_dir, f"rank{rank}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", str(rank), "--world", "2",
+                 "--port", str(port), "--out", outs[-1]],
+                stdout=logs[-1], stderr=subprocess.STDOUT, env=env))
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs):
+                break
+            if time.perf_counter() - t0 > TWO_RANK_TIMEOUT:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for rank, log in enumerate(logs):
+            log.seek(0)
+            text = log.read()
+            log.close()
+            if procs[rank].returncode != 0:
+                print(f"--- rank {rank} (exit {procs[rank].returncode}) ---\n{text[-6000:]}",
+                      file=sys.stderr, flush=True)
+    wall = time.perf_counter() - t0
+    check(all(p.returncode == 0 for p in procs),
+          f"a rank failed or passed its {TWO_RANK_TIMEOUT} s timeout: "
+          f"{[p.returncode for p in procs]}")
+    ranks = []
+    for out in outs:
+        with open(out) as f:
+            ranks.append(json.load(f))
+    msm_points = [r["msm"].pop("point") for r in ranks]
+    expected = ranks[0]["msm"].pop("expected")
+    ranks[1]["msm"].pop("expected")
+    check(msm_points[0] == msm_points[1] == [expected], "the ranks' MSMs differ or are wrong")
+    fp12 = [_as_tuples(r["pairing"].pop("fp12")) for r in ranks]
+    check(fp12[0] == fp12[1] == (pair_want,), "the ranks' multi-pairings differ or are wrong")
+    return {"world": 2, "collective": "gloo", "device": "cuda:0", "ok": True,
+            "equal_across_ranks": True, "wall_s": wall, "ranks": ranks}
+
+
+def _as_tuples(x):
+    return tuple(_as_tuples(v) for v in x) if isinstance(x, list) else x
+
+
+def rank_main(argv) -> int:
+    """One rank of phase distributed's two-rank world (`--rank R --world W
+    --port P --out FILE`): joins the gloo group on cuda:0, runs the sharded
+    G1 MSM and the sharded pairing on its shard, writes its results."""
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser()
+    for name in ("--rank", "--world", "--port"):
+        ap.add_argument(name, type=int, required=True)
+    ap.add_argument("--out", required=True)
+    a = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from ark_blst_tpu_torch import bls12 as B
+    from ark_blst_tpu_torch import distributed as D
+    from ark_blst_tpu_torch.curves import msm_bucket as MB
+    from ark_blst_tpu_torch.curves import pairing as PR
+    from ark_blst_tpu_torch.curves.instance import distinct_bases
+    from ark_blst_tpu_torch.ops import convert as CV
+
+    t_start = time.perf_counter()
+    D.initialize(f"localhost:{a.port}", a.world, a.rank, device="cuda:0", backend="gloo")
+    mesh = D.global_mesh()
+    dev = mesh.device
+    init_s = time.perf_counter() - t_start
+
+    kc = MB.KC2_G1
+    points, scalars, expected = distinct_bases(TWO_RANK_LOG_N, TWO_RANK_SEED, dev, "g1")
+    kernels = _reset_launches()
+    nbytes = mesh.gather_bytes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = MB.msm_sharded2(points, scalars, mesh, kc, c=C, chunk=TWO_RANK_CHUNK)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    msm = {"n": scalars.shape[1], "c": C, "chunk": TWO_RANK_CHUNK, "seconds": dt,
+           "launches": {name: kernels[name].launches
+                        for name in ("mont_mul", "bucket_accumulate", "g1_point_words")},
+           "gather_bytes": mesh.gather_bytes - nbytes,
+           "gather_ms": _gather_ms(torch, mesh, torch.zeros(
+               (kc.n_fp * 30, MB._num_windows(C)), dtype=torch.int32, device=dev)),
+           "point": _affine(kc, out), "expected": expected}
+    check(all(v > 0 for v in msm["launches"].values()), f"rank {a.rank}: {msm['launches']}")
+    del points, scalars
+    torch.cuda.empty_cache()
+
+    ps, qs, _, _ = pairing_inputs()
+    (p, p_inf) = B._g1_batch(ps[:TWO_RANK_PAIRS], dev)
+    (q, q_inf) = B._g2_batch(qs[:TWO_RANK_PAIRS], dev)
+    kernels = _reset_launches()
+    nbytes = mesh.gather_bytes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = PR.multi_pairing_sharded(p, q, mesh, p_inf=p_inf, q_inf=q_inf)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    pairing = {"n": TWO_RANK_PAIRS, "seconds": dt,
+               "launches": {name: kernels[name].launches for name in
+                            ("mont_mul", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step")},
+               "gather_bytes": mesh.gather_bytes - nbytes,
+               "gather_ms": _gather_ms(torch, mesh,
+                                       torch.zeros((12, 30, 1), dtype=torch.int32, device=dev)),
+               "fp12": CV.fp12_from_dev(got)}
+    check(all(v > 0 for v in pairing["launches"].values()), f"rank {a.rank}: {pairing['launches']}")
+    with open(a.out, "w") as f:
+        json.dump({"rank": a.rank, "collective": str(mesh.backend), "device": str(dev),
+                   "sharing": mesh.sharing, "init_s": init_s, "msm": msm, "pairing": pairing,
+                   "seconds": time.perf_counter() - t_start}, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
 def _kernel_line(name, source, replaces, launches, res, **extra) -> dict:
     return {"name": name, "route": "cuda", "source": "ark_blst_tpu_torch/csrc/" + source,
             "replaces": replaces, "launches": launches, "max_abs_err": res["max_abs_err"],
@@ -1781,6 +2153,8 @@ def main() -> int:
     from ark_blst_tpu_torch.curves import msm_bucket as MB
     from ark_blst_tpu_torch.curves.instance import distinct_bases
 
+    mesh, init_s = distributed_init(torch)  # phase distributed, on the instances below
+    dist_s, dist_launches = {"init": init_s}, {}
     k2s, msm_launches = {}, {}
     # IMADs per bucket add: each kernel inlines its whole addition (the
     # static count also holds the products of its two conversions)
@@ -1799,6 +2173,11 @@ def main() -> int:
         del pts, digs
         torch.cuda.empty_cache()
         msm_launches[kc.name] = phase_msm(torch, dev, msm_phase, kc, c, points, scalars, expected)
+        t0 = time.perf_counter()
+        res, dist_launches[kc.name] = distributed_msm(torch, dev, mesh, kc, c, points, scalars,
+                                                      expected)
+        emit({"phase": "distributed_" + msm_phase, **res})
+        dist_s[msm_phase] = time.perf_counter() - t0
         del points, scalars
         torch.cuda.empty_cache()
 
@@ -1820,8 +2199,23 @@ def main() -> int:
     strict_pairing = phase_pairing_strict(torch, dev, ps, qs, pairs_expected)
     torch.cuda.empty_cache()
     phase_api(torch, dev, ps, qs, pairs_expected, fused)
+    t0 = time.perf_counter()
+    res, dist_launches["pairing"] = distributed_pairing(torch, dev, mesh, ps, qs, pairs_expected)
+    emit({"phase": "distributed_pairing", **res})
+    two_rank_want = _fp12_product(pairs_expected[:TWO_RANK_PAIRS])
     del ps, qs, pairs_expected, fused
     torch.cuda.empty_cache()
+    scan, auto, dist_launches["scan"], dist_launches["auto"] = distributed_scan_and_auto(
+        torch, dev, mesh)
+    emit({"phase": "distributed_msm_scan", **scan})
+    emit({"phase": "distributed_msm_auto", **auto})
+    torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    dist_s["pairing_scan_auto"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    emit({"phase": "distributed_two_ranks", **distributed_two_ranks(torch, two_rank_want)})
+    dist_s["two_ranks"] = time.perf_counter() - t0
+    emit({"phase": "distributed", "ok": True, "seconds": sum(dist_s.values()), "parts_s": dist_s})
     phase_fp_inv_batch(torch, dev)
 
     k7_k10 = phase_k7_k10(torch, dev)
@@ -1840,6 +2234,7 @@ def main() -> int:
                      scan["g1"][op] + scan["g2"][op], k7_k10[op],
                      launches_msm_scan=scan["g1"][op], launches_msm_scan_g2=scan["g2"][op],
                      launches_msm_naive=naive[op],
+                     launches_distributed={"msm_scan": dist_launches["scan"][op]},
                      launches_pairing_strict=strict_pairing[op], fr=k7_k10[op]["fr"],
                      broadcast=k7_k10[op]["broadcast"])
         for op in bodies]
@@ -1850,37 +2245,58 @@ def main() -> int:
                      launches_msm_g2=msm_launches["g2"]["mont_mul"],
                      launches_pairing=launches["mont_mul"],
                      launches_pairing_unfused=unfused["mont_mul"],
+                     launches_distributed={"msm_g1": dist_launches["g1"]["mont_mul"],
+                                           "msm_g2": dist_launches["g2"]["mont_mul"],
+                                           "pairing": dist_launches["pairing"]["mont_mul"],
+                                           "msm_auto": dist_launches["auto"]["mont_mul"]},
                      at_pairing_batch=k1["at_pairing_batch"]),
         _kernel_line("bucket_accumulate", "bucket_accumulate.cu",
                      "ark_blst_tpu/curves/msm_pallas2.py:359 (KC2_G1)",
                      msm_launches["g1"]["bucket_accumulate"], k2s["g1"],
+                     launches_distributed={
+                         "msm_g1": dist_launches["g1"]["bucket_accumulate"],
+                         "msm_auto": dist_launches["auto"]["bucket_accumulate"]},
                      wrapper_ms=k2s["g1"]["wrapper_ms"],
                      bound_radix13_ms=k2s["g1"]["bound_radix13_ms"]),
         _kernel_line("g1_point_words", "bucket_accumulate.cu",
                      "ark_blst_tpu/curves/msm_pallas2.py:359 (KC2_G1; K2's point input)",
-                     msm_launches["g1"]["g1_point_words"], k2s["g1_words"]),
+                     msm_launches["g1"]["g1_point_words"], k2s["g1_words"],
+                     launches_distributed={
+                         "msm_g1": dist_launches["g1"]["g1_point_words"],
+                         "msm_auto": dist_launches["auto"]["g1_point_words"]}),
         _kernel_line("bucket_accumulate_g2", "bucket_accumulate_g2.cu",
                      "ark_blst_tpu/curves/msm_pallas2.py:359 (KC2_G2)",
                      msm_launches["g2"]["bucket_accumulate_g2"], k2s["g2"],
+                     launches_distributed={
+                         "msm_g2": dist_launches["g2"]["bucket_accumulate_g2"]},
                      wrapper_ms=k2s["g2"]["wrapper_ms"],
                      bound_radix13_ms=k2s["g2"]["bound_radix13_ms"]),
         _kernel_line("g2_point_words", "bucket_accumulate_g2.cu",
                      "ark_blst_tpu/curves/msm_pallas2.py:359 (KC2_G2; K2-G2's point input)",
-                     msm_launches["g2"]["g2_point_words"], k2s["g2_words"]),
+                     msm_launches["g2"]["g2_point_words"], k2s["g2_words"],
+                     launches_distributed={"msm_g2": dist_launches["g2"]["g2_point_words"]}),
         _kernel_line("cyc_sqr", "cyc_sqr.cu", "ark_blst_tpu/ops/pallas_lazy.py:149",
-                     launches["cyc_sqr"], k3, launches_pairing_unfused=unfused["cyc_sqr"],
+                     launches["cyc_sqr"], k3,
+                     launches_distributed={"pairing": dist_launches["pairing"]["cyc_sqr"]},
+                     launches_pairing_unfused=unfused["cyc_sqr"],
                      bound_radix13_ms=k3["bound_radix13_ms"]),
         _kernel_line("fp12_mul", "fp12_mul.cu",
                      "ark_blst_tpu/ops/pallas_lazy.py:63 (ops/tower_lazy.py:567 mul12)",
-                     launches["fp12_mul"], k4, launches_pairing_unfused=unfused["fp12_mul"],
+                     launches["fp12_mul"], k4,
+                     launches_distributed={"pairing": dist_launches["pairing"]["fp12_mul"]},
+                     launches_pairing_unfused=unfused["fp12_mul"],
                      bound_radix13_ms=k4["bound_radix13_ms"]),
         _kernel_line("prepare_step", "prepare_step.cu", "ark_blst_tpu/ops/pallas_lazy.py:63",
-                     launches["prepare_step"], k5, bound_radix13_ms=k5["bound_radix13_ms"],
+                     launches["prepare_step"], k5,
+                     launches_distributed={"pairing": dist_launches["pairing"]["prepare_step"]},
+                     bound_radix13_ms=k5["bound_radix13_ms"],
                      addition_ms=k5["addition"]["ms"],
                      addition_bound_ms=k5["addition"]["bound_ms"],
                      addition_bound_radix13_ms=k5["addition"]["bound_radix13_ms"]),
         _kernel_line("miller_step", "miller_step.cu", "ark_blst_tpu/ops/pallas_lazy.py:63",
-                     launches["miller_step"], k6, bound_radix13_ms=k6["bound_radix13_ms"]),
+                     launches["miller_step"], k6,
+                     launches_distributed={"pairing": dist_launches["pairing"]["miller_step"]},
+                     bound_radix13_ms=k6["bound_radix13_ms"]),
         *strict_lines,
         _kernel_line("fp12_sqr", "fp12_sqr.cu",
                      "ark_blst_tpu/ops/pallas_lazy.py:63 (ops/tower_lazy.py:570 sqr12)",
@@ -1896,4 +2312,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[1:]) if len(sys.argv) > 1 else main())

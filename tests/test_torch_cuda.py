@@ -1,7 +1,9 @@
 """The CUDA kernels on the card against their plain PyTorch versions, and the
 G1 and G2 MSMs, the strict engine's scan MSM and the batched pairing (fused,
 unfused and strict) on the card against the host oracle; the arkworks API's
-device routes against the checked-in vectors and its host route.
+device routes against the checked-in vectors and its host route; the
+sharded MSMs and multi-pairing in a world of one over NCCL (`-k
+distributed`).
 Needs an NVIDIA Hopper card and
 nvcc; skipped without a card. Imports no JAX, so it runs on a machine
 without it:
@@ -22,6 +24,7 @@ from ark_blst_tpu_torch import G1, G2
 from ark_blst_tpu_torch import bls12 as B
 from ark_blst_tpu_torch.curves import msm as M
 from ark_blst_tpu_torch.curves import msm_bucket as MB
+from ark_blst_tpu_torch.curves import pairing as PR
 from ark_blst_tpu_torch.curves import pairing_steps as PS
 from ark_blst_tpu_torch.curves.instance import distinct_bases
 from ark_blst_tpu_torch.ops import cyc_sqr as K3
@@ -396,3 +399,67 @@ def test_api_g2_msm_on_card_matches_host_route(dev):
     got = T.G2Projective.msm(bases, scalars, device=dev)
     assert MB.KC2_G2.kernel.launches > before
     assert got == T.G2Projective.msm(bases, scalars, backend="host")
+
+
+# --- multi-device: a world of one over NCCL -------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A world of one over NCCL on the card, formed once for the module's
+    distributed tests and torn down after them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA is not available)")
+    import socket
+
+    from ark_blst_tpu_torch import distributed as D
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    D.initialize(f"localhost:{port}", 1, 0, device="cuda")
+    yield D.global_mesh()
+    torch.distributed.destroy_process_group()
+
+
+def test_distributed_msm_world_of_one(dev, nccl_mesh):
+    """`msm_distributed` (the bucket kernels, K2) at 2^16 over NCCL equals
+    the instance's expected point and the unsharded `msm_g1`; the scan
+    backend with the host finish at 2^10 equals the oracle."""
+    from ark_blst_tpu_torch import distributed as D
+
+    assert nccl_mesh.backend == "nccl" and nccl_mesh.shape == {"data": 1}
+    points, scalars, expected = distinct_bases(16, 4, dev, "g1")
+    before, gathers = MB.KERNEL.launches, nccl_mesh.gathers
+    out = D.msm_distributed(points, scalars, mesh=nccl_mesh)
+    torch.cuda.synchronize()
+    assert MB.KERNEL.launches == before + 1 and nccl_mesh.gathers == gathers + 1
+    assert out[0].is_cuda and CV.g1_from_dev(out) == [expected]
+    assert CV.g1_from_dev(T.msm_g1(points, scalars, device=dev)) == [expected]
+    points, scalars, expected = distinct_bases(10, 5, dev, "g1")
+    before = SF.KERNELS["mont_mul"].launches
+    out = D.msm_distributed(points, scalars, c=4, mesh=nccl_mesh, backend="scan", finish="host")
+    assert SF.KERNELS["mont_mul"].launches > before
+    assert CV.g1_from_dev(out) == [expected]
+
+
+def test_distributed_pairing_world_of_one(dev, nccl_mesh):
+    """`multi_pairing_sharded` over 64 pairs (one identity on each side) over
+    NCCL, fused with the final exponentiation, equals the unsharded
+    `multi_pairing` limb for limb and the oracle's product."""
+    rng = random.Random(19)
+    ps = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    qs = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    pb = [ps[i % 4] for i in range(64)]
+    qb = [qs[(3 * i + 1) % 4] for i in range(64)]
+    pb[5], qb[6] = None, None
+    (p, p_inf), (q, q_inf) = B._g1_batch(pb, dev), B._g2_batch(qb, dev)
+    kernels = (K3.KERNEL, K4.KERNEL, PS.PREPARE_KERNEL, PS.MILLER_KERNEL)
+    before = [k.launches for k in kernels]
+    got = PR.multi_pairing_sharded(p, q, nccl_mesh, p_inf=p_inf, q_inf=q_inf)
+    torch.cuda.synchronize()
+    assert all(k.launches > b for k, b in zip(kernels, before))
+    flat = lambda t: [x for a in t for b in a for x in b]  # noqa: E731
+    want = PR.multi_pairing(p, q, p_inf=p_inf, q_inf=q_inf)
+    assert all(torch.equal(a, b) for a, b in zip(flat(got), flat(want)))
+    pairs = [(a, b) for a, b in zip(pb, qb)]
+    assert CV.fp12_from_dev(got) == [OP.final_exp(OP.multi_miller_loop(pairs))]

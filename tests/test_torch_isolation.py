@@ -35,7 +35,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         assert "ark_blst_tpu_torch.curves.pairing" in names, names
         for mod in ("ops.strict_field", "ops.dispatch", "ops.tower", "curves.group",
                     "curves.msm", "ops.fp12_sqr", "ops.fp12_mul_by_014",
-                    "curves.pairing_steps", "fields", "groups", "oracle.serialize"):
+                    "curves.pairing_steps", "fields", "groups", "oracle.serialize",
+                    "config", "distributed"):
             assert "ark_blst_tpu_torch." + mod in names, names
     """)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -52,13 +53,17 @@ def test_port_imports_no_jax_and_no_jax_package():
                                    "Bls12.prepare_g2_batch", "Bls12.multi_miller_loop",
                                    "Bls12.pairing", "Bls12.multi_pairing",
                                    "Bls12.pairing_batch[unfused]",
-                                   "Bls12.prepare_g2_batch[unfused]", "G1Projective.msm[empty]"])
+                                   "Bls12.prepare_g2_batch[unfused]", "G1Projective.msm[empty]",
+                                   "distributed.initialize", "curves.msm.msm_auto",
+                                   "curves.msm.msm_auto[g2]"])
 def test_cuda_without_a_card_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present; this checks the behaviour without one")
     import ark_blst_tpu_torch as T
     from ark_blst_tpu_torch import bls12 as B
+    from ark_blst_tpu_torch import distributed as D
     from ark_blst_tpu_torch.curves import msm as M
+    from ark_blst_tpu_torch.curves.group import G2 as CG2
     from ark_blst_tpu_torch.ops import convert as CV
     from ark_blst_tpu_torch.oracle.field import G1_GEN, G2_GEN
 
@@ -90,6 +95,25 @@ def test_cuda_without_a_card_raises(entry):
         "Bls12.multi_pairing": lambda: T.Bls12.multi_pairing([g1], [g2]),
         "Bls12.pairing_batch[unfused]": lambda: T.Bls12.pairing_batch([g1], [g2], fuse=False),
         "Bls12.prepare_g2_batch[unfused]": lambda: T.Bls12.prepare_g2_batch([g2], fuse=False),
+        "distributed.initialize": lambda: D.initialize("localhost:1", 1, 0),
+        "curves.msm.msm_auto": lambda: M.msm_auto(CV.g1_to_dev([G1_GEN]), CV.fr_to_dev([3])),
+        "curves.msm.msm_auto[g2]": lambda: M.msm_auto(CV.g2_to_dev([G2_GEN]), CV.fr_to_dev([3]),
+                                                      CG2),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
+
+
+def test_msm_distributed_without_a_card_raises():
+    """A mesh on the card comes only from `initialize(device="cuda")`, which
+    raises without one (above); with no process group `msm_distributed`
+    raises instead of forming one on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; this checks the behaviour without one")
+    from ark_blst_tpu_torch import distributed as D
+    from ark_blst_tpu_torch.ops import convert as CV
+    from ark_blst_tpu_torch.oracle.field import G1_GEN
+
+    with pytest.raises(RuntimeError, match="initialize"):
+        D.msm_distributed(CV.g1_to_dev([G1_GEN]), CV.fr_to_dev([3]))
+    assert not torch.distributed.is_initialized()
