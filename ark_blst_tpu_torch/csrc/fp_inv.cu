@@ -1,0 +1,111 @@
+// K1-inv and K1-scan: the lazy engine's inversion chains on Hopper
+// (sm_90a), each chain in one launch.
+//
+// Replace, on the TPU, the lax.scans of ark_blst_tpu/ops/pallas_lazy.py:41
+// mont_mul_stacked (K1) that run inside one compiled program:
+//   K1-inv   the Fermat ladder x^(p-2): ops/tower_lazy.py:264 fp_inv
+//            (fuse=True) and curves/msm_pallas2.py:394 _fermat_inv;
+//   K1-scan  the up and down scans of one level of the blocked batch
+//            inversion, curves/msm_pallas2.py:434 _batch_inverse.
+// The port had turned every step of each scan into a K1 launch (608 for a
+// ladder, 3 g for a level of g rows); here a chain is one launch.
+// Input and output are the lazy engine's (30, n) int32 digit stacks; the
+// outputs equal the plain versions (ops/fp_inv.py) by canonical value, their
+// digits canonical and within 4096.
+//
+// What bounds them: operations. K1-inv makes 608 dependent 12-word CIOS
+// products per element (~912 instructions each) against 240 bytes of
+// traffic; K1-scan 3 products and 3 digit conversions per element against
+// ~2 x 120 bytes. At the widths the paths give the ladder (n <= 8192:
+// the pairing's batch, the MSM's root at 1,024 or 256, 1 for a
+// multi-pairing) the card holds at most a block an SM, so the ladder is
+// bound by the latency of its dependent products, not by the instruction
+// rate; the later lever is a team of threads an element, as K3-K6 do.
+//
+// Design (fp_inv.cuh): one thread an element (K1-inv) or a column (K1-scan)
+// in 128-thread blocks, no shared memory; the chain's value stays in
+// registers as 12 words, converted from digits once at the start and back
+// once at the end (the scan: each element's digits once a pass). The scan
+// reads the stack in place as g rows x m columns, neighbouring threads on
+// neighbouring columns, so every load and store is coalesced; the up pass's
+// prefix products stay in words in a scratch buffer for the down pass.
+#include "fp_inv.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+
+__global__ void __launch_bounds__(kThreads) fp_inv_kernel(const int* __restrict__ x,
+                                                          int* __restrict__ out, long long n) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n) finv::inv_elem(x + i, out + i, n);
+}
+
+__global__ void __launch_bounds__(kThreads) scan_up_kernel(const int* __restrict__ z,
+                                                           f381::u32* __restrict__ pre,
+                                                           int* __restrict__ total, int g,
+                                                           long long m) {
+  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j < m) finv::scan_up_col(z, pre, total, g, m, j);
+}
+
+__global__ void __launch_bounds__(kThreads) scan_down_kernel(const int* __restrict__ z,
+                                                             const f381::u32* __restrict__ pre,
+                                                             const int* __restrict__ inv_total,
+                                                             int* __restrict__ inv, int g,
+                                                             long long m) {
+  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j < m) finv::scan_down_col(z, pre, inv_total, inv, g, m, j);
+}
+
+unsigned blocks_for(long long threads) {
+  return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+}
+
+template <typename Kernel>
+int shape_of(Kernel kernel, int* threads, int* blocks_per_sm) {
+  *threads = kThreads;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads, 0));
+}
+
+}  // namespace
+
+// x, out: (30, n) int32, contiguous, on the device of `stream`.
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int lz_fp_inv(const int* x, int* out, long long n, void* stream) {
+  if (n <= 0) return 0;
+  fp_inv_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(x, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// z: (30, g m) int32; pre: (12, g m) int32 scratch; total: (30, m) int32.
+extern "C" int lz_scan_up(const int* z, int* pre, int* total, int g, long long m, void* stream) {
+  if (m <= 0 || g <= 0) return 0;
+  scan_up_kernel<<<blocks_for(m), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      z, reinterpret_cast<f381::u32*>(pre), total, g, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// z, inv: (30, g m) int32; pre: (12, g m) from lz_scan_up; inv_total: (30, m).
+extern "C" int lz_scan_down(const int* z, const int* pre, const int* inv_total, int* inv, int g,
+                            long long m, void* stream) {
+  if (m <= 0 || g <= 0) return 0;
+  scan_down_kernel<<<blocks_for(m), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      z, reinterpret_cast<const f381::u32*>(pre), inv_total, inv, g, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Each kernel's block size and the blocks an SM holds (the occupancy API at
+// the compiled registers). Return the CUDA error of the query (0 on success).
+extern "C" int lz_fp_inv_shape(int* threads, int* blocks_per_sm) {
+  return shape_of(fp_inv_kernel, threads, blocks_per_sm);
+}
+
+extern "C" int lz_scan_up_shape(int* threads, int* blocks_per_sm) {
+  return shape_of(scan_up_kernel, threads, blocks_per_sm);
+}
+
+extern "C" int lz_scan_down_shape(int* threads, int* blocks_per_sm) {
+  return shape_of(scan_down_kernel, threads, blocks_per_sm);
+}

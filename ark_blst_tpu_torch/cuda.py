@@ -133,21 +133,13 @@ def build_all(kernels) -> list:
     return owners
 
 
-def stacked_operands(name: str, tensors, rows) -> bool:
-    """Check the operands of a tower kernel: each a `(rows[i], 30, N)` int32
-    stack, N the same for all, all on one device. Returns True for CPU
-    tensors (the caller runs the plain version) and False for contiguous
-    CUDA tensors (the caller launches the kernel); raises for anything
-    else, so nothing falls back. The digits are not checked: the kernels
-    take |digit| <= 8191 (mul-ready or canonical), which every value of the
-    lazy tower satisfies (csrc/tower381.cuh)."""
-    n = tensors[0].shape[-1]
-    for t, r in zip(tensors, rows):
-        if t.dim() != 3 or tuple(t.shape) != (r, 30, n):
-            raise ValueError(f"{name} wants {[(r, 30, 'N') for r in rows]} stacks, "
-                             f"got {[tuple(x.shape) for x in tensors]}")
-        if t.dtype != torch.int32:
-            raise ValueError(f"{name} wants int32 digits")
+def cpu_operands(name: str, tensors) -> bool:
+    """Check a kernel's int32 operands: all on one device. Returns True for
+    CPU tensors (the caller runs the plain version) and False for
+    contiguous CUDA tensors (the caller launches the kernel); raises for
+    anything else, so nothing falls back."""
+    if any(t.dtype != torch.int32 for t in tensors):
+        raise ValueError(f"{name} wants int32 digits")
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
         raise ValueError(f"{name} operands on {[str(t.device) for t in tensors]}")
@@ -158,3 +150,18 @@ def stacked_operands(name: str, tensors, rows) -> bool:
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} wants contiguous operands")
     return False
+
+
+def stacked_operands(name: str, tensors, rows) -> bool:
+    """Check the operands of a tower kernel: each a `(rows[i], 30, N)` int32
+    stack, N the same for all, all on one device (`cpu_operands`: True for
+    CPU tensors, False for contiguous CUDA tensors, raises otherwise). The
+    digits are not checked: the kernels take |digit| <= 8191 (mul-ready or
+    canonical), which every value of the lazy tower satisfies
+    (csrc/tower381.cuh)."""
+    n = tensors[0].shape[-1]
+    for t, r in zip(tensors, rows):
+        if t.dim() != 3 or tuple(t.shape) != (r, 30, n):
+            raise ValueError(f"{name} wants {[(r, 30, 'N') for r in rows]} stacks, "
+                             f"got {[tuple(x.shape) for x in tensors]}")
+    return cpu_operands(name, tensors)

@@ -8,8 +8,10 @@ points:
 
 1. `_prepare_inputs`: strict Montgomery-R16 projective limbs -> packed
    affine points `(aff_rows, n)` and signed window digits `(W, n)`. The
-   affine conversion is a blocked batch inversion whose products run
-   through K1 (`ops/mont_mul.py`); G2 inverts the norm z0^2 + z1^2 in Fp.
+   affine conversion is a blocked batch inversion (`ops/fp_inv.py`: K1-scan
+   for each level's two passes, K1-inv for the ladder at its root), the
+   other products run through K1 (`ops/mont_mul.py`); G2 inverts the norm
+   z0^2 + z1^2 in Fp.
    The R16 factors cancel in x/z and y/z, so the affine coordinates land
    in the lazy R13 domain with no conversion multiply. Identity points
    (z = 0) get digit 0, i.e. the dropped bucket 0.
@@ -52,6 +54,7 @@ from ..oracle import curve as OC
 from ..oracle.field import P
 from ..ops import convert as CV
 from ..ops import fieldops as FO
+from ..ops import fp_inv as FI
 from ..ops import lazy13 as LZ
 from ..ops import mont_mul as MM
 from ..ops.limbs import FP
@@ -69,9 +72,6 @@ MAG_MASK = (1 << SIGN_BIT) - 1
 
 R16_MOD_P = (1 << (16 * FP.num_limbs)) % P
 R16_DIGITS = [int(v) for v in LZ.int_to_digits(R16_MOD_P)]
-
-# MSB-first bits of p - 2 for the Fermat ladder at the batch-inversion root
-_P_MINUS_2_BITS = [int(b) for b in bin(P - 2)[2:]]
 
 
 def int_to_digits_balanced(x: int) -> np.ndarray:
@@ -351,40 +351,6 @@ def _mul(a, b):
     return MM.mont_mul(a.contiguous(), b.contiguous())
 
 
-def _fermat_inv(z):
-    """Elementwise z^(p-2) (Montgomery) by square-and-multiply over the 381
-    exponent bits: the root of the blocked batch inversion."""
-    r = z
-    for bit in _P_MINUS_2_BITS[1:]:
-        r = _mul(r, r)
-        if bit:
-            r = _mul(r, z)
-    return r
-
-
-def _batch_inverse(z):
-    """Blocked Montgomery batch inversion of a lazy Fp vector (30, n): ~3
-    products per element in g sequential groups, a Fermat ladder at the
-    recursion root. Caller substitutes nonzero values for zero entries."""
-    n = z.shape[1]
-    g = next((cand for cand in (64, 32, 16, 8, 4, 2) if n % cand == 0), None)
-    if n <= 2048 or g is None:
-        return _fermat_inv(z)
-    m = n // g
-    rows = z.reshape(LZ.ELEM, g, m).transpose(0, 1).contiguous()  # (g, 30, m)
-    carry = FP_LAZY.one(rows[0])
-    pre = torch.empty_like(rows)
-    for k in range(g):  # exclusive prefix products
-        pre[k] = carry
-        carry = _mul(carry, rows[k])
-    t = _batch_inverse(carry)
-    invs = torch.empty_like(rows)
-    for k in reversed(range(g)):
-        invs[k] = _mul(t, pre[k])
-        t = _mul(t, rows[k])
-    return invs.transpose(0, 1).reshape(LZ.ELEM, n)
-
-
 def _spliced_f(arr):
     """Strict (24, n) coord -> mul-ready digits of the RAW value v*R16 (one
     balanced fold of the canonical splice; value < 2^384, so the 30-digit
@@ -413,14 +379,14 @@ def _prepare_inputs(kc: KernelCurve2, points, scalars, c: int):
         ident = FO.is_zero(z[0]) & FO.is_zero(z[1])
         zl = (_spliced_f(z[0]), _spliced_f(z[1]))
         norm = LZ.fold_sum(LZ.add(_mul(zl[0], zl[0]), _mul(zl[1], zl[1])))
-        inv_norm = _batch_inverse(LZ.select(ident, FP_LAZY.one(norm), norm))
+        inv_norm = FI.batch_inverse(LZ.select(ident, FP_LAZY.one(norm), norm))
         inv_z = (_mul(zl[0], inv_norm), LZ.neg(_mul(zl[1], inv_norm)))
         aff = [_fp2_mul((_spliced_f(coord[0]), _spliced_f(coord[1])), inv_z)
                for coord in (x, y)]
     else:
         ident = FO.is_zero(z)
         zl = _spliced_f(z)
-        inv_z = _batch_inverse(LZ.select(ident, FP_LAZY.one(zl), zl))
+        inv_z = FI.batch_inverse(LZ.select(ident, FP_LAZY.one(zl), zl))
         aff = [_mul(_spliced_f(coord), inv_z) for coord in (x, y)]
     pts = kc.point_to_rows(aff).contiguous()
     digits = M.window_digits_signed(scalars, c)

@@ -19,7 +19,8 @@ scales fold their outputs, so any two outputs multiply with no bound
 bookkeeping.
 
 Where the work goes: every Montgomery product is `_mul`, the K1 wrapper
-(`ops/mont_mul.py`), which runs its plain version on CPU tensors. The tower
+(`ops/mont_mul.py`), which runs its plain version on CPU tensors; the
+Fermat ladder of `fp_inv` is one K1-inv launch (`ops/fp_inv.py`). The tower
 kernels K3-K6, K11 (`fp12_sqr`) and K12 (`fp12_mul_by_014_many` of one
 item) take stacked operands and are called by the pairing
 (`curves/pairing.py`, `curves/pairing_steps.py`); their plain versions are
@@ -31,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from ..oracle import field as OF
+from . import fp_inv as FI
 from . import lazy13 as LZ
 from . import mont_mul as MM
 from .limbs import FP
@@ -41,9 +43,6 @@ R16_MOD_P = (1 << (16 * FP.num_limbs)) % _P
 R16_TO_R13 = LZ.R13_MOD_P * LZ.R13_MOD_P % _P * pow(R16_MOD_P, -1, _P) % _P
 _R16_TO_R13_DIGITS = [int(v) for v in LZ.int_to_digits(R16_TO_R13)]
 _R16_DIGITS = [int(v) for v in LZ.int_to_digits(R16_MOD_P)]
-
-# MSB-first bits of p - 2 for the Fermat inversion ladder
-_P_MINUS_2_BITS = [int(b) for b in bin(_P - 2)[2:]]
 
 
 # --- stacked-digit primitives -------------------------------------------------
@@ -184,15 +183,11 @@ def fp_mul(a, b):
 
 
 def fp_inv(a):
-    """Fermat inversion a^(p-2) (Montgomery) by the unrolled
-    square-and-multiply ladder: ~380 squarings and ~190 products, each one
-    K1 launch over the whole batch."""
-    r = a
-    for bit in _P_MINUS_2_BITS[1:]:
-        r = _mul(r, r)
-        if bit:
-            r = _mul(r, a)
-    return r
+    """Fermat inversion a^(p-2) (Montgomery): the ladder of 380 squarings
+    and 228 products as one K1-inv launch over the whole batch
+    (`ops/fp_inv.py`; on CPU tensors its plain version, the unrolled
+    ladder)."""
+    return FI.fp_inv(a.contiguous())
 
 
 def fp_inv_batch(a):
@@ -200,7 +195,7 @@ def fp_inv_batch(a):
     product tree over the flat batch: pairwise products of the halves up to
     one root, one Fermat ladder (`fp_inv`) on the width-1 root, then the
     sibling products back down. ~3 full-batch products plus a width-1
-    ladder, against the ~570 full-batch products of `fp_inv`. Each level is
+    ladder, against the 608 full-batch products of `fp_inv`. Each level is
     one K1 launch at its own width (the TPU's 1024-multiple reshape of the
     JAX `_mul_flat` is a tile of that chip and is not kept).
 

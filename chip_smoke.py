@@ -6,12 +6,25 @@ card: the quickest proof that the port builds and runs its main path there.
 
 Phases, one JSON line each:
   1. env      the card's name and power limit; builds the kernels from
-              their ten sources (one nvcc per source, all in parallel) and
-              reports build seconds, registers, spills and static SASS
+              their eleven sources (one nvcc per source, all in parallel)
+              and reports build seconds, registers, spills and static SASS
               counts;
   2. k1       K1 (mont_mul) against its plain PyTorch version at 2^22
               elements, bit for bit, random and extreme digit patterns,
               and again timed at the pairing's batch (8192 elements);
+     k1_chains  the lazy engine's inversion chains (`ops/fp_inv.py`, one
+              launch a chain, 32-bit words inside) against their plain
+              versions by canonical value, their digits within 4096, and
+              against the oracle's inverses on a sample: K1-inv (the Fermat
+              ladder) at 8192 (the pairing batch), 1,024 (the G1 MSM's
+              root), 256 (the G2 MSM's) and 1 (a multi-pairing) with X =
+              0, 1, p-1 and R mod p in the first lanes; K1-scan's up and
+              down passes at the G1 MSM's two levels (64 rows of 65,536
+              and of 1,024 columns) and the G2 MSM's (64 rows of 16,384
+              and of 256);
+              the whole `batch_inverse` at 2^22; each timed beside its
+              plain version and its bound, with registers, stack, spills
+              and launch shape;
   3. k2       K2 (G1 bucket accumulation) at the main path's inputs (2^22
               points, c=7, W=37): its first kernel, the points' conversion
               to R16 words (`point_words`), against its plain version bit
@@ -25,7 +38,9 @@ Phases, one JSON line each:
               by `curves/instance.py`, with an identity point and a zero
               scalar in the stream) through the public entry point
               `msm_g1`, checked against the expected point, with the launch
-              counts of that run and its points/s; then the four stages
+              counts of that run (checked for the K1 family: 2 K1 products,
+              one K1-inv ladder, two levels of K1-scan, 2 + 2 passes) and
+              its points/s; then the four stages
               rerun one by one with a synchronize between them, once for
               the stage times and once under `torch.profiler` for each
               stage's device time, kernel launches and device busy share;
@@ -36,7 +51,8 @@ Phases, one JSON line each:
               `curves/instance.py`, seed 11, with an identity point and a
               zero scalar) through the public entry point `msm_g2`,
               checked against the expected point, with the launch counts
-              of that run, its peak memory and its points/s, then the
+              of that run (K1 10, K1-inv 1, K1-scan 2 + 2), its peak memory
+              and its points/s, then the
               stages rerun and profiled as in phase 4;
   7. k3-k6    the pairing's tower kernels against their plain versions at
               the pairing batch (N = 8192): random mul-ready digits with
@@ -58,7 +74,8 @@ Phases, one JSON line each:
               bench.py) with one identity P and one identity Q, through the
               public entry `bls12.pairing_batch`: every result checked
               against the oracle pairing (the identity pairs against one),
-              the launches of K1 and K3-K6 in that call, pairings/s of a
+              the launches of K1, K1-inv and K3-K6 in that call (K1 36 and
+              K1-inv once checked), pairings/s of a
               warm call, the stages (ingest, prepare_g2, miller_loop,
               final_exp, egress) rerun with a synchronize between them and
               once more under `torch.profiler`, the peak device memory;
@@ -69,7 +86,7 @@ Phases, one JSON line each:
               fuse=False)`: every result checked against the oracle and the
               fused results (the two paths' digits differ on the card, K11
               and K12 on 32-bit words, their values agree), K11 launched
-              63 and K12 68 times, K5/K6 never,
+              63 and K12 68 times, K1 658 and K1-inv once, K5/K6 never,
               with pairings/s, stages and their launches, a profiled
               rerun, peak memory and the prepared path with fuse=False;
      pairing_strict  the same instance through the tensor entry
@@ -97,8 +114,9 @@ Phases, one JSON line each:
               `msm_g1` vector of `tests/vectors/bls12_381.json` through
               the device routes; a validated compressed round trip of the
               MSM results and 64 bases a curve;
-     fp_inv_batch  `tower_lazy.fp_inv_batch` against `fp_inv` at 8192
-              elements, both checked against the oracle's inverses, timed;
+     fp_inv_batch  `tower_lazy.fp_inv_batch` against `fp_inv` (one K1-inv
+              launch) at 8192 elements, both checked against the oracle's
+              inverses, timed;
   9. k7_k10   the strict engine's kernels K7-K10 (mont_mul, add, sub, neg)
               against their plain versions, bit for bit, at Fp (2^22
               elements) and Fr (2^20): seeded random canonical values with
@@ -162,7 +180,11 @@ then the `kernels` line (time, launches, bound and plain time per kernel;
 K1 gives its G1 MSM launches as `launches`, its G2 MSM launches as
 `launches_msm_g2`, its fused and unfused pairing launches as
 `launches_pairing` and `launches_pairing_unfused` and its times at 8192
-elements as `at_pairing_batch`; K3 and K4 give the fused pairing's
+elements as `at_pairing_batch`; K1-inv (`fp_inv`) and K1-scan
+(`batch_inverse_scan`, its up and down passes together) the same
+launches, K1-inv its times at 8192 elements and the other widths beside,
+K1-scan one level of the G1 MSM (64 x 65,536) and the other three levels
+and the whole `batch_inverse` at 2^22 beside; K3 and K4 give the fused pairing's
 launches, the unfused one's beside; K11 and K12 the unfused pairing's;
 K7-K10 give as `launches` the sum over the two scan MSM runs, each run's
 count and the strict pairing's beside it, and their Fp times at 2^22, Fr
@@ -213,7 +235,18 @@ words (DIGITS_TO_WORDS_OPS) and of each output one back
 (`bound_radix13_ms`), and their IMAD floor counts the launch's products
 (conversions included) at the IMAD instructions of one product of their
 own library: its static IMAD count (moves left out) over the CIOS bodies
-it compiles (its wide multiply-adds over the 288 of one product). The
+it compiles (its wide multiply-adds over the 288 of one product). K1-inv
+counts per element the CIOS products of the shortest sliding-window chain
+for p - 2 (`window_chain_products`: 460 at width 5, 377 squarings and 83
+products with the table, where the kernel's binary ladder runs 608), one
+conversion in and one out, and its digits read and written once; K1-scan
+per level of n = g m elements the work the function needs, whatever the
+passes: each element converted in once and its inverse out once, three
+products for each element past the first row (the prefix, the inverse,
+the running inverse), each column's product out and its inverse in
+(the kernel converts z in once in each pass), and the stack and the
+inverses read and written once, the column products once each way (the
+prefix words are the kernel's own scratch, left out). The
 strict kernels K7-K10 count bytes as 4 L per operand and result element
 (int32 limbs), and instructions by `strict_ops`: three per 32 x 32-bit
 word product, two per word of a carry chain, three per word of the
@@ -390,6 +423,40 @@ PREPARE_PRODUCTS = {False: 25, True: 37}
 PREPARE_INPUTS = {False: 6, True: 10}  # Fp components: R, and Q for the addition
 MILLER_PRODUCTS = {True: 85, False: 49}
 ELEM_BYTES = 30 * 4  # one Fp element of digits
+# phase k1_chains: K1-inv at the pairing batch, the G1 MSM's root, the G2
+# MSM's root and a multi-pairing's width; K1-scan at the G1 MSM's two levels
+# at 2^22 and the G2 MSM's two at 2^20 (rows, columns)
+K1_INV_WIDTHS = (PAIRING_N, 1024, 256, 1)
+K1_SCAN_LEVELS = ((64, 1 << 16), (64, 1 << 10), (64, 1 << 14), (64, 1 << 8))
+
+
+def window_chain_products(bits) -> int:
+    """Products, squarings included, of the shortest sliding-window chain
+    over widths 1-8 that raises x to the exponent with these bits (most
+    significant first): x^2 and the odd powers x^3 .. x^(2^w - 1) first,
+    then a squaring a bit and a product a window."""
+    best = None
+    for w in range(1, 9):
+        i, first, count = 0, True, (2 ** (w - 1) if w > 1 else 0)
+        while i < len(bits):
+            if bits[i] == 0:
+                count += 0 if first else 1
+                i += 1
+                continue
+            j = min(i + w, len(bits))
+            while bits[j - 1] == 0:
+                j -= 1
+            count += 0 if first else (j - i) + 1
+            first, i = False, j
+        best = count if best is None else min(best, count)
+    return best
+
+
+def fp_inv_ops(bits) -> int:
+    """int32 instructions of one lane's inverse: the shortest window chain's
+    CIOS products between one conversion in and one out."""
+    return (window_chain_products(bits) * MONT_MUL32_OPS
+            + DIGITS_TO_WORDS_OPS + WORDS_TO_DIGITS_OPS)
 
 
 def strict_ops(op: str, limbs: int) -> int:
@@ -477,20 +544,23 @@ def imad_floor_ms(imads: float) -> float:
 # --- phases --------------------------------------------------------------------
 
 def all_kernels() -> dict:
-    """The kernels by name: K1, K2 (the G1 and G2 MSMs; each bucket
-    kernel's source also holds its point conversion), K3-K6 (the fused pairing), K7-K10 (the
-    strict engine; one source, four entry points), K11 and K12 (the unfused
-    pairing): ten sources."""
+    """The kernels by name: K1, K1-inv and K1-scan (its up and down passes;
+    one source with K1-inv), K2 (the G1 and G2 MSMs; each bucket kernel's
+    source also holds its point conversion), K3-K6 (the fused pairing),
+    K7-K10 (the strict engine; one source, four entry points), K11 and K12
+    (the unfused pairing): eleven sources."""
     from ark_blst_tpu_torch.curves import msm_bucket as MB
     from ark_blst_tpu_torch.curves import pairing_steps as PS
     from ark_blst_tpu_torch.ops import cyc_sqr as K3
     from ark_blst_tpu_torch.ops import fp12_mul as K4
     from ark_blst_tpu_torch.ops import fp12_mul_by_014 as K12
     from ark_blst_tpu_torch.ops import fp12_sqr as K11
+    from ark_blst_tpu_torch.ops import fp_inv as FI
     from ark_blst_tpu_torch.ops import mont_mul as MM
     from ark_blst_tpu_torch.ops import strict_field as SF
 
-    return {"mont_mul": MM.KERNEL, "bucket_accumulate": MB.KERNEL,
+    return {"mont_mul": MM.KERNEL, "fp_inv": FI.KERNEL_INV, "scan_up": FI.KERNEL_UP,
+            "scan_down": FI.KERNEL_DOWN, "bucket_accumulate": MB.KERNEL,
             "g1_point_words": MB.KERNEL_G1_WORDS,
             "bucket_accumulate_g2": MB.KERNEL_G2, "g2_point_words": MB.KERNEL_G2_WORDS,
             "cyc_sqr": K3.KERNEL,
@@ -575,16 +645,142 @@ def phase_k1(torch, dev, sass: dict) -> dict:
     return res
 
 
-def _launch_shape(torch, kc, total_threads: int) -> dict:
-    """A bucket kernel's block size and the blocks an SM holds (both from
-    its C entry `<symbol>_shape`, the occupancy API at the compiled
-    registers and stack), and the waves its grid makes on the card's SMs."""
-    fn = getattr(ctypes.CDLL(str(kc.kernel.lib_path)), kc.kernel.symbol + "_shape")
+def scan_level_ops(g: int, m: int) -> tuple:
+    """int32 instructions of one level of the blocked batch inversion over g
+    rows of m columns, split as its up and down passes (the bound model in
+    the docstring)."""
+    n = g * m
+    up = n * DIGITS_TO_WORDS_OPS + (n - m) * MONT_MUL32_OPS + m * WORDS_TO_DIGITS_OPS
+    down = m * DIGITS_TO_WORDS_OPS + n * WORDS_TO_DIGITS_OPS + 2 * (n - m) * MONT_MUL32_OPS
+    return up, down
+
+
+def k1_family_expected(n: int, products: int) -> dict:
+    """The K1-family launches of one MSM prepare over n points: its K1
+    products, one K1-inv ladder at the root, and an up and a down pass of
+    K1-scan for each level of the batch inversion."""
+    from ark_blst_tpu_torch.ops import fp_inv as FI
+
+    levels = 0
+    while (g := FI.block_rows(n)) is not None:
+        n //= g
+        levels += 1
+    return {"mont_mul": products, "fp_inv": 1, "scan_up": levels, "scan_down": levels}
+
+
+def _fp_held(torch, name: str, got, want) -> int:
+    """A (30, n) stack of K1-inv or K1-scan against its plain version's by
+    value (canonical digits), its digits within 4096."""
+    return _held_values(torch, name, got[None], want[None])
+
+
+def _once_ms(torch, fn) -> tuple:
+    """(device ms, result) of one call of fn between two CUDA events, no
+    warm-up: for the plain versions of the inversion chains, which take
+    seconds and run the lazy product phase k1 has already warmed."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def _oracle_sample(torch, name: str, x, got, k: int = 64) -> None:
+    """The first k lanes of got against R13^2 X^-1 mod p of x's lanes."""
+    from ark_blst_tpu_torch.ops import lazy13 as LZ
+    from ark_blst_tpu_torch.oracle.field import P
+
+    k = min(k, x.shape[1])
+    want = [pow(v, -1, P) * LZ.R13_SQ % P if v % P else 0
+            for v in LZ.digits_to_ints(x[:, :k])]
+    check([v % P for v in LZ.digits_to_ints(got[:, :k])] == want,
+          f"{name} differs from the oracle's inverses")
+
+
+def phase_k1_chains(torch, dev, ptxas: dict) -> dict:
+    """K1-inv and K1-scan against their plain versions by value and against
+    the oracle on a sample, timed at the main path's widths."""
+    from ark_blst_tpu_torch.ops import fp_inv as FI
+    from ark_blst_tpu_torch.ops import lazy13 as LZ
+    from ark_blst_tpu_torch.oracle.field import P
+
+    t_phase = time.perf_counter()
+    F = LZ.F_BOUND
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+
+    def stack(n):
+        return torch.randint(-F, F + 1, (30, n), generator=gen, device=dev, dtype=torch.int32)
+
+    inv = {}
+    for n in K1_INV_WIDTHS:
+        x = stack(n)
+        for col, v in enumerate((0, 1, P - 1, (1 << 384) % P)[:n]):
+            x[:, col] = torch.tensor(LZ.int_to_digits(v), dtype=torch.int32, device=dev)
+        plain_ms, want = _once_ms(torch, lambda: FI.fp_inv_plain(x))
+        got = FI.fp_inv(x)
+        err = _fp_held(torch, "K1-inv", got, want)
+        _oracle_sample(torch, "K1-inv", x, got)
+        bms, by = bound_ms(n * 2 * ELEM_BYTES, n * fp_inv_ops(FI.P_MINUS_2_BITS))
+        inv[n] = {"n": n, "max_abs_err": err, "ms": cuda_ms(torch, lambda: FI.fp_inv(x), 3),
+                  "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                  "launch": _launch_shape(torch, FI.KERNEL_INV, n)}
+    scan = []
+    for g, m in K1_SCAN_LEVELS:
+        n = g * m
+        z = stack(n)
+        pre, total = FI.scan_up(z, g)
+        plain_up_ms, (pre_plain, total_plain) = _once_ms(torch, lambda: FI.scan_up_plain(z, g))
+        err_up = _fp_held(torch, "K1-scan up", total, total_plain)
+        inv_total = FI.fp_inv(total)
+        got = FI.scan_down(z, pre, inv_total, g)
+        plain_down_ms, want = _once_ms(
+            torch, lambda: FI.scan_down_plain(z, pre_plain, inv_total, g))
+        err_down = _fp_held(torch, "K1-scan down", got, want)
+        _oracle_sample(torch, "K1-scan", z, got)
+        ops_up, ops_down = scan_level_ops(g, m)
+        bms, by = bound_ms(2 * (n + m) * ELEM_BYTES, ops_up + ops_down)
+        up_ms = cuda_ms(torch, lambda: FI.scan_up(z, g), 3)
+        down_ms = cuda_ms(torch, lambda: FI.scan_down(z, pre, inv_total, g), 3)
+        scan.append({"rows": g, "columns": m, "max_abs_err": max(err_up, err_down),
+                     "ms": up_ms + down_ms, "up_ms": up_ms, "down_ms": down_ms,
+                     "plain_ms": plain_up_ms + plain_down_ms, "plain_up_ms": plain_up_ms,
+                     "plain_down_ms": plain_down_ms, "bound_ms": bms, "bound_by": by,
+                     "up_bound_ms": bound_ms((n + m) * ELEM_BYTES, ops_up)[0],
+                     "down_bound_ms": bound_ms((n + m) * ELEM_BYTES, ops_down)[0],
+                     "launch": {"up": _launch_shape(torch, FI.KERNEL_UP, m),
+                                "down": _launch_shape(torch, FI.KERNEL_DOWN, m)}})
+        del z, pre, total, pre_plain, total_plain, inv_total, got, want
+    n = 1 << LOG_N
+    z = stack(n)
+    got = FI.batch_inverse(z)
+    plain_ms, want = _once_ms(torch, lambda: FI.batch_inverse_plain(z))
+    err = _fp_held(torch, "batch_inverse", got, want)
+    _oracle_sample(torch, "batch_inverse", z, got)
+    whole = {"n": n, "max_abs_err": err, "ms": cuda_ms(torch, lambda: FI.batch_inverse(z), 3),
+             "plain_ms": plain_ms}
+    del z, got, want
+    torch.cuda.empty_cache()
+    res = {"fp_inv": {**inv[PAIRING_N], "at_widths": [inv[n] for n in K1_INV_WIDTHS[1:]]},
+           "scan": {**scan[0], "levels": scan, "batch_inverse": whole}}
+    emit({"phase": "k1_chains", "ok": True, "fp_inv": list(inv.values()), "scan_levels": scan,
+          "batch_inverse": whole, "ptxas": ptxas["fp_inv.cu"],
+          "seconds": time.perf_counter() - t_phase})
+    return res
+
+
+def _launch_shape(torch, kernel, total_threads: int) -> dict:
+    """A kernel's block size and the blocks an SM holds (both from its C
+    entry `<symbol>_shape`, the occupancy API at the compiled registers and
+    stack), and the waves its grid makes on the card's SMs (a bucket
+    kernel, K1-inv, K1-scan)."""
+    fn = getattr(ctypes.CDLL(str(kernel.lib_path)), kernel.symbol + "_shape")
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     fn.restype = ctypes.c_int
     threads, per_sm = ctypes.c_int(), ctypes.c_int()
     err = fn(ctypes.byref(threads), ctypes.byref(per_sm))
-    check(err == 0, f"{kc.kernel.symbol}_shape: CUDA error {err}")
+    check(err == 0, f"{kernel.symbol}_shape: CUDA error {err}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks = -(-total_threads // threads.value)
     return {"threads": threads.value, "blocks": blocks, "blocks_per_sm": per_sm.value,
@@ -647,7 +843,7 @@ def phase_k2(torch, phase: str, kc, c: int, pts, digs, imad: int, ptxas: dict) -
     r13_bytes = (pts.numel() + digs.numel() + buckets * kc.pt_rows) * 4 + adds * (
         2 * kc.pt_rows + kc.aff_rows) * 4
     bms_r13, by_r13 = bound_ms(r13_bytes, adds * R13_BUCKET_ADD_OPS[kc.name] + negs * comps * 30)
-    shape = _launch_shape(torch, kc, W * S)
+    shape = _launch_shape(torch, kc.kernel, W * S)
     res = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "max_abs_err": err,
            "wrapper_ms": wrapper_ms, "bound_radix13_ms": bms_r13, "bound_radix13_by": by_r13}
     wbms, wby = bound_ms((kc.aff_rows + kc.word_rows) * n * 4,
@@ -670,27 +866,24 @@ def phase_msm(torch, dev, phase: str, kc, c: int, points, scalars, expected) -> 
     checked, with its launches, peak memory, points/s and the staged and
     profiled reruns."""
     import ark_blst_tpu_torch as T
-    from ark_blst_tpu_torch.curves import msm_bucket as MB
-    from ark_blst_tpu_torch.ops import mont_mul as MM
 
     entry = T.msm_g2 if kc.is_g2 else T.msm_g1
-    names = ("mont_mul", kc.kernel.source[: -len(".cu")], kc.name + "_point_words")
-    kernels = (MM.KERNEL, kc.kernel, kc.words_kernel)
+    names = _msm_kernel_names(kc)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    for k in kernels:
-        k.launches = 0
+    kernels = _reset_launches()
     t0 = time.perf_counter()
     out = entry(points, scalars, device=dev, c=c)  # the main path
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(zip(names, (k.launches for k in kernels)))
+    launches = {name: kernels[name].launches for name in names}
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     leaves = kc.components(out)
     check(all(x.shape == (24, 1) and x.device == dev for x in leaves), "result shape")
     check(_affine(kc, out) == [expected], f"{phase} result differs from the expected point")
     check(all(x > 0 for x in launches.values()),
           f"a kernel of the path was not launched: {launches}")
+    _check_k1_family(launches, scalars.shape[1], kc)
 
     stages = {}
     for name, summary in run_stages(torch, kc, c, points, scalars, expected, profiled=False):
@@ -704,6 +897,22 @@ def phase_msm(torch, dev, phase: str, kc, c: int, points, scalars, expected) -> 
     emit({"phase": phase + "_profile", "wall_ms": wall, "device_ms": device,
           "busy_share": device / wall, "stages": profiled})
     return launches
+
+
+def _msm_kernel_names(kc) -> tuple:
+    """The kernels of an MSM's path: the K1 family of its prepare, its
+    bucket kernel and point conversion."""
+    return ("mont_mul", "fp_inv", "scan_up", "scan_down", kc.kernel.source[: -len(".cu")],
+            kc.name + "_point_words")
+
+
+def _check_k1_family(launches: dict, n: int, kc) -> None:
+    """An MSM prepare's K1-family launches: 2 K1 products for G1 (the
+    affine coordinates), 10 for G2 (the norm, the conjugate and two Fp2
+    products), one ladder and two passes a level."""
+    want = k1_family_expected(n, 10 if kc.is_g2 else 2)
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{kc.name} MSM K1-family launches {got}, expected {want}")
 
 
 def _affine(curve, pt) -> list:
@@ -1147,10 +1356,22 @@ def _profile_totals(profiled: dict) -> dict:
             "kernel_launches": sum(v["kernel_launches"] or 0 for v in profiled.values())}
 
 
+# The K1-family launches of a pairing batch, fused and unfused: the
+# products outside the tower kernels, and one K1-inv ladder (the
+# final exponentiation's fp12 inverse)
+PAIRING_K1 = {True: {"mont_mul": 36, "fp_inv": 1}, False: {"mont_mul": 658, "fp_inv": 1}}
+
+
+def _check_pairing_k1(launches: dict, fuse: bool, what: str) -> None:
+    got = {k: launches[k] for k in PAIRING_K1[fuse]}
+    check(got == PAIRING_K1[fuse], f"{what} K1-family launches {got}, "
+                                   f"expected {PAIRING_K1[fuse]}")
+
+
 def phase_pairing(torch, dev, ps, qs, expected) -> dict:
     from ark_blst_tpu_torch import bls12 as B
 
-    names = ("mont_mul", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step")
+    names = ("mont_mul", "fp_inv", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step")
     kernels = all_kernels()
     n = len(ps)
     B.pairing_batch(ps, qs, device=dev)  # warm-up
@@ -1167,6 +1388,7 @@ def phase_pairing(torch, dev, ps, qs, expected) -> dict:
     check(len(got) == n and bad == 0, f"{bad} of {n} pairings differ from the oracle")
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the path was not launched: {launches}")
+    _check_pairing_k1(launches, True, "pairing batch")
 
     stages = {name + "_ms": summary["wall_ms"]
               for name, summary in run_pairing_stages(torch, dev, ps, qs, expected, False)}
@@ -1212,8 +1434,8 @@ def phase_pairing_unfused(torch, dev, ps, qs, expected, fused) -> dict:
     rerun, peak memory and the prepared path."""
     from ark_blst_tpu_torch import bls12 as B
 
-    names = ("mont_mul", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step", "fp12_sqr",
-             "fp12_mul_by_014")
+    names = ("mont_mul", "fp_inv", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step",
+             "fp12_sqr", "fp12_mul_by_014")
     n = len(ps)
     B.pairing_batch(ps, qs, fuse=False, device=dev)  # warm-up
     torch.cuda.synchronize()
@@ -1231,8 +1453,9 @@ def phase_pairing_unfused(torch, dev, ps, qs, expected, fused) -> dict:
           f"K11/K12 launches per batch: {launches}")
     check(launches["prepare_step"] == 0 and launches["miller_step"] == 0,
           f"the unfused path launched K5/K6: {launches}")
-    check(all(launches[k] > 0 for k in ("mont_mul", "cyc_sqr", "fp12_mul")),
+    check(all(launches[k] > 0 for k in ("mont_mul", "fp_inv", "cyc_sqr", "fp12_mul")),
           f"a kernel of the path was not launched: {launches}")
+    _check_pairing_k1(launches, False, "unfused pairing batch")
 
     stages, stage_launches = _staged(torch, dev, ps, qs, expected, fuse=False)
     profiled = dict(run_pairing_stages(torch, dev, ps, qs, expected, True, fuse=False))
@@ -1430,7 +1653,8 @@ def _api_msm(torch, dev, curve_name: str) -> tuple:
     proj = T.G2Projective if g2 else T.G1Projective
     to_dev, entry, back = ("g2_to_dev", "msm_g2", "g2_from_dev") if g2 else (
         "g1_to_dev", "msm_g1", "g1_from_dev")
-    names = ("mont_mul", "bucket_accumulate" + ("_g2" if g2 else ""), curve_name + "_point_words")
+    names = ("mont_mul", "fp_inv", "scan_up", "scan_down",
+             "bucket_accumulate" + ("_g2" if g2 else ""), curve_name + "_point_words")
     kernels = _reset_launches()
     clock = _CallClock(torch, [(CV, to_dev, "ingest_points"), (CV, "fr_to_dev", "ingest_scalars"),
                                (T, entry, entry), (CV, back, "egress")])
@@ -1481,7 +1705,7 @@ def phase_api(torch, dev, ps, qs, expected, fused) -> None:
     t0 = time.perf_counter()
     B.pairing_batch(ps, qs, device=dev)
     tuple_s = time.perf_counter() - t0
-    names = ("mont_mul", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step")
+    names = ("mont_mul", "fp_inv", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step")
     kernels = _reset_launches()
     clock = _CallClock(torch, [(B, "_g1_batch", "ingest_g1"), (B, "_g2_batch", "ingest_g2"),
                                (PR, "pairing", "device"), (CV, "fp12_from_dev", "egress")])
@@ -1550,12 +1774,15 @@ def phase_api(torch, dev, ps, qs, expected, fused) -> None:
 
 
 def phase_fp_inv_batch(torch, dev) -> dict:
-    """`tower_lazy.fp_inv_batch` (the log-depth tree) against `fp_inv` (the
-    per-lane Fermat ladder) at the pairing's batch: both checked against the
-    oracle's inverses and timed. A reading only: nothing calls it."""
+    """`tower_lazy.fp_inv_batch` (the log-depth tree, its width-1 root on
+    K1-inv) against `fp_inv` (the per-lane Fermat ladder, one K1-inv launch)
+    at the pairing's batch: both checked against the oracle's inverses and
+    timed, with their K1 and K1-inv launches. A reading only: nothing calls
+    `fp_inv_batch`."""
     import random
 
     from ark_blst_tpu_torch.ops import convert as CV
+    from ark_blst_tpu_torch.ops import fp_inv as FI
     from ark_blst_tpu_torch.ops import mont_mul as MM
     from ark_blst_tpu_torch.ops import tower_lazy as TL
     from ark_blst_tpu_torch.oracle import field as OF
@@ -1568,14 +1795,14 @@ def phase_fp_inv_batch(torch, dev) -> dict:
     for name, fn in (("fp_inv_batch", TL.fp_inv_batch), ("fp_inv", TL.fp_inv)):
         fn(a)  # warm-up
         torch.cuda.synchronize()
-        MM.KERNEL.launches = 0
+        MM.KERNEL.launches = FI.KERNEL_INV.launches = 0
         t0 = time.perf_counter()
         out = fn(a)
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
-        launches = MM.KERNEL.launches
         check(CV.fp_from_dev(TL.fp_egress(out)) == want, f"{name} differs from the oracle")
-        res[name] = {"ms": ms, "k1_launches": launches}
+        res[name] = {"ms": ms, "k1_launches": MM.KERNEL.launches,
+                     "k1_inv_launches": FI.KERNEL_INV.launches}
     emit({"phase": "fp_inv_batch", "n": PAIRING_N, "ok": True, **res})
     return res
 
@@ -1881,7 +2108,7 @@ def distributed_msm(torch, dev, mesh, kc, c: int, points, scalars, expected) -> 
     from ark_blst_tpu_torch.curves import msm_bucket as MB
     from ark_blst_tpu_torch.curves.group import G1, G2
 
-    names = ("mont_mul", kc.kernel.source[: -len(".cu")], kc.name + "_point_words")
+    names = _msm_kernel_names(kc)
     run = lambda: D.msm_distributed(points, scalars, curve=G2 if kc.is_g2 else G1,  # noqa: E731
                                     c=c, mesh=mesh)
     entry = T.msm_g2 if kc.is_g2 else T.msm_g1
@@ -1896,6 +2123,7 @@ def distributed_msm(torch, dev, mesh, kc, c: int, points, scalars, expected) -> 
           f"distributed {kc.name} MSM differs from the expected point")
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the path was not launched: {launches}")
+    _check_k1_family(launches, scalars.shape[1], kc)
     check(mesh.gathers == gathers + 1, "the world of one did not gather")
     res = {"backend": "pallas", "collective": str(mesh.backend), "world": mesh.size,
            "n": scalars.shape[1], "c": c, "ok": True, "launches": launches,
@@ -1921,7 +2149,7 @@ def distributed_pairing(torch, dev, mesh, ps, qs, expected) -> tuple:
 
     (p, p_inf), (q, q_inf) = B._g1_batch(ps, dev), B._g2_batch(qs, dev)
     want = _fp12_product(expected)
-    names = ("mont_mul", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step")
+    names = ("mont_mul", "fp_inv", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step")
     run = lambda: PR.multi_pairing_sharded(p, q, mesh, p_inf=p_inf, q_inf=q_inf)  # noqa: E731
     kernels = _reset_launches()
     gathers, nbytes = mesh.gathers, mesh.gather_bytes
@@ -1932,6 +2160,7 @@ def distributed_pairing(torch, dev, mesh, ps, qs, expected) -> tuple:
     launches = {name: kernels[name].launches for name in names}
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the path was not launched: {launches}")
+    _check_pairing_k1(launches, True, "sharded multi-pairing")
     check(CV.fp12_from_dev(got) == [want],
           "sharded multi-pairing differs from the oracle's product")
     check(mesh.gathers == gathers + 1, "the world of one did not gather")
@@ -1957,6 +2186,7 @@ def distributed_scan_and_auto(torch, dev, mesh) -> tuple:
     bucket route (one K2 launch, no strict kernel); both against their
     instances' expected points."""
     from ark_blst_tpu_torch.curves import msm as M
+    from ark_blst_tpu_torch.curves import msm_bucket as MB
     from ark_blst_tpu_torch.curves.group import G1
     from ark_blst_tpu_torch.curves.instance import distinct_bases
 
@@ -1982,11 +2212,11 @@ def distributed_scan_and_auto(torch, dev, mesh) -> tuple:
     out = M.msm_auto(points, scalars, G1, device=dev)  # the card's route of msm_auto
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    auto_launches = {name: kernels[name].launches
-                     for name in ("mont_mul", "bucket_accumulate", "g1_point_words")}
+    auto_launches = {name: kernels[name].launches for name in _msm_kernel_names(MB.KC2_G1)}
     check(_affine(G1, out) == [expected], "msm_auto differs from the expected point")
     check(auto_launches["bucket_accumulate"] == 1 and not any(_strict_launches().values()),
           f"msm_auto did not take the bucket route: {auto_launches}")
+    _check_k1_family(auto_launches, scalars.shape[1], MB.KC2_G1)
     auto = {"route": "bucket", "n": scalars.shape[1], "ok": True, "seconds": dt,
             "launches": auto_launches}
     return scan, auto, scan_launches, auto_launches
@@ -2095,8 +2325,7 @@ def rank_main(argv) -> int:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     msm = {"n": scalars.shape[1], "c": C, "chunk": TWO_RANK_CHUNK, "seconds": dt,
-           "launches": {name: kernels[name].launches
-                        for name in ("mont_mul", "bucket_accumulate", "g1_point_words")},
+           "launches": {name: kernels[name].launches for name in _msm_kernel_names(kc)},
            "gather_bytes": mesh.gather_bytes - nbytes,
            "gather_ms": _gather_ms(torch, mesh, torch.zeros(
                (kc.n_fp * 30, MB._num_windows(C)), dtype=torch.int32, device=dev)),
@@ -2117,7 +2346,8 @@ def rank_main(argv) -> int:
     dt = time.perf_counter() - t0
     pairing = {"n": TWO_RANK_PAIRS, "seconds": dt,
                "launches": {name: kernels[name].launches for name in
-                            ("mont_mul", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step")},
+                            ("mont_mul", "fp_inv", "cyc_sqr", "fp12_mul", "prepare_step",
+                             "miller_step")},
                "gather_bytes": mesh.gather_bytes - nbytes,
                "gather_ms": _gather_ms(torch, mesh,
                                        torch.zeros((12, 30, 1), dtype=torch.int32, device=dev)),
@@ -2148,6 +2378,7 @@ def main() -> int:
     torch.cuda.set_device(dev)
     sass, ptxas = phase_env(torch)
     k1 = phase_k1(torch, dev, sass["mont_mul.cu"])
+    chains = phase_k1_chains(torch, dev, ptxas)
 
     from ark_blst_tpu_torch import bls12 as B
     from ark_blst_tpu_torch.curves import msm_bucket as MB
@@ -2250,6 +2481,34 @@ def main() -> int:
                                            "pairing": dist_launches["pairing"]["mont_mul"],
                                            "msm_auto": dist_launches["auto"]["mont_mul"]},
                      at_pairing_batch=k1["at_pairing_batch"]),
+        _kernel_line("fp_inv", "fp_inv.cu",
+                     "ark_blst_tpu/ops/pallas_lazy.py:41 (the Fermat lax.scans of "
+                     "ops/tower_lazy.py:264 fp_inv and curves/msm_pallas2.py:394 _fermat_inv)",
+                     msm_launches["g1"]["fp_inv"], chains["fp_inv"],
+                     launches_msm_g2=msm_launches["g2"]["fp_inv"],
+                     launches_pairing=launches["fp_inv"],
+                     launches_pairing_unfused=unfused["fp_inv"],
+                     launches_distributed={name: dist_launches[key]["fp_inv"] for name, key in (
+                         ("msm_g1", "g1"), ("msm_g2", "g2"), ("pairing", "pairing"),
+                         ("msm_auto", "auto"))},
+                     at_widths=chains["fp_inv"]["at_widths"],
+                     launch=chains["fp_inv"]["launch"]),
+        _kernel_line("batch_inverse_scan", "fp_inv.cu",
+                     "ark_blst_tpu/ops/pallas_lazy.py:41 (the up and down lax.scans of "
+                     "curves/msm_pallas2.py:434 _batch_inverse)",
+                     msm_launches["g1"]["scan_up"] + msm_launches["g1"]["scan_down"],
+                     chains["scan"],
+                     launches_up_down=[msm_launches["g1"]["scan_up"],
+                                       msm_launches["g1"]["scan_down"]],
+                     launches_msm_g2=msm_launches["g2"]["scan_up"]
+                     + msm_launches["g2"]["scan_down"],
+                     launches_distributed={name: dist_launches[key]["scan_up"]
+                                           + dist_launches[key]["scan_down"]
+                                           for name, key in (("msm_g1", "g1"), ("msm_g2", "g2"),
+                                                             ("msm_auto", "auto"))},
+                     rows=chains["scan"]["rows"], columns=chains["scan"]["columns"],
+                     levels=chains["scan"]["levels"][1:],
+                     batch_inverse=chains["scan"]["batch_inverse"]),
         _kernel_line("bucket_accumulate", "bucket_accumulate.cu",
                      "ark_blst_tpu/curves/msm_pallas2.py:359 (KC2_G1)",
                      msm_launches["g1"]["bucket_accumulate"], k2s["g1"],

@@ -16,6 +16,7 @@ from ark_blst_tpu_torch.ops import cyc_sqr as K3
 from ark_blst_tpu_torch.ops import fp12_mul as K4
 from ark_blst_tpu_torch.ops import fp12_mul_by_014 as K12
 from ark_blst_tpu_torch.ops import fp12_sqr as K11
+from ark_blst_tpu_torch.ops import fp_inv as FI
 from ark_blst_tpu_torch.ops import lazy13 as LZ
 from ark_blst_tpu_torch.ops import mont_mul as MM
 from ark_blst_tpu_torch.ops import strict_field as SF
@@ -72,15 +73,16 @@ def test_strict_header_constants(name, spec):
     "kernel",
     [MM.KERNEL, MB.KERNEL, K3.KERNEL, K4.KERNEL, PS.PREPARE_KERNEL, PS.MILLER_KERNEL,
      MB.KERNEL_G2, MB.KERNEL_G2_WORDS, *SF.KERNELS.values(), K11.KERNEL, K12.KERNEL,
-     MB.KERNEL_G1_WORDS],
+     MB.KERNEL_G1_WORDS, FI.KERNEL_INV, FI.KERNEL_UP, FI.KERNEL_DOWN],
     ids=["mont_mul", "bucket", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step",
          "bucket_g2", "g2_point_words", *("strict_" + op for op in SF.KERNELS), "fp12_sqr",
-         "fp12_mul_by_014", "g1_point_words"])
+         "fp12_mul_by_014", "g1_point_words", "fp_inv", "scan_up", "scan_down"])
 def test_kernel_sources_export_their_entry(kernel):
     src = (KC.CSRC_DIR / kernel.source).read_text()
     assert re.search(rf'extern "C" int {kernel.symbol}\(', src)
     assert any(f'#include "{h}"' in src
-               for h in ("lazy13.cuh", "tower381.cuh", "group381.cuh", "strict16.cuh"))
+               for h in ("lazy13.cuh", "tower381.cuh", "group381.cuh", "strict16.cuh",
+                         "fp_inv.cuh"))
     assert kernel.lib_path.parent == KC.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in KC.NVCC_FLAGS
 
@@ -154,15 +156,17 @@ def test_build_all_starts_one_nvcc_per_source(monkeypatch):
 
 
 def test_every_kernel_source_is_built_once(monkeypatch):
-    """The ten kernel sources of the port, one nvcc each: every `csrc/*.cu`
-    belongs to a kernel, and the tower kernels K11/K12 have their own."""
+    """The eleven kernel sources of the port, one nvcc each: every
+    `csrc/*.cu` belongs to a kernel, the tower kernels K11/K12 have their
+    own, and K1-inv and K1-scan's two passes share `fp_inv.cu`."""
     started = []
     monkeypatch.setattr(KC.CudaKernel, "start_build", lambda self: started.append(self) or None)
     kernels = [MM.KERNEL, MB.KERNEL, MB.KERNEL_G2, K3.KERNEL, K4.KERNEL, PS.PREPARE_KERNEL,
-               PS.MILLER_KERNEL, *SF.KERNELS.values(), K11.KERNEL, K12.KERNEL]
+               PS.MILLER_KERNEL, *SF.KERNELS.values(), K11.KERNEL, K12.KERNEL,
+               FI.KERNEL_INV, FI.KERNEL_UP, FI.KERNEL_DOWN]
     owners = KC.build_all(kernels)
     assert sorted(k.source for k in owners) == sorted(p.name for p in KC.CSRC_DIR.glob("*.cu"))
-    assert len(owners) == 10 and started == owners
+    assert len(owners) == 11 and started == owners
 
 
 def test_cached_build_keeps_its_ptxas_log(monkeypatch, tmp_path):

@@ -31,6 +31,7 @@ from ark_blst_tpu_torch.ops import cyc_sqr as K3
 from ark_blst_tpu_torch.ops import fp12_mul as K4
 from ark_blst_tpu_torch.ops import fp12_mul_by_014 as K12
 from ark_blst_tpu_torch.ops import fp12_sqr as K11
+from ark_blst_tpu_torch.ops import fp_inv as FI
 from ark_blst_tpu_torch.ops import lazy13 as LZ
 from ark_blst_tpu_torch.ops import mont_mul as MM
 from ark_blst_tpu_torch.ops import convert as CV
@@ -66,6 +67,93 @@ def test_k1_bit_equal_to_plain(dev):
     torch.cuda.synchronize()
     assert MM.KERNEL.launches == before + 1
     assert torch.equal(got, MM.mont_mul_plain(at, bt))
+
+
+def _inv_value(x: int) -> int:
+    """R13^2 X^-1 mod p: the Montgomery inverse of a digit value X."""
+    return pow(x, -1, OF.P) * LZ.R13_SQ % OF.P if x % OF.P else 0
+
+
+def _fp_values_equal(got, want):
+    """K1-inv and K1-scan (32-bit words inside) against their plain
+    versions: the same field element in every column, the kernel's digits
+    within 4096."""
+    assert int(got.abs().max()) <= 4096
+    assert torch.equal(LZ.canonicalize_rows(got[None]), LZ.canonicalize_rows(want[None]))
+
+
+@pytest.mark.parametrize("n", [1, 1024, 8192])
+def test_k1_inv_value_equal_to_plain(dev, n):
+    """The Fermat ladder at the widths the paths give it (a multi-pairing,
+    the MSM's root, the pairing batch), X = 0, 1, p-1 and R mod p in the
+    first lanes, one launch; a sample against R13^2 X^-1 mod p."""
+    x = torch.from_numpy(np.random.default_rng(n).integers(-F, F + 1, (30, n)).astype(np.int32))
+    for col, v in enumerate((0, 1, OF.P - 1, (1 << 384) % OF.P)[:n]):
+        x[:, col] = torch.from_numpy(LZ.int_to_digits(v))
+    x = x.to(dev)
+    got = _launched_once(FI.KERNEL_INV, lambda: FI.fp_inv(x))
+    _fp_values_equal(got, FI.fp_inv_plain(x))
+    sample = slice(0, 16)
+    want = [_inv_value(v) for v in LZ.digits_to_ints(x[:, sample])]
+    assert [v % OF.P for v in LZ.digits_to_ints(got[:, sample])] == want
+
+
+@pytest.mark.parametrize("g,m", [(64, 1024), (8, 375)])
+def test_k1_scan_value_equal_to_plain(dev, g, m):
+    """One level of the batch inversion: the up pass's column products and
+    the down pass's inverses by value against the plain passes (the prefix
+    products are each version's own scratch), one launch each; a CUDA
+    operand that is not contiguous is refused."""
+    rng = np.random.default_rng(g)
+    z = torch.from_numpy(rng.integers(-F, F + 1, (30, g * m)).astype(np.int32)).to(dev)
+    pre, total = _launched_once(FI.KERNEL_UP, lambda: FI.scan_up(z, g))
+    pre_plain, total_plain = FI.scan_up_plain(z, g)
+    _fp_values_equal(total, total_plain)
+    inv_total = FI.fp_inv_plain(total_plain)
+    got = _launched_once(FI.KERNEL_DOWN, lambda: FI.scan_down(z, pre, inv_total, g))
+    _fp_values_equal(got, FI.scan_down_plain(z, pre_plain, inv_total, g))
+    want = [_inv_value(v) for v in LZ.digits_to_ints(z[:, :16])]
+    assert [v % OF.P for v in LZ.digits_to_ints(got[:, :16])] == want
+    with pytest.raises(ValueError, match="contiguous"):
+        FI.scan_up(z.t().contiguous().t(), g)
+
+
+def test_batch_inverse_on_card(dev):
+    """2^18 elements: two levels (m = 4096, then 64) and the ladder at 64,
+    by value against the plain version; two launches of each pass and one
+    ladder."""
+    rng = np.random.default_rng(18)
+    z = torch.from_numpy(rng.integers(-F, F + 1, (30, 1 << 18)).astype(np.int32)).to(dev)
+    kernels = (FI.KERNEL_UP, FI.KERNEL_DOWN, FI.KERNEL_INV, MM.KERNEL)
+    before = [k.launches for k in kernels]
+    got = FI.batch_inverse(z)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 2, 1, 0]
+    _fp_values_equal(got, FI.batch_inverse_plain(z))
+
+
+def test_msm_and_pairing_k1_launches(dev):
+    """A G1 MSM at 2^18 and a pairing batch of 64 on the card against the
+    oracle, with their K1-family launches: the MSM's prepare 2 products,
+    one ladder, two levels of the scan (2 + 2); the batch 36 products and
+    one ladder (was 994 and 644 launches of K1 alone)."""
+    kernels = (MM.KERNEL, FI.KERNEL_INV, FI.KERNEL_UP, FI.KERNEL_DOWN)
+    points, scalars, expected = distinct_bases(18, 5, dev, "g1")
+    before = [k.launches for k in kernels]
+    out = T.msm_g1(points, scalars, device=dev)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 1, 2, 2]
+    assert CV.g1_from_dev(out) == [expected]
+    rng = random.Random(9)
+    ps = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    qs = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    pb = [ps[i % 4] for i in range(64)]
+    qb = [qs[(i + 2) % 4] for i in range(64)]
+    before = [k.launches for k in kernels]
+    got = B.pairing_batch(pb, qb, device=dev)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [36, 1, 0, 0]
+    want = {i: OP.pairing(ps[i], qs[(i + 2) % 4]) for i in range(4)}
+    assert got == [want[i % 4] for i in range(64)]
 
 
 def test_k2_bucket_equal_to_plain(dev):

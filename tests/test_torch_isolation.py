@@ -36,7 +36,7 @@ def test_port_imports_no_jax_and_no_jax_package():
         for mod in ("ops.strict_field", "ops.dispatch", "ops.tower", "curves.group",
                     "curves.msm", "ops.fp12_sqr", "ops.fp12_mul_by_014",
                     "curves.pairing_steps", "fields", "groups", "oracle.serialize",
-                    "config", "distributed"):
+                    "config", "distributed", "ops.fp_inv"):
             assert "ark_blst_tpu_torch." + mod in names, names
     """)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -22,6 +22,7 @@ from ark_blst_tpu.ops import tower_lazy as JTL
 from ark_blst_tpu_torch.ops import convert as CV
 from ark_blst_tpu_torch.ops import cyc_sqr as K3
 from ark_blst_tpu_torch.ops import fp12_mul as K4
+from ark_blst_tpu_torch.ops import fp_inv as FI
 from ark_blst_tpu_torch.ops import lazy13 as LZ
 from ark_blst_tpu_torch.ops import mont_mul as MM
 from ark_blst_tpu_torch.ops import tower_lazy as TL
@@ -101,7 +102,7 @@ def digits(seed, bound=F, n=N):
 def test_constants_match():
     assert TL._R16_TO_R13_DIGITS == JTL._R16_TO_R13_DIGITS
     assert TL._R16_DIGITS == JTL._R16_DIGITS
-    assert TL._P_MINUS_2_BITS == [int(b) for b in JTL._P_MINUS_2_BITS]
+    assert FI.P_MINUS_2_BITS == [int(b) for b in JTL._P_MINUS_2_BITS]
     assert (TL._BARRETT_S, TL._BARRETT_K, TL._BARRETT_HALF) == (
         JTL._BARRETT_S, JTL._BARRETT_K, JTL._BARRETT_HALF)
     for v in (0, 1, 2, OF.P - 1):
