@@ -1,32 +1,36 @@
-// K6: one Miller-loop event of the pairing on Hopper (sm_90a).
+// K6: the Miller loop of the pairing on Hopper (sm_90a), its events in one
+// launch (K6-chain).
 //
-// Replaces the TPU kernel ark_blst_tpu/ops/pallas_lazy.py:tower_fused as
-// built by ark_blst_tpu/curves/pairing.py:_fused_miller_step(with_sqr).
-// Here: F (12, 30, N), C (6, 30, N), PXY (2, 30, N) int32 digits -> out
-// (12, 30, N): f^2 (when with_sqr), the line C scaled by P (_ell_legs),
-// then the sparse product fp12_mul_by_014; equal to
-// curves/pairing_steps.py:miller_step_plain by canonical value, its digits
-// within 4096.
+// Replaces the TPU kernel ark_blst_tpu/ops/pallas_lazy.py:63 tower_fused as
+// built by ark_blst_tpu/curves/pairing.py:_fused_miller_step(with_sqr) and
+// run under the lax.scan of curves/pairing.py:342 (the doubling events)
+// with the addition events between (:345). Here: F (12, 30, N), the line
+// stack C (events, 6, 30, N), PXY (2, 30, N) int32 digits and a schedule
+// -> out (12, 30, N): for each event f^2 (at a doubling), the line C[e]
+// scaled by P (_ell_legs), then the sparse product fp12_mul_by_014; equal
+// to the loop of curves/pairing_steps.py:miller_step_plain by canonical
+// value, its digits within 4096. One event is the chain of one
+// (pairing_steps.miller_step).
 //
 // What bounds it: operations. 36 + 4 + 45 = 85 Montgomery products of 12 x
-// 32-bit words with the square (49 without), ~0.9K instructions each, ~150
-// modular sums, and the conversions of 20 Fp components in and 12 out (a
-// product each, and the reduction of the digits' sum), against 32 x 120
-// bytes per element read and written once.
+// 32-bit words with the square (49 without), ~0.9K instructions each, and
+// ~150 modular sums an event, against 6 x 120 bytes an element an event
+// (the line read) and f and P read and f written once. Launched once an
+// event, the edges (20 Fp components in and 12 out, a conversion between
+// digits and words each) were ~48K instructions an event against ~78K
+// for the products. The chain keeps f and P in shared memory as words
+// across the events: what is left at the edges is the line, 6 components
+// an event, loaded beside the previous event's last phase.
 //
-// Design (tower381.cuh): each element's state lives in shared memory as
-// canonical Montgomery words, 30 Fp2 slots (2,880 bytes); a block holds E
-// elements, and its threads run the event as phases of independent jobs
-// with a barrier between: the conversions in (20 jobs an element), the
-// square's 12 Fp2 Karatsuba legs with the two line scalings (14), t and m
-// (6), g (6), the sparse product's 15 Fp2 products (15), their combination
-// (6), the conversions out (12). A job holds a few Fp2 values in
-// registers (128 registers, a few spilled words), so ~16 warps share an
-// SM at N = 8192 to hide the latency of the products' carry chains (the
-// first version, one thread an element at 255 registers and 11-19 KB of
-// stack, kept ~2 warps an SM).
-// The digit stacks are read and written once, neighbouring threads on
-// neighbouring elements. Tensor cores do not apply: a 384-bit modular
+// Design (tower381.cuh, miller_chain): each element's state lives in
+// shared memory as canonical Montgomery words, 30 Fp2 slots (2,880 bytes);
+// a block holds E elements, and its threads run each event as phases of
+// independent jobs with a barrier between: the square's 12 Fp2 Karatsuba
+// legs with the two line scalings (14 jobs an element), t and m (6), g
+// (6), the sparse product's 15 Fp2 products (15), their combination with
+// the next line's conversions (12). A job holds a few Fp2 values in
+// registers, so ~16 warps share an SM at N = 8192 to hide the latency of
+// the products' carry chains. Tensor cores do not apply: a 384-bit modular
 // product has no wgmma form here; the IMAD pipe carries the products.
 #include "tower381.cuh"
 
@@ -39,64 +43,66 @@ constexpr int kElems = 32;
 constexpr int kThreads = 256;
 constexpr int kMaxThreads = 512;
 
-__global__ void __launch_bounds__(kMaxThreads) miller_step_kernel(
-    const int* __restrict__ f, const int* __restrict__ c, const int* __restrict__ pxy,
-    int* __restrict__ out, long long n, int with_sqr, int E, int edges_only) {
+__global__ void __launch_bounds__(kMaxThreads) miller_chain_kernel(
+    const int* __restrict__ f, const int* __restrict__ coeffs, const int* __restrict__ pxy,
+    int* __restrict__ out, long long n, t381::Schedule s, int E, int edges_only) {
   extern __shared__ t381::u32 smem[];
   const t381::Block b{smem, E, static_cast<long long>(blockIdx.x) * E, n};
-  const int phases = t381::miller_phases(with_sqr);
-  for (int ph = 0; ph < phases; ++ph) {
-    if (edges_only && ph != 0 && ph != phases - 1) continue;
-    const int jobs = t381::miller_jobs(ph, with_sqr) * E;
-    for (int j = threadIdx.x; j < jobs; j += blockDim.x)
-      t381::miller_job(b, f, c, pxy, out, with_sqr, ph, j / E, j % E);
-    __syncthreads();
-  }
+  t381::miller_chain(b, t381::MillerChain{f, coeffs, pxy, out, s, edges_only},
+                     t381::BlockPhases{E});
 }
+
+int smem_bytes(int E) { return E * t381::MILLER_SLOTS * t381::SLOT * 4; }
 
 }  // namespace
 
-// miller_step at a given shape: E elements and `threads` threads a block
-// (threads <= 512); with edges_only, the conversions alone (out = f, the
-// cost of the kernel's edges, for scripts/tower_probe.py). Returns
-// cudaGetLastError() after the launch.
-extern "C" int pairing_miller_step_shaped(const int* f, const int* c, const int* pxy, int* out,
-                                          long long n, int with_sqr, int E, int threads,
-                                          int edges_only, void* stream) {
+// The chain at a given shape: E elements and `threads` threads a block
+// (threads <= 512); dbl[i] != 0 where event i squares f, for 1 <= events
+// <= 128. With edges_only, the conversions alone (f, P and every line in,
+// out = f: the cost of the kernel's edges, for scripts/tower_probe.py).
+// Returns cudaGetLastError() after the launch.
+extern "C" int pairing_miller_chain_shaped(const int* f, const int* coeffs, const int* pxy,
+                                           int* out, long long n, int events,
+                                           const unsigned char* dbl, int E, int threads,
+                                           int edges_only, void* stream) {
+  t381::Schedule s;
+  if (!t381::make_schedule(events, dbl, s)) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
-  const int smem = E * t381::MILLER_SLOTS * t381::SLOT * 4;
-  cudaError_t err = cudaFuncSetAttribute(miller_step_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(miller_chain_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem_bytes(E));
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = (n + E - 1) / E;
-  miller_step_kernel<<<static_cast<unsigned>(blocks), threads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(f, c, pxy, out, n, with_sqr, E,
-                                                                   edges_only);
+  miller_chain_kernel<<<static_cast<unsigned>(blocks), threads, smem_bytes(E),
+                        static_cast<cudaStream_t>(stream)>>>(f, coeffs, pxy, out, n, s, E,
+                                                                  edges_only);
   return static_cast<int>(cudaGetLastError());
 }
 
-// f: (12, 30, n), c: (6, 30, n), pxy: (2, 30, n), out: (12, 30, n); int32,
-// contiguous, on the device of `stream`. Returns cudaGetLastError() after
-// the launch (0 on success).
-extern "C" int pairing_miller_step(const int* f, const int* c, const int* pxy, int* out,
-                                   long long n, int with_sqr, void* stream) {
-  return pairing_miller_step_shaped(f, c, pxy, out, n, with_sqr, kElems, kThreads, 0, stream);
+// f: (12, 30, n), coeffs: (events, 6, 30, n), pxy: (2, 30, n), out: (12, 30,
+// n); int32, contiguous, on the device of `stream`. Returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int pairing_miller_chain(const int* f, const int* coeffs, const int* pxy, int* out,
+                                    long long n, int events, const unsigned char* dbl,
+                                    void* stream) {
+  return pairing_miller_chain_shaped(f, coeffs, pxy, out, n, events, dbl, kElems, kThreads, 0,
+                                     stream);
 }
 
 // A launch shape and the blocks an SM holds at it (the occupancy API at the
 // compiled registers and the shape's shared memory): on entry, elems and
 // threads > 0 name the shape, 0 the default, which they then hold. Returns
 // the CUDA error of the query (0 on success).
-extern "C" int pairing_miller_step_shape(int* elems, int* threads, int* smem_bytes,
-                                         int* blocks_per_sm) {
+extern "C" int pairing_miller_chain_shape(int* elems, int* threads, int* smem,
+                                          int* blocks_per_sm) {
   if (*elems <= 0 || *threads <= 0) {
     *elems = kElems;
     *threads = kThreads;
   }
-  *smem_bytes = *elems * t381::MILLER_SLOTS * t381::SLOT * 4;
-  cudaError_t err = cudaFuncSetAttribute(miller_step_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, *smem_bytes);
+  *smem = smem_bytes(*elems);
+  cudaError_t err = cudaFuncSetAttribute(miller_chain_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, miller_step_kernel, *threads, *smem_bytes));
+      blocks_per_sm, miller_chain_kernel, *threads, *smem));
 }

@@ -1,9 +1,10 @@
 // Device functions of the Fp12 tower on the 32-bit Montgomery layer of
 // fp381.cuh, for the kernels that split each element's work over a block's
 // threads: K3 (n cyclotomic squares, cyc_sqr.cu), K4 (the fp12 product,
-// fp12_mul.cu), K5 (one G2 prepare event, prepare_step.cu), K6 (one
-// Miller event, miller_step.cu), K11 (the fp12 square, fp12_sqr.cu) and
-// K12 (the sparse line product, fp12_mul_by_014.cu).
+// fp12_mul.cu), K5 (the G2 prepare's events in one launch, prepare_step.cu),
+// K6 (the Miller loop's events in one launch, miller_step.cu), K11 (the
+// fp12 square, fp12_sqr.cu) and K12 (the sparse line product,
+// fp12_mul_by_014.cu).
 //
 // The tower: Fp6 = Fp2[v]/(v^3 - xi), Fp12 = Fp6[w]/(w^2 - v), xi = 1 + u,
 // an fp12 (a0 + a1 v + a2 v^2) + (b0 + b1 v + b2 v^2) w held as six Fp2
@@ -42,7 +43,8 @@
 //
 // Compiles as host C++ too (no __CUDACC__, unsigned arithmetic only):
 // tests/test_torch_tower_host.py runs each kernel's phases in order, job by
-// job, under -fsanitize=undefined.
+// job, under -fsanitize=undefined (K5's and K6's through their chain
+// programs, on a phase runner of its own).
 #pragma once
 
 #include "fp381.cuh"
@@ -269,7 +271,7 @@ __device__ __forceinline__ void run_mul(const Elem& m, const MulOp& op) {
   store(m, op.dst, r);
 }
 
-// A MUL or SCALE op (K6's products).
+// A MUL or SCALE op (K6's line scalings).
 __device__ __forceinline__ void run(const Elem& m, const MulOp& op) {
   Fp2 x, r;
   sum_terms(m, op.x, MUL_TERMS, x);
@@ -318,7 +320,7 @@ __constant__ LinOp CYC_RECOMBINE[6] = {
     {3, {{14, 3, 1}, {12, -3, 1}, {13, -3, 1}, {3, 2, 0}}}, // nb0 = 3 xi r1 + 2 b0
 };
 
-// --- K6: one Miller event (pairing_steps.miller_step_plain) ----------------------
+// --- K6: the Miller events (pairing_steps.miller_step_plain) ----------------------
 //
 // Slots: 0-5 f (then g = f^2, then the result), 6-8 the line c0, c1, c2,
 // 9 P (px re, py im), 10 c1 px and 11 c0 py (_ell_legs' a1 and a4; a0 is
@@ -333,6 +335,8 @@ __constant__ LinOp CYC_RECOMBINE[6] = {
 //   MILLER_014_PRODUCTS  the 15 Fp2 products of fp12_mul_by_014(g, c2,
 //                        c1 px, c0 py)
 //   MILLER_014_RESULT    their combination into slots 0-5.
+// No phase writes slot 9 or reads slots 6-8 after MILLER_014_PRODUCTS, so a
+// chain loads P once and the next event's line beside MILLER_014_RESULT.
 
 constexpr int MILLER_SLOTS = 30;
 constexpr int MILLER_INPUTS = 20;  // Fp components: f 12, the line 6, P 2
@@ -478,45 +482,47 @@ __constant__ LinOp FP12_MUL_RESULT[6] = {
     {17, {{8, 1, 0}, {2, -1, 0}, {5, -1, 0}}},
 };
 
-// --- K5: one G2 prepare event (pairing_steps._doubling_step, _addition_step) -----
+// --- K5: the G2 prepare events (pairing_steps._doubling_step, _addition_step) ---
 //
-// Slots: 0-2 R = (x, y, z), 3-4 Q = (qx, qy) (the addition), then the
-// event's squares and products, and the output, (nx, ny, nz, c0, c1, c2),
-// in 20-25. The plain code's linear steps are folded into the operand sums
-// of the products that read them and into the last phase's sums.
+// Slots: 0-2 R = (x, y, z), 3-4 Q = (qx, qy), then the event's squares and
+// products, and the output, (nx, ny, nz, c0, c1, c2), in 20-25. Neither
+// form writes slots 0-4, so Q, loaded once, serves every addition of a
+// chain. The plain code's linear steps are folded into the operand sums of
+// the products that read them and into the last phase's sums.
 //
-// The doubling, 25 Fp products in three phases: t0 = x^2 (3), t1 = y^2 (4),
-// zsq = z^2 (5), w = (z + y)^2 (6); t2 = t1^2 (7), s = (t1 + x)^2 (8), t5 =
-// (3 t0)^2 (9), u = (x + 3 t0)^2 = t6^2 (10), m1 = nz zsq (11) with nz = w -
-// t1 - zsq, m2 = 3 t0 zsq (12); m0 = (t3 - nx) 3 t0 (13), where t3 = 2 (s -
+// The doubling, 25 Fp products in three phases: t0 = x^2 (5), t1 = y^2 (6),
+// zsq = z^2 (7), w = (z + y)^2 (8); t2 = t1^2 (9), s = (t1 + x)^2 (10), t5 =
+// (3 t0)^2 (11), u = (x + 3 t0)^2 = t6^2 (12), m1 = nz zsq (13) with nz = w -
+// t1 - zsq, m2 = 3 t0 zsq (14); m0 = (t3 - nx) 3 t0 (15), where t3 = 2 (s -
 // t0 - t2) and nx = t5 - 2 t3, so t3 - nx = 6 s - 6 t0 - 6 t2 - t5.
 
 constexpr int PREPARE_SLOTS = 26;
 constexpr int PREPARE_OUT = 20;  // nx, ny, nz, c0, c1, c2 in 20-25
+constexpr int PREPARE_INPUTS = 10;  // Fp components: R 6, Q 4
 
 __constant__ MulOp PREPARE_DBL_PRODUCTS[11] = {
-    {3, SQR, {{0, 1, 0}}, {}},                                          // t0 = x^2
-    {4, SQR, {{1, 1, 0}}, {}},                                          // t1 = y^2
-    {5, SQR, {{2, 1, 0}}, {}},                                          // zsq = z^2
-    {6, SQR, {{2, 1, 0}, {1, 1, 0}}, {}},                               // w = (z + y)^2
-    {7, SQR, {{4, 1, 0}}, {}},                                          // t2 = t1^2
-    {8, SQR, {{4, 1, 0}, {0, 1, 0}}, {}},                               // s = (t1 + x)^2
-    {9, SQR, {{3, 3, 0}}, {}},                                          // t5 = t4^2
-    {10, SQR, {{0, 1, 0}, {3, 3, 0}}, {}},                              // u = t6^2
-    {11, MUL, {{6, 1, 0}, {4, -1, 0}, {5, -1, 0}}, {{5, 1, 0}}},        // m1 = nz zsq
-    {12, MUL, {{3, 3, 0}}, {{5, 1, 0}}},                                // m2 = t4 zsq
-    {13, MUL, {{8, 6, 0}, {3, -6, 0}, {7, -6, 0}, {9, -1, 0}}, {{3, 3, 0}}},  // m0
+    {5, SQR, {{0, 1, 0}}, {}},                                          // t0 = x^2
+    {6, SQR, {{1, 1, 0}}, {}},                                          // t1 = y^2
+    {7, SQR, {{2, 1, 0}}, {}},                                          // zsq = z^2
+    {8, SQR, {{2, 1, 0}, {1, 1, 0}}, {}},                               // w = (z + y)^2
+    {9, SQR, {{6, 1, 0}}, {}},                                          // t2 = t1^2
+    {10, SQR, {{6, 1, 0}, {0, 1, 0}}, {}},                              // s = (t1 + x)^2
+    {11, SQR, {{5, 3, 0}}, {}},                                         // t5 = t4^2
+    {12, SQR, {{0, 1, 0}, {5, 3, 0}}, {}},                              // u = t6^2
+    {13, MUL, {{8, 1, 0}, {6, -1, 0}, {7, -1, 0}}, {{7, 1, 0}}},        // m1 = nz zsq
+    {14, MUL, {{5, 3, 0}}, {{7, 1, 0}}},                                // m2 = t4 zsq
+    {15, MUL, {{10, 6, 0}, {5, -6, 0}, {9, -6, 0}, {11, -1, 0}}, {{5, 3, 0}}},  // m0
 };
 
 // nx = t5 - 2 t3, ny = m0 - 8 t2, nz = w - t1 - zsq, c0 = 2 m1, c1 = -2 m2,
 // c2 = t6^2 - t0 - t5 - 4 t1.
 __constant__ LinOp PREPARE_DBL_RESULT[6] = {
-    {20, {{9, 1, 0}, {8, -4, 0}, {3, 4, 0}, {7, 4, 0}}},
-    {21, {{13, 1, 0}, {7, -8, 0}}},
-    {22, {{6, 1, 0}, {4, -1, 0}, {5, -1, 0}}},
-    {23, {{11, 2, 0}}},
-    {24, {{12, -2, 0}}},
-    {25, {{10, 1, 0}, {3, -1, 0}, {9, -1, 0}, {4, -4, 0}}},
+    {20, {{11, 1, 0}, {10, -4, 0}, {5, 4, 0}, {9, 4, 0}}},
+    {21, {{15, 1, 0}, {9, -8, 0}}},
+    {22, {{8, 1, 0}, {6, -1, 0}, {7, -1, 0}}},
+    {23, {{13, 2, 0}}},
+    {24, {{14, -2, 0}}},
+    {25, {{12, 1, 0}, {5, -1, 0}, {11, -1, 0}, {6, -4, 0}}},
 };
 
 // The mixed addition, 37 Fp products in five phases: zsq = z^2 (5), ysq =
@@ -632,51 +638,6 @@ __device__ __forceinline__ void cyc_sqr_job(const Block& b, const int* x, int* o
   else run(b.elem(e), CYC_RECOMBINE[op]);
 }
 
-// K6's steps in order: with the square LOAD, SQR_PRODUCTS, SQR_FP6,
-// SQR_RESULT, then P014, R014, STORE; without it LOAD, LEGS, P014, R014,
-// STORE.
-enum MillerStep { LOAD, LEGS, SQR_PRODUCTS, SQR_FP6, SQR_RESULT, P014, R014, STORE };
-
-__device__ __forceinline__ int miller_phases(int with_sqr) { return with_sqr ? 7 : 5; }
-
-__device__ __forceinline__ MillerStep miller_step_of(int ph, int with_sqr) {
-  if (ph == 0) return LOAD;
-  if (with_sqr) return static_cast<MillerStep>(ph + 1);
-  return ph == 1 ? LEGS : static_cast<MillerStep>(ph + 3);
-}
-
-__device__ __forceinline__ int miller_jobs(int ph, int with_sqr) {
-  switch (miller_step_of(ph, with_sqr)) {
-    case LOAD: return MILLER_INPUTS;
-    case LEGS: return 2;
-    case SQR_PRODUCTS: return 14;
-    case P014: return 15;
-    case STORE: return 12;
-    default: return 6;
-  }
-}
-
-// f, c, pxy: the input stacks (12, 6 and 2 rows), components 0-11, 12-17
-// and 18-19 of the element's slots.
-__device__ __forceinline__ void miller_job(const Block& b, const int* f, const int* c,
-                                           const int* pxy, int* out, int with_sqr, int ph,
-                                           int op, int e) {
-  switch (miller_step_of(ph, with_sqr)) {
-    case LOAD:
-      if (op < 12) load_component(b, f, op, op, e);
-      else if (op < 18) load_component(b, c, op - 12, op, e);
-      else load_component(b, pxy, op - 18, op, e);
-      break;
-    case LEGS: run(b.elem(e), MILLER_LEGS[op]); break;
-    case SQR_PRODUCTS: run(b.elem(e), MILLER_SQR_PRODUCTS[op]); break;
-    case SQR_FP6: run(b.elem(e), MILLER_SQR_FP6[op]); break;
-    case SQR_RESULT: run(b.elem(e), MILLER_SQR_RESULT[op]); break;
-    case P014: run(b.elem(e), MILLER_014_PRODUCTS[op]); break;
-    case R014: run(b.elem(e), MILLER_014_RESULT[op]); break;
-    case STORE: store_component(b, out, op, op, e); break;
-  }
-}
-
 // K4: LOAD (a into components 0-11, b into 12-23), PRODUCTS, FP6, RESULT,
 // STORE from slot FP12_MUL_OUT (or, when the kernel runs its edges alone,
 // a from slot 0).
@@ -705,48 +666,6 @@ __device__ __forceinline__ void fp12_mul_job(const Block& b, const int* x, const
     case M12_FP6: run(b.elem(e), FP12_MUL_FP6[op]); break;
     case M12_RESULT: run(b.elem(e), FP12_MUL_RESULT[op]); break;
     default: store_component(b, out, op, edges_only ? op : 2 * FP12_MUL_OUT + op, e); break;
-  }
-}
-
-// K5: phase 0 loads R (components 0-5) and, for the addition, Q (6-9);
-// then the product phases (3 for the doubling, 5 for the addition), the
-// result's sums, and the store from slot PREPARE_OUT (or, when the kernel
-// runs its edges alone, row c from the loaded component c mod 6, or mod 10
-// for the addition: R, and Q after it, repeated).
-__device__ __forceinline__ int prepare_products(int is_add) { return is_add ? 5 : 3; }
-
-__device__ __forceinline__ int prepare_inputs(int is_add) { return is_add ? 10 : 6; }
-
-__device__ __forceinline__ int prepare_phases(int is_add) {
-  return prepare_products(is_add) + 3;
-}
-
-__device__ __forceinline__ int prepare_jobs(int ph, int is_add) {
-  const int np = prepare_products(is_add);
-  if (ph == 0) return prepare_inputs(is_add);
-  if (ph == np + 1) return 6;
-  if (ph == np + 2) return 12;
-  const signed char* first = is_add ? PREPARE_ADD_FIRST : PREPARE_DBL_FIRST;
-  return first[ph] - first[ph - 1];
-}
-
-__device__ __forceinline__ void prepare_job(const Block& b, const int* r, const int* q, int* out,
-                                            int is_add, int edges_only, int ph, int op,
-                                            int e) {
-  const int np = prepare_products(is_add);
-  if (ph == 0) {
-    if (op < 6) load_component(b, r, op, op, e);
-    else load_component(b, q, op - 6, op, e);
-  } else if (ph == np + 1) {
-    run(b.elem(e), is_add ? PREPARE_ADD_RESULT[op] : PREPARE_DBL_RESULT[op]);
-  } else if (ph == np + 2) {
-    store_component(b, out, op, edges_only ? op % prepare_inputs(is_add) : 2 * PREPARE_OUT + op,
-                    e);
-  } else {
-    const MulOp& m = is_add ? PREPARE_ADD_PRODUCTS[PREPARE_ADD_FIRST[ph - 1] + op]
-                            : PREPARE_DBL_PRODUCTS[PREPARE_DBL_FIRST[ph - 1] + op];
-    if (m.kind == SQR) run_sqr(b.elem(e), m);
-    else run_mul(b.elem(e), m);
   }
 }
 
@@ -803,6 +722,172 @@ __device__ __forceinline__ void mul_by_014_job(const Block& b, const int* f, con
     case B014_RESULT: run(b.elem(e), MILLER_014_RESULT[op]); break;
     default: store_component(b, out, op, op, e); break;
   }
+}
+
+// --- K5 and K6 as chains: a whole scan of the fused pairing in one launch ----------
+//
+// The JAX package runs the prepare's 68 events and the Miller loop's 68 as
+// lax.scans of one tower_fused kernel each (curves/pairing.py:242, :342).
+// Here each scan is one block program: the element's state (R, or f and P)
+// stays in the slots as canonical words from the first event to the last,
+// and only the lines cross the stacks, one row (6 Fp components) an event.
+// A chain is written once, over a phase runner `phase(ops, job)` that runs
+// job(op, e) for op < ops and every element e of the block, then a barrier
+// (BlockPhases on the card; tests/test_torch_tower_host.py runs the jobs in
+// order or reversed). A single event is the chain of one.
+
+constexpr int MAX_EVENTS = 128;
+
+// n events, bit i of dbl set where event i is a doubling (the prepare's
+// doubling step; the Miller loop's square and line), clear where it is an
+// addition (the mixed addition of Q; the line alone).
+struct Schedule {
+  int n;
+  u32 dbl[MAX_EVENTS / 32];
+  __device__ __forceinline__ bool is_dbl(int i) const { return (dbl[i / 32] >> (i % 32)) & 1u; }
+};
+
+// Digits of event ev's line in a coefficient stack (events, 6, 30, n).
+__device__ __forceinline__ long long line_offset(const Block& b, int ev) {
+  return static_cast<long long>(ev) * 6 * DIGITS * b.n;
+}
+
+// K5-chain: R (6, 30, n) and, when q is given, Q (4, 30, n) in; each event's
+// line into row ev of coeffs (events, 6, 30, n); after the last event R
+// into r_out (6, 30, n) when it is given. With edges_only, the conversions
+// alone: each line holds R's components, and r_out R.
+struct PrepareChain {
+  const int* r;
+  const int* q;
+  int* coeffs;
+  int* r_out;
+  Schedule s;
+  int edges_only;
+};
+
+__device__ __forceinline__ void prepare_product(const Block& b, bool is_add, int k, int e) {
+  const MulOp& m = is_add ? PREPARE_ADD_PRODUCTS[k] : PREPARE_DBL_PRODUCTS[k];
+  if (m.kind == SQR) run_sqr(b.elem(e), m);
+  else run_mul(b.elem(e), m);
+}
+
+// The phases: LOAD (R into components 0-5, Q into 6-9), then for each event
+// its product phases (3 for a doubling, 5 for an addition), RESULT (the new
+// point and the line into slots 20-25) and NEXT (the line stored as digits;
+// R' copied into slots 0-2, or, after the last event, stored). RESULT
+// cannot write R' into slots 0-2 itself: the addition's c1 reads y.
+template <class Phase>
+__device__ __forceinline__ void prepare_chain(const Block& b, const PrepareChain& c,
+                                              const Phase& phase) {
+  phase(c.q ? PREPARE_INPUTS : 6, [&](int op, int e) {
+    if (op < 6) load_component(b, c.r, op, op, e);
+    else load_component(b, c.q, op - 6, op, e);
+  });
+  for (int ev = 0; ev < c.s.n; ++ev) {
+    const bool is_add = !c.s.is_dbl(ev);
+    if (!c.edges_only) {
+      const signed char* first = is_add ? PREPARE_ADD_FIRST : PREPARE_DBL_FIRST;
+      const int np = is_add ? 5 : 3;
+      for (int k = 0; k < np; ++k)
+        phase(first[k + 1] - first[k],
+              [&](int op, int e) { prepare_product(b, is_add, first[k] + op, e); });
+      phase(6, [&](int op, int e) {
+        run(b.elem(e), is_add ? PREPARE_ADD_RESULT[op] : PREPARE_DBL_RESULT[op]);
+      });
+    }
+    const bool last = ev + 1 == c.s.n;
+    const int r_from = c.edges_only ? 0 : 2 * PREPARE_OUT;  // R's first component
+    int* line = c.coeffs + line_offset(b, ev);
+    const int tail = last ? (c.r_out ? 6 : 0) : (c.edges_only ? 0 : 3);
+    phase(6 + tail, [&](int op, int e) {
+      if (op < 6) {
+        store_component(b, line, op, c.edges_only ? op : 2 * (PREPARE_OUT + 3) + op, e);
+      } else if (last) {
+        store_component(b, c.r_out, op - 6, r_from + op - 6, e);
+      } else {
+        Fp2 v;
+        load(b.elem(e), PREPARE_OUT + op - 6, v);
+        store(b.elem(e), op - 6, v);
+      }
+    });
+  }
+}
+
+// K6-chain: f (12, 30, n), the lines coeffs (events, 6, 30, n) and P (2, 30,
+// n) in, f after the events into out (12, 30, n). With edges_only, the
+// conversions alone: f, P and every line in, out = f.
+struct MillerChain {
+  const int* f;
+  const int* coeffs;
+  const int* pxy;
+  int* out;
+  Schedule s;
+  int edges_only;
+};
+
+// The phases: LOAD (f into components 0-11, the first line into 12-17, P
+// into 18-19), then for each event SQR_PRODUCTS (with MILLER_LEGS), SQR_FP6,
+// SQR_RESULT at a doubling or LEGS alone at an addition, P014, then R014
+// beside the next event's line; STORE (slots 0-5). The products without a
+// scaling run on run_mul, as K11's and K12's.
+template <class Phase>
+__device__ __forceinline__ void miller_chain(const Block& b, const MillerChain& c,
+                                             const Phase& phase) {
+  phase(MILLER_INPUTS, [&](int op, int e) {
+    if (op < 12) load_component(b, c.f, op, op, e);
+    else if (op < 18) load_component(b, c.coeffs, op - 12, op, e);
+    else load_component(b, c.pxy, op - 18, op, e);
+  });
+  for (int ev = 0; ev < c.s.n; ++ev) {
+    const bool next = ev + 1 < c.s.n;
+    const int* line = next ? c.coeffs + line_offset(b, ev + 1) : nullptr;
+    const auto load_line = [&](int op, int e) { load_component(b, line, op, 12 + op, e); };
+    if (c.edges_only) {
+      if (next) phase(6, load_line);
+      continue;
+    }
+    if (c.s.is_dbl(ev)) {
+      phase(14, [&](int op, int e) {
+        if (op < FP12_SQR_LEGS) run_mul(b.elem(e), MILLER_SQR_PRODUCTS[op]);
+        else run(b.elem(e), MILLER_SQR_PRODUCTS[op]);
+      });
+      phase(6, [&](int op, int e) { run(b.elem(e), MILLER_SQR_FP6[op]); });
+      phase(6, [&](int op, int e) { run(b.elem(e), MILLER_SQR_RESULT[op]); });
+    } else {
+      phase(2, [&](int op, int e) { run(b.elem(e), MILLER_LEGS[op]); });
+    }
+    phase(15, [&](int op, int e) { run_mul(b.elem(e), MILLER_014_PRODUCTS[op]); });
+    phase(next ? 12 : 6, [&](int op, int e) {
+      if (op < 6) run(b.elem(e), MILLER_014_RESULT[op]);
+      else load_line(op - 6, e);
+    });
+  }
+  phase(12, [&](int op, int e) { store_component(b, c.out, op, op, e); });
+}
+
+#ifdef __CUDACC__
+// The card's phase runner: the block's threads take the phase's ops E jobs
+// in turn, operation-major, then a barrier.
+struct BlockPhases {
+  int E;
+  template <class Job>
+  __device__ __forceinline__ void operator()(int ops, const Job& job) const {
+    const int jobs = ops * E;
+    for (int j = threadIdx.x; j < jobs; j += blockDim.x) job(j / E, j % E);
+    __syncthreads();
+  }
+};
+#endif
+
+// A host array of n doubling flags -> a Schedule; false for n outside
+// [1, MAX_EVENTS] (a chain has an event).
+inline bool make_schedule(int n, const unsigned char* dbl, Schedule& s) {
+  if (n < 1 || n > MAX_EVENTS) return false;
+  s.n = n;
+  for (int k = 0; k < MAX_EVENTS / 32; ++k) s.dbl[k] = 0;
+  for (int i = 0; i < n; ++i)
+    if (dbl[i]) s.dbl[i / 32] |= 1u << (i % 32);
+  return true;
 }
 
 }  // namespace t381

@@ -8,8 +8,10 @@ per element). Two engines and two styles, as there:
 * `engine="lazy"` (the default, the card's path): the lazy radix-13 tower,
   values as stacked `(12, 30, N)` fp12 and `(E, 6, 30, N)` line
   coefficients, ingested strict -> lazy once and egressed at the end.
-  - `fuse=True` (the default): one K5 launch per prepare event, one K6
-    launch per Miller event, K3 runs of n squares in the exponent ladder.
+  - `fuse=True` (the default): one K5 launch for all the prepare's
+    events, one K6 launch for all the Miller loop's (the chains of
+    `curves/pairing_steps.py`), K3 runs of n squares in the exponent
+    ladder.
   - `fuse=False`, the JAX `fuse=False` branch as the TPU runs it: the
     prepare steps on the tower (K1 through `tower_lazy._mul`); each Miller
     event K11 (the square, at a doubling), `_ell_legs` (one K1), K12 (the
@@ -35,9 +37,10 @@ The pipeline:
    Frobenius maps, two lone cyclotomic squares.
 5. `egress`: lazy -> strict (24, N) limbs.
 
-Each `lax.scan` of the TPU path is a Python loop of kernel launches here;
-the kernel wrappers run their plain versions on CPU tensors, so the CPU
-tests walk the exact call sequence the card runs.
+The `lax.scan`s of the TPU's fused path are one chain kernel each here
+(the prepare and the Miller loop) or a Python loop of launches (the
+exponent ladder's runs); the kernel wrappers run their plain versions on
+CPU tensors, so the CPU tests walk the exact call sequence the card runs.
 """
 
 from __future__ import annotations
@@ -174,15 +177,8 @@ def prepare_g2(q, fuse=True, engine="lazy", events=None) -> torch.Tensor:
 
 
 def _prepare_fused(qx, qy, ev) -> torch.Tensor:
-    """The lazy prepare as one K5 launch per event."""
-    z = _fp2_one_zero_like(qx)
-    rs = torch.stack([qx[0], qx[1], qy[0], qy[1], z[0], z[1]])
-    qs = torch.stack([qx[0], qx[1], qy[0], qy[1]])
-    coeffs = torch.empty((len(ev), 6) + tuple(rs.shape[1:]), dtype=torch.int32, device=rs.device)
-    for i, is_dbl in enumerate(ev):
-        out = PS.prepare_step(rs, None if is_dbl else qs)
-        rs, coeffs[i] = out[:6], out[6:]
-    return coeffs
+    """The lazy prepare as one K5 launch: the chain of all its events."""
+    return PS.prepare_chain(torch.stack([qx[0], qx[1], qy[0], qy[1]]), ev)
 
 
 # --- Miller loop ------------------------------------------------------------------
@@ -206,10 +202,7 @@ def miller_loop(p, coeffs, fuse=True, engine="lazy", events=None):
     px, py = TL.fp_ingest(p[0]), TL.fp_ingest(p[1])
     fs = TL.stack12(_fp12_one_like(px))
     if fuse:
-        pxy = torch.stack([px, py])
-        for i, is_dbl in enumerate(ev):
-            fs = PS.miller_step(fs, coeffs[i], pxy, is_dbl)
-        return _conj(fs)
+        return _conj(PS.miller_chain(fs, coeffs, torch.stack([px, py]), ev))
     for i, is_dbl in enumerate(ev):
         if is_dbl:
             fs = K11.fp12_sqr(fs)

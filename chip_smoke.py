@@ -68,20 +68,31 @@ Phases, one JSON line each:
               K4-K6, K11 and K12 with the top digit bounded (|value| < 8p,
               where the plain versions are field operations), each with
               its registers, stack, shared memory and launch shape and its
-              bound beside the radix-13 one;
+              bound beside the radix-13 one (K5 and K6 as chains of one
+              event);
+     tower_chains  K5-chain and K6-chain, the prepare's and the Miller
+              loop's 68 events in one launch each (`prepare_chain`,
+              `miller_chain`), on the pipeline's real inputs (the pairs of
+              phase 8, Q and P ingested, f = one) at N = 8192 and at the
+              ragged N = 1000: every event's line and f by canonical value
+              against the plain versions (K6's on the kernel's lines),
+              digits within 4096; at 8192 the lines and f of the first
+              eight pairs (identities skipped) against the oracle's
+              prepare_g2 and miller_loop; each timed beside its plain
+              version and its bound, with its launch shape and ptxas;
   8. pairing  8192 pairings of 8 distinct (P, Q) pairs (P_i = P[i mod 8],
               Q_i = Q[(3i+1) mod 8], the construction of the JAX package's
               bench.py) with one identity P and one identity Q, through the
               public entry `bls12.pairing_batch`: every result checked
               against the oracle pairing (the identity pairs against one),
-              the launches of K1, K1-inv and K3-K6 in that call (K1 36 and
-              K1-inv once checked), pairings/s of a
+              the launches of K1, K1-inv and K3-K6 in that call (K1 36,
+              K1-inv, K5 and K6 once checked), pairings/s of a
               warm call, the stages (ingest, prepare_g2, miller_loop,
               final_exp, egress) rerun with a synchronize between them and
               once more under `torch.profiler`, the peak device memory;
-              then the prepared path (`prepare_g2_batch` once,
-              `pairing_batch` against it), checked equal to the unprepared
-              results;
+              then the prepared path (`prepare_g2_batch` once, one K5
+              launch; `pairing_batch` against it, one K6 launch and no K5),
+              checked equal to the unprepared results;
      pairing_unfused  the same instance through `bls12.pairing_batch(...,
               fuse=False)`: every result checked against the oracle and the
               fused results (the two paths' digits differ on the card, K11
@@ -183,6 +194,11 @@ K1 gives its G1 MSM launches as `launches`, its G2 MSM launches as
 elements as `at_pairing_batch`; K1-inv (`fp_inv`) and K1-scan
 (`batch_inverse_scan`, its up and down passes together) the same
 launches, K1-inv its times at 8192 elements and the other widths beside,
+K5-chain (`prepare_chain`) and K6-chain (`miller_chain`) the fused
+batch's launches, the prepared batch's, the unfused one's and the sharded
+pairing's, their times at 8192 with the ragged width's, the same events
+launched one by one (`by_event_ms`) and the one-event runs of phases k5
+and k6 beside,
 K1-scan one level of the G1 MSM (64 x 65,536) and the other three levels
 and the whole `batch_inverse` at 2^22 beside; K3 and K4 give the fused pairing's
 launches, the unfused one's beside; K11 and K12 the unfused pairing's;
@@ -231,8 +247,13 @@ event (85 or 49 products and 277 or 119 sums), FP12_SQR32_OPS an fp12
 square (36 and 158), MUL_BY_014_32_OPS a sparse line product (45 and
 119), and per launch the conversion of each input Fp component from digits to
 words (DIGITS_TO_WORDS_OPS) and of each output one back
-(WORDS_TO_DIGITS_OPS); their lines give the radix-13 work's bound beside
-(`bound_radix13_ms`), and their IMAD floor counts the launch's products
+(WORDS_TO_DIGITS_OPS); K5-chain and K6-chain count each event's
+products and sums, R and Q (K5) or f and P (K6) in once, each event's 6
+line components out (K5) or in (K6), and f out once (`chain_work`), and
+bytes as those components read or written once. The one-launch
+kernels' lines (and the chains' one-event runs) give the radix-13 work's
+bound beside (`bound_radix13_ms`), and their IMAD floor counts the
+launch's products
 (conversions included) at the IMAD instructions of one product of their
 own library: its static IMAD count (moves left out) over the CIOS bodies
 it compiles (its wide multiply-adds over the 288 of one product). K1-inv
@@ -277,6 +298,10 @@ G2_SEED = 11
 PAIRING_N = 8192
 PAIRING_DISTINCT = 8
 IDENTITY_P_AT, IDENTITY_Q_AT = 3, 10
+# phase tower_chains: a ragged width near multi_pairing's 1024 (31 blocks of
+# 32 and one of 8), and the first columns held against the oracle
+CHAIN_RAGGED_N = 1000
+CHAIN_ORACLE_COLS = 8
 STRICT_MULTI_N = 1024  # multi_pairing / multi_miller_loop_prepared on both engines
 STRICT_LOG_N = {"fp": 22, "fr": 20}
 STRICT_PLAIN_CHUNK = 1 << 20
@@ -1240,7 +1265,130 @@ def phase_k6(torch, dev, real, sass: dict, ptxas: dict) -> dict:
           "ops_conversions": 20 * DIGITS_TO_WORDS_OPS + 12 * WORDS_TO_DIGITS_OPS,
           "imad_per_product": imad, "ptxas": ptxas["miller_step.cu"],
           "launch": _tower32_shape(torch, PS.MILLER_KERNEL, n)})
-    return {"max_abs_err": err, **forms["with_square"]}
+    return {"max_abs_err": err, **forms["with_square"], "line_only": forms["line_only"]}
+
+
+def chain_inputs(torch, dev, n: int) -> tuple:
+    """The chains' operands as the fused pipeline gives them, for the first
+    n pairs of `pairing_inputs` (identities included): Q (4, 30, n) and P
+    (2, 30, n) ingested, f = one (12, 30, n); and the affine pairs."""
+    from ark_blst_tpu_torch import bls12 as B
+    from ark_blst_tpu_torch.curves import pairing as PR
+    from ark_blst_tpu_torch.ops import tower_lazy as TL
+
+    ps, qs, _, _ = pairing_inputs()
+    (p, _), (q, _) = B._g1_batch(ps[:n], dev), B._g2_batch(qs[:n], dev)
+    qx, qy = TL.fp2_ingest(q[0]), TL.fp2_ingest(q[1])
+    pxy = torch.stack([TL.fp_ingest(p[0]), TL.fp_ingest(p[1])])
+    return (torch.stack([qx[0], qx[1], qy[0], qy[1]]), pxy,
+            TL.stack12(PR._fp12_one_like(pxy[0])), ps[:n], qs[:n])
+
+
+def chain_work(schedule) -> dict:
+    """(bytes, int32 instructions) an element of the two chains over a
+    schedule, the work the function needs: K5-chain each event's products
+    and sums, R and Q in once, each event's 6 line components out; K6-chain
+    each event's products and sums, f and P in once, each event's 6 line
+    components in, f out once."""
+    e = len(schedule)
+    return {
+        "prepare": ((PREPARE_INPUTS[True] + 6 * e) * ELEM_BYTES,
+                    sum(PREPARE32_OPS[not d] for d in schedule)
+                    + PREPARE_INPUTS[True] * DIGITS_TO_WORDS_OPS + 6 * e * WORDS_TO_DIGITS_OPS),
+        "miller": ((14 + 6 * e + 12) * ELEM_BYTES,
+                   sum(MILLER32_OPS[d] for d in schedule)
+                   + (14 + 6 * e) * DIGITS_TO_WORDS_OPS + 12 * WORDS_TO_DIGITS_OPS)}
+
+
+def _chain_oracle(torch, coeffs, f, ps, qs) -> int:
+    """The lines and f of the first CHAIN_ORACLE_COLS pairs (identities
+    skipped) against the oracle's prepare_g2 (by value, R13 domain) and
+    miller_loop (f conjugated back, as the pipeline does). Returns the
+    columns held."""
+    from ark_blst_tpu_torch.curves import pairing as PR
+    from ark_blst_tpu_torch.ops import convert as CV
+    from ark_blst_tpu_torch.ops import lazy13 as LZ
+    from ark_blst_tpu_torch.oracle import pairing as OP
+    from ark_blst_tpu_torch.oracle.field import P
+
+    cols = [i for i in range(CHAIN_ORACLE_COLS) if ps[i] is not None and qs[i] is not None]
+    got = coeffs[..., cols].cpu()
+    for j, i in enumerate(cols):
+        want = OP.prepare_g2(qs[i])
+        for e, line in enumerate(want):
+            vals = [LZ.digits_to_ints(got[e, r, :, j : j + 1])[0] % P for r in range(6)]
+            check(vals == [v * LZ.R13 % P for fp2 in line for v in fp2],
+                  f"K5-chain: pair {i}, event {e} differs from the oracle's prepare_g2")
+    fs = CV.fp12_from_dev(PR.egress(PR._conj(f[..., cols].contiguous())))
+    check(fs == [OP.miller_loop(ps[i], qs[i]) for i in cols],
+          "K6-chain differs from the oracle's miller_loop")
+    return len(cols)
+
+
+def _prepare_by_event(PS, q, schedule) -> None:
+    """The prepare as one launch an event (the chain of one), as the fused
+    path ran it before the chain."""
+    rs = PS._r_start(q)
+    for is_dbl in schedule:
+        rs = PS.prepare_step(rs, None if is_dbl else q)[:6]
+
+
+def _miller_by_event(PS, f, coeffs, pxy, schedule) -> None:
+    """The Miller loop as one launch an event (the chain of one)."""
+    for i, is_dbl in enumerate(schedule):
+        f = PS.miller_step(f, coeffs[i], pxy, is_dbl)
+
+
+def phase_tower_chains(torch, dev, ptxas: dict) -> tuple:
+    """K5-chain and K6-chain (the prepare and the Miller loop, all 68 events
+    in one launch each) on the pipeline's inputs at N = 8192 and at the
+    ragged CHAIN_RAGGED_N: by canonical value against their plain versions
+    (K6's on the kernel's lines), every event's line and f, digits within
+    4096; at 8192 also against the oracle on a sample; each timed beside
+    its plain version, its bound and (at 8192) the same events launched
+    one by one (`by_event_ms`), with its launch shape."""
+    from ark_blst_tpu_torch.curves import pairing as PR
+    from ark_blst_tpu_torch.curves import pairing_steps as PS
+
+    t_phase = time.perf_counter()
+    sched = PR.MILLER_EVENTS
+    work = chain_work(sched)
+    out = {"prepare": {}, "miller": {}}
+    oracle_cols = 0
+    for n in (PAIRING_N, CHAIN_RAGGED_N):
+        q, pxy, f1, ps, qs = chain_inputs(torch, dev, n)
+        coeffs = PS.prepare_chain(q, sched)
+        plain_ms, want = _once_ms(torch, lambda: PS.prepare_chain_plain(q, sched))
+        err5 = _held_values(torch, "K5-chain", coeffs.reshape(-1, 30, n),
+                            want.reshape(-1, 30, n))
+        f = PS.miller_chain(f1, coeffs, pxy, sched)
+        plain6_ms, want6 = _once_ms(torch, lambda: PS.miller_chain_plain(f1, coeffs, pxy, sched))
+        err6 = _held_values(torch, "K6-chain", f, want6)
+        if n == PAIRING_N:
+            oracle_cols = _chain_oracle(torch, coeffs, f, ps, qs)
+        for name, kernel, err, fn, p_ms, by_event in (
+                ("prepare", PS.PREPARE_KERNEL, err5, lambda: PS.prepare_chain(q, sched), plain_ms,
+                 lambda: _prepare_by_event(PS, q, sched)),
+                ("miller", PS.MILLER_KERNEL, err6,
+                 lambda: PS.miller_chain(f1, coeffs, pxy, sched), plain6_ms,
+                 lambda: _miller_by_event(PS, f1, coeffs, pxy, sched))):
+            nbytes, ops = work[name]
+            bms, by = bound_ms(n * nbytes, n * ops)
+            out[name][n] = {"n": n, "max_abs_err": err, "ms": cuda_ms(torch, fn, 3),
+                            "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
+                            "launch": _tower32_shape(torch, kernel, n)}
+            if n == PAIRING_N:
+                out[name][n]["by_event_ms"] = cuda_ms(torch, by_event, 3)
+        del q, pxy, f1, coeffs, want, f, want6
+    torch.cuda.empty_cache()
+    emit({"phase": "tower_chains", "events": len(sched), "value_equal": True,
+          "real_inputs": True, "oracle_columns": oracle_cols,
+          "prepare": list(out["prepare"].values()), "miller": list(out["miller"].values()),
+          "ops_per_element": {k: v[1] for k, v in work.items()},
+          "bytes_per_element": {k: v[0] for k, v in work.items()},
+          "ptxas": {"prepare": ptxas["prepare_step.cu"], "miller": ptxas["miller_step.cu"]},
+          "seconds": time.perf_counter() - t_phase})
+    return tuple({**v[PAIRING_N], "at_ragged": v[CHAIN_RAGGED_N]} for v in out.values())
 
 
 def phase_k11_k12(torch, dev, real, sass: dict, ptxas: dict) -> tuple:
@@ -1368,6 +1516,13 @@ def _check_pairing_k1(launches: dict, fuse: bool, what: str) -> None:
                                    f"expected {PAIRING_K1[fuse]}")
 
 
+def _check_chains(launches: dict, want: tuple, what: str) -> None:
+    """K5's and K6's launches of a path: one chain each for a fused batch,
+    (0, 1) for a prepared one, (1, 0) for a prepare alone."""
+    got = (launches["prepare_step"], launches["miller_step"])
+    check(got == want, f"{what} launched K5 and K6 {got} times, expected {want}")
+
+
 def phase_pairing(torch, dev, ps, qs, expected) -> dict:
     from ark_blst_tpu_torch import bls12 as B
 
@@ -1389,6 +1544,7 @@ def phase_pairing(torch, dev, ps, qs, expected) -> dict:
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the path was not launched: {launches}")
     _check_pairing_k1(launches, True, "pairing batch")
+    _check_chains(launches, (1, 1), "pairing batch")
 
     stages = {name + "_ms": summary["wall_ms"]
               for name, summary in run_pairing_stages(torch, dev, ps, qs, expected, False)}
@@ -1396,15 +1552,20 @@ def phase_pairing(torch, dev, ps, qs, expected) -> dict:
     wall = sum(v["wall_ms"] for v in profiled.values())
     device = sum(v["device_ms"] for v in profiled.values())
 
+    kernels = _reset_launches()
     t0 = time.perf_counter()
     prep = B.prepare_g2_batch(qs, device=dev)
     torch.cuda.synchronize()
     prep_s = time.perf_counter() - t0
+    _check_chains({k: kernels[k].launches for k in names}, (1, 0), "prepare_g2_batch")
     B.pairing_batch(ps, prep, device=dev)  # warm-up
+    kernels = _reset_launches()
     t0 = time.perf_counter()
     got_prep = B.pairing_batch(ps, prep, device=dev)
     dt_prep = time.perf_counter() - t0
+    prep_launches = {name: kernels[name].launches for name in names}
     check(got_prep == got, "prepared pairings differ from the unprepared ones")
+    _check_chains(prep_launches, (0, 1), "prepared pairing batch")
     # both entry points with their default device ("cuda", no index)
     got_default = B.pairing_batch(ps, B.prepare_g2_batch(qs))
     check(got_default == got, "default-device prepared pairings differ")
@@ -1413,10 +1574,11 @@ def phase_pairing(torch, dev, ps, qs, expected) -> dict:
           "identities_one": True, "seconds": dt, "pairings_per_s": n / dt,
           "launches": launches, "stages": stages, "peak_mem_gib": peak_gib,
           "prepared": {"ok": True, "prepare_s": prep_s, "seconds": dt_prep,
-                       "pairings_per_s": n / dt_prep, "default_device_ok": True}})
+                       "pairings_per_s": n / dt_prep, "launches": prep_launches,
+                       "default_device_ok": True}})
     emit({"phase": "pairing_profile", "wall_ms": wall, "device_ms": device,
           "busy_share": device / wall, "stages": profiled})
-    return launches, got
+    return {**launches, "prepared": prep_launches}, got
 
 
 def _reset_launches() -> dict:
@@ -1717,14 +1879,17 @@ def phase_api(torch, dev, ps, qs, expected, fused) -> None:
     check(all(isinstance(g, T.Gt) for g in got) and [g.v for g in got] == fused,
           "api pairing_batch differs from phase 8's results")
     check(all(v > 0 for v in launches.values()), f"a kernel of the API pairing was not launched: {launches}")
+    _check_chains(launches, (1, 1), "api pairing_batch")
     t0 = time.perf_counter()
     prep = T.Bls12.prepare_g2_batch(gq)
     torch.cuda.synchronize()
     prep_s = time.perf_counter() - t0
+    kernels = _reset_launches()
     t0 = time.perf_counter()
     got_prep = T.Bls12.pairing_batch(gp, prep)
     dt_prep = time.perf_counter() - t0
     check(got_prep == got, "api prepared pairings differ from the unprepared ones")
+    _check_chains({k: kernels[k].launches for k in names}, (0, 1), "api prepared pairing_batch")
     n = len(ps)
     emit({"phase": "api_pairing", "n": n, "ok": True, "equal_to_phase_pairing": True,
           "seconds": dt, "pairings_per_s": n / dt, **{k + "_s": v for k, v in split.items()},
@@ -1745,6 +1910,7 @@ def phase_api(torch, dev, ps, qs, expected, fused) -> None:
     check(isinstance(mlo, T.MillerLoopOutput) and e.v == _fp12_product(expected[:m]),
           "api multi_miller_loop + final_exponentiation differs from the oracle's product")
     check(all(v > 0 for v in launches.values()), f"a kernel of the API Miller loop was not launched: {launches}")
+    _check_chains(launches, (1, 1), "api multi_miller_loop")
     emit({"phase": "api_miller", "n": m, "ok": True, "multi_miller_loop_s": t1 - t0,
           "final_exponentiation_host_s": t2 - t1, "launches": launches})
     del gp, gq, prep
@@ -2161,6 +2327,7 @@ def distributed_pairing(torch, dev, mesh, ps, qs, expected) -> tuple:
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the path was not launched: {launches}")
     _check_pairing_k1(launches, True, "sharded multi-pairing")
+    _check_chains(launches, (1, 1), "sharded multi-pairing")
     check(CV.fp12_from_dev(got) == [want],
           "sharded multi-pairing differs from the oracle's product")
     check(mesh.gathers == gathers + 1, "the world of one did not gather")
@@ -2353,12 +2520,17 @@ def rank_main(argv) -> int:
                                        torch.zeros((12, 30, 1), dtype=torch.int32, device=dev)),
                "fp12": CV.fp12_from_dev(got)}
     check(all(v > 0 for v in pairing["launches"].values()), f"rank {a.rank}: {pairing['launches']}")
+    _check_chains(pairing["launches"], (1, 1), f"rank {a.rank}'s sharded pairing")
     with open(a.out, "w") as f:
         json.dump({"rank": a.rank, "collective": str(mesh.backend), "device": str(dev),
                    "sharing": mesh.sharing, "init_s": init_s, "msm": msm, "pairing": pairing,
                    "seconds": time.perf_counter() - t_start}, f)
     torch.distributed.destroy_process_group()
     return 0
+
+
+# what the chains' kernel lines give of their one-event runs (phases k5, k6)
+ONE_EVENT_KEYS = ("ms", "plain_ms", "bound_ms", "bound_radix13_ms")
 
 
 def _kernel_line(name, source, replaces, launches, res, **extra) -> dict:
@@ -2423,6 +2595,7 @@ def main() -> int:
     k6 = phase_k6(torch, dev, real, sass["miller_step.cu"], ptxas)
     k11, k12 = phase_k11_k12(torch, dev, real, sass, ptxas)
     del real
+    k5c, k6c = phase_tower_chains(torch, dev, ptxas)
     torch.cuda.empty_cache()
     launches, fused = phase_pairing(torch, dev, ps, qs, pairs_expected)
     unfused = phase_pairing_unfused(torch, dev, ps, qs, pairs_expected, fused)
@@ -2545,17 +2718,28 @@ def main() -> int:
                      launches_distributed={"pairing": dist_launches["pairing"]["fp12_mul"]},
                      launches_pairing_unfused=unfused["fp12_mul"],
                      bound_radix13_ms=k4["bound_radix13_ms"]),
-        _kernel_line("prepare_step", "prepare_step.cu", "ark_blst_tpu/ops/pallas_lazy.py:63",
-                     launches["prepare_step"], k5,
+        _kernel_line("prepare_chain", "prepare_step.cu",
+                     "ark_blst_tpu/ops/pallas_lazy.py:63 (tower_fused under the prepare's "
+                     "lax.scan, ark_blst_tpu/curves/pairing.py:242)",
+                     launches["prepare_step"], k5c,
+                     launches_prepared=launches["prepared"]["prepare_step"],
+                     launches_pairing_unfused=unfused["prepare_step"],
                      launches_distributed={"pairing": dist_launches["pairing"]["prepare_step"]},
-                     bound_radix13_ms=k5["bound_radix13_ms"],
-                     addition_ms=k5["addition"]["ms"],
-                     addition_bound_ms=k5["addition"]["bound_ms"],
-                     addition_bound_radix13_ms=k5["addition"]["bound_radix13_ms"]),
-        _kernel_line("miller_step", "miller_step.cu", "ark_blst_tpu/ops/pallas_lazy.py:63",
-                     launches["miller_step"], k6,
+                     at_ragged=k5c["at_ragged"], launch=k5c["launch"],
+                     by_event_ms=k5c["by_event_ms"],
+                     one_event={"doubling": {k: k5[k] for k in ONE_EVENT_KEYS},
+                                "addition": {k: k5["addition"][k] for k in ONE_EVENT_KEYS}}),
+        _kernel_line("miller_chain", "miller_step.cu",
+                     "ark_blst_tpu/ops/pallas_lazy.py:63 (tower_fused under the Miller "
+                     "lax.scan, ark_blst_tpu/curves/pairing.py:342)",
+                     launches["miller_step"], k6c,
+                     launches_prepared=launches["prepared"]["miller_step"],
+                     launches_pairing_unfused=unfused["miller_step"],
                      launches_distributed={"pairing": dist_launches["pairing"]["miller_step"]},
-                     bound_radix13_ms=k6["bound_radix13_ms"]),
+                     at_ragged=k6c["at_ragged"], launch=k6c["launch"],
+                     by_event_ms=k6c["by_event_ms"],
+                     one_event={"with_square": {k: k6[k] for k in ONE_EVENT_KEYS},
+                                "line_only": {k: k6["line_only"][k] for k in ONE_EVENT_KEYS}}),
         *strict_lines,
         _kernel_line("fp12_sqr", "fp12_sqr.cu",
                      "ark_blst_tpu/ops/pallas_lazy.py:63 (ops/tower_lazy.py:570 sqr12)",

@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
 """K3 (`ark_blst_tpu_torch/csrc/cyc_sqr.cu`), K4 (`csrc/fp12_mul.cu`), K5
-(`csrc/prepare_step.cu`), K6 (`csrc/miller_step.cu`), K11
-(`csrc/fp12_sqr.cu`) and K12 (`csrc/fp12_mul_by_014.cu`) at other launch
-shapes, on one NVIDIA card: each shape is E elements and T threads a block
-(`tower_cyc_sqr_shaped`, `tower_fp12_mul_shaped`,
-`pairing_prepare_step_shaped`, `pairing_miller_step_shaped`,
-`tower_fp12_sqr_shaped`, `tower_fp12_mul_by_014_shaped`), and the edges
-of K4, K5, K6, K11 and K12 alone (the conversions of their input and
-output Fp components, `edges_only`). K3 and K6 run every shape in the
-library's own build (`__launch_bounds__(512)`). K4, K5, K11 and K12 are
-bounded by their launch shape, so each of their shapes gets a build of
-its own, bounded by it: T threads and as many blocks an SM as the
-shape's shared memory holds (`-DK4_THREADS=T -DK4_MIN_BLOCKS=M`, `K5_*`,
-`K11_*`, `K12_*` likewise), with its ptxas registers and spills.
+(`csrc/prepare_step.cu`, the prepare's chain), K6 (`csrc/miller_step.cu`,
+the Miller loop's chain), K11 (`csrc/fp12_sqr.cu`) and K12
+(`csrc/fp12_mul_by_014.cu`) at other launch shapes, on one NVIDIA card:
+each shape is E elements and T threads a block (`tower_cyc_sqr_shaped`,
+`tower_fp12_mul_shaped`, `pairing_prepare_chain_shaped`,
+`pairing_miller_chain_shaped`, `tower_fp12_sqr_shaped`,
+`tower_fp12_mul_by_014_shaped`), and the edges of K4-K6, K11 and K12
+alone (the conversions of their input and output Fp components,
+`edges_only`; for a chain the conversions once and the lines, one row an
+event). K3 and K6 run every shape in the library's own build
+(`__launch_bounds__(512)`). K4, K5, K11 and K12 are bounded by their
+launch shape, so each of their shapes gets a build of its own, bounded by
+it: T threads and as many blocks an SM as the shape's shared memory holds
+(`-DK4_THREADS=T -DK4_MIN_BLOCKS=M`, `K5_*`, `K11_*`, `K12_*` likewise),
+with its ptxas registers and spills.
 
     python3 scripts/tower_probe.py [--k3 32x288,16x144] [--k4 32x192] \
         [--k5 32x192,16x96] [--k6 32x256,16x128] [--k11 32x192] \
-        [--k12 32x256,24x192]
+        [--k12 32x256,24x192] [--chains 32,16,8] [--widths 8192,1024]
 
 An empty list (`--k3 ""`) skips a kernel's shapes. Builds the six kernels
 from the checkout's sources (`cuda.build_all`) and the shapes' builds of
@@ -27,11 +29,17 @@ K11 and K12 bounded), and prints the card's name and power limit, then
 one JSON line per shape: the blocks an SM holds (the occupancy API at the
 compiled registers and the shape's shared memory), the grid's waves, the
 time (the mean of three launches after one warm-up, CUDA events) of K3
-at n = 1 and n = 32 squares, K4, K5's doubling and addition, K6 with and
-without the square, K11 or K12, each with its edges alone, and whether
-the output equals the library's default shape's bit for bit (every shape
-computes the same words; the edges alone store their inputs' values).
-Needs a card; imports no JAX.
+at n = 1 and n = 32 squares, K4, K5's doubling and addition (one event),
+K6 with and without the square (one event), K11 or K12, each with its
+edges alone, and whether the output equals the library's default shape's
+bit for bit (every shape computes the same words; the edges alone store
+their inputs' values). Then, for each width N of `--widths` (the pairs of
+the pipeline's real inputs, 8 distinct, as chip_smoke.py's phase
+`tower_chains` makes them) and each E of `--chains`, one line for the
+two chains of all 68 events in the library's builds at E elements a
+block (six threads an element for K5, eight for K6): their times, their
+edges alone, their blocks an SM and waves, and whether their output
+equals the default shape's. Needs a card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -52,6 +60,9 @@ K4_SHAPES = "32x192,32x256,32x128,16x128,16x96"
 K5_SHAPES = "32x192,32x128,16x96,16x64,64x384"
 K11_SHAPES = "32x192,32x256,32x384,24x144,16x96,16x192"
 K12_SHAPES = "32x256,32x192,32x320,24x192,24x128,16x128"
+CHAIN_ELEMS = "32,16,8"
+CHAIN_WIDTHS = "8192,1024"
+K5_THREADS_PER_ELEM, K6_THREADS_PER_ELEM = 6, 8
 SMEM_RESERVED = 1024  # shared memory the card reserves a block
 
 
@@ -95,6 +106,8 @@ def main() -> int:
     ap.add_argument("--k6", default=K6_SHAPES)
     ap.add_argument("--k11", default=K11_SHAPES)
     ap.add_argument("--k12", default=K12_SHAPES)
+    ap.add_argument("--chains", default=CHAIN_ELEMS)
+    ap.add_argument("--widths", default=CHAIN_WIDTHS)
     args = ap.parse_args()
 
     import chip_smoke as CS
@@ -144,11 +157,15 @@ def main() -> int:
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     entries = {"k3": ("tower_cyc_sqr_shaped", [vp, vp, i64, i32, i32, i32, vp]),
                "k4": ("tower_fp12_mul_shaped", [vp, vp, vp, i64, i32, i32, i32, vp]),
-               "k5": ("pairing_prepare_step_shaped", [vp, vp, vp, i64, i32, i32, i32, i32, vp]),
-               "k6": ("pairing_miller_step_shaped",
-                      [vp, vp, vp, vp, i64, i32, i32, i32, i32, vp]),
+               "k5": ("pairing_prepare_chain_shaped",
+                      [vp, vp, vp, vp, i64, i32, vp, i32, i32, i32, vp]),
+               "k6": ("pairing_miller_chain_shaped",
+                      [vp, vp, vp, vp, i64, i32, vp, i32, i32, i32, vp]),
                "k11": ("tower_fp12_sqr_shaped", [vp, vp, i64, i32, i32, i32, vp]),
                "k12": ("tower_fp12_mul_by_014_shaped", [vp, vp, vp, i64, i32, i32, i32, vp])}
+
+    def flags(schedule):
+        return (ctypes.c_ubyte * len(schedule))(*[int(x) for x in schedule])
 
     def shaped(which, E, T):
         """The shaped entry and the occupancy entry of the build that runs
@@ -218,10 +235,11 @@ def main() -> int:
             key = "addition" if add else "doubling"
             for edges in (0, 1):
                 run = lambda e=edges, add=add, k5=k5: launch(  # noqa: E731
-                    k5, r.data_ptr(), q.data_ptr(), out.data_ptr(), N, int(add), E, T, e, stream)
+                    k5, r.data_ptr(), q.data_ptr(), out[6:].data_ptr(), out[:6].data_ptr(), N, 1,
+                    flags([not add]), E, T, e, stream)
                 res[f"ms_{key}_edges_only" if edges else f"ms_{key}"] = timed(run)
-                if edges:
-                    res[f"{key}_edges_value_equal"] = edges_hold([r, q] if add else [r])
+                if edges:  # R out, and the line rows R's components
+                    res[f"{key}_edges_value_equal"] = edges_hold([r])
                 else:
                     res[f"equal_{key}"] = bool(torch.equal(out, ref5[add]))
         print(json.dumps(res), flush=True)
@@ -229,12 +247,12 @@ def main() -> int:
         k6, res = shape_line("k6", E, T)
         for w in (True, False):
             run = lambda w=w: launch(k6, f.data_ptr(), c.data_ptr(), pxy.data_ptr(),  # noqa: E731
-                                     out.data_ptr(), N, int(w), E, T, 0, stream)
+                                     out.data_ptr(), N, 1, flags([w]), E, T, 0, stream)
             key = "with_square" if w else "line_only"
             res[f"ms_{key}"] = timed(run)
             res[f"equal_{key}"] = bool(torch.equal(out, ref6[w]))
         run = lambda: launch(k6, f.data_ptr(), c.data_ptr(), pxy.data_ptr(),  # noqa: E731
-                             out.data_ptr(), N, 1, E, T, 1, stream)
+                             out.data_ptr(), N, 1, flags([True]), E, T, 1, stream)
         res["ms_edges_only"] = timed(run)
         res["edges_value_equal"] = edges_hold([f])
         print(json.dumps(res), flush=True)
@@ -251,6 +269,43 @@ def main() -> int:
                     res["edges_value_equal"] = edges_hold([f])
                 else:
                     res["equal"] = bool(torch.equal(out, ref))
+            print(json.dumps(res), flush=True)
+
+    from ark_blst_tpu_torch.curves import pairing as PR
+
+    sched = flags(PR.MILLER_EVENTS)
+    events = len(PR.MILLER_EVENTS)
+    k5, occ5 = lib(PS.PREPARE_KERNEL.lib_path, *entries["k5"]), \
+        lib(PS.PREPARE_KERNEL.lib_path, "pairing_prepare_chain_shape", [ctypes.POINTER(i32)] * 4)
+    k6, occ6 = lib(PS.MILLER_KERNEL.lib_path, *entries["k6"]), \
+        lib(PS.MILLER_KERNEL.lib_path, "pairing_miller_chain_shape", [ctypes.POINTER(i32)] * 4)
+    for n in (int(w) for w in args.widths.split(",") if w):
+        q, pxy_n, f1, _, _ = CS.chain_inputs(torch, dev, n)
+        r1 = PS._r_start(q)
+        ref_c = PS.prepare_chain(q, PR.MILLER_EVENTS)
+        ref_f = PS.miller_chain(f1, ref_c, pxy_n, PR.MILLER_EVENTS)
+        coeffs, fo = torch.empty_like(ref_c), torch.empty_like(f1)
+        for E in (int(e) for e in args.chains.split(",") if e):
+            res = {"kernel": "chains", "n": n, "elements_per_block": E}
+            for which, fn, occ, T in (("k5", k5, occ5, K5_THREADS_PER_ELEM * E),
+                                      ("k6", k6, occ6, K6_THREADS_PER_ELEM * E)):
+                line = {"threads": T, **occupancy(occ, E, T)}
+                line["blocks"] = -(-n // E)
+                line["waves"] = line["blocks"] / (sms * max(line["blocks_per_sm"], 1))
+                for edges in (0, 1):
+                    if which == "k5":
+                        run = lambda e=edges, T=T: launch(  # noqa: E731
+                            k5, r1.data_ptr(), q.data_ptr(), coeffs.data_ptr(), 0, n, events,
+                            sched, E, T, e, stream)
+                    else:
+                        run = lambda e=edges, T=T: launch(  # noqa: E731
+                            k6, f1.data_ptr(), ref_c.data_ptr(), pxy_n.data_ptr(),
+                            fo.data_ptr(), n, events, sched, E, T, e, stream)
+                    line["ms_edges_only" if edges else "ms"] = timed(run)
+                    if not edges:
+                        line["equal"] = bool(torch.equal(coeffs, ref_c) if which == "k5"
+                                             else torch.equal(fo, ref_f))
+                res[which] = line
             print(json.dumps(res), flush=True)
     return 0
 

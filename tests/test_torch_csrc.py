@@ -117,6 +117,37 @@ def test_tower_wrappers_reject_what_the_kernels_do_not_take(kernel, bad):
         call()
 
 
+def test_chain_schedule_limit_matches_the_header():
+    """The wrappers refuse the schedules the chain kernels refuse."""
+    assert re.search(rf"constexpr int MAX_EVENTS = {PS.MAX_EVENTS};", TOWER)
+
+
+@pytest.mark.parametrize("bad", ["rows", "events", "dtype", "device"])
+@pytest.mark.parametrize("kernel", ["prepare_chain", "miller_chain"])
+def test_chain_wrappers_reject_what_the_kernels_do_not_take(kernel, bad):
+    """K5's and K6's chains take (rows, 30, N) int32 stacks, lines (E', 6,
+    30, N) with E' at least the schedule's events, 1 to MAX_EVENTS events,
+    all on one device; only CPU tensors take the plain version."""
+    import torch
+
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32)  # noqa: E731
+    sched = [True, False]
+    q, f, c, pxy = z(4, 30, 4), z(12, 30, 4), z(2, 6, 30, 4), z(2, 30, 4)
+    if bad == "rows":
+        q, pxy = z(5, 30, 4), z(3, 30, 4)
+    elif bad == "events":  # one past the longest schedule; more events than lines
+        sched = [True] * (PS.MAX_EVENTS + 1) if kernel == "prepare_chain" else [True] * 3
+    elif bad == "dtype":
+        q, f = q.long(), f.long()
+    else:
+        q, f, c, pxy = (x.to("meta") for x in (q, f, c, pxy))
+    with pytest.raises(ValueError):
+        if kernel == "prepare_chain":
+            PS.prepare_chain(q, sched)
+        else:
+            PS.miller_chain(f, c, pxy, sched)
+
+
 def test_identity_rows_decode_to_identity():
     import torch
 

@@ -296,6 +296,69 @@ def test_k6_value_equal_to_plain(dev, with_sqr):
     _value_equal(got, PS.miller_step_plain(f, c, pxy, with_sqr))
 
 
+def _real_pairs(dev, n, seed):
+    """n pairs of 4 distinct (P, Q) as the pipeline ingests them: the Q
+    stack (4, 30, n), P (2, 30, n) and the affine points."""
+    from ark_blst_tpu_torch.ops import tower_lazy as TL
+
+    rng = random.Random(seed)
+    ps = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    qs = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    (p, _), (q, _) = B._g1_batch([ps[i % 4] for i in range(n)], dev), \
+        B._g2_batch([qs[(i + 1) % 4] for i in range(n)], dev)
+    qx, qy = TL.fp2_ingest(q[0]), TL.fp2_ingest(q[1])
+    pxy = torch.stack([TL.fp_ingest(p[0]), TL.fp_ingest(p[1])])
+    return torch.stack([qx[0], qx[1], qy[0], qy[1]]), pxy, ps, qs
+
+
+def test_chains_value_equal_to_plain_ragged(dev):
+    """K5-chain and K6-chain over all 68 events at a ragged N (1000 = 31
+    blocks of 32 and one of 8), one launch each, by value against their
+    plain versions (K6's on the kernel's lines); f against the oracle's
+    Miller loop on the four distinct pairs."""
+    from ark_blst_tpu_torch.ops import tower_lazy as TL
+
+    n, sched = 1000, PR.MILLER_EVENTS
+    q, pxy, ps, qs = _real_pairs(dev, n, 20)
+    coeffs = _launched_once(PS.PREPARE_KERNEL, lambda: PS.prepare_chain(q, sched))
+    assert coeffs.shape == (68, 6, 30, n)
+    _value_equal(coeffs.reshape(-1, 30, n), PS.prepare_chain_plain(q, sched).reshape(-1, 30, n))
+    f = TL.stack12(PR._fp12_one_like(pxy[0]))
+    got = _launched_once(PS.MILLER_KERNEL, lambda: PS.miller_chain(f, coeffs, pxy, sched))
+    _value_equal(got, PS.miller_chain_plain(f, coeffs, pxy, sched))
+    vals = CV.fp12_from_dev(TL.fp12_egress(TL.unstack12(PR._conj(got[..., :4].contiguous()))))
+    assert vals == [OP.miller_loop(ps[i], qs[(i + 1) % 4]) for i in range(4)]
+
+
+def test_fused_pairing_launches_one_chain_each(dev):
+    """A fused batch launches K5 and K6 once each, a prepare alone K5 once,
+    a prepared batch K6 once, `multi_pairing` once each; the results equal
+    the oracle."""
+    rng = random.Random(21)
+    ps = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    qs = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    pb = [ps[i % 4] for i in range(40)]
+    qb = [qs[(i + 3) % 4] for i in range(40)]
+    chains = (PS.PREPARE_KERNEL, PS.MILLER_KERNEL)
+
+    def launches(fn):
+        before = [k.launches for k in chains]
+        out = fn()
+        torch.cuda.synchronize()
+        return out, [k.launches - b for k, b in zip(chains, before)]
+
+    want = [OP.pairing(ps[i % 4], qs[(i + 3) % 4]) for i in range(40)]
+    got, n = launches(lambda: B.pairing_batch(pb, qb, device=dev))
+    assert got == want and n == [1, 1]
+    prep, n = launches(lambda: B.prepare_g2_batch(qb, device=dev))
+    assert n == [1, 0]
+    got, n = launches(lambda: B.pairing_batch(pb, prep, device=dev))
+    assert got == want and n == [0, 1]
+    got, n = launches(lambda: B.multi_pairing(pb[:8], qb[:8], device=dev))
+    assert n == [1, 1]
+    assert got == OP.final_exp(OP.multi_miller_loop(list(zip(pb[:8], qb[:8]))))
+
+
 def _real_f_and_legs(dev):
     """f after three Miller events and the fourth event's line scaled by P
     (`_ell_legs`, K12's rows) as the unfused Miller loop forms them, for 64

@@ -1,7 +1,8 @@
 """The port's batched pairing (curves/pairing.py, curves/pairing_steps.py,
 ops/cyc_sqr.py and the tuple-level entry points of `bls12.py`) against the JAX package.
 
-The plain versions of K3, K5 and K6 and the truncated prepare_g2 /
+The plain versions of K3, K5 and K6 (one event and the chains of
+`prepare_chain` / `miller_chain`) and the truncated prepare_g2 /
 miller_loop are held against the JAX lazy tower digit for digit; the whole
 pairing on the CPU is held against the JAX package's oracle by value, and
 so is the port's own oracle copy. (The JAX package's own pairing tests are
@@ -136,18 +137,71 @@ def test_k3_plain_matches_jax_core(n):
     assert CV.fp12_from_dev(TL.fp12_egress(TL.unstack12(got))) == want
 
 
-def test_prepare_g2_and_miller_loop_truncated_match_jax():
-    events = 8
+TRUNCATED = 8  # events of the truncated pipeline: two additions (events 1 and 4)
+
+
+@pytest.fixture(scope="module")
+def jax_truncated():
+    """The JAX lazy prepare and Miller loop (`fuse=False`) over the first
+    TRUNCATED events of QS4 and PS4: (jq, jp, coefficients, conj(f))."""
     jq, jp = _jax_q(QS4), _jax_p(PS4)
-    jc = DP.prepare_g2(jq, fuse=False, engine="lazy", events=events)
+    jc = DP.prepare_g2(jq, fuse=False, engine="lazy", events=TRUNCATED)
+    return jq, jp, jc, DP.miller_loop(jp, jc, fuse=False, engine="lazy", events=TRUNCATED)
+
+
+def test_prepare_g2_and_miller_loop_truncated_match_jax(jax_truncated):
+    events = TRUNCATED
+    jq, jp, jc, jf = jax_truncated
     got_c = PR.prepare_g2(CV.tree_from_jax(jq), events=events)
     assert got_c.shape == (events, 6, 30, 4)
     assert torch.equal(got_c, CV.coeffs_from_jax(jc))
-    jf = DP.miller_loop(jp, jc, fuse=False, engine="lazy", events=events)
     got_f = PR.miller_loop(CV.tree_from_jax(jp), got_c, events=events)
     assert got_f.shape == (12, 30, 4)
     for g, w in zip(got_f, JTL._flat12(jf)):
         assert (g.numpy() == _np(w)).all()
+
+
+def test_chains_on_cpu_match_jax_truncated(jax_truncated):
+    """`prepare_chain` and `miller_chain` on CPU tensors (their plain
+    versions) against the JAX `fuse=False` prepare and Miller loop over 8
+    events, digit for digit."""
+    jq, jp, jc, jf = jax_truncated
+    schedule = PR.MILLER_EVENTS[:TRUNCATED]
+    qx, qy = (TL.fp2_ingest(c) for c in CV.tree_from_jax(jq))
+    coeffs = PS.prepare_chain(torch.stack([qx[0], qx[1], qy[0], qy[1]]), schedule)
+    assert coeffs.shape == (TRUNCATED, 6, 30, 4)
+    assert torch.equal(coeffs, CV.coeffs_from_jax(jc))
+    px, py = (TL.fp_ingest(c) for c in CV.tree_from_jax(jp))
+    f = TL.stack12(PR._fp12_one_like(px))
+    got = PR._conj(PS.miller_chain(f, coeffs, torch.stack([px, py]), schedule))
+    assert (got.numpy() == np.stack([_np(w) for w in JTL._flat12(jf)])).all()
+
+
+@pytest.mark.parametrize("kernel,is_dbl", [("prepare", True), ("prepare", False),
+                                           ("miller", True), ("miller", False)])
+def test_chain_of_one_event_is_the_step(kernel, is_dbl):
+    """A chain of one event is `prepare_step` / `miller_step`, digit for
+    digit (the prepare's from R = (Q, 1)); an empty schedule, or one past
+    MAX_EVENTS, is refused."""
+    qx, qy = (TL.fp2_ingest(c) for c in CV.tree_from_jax(_jax_q(QS4)))
+    q = torch.stack([qx[0], qx[1], qy[0], qy[1]])
+    if kernel == "prepare":
+        step = PS.prepare_step(PS._r_start(q), None if is_dbl else q)
+        assert torch.equal(PS.prepare_chain(q, [is_dbl])[0], step[6:])
+        call = lambda sched: PS.prepare_chain(q, sched)  # noqa: E731
+    else:
+        line = PS.prepare_chain(q, [True])
+        px, py = (TL.fp_ingest(c) for c in CV.tree_from_jax(_jax_p(PS4)))
+        pxy = torch.stack([px, py])
+        f = TL.stack12(PR._fp12_one_like(px))
+        f = PS.miller_step(f, line[0], pxy, True)  # f != 1, so the square matters
+        got = PS.miller_chain(f, line, pxy, [is_dbl])
+        assert torch.equal(got, PS.miller_step(f, line[0], pxy, is_dbl))
+        call = lambda sched: PS.miller_chain(f, line.expand(len(sched), -1, -1, -1),  # noqa: E731
+                                             pxy, sched)
+    for bad in ([], [True] * (PS.MAX_EVENTS + 1)):
+        with pytest.raises(ValueError):
+            call(bad)
 
 
 def test_pairing_batch_cpu_matches_oracle():

@@ -3,8 +3,10 @@ compiler and undefined-behaviour checks, against the kernels' plain
 PyTorch versions: K3, K4, K5, K6, K11 and K12 on the 32-bit tower
 (csrc/tower381.cuh) and the G1 and G2 bucket additions
 (csrc/group381.cuh, K2 and K2-G2), all on 32-bit Montgomery words, by
-value; K3, K4, K11 and K12 also against the oracle, and K5's chained
-events.
+value; K3, K4, K11 and K12 also against the oracle; K5 and K6 also as
+the chains the pipeline launches (all 68 events of the prepare and of the
+Miller loop in one block program) against their plain versions and the
+oracle.
 
 The headers compile as plain C++ when __CUDACC__ is not defined; a small
 harness runs each bucket kernel's per-thread body over a batch, or, for
@@ -48,6 +50,7 @@ F = LZ.F_BOUND
 
 HARNESS = r"""
 #include <cstdio>
+#include <cstdlib>
 #include <vector>
 #include "group381.cuh"
 #include "tower381.cuh"
@@ -55,8 +58,14 @@ HARNESS = r"""
 // stdin: op, n, p1, p2 (int64 each), then the operand stacks (int32);
 // stdout: the result. Ops 0-4: the tower kernels on tower381.cuh, K3
 // (op 0, p1 squares), K4 (op 1), K5 (op 2 the doubling, op 3 the addition)
-// and K6 (op 4, p1 with the square), result (12, 30, n), in blocks of |p2|
-// elements, each phase's jobs in reverse order when p2 < 0. Ops 11/12: tower381.cuh's
+// and K6 (op 4, p1 with the square), K5 and K6 as chains of one event,
+// result (12, 30, n), in blocks of |p2| elements, each phase's jobs in
+// reverse order when p2 < 0. Ops 13/14: the chains of p1 events, in
+// blocks as ops 0-4, the schedule (p1 int32 flags, 1 a doubling) after
+// the stacks: K5-chain (op 13) on R (6, 30, n) and Q (4, 30, n), result
+// the lines (p1, 6, 30, n) then R (6, 30, n); K6-chain (op 14) on f (12,
+// 30, n), the lines (p1, 6, 30, n) and P (2, 30, n), result f (12, 30,
+// n). Ops 11/12: tower381.cuh's
 // conversions of p1 Fp rows, digits (p1, 30, n) -> words (p1, 12, n) and
 // back. Ops 5/6: the G1/G2 mixed addition of K2/K2-G2 on (5, 12, n)
 // or (10, 12, n) canonical R16 words, result (3, 12, n) or (6, 12, n).
@@ -85,6 +94,37 @@ void run_blocks(long long n, long long block, int slots, int phases, Jobs jobs, 
   }
 }
 
+// The chains' phase runner: each phase's jobs in order, or reversed.
+struct HostPhases {
+  int E;
+  bool reverse;
+  template <class Job>
+  void operator()(int ops, const Job& job) const {
+    const int total = ops * E;
+    for (int k = 0; k < total; ++k) {
+      const int j = reverse ? total - 1 - k : k;
+      job(j / E, j % E);
+    }
+  }
+};
+
+// A chain program (K5's or K6's) over the batch in blocks of |block|
+// elements, on slots filled with the pattern first.
+template <class Program>
+void run_chain(long long n, long long block, int slots, Program program) {
+  const int E = static_cast<int>(block < 0 ? -block : block);
+  std::vector<uint32_t> smem(static_cast<size_t>(E) * slots * t381::SLOT, 0xA5A5A5A5u);
+  for (long long i0 = 0; i0 < n; i0 += E)
+    program(t381::Block{smem.data(), E, i0, n}, HostPhases{E, block < 0});
+}
+
+t381::Schedule schedule(int events, const int* flags) {
+  std::vector<unsigned char> dbl(flags, flags + events);
+  t381::Schedule s;
+  if (!t381::make_schedule(events, dbl.data(), s)) exit(4);
+  return s;
+}
+
 template <class F>
 void mixed_add_batch(const int* x, int* out, long long n) {
   const long long plane = g381::NC<F> * 12 * n;
@@ -100,11 +140,14 @@ int main() {
   long long hdr[4];
   if (fread(hdr, sizeof(long long), 4, stdin) != 4) return 2;
   const long long op = hdr[0], n = hdr[1], param = hdr[2], B = hdr[3];
-  if (op < 0 || op > 12) return 2;
+  if (op < 0 || op > 14) return 2;
   const bool tower = op <= 4 || op == 9 || op == 10;
   const long long plane = 30 * n, S = 1024;
   size_t in_size, out_size;
-  if (tower) {
+  if (op == 13 || op == 14) {
+    in_size = (op == 13 ? 10 : 14 + 6 * param) * plane + param;
+    out_size = (op == 13 ? 6 * param + 6 : 12) * plane;
+  } else if (tower) {
     static const int in_rows[] = {12, 24, 6, 10, 20, 0, 0, 0, 0, 12, 18};
     in_size = in_rows[op] * plane;
     out_size = 12 * plane;
@@ -152,26 +195,33 @@ int main() {
                [&](const t381::Block& b, int ph, int j, int e) {
                  t381::cyc_sqr_job(b, x, o, p1, ph, j, e);
                });
-  if (op == 4)
-    run_blocks(n, B, t381::MILLER_SLOTS, t381::miller_phases(p1),
-               [&](int ph) { return t381::miller_jobs(ph, p1); },
-               [&](const t381::Block& b, int ph, int j, int e) {
-                 t381::miller_job(b, x, x + 12 * plane, x + 18 * plane, o, p1, ph, j, e);
-               });
+  if (op == 4) {
+    const int flag = p1;
+    const t381::MillerChain c{x, x + 12 * plane, x + 18 * plane, o, schedule(1, &flag), 0};
+    run_chain(n, B, t381::MILLER_SLOTS,
+              [&](const t381::Block& b, const HostPhases& ph) { t381::miller_chain(b, c, ph); });
+  }
+  if (op == 14) {
+    const int* pxy = x + (12 + 6 * param) * plane;
+    const t381::MillerChain c{x, x + 12 * plane, pxy, o, schedule(p1, pxy + 2 * plane), 0};
+    run_chain(n, B, t381::MILLER_SLOTS,
+              [&](const t381::Block& b, const HostPhases& ph) { t381::miller_chain(b, c, ph); });
+  }
   if (op == 1)
     run_blocks(n, B, t381::FP12_MUL_SLOTS, t381::FP12_MUL_PHASES,
                [&](int ph) { return t381::fp12_mul_jobs(ph); },
                [&](const t381::Block& b, int ph, int j, int e) {
                  t381::fp12_mul_job(b, x, x + 12 * plane, o, 0, ph, j, e);
                });
-  if (op == 2 || op == 3) {
-    const int is_add = op == 3;
-    const int* q = is_add ? x + 6 * plane : nullptr;
-    run_blocks(n, B, t381::PREPARE_SLOTS, t381::prepare_phases(is_add),
-               [&](int ph) { return t381::prepare_jobs(ph, is_add); },
-               [&](const t381::Block& b, int ph, int j, int e) {
-                 t381::prepare_job(b, x, q, o, is_add, 0, ph, j, e);
-               });
+  if (op == 2 || op == 3 || op == 13) {
+    const int flag = op == 2;
+    const t381::PrepareChain c =
+        op == 13 ? t381::PrepareChain{x, x + 6 * plane, o, o + 6 * param * plane,
+                                      schedule(p1, x + 10 * plane), 0}
+                 : t381::PrepareChain{x, op == 3 ? x + 6 * plane : nullptr, o + 6 * plane, o,
+                                      schedule(1, &flag), 0};
+    run_chain(n, B, t381::PREPARE_SLOTS,
+              [&](const t381::Block& b, const HostPhases& ph) { t381::prepare_chain(b, c, ph); });
   }
   if (op == 9)
     run_blocks(n, B, t381::FP12_SQR_SLOTS, t381::FP12_SQR_PHASES,
@@ -396,6 +446,88 @@ def test_prepare_g2_host_chain(harness):
     assert k == 68
 
 
+SCHEDULE_8 = PR.MILLER_EVENTS[:8]  # two additions, events 1 and 4
+
+
+def flags(schedule) -> torch.Tensor:
+    return torch.tensor([int(x) for x in schedule], dtype=torch.int32)
+
+
+def chain_args(kernel, r, q, f, coeffs, pxy, schedule):
+    """The harness call of a chain (op, events, stacks..., result shape):
+    K5-chain on R and Q, K6-chain on f, the lines and P."""
+    e = len(schedule)
+    if kernel == "prepare_chain":
+        return 13, e, r, q, flags(schedule), (6 * e + 6, 30, r.shape[-1])
+    n = f.shape[-1]
+    return 14, e, f, coeffs[:e].reshape(6 * e, 30, n), pxy, flags(schedule), (12, 30, n)
+
+
+def test_prepare_chain_host_oracle(harness):
+    """The K5-chain program over all 68 events for five points in one harness
+    call (blocks of 4: the second ragged): every event's line equal to the
+    oracle's prepare_g2 by value in the R13 domain, R after the last event
+    equal to the plain version's; digits within 4096."""
+    rng = np.random.default_rng(9)
+    qs = [OC.g2_mul(OF.G2_GEN, int(rng.integers(1, 1 << 62))) for _ in range(5)]
+    q = fp_rows([[*p[0], *p[1]] for p in qs])
+    r = PS._r_start(q)
+    e = PR.NUM_EVENTS
+    got = run(harness, 13, e, r, q, flags(PR.MILLER_EVENTS), shape=(6 * e + 6, 30, 5), buckets=4)
+    assert int(got.abs().max()) <= 4096
+    want = [OP.prepare_g2(p) for p in qs]
+    lines = fp_rows([[v for k in range(e) for c in w[k] for v in c] for w in want])
+    assert values(got[: 6 * e]) == values(lines)
+    rs = r
+    for is_dbl in PR.MILLER_EVENTS:
+        rs = PS.prepare_step_plain(rs, None if is_dbl else q)[:6]
+    assert values(got[6 * e :]) == values(rs)
+
+
+def test_miller_chain_host_oracle(harness):
+    """The K6-chain program over all 68 events (f = 1, the lines of the
+    plain prepare of five real Q, five real P; blocks of 4) against the
+    chained miller_step_plain and the oracle's miller_loop (conjugated
+    back) by value; digits within 4096."""
+    rng = np.random.default_rng(10)
+    ks = [int(rng.integers(1, 1 << 62)) for _ in range(10)]
+    ps = [OC.scalar_mul(OF.G1_GEN, k) for k in ks[:5]]
+    qs = [OC.g2_mul(OF.G2_GEN, k) for k in ks[5:]]
+    coeffs = PS.prepare_chain_plain(fp_rows([[*q[0], *q[1]] for q in qs]), PR.MILLER_EVENTS)
+    pxy = fp_rows([[*p] for p in ps])
+    f = TL.stack12(PR._fp12_one_like(pxy[0]))
+    args = chain_args("miller_chain", None, None, f, coeffs, pxy, PR.MILLER_EVENTS)
+    got = run(harness, *args[:-1], shape=args[-1], buckets=4)
+    assert int(got.abs().max()) <= 4096
+    assert values(got) == values(PS.miller_chain_plain(f, coeffs, pxy, PR.MILLER_EVENTS))
+    want = [OF.fp12_conj(OP.miller_loop(p, q)) for p, q in zip(ps, qs)]
+    assert values(got) == values(fp12_stack(want))
+
+
+@pytest.mark.parametrize("kernel", ["prepare_chain", "miller_chain"])
+def test_chain_host_truncated(harness, kernel):
+    """A chain of 8 events with two additions on the pipeline's inputs (R
+    after two doublings, f after two events) against its plain version
+    by value, digits within 4096."""
+    r, q, f, _, pxy, _ = real_inputs()
+    n = r.shape[-1]
+    if kernel == "prepare_chain":
+        args = chain_args(kernel, r, q, None, None, None, SCHEDULE_8)
+        got = run(harness, *args[:-1], shape=args[-1], buckets=BLOCK)
+        rs, want = r, []
+        for is_dbl in SCHEDULE_8:
+            out = PS.prepare_step_plain(rs, None if is_dbl else q)
+            rs = out[:6]
+            want.append(out[6:])
+        assert_value_equal(got, torch.cat(want + [rs]))
+    else:
+        coeffs = PS.prepare_chain_plain(q, SCHEDULE_8)
+        args = chain_args(kernel, r, q, f, coeffs, pxy, SCHEDULE_8)
+        got = run(harness, *args[:-1], shape=args[-1], buckets=BLOCK)
+        assert got.shape == (12, 30, n)
+        assert_value_equal(got, PS.miller_chain_plain(f, coeffs, pxy, SCHEDULE_8))
+
+
 @pytest.mark.parametrize("source", ["random", "pipeline"])
 @pytest.mark.parametrize("with_sqr", [False, True])
 def test_miller_step_host(harness, with_sqr, source):
@@ -408,10 +540,19 @@ def test_miller_step_host(harness, with_sqr, source):
 
 
 @pytest.mark.parametrize("kernel", ["cyc_sqr", "miller_sqr", "miller_line", "fp12_mul",
-                                    "prepare_dbl", "prepare_add", "fp12_sqr", "mul_by_014"])
+                                    "prepare_dbl", "prepare_add", "fp12_sqr", "mul_by_014",
+                                    "prepare_chain", "miller_chain"])
 def test_tower381_phases_have_no_hazards(harness, kernel):
     """Each phase's jobs are independent: run in reverse order they give the
-    same digits (on the card they run at once)."""
+    same digits (on the card they run at once); for the chains over 8
+    events with two additions, the phases between events too."""
+    if kernel.endswith("chain"):
+        r, q, f, _, pxy, _ = real_inputs()
+        args = chain_args(kernel, r, q, f, PS.prepare_chain_plain(q, SCHEDULE_8), pxy,
+                          SCHEDULE_8)
+        assert torch.equal(run(harness, *args[:-1], shape=args[-1], buckets=BLOCK),
+                           run(harness, *args[:-1], shape=args[-1], buckets=-BLOCK))
+        return
     if kernel == "cyc_sqr":
         args = (0, 2, *digit_stacks(13, 12))
     elif kernel == "fp12_mul":
