@@ -1,0 +1,143 @@
+// FE-easy and FE-hard: the fused final exponentiation of the pairing on
+// Hopper (sm_90a), each part in one launch.
+//
+// Replace the final exponentiation that the TPU runs inside one compiled
+// program (ark_blst_tpu/curves/pairing.py:388-467, cyclotomic_exp_x_conj
+// and final_exp with fuse=True), where its Pallas kernels
+// ark_blst_tpu/ops/pallas_lazy.py:149 cyc_sqr_stacked (the ladders' runs of
+// cyclotomic squares), :63 tower_fused as mul12 (the fp12 products) and :41
+// mont_mul_stacked (the inverse's Fermat ladder and the Frobenius maps'
+// products, through the lazy tower) run between XLA's own ops. The port had
+// launched each of those once (32 K3, 37 K4, 36 K1 and one K1-inv a batch)
+// with ~2,700 launches of eager radix-13 glue between them; here:
+//   FE-easy  f (12, 30, N) digits -> t2 = (conj(f) f^-1)^(p^2 + 1) as
+//            (12, 12, N) words;
+//   FE-hard  t2 (words) -> the hard part as (12, 30, N) digits
+//            within 4096: five ladders of x (63 squares and 5 products
+//            each), two lone squares, ten products, three Frobenius maps.
+// The outputs equal the plain versions (ops/final_exp.py: easy_plain,
+// hard_plain, the same chain over K3's and K4's plain versions on digits)
+// by canonical value.
+//
+// What bounds them: operations. FE-hard makes 317 cyclotomic squares (18
+// Montgomery products of 12 x 32-bit words and ~107 modular sums each) and
+// 35 fp12 products (54 and ~224) an element against ~1 KB of digits in and
+// out; its values t0-t6 stay as words in an L2-resident scratch stack
+// (576 bytes an element a value). FE-easy makes ~250 products and one
+// Fermat ladder (608 dependent products, one job an element): at the
+// pairing's widths the ladder's latency bounds it, as K1-inv's (1.0 ms).
+//
+// Design (final_exp.cuh on tower381.cuh): each element's state lives in
+// shared memory as canonical Montgomery words in K4's 30 Fp2 slots (2,880
+// bytes); a block holds E elements, and its threads run each step as
+// phases of independent jobs with a barrier between, on K3's square tables
+// and K4's product tables. FE-hard walks a host-built program of the hard
+// part (ops/final_exp.py: HARD_PROGRAM), the list its plain version walks on
+// digits. Tensor cores do not apply: a 384-bit modular product has no wgmma
+// form here; the IMAD pipe carries the products.
+#include "final_exp.cuh"
+
+namespace {
+
+// The launch shapes: E elements a block. FE-easy's threads are K4's (six an
+// element: its phases are products of up to 18 jobs an element), FE-hard's
+// K3's (nine an element: a square's nine products in one round), each
+// bounded for two blocks an SM, as many as shared memory holds at E = 32.
+// scripts/tower_probe.py (--fe) builds FE-hard at other bounds and times it.
+constexpr int kEasyThreads = 192;
+constexpr int kEasyMinBlocks = 2;
+#ifndef FE_HARD_THREADS
+#define FE_HARD_THREADS 288
+#endif
+#ifndef FE_HARD_MIN_BLOCKS
+#define FE_HARD_MIN_BLOCKS 2
+#endif
+constexpr int kElems = 32;
+
+__global__ void __launch_bounds__(kEasyThreads, kEasyMinBlocks) easy_kernel(
+    const int* __restrict__ f, int* __restrict__ out, const int* __restrict__ frob, long long n,
+    int E) {
+  extern __shared__ t381::u32 smem[];
+  const t381::Block b{smem, E, static_cast<long long>(blockIdx.x) * E, n};
+  fexp::easy_chain(b, fexp::EasyChain{f, out, frob}, t381::BlockPhases{E});
+}
+
+__global__ void __launch_bounds__(FE_HARD_THREADS, FE_HARD_MIN_BLOCKS) hard_kernel(
+    fexp::HardChain c, long long n, int E) {
+  extern __shared__ t381::u32 smem[];
+  const t381::Block b{smem, E, static_cast<long long>(blockIdx.x) * E, n};
+  fexp::hard_chain(b, c, t381::BlockPhases{E});
+}
+
+int smem_bytes(int E) { return E * fexp::SLOTS * t381::SLOT * 4; }
+
+template <typename Kernel>
+int prepare(Kernel kernel, int E) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(E)));
+}
+
+template <typename Kernel>
+int shape_of(Kernel kernel, int default_threads, int* elems, int* threads, int* smem,
+             int* blocks_per_sm) {
+  if (*elems <= 0 || *threads <= 0) {
+    *elems = kElems;
+    *threads = default_threads;
+  }
+  *smem = smem_bytes(*elems);
+  const int err = prepare(kernel, *elems);
+  if (err) return err;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, *threads, *smem));
+}
+
+}  // namespace
+
+// FE-easy: f (12, 30, n) digits, out: (12, 12, n) words, frob: (3, 6, 2,
+// 12) words (ops/final_exp.py:FROB_WORDS); int32, contiguous, on the device
+// of `stream`. Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int final_exp_easy(const int* f, int* out, const int* frob, long long n,
+                              void* stream) {
+  if (n <= 0) return 0;
+  const int err = prepare(easy_kernel, kElems);
+  if (err) return err;
+  easy_kernel<<<static_cast<unsigned>((n + kElems - 1) / kElems), kEasyThreads,
+                smem_bytes(kElems), static_cast<cudaStream_t>(stream)>>>(f, out, frob, n,
+                                                                         kElems);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// FE-hard at a given shape (threads <= FE_HARD_THREADS). in: value 0, the
+// (12, 12, n) words of FE-easy; scratch: (values - 1, 12, 12, n) words;
+// out: (12, 30, n) digits; prog: nops ops of four int32
+// (ops/final_exp.py:HARD_PROGRAM); frob as for FE-easy. Returns
+// cudaGetLastError() after the launch.
+extern "C" int final_exp_hard_shaped(const int* in, int* scratch, int* out,
+                                     long long n, const int* prog, int nops, const int* frob,
+                                     int E, int threads, void* stream) {
+  if (n <= 0) return 0;
+  const int err = prepare(hard_kernel, E);
+  if (err) return err;
+  const fexp::HardChain c{in, scratch, out, prog, nops, frob};
+  hard_kernel<<<static_cast<unsigned>((n + E - 1) / E), threads, smem_bytes(E),
+                static_cast<cudaStream_t>(stream)>>>(c, n, E);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int final_exp_hard(const int* in, int* scratch, int* out, long long n,
+                              const int* prog, int nops, const int* frob, void* stream) {
+  return final_exp_hard_shaped(in, scratch, out, n, prog, nops, frob, kElems, FE_HARD_THREADS,
+                               stream);
+}
+
+// A launch shape and the blocks an SM holds at it (the occupancy API at the
+// compiled registers and the shape's shared memory): on entry, elems and
+// threads > 0 name the shape, 0 the default, which they then hold. Return
+// the CUDA error of the query (0 on success).
+extern "C" int final_exp_easy_shape(int* elems, int* threads, int* smem, int* blocks_per_sm) {
+  return shape_of(easy_kernel, kEasyThreads, elems, threads, smem, blocks_per_sm);
+}
+
+extern "C" int final_exp_hard_shape(int* elems, int* threads, int* smem, int* blocks_per_sm) {
+  return shape_of(hard_kernel, FE_HARD_THREADS, elems, threads, smem, blocks_per_sm);
+}

@@ -10,8 +10,8 @@ per element). Two engines and two styles, as there:
   coefficients, ingested strict -> lazy once and egressed at the end.
   - `fuse=True` (the default): one K5 launch for all the prepare's
     events, one K6 launch for all the Miller loop's (the chains of
-    `curves/pairing_steps.py`), K3 runs of n squares in the exponent
-    ladder.
+    `curves/pairing_steps.py`), one FE-easy and one FE-hard launch for
+    the final exponentiation (`ops/final_exp.py`).
   - `fuse=False`, the JAX `fuse=False` branch as the TPU runs it: the
     prepare steps on the tower (K1 through `tower_lazy._mul`); each Miller
     event K11 (the square, at a doubling), `_ell_legs` (one K1), K12 (the
@@ -37,10 +37,10 @@ The pipeline:
    Frobenius maps, two lone cyclotomic squares.
 5. `egress`: lazy -> strict (24, N) limbs.
 
-The `lax.scan`s of the TPU's fused path are one chain kernel each here
-(the prepare and the Miller loop) or a Python loop of launches (the
-exponent ladder's runs); the kernel wrappers run their plain versions on
-CPU tensors, so the CPU tests walk the exact call sequence the card runs.
+The `lax.scan`s of the TPU's fused path (the prepare, the Miller loop)
+and its final exponentiation are one chain kernel each here; the kernel
+wrappers run their plain versions on CPU tensors, so the CPU tests walk
+the exact call sequence the card runs.
 """
 
 from __future__ import annotations
@@ -50,6 +50,7 @@ from types import SimpleNamespace
 import torch
 
 from ..ops import cyc_sqr as K3
+from ..ops import final_exp as FE
 from ..ops import fp12_mul as K4
 from ..ops import fp12_mul_by_014 as K12
 from ..ops import fp12_sqr as K11
@@ -68,23 +69,6 @@ for _bit in OP.X_BITS:
     if _bit:
         MILLER_EVENTS.append(False)
 NUM_EVENTS = len(MILLER_EVENTS)
-
-# bits of |x| MSB-first for the cyclotomic exponentiation ladder
-X_ABS_BITS = [int(b) for b in bin(OP.X_ABS)[2:]]
-
-# The |x| square-and-multiply ladder as segments: after the leading bit, a
-# set bit at gap L costs L squarings then one product; trailing zeros are
-# squarings only.
-_X_SEGMENTS = []
-_run = 0
-for _bit in X_ABS_BITS[1:]:
-    _run += 1
-    if _bit:
-        _X_SEGMENTS.append((_run, True))
-        _run = 0
-if _run:
-    _X_SEGMENTS.append((_run, False))
-del _run, _bit
 
 
 def _tower(engine):
@@ -116,14 +100,8 @@ def _line(c):
     return ((c[0], c[1]), (c[2], c[3]), (c[4], c[5]))
 
 
-def _conj(x):
-    """Conjugation of a stacked fp12 (the inverse on the cyclotomic
-    subgroup): the w part negated, as `tower_lazy.fp12_conj`."""
-    return torch.cat([x[:6], -x[6:]])
-
-
-def _frobenius(x, power: int):
-    return TL.stack12(TL.fp12_frobenius(TL.unstack12(x), power))
+_conj = FE.conj
+_frobenius = FE.frobenius
 
 
 # The fp12 operations of the final exponentiation on each engine's form of
@@ -214,59 +192,23 @@ def miller_loop(p, coeffs, fuse=True, engine="lazy", events=None):
 # --- final exponentiation ------------------------------------------------------
 
 def cyclotomic_exp_x_conj(f, fuse=True, engine="lazy"):
-    """f^(-x) = conj(f^|x|) in the cyclotomic subgroup. Lazy fused: per
-    segment of the ladder one K3 launch of n squares, then one K4 product;
-    otherwise one cyclotomic square per bit and a product at each set bit."""
-    E = _final_ops(engine)
-    if engine == "lazy" and fuse:
-        x = f
-        for n_sqr, do_mul in _X_SEGMENTS:
-            x = K3.cyc_sqr(x, n_sqr)
-            if do_mul:
-                x = K4.fp12_mul(x, f)
-        return _conj(x)
-    r = f
-    for bit in X_ABS_BITS[1:]:
-        r = E.cyc_sqr(r)
-        if bit:
-            r = E.mul(r, f)
-    return E.conj(r)
+    """f^(-x) = conj(f^|x|) in the cyclotomic subgroup: one cyclotomic
+    square a bit of |x| and a product at each set bit, on the engine's ops
+    (`ops/final_exp.py:LADDER_PROGRAM`). `fuse` is the JAX signature's and
+    changes nothing: the fused pipeline runs its ladders inside FE-hard."""
+    return FE.run_program(FE.LADDER_PROGRAM, f, _final_ops(engine))
 
 
 def final_exp(f, fuse=True, engine="lazy"):
     """Easy part, then the BLS12-381 cyclotomic addition chain (the chain of
-    `oracle/pairing.py:final_exp`), on the engine's fp12 batch."""
+    `oracle/pairing.py:final_exp`), on the engine's fp12 batch. Lazy fused:
+    one FE-easy and one FE-hard launch (`ops/final_exp.py`), the easy part
+    handed over as words; otherwise the same chain (`easy_part`, then
+    `HARD_PROGRAM`) op by op on the engine's ops."""
     E = _final_ops(engine)
-    ex = lambda g: cyclotomic_exp_x_conj(g, fuse, engine)  # noqa: E731
-    mul, conj = E.mul, E.conj
-    # easy part: f^((p^6-1)(p^2+1))
-    t0 = conj(f)
-    t1 = E.inv(f)
-    t2 = mul(t0, t1)
-    t1 = t2
-    t2 = mul(E.frobenius(t2, 2), t1)
-    # hard part
-    t1 = conj(E.cyc_sqr(t2))
-    t3 = ex(t2)
-    t4 = E.cyc_sqr(t3)
-    t5 = mul(t1, t3)
-    t1 = ex(t5)
-    t0 = ex(t1)
-    t6 = ex(t0)
-    t6 = mul(t6, t4)
-    t4 = ex(t6)
-    t5 = conj(t5)
-    t4 = mul(mul(t4, t5), t2)
-    t5 = conj(t2)
-    t1 = mul(t1, t2)
-    t1 = E.frobenius(t1, 3)
-    t6 = mul(t6, t5)
-    t6 = E.frobenius(t6, 1)
-    t3 = mul(t3, t0)
-    t3 = E.frobenius(t3, 2)
-    t3 = mul(t3, t1)
-    t3 = mul(t3, t6)
-    return mul(t3, t4)
+    if engine == "lazy" and fuse:
+        return FE.hard(FE.easy(f))
+    return FE.run_program(FE.HARD_PROGRAM, FE.easy_part(f, E), E)
 
 
 # --- public pairing surface -----------------------------------------------------

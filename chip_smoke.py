@@ -6,7 +6,7 @@ card: the quickest proof that the port builds and runs its main path there.
 
 Phases, one JSON line each:
   1. env      the card's name and power limit; builds the kernels from
-              their eleven sources (one nvcc per source, all in parallel)
+              their twelve sources (one nvcc per source, all in parallel)
               and reports build seconds, registers, spills and static SASS
               counts;
   2. k1       K1 (mont_mul) against its plain PyTorch version at 2^22
@@ -80,24 +80,39 @@ Phases, one JSON line each:
               eight pairs (identities skipped) against the oracle's
               prepare_g2 and miller_loop; each timed beside its plain
               version and its bound, with its launch shape and ptxas;
+     final_exp_chains  FE-easy and FE-hard, the fused final
+              exponentiation in two launches (`ops/final_exp.py`: the easy
+              part to 32-bit words, the hard part's program from them), on
+              real Miller outputs of the phase-8 pairs (the fused prepare
+              and Miller loop, identities masked to one) at N = 8192, the
+              ragged 1000 and 1 (a multi-pairing's): FE-easy's words and
+              FE-hard's digits (on those words and on the plain easy part's
+              digits) by canonical value against their plain versions,
+              digits within 4096; at 8192 the first eight results (an
+              identity among them) against the oracle's pairings; each
+              timed beside its plain version and its bound, with its launch
+              shape and ptxas;
   8. pairing  8192 pairings of 8 distinct (P, Q) pairs (P_i = P[i mod 8],
               Q_i = Q[(3i+1) mod 8], the construction of the JAX package's
               bench.py) with one identity P and one identity Q, through the
               public entry `bls12.pairing_batch`: every result checked
               against the oracle pairing (the identity pairs against one),
-              the launches of K1, K1-inv and K3-K6 in that call (K1 36,
-              K1-inv, K5 and K6 once checked), pairings/s of a
+              the launches of K1, K1-inv, K3-K6 and FE-easy/FE-hard in that
+              call (K5, K6, FE-easy and FE-hard once, K1, K1-inv, K3 and K4
+              never, checked), pairings/s of a
               warm call, the stages (ingest, prepare_g2, miller_loop,
               final_exp, egress) rerun with a synchronize between them and
               once more under `torch.profiler`, the peak device memory;
               then the prepared path (`prepare_g2_batch` once, one K5
-              launch; `pairing_batch` against it, one K6 launch and no K5),
+              launch; `pairing_batch` against it, one K6, FE-easy and
+              FE-hard launch and no K5),
               checked equal to the unprepared results;
      pairing_unfused  the same instance through `bls12.pairing_batch(...,
               fuse=False)`: every result checked against the oracle and the
               fused results (the two paths' digits differ on the card, K11
               and K12 on 32-bit words, their values agree), K11 launched
-              63 and K12 68 times, K1 658 and K1-inv once, K5/K6 never,
+              63 and K12 68 times, K3 317, K4 37, K1 658 and K1-inv once,
+              K5, K6, FE-easy and FE-hard never,
               with pairings/s, stages and their launches, a profiled
               rerun, peak memory and the prepared path with fuse=False;
      pairing_strict  the same instance through the tensor entry
@@ -198,10 +213,12 @@ K5-chain (`prepare_chain`) and K6-chain (`miller_chain`) the fused
 batch's launches, the prepared batch's, the unfused one's and the sharded
 pairing's, their times at 8192 with the ragged width's, the same events
 launched one by one (`by_event_ms`) and the one-event runs of phases k5
-and k6 beside,
+and k6 beside, FE-easy and FE-hard (`final_exp_easy`, `final_exp_hard`)
+the fused batch's launches, the prepared batch's, the unfused one's and
+the sharded pairing's, their times at 8192 with the other widths',
 K1-scan one level of the G1 MSM (64 x 65,536) and the other three levels
-and the whole `batch_inverse` at 2^22 beside; K3 and K4 give the fused pairing's
-launches, the unfused one's beside; K11 and K12 the unfused pairing's;
+and the whole `batch_inverse` at 2^22 beside; K3 and K4 give the unfused
+pairing's launches (the path that runs them; the fused batch's 0 beside); K11 and K12 the unfused pairing's;
 K7-K10 give as `launches` the sum over the two scan MSM runs, each run's
 count and the strict pairing's beside it, and their Fp times at 2^22, Fr
 and broadcast times beside; every kernel phase distributed launches gives
@@ -250,7 +267,12 @@ words (DIGITS_TO_WORDS_OPS) and of each output one back
 (WORDS_TO_DIGITS_OPS); K5-chain and K6-chain count each event's
 products and sums, R and Q (K5) or f and P (K6) in once, each event's 6
 line components out (K5) or in (K6), and f out once (`chain_work`), and
-bytes as those components read or written once. The one-launch
+bytes as those components read or written once; FE-easy and FE-hard
+count their Fp2 and fp12 work (the inverse by the shortest window chain
+for p - 2, FE-hard's squares and products from its program), f in as
+digits and the easy part out as words (FE-easy), the easy part in as
+words and the result out as digits (FE-hard; `final_exp_work`), their
+values' scratch words left out as the kernel's own. The one-launch
 kernels' lines (and the chains' one-event runs) give the radix-13 work's
 bound beside (`bound_radix13_ms`), and their IMAD floor counts the
 launch's products
@@ -302,6 +324,9 @@ IDENTITY_P_AT, IDENTITY_Q_AT = 3, 10
 # 32 and one of 8), and the first columns held against the oracle
 CHAIN_RAGGED_N = 1000
 CHAIN_ORACLE_COLS = 8
+# phase final_exp_chains: the pairing batch, the ragged width, a
+# multi-pairing's one element after its fold
+FINAL_EXP_WIDTHS = (PAIRING_N, CHAIN_RAGGED_N, 1)
 STRICT_MULTI_N = 1024  # multi_pairing / multi_miller_loop_prepared on both engines
 STRICT_LOG_N = {"fp": 22, "fr": 20}
 STRICT_PLAIN_CHUNK = 1 << 20
@@ -484,6 +509,36 @@ def fp_inv_ops(bits) -> int:
             + DIGITS_TO_WORDS_OPS + WORDS_TO_DIGITS_OPS)
 
 
+def final_exp_work() -> dict:
+    """(bytes, int32 instructions) an element of FE-easy and FE-hard, the
+    work the function needs. FE-easy: f's 12 components in from digits,
+    fp12_inv (26 Fp2 products and 15 Fp2 squares with FE-easy's, 62 Fp2 sums
+    and 13 products by xi, 3 Fp2 and 1 Fp negations, the norm's 4 products
+    and 1 sum, its inverse by the shortest window chain for p - 2), the two
+    fp12 products and the Frobenius square's 5 Fp2 products; t2 out as
+    words. FE-hard, counted from HARD_PROGRAM: its cyclotomic squares and
+    fp12 products, each Frobenius map's 5 Fp2 products (6 Fp2 negations for
+    an odd power), each conjugation's 3 Fp2 negations; t2 in as words, the
+    result out as digits."""
+    from ark_blst_tpu_torch.ops import final_exp as FE
+    from ark_blst_tpu_torch.ops import fp_inv as FI
+
+    fp2_sqr = 2 * MONT_MUL32_OPS + 3 * ADD32_OPS
+    easy = (26 * FP2_MUL32_OPS + 15 * fp2_sqr + (62 + 13) * 2 * ADD32_OPS + 7 * NEG32_OPS
+            + (window_chain_products(FI.P_MINUS_2_BITS) + 4) * MONT_MUL32_OPS + ADD32_OPS
+            + 2 * FP12_MUL32_OPS + 5 * FP2_MUL32_OPS + 12 * DIGITS_TO_WORDS_OPS)
+    prog = FE.HARD_PROGRAM
+    conjs = sum(c == FE.CONJ for c, *_ in prog) + sum(
+        bin(fl).count("1") for c, _, _, fl in prog if c == FE.LOAD)
+    hard = (sum(a for c, a, _, _ in prog if c == FE.SQR) * CYC_SQR32_OPS
+            + sum(c == FE.MUL for c, *_ in prog) * FP12_MUL32_OPS
+            + sum(5 * FP2_MUL32_OPS + 12 * NEG32_OPS * (a % 2) for c, a, _, _ in prog
+                  if c == FE.FROB)
+            + conjs * 6 * NEG32_OPS + 12 * WORDS_TO_DIGITS_OPS)
+    words = 12 * 4 * FE.WORDS  # an fp12 as words
+    return {"easy": (12 * ELEM_BYTES + words, easy), "hard": (words + 12 * ELEM_BYTES, hard)}
+
+
 def strict_ops(op: str, limbs: int) -> int:
     """int32 instructions per element of K7-K10 (csrc/strict16.cuh), W = L/2
     words: the product's 2 W^2 + W(W+1)/2 word products at three each and
@@ -571,12 +626,16 @@ def imad_floor_ms(imads: float) -> float:
 def all_kernels() -> dict:
     """The kernels by name: K1, K1-inv and K1-scan (its up and down passes;
     one source with K1-inv), K2 (the G1 and G2 MSMs; each bucket kernel's
-    source also holds its point conversion), K3-K6 (the fused pairing),
-    K7-K10 (the strict engine; one source, four entry points), K11 and K12
-    (the unfused pairing): eleven sources."""
+    source also holds its point conversion), K3 and K4 (the unfused final
+    exponentiation, K4 also the multi-pairing's product fold), K5 and K6
+    (the fused prepare and Miller loop), FE-easy and FE-hard (the fused
+    final exponentiation; one source), K7-K10 (the strict engine; one
+    source, four entry points), K11 and K12 (the unfused Miller loop):
+    twelve sources."""
     from ark_blst_tpu_torch.curves import msm_bucket as MB
     from ark_blst_tpu_torch.curves import pairing_steps as PS
     from ark_blst_tpu_torch.ops import cyc_sqr as K3
+    from ark_blst_tpu_torch.ops import final_exp as FE
     from ark_blst_tpu_torch.ops import fp12_mul as K4
     from ark_blst_tpu_torch.ops import fp12_mul_by_014 as K12
     from ark_blst_tpu_torch.ops import fp12_sqr as K11
@@ -590,7 +649,8 @@ def all_kernels() -> dict:
             "bucket_accumulate_g2": MB.KERNEL_G2, "g2_point_words": MB.KERNEL_G2_WORDS,
             "cyc_sqr": K3.KERNEL,
             "fp12_mul": K4.KERNEL, "prepare_step": PS.PREPARE_KERNEL,
-            "miller_step": PS.MILLER_KERNEL,
+            "miller_step": PS.MILLER_KERNEL, "final_exp_easy": FE.KERNEL_EASY,
+            "final_exp_hard": FE.KERNEL_HARD,
             **{"strict_" + op: k for op, k in SF.KERNELS.items()},
             "fp12_sqr": K11.KERNEL, "fp12_mul_by_014": K12.KERNEL}
 
@@ -1117,14 +1177,14 @@ def _tower32_imad(sass: dict) -> float | None:
 
 
 def phase_k3(torch, dev, real, sass: dict, ptxas: dict) -> dict:
-    from ark_blst_tpu_torch.curves import pairing as PR
     from ark_blst_tpu_torch.ops import cyc_sqr as K3
+    from ark_blst_tpu_torch.ops import final_exp as FE
 
     (x,) = digit_stacks(torch, dev, [12])
     n = x.shape[-1]
     imad = _tower32_imad(sass)
     runs = {}
-    for nsq in (1, max(r for r, _ in PR._X_SEGMENTS)):
+    for nsq in (1, max(r for r, _ in FE.X_SEGMENTS)):
         err = max(_held_values(torch, "K3", K3.cyc_sqr(v, nsq), K3.cyc_sqr_plain(v, nsq))
                   for v in (x, real[2]))
         nbytes = n * 2 * 12 * ELEM_BYTES
@@ -1391,6 +1451,64 @@ def phase_tower_chains(torch, dev, ptxas: dict) -> tuple:
     return tuple({**v[PAIRING_N], "at_ragged": v[CHAIN_RAGGED_N]} for v in out.values())
 
 
+def phase_final_exp_chains(torch, dev, ptxas: dict) -> tuple:
+    """FE-easy and FE-hard (the fused final exponentiation, one launch each)
+    on real Miller outputs (the first n pairs of phase 8, the fused prepare
+    and Miller loop, the identity pairs masked to one) at FINAL_EXP_WIDTHS:
+    FE-easy's words against `easy_plain`'s digits by canonical value, FE-hard
+    on those words and on `easy_plain`'s digits against `hard_plain` by
+    value, digits within 4096; at 8192 the first CHAIN_ORACLE_COLS results
+    (an identity among them) against the oracle's pairings; each timed
+    beside its plain version (on the card the lazy tower's products run on
+    K1, its inverse on K1-inv) and its bound, with its launch shape."""
+    from ark_blst_tpu_torch import bls12 as B
+    from ark_blst_tpu_torch.curves import pairing as PR
+    from ark_blst_tpu_torch.ops import convert as CV
+    from ark_blst_tpu_torch.ops import final_exp as FE
+    from ark_blst_tpu_torch.oracle import pairing as OP
+
+    t_phase = time.perf_counter()
+    work = final_exp_work()
+    ps, qs, _, _ = pairing_inputs()
+    out = {"easy": {}, "hard": {}}
+    oracle_cols = 0
+    for n in FINAL_EXP_WIDTHS:
+        (p, p_inf), (q, q_inf) = B._g1_batch(ps[:n], dev), B._g2_batch(qs[:n], dev)
+        f = PR._masked_miller(p, PR.prepare_g2(q), p_inf, q_inf)
+        words = FE.easy(f)
+        easy_plain_ms, t2 = _once_ms(torch, lambda: FE.easy_plain(f))
+        err_easy = _held_values(torch, "FE-easy", FE.words_to_digits_plain(words), t2)
+        got = FE.hard(words)
+        hard_plain_ms, want = _once_ms(torch, lambda: FE.hard_plain(t2))
+        err_hard = _held_values(torch, "FE-hard", got, want)
+        _held_values(torch, "FE-hard on easy_plain's words",
+                     FE.hard(FE.digits_to_words_plain(t2)), want)
+        if n == PAIRING_N:
+            cols = CHAIN_ORACLE_COLS
+            vals = CV.fp12_from_dev(PR.egress(got[..., :cols].contiguous()))
+            check(vals == [OP.pairing(ps[i], qs[i]) for i in range(cols)],
+                  "FE-easy and FE-hard differ from the oracle's pairings")
+            oracle_cols = cols
+        for name, kernel, err, fn, plain_ms in (
+                ("easy", FE.KERNEL_EASY, err_easy, lambda: FE.easy(f), easy_plain_ms),
+                ("hard", FE.KERNEL_HARD, err_hard, lambda: FE.hard(words), hard_plain_ms)):
+            nbytes, ops = work[name]
+            bms, by = bound_ms(n * nbytes, n * ops)
+            out[name][n] = {"n": n, "max_abs_err": err, "ms": cuda_ms(torch, fn, 3),
+                            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                            "launch": _tower32_shape(torch, kernel, n)}
+        del p, q, f, words, t2, got, want
+    torch.cuda.empty_cache()
+    emit({"phase": "final_exp_chains", "value_equal": True, "real_inputs": True,
+          "oracle_columns": oracle_cols, "easy": list(out["easy"].values()),
+          "hard": list(out["hard"].values()),
+          "ops_per_element": {k: v[1] for k, v in work.items()},
+          "bytes_per_element": {k: v[0] for k, v in work.items()},
+          "ptxas": ptxas["final_exp.cu"], "seconds": time.perf_counter() - t_phase})
+    return tuple({**v[PAIRING_N], "at_widths": [v[n] for n in FINAL_EXP_WIDTHS[1:]]}
+                 for v in out.values())
+
+
 def phase_k11_k12(torch, dev, real, sass: dict, ptxas: dict) -> tuple:
     """K11 (fp12 square) and K12 (sparse line product) against their plain
     versions at N = 8192, by value: random mul-ready digits with the
@@ -1505,15 +1623,39 @@ def _profile_totals(profiled: dict) -> dict:
 
 
 # The K1-family launches of a pairing batch, fused and unfused: the
-# products outside the tower kernels, and one K1-inv ladder (the
-# final exponentiation's fp12 inverse)
-PAIRING_K1 = {True: {"mont_mul": 36, "fp_inv": 1}, False: {"mont_mul": 658, "fp_inv": 1}}
+# products outside the tower kernels, and one K1-inv ladder (the final
+# exponentiation's fp12 inverse); none fused, where FE-easy and FE-hard
+# hold the inverse and the Frobenius maps
+PAIRING_K1 = {True: {"mont_mul": 0, "fp_inv": 0}, False: {"mont_mul": 658, "fp_inv": 1}}
+# the fused pairing's kernels, each launched once a batch, and the lazy
+# tower's that it no longer launches (K1, K1-inv, K3; K4 stays in the
+# multi-pairings' product fold)
+PAIRING_FUSED = ("prepare_step", "miller_step", "final_exp_easy", "final_exp_hard")
+PAIRING_NAMES = ("mont_mul", "fp_inv", "cyc_sqr", "fp12_mul") + PAIRING_FUSED
 
 
 def _check_pairing_k1(launches: dict, fuse: bool, what: str) -> None:
     got = {k: launches[k] for k in PAIRING_K1[fuse]}
     check(got == PAIRING_K1[fuse], f"{what} K1-family launches {got}, "
                                    f"expected {PAIRING_K1[fuse]}")
+
+
+def _check_final_exp(launches: dict, want: tuple, what: str) -> None:
+    """FE-easy's and FE-hard's launches of a path: one each where it runs
+    the fused final exponentiation, none unfused or for a Miller loop
+    alone."""
+    got = (launches["final_exp_easy"], launches["final_exp_hard"])
+    check(got == want, f"{what} launched FE-easy and FE-hard {got} times, expected {want}")
+
+
+def _check_fused_batch(launches: dict, what: str, prepared: bool = False) -> None:
+    """A fused pairing batch: K5 (unless prepared), K6, FE-easy and FE-hard
+    once each, and no K1, K1-inv, K3 or K4."""
+    _check_chains(launches, (0 if prepared else 1, 1), what)
+    _check_final_exp(launches, (1, 1), what)
+    _check_pairing_k1(launches, True, what)
+    check(launches["cyc_sqr"] == 0 and launches["fp12_mul"] == 0,
+          f"{what} launched K3 or K4: {launches}")
 
 
 def _check_chains(launches: dict, want: tuple, what: str) -> None:
@@ -1526,7 +1668,7 @@ def _check_chains(launches: dict, want: tuple, what: str) -> None:
 def phase_pairing(torch, dev, ps, qs, expected) -> dict:
     from ark_blst_tpu_torch import bls12 as B
 
-    names = ("mont_mul", "fp_inv", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step")
+    names = PAIRING_NAMES
     kernels = all_kernels()
     n = len(ps)
     B.pairing_batch(ps, qs, device=dev)  # warm-up
@@ -1541,10 +1683,9 @@ def phase_pairing(torch, dev, ps, qs, expected) -> dict:
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     bad = sum(g != e for g, e in zip(got, expected))
     check(len(got) == n and bad == 0, f"{bad} of {n} pairings differ from the oracle")
-    check(all(v > 0 for v in launches.values()),
+    check(all(launches[k] > 0 for k in PAIRING_FUSED),
           f"a kernel of the path was not launched: {launches}")
-    _check_pairing_k1(launches, True, "pairing batch")
-    _check_chains(launches, (1, 1), "pairing batch")
+    _check_fused_batch(launches, "pairing batch")
 
     stages = {name + "_ms": summary["wall_ms"]
               for name, summary in run_pairing_stages(torch, dev, ps, qs, expected, False)}
@@ -1558,6 +1699,7 @@ def phase_pairing(torch, dev, ps, qs, expected) -> dict:
     torch.cuda.synchronize()
     prep_s = time.perf_counter() - t0
     _check_chains({k: kernels[k].launches for k in names}, (1, 0), "prepare_g2_batch")
+    _check_final_exp({k: kernels[k].launches for k in names}, (0, 0), "prepare_g2_batch")
     B.pairing_batch(ps, prep, device=dev)  # warm-up
     kernels = _reset_launches()
     t0 = time.perf_counter()
@@ -1565,7 +1707,7 @@ def phase_pairing(torch, dev, ps, qs, expected) -> dict:
     dt_prep = time.perf_counter() - t0
     prep_launches = {name: kernels[name].launches for name in names}
     check(got_prep == got, "prepared pairings differ from the unprepared ones")
-    _check_chains(prep_launches, (0, 1), "prepared pairing batch")
+    _check_fused_batch(prep_launches, "prepared pairing batch", prepared=True)
     # both entry points with their default device ("cuda", no index)
     got_default = B.pairing_batch(ps, B.prepare_g2_batch(qs))
     check(got_default == got, "default-device prepared pairings differ")
@@ -1596,8 +1738,7 @@ def phase_pairing_unfused(torch, dev, ps, qs, expected, fused) -> dict:
     rerun, peak memory and the prepared path."""
     from ark_blst_tpu_torch import bls12 as B
 
-    names = ("mont_mul", "fp_inv", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step",
-             "fp12_sqr", "fp12_mul_by_014")
+    names = PAIRING_NAMES + ("fp12_sqr", "fp12_mul_by_014")
     n = len(ps)
     B.pairing_batch(ps, qs, fuse=False, device=dev)  # warm-up
     torch.cuda.synchronize()
@@ -1615,6 +1756,9 @@ def phase_pairing_unfused(torch, dev, ps, qs, expected, fused) -> dict:
           f"K11/K12 launches per batch: {launches}")
     check(launches["prepare_step"] == 0 and launches["miller_step"] == 0,
           f"the unfused path launched K5/K6: {launches}")
+    _check_final_exp(launches, (0, 0), "unfused pairing batch")
+    check(launches["cyc_sqr"] == 317 and launches["fp12_mul"] == 37,
+          f"K3/K4 launches per unfused batch: {launches}")
     check(all(launches[k] > 0 for k in ("mont_mul", "fp_inv", "cyc_sqr", "fp12_mul")),
           f"a kernel of the path was not launched: {launches}")
     _check_pairing_k1(launches, False, "unfused pairing batch")
@@ -1867,7 +2011,7 @@ def phase_api(torch, dev, ps, qs, expected, fused) -> None:
     t0 = time.perf_counter()
     B.pairing_batch(ps, qs, device=dev)
     tuple_s = time.perf_counter() - t0
-    names = ("mont_mul", "fp_inv", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step")
+    names = PAIRING_NAMES
     kernels = _reset_launches()
     clock = _CallClock(torch, [(B, "_g1_batch", "ingest_g1"), (B, "_g2_batch", "ingest_g2"),
                                (PR, "pairing", "device"), (CV, "fp12_from_dev", "egress")])
@@ -1878,8 +2022,9 @@ def phase_api(torch, dev, ps, qs, expected, fused) -> None:
     launches = {name: kernels[name].launches for name in names}
     check(all(isinstance(g, T.Gt) for g in got) and [g.v for g in got] == fused,
           "api pairing_batch differs from phase 8's results")
-    check(all(v > 0 for v in launches.values()), f"a kernel of the API pairing was not launched: {launches}")
-    _check_chains(launches, (1, 1), "api pairing_batch")
+    check(all(launches[k] > 0 for k in PAIRING_FUSED),
+          f"a kernel of the API pairing was not launched: {launches}")
+    _check_fused_batch(launches, "api pairing_batch")
     t0 = time.perf_counter()
     prep = T.Bls12.prepare_g2_batch(gq)
     torch.cuda.synchronize()
@@ -1889,7 +2034,8 @@ def phase_api(torch, dev, ps, qs, expected, fused) -> None:
     got_prep = T.Bls12.pairing_batch(gp, prep)
     dt_prep = time.perf_counter() - t0
     check(got_prep == got, "api prepared pairings differ from the unprepared ones")
-    _check_chains({k: kernels[k].launches for k in names}, (0, 1), "api prepared pairing_batch")
+    _check_fused_batch({k: kernels[k].launches for k in names}, "api prepared pairing_batch",
+                       prepared=True)
     n = len(ps)
     emit({"phase": "api_pairing", "n": n, "ok": True, "equal_to_phase_pairing": True,
           "seconds": dt, "pairings_per_s": n / dt, **{k + "_s": v for k, v in split.items()},
@@ -1906,11 +2052,14 @@ def phase_api(torch, dev, ps, qs, expected, fused) -> None:
     t1 = time.perf_counter()
     e = T.Bls12.final_exponentiation(mlo)
     t2 = time.perf_counter()
-    launches = {k: kernels[k].launches for k in ("fp12_mul", "prepare_step", "miller_step")}
+    launches = {k: kernels[k].launches for k in ("fp12_mul", "prepare_step", "miller_step",
+                                                  "final_exp_easy", "final_exp_hard")}
     check(isinstance(mlo, T.MillerLoopOutput) and e.v == _fp12_product(expected[:m]),
           "api multi_miller_loop + final_exponentiation differs from the oracle's product")
-    check(all(v > 0 for v in launches.values()), f"a kernel of the API Miller loop was not launched: {launches}")
+    check(all(launches[k] > 0 for k in ("fp12_mul", "prepare_step", "miller_step")),
+          f"a kernel of the API Miller loop was not launched: {launches}")
     _check_chains(launches, (1, 1), "api multi_miller_loop")
+    _check_final_exp(launches, (0, 0), "api multi_miller_loop (final exponentiation on the host)")
     emit({"phase": "api_miller", "n": m, "ok": True, "multi_miller_loop_s": t1 - t0,
           "final_exponentiation_host_s": t2 - t1, "launches": launches})
     del gp, gq, prep
@@ -2315,7 +2464,7 @@ def distributed_pairing(torch, dev, mesh, ps, qs, expected) -> tuple:
 
     (p, p_inf), (q, q_inf) = B._g1_batch(ps, dev), B._g2_batch(qs, dev)
     want = _fp12_product(expected)
-    names = ("mont_mul", "fp_inv", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step")
+    names = PAIRING_NAMES
     run = lambda: PR.multi_pairing_sharded(p, q, mesh, p_inf=p_inf, q_inf=q_inf)  # noqa: E731
     kernels = _reset_launches()
     gathers, nbytes = mesh.gathers, mesh.gather_bytes
@@ -2324,10 +2473,11 @@ def distributed_pairing(torch, dev, mesh, ps, qs, expected) -> tuple:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {name: kernels[name].launches for name in names}
-    check(all(v > 0 for v in launches.values()),
+    check(all(launches[k] > 0 for k in PAIRING_FUSED + ("fp12_mul",)),
           f"a kernel of the path was not launched: {launches}")
     _check_pairing_k1(launches, True, "sharded multi-pairing")
     _check_chains(launches, (1, 1), "sharded multi-pairing")
+    _check_final_exp(launches, (1, 1), "sharded multi-pairing")
     check(CV.fp12_from_dev(got) == [want],
           "sharded multi-pairing differs from the oracle's product")
     check(mesh.gathers == gathers + 1, "the world of one did not gather")
@@ -2512,15 +2662,15 @@ def rank_main(argv) -> int:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     pairing = {"n": TWO_RANK_PAIRS, "seconds": dt,
-               "launches": {name: kernels[name].launches for name in
-                            ("mont_mul", "fp_inv", "cyc_sqr", "fp12_mul", "prepare_step",
-                             "miller_step")},
+               "launches": {name: kernels[name].launches for name in PAIRING_NAMES},
                "gather_bytes": mesh.gather_bytes - nbytes,
                "gather_ms": _gather_ms(torch, mesh,
                                        torch.zeros((12, 30, 1), dtype=torch.int32, device=dev)),
                "fp12": CV.fp12_from_dev(got)}
-    check(all(v > 0 for v in pairing["launches"].values()), f"rank {a.rank}: {pairing['launches']}")
+    check(all(pairing["launches"][k] > 0 for k in PAIRING_FUSED + ("fp12_mul",)),
+          f"rank {a.rank}: {pairing['launches']}")
     _check_chains(pairing["launches"], (1, 1), f"rank {a.rank}'s sharded pairing")
+    _check_final_exp(pairing["launches"], (1, 1), f"rank {a.rank}'s sharded pairing")
     with open(a.out, "w") as f:
         json.dump({"rank": a.rank, "collective": str(mesh.backend), "device": str(dev),
                    "sharing": mesh.sharing, "init_s": init_s, "msm": msm, "pairing": pairing,
@@ -2597,6 +2747,7 @@ def main() -> int:
     del real
     k5c, k6c = phase_tower_chains(torch, dev, ptxas)
     torch.cuda.empty_cache()
+    fe_easy, fe_hard = phase_final_exp_chains(torch, dev, ptxas)
     launches, fused = phase_pairing(torch, dev, ps, qs, pairs_expected)
     unfused = phase_pairing_unfused(torch, dev, ps, qs, pairs_expected, fused)
     torch.cuda.empty_cache()
@@ -2708,16 +2859,28 @@ def main() -> int:
                      msm_launches["g2"]["g2_point_words"], k2s["g2_words"],
                      launches_distributed={"msm_g2": dist_launches["g2"]["g2_point_words"]}),
         _kernel_line("cyc_sqr", "cyc_sqr.cu", "ark_blst_tpu/ops/pallas_lazy.py:149",
-                     launches["cyc_sqr"], k3,
+                     unfused["cyc_sqr"], k3, launches_pairing_fused=launches["cyc_sqr"],
                      launches_distributed={"pairing": dist_launches["pairing"]["cyc_sqr"]},
-                     launches_pairing_unfused=unfused["cyc_sqr"],
                      bound_radix13_ms=k3["bound_radix13_ms"]),
         _kernel_line("fp12_mul", "fp12_mul.cu",
                      "ark_blst_tpu/ops/pallas_lazy.py:63 (ops/tower_lazy.py:567 mul12)",
-                     launches["fp12_mul"], k4,
+                     unfused["fp12_mul"], k4, launches_pairing_fused=launches["fp12_mul"],
                      launches_distributed={"pairing": dist_launches["pairing"]["fp12_mul"]},
-                     launches_pairing_unfused=unfused["fp12_mul"],
                      bound_radix13_ms=k4["bound_radix13_ms"]),
+        *[_kernel_line("final_exp_" + part, "final_exp.cu", replaces,
+                       launches["final_exp_" + part], res,
+                       launches_prepared=launches["prepared"]["final_exp_" + part],
+                       launches_pairing_unfused=unfused["final_exp_" + part],
+                       launches_distributed={
+                           "pairing": dist_launches["pairing"]["final_exp_" + part]},
+                       at_widths=res["at_widths"], launch=res["launch"])
+          for part, replaces, res in (
+              ("easy", "ark_blst_tpu/ops/pallas_lazy.py:63 (mul12) and :41 (the easy part of "
+                       "the fused final exponentiation, ark_blst_tpu/curves/pairing.py:438-443: "
+                       "fp12_inv's products and Fermat scan, the Frobenius square)", fe_easy),
+              ("hard", "ark_blst_tpu/ops/pallas_lazy.py:149, :63 (mul12) and :41 (the hard "
+                       "part, ark_blst_tpu/curves/pairing.py:444-467: five x-ladders, products, "
+                       "Frobenius maps)", fe_hard))],
         _kernel_line("prepare_chain", "prepare_step.cu",
                      "ark_blst_tpu/ops/pallas_lazy.py:63 (tower_fused under the prepare's "
                      "lax.scan, ark_blst_tpu/curves/pairing.py:242)",

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """K3 (`ark_blst_tpu_torch/csrc/cyc_sqr.cu`), K4 (`csrc/fp12_mul.cu`), K5
 (`csrc/prepare_step.cu`, the prepare's chain), K6 (`csrc/miller_step.cu`,
-the Miller loop's chain), K11 (`csrc/fp12_sqr.cu`) and K12
-(`csrc/fp12_mul_by_014.cu`) at other launch shapes, on one NVIDIA card:
+the Miller loop's chain), K11 (`csrc/fp12_sqr.cu`), K12
+(`csrc/fp12_mul_by_014.cu`) and FE-hard (`csrc/final_exp.cu`, the final
+exponentiation's hard part) at other launch shapes, on one NVIDIA card:
 each shape is E elements and T threads a block (`tower_cyc_sqr_shaped`,
 `tower_fp12_mul_shaped`, `pairing_prepare_chain_shaped`,
 `pairing_miller_chain_shaped`, `tower_fp12_sqr_shaped`,
@@ -18,7 +19,8 @@ with its ptxas registers and spills.
 
     python3 scripts/tower_probe.py [--k3 32x288,16x144] [--k4 32x192] \
         [--k5 32x192,16x96] [--k6 32x256,16x128] [--k11 32x192] \
-        [--k12 32x256,24x192] [--chains 32,16,8] [--widths 8192,1024]
+        [--k12 32x256,24x192] [--chains 32,16,8] [--widths 8192,1024] \
+        [--fe 32x288,16x144]
 
 An empty list (`--k3 ""`) skips a kernel's shapes. Builds the six kernels
 from the checkout's sources (`cuda.build_all`) and the shapes' builds of
@@ -39,7 +41,12 @@ the pipeline's real inputs, 8 distinct, as chip_smoke.py's phase
 two chains of all 68 events in the library's builds at E elements a
 block (six threads an element for K5, eight for K6): their times, their
 edges alone, their blocks an SM and waves, and whether their output
-equals the default shape's. Needs a card; imports no JAX.
+equals the default shape's. Then, for each width N, FE-easy at its
+default shape and FE-hard at each shape of `--fe` (a build of its own,
+bounded as K4's: `-DFE_HARD_THREADS=T -DFE_HARD_MIN_BLOCKS=M`) on the
+easy part of the first N pairs' real Miller outputs (identities masked):
+their times, blocks an SM, waves and whether FE-hard's output equals the
+library's bit for bit. Needs a card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ K4_SHAPES = "32x192,32x256,32x128,16x128,16x96"
 K5_SHAPES = "32x192,32x128,16x96,16x64,64x384"
 K11_SHAPES = "32x192,32x256,32x384,24x144,16x96,16x192"
 K12_SHAPES = "32x256,32x192,32x320,24x192,24x128,16x128"
+FE_SHAPES = "32x288,32x192,32x384,16x144,16x288"
 CHAIN_ELEMS = "32,16,8"
 CHAIN_WIDTHS = "8192,1024"
 K5_THREADS_PER_ELEM, K6_THREADS_PER_ELEM = 6, 8
@@ -108,6 +116,7 @@ def main() -> int:
     ap.add_argument("--k12", default=K12_SHAPES)
     ap.add_argument("--chains", default=CHAIN_ELEMS)
     ap.add_argument("--widths", default=CHAIN_WIDTHS)
+    ap.add_argument("--fe", default=FE_SHAPES)
     args = ap.parse_args()
 
     import chip_smoke as CS
@@ -116,6 +125,7 @@ def main() -> int:
     from ark_blst_tpu_torch.ops import cyc_sqr as K3
     from ark_blst_tpu_torch.ops import fp12_mul as K4
     from ark_blst_tpu_torch.ops import fp12_mul_by_014 as K12
+    from ark_blst_tpu_torch.ops import final_exp as FE
     from ark_blst_tpu_torch.ops import fp12_sqr as K11
     from ark_blst_tpu_torch.ops import lazy13 as LZ
 
@@ -124,14 +134,16 @@ def main() -> int:
     print(smi.strip().splitlines()[0], flush=True)
     dev = torch.device("cuda", 0)
     kernels = {"k3": K3.KERNEL, "k4": K4.KERNEL, "k5": PS.PREPARE_KERNEL,
-               "k6": PS.MILLER_KERNEL, "k11": K11.KERNEL, "k12": K12.KERNEL}
+               "k6": PS.MILLER_KERNEL, "k11": K11.KERNEL, "k12": K12.KERNEL,
+               "fe": FE.KERNEL_HARD}
     props = torch.cuda.get_device_properties(0)
     slot_bytes = 12 * 2 * 4  # one Fp2 slot of 32-bit words
     bounded, procs = _bounded_builds(KC, props, {
         "k4": ("fp12_mul.cu", "K4", 30 * slot_bytes, _shapes(args.k4)),
         "k5": ("prepare_step.cu", "K5", 26 * slot_bytes, _shapes(args.k5)),
         "k11": ("fp12_sqr.cu", "K11", 30 * slot_bytes, _shapes(args.k11)),
-        "k12": ("fp12_mul_by_014.cu", "K12", 27 * slot_bytes, _shapes(args.k12))})
+        "k12": ("fp12_mul_by_014.cu", "K12", 27 * slot_bytes, _shapes(args.k12)),
+        "fe": ("final_exp.cu", "FE_HARD", 30 * slot_bytes, _shapes(args.fe))})
     KC.build_all(list(kernels.values()))  # the library, while the shapes build
     sms = props.multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream
@@ -162,7 +174,8 @@ def main() -> int:
                "k6": ("pairing_miller_chain_shaped",
                       [vp, vp, vp, vp, i64, i32, vp, i32, i32, i32, vp]),
                "k11": ("tower_fp12_sqr_shaped", [vp, vp, i64, i32, i32, i32, vp]),
-               "k12": ("tower_fp12_mul_by_014_shaped", [vp, vp, vp, i64, i32, i32, i32, vp])}
+               "k12": ("tower_fp12_mul_by_014_shaped", [vp, vp, vp, i64, i32, i32, i32, vp]),
+               "fe": ("final_exp_hard_shaped", [vp, vp, vp, i64, vp, i32, vp, i32, i32, vp])}
 
     def flags(schedule):
         return (ctypes.c_ubyte * len(schedule))(*[int(x) for x in schedule])
@@ -306,6 +319,32 @@ def main() -> int:
                         line["equal"] = bool(torch.equal(coeffs, ref_c) if which == "k5"
                                              else torch.equal(fo, ref_f))
                 res[which] = line
+            print(json.dumps(res), flush=True)
+
+    from ark_blst_tpu_torch import bls12 as B
+
+    ps, qs, _, _ = CS.pairing_inputs()
+    for n in (int(w) for w in args.widths.split(",") if w):
+        (p, p_inf), (q, q_inf) = B._g1_batch(ps[:n], dev), B._g2_batch(qs[:n], dev)
+        f = PR._masked_miller(p, PR.prepare_g2(q), p_inf, q_inf)
+        words = FE.easy(f)
+        ref = FE.hard(words)
+        prog, frob = FE._tables(str(dev))
+        scratch = torch.empty((FE.HARD_VALUES - 1, 12, FE.WORDS, n), dtype=torch.int32,
+                              device=dev)
+        fo = torch.empty_like(ref)
+        res = {"kernel": "final_exp", "n": n, "easy_ms": timed(lambda: FE.easy(f))}
+        res["easy_launch"] = CS._tower32_shape(torch, FE.KERNEL_EASY, n)
+        print(json.dumps(res), flush=True)
+        for E, T in _shapes(args.fe):
+            fn, res = shape_line("fe", E, T)
+            res["n"], res["blocks"] = n, -(-n // E)
+            res["waves"] = res["blocks"] / (sms * max(res["blocks_per_sm"], 1))
+            run = lambda fn=fn, E=E, T=T: launch(  # noqa: E731
+                fn, words.data_ptr(), scratch.data_ptr(), fo.data_ptr(), n, prog.data_ptr(),
+                len(FE.HARD_PROGRAM), frob.data_ptr(), E, T, stream)
+            res["ms"] = timed(run)
+            res["equal"] = bool(torch.equal(fo, ref))
             print(json.dumps(res), flush=True)
     return 0
 

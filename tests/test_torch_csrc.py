@@ -13,6 +13,7 @@ from ark_blst_tpu_torch import cuda as KC
 from ark_blst_tpu_torch.curves import msm_bucket as MB
 from ark_blst_tpu_torch.curves import pairing_steps as PS
 from ark_blst_tpu_torch.ops import cyc_sqr as K3
+from ark_blst_tpu_torch.ops import final_exp as FE
 from ark_blst_tpu_torch.ops import fp12_mul as K4
 from ark_blst_tpu_torch.ops import fp12_mul_by_014 as K12
 from ark_blst_tpu_torch.ops import fp12_sqr as K11
@@ -73,30 +74,34 @@ def test_strict_header_constants(name, spec):
     "kernel",
     [MM.KERNEL, MB.KERNEL, K3.KERNEL, K4.KERNEL, PS.PREPARE_KERNEL, PS.MILLER_KERNEL,
      MB.KERNEL_G2, MB.KERNEL_G2_WORDS, *SF.KERNELS.values(), K11.KERNEL, K12.KERNEL,
-     MB.KERNEL_G1_WORDS, FI.KERNEL_INV, FI.KERNEL_UP, FI.KERNEL_DOWN],
+     MB.KERNEL_G1_WORDS, FI.KERNEL_INV, FI.KERNEL_UP, FI.KERNEL_DOWN, FE.KERNEL_EASY,
+     FE.KERNEL_HARD],
     ids=["mont_mul", "bucket", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step",
          "bucket_g2", "g2_point_words", *("strict_" + op for op in SF.KERNELS), "fp12_sqr",
-         "fp12_mul_by_014", "g1_point_words", "fp_inv", "scan_up", "scan_down"])
+         "fp12_mul_by_014", "g1_point_words", "fp_inv", "scan_up", "scan_down",
+         "final_exp_easy", "final_exp_hard"])
 def test_kernel_sources_export_their_entry(kernel):
     src = (KC.CSRC_DIR / kernel.source).read_text()
     assert re.search(rf'extern "C" int {kernel.symbol}\(', src)
     assert any(f'#include "{h}"' in src
                for h in ("lazy13.cuh", "tower381.cuh", "group381.cuh", "strict16.cuh",
-                         "fp_inv.cuh"))
+                         "fp_inv.cuh", "final_exp.cuh"))
     assert kernel.lib_path.parent == KC.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in KC.NVCC_FLAGS
 
 
 @pytest.mark.parametrize("bad", ["rows", "digits_or_batch", "dtype", "device"])
 @pytest.mark.parametrize("kernel", ["cyc_sqr", "fp12_mul", "prepare_step", "miller_step",
-                                    "fp12_sqr", "fp12_mul_by_014"])
+                                    "fp12_sqr", "fp12_mul_by_014", "final_exp_easy",
+                                    "final_exp_hard"])
 def test_tower_wrappers_reject_what_the_kernels_do_not_take(kernel, bad):
     """Only (rows, 30, N) int32 stacks on one device reach a tower kernel,
     and only CPU tensors take the plain version: a meta tensor raises."""
     import torch
 
     rows = {"cyc_sqr": [12], "fp12_mul": [12, 12], "prepare_step": [6, 4],
-            "miller_step": [12, 6, 2], "fp12_sqr": [12], "fp12_mul_by_014": [12, 6]}[kernel]
+            "miller_step": [12, 6, 2], "fp12_sqr": [12], "fp12_mul_by_014": [12, 6],
+            "final_exp_easy": [12], "final_exp_hard": [12]}[kernel]
     ops = [torch.zeros((r, 30, 4), dtype=torch.int32) for r in rows]
     if bad == "rows":
         ops[-1] = torch.zeros((rows[-1] + 1, 30, 4), dtype=torch.int32)
@@ -112,7 +117,9 @@ def test_tower_wrappers_reject_what_the_kernels_do_not_take(kernel, bad):
             "prepare_step": lambda: PS.prepare_step(*ops),
             "miller_step": lambda: PS.miller_step(*ops, True),
             "fp12_sqr": lambda: K11.fp12_sqr(ops[0]),
-            "fp12_mul_by_014": lambda: K12.fp12_mul_by_014(*ops)}[kernel]
+            "fp12_mul_by_014": lambda: K12.fp12_mul_by_014(*ops),
+            "final_exp_easy": lambda: FE.easy(ops[0]),
+            "final_exp_hard": lambda: FE.hard(ops[0])}[kernel]
     with pytest.raises(ValueError):
         call()
 
@@ -187,17 +194,18 @@ def test_build_all_starts_one_nvcc_per_source(monkeypatch):
 
 
 def test_every_kernel_source_is_built_once(monkeypatch):
-    """The eleven kernel sources of the port, one nvcc each: every
+    """The twelve kernel sources of the port, one nvcc each: every
     `csrc/*.cu` belongs to a kernel, the tower kernels K11/K12 have their
-    own, and K1-inv and K1-scan's two passes share `fp_inv.cu`."""
+    own, K1-inv and K1-scan's two passes share `fp_inv.cu`, and FE-easy and
+    FE-hard share `final_exp.cu`."""
     started = []
     monkeypatch.setattr(KC.CudaKernel, "start_build", lambda self: started.append(self) or None)
     kernels = [MM.KERNEL, MB.KERNEL, MB.KERNEL_G2, K3.KERNEL, K4.KERNEL, PS.PREPARE_KERNEL,
                PS.MILLER_KERNEL, *SF.KERNELS.values(), K11.KERNEL, K12.KERNEL,
-               FI.KERNEL_INV, FI.KERNEL_UP, FI.KERNEL_DOWN]
+               FI.KERNEL_INV, FI.KERNEL_UP, FI.KERNEL_DOWN, FE.KERNEL_EASY, FE.KERNEL_HARD]
     owners = KC.build_all(kernels)
     assert sorted(k.source for k in owners) == sorted(p.name for p in KC.CSRC_DIR.glob("*.cu"))
-    assert len(owners) == 11 and started == owners
+    assert len(owners) == 12 and started == owners
 
 
 def test_cached_build_keeps_its_ptxas_log(monkeypatch, tmp_path):

@@ -28,6 +28,7 @@ from ark_blst_tpu_torch.curves import pairing as PR
 from ark_blst_tpu_torch.curves import pairing_steps as PS
 from ark_blst_tpu_torch.curves.instance import distinct_bases
 from ark_blst_tpu_torch.ops import cyc_sqr as K3
+from ark_blst_tpu_torch.ops import final_exp as FE
 from ark_blst_tpu_torch.ops import fp12_mul as K4
 from ark_blst_tpu_torch.ops import fp12_mul_by_014 as K12
 from ark_blst_tpu_torch.ops import fp12_sqr as K11
@@ -135,8 +136,10 @@ def test_batch_inverse_on_card(dev):
 def test_msm_and_pairing_k1_launches(dev):
     """A G1 MSM at 2^18 and a pairing batch of 64 on the card against the
     oracle, with their K1-family launches: the MSM's prepare 2 products,
-    one ladder, two levels of the scan (2 + 2); the batch 36 products and
-    one ladder (was 994 and 644 launches of K1 alone)."""
+    one ladder, two levels of the scan (2 + 2); the batch none, its final
+    exponentiation's inverse and Frobenius maps inside FE-easy and FE-hard
+    (was 994 and 644 launches of K1 alone, then 36 products and one
+    ladder a batch)."""
     kernels = (MM.KERNEL, FI.KERNEL_INV, FI.KERNEL_UP, FI.KERNEL_DOWN)
     points, scalars, expected = distinct_bases(18, 5, dev, "g1")
     before = [k.launches for k in kernels]
@@ -151,7 +154,7 @@ def test_msm_and_pairing_k1_launches(dev):
     qb = [qs[(i + 2) % 4] for i in range(64)]
     before = [k.launches for k in kernels]
     got = B.pairing_batch(pb, qb, device=dev)
-    assert [k.launches - b for k, b in zip(kernels, before)] == [36, 1, 0, 0]
+    assert [k.launches - b for k, b in zip(kernels, before)] == [0, 0, 0, 0]
     want = {i: OP.pairing(ps[i], qs[(i + 2) % 4]) for i in range(4)}
     assert got == [want[i % 4] for i in range(64)]
 
@@ -331,15 +334,17 @@ def test_chains_value_equal_to_plain_ragged(dev):
 
 
 def test_fused_pairing_launches_one_chain_each(dev):
-    """A fused batch launches K5 and K6 once each, a prepare alone K5 once,
-    a prepared batch K6 once, `multi_pairing` once each; the results equal
-    the oracle."""
+    """A fused batch launches K5, K6, FE-easy and FE-hard once each and no
+    K3 or K4, a prepare alone K5 once, a prepared batch K6 and the final
+    exponentiation's two chains once, `multi_pairing` each chain once (and
+    K4 for its product fold); the results equal the oracle."""
     rng = random.Random(21)
     ps = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
     qs = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
     pb = [ps[i % 4] for i in range(40)]
     qb = [qs[(i + 3) % 4] for i in range(40)]
-    chains = (PS.PREPARE_KERNEL, PS.MILLER_KERNEL)
+    chains = (PS.PREPARE_KERNEL, PS.MILLER_KERNEL, FE.KERNEL_EASY, FE.KERNEL_HARD, K3.KERNEL,
+              K4.KERNEL)
 
     def launches(fn):
         before = [k.launches for k in chains]
@@ -349,14 +354,51 @@ def test_fused_pairing_launches_one_chain_each(dev):
 
     want = [OP.pairing(ps[i % 4], qs[(i + 3) % 4]) for i in range(40)]
     got, n = launches(lambda: B.pairing_batch(pb, qb, device=dev))
-    assert got == want and n == [1, 1]
+    assert got == want and n == [1, 1, 1, 1, 0, 0]
     prep, n = launches(lambda: B.prepare_g2_batch(qb, device=dev))
-    assert n == [1, 0]
+    assert n == [1, 0, 0, 0, 0, 0]
     got, n = launches(lambda: B.pairing_batch(pb, prep, device=dev))
-    assert got == want and n == [0, 1]
+    assert got == want and n == [0, 1, 1, 1, 0, 0]
     got, n = launches(lambda: B.multi_pairing(pb[:8], qb[:8], device=dev))
-    assert n == [1, 1]
+    assert n == [1, 1, 1, 1, 0, 3]
     assert got == OP.final_exp(OP.multi_miller_loop(list(zip(pb[:8], qb[:8]))))
+
+
+def _miller_outputs(dev, n):
+    """f of n pairs of 4 distinct (P, Q) as the fused pipeline hands it to
+    the final exponentiation (K5-chain, K6-chain, identity pairs masked to
+    one: P at column 2, Q at column 5 where n allows), and the pairs."""
+    rng = random.Random(23)
+    ps = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    qs = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    pb = [ps[i % 4] for i in range(n)]
+    qb = [qs[(i + 1) % 4] for i in range(n)]
+    if n > 5:
+        pb[2], qb[5] = None, None
+    (p, p_inf), (q, q_inf) = B._g1_batch(pb, dev), B._g2_batch(qb, dev)
+    return PR._masked_miller(p, PR.prepare_g2(q), p_inf, q_inf), pb, qb
+
+
+@pytest.mark.parametrize("n", [1, 33, 1000])
+def test_final_exp_chains_value_equal_to_plain(dev, n):
+    """FE-easy and FE-hard, one launch each, on real Miller outputs (with
+    identity pairs) at N = 1, 33 (a ragged second block) and 1000, by value
+    against their plain versions: FE-easy's words against `easy_plain`'s
+    digits, FE-hard on those words and on the words of `easy_plain`'s
+    digits (`digits_to_words_plain`) against `hard_plain`; the first columns against the oracle's pairing."""
+    f, pb, qb = _miller_outputs(dev, n)
+    words = _launched_once(FE.KERNEL_EASY, lambda: FE.easy(f))
+    assert words.shape == (12, FE.WORDS, n)
+    t2 = FE.easy_plain(f)
+    _value_equal(FE.words_to_digits_plain(words), t2)
+    want = FE.hard_plain(t2)
+    got = _launched_once(FE.KERNEL_HARD, lambda: FE.hard(words))
+    _value_equal(got, want)
+    t2_words = FE.digits_to_words_plain(t2)
+    _value_equal(_launched_once(FE.KERNEL_HARD, lambda: FE.hard(t2_words)), want)
+    cols = min(n, 8)
+    vals = CV.fp12_from_dev(PR.egress(got[..., :cols].contiguous()))
+    assert vals == [OP.pairing(pb[i], qb[i]) for i in range(cols)]
 
 
 def _real_f_and_legs(dev):
@@ -423,7 +465,8 @@ def test_unfused_and_strict_pairing_on_card_match_fused(dev):
 
     (p, p_inf), (q, q_inf) = B._g1_batch(pb, dev), B._g2_batch(qb, dev)
     lazy = T.pairing(p, q, p_inf=p_inf, q_inf=q_inf, device=dev)
-    lazy_kernels = (MM.KERNEL, K3.KERNEL, K4.KERNEL) + tower
+    lazy_kernels = (MM.KERNEL, K3.KERNEL, K4.KERNEL, FE.KERNEL_EASY, FE.KERNEL_HARD) + \
+        tower
     before = [k.launches for k in lazy_kernels] + [SF.KERNELS["mont_mul"].launches]
     strict = T.pairing(p, q, p_inf=p_inf, q_inf=q_inf, engine="strict", device=dev)
     torch.cuda.synchronize()
@@ -440,7 +483,7 @@ def test_pairing_on_card_matches_oracle(dev):
     pb = [ps[i % 4] for i in range(64)]
     qb = [qs[(3 * i + 1) % 4] for i in range(64)]
     pb[5], qb[6] = None, None
-    kernels = (MM.KERNEL, K3.KERNEL, K4.KERNEL, PS.PREPARE_KERNEL, PS.MILLER_KERNEL)
+    kernels = (FE.KERNEL_EASY, FE.KERNEL_HARD, PS.PREPARE_KERNEL, PS.MILLER_KERNEL)
     before = [k.launches for k in kernels]
     got = B.pairing_batch(pb, qb, device=dev)
     assert all(k.launches > b for k, b in zip(kernels, before))
@@ -604,7 +647,7 @@ def test_distributed_pairing_world_of_one(dev, nccl_mesh):
     qb = [qs[(3 * i + 1) % 4] for i in range(64)]
     pb[5], qb[6] = None, None
     (p, p_inf), (q, q_inf) = B._g1_batch(pb, dev), B._g2_batch(qb, dev)
-    kernels = (K3.KERNEL, K4.KERNEL, PS.PREPARE_KERNEL, PS.MILLER_KERNEL)
+    kernels = (K4.KERNEL, FE.KERNEL_EASY, FE.KERNEL_HARD, PS.PREPARE_KERNEL, PS.MILLER_KERNEL)
     before = [k.launches for k in kernels]
     got = PR.multi_pairing_sharded(p, q, nccl_mesh, p_inf=p_inf, q_inf=q_inf)
     torch.cuda.synchronize()

@@ -29,6 +29,7 @@ from ark_blst_tpu_torch.curves import pairing as PR
 from ark_blst_tpu_torch.curves import pairing_steps as PS
 from ark_blst_tpu_torch.ops import convert as CV
 from ark_blst_tpu_torch.ops import cyc_sqr as K3
+from ark_blst_tpu_torch.ops import final_exp as FE
 from ark_blst_tpu_torch.ops import tower_lazy as TL
 from ark_blst_tpu_torch.oracle import curve as OC
 from ark_blst_tpu_torch.oracle import field as OF
@@ -74,7 +75,9 @@ def test_oracle_copy_matches_jax_oracle():
 
 def test_schedules_match():
     assert PR.MILLER_EVENTS == DP.MILLER_EVENTS and PR.NUM_EVENTS == 68
-    assert PR._X_SEGMENTS == DP._X_SEGMENTS and PR.X_ABS_BITS == DP.X_ABS_BITS
+    assert FE.X_SEGMENTS == DP._X_SEGMENTS
+    ladder_bits = [1] + [b for n, m in FE.X_SEGMENTS for b in [0] * (n - 1) + [int(m)]]
+    assert ladder_bits == DP.X_ABS_BITS
 
 
 def _jax_r_after_doubling():
@@ -118,7 +121,7 @@ def test_k6_plain_matches_jax_event(with_sqr):
     assert (got.numpy() == np.stack([_np(x) for x in want])).all()
 
 
-@pytest.mark.parametrize("n", [1, max(r for r, _ in PR._X_SEGMENTS)])
+@pytest.mark.parametrize("n", [1, max(r for r, _ in FE.X_SEGMENTS)])
 def test_k3_plain_matches_jax_core(n):
     """n iterated squarings (the contraction keeps the run exact) against n
     calls of the JAX _cyc_sqr_core, at n = 1 and at the ladder's longest

@@ -1,12 +1,15 @@
-"""The CUDA code of K2-K6, K11 and K12 compiled for the CPU with the host C++
-compiler and undefined-behaviour checks, against the kernels' plain
-PyTorch versions: K3, K4, K5, K6, K11 and K12 on the 32-bit tower
-(csrc/tower381.cuh) and the G1 and G2 bucket additions
+"""The CUDA code of K2-K6, K11, K12, FE-easy and FE-hard compiled for the
+CPU with the host C++ compiler and undefined-behaviour checks, against
+the kernels' plain PyTorch versions: K3, K4, K5, K6, K11 and K12 on the
+32-bit tower (csrc/tower381.cuh) and the G1 and G2 bucket additions
 (csrc/group381.cuh, K2 and K2-G2), all on 32-bit Montgomery words, by
 value; K3, K4, K11 and K12 also against the oracle; K5 and K6 also as
 the chains the pipeline launches (all 68 events of the prepare and of the
 Miller loop in one block program) against their plain versions and the
-oracle.
+oracle; the fused final exponentiation's two chain programs
+(csrc/final_exp.cuh: FE-easy, and FE-hard walking `HARD_PROGRAM`) on real
+Miller outputs against the oracle's easy part and final_exp, and the
+Frobenius maps' constants on random elements against the oracle.
 
 The headers compile as plain C++ when __CUDACC__ is not defined; a small
 harness runs each bucket kernel's per-thread body over a batch, or, for
@@ -36,6 +39,7 @@ from ark_blst_tpu_torch.curves import pairing_steps as PS
 from ark_blst_tpu_torch.curves.instance import distinct_bases
 from ark_blst_tpu_torch.ops import convert as CV
 from ark_blst_tpu_torch.ops import cyc_sqr as K3
+from ark_blst_tpu_torch.ops import final_exp as FE
 from ark_blst_tpu_torch.ops import fp12_mul as K4
 from ark_blst_tpu_torch.ops import fp12_mul_by_014 as K12
 from ark_blst_tpu_torch.ops import fp12_sqr as K11
@@ -52,6 +56,7 @@ HARNESS = r"""
 #include <cstdio>
 #include <cstdlib>
 #include <vector>
+#include "final_exp.cuh"
 #include "group381.cuh"
 #include "tower381.cuh"
 
@@ -73,7 +78,11 @@ HARNESS = r"""
 // buckets, S = 1024 streams: points (24, n) or (48, n) words, digits (W, n),
 // result the dump (W, B, 45 or 90, S). Ops 9/10: K11 (fp12 square) and K12
 // (the sparse line product) on tower381.cuh, result (12, 30, n), in blocks
-// as ops 0-4.
+// as ops 0-4. Ops 15-17: the final exponentiation's chain programs of
+// final_exp.cuh, in blocks as ops 0-4: FE-easy (op 15) on f (12, 30, n) and
+// the Frobenius words (432 int32) after it, result (12, 12, n) words;
+// FE-hard (op 16) on value 0 as words (12, 12, n), then the program (p1
+// ops of 4 int32), then the Frobenius words, result (12, 30, n) digits.
 // One block program over the batch: blocks of E elements, each phase's jobs
 // in order (reversed if asked), with the slots' memory filled with a
 // pattern first, so that a job reading a slot no earlier phase wrote goes
@@ -140,11 +149,15 @@ int main() {
   long long hdr[4];
   if (fread(hdr, sizeof(long long), 4, stdin) != 4) return 2;
   const long long op = hdr[0], n = hdr[1], param = hdr[2], B = hdr[3];
-  if (op < 0 || op > 14) return 2;
+  if (op < 0 || op > 16) return 2;
   const bool tower = op <= 4 || op == 9 || op == 10;
   const long long plane = 30 * n, S = 1024;
   size_t in_size, out_size;
-  if (op == 13 || op == 14) {
+  const long long frob_ints = fexp::FROB_POWERS * 6 * 2 * 12;
+  if (op >= 15) {
+    in_size = op == 15 ? 12 * plane + frob_ints : 12 * 12 * n + 4 * param + frob_ints;
+    out_size = op == 15 ? 12 * 12 * n : 12 * plane;
+  } else if (op == 13 || op == 14) {
     in_size = (op == 13 ? 10 : 14 + 6 * param) * plane + param;
     out_size = (op == 13 ? 6 * param + 6 : 12) * plane;
   } else if (tower) {
@@ -235,6 +248,18 @@ int main() {
                [&](const t381::Block& b, int ph, int j, int e) {
                  t381::mul_by_014_job(b, x, x + 12 * plane, o, ph, j, e);
                });
+  if (op == 15) {
+    const fexp::EasyChain c{x, o, x + 12 * plane};
+    run_chain(n, B, fexp::SLOTS,
+              [&](const t381::Block& b, const HostPhases& ph) { fexp::easy_chain(b, c, ph); });
+  }
+  if (op == 16) {
+    const long long in_len = 12 * 12 * n;
+    std::vector<int> scratch(static_cast<size_t>(15 * 12 * 12 * n));
+    const fexp::HardChain c{x, scratch.data(), o, x + in_len, p1, x + in_len + 4 * param};
+    run_chain(n, B, fexp::SLOTS,
+              [&](const t381::Block& b, const HostPhases& ph) { fexp::hard_chain(b, c, ph); });
+  }
   fwrite(out.data(), sizeof(int), out.size(), stdout);
   return 0;
 }
@@ -346,7 +371,7 @@ def assert_value_equal(got: torch.Tensor, want: torch.Tensor) -> None:
     assert torch.equal(LZ.canonicalize_rows(got), LZ.canonicalize_rows(want))
 
 
-@pytest.mark.parametrize("nsq", [1, max(r for r, _ in PR._X_SEGMENTS)])
+@pytest.mark.parametrize("nsq", [1, max(r for r, _ in FE.X_SEGMENTS)])
 def test_cyc_sqr_host(harness, nsq):
     (x,) = digit_stacks(1, 12)
     assert_value_equal(run(harness, 0, nsq, x, buckets=BLOCK), K3.cyc_sqr_plain(x, nsq))
@@ -541,11 +566,23 @@ def test_miller_step_host(harness, with_sqr, source):
 
 @pytest.mark.parametrize("kernel", ["cyc_sqr", "miller_sqr", "miller_line", "fp12_mul",
                                     "prepare_dbl", "prepare_add", "fp12_sqr", "mul_by_014",
-                                    "prepare_chain", "miller_chain"])
+                                    "prepare_chain", "miller_chain", "final_exp_easy",
+                                    "final_exp_hard"])
 def test_tower381_phases_have_no_hazards(harness, kernel):
     """Each phase's jobs are independent: run in reverse order they give the
     same digits (on the card they run at once); for the chains over 8
-    events with two additions, the phases between events too."""
+    events with two additions, the phases between events too; for the final
+    exponentiation's chains every phase of their programs (FE-hard on
+    FE-easy's words of real Miller outputs)."""
+    if kernel.startswith("final_exp"):
+        f = fp12_stack(miller_fs())
+        args = (15, 0, f, FROB, (12, FE.WORDS, f.shape[-1]))
+        if kernel == "final_exp_hard":
+            args = (16, len(FE.HARD_PROGRAM), run(harness, *args[:-1], shape=args[-1], buckets=3),
+                    PROGRAM, FROB, (12, 30, f.shape[-1]))
+        assert torch.equal(run(harness, *args[:-1], shape=args[-1], buckets=3),
+                           run(harness, *args[:-1], shape=args[-1], buckets=-3))
+        return
     if kernel.endswith("chain"):
         r, q, f, _, pxy, _ = real_inputs()
         args = chain_args(kernel, r, q, f, PS.prepare_chain_plain(q, SCHEDULE_8), pxy,
@@ -626,6 +663,65 @@ def test_fp12_sqr_and_mul_by_014_host_oracle(harness, kernel):
                 for x, (c0, c1, c4) in zip(f, lines)]
     assert int(got.abs().max()) <= 4096
     assert values(got) == values(fp12_stack(want))
+
+
+# --- the final exponentiation's chains (csrc/final_exp.cuh) ------------------
+
+FROB = torch.from_numpy(FE.FROB_WORDS.reshape(-1).copy())
+PROGRAM = torch.tensor(FE.HARD_PROGRAM, dtype=torch.int32).reshape(-1)
+
+
+def miller_fs(n: int = 3) -> list:
+    """The oracle's Miller loop of n numpy-seeded real pairs, then one (an
+    identity pair's f after the mask)."""
+    rng = np.random.default_rng(24)
+    ks = [int(rng.integers(1, 1 << 62)) for _ in range(2 * n)]
+    pairs = zip([OC.scalar_mul(OF.G1_GEN, k) for k in ks[:n]],
+                [OC.g2_mul(OF.G2_GEN, k) for k in ks[n:]])
+    return [OP.miller_loop(p, q) for p, q in pairs] + [OF.FP12_ONE]
+
+
+def easy_oracle(f):
+    """The easy part by the oracle: g = conj(f) f^-1, then g^(p^2) g."""
+    g = OF.fp12_mul(OF.fp12_conj(f), OF.fp12_inv(f))
+    return OF.fp12_mul(OF.fp12_frobenius(g, 2), g)
+
+
+def test_final_exp_chains_host_oracle(harness):
+    """FE-easy's program on three real Miller outputs and f = 1 (blocks of 3:
+    the second ragged) against the oracle's easy part and `easy_plain` by
+    value, its words canonical; FE-hard's program on those words against
+    the oracle's final_exp by value, and on the words of `easy_plain`'s
+    digits against `hard_plain`'s; digits within 4096."""
+    fs = miller_fs()
+    f = fp12_stack(fs)
+    n = f.shape[-1]
+    words = run(harness, 15, 0, f, FROB, shape=(12, FE.WORDS, n), buckets=3)
+    assert (words.numpy().view(np.uint32)[:, -1] <= OF.P >> 352).all()
+    assert values(FE.words_to_digits_plain(words)) == values(fp12_stack(
+        [easy_oracle(x) for x in fs]))
+    t2 = FE.easy_plain(f)
+    assert values(FE.words_to_digits_plain(words)) == values(t2)
+    got = run(harness, 16, len(FE.HARD_PROGRAM), words, PROGRAM, FROB, buckets=3)
+    assert int(got.abs().max()) <= 4096
+    assert values(got) == values(fp12_stack([OP.final_exp(x) for x in fs]))
+    got = run(harness, 16, len(FE.HARD_PROGRAM), FE.digits_to_words_plain(t2), PROGRAM, FROB,
+              buckets=3)
+    assert_value_equal(got, FE.hard_plain(t2))
+
+
+@pytest.mark.parametrize("power", [1, 2, 3])
+def test_final_exp_frobenius_host_oracle(harness, power):
+    """FE-hard's FROB op (a program LOAD, FROB, OUT) on random canonical fp12
+    elements against the oracle's fp12_frobenius: the constants' words in
+    the right Montgomery form."""
+    rng = random.Random(30 + power)
+    a = [random_fp12(rng) for _ in range(N)]
+    program = [FE._load(FE.T2), FE._op(FE.FROB, power), FE._op(FE.OUT)]
+    got = run(harness, 16, len(program), FE.digits_to_words_plain(fp12_stack(a)),
+              torch.tensor(program, dtype=torch.int32).reshape(-1), FROB, buckets=BLOCK)
+    assert int(got.abs().max()) <= 4096
+    assert values(got) == values(fp12_stack([OF.fp12_frobenius(x, power) for x in a]))
 
 
 # --- K2: the bucket addition over Fp and Fp2 (csrc/group381.cuh) -------------
