@@ -76,8 +76,10 @@ def pairing(p, q, *, p_inf=None, q_inf=None, fuse=True, engine="lazy", device="c
 
 def prepare_g2_batch(qs, fuse=True, device="cuda") -> DeviceG2Prepared:
     """G2 line coefficients of every affine point of qs, kept on the device
-    for reuse by `pairing_batch`; fuse=False runs the prepare steps on the
-    tower (K1) instead of K5, to the same coefficients."""
+    for reuse by `pairing_batch` (under either `fuse`): fuse=True one K5
+    launch, the stack (68, 6, 12, N) canonical 32-bit words; fuse=False
+    the prepare steps on the tower (K1), the same coefficients as (68, 6,
+    30, N) digits. `DeviceG2Prepared.layout` says which."""
     dev = resolve_device(device)
     q, q_inf = _g2_batch(list(qs), dev)
     return PR.prepare_g2_device(q, q_inf, fuse)

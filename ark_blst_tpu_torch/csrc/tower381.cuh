@@ -71,6 +71,27 @@ __constant__ u32 DIGIT8192_FIX[NW] = {0xfb2d8b7d, 0x7378ff7f, 0x0e0bbf51, 0x99d3
 
 // --- the conversions at the kernel's edges -------------------------------------
 
+// t mod p for t < 2^(KMAX + 1) p in TW words: 2^k p subtracted for k = KMAX
+// .. 0 where it fits.
+template <int TW, int KMAX>
+__device__ __forceinline__ void sub_p_multiples(u32 (&t)[TW]) {
+#pragma unroll
+  for (int k = KMAX; k >= 0; --k) {
+    u32 d[TW];
+    u64 borrow = 0;
+#pragma unroll
+    for (int j = 0; j < TW; ++j) {
+      const u32 lo = j < NW ? f381::P[j] << k : 0;
+      const u32 hi = (k > 0 && j > 0) ? f381::P[j - 1] >> (32 - k) : 0;
+      const u64 s = static_cast<u64>(t[j]) - (lo | hi) - borrow;
+      d[j] = static_cast<u32>(s);
+      borrow = (s >> 32) & 1;
+    }
+#pragma unroll
+    for (int j = 0; j < TW; ++j) t[j] = borrow ? t[j] : d[j];
+  }
+}
+
 // 30 balanced digits at src[k * stride], |d| <= 8191, R13 domain (x 2^390,
 // any value the digits hold) -> canonical R16 words (x 2^384). W = sum of the
 // digits biased by 8192 (each in [1, 16383]) + DIGIT8192_FIX has the value's
@@ -99,21 +120,7 @@ __device__ __forceinline__ void digits_to_words(const int* src, long long stride
     t[j] = static_cast<u32>(carry);
     carry >>= 32;
   }
-#pragma unroll
-  for (int k = 11; k >= 0; --k) {  // t -= 2^k p where t >= 2^k p
-    u32 d[TW];
-    u64 borrow = 0;
-#pragma unroll
-    for (int j = 0; j < TW; ++j) {
-      const u32 lo = j < NW ? f381::P[j] << k : 0;
-      const u32 hi = (k > 0 && j > 0) ? f381::P[j - 1] >> (32 - k) : 0;
-      const u64 s = static_cast<u64>(t[j]) - (lo | hi) - borrow;
-      d[j] = static_cast<u32>(s);
-      borrow = (s >> 32) & 1;
-    }
-#pragma unroll
-    for (int j = 0; j < TW; ++j) t[j] = borrow ? t[j] : d[j];
-  }
+  sub_p_multiples<TW, 11>(t);
   Fp x, c;
 #pragma unroll
   for (int j = 0; j < NW; ++j) {
@@ -143,6 +150,71 @@ __device__ __forceinline__ void words_to_digits(const Fp& x, int* dst, long long
   lz::fold<DIGITS>(d);
 #pragma unroll
   for (int k = 0; k < DIGITS; ++k) dst[k * stride] = d[k];
+}
+
+// --- the edge formats ----------------------------------------------------------
+//
+// A stack row holds one Fp component of its n elements, entry k of element
+// i at row[k * n + i], in one of three formats:
+//   DIGIT_ROWS  30 balanced radix-13 digits, R13 domain (x 2^390), the lazy
+//               tower's: in by digits_to_words, out by words_to_digits;
+//   LIMB_ROWS   24 strict 16-bit limbs, R16 domain (x 2^384), the strict
+//               engine's (ops/convert.py fp_to_dev): word k = limb 2k | limb
+//               2k + 1 << 16, the same number as the words, so no product;
+//   WORD_ROWS   12 canonical words, R16 domain, the chains' own (held in
+//               int32, as the word stacks of final_exp.cuh).
+enum EdgeFormat : int { DIGIT_ROWS = 0, LIMB_ROWS = 1, WORD_ROWS = 2 };
+
+// Entries of one row of a format.
+__device__ __forceinline__ int row_entries(int fmt) {
+  return fmt == LIMB_ROWS ? 2 * NW : fmt == WORD_ROWS ? NW : DIGITS;
+}
+
+// 24 limbs at src[k * stride] (each taken mod 2^16; any value below 2^384)
+// -> canonical words: packed two to a word, then reduced by sub_p_multiples
+// (2^384 < 16 p), so that a value in [p, 2^384) loads as its residue.
+__device__ __forceinline__ void limbs_to_words(const int* src, long long stride, Fp& r) {
+  u32 t[NW];
+#pragma unroll
+  for (int k = 0; k < NW; ++k)
+    t[k] = (static_cast<u32>(src[2 * k * stride]) & 0xFFFF) |
+           (static_cast<u32>(src[(2 * k + 1) * stride]) << 16);
+  sub_p_multiples<NW, 3>(t);
+#pragma unroll
+  for (int k = 0; k < NW; ++k) r.w[k] = t[k];
+}
+
+// Canonical words -> 24 limbs at dst[k * stride].
+__device__ __forceinline__ void words_to_limbs(const Fp& x, int* dst, long long stride) {
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    dst[2 * k * stride] = static_cast<int>(x.w[k] & 0xFFFF);
+    dst[(2 * k + 1) * stride] = static_cast<int>(x.w[k] >> 16);
+  }
+}
+
+// One row entry set of format fmt at src[k * stride] -> canonical words.
+__device__ __forceinline__ void read_row(const int* src, long long stride, int fmt, Fp& x) {
+  if (fmt == WORD_ROWS) {
+#pragma unroll
+    for (int k = 0; k < NW; ++k) x.w[k] = static_cast<u32>(src[k * stride]);
+  } else if (fmt == LIMB_ROWS) {
+    limbs_to_words(src, stride, x);
+  } else {
+    digits_to_words(src, stride, x);
+  }
+}
+
+// Canonical words -> format fmt at dst[k * stride].
+__device__ __forceinline__ void write_row(const Fp& x, int* dst, long long stride, int fmt) {
+  if (fmt == WORD_ROWS) {
+#pragma unroll
+    for (int k = 0; k < NW; ++k) dst[k * stride] = static_cast<int>(x.w[k]);
+  } else if (fmt == LIMB_ROWS) {
+    words_to_limbs(x, dst, stride);
+  } else {
+    words_to_digits(x, dst, stride);
+  }
 }
 
 // --- Fp2 operations beyond fp381.cuh -----------------------------------------
@@ -584,8 +656,9 @@ constexpr int MUL_BY_014_SLOTS = 27;
 // --- the kernels' phases ---------------------------------------------------------
 //
 // A block holds elements [i0, i0 + E) of the batch, n elements in all; the
-// stacks are (rows, 30, n) digits, Fp component c of element i at
-// src[c 30 n + i] (digit k at + k n). A phase's jobs are (op, e), numbered
+// stacks are (rows, K, n) in one of the edge formats (K = 30 digits unless
+// a chain's edge names another), Fp component c of element i at
+// src[c K n + i] (entry k at + k n). A phase's jobs are (op, e), numbered
 // op E + e, so that neighbouring threads take neighbouring elements of one
 // operation: the loads and stores of a digit row coalesce. Jobs of an
 // element outside the batch load zeros and store nothing.
@@ -597,13 +670,14 @@ struct Block {
   __device__ __forceinline__ Elem elem(int e) const { return Elem{smem + e, E}; }
 };
 
-// Row `row` of the stack src -> Fp component c (slot c / 2, half c % 2).
+// Row `row` of the stack src, of format fmt -> Fp component c (slot c / 2,
+// half c % 2).
 __device__ __forceinline__ void load_component(const Block& b, const int* src, int row, int c,
-                                               int e) {
+                                               int e, int fmt = DIGIT_ROWS) {
   const long long i = b.i0 + e;
   Fp x;
   if (i < b.n) {
-    digits_to_words(src + static_cast<long long>(row) * DIGITS * b.n + i, b.n, x);
+    read_row(src + static_cast<long long>(row) * row_entries(fmt) * b.n + i, b.n, fmt, x);
   } else {
 #pragma unroll
     for (int k = 0; k < NW; ++k) x.w[k] = 0;
@@ -611,14 +685,23 @@ __device__ __forceinline__ void load_component(const Block& b, const int* src, i
   store_fp(b.elem(e), c / 2, c % 2, x);
 }
 
-// Fp component `from` (slot from / 2, half from % 2) -> row c of the stack dst.
+// Fp component c <- one (R mod p) or zero: the chains' starting values.
+__device__ __forceinline__ void set_component(const Block& b, int c, bool one, int e) {
+  Fp x;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) x.w[k] = one ? f381::R_MOD_P[k] : 0;
+  store_fp(b.elem(e), c / 2, c % 2, x);
+}
+
+// Fp component `from` (slot from / 2, half from % 2) -> row c of the stack
+// dst, of format fmt.
 __device__ __forceinline__ void store_component(const Block& b, int* dst, int c, int from,
-                                                int e) {
+                                                int e, int fmt = DIGIT_ROWS) {
   const long long i = b.i0 + e;
   if (i >= b.n) return;
   Fp x;
   load_fp(b.elem(e), from / 2, from % 2, x);
-  words_to_digits(x, dst + static_cast<long long>(c) * DIGITS * b.n + i, b.n);
+  write_row(x, dst + static_cast<long long>(c) * row_entries(fmt) * b.n + i, b.n, fmt);
 }
 
 // K3: phase 0 loads x, phases 1 + 2 s and 2 + 2 s are square s's nine
@@ -747,15 +830,18 @@ struct Schedule {
   __device__ __forceinline__ bool is_dbl(int i) const { return (dbl[i / 32] >> (i % 32)) & 1u; }
 };
 
-// Digits of event ev's line in a coefficient stack (events, 6, 30, n).
-__device__ __forceinline__ long long line_offset(const Block& b, int ev) {
-  return static_cast<long long>(ev) * 6 * DIGITS * b.n;
+// Event ev's line in a coefficient stack (events, 6, K, n) of format fmt.
+__device__ __forceinline__ long long line_offset(const Block& b, int ev, int fmt) {
+  return static_cast<long long>(ev) * 6 * row_entries(fmt) * b.n;
 }
 
-// K5-chain: R (6, 30, n) and, when q is given, Q (4, 30, n) in; each event's
-// line into row ev of coeffs (events, 6, 30, n); after the last event R
-// into r_out (6, 30, n) when it is given. With edges_only, the conversions
-// alone: each line holds R's components, and r_out R.
+// K5-chain: R (6, K, n) and Q (4, K, n) in, of format IN_FMT; without R
+// (r null), R = (Q, 1) formed at LOAD, z = R mod p; without Q (q null), no
+// event may be an addition. Each event's line into row ev of coeffs
+// (events, 6, K', n), after the last event R into r_out (6, K', n) when it
+// is given, of format OUT_FMT. With edges_only, the conversions alone:
+// each line holds R's components, and r_out R. The formats are template
+// parameters of the chain: each instantiation keeps its own conversions.
 struct PrepareChain {
   const int* r;
   const int* q;
@@ -773,15 +859,17 @@ __device__ __forceinline__ void prepare_product(const Block& b, bool is_add, int
 
 // The phases: LOAD (R into components 0-5, Q into 6-9), then for each event
 // its product phases (3 for a doubling, 5 for an addition), RESULT (the new
-// point and the line into slots 20-25) and NEXT (the line stored as digits;
-// R' copied into slots 0-2, or, after the last event, stored). RESULT
-// cannot write R' into slots 0-2 itself: the addition's c1 reads y.
-template <class Phase>
+// point and the line into slots 20-25) and NEXT (the line stored; R' copied
+// into slots 0-2, or, after the last event, stored). RESULT cannot write R'
+// into slots 0-2 itself: the addition's c1 reads y.
+template <int IN_FMT = DIGIT_ROWS, int OUT_FMT = DIGIT_ROWS, class Phase>
 __device__ __forceinline__ void prepare_chain(const Block& b, const PrepareChain& c,
                                               const Phase& phase) {
   phase(c.q ? PREPARE_INPUTS : 6, [&](int op, int e) {
-    if (op < 6) load_component(b, c.r, op, op, e);
-    else load_component(b, c.q, op - 6, op, e);
+    if (op >= 6) load_component(b, c.q, op - 6, op, e, IN_FMT);
+    else if (c.r) load_component(b, c.r, op, op, e, IN_FMT);
+    else if (op < 4) load_component(b, c.q, op, op, e, IN_FMT);
+    else set_component(b, op, op == 4, e);
   });
   for (int ev = 0; ev < c.s.n; ++ev) {
     const bool is_add = !c.s.is_dbl(ev);
@@ -797,13 +885,14 @@ __device__ __forceinline__ void prepare_chain(const Block& b, const PrepareChain
     }
     const bool last = ev + 1 == c.s.n;
     const int r_from = c.edges_only ? 0 : 2 * PREPARE_OUT;  // R's first component
-    int* line = c.coeffs + line_offset(b, ev);
+    int* line = c.coeffs + line_offset(b, ev, OUT_FMT);
     const int tail = last ? (c.r_out ? 6 : 0) : (c.edges_only ? 0 : 3);
     phase(6 + tail, [&](int op, int e) {
       if (op < 6) {
-        store_component(b, line, op, c.edges_only ? op : 2 * (PREPARE_OUT + 3) + op, e);
+        store_component(b, line, op, c.edges_only ? op : 2 * (PREPARE_OUT + 3) + op, e,
+                        OUT_FMT);
       } else if (last) {
-        store_component(b, c.r_out, op - 6, r_from + op - 6, e);
+        store_component(b, c.r_out, op - 6, r_from + op - 6, e, OUT_FMT);
       } else {
         Fp2 v;
         load(b.elem(e), PREPARE_OUT + op - 6, v);
@@ -813,9 +902,11 @@ __device__ __forceinline__ void prepare_chain(const Block& b, const PrepareChain
   }
 }
 
-// K6-chain: f (12, 30, n), the lines coeffs (events, 6, 30, n) and P (2, 30,
-// n) in, f after the events into out (12, 30, n). With edges_only, the
-// conversions alone: f, P and every line in, out = f.
+// K6-chain: f (12, 30, n) digits, the lines coeffs (events, 6, K, n) of
+// format LINE_FMT and P (2, K', n) of format P_FMT in (template parameters,
+// as K5-chain's); without f (f null), f = one formed at LOAD. f after the
+// events into out (12, 30, n) digits. With edges_only, the conversions
+// alone: f, P and every line in, out = f.
 struct MillerChain {
   const int* f;
   const int* coeffs;
@@ -830,18 +921,21 @@ struct MillerChain {
 // SQR_RESULT at a doubling or LEGS alone at an addition, P014, then R014
 // beside the next event's line; STORE (slots 0-5). The products without a
 // scaling run on run_mul, as K11's and K12's.
-template <class Phase>
+template <int LINE_FMT = DIGIT_ROWS, int P_FMT = DIGIT_ROWS, class Phase>
 __device__ __forceinline__ void miller_chain(const Block& b, const MillerChain& c,
                                              const Phase& phase) {
   phase(MILLER_INPUTS, [&](int op, int e) {
-    if (op < 12) load_component(b, c.f, op, op, e);
-    else if (op < 18) load_component(b, c.coeffs, op - 12, op, e);
-    else load_component(b, c.pxy, op - 18, op, e);
+    if (op >= 18) load_component(b, c.pxy, op - 18, op, e, P_FMT);
+    else if (op >= 12) load_component(b, c.coeffs, op - 12, op, e, LINE_FMT);
+    else if (c.f) load_component(b, c.f, op, op, e);
+    else set_component(b, op, op == 0, e);
   });
   for (int ev = 0; ev < c.s.n; ++ev) {
     const bool next = ev + 1 < c.s.n;
-    const int* line = next ? c.coeffs + line_offset(b, ev + 1) : nullptr;
-    const auto load_line = [&](int op, int e) { load_component(b, line, op, 12 + op, e); };
+    const int* line = next ? c.coeffs + line_offset(b, ev + 1, LINE_FMT) : nullptr;
+    const auto load_line = [&](int op, int e) {
+      load_component(b, line, op, 12 + op, e, LINE_FMT);
+    };
     if (c.edges_only) {
       if (next) phase(6, load_line);
       continue;

@@ -6,23 +6,27 @@ padding to 1024 and its (S, 128) tiles are not inherited; every result is
 per element). Two engines and two styles, as there:
 
 * `engine="lazy"` (the default, the card's path): the lazy radix-13 tower,
-  values as stacked `(12, 30, N)` fp12 and `(E, 6, 30, N)` line
-  coefficients, ingested strict -> lazy once and egressed at the end.
+  values as stacked `(12, 30, N)` fp12, egressed at the end.
   - `fuse=True` (the default): one K5 launch for all the prepare's
-    events, one K6 launch for all the Miller loop's (the chains of
-    `curves/pairing_steps.py`), one FE-easy and one FE-hard launch for
-    the final exponentiation (`ops/final_exp.py`).
+    events, one K6 launch for all the Miller loop's (`prepare_lines` and
+    `miller_lines` of `curves/pairing_steps.py`), one FE-easy and one
+    FE-hard launch for the final exponentiation (`ops/final_exp.py`). Q
+    and P enter the chains as the strict `(24, N)` limbs they are given,
+    and the line coefficients are canonical 32-bit words `(E, 6, 12, N)`.
   - `fuse=False`, the JAX `fuse=False` branch as the TPU runs it: the
-    prepare steps on the tower (K1 through `tower_lazy._mul`); each Miller
-    event K11 (the square, at a doubling), `_ell_legs` (one K1), K12 (the
-    sparse line product); the ladder one K3 square per bit and K4 at the
-    set bits. Its values equal the fused path's: K6 = K11 + legs + K12,
-    and a K3 run of n is n single squares. On the CPU (the plain versions)
-    its digits do too; on the card the kernels on 32-bit words (K3-K6,
-    K11, K12) return their own digits of the same field elements.
+    prepare steps on the tower (K1 through `tower_lazy._mul`), Q and P
+    ingested strict -> lazy, the line coefficients digits `(E, 6, 30,
+    N)`; each Miller event K11 (the square, at a doubling), `_ell_legs`
+    (one K1), K12 (the sparse line product); the ladder one K3 square per
+    bit and K4 at the set bits. Its values equal the fused path's: K6 =
+    K11 + legs + K12, and a K3 run of n is n single squares. On the CPU
+    (the plain versions) its Miller loop's digits do too, on the same
+    lines; on the card the kernels on 32-bit words (K3-K6, K11, K12)
+    return their own digits of the same field elements. Either Miller
+    loop takes either prepare's lines.
 * `engine="strict"`: the strict radix-16 tower (`ops/tower.py`, every op a
   K7-K10 launch), f the nested fp12 tuple of `(24, N)` limb tensors,
-  coefficients `(E, 6, 24, N)`; ingest and egress do nothing, and `fuse`
+  coefficients `(E, 6, 24, N)` limbs; ingest and egress do nothing, and `fuse`
   has no fused kernel to choose (the JAX strict `fuse=True` is a
   `lax.scan` of the same steps).
 
@@ -56,6 +60,7 @@ from ..ops import fp12_mul_by_014 as K12
 from ..ops import fp12_sqr as K11
 from ..ops import tower as TS
 from ..ops import tower_lazy as TL
+from ..ops.words import WORDS, words_to_digits_plain
 from ..oracle import pairing as OP
 from . import pairing_steps as PS
 
@@ -136,16 +141,17 @@ def egress(x, engine="lazy"):
 def prepare_g2(q, fuse=True, engine="lazy", events=None) -> torch.Tensor:
     """Affine G2 batch (qx, qy) of strict fp2 leaves (24, N) -> line
     coefficients (E, 6, L, N), E = 68 (or `events`), rows c0, c1, c2 of
-    each event; L = 30 lazy digits or 24 strict limbs. Identity inputs give
+    each event: L = 12 canonical words lazy fused (one K5 launch on Q as
+    given), 30 digits lazy unfused, 24 limbs strict. Identity inputs give
     finite garbage; the Miller loop's caller masks those pairs to one."""
     T = _tower(engine)
     ev = MILLER_EVENTS if events is None else MILLER_EVENTS[:events]
     if T is TS:
         qx, qy = q
+    elif fuse:
+        return PS.prepare_lines(q, ev)
     else:
         qx, qy = TL.fp2_ingest(q[0]), TL.fp2_ingest(q[1])
-        if fuse:
-            return _prepare_fused(qx, qy, ev)
     r = (qx, qy, _fp2_one_zero_like(qx, T))
     coeffs = []
     for is_dbl in ev:
@@ -154,18 +160,15 @@ def prepare_g2(q, fuse=True, engine="lazy", events=None) -> torch.Tensor:
     return torch.stack(coeffs)
 
 
-def _prepare_fused(qx, qy, ev) -> torch.Tensor:
-    """The lazy prepare as one K5 launch: the chain of all its events."""
-    return PS.prepare_chain(torch.stack([qx[0], qx[1], qy[0], qy[1]]), ev)
-
-
 # --- Miller loop ------------------------------------------------------------------
 
 def miller_loop(p, coeffs, fuse=True, engine="lazy", events=None):
     """Batched Miller loop: p = (px, py), strict (24, N) limbs, coeffs
-    (E, 6, L, N) from `prepare_g2` of the same engine. Returns the engine's
-    fp12 batch, conjugated (x < 0): lazy a stacked (12, 30, N), strict the
-    nested tuple of (24, N)."""
+    (E, 6, L, N) from `prepare_g2` of the same engine (lazy: words or
+    digits, from either `fuse`). Returns the engine's fp12 batch,
+    conjugated (x < 0): lazy a stacked (12, 30, N), strict the nested
+    tuple of (24, N). Lazy fused: one K6 launch on P and the lines as
+    given."""
     T = _tower(engine)
     ev = MILLER_EVENTS if events is None else MILLER_EVENTS[:events]
     if T is TS:
@@ -177,10 +180,12 @@ def miller_loop(p, coeffs, fuse=True, engine="lazy", events=None):
             a0, a1, a4 = PS._ell_legs(TS, _line(coeffs[i]), px, py)
             f = TS.fp12_mul_by_014_many([(f, a0, a1, a4)])[0]
         return TS.fp12_conj(f)
+    if fuse:
+        return _conj(PS.miller_lines(coeffs, p, ev))
+    if coeffs.shape[-2] == WORDS:  # a fused prepare's lines, once to digits
+        coeffs = words_to_digits_plain(coeffs[: len(ev)])
     px, py = TL.fp_ingest(p[0]), TL.fp_ingest(p[1])
     fs = TL.stack12(_fp12_one_like(px))
-    if fuse:
-        return _conj(PS.miller_chain(fs, coeffs, torch.stack([px, py]), ev))
     for i, is_dbl in enumerate(ev):
         if is_dbl:
             fs = K11.fp12_sqr(fs)
@@ -331,22 +336,32 @@ def multi_pairing_sharded(p, q, mesh, p_inf=None, q_inf=None, axis: str = "data"
 
 # --- prepared G2 reuse ----------------------------------------------------------
 
+# The layouts of a prepared stack (68, 6, L, N), by L
+LINE_LAYOUTS = {WORDS: "words", 30: "digits", 24: "limbs"}
+
+
 class DeviceG2Prepared:
     """Miller-loop line coefficients kept on the device as one stacked
     (68, 6, L, N) tensor of the engine that made them, with the identity
-    mask of the G2 inputs: prepare once, pair many times."""
+    mask of the G2 inputs: prepare once, pair many times. `layout` names
+    L: "words" (12, the lazy fused prepare's canonical 32-bit words),
+    "digits" (30, the lazy unfused prepare's) or "limbs" (24, the strict
+    engine's). A lazy stack pairs under either `fuse`."""
 
-    __slots__ = ("engine", "stacked", "q_inf", "n")
+    __slots__ = ("engine", "stacked", "q_inf", "n", "layout")
 
     def __init__(self, engine: str, stacked: torch.Tensor, q_inf, n: int):
         self.engine = engine
         self.stacked = stacked
         self.q_inf = q_inf
         self.n = n
+        self.layout = LINE_LAYOUTS[stacked.shape[-2]]
 
 
 def prepare_g2_device(q, q_inf=None, fuse=True, engine="lazy") -> DeviceG2Prepared:
-    """Strict affine G2 batch -> DeviceG2Prepared."""
+    """Strict affine G2 batch -> DeviceG2Prepared: (68, 6, 12, N) words
+    lazy fused, (68, 6, 30, N) digits lazy unfused, (68, 6, 24, N) limbs
+    strict."""
     return DeviceG2Prepared(engine, prepare_g2(q, fuse, engine), q_inf, q[0][0].shape[-1])
 
 

@@ -5,22 +5,25 @@ compute.
 Counterparts of two `ark_blst_tpu/ops/pallas_lazy.py:tower_fused`
 instances and the `lax.scan`s that run them (`ark_blst_tpu/curves/
 pairing.py:242` and `:342`):
-* K5 `prepare_chain` (`curves/pairing.py:_fused_prepare_step` under the
-  prepare's scan): Q `(4, 30, N)` = qx, qy fp2 components and a schedule
-  of events (True a Jacobian doubling of R, False the mixed addition of
-  the affine Q; R starts at (Q, 1)) -> each event's line coefficients
-  c0, c1, c2 as `(E, 6, 30, N)`. Source `csrc/prepare_step.cu` on
-  `csrc/tower381.cuh`: R and Q stay in shared memory as 32-bit words
-  across the events; the same field elements as `prepare_chain_plain`,
-  in other digits (within 4096).
-* K6 `miller_chain` (`curves/pairing.py:_fused_miller_step` under the
-  Miller scan): f `(12, 30, N)`, the lines `(E, 6, 30, N)` and P = (px,
-  py) `(2, 30, N)` -> f after the events, each f <- (f^2 at a doubling) *
-  line(P): the line scaled by P (`_ell_legs`), then the sparse product
-  `fp12_mul_by_014`. Source `csrc/miller_step.cu` on `csrc/tower381.cuh`:
-  f and P stay in shared memory as words; the same field elements as
-  `miller_chain_plain`, in other digits (within 4096).
-`prepare_step` and `miller_step` are one event, the chains of one.
+* K5 (`csrc/prepare_step.cu` on `csrc/tower381.cuh`): Q and a schedule of
+  events (True a Jacobian doubling of R, False the mixed addition of the
+  affine Q; R starts at (Q, 1)) -> each event's line coefficients c0, c1,
+  c2. R and Q stay in shared memory as 32-bit words across the events.
+* K6 (`csrc/miller_step.cu` on `csrc/tower381.cuh`): the lines and P =
+  (px, py) -> f after the events from f = one (or a given f), each f <-
+  (f^2 at a doubling) * line(P): the line scaled by P (`_ell_legs`), then
+  the sparse product `fp12_mul_by_014`. f and P stay in shared memory as
+  words.
+Two pairs of entries launch them, on the edges' formats of
+`csrc/tower381.cuh` (`FMT_DIGITS`, `FMT_LIMBS`, `FMT_WORDS`):
+* the fused pipeline's, `prepare_lines` and `miller_lines`: Q and P enter
+  as the strict `(24, N)` limbs the entry points hold, R = (Q, 1) and f =
+  one are formed in the kernels, and the lines cross from K5 to K6 as
+  canonical words `(E, 6, 12, N)` (`ops/words.py`); f leaves as digits;
+* the digit entries, `prepare_chain` / `miller_chain` and their chains of
+  one event `prepare_step` / `miller_step`: every edge radix-13 digits,
+  the same field elements as their plain versions in other digits
+  (within 4096).
 
 `_doubling_step`, `_addition_step` and `_ell_legs` are the port of the
 functions of those names in `ark_blst_tpu/curves/pairing.py`, generic over
@@ -35,14 +38,20 @@ import ctypes
 
 import torch
 
-from ..cuda import CudaKernel, stacked_operands
+from ..cuda import CudaKernel, cpu_operands, stacked_operands
 from ..ops import tower_lazy as TL
+from ..ops.words import WORDS, digits_to_words_plain, words_to_digits_plain
 
 _P = ctypes.c_void_p
-_CHAIN_ARGS = [ctypes.c_longlong, ctypes.c_int, _P, _P]  # n, events, schedule, stream
+_I = ctypes.c_int
+# n, events, schedule, the two edges' formats, stream
+_CHAIN_ARGS = [ctypes.c_longlong, _I, _P, _I, _I, _P]
 PREPARE_KERNEL = CudaKernel("prepare_step.cu", "pairing_prepare_chain", [_P] * 4 + _CHAIN_ARGS)
 MILLER_KERNEL = CudaKernel("miller_step.cu", "pairing_miller_chain", [_P] * 4 + _CHAIN_ARGS)
 MAX_EVENTS = 128  # the longest schedule a chain takes (csrc/tower381.cuh)
+# The edges' formats of csrc/tower381.cuh (EdgeFormat), by a row's entries
+FMT_DIGITS, FMT_LIMBS, FMT_WORDS = 0, 1, 2
+FORMAT_OF_ROW = {30: FMT_DIGITS, 24: FMT_LIMBS, WORDS: FMT_WORDS}
 
 
 # --- the event math -------------------------------------------------------------
@@ -153,25 +162,28 @@ def prepare_chain_plain(q_stk: torch.Tensor, schedule) -> torch.Tensor:
     return torch.stack(lines)
 
 
-def _prepare_launch(r_stk, q_stk, sched, coeffs, r_out) -> None:
+def _prepare_launch(r_stk, q_stk, sched, coeffs, r_out, in_fmt=FMT_DIGITS,
+                    out_fmt=FMT_DIGITS) -> None:
     events, flags = sched
-    with torch.cuda.device(r_stk.device):
-        PREPARE_KERNEL.launch(r_stk.data_ptr(), 0 if q_stk is None else q_stk.data_ptr(),
-                              coeffs.data_ptr(), 0 if r_out is None else r_out.data_ptr(),
-                              r_stk.shape[-1], events, flags, _stream(r_stk))
+    x = q_stk if r_stk is None else r_stk
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(x.device):
+        PREPARE_KERNEL.launch(ptr(r_stk), ptr(q_stk), coeffs.data_ptr(), ptr(r_out),
+                              x.shape[-1], events, flags, in_fmt, out_fmt, _stream(x))
 
 
 def prepare_chain(q_stk: torch.Tensor, schedule) -> torch.Tensor:
     """The G2 prepare of Q (4, 30, N) over a schedule of events (True a
     doubling, False an addition) -> the lines (E, 6, 30, N): one K5 launch
-    for CUDA tensors, the plain version for CPU tensors."""
+    for CUDA tensors (R = (Q, 1) formed in the kernel), the plain version
+    for CPU tensors."""
     schedule = list(schedule)
     sched = _schedule(schedule)  # 1 to MAX_EVENTS events, on either device
     if stacked_operands("prepare_chain", [q_stk], [4]):
         return prepare_chain_plain(q_stk, schedule)
     coeffs = torch.empty((len(schedule), 6) + tuple(q_stk.shape[1:]), dtype=torch.int32,
                          device=q_stk.device)
-    _prepare_launch(_r_start(q_stk), q_stk, sched, coeffs, None)
+    _prepare_launch(None, q_stk, sched, coeffs, None)
     return coeffs
 
 
@@ -186,6 +198,41 @@ def prepare_step(r_stk: torch.Tensor, q_stk: torch.Tensor | None = None) -> torc
     out = torch.empty((12, 30, r_stk.shape[-1]), dtype=torch.int32, device=r_stk.device)
     _prepare_launch(r_stk, q_stk, _schedule([q_stk is None]), out[6:], out[:6])
     return out
+
+
+def _strict_stack(name: str, leaves) -> torch.Tensor:
+    """Strict Fp leaves, each (24, N) with one N -> their (rows, 24, N)
+    stack (the kernels' operand; `cpu_operands` checks it)."""
+    n = leaves[0].shape[-1]
+    if any(x.dim() != 2 or tuple(x.shape) != (24, n) for x in leaves):
+        raise ValueError(f"{name} wants strict (24, N) limbs, got "
+                         f"{[tuple(x.shape) for x in leaves]}")
+    return torch.stack(leaves)
+
+
+def prepare_lines_plain(q, schedule) -> torch.Tensor:
+    """`prepare_lines`' plain PyTorch version: Q ingested (`fp2_ingest`),
+    `prepare_chain_plain`, the lines as words (`digits_to_words_plain`)."""
+    qx, qy = TL.fp2_ingest(q[0]), TL.fp2_ingest(q[1])
+    lines = prepare_chain_plain(torch.stack([qx[0], qx[1], qy[0], qy[1]]), schedule)
+    return digits_to_words_plain(lines)
+
+
+def prepare_lines(q, schedule) -> torch.Tensor:
+    """The fused pipeline's G2 prepare: q = (qx, qy), strict fp2 pairs of
+    (24, N) limbs, over a schedule of events -> the lines as canonical
+    words (E, 6, 12, N): one K5 launch for CUDA tensors, Q read as limbs
+    and R = (Q, 1) formed in the kernel; the plain version for CPU
+    tensors."""
+    schedule = list(schedule)
+    sched = _schedule(schedule)
+    q_stk = _strict_stack("prepare_lines", [q[0][0], q[0][1], q[1][0], q[1][1]])
+    if cpu_operands("prepare_lines", [q_stk]):
+        return prepare_lines_plain(q, schedule)
+    coeffs = torch.empty((len(schedule), 6, WORDS, q_stk.shape[-1]), dtype=torch.int32,
+                         device=q_stk.device)
+    _prepare_launch(None, q_stk, sched, coeffs, None, FMT_LIMBS, FMT_WORDS)
+    return coeffs
 
 
 # --- K6 ---------------------------------------------------------------------------
@@ -211,13 +258,24 @@ def miller_chain_plain(f_stk: torch.Tensor, coeffs: torch.Tensor, pxy: torch.Ten
     return f_stk
 
 
-def _miller_launch(f_stk, coeffs, pxy, sched) -> torch.Tensor:
+def _miller_launch(f_stk, coeffs, pxy, sched, line_fmt=FMT_DIGITS,
+                   p_fmt=FMT_DIGITS) -> torch.Tensor:
     events, flags = sched
-    out = torch.empty_like(f_stk)
-    with torch.cuda.device(f_stk.device):
-        MILLER_KERNEL.launch(f_stk.data_ptr(), coeffs.data_ptr(), pxy.data_ptr(), out.data_ptr(),
-                             f_stk.shape[-1], events, flags, _stream(f_stk))
+    n = pxy.shape[-1]
+    out = torch.empty((12, 30, n), dtype=torch.int32, device=pxy.device)
+    with torch.cuda.device(pxy.device):
+        MILLER_KERNEL.launch(0 if f_stk is None else f_stk.data_ptr(), coeffs.data_ptr(),
+                             pxy.data_ptr(), out.data_ptr(), n, events, flags, line_fmt, p_fmt,
+                             _stream(pxy))
     return out
+
+
+def _check_lines(name: str, coeffs: torch.Tensor, rows, events: int, n: int) -> None:
+    """Lines (E', 6, K, n) with K among `rows` and E' >= events."""
+    if coeffs.dim() != 4 or coeffs.shape[1] != 6 or coeffs.shape[2] not in rows or \
+            coeffs.shape[3] != n or coeffs.shape[0] < events:
+        raise ValueError(f"{name} wants ({events}+, 6, {' or '.join(map(str, rows))}, {n}) "
+                         f"lines, got {tuple(coeffs.shape)}")
 
 
 def miller_chain(f_stk: torch.Tensor, coeffs: torch.Tensor, pxy: torch.Tensor,
@@ -228,16 +286,40 @@ def miller_chain(f_stk: torch.Tensor, coeffs: torch.Tensor, pxy: torch.Tensor,
     plain version for CPU tensors."""
     schedule = list(schedule)
     sched = _schedule(schedule)  # 1 to MAX_EVENTS events, on either device
-    n = f_stk.shape[-1]
-    if coeffs.dim() != 4 or tuple(coeffs.shape[1:]) != (6, 30, n) or \
-            coeffs.shape[0] < len(schedule):
-        raise ValueError(f"miller_chain wants ({len(schedule)}+, 6, 30, {n}) lines, "
-                         f"got {tuple(coeffs.shape)}")
+    _check_lines("miller_chain", coeffs, (30,), len(schedule), f_stk.shape[-1])
     if stacked_operands("miller_chain", [f_stk, coeffs[0], pxy], [12, 6, 2]):
         return miller_chain_plain(f_stk, coeffs, pxy, schedule)
     if not coeffs.is_contiguous():
         raise ValueError("miller_chain wants contiguous operands")
     return _miller_launch(f_stk, coeffs, pxy, sched)
+
+
+def miller_lines_plain(coeffs: torch.Tensor, p, schedule) -> torch.Tensor:
+    """`miller_lines`' plain PyTorch version: word lines as digits
+    (`words_to_digits_plain`), P ingested (`fp_ingest`), then
+    `miller_chain_plain` from f = one."""
+    e = len(schedule)
+    lines = coeffs[:e]
+    if lines.shape[2] == WORDS:
+        lines = words_to_digits_plain(lines)
+    pxy = torch.stack([TL.fp_ingest(p[0]), TL.fp_ingest(p[1])])
+    return miller_chain_plain(TL.stack12(TL.fp12_one(pxy[0])), lines, pxy, schedule)
+
+
+def miller_lines(coeffs: torch.Tensor, p, schedule) -> torch.Tensor:
+    """The fused pipeline's Miller loop from f = one: the lines (E', 6, 12,
+    N) words as `prepare_lines` gives them or (E', 6, 30, N) digits as the
+    unfused prepare does (E' >= the schedule's E), p = (px, py) strict
+    (24, N) limbs -> f (12, 30, N) digits: one K6 launch for CUDA tensors,
+    P read as limbs and f = one formed in the kernel; the plain version
+    for CPU tensors."""
+    schedule = list(schedule)
+    sched = _schedule(schedule)
+    _check_lines("miller_lines", coeffs, (30, WORDS), len(schedule), p[0].shape[-1])
+    pxy = _strict_stack("miller_lines", [p[0], p[1]])
+    if cpu_operands("miller_lines", [coeffs, pxy]):
+        return miller_lines_plain(coeffs, p, schedule)
+    return _miller_launch(None, coeffs, pxy, sched, FORMAT_OF_ROW[coeffs.shape[2]], FMT_LIMBS)
 
 
 def miller_step(f_stk: torch.Tensor, c_stk: torch.Tensor, pxy: torch.Tensor,

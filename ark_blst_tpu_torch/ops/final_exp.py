@@ -40,8 +40,7 @@ from . import cyc_sqr as K3
 from . import fp12_mul as K4
 from . import lazy13 as LZ
 from . import tower_lazy as TL
-
-WORDS = 12  # 32-bit words of an Fp component in the card's word stacks
+from .words import WORDS, split
 
 _P = ctypes.c_void_p
 KERNEL_EASY = CudaKernel("final_exp.cu", "final_exp_easy", [_P, _P, _P, ctypes.c_longlong, _P])
@@ -90,13 +89,9 @@ def frob_constants(power: int) -> list:
     return half + [OF.fp2_mul(g, c) for g in half]
 
 
-def _split(m: int) -> list:
-    return [(m >> (32 * k)) & 0xFFFFFFFF for k in range(WORDS)]
-
-
 def _words(v: int) -> list:
     """A field value -> its canonical Montgomery words (v 2^384 mod p)."""
-    return _split(v * (1 << 384) % OF.P)
+    return split(v * (1 << 384) % OF.P)
 
 
 # (3, 6, 2, 12): the words of the constants of powers 1, 2 and 3
@@ -258,35 +253,3 @@ def hard(t2: torch.Tensor) -> torch.Tensor:
         KERNEL_HARD.launch(t2.data_ptr(), scratch.data_ptr(), out.data_ptr(), n,
                            prog.data_ptr(), len(HARD_PROGRAM), frob.data_ptr(), _stream(t2))
     return out
-
-
-def words_to_digits_plain(w: torch.Tensor) -> torch.Tensor:
-    """(rows, 12, n) canonical Montgomery words (v 2^384) -> (rows, 30, n)
-    balanced digits of the same field elements in the lazy domain (v 2^390 =
-    the words' value times 2^6, below 2^387): the plain version of the
-    kernels' conversion out, to hold a word stack against digits."""
-    u = w.long() & 0xFFFFFFFF
-    cols = []
-    for k in range(LZ.L13):
-        start = LZ.RADIX * k - 6  # digit k of W 2^6: bits [13 k - 6, 13 k + 7) of W
-        if start < 0:
-            d = u[:, 0] << -start
-        else:
-            j, off = divmod(start, 32)
-            d = u[:, j] >> off
-            if off > 32 - LZ.RADIX and j + 1 < WORDS:
-                d = d | (u[:, j + 1] << (32 - off))
-        cols.append(d & LZ.DMASK)
-    d = torch.stack(cols).to(torch.int32)  # (30, rows, n), digits in [0, 8191]
-    return LZ.fold(d, LZ.L13).transpose(0, 1).contiguous()
-
-
-def digits_to_words_plain(d: torch.Tensor) -> torch.Tensor:
-    """(rows, 30, n) digits of the lazy domain (v 2^390) -> (rows, 12, n)
-    canonical Montgomery words (v 2^384), on d's device: the plain version
-    of the kernels' conversion in, by host ints, to hand FE-hard the value
-    of a plain version's digits."""
-    shift = pow(2, -6, OF.P)
-    rows = [[_split(x * shift % OF.P) for x in LZ.digits_to_ints(row)] for row in d]
-    arr = np.array(rows, np.uint32).reshape(d.shape[0], d.shape[-1], WORDS)
-    return torch.from_numpy(arr.transpose(0, 2, 1).copy().view(np.int32)).to(d.device)

@@ -71,15 +71,21 @@ Phases, one JSON line each:
               bound beside the radix-13 one (K5 and K6 as chains of one
               event);
      tower_chains  K5-chain and K6-chain, the prepare's and the Miller
-              loop's 68 events in one launch each (`prepare_chain`,
-              `miller_chain`), on the pipeline's real inputs (the pairs of
-              phase 8, Q and P ingested, f = one) at N = 8192 and at the
-              ragged N = 1000: every event's line and f by canonical value
-              against the plain versions (K6's on the kernel's lines),
-              digits within 4096; at 8192 the lines and f of the first
-              eight pairs (identities skipped) against the oracle's
-              prepare_g2 and miller_loop; each timed beside its plain
-              version and its bound, with its launch shape and ptxas;
+              loop's 68 events in one launch each, through the fused
+              pipeline's entries (`prepare_lines`, `miller_lines`) on its
+              real inputs (the pairs of phase 8 as strict limbs; R = (Q,
+              1) and f = one formed in the kernels; the lines as 32-bit
+              words between) at N = 8192 and at the ragged N = 1000:
+              every event's line word for word and f by canonical value
+              against the plain versions (K6's on the kernel's lines, as
+              words and as digits), f's digits within 4096; at 8192 the
+              lines and f of the first eight pairs (identities skipped)
+              against the oracle's prepare_g2 and miller_loop; each timed
+              beside its plain version and its bound, the digit entries'
+              run of the same events (`prepare_chain`, `miller_chain`,
+              digits in and between) beside with their bound, and the
+              lines' bytes in each layout, with the launch shape and
+              ptxas;
      final_exp_chains  FE-easy and FE-hard, the fused final
               exponentiation in two launches (`ops/final_exp.py`: the easy
               part to 32-bit words, the hard part's program from them), on
@@ -102,7 +108,10 @@ Phases, one JSON line each:
               never, checked), pairings/s of a
               warm call, the stages (ingest, prepare_g2, miller_loop,
               final_exp, egress) rerun with a synchronize between them and
-              once more under `torch.profiler`, the peak device memory;
+              once more under `torch.profiler` (prepare_g2 and
+              miller_loop each launch their chain once and no other
+              kernel of the port, and at most 10 and 30 device kernels in
+              all, checked), the peak device memory;
               then the prepared path (`prepare_g2_batch` once, one K5
               launch; `pairing_batch` against it, one K6, FE-easy and
               FE-hard launch and no K5),
@@ -123,6 +132,8 @@ Phases, one JSON line each:
               cyclotomic square, and a profiled rerun; then `multi_pairing` and
               `multi_miller_loop_prepared` on both engines at 1024 pairs,
               equal to each other and the first to the oracle's product;
+              and line `multi_pairing`: the lazy one warm, three calls,
+              with the card's name and power limit;
      api      the arkworks API's batch entries with their defaults (the
               card's routes): `G1Projective.msm` over 2^20 G1Affine bases
               of `curves/instance.py` (made affine on the card, brought to
@@ -265,9 +276,13 @@ square (36 and 158), MUL_BY_014_32_OPS a sparse line product (45 and
 119), and per launch the conversion of each input Fp component from digits to
 words (DIGITS_TO_WORDS_OPS) and of each output one back
 (WORDS_TO_DIGITS_OPS); K5-chain and K6-chain count each event's
-products and sums, R and Q (K5) or f and P (K6) in once, each event's 6
-line components out (K5) or in (K6), and f out once (`chain_work`), and
-bytes as those components read or written once; FE-easy and FE-hard
+products and sums, Q (K5) or P (K6) in once as strict limbs
+(LIMBS_TO_WORDS_OPS: packed, four conditional subtractions), each
+event's 6 line components out (K5) or in (K6) as words (no conversion),
+and f out once as digits (`chain_work`), and bytes as those components
+read or written once (96 bytes a limb component, 48 a word one, 120 a
+digit one); beside, the digit entries' edges (R and Q or f and P in, the
+lines out and in, all as converted digits); FE-easy and FE-hard
 count their Fp2 and fp12 work (the inverse by the shortest window chain
 for p - 2, FE-hard's squares and products from its program), f in as
 digits and the easy part out as words (FE-easy), the easy part in as
@@ -468,11 +483,17 @@ PREPARE32_OPS = {False: 25 * MONT_MUL32_OPS + 87 * ADD32_OPS + 2 * NEG32_OPS,
 # cut out (three each), one balanced fold
 DIGITS_TO_WORDS_OPS = 30 * 6 + 2 * 13 + 12 * 4 * 13 + MONT_MUL32_OPS
 WORDS_TO_DIGITS_OPS = MONT_MUL32_OPS + 30 * 3 + _fold(30)
+# one Fp component in from strict limbs: 24 limbs masked and packed (three
+# a word), 4 conditional subtractions of 2^k p (four a word); in or out as
+# words, a load or a store a word, counted in the bytes alone
+LIMBS_TO_WORDS_OPS = 12 * 3 + 4 * 4 * 12
 CIOS_WIDE_MULS = 2 * _NW * _NW  # a_j b_i and m p_j, 32 x 32 -> 64 bits each
 PREPARE_PRODUCTS = {False: 25, True: 37}
 PREPARE_INPUTS = {False: 6, True: 10}  # Fp components: R, and Q for the addition
 MILLER_PRODUCTS = {True: 85, False: 49}
 ELEM_BYTES = 30 * 4  # one Fp element of digits
+LIMB_BYTES = 24 * 4  # one Fp element of strict limbs
+WORD_BYTES = 12 * 4  # one Fp element of words
 # phase k1_chains: K1-inv at the pairing batch, the G1 MSM's root, the G2
 # MSM's root and a multi-pairing's width; K1-scan at the G1 MSM's two levels
 # at 2^22 and the G2 MSM's two at 2^20 (rows, columns)
@@ -655,13 +676,18 @@ def all_kernels() -> dict:
             "fp12_sqr": K11.KERNEL, "fp12_mul_by_014": K12.KERNEL}
 
 
-def phase_env(torch):
-    from ark_blst_tpu_torch import cuda as KC
-
-    smi = subprocess.run(
+def _smi() -> list:
+    """The cards' names and power limits, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
+
+
+def phase_env(torch):
+    from ark_blst_tpu_torch import cuda as KC
+
+    smi = _smi()
     print(smi[0], flush=True)
     t0 = time.perf_counter()
     owners = KC.build_all(list(all_kernels().values()))  # one per source
@@ -1012,7 +1038,34 @@ def _launch_counts() -> dict:
     return {name: k.launches for name, k in all_kernels().items()}
 
 
-def _stage(torch, fn, profiled: bool, need_device: bool = True, expect: tuple = ()):
+def _dispatched_launches(torch, fn) -> int:
+    """The launches of one run of fn() as dispatched: the port's kernels'
+    (their counters) and the aten ops that ran on a CUDA tensor other than
+    views and allocations, each counted as one launch (a copy from the
+    host as its memcpy). For a stage the profiler returned no device event
+    for."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            on_card = any(isinstance(x, torch.Tensor) and x.is_cuda for x in tree_leaves(out))
+            if on_card and not func.is_view and not str(func).startswith("aten.empty"):
+                Count.ops += 1
+            return out
+
+    before = sum(_launch_counts().values())
+    with Count():
+        fn()
+    torch.cuda.synchronize()
+    return Count.ops + sum(_launch_counts().values()) - before
+
+
+def _stage(torch, fn, profiled: bool, need_device: bool = True, expect: tuple = (),
+           attempts: int = 2):
     """Run fn() after a synchronize and up to the next one; returns (out,
     summary) with the host-clock time and the launches of each kernel of the
     port (the counters' increments) or, when profiled, the device time
@@ -1039,9 +1092,10 @@ def _stage(torch, fn, profiled: bool, need_device: bool = True, expect: tuple = 
     # kernel (K2-G2, 0.65-3.9 s, in some runs on the H100), or only the
     # events of the stage's short kernels: a stage whose events miss a
     # kernel named in `expect` is run under it once more, and then timed
-    # between two CUDA events, which bound its device time from above; the
+    # between two CUDA events, which bound its device time from above, and
+    # its launches are counted as dispatched (`_dispatched_launches`); the
     # summary says which it is.
-    for attempt in (1, 2):
+    for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             out = fn()
@@ -1069,7 +1123,9 @@ def _stage(torch, fn, profiled: bool, need_device: bool = True, expect: tuple = 
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
         device_ms = start.elapsed_time(end)
-        summary.update(device_ms_from="cuda_events", kernel_launches=None, top=[])
+        summary.update(device_ms_from="cuda_events", top=[],
+                       kernel_launches=_dispatched_launches(torch, fn),
+                       kernel_launches_from="dispatch")
     check(device_ms > 0 or not need_device, "the stage ran nothing on the card")
     return out, {"wall_ms": wall_ms, "device_ms": device_ms,
                  "busy_share": device_ms / wall_ms, **summary}
@@ -1254,7 +1310,7 @@ def real_event_inputs(torch, p, q):
     qs = torch.stack([qx[0], qx[1], qy[0], qy[1]])
     for _ in range(3):
         rs = PS.prepare_step(rs)[:6]
-    coeffs = PR.prepare_g2(q, events=4)
+    coeffs = PR.prepare_g2(q, fuse=False, events=4)  # digits, as the unfused prepare's
     px, py = TL.fp_ingest(p[0]), TL.fp_ingest(p[1])
     pxy = torch.stack([px, py])
     fs = TL.stack12(PR._fp12_one_like(px))
@@ -1329,55 +1385,79 @@ def phase_k6(torch, dev, real, sass: dict, ptxas: dict) -> dict:
 
 
 def chain_inputs(torch, dev, n: int) -> tuple:
-    """The chains' operands as the fused pipeline gives them, for the first
-    n pairs of `pairing_inputs` (identities included): Q (4, 30, n) and P
-    (2, 30, n) ingested, f = one (12, 30, n); and the affine pairs."""
+    """The fused chains' operands as the entry points hold them, for the
+    first n pairs of `pairing_inputs` (identities included): Q = (qx, qy)
+    and P = (px, py) as strict (24, n) limbs; and the affine pairs."""
     from ark_blst_tpu_torch import bls12 as B
-    from ark_blst_tpu_torch.curves import pairing as PR
-    from ark_blst_tpu_torch.ops import tower_lazy as TL
 
     ps, qs, _, _ = pairing_inputs()
     (p, _), (q, _) = B._g1_batch(ps[:n], dev), B._g2_batch(qs[:n], dev)
+    return q, p, ps[:n], qs[:n]
+
+
+def digit_chain_inputs(torch, q, p) -> tuple:
+    """The digit entries' operands for the same pairs (the edges before the
+    chains took strict limbs): Q (4, 30, n) and P (2, 30, n) ingested, f =
+    one (12, 30, n)."""
+    from ark_blst_tpu_torch.curves import pairing as PR
+    from ark_blst_tpu_torch.ops import tower_lazy as TL
+
     qx, qy = TL.fp2_ingest(q[0]), TL.fp2_ingest(q[1])
     pxy = torch.stack([TL.fp_ingest(p[0]), TL.fp_ingest(p[1])])
     return (torch.stack([qx[0], qx[1], qy[0], qy[1]]), pxy,
-            TL.stack12(PR._fp12_one_like(pxy[0])), ps[:n], qs[:n])
+            TL.stack12(PR._fp12_one_like(pxy[0])))
 
 
-def chain_work(schedule) -> dict:
+def chain_work(schedule, digit_edges: bool = False) -> dict:
     """(bytes, int32 instructions) an element of the two chains over a
     schedule, the work the function needs: K5-chain each event's products
-    and sums, R and Q in once, each event's 6 line components out; K6-chain
-    each event's products and sums, f and P in once, each event's 6 line
-    components in, f out once."""
+    and sums, Q in once, each event's 6 line components out; K6-chain each
+    event's products and sums, P in once, each event's 6 line components
+    in, f out once as digits. The fused pipeline's edges: Q and P strict
+    limbs (packed, reduced), the lines words (no conversion); with
+    digit_edges the digit entries' edges: R and Q (K5) or f and P (K6) in
+    and the lines both ways as digits, converted."""
     e = len(schedule)
-    return {
-        "prepare": ((PREPARE_INPUTS[True] + 6 * e) * ELEM_BYTES,
-                    sum(PREPARE32_OPS[not d] for d in schedule)
-                    + PREPARE_INPUTS[True] * DIGITS_TO_WORDS_OPS + 6 * e * WORDS_TO_DIGITS_OPS),
-        "miller": ((14 + 6 * e + 12) * ELEM_BYTES,
-                   sum(MILLER32_OPS[d] for d in schedule)
-                   + (14 + 6 * e) * DIGITS_TO_WORDS_OPS + 12 * WORDS_TO_DIGITS_OPS)}
+    prepare = sum(PREPARE32_OPS[not d] for d in schedule)
+    miller = sum(MILLER32_OPS[d] for d in schedule) + 12 * WORDS_TO_DIGITS_OPS
+    if digit_edges:
+        return {
+            "prepare": ((PREPARE_INPUTS[True] + 6 * e) * ELEM_BYTES,
+                        prepare + PREPARE_INPUTS[True] * DIGITS_TO_WORDS_OPS
+                        + 6 * e * WORDS_TO_DIGITS_OPS),
+            "miller": ((14 + 6 * e + 12) * ELEM_BYTES,
+                       miller + (14 + 6 * e) * DIGITS_TO_WORDS_OPS)}
+    return {"prepare": (4 * LIMB_BYTES + 6 * e * WORD_BYTES, prepare + 4 * LIMBS_TO_WORDS_OPS),
+            "miller": (2 * LIMB_BYTES + 6 * e * WORD_BYTES + 12 * ELEM_BYTES,
+                       miller + 2 * LIMBS_TO_WORDS_OPS)}
 
 
-def _chain_oracle(torch, coeffs, f, ps, qs) -> int:
-    """The lines and f of the first CHAIN_ORACLE_COLS pairs (identities
-    skipped) against the oracle's prepare_g2 (by value, R13 domain) and
-    miller_loop (f conjugated back, as the pipeline does). Returns the
-    columns held."""
-    from ark_blst_tpu_torch.curves import pairing as PR
-    from ark_blst_tpu_torch.ops import convert as CV
-    from ark_blst_tpu_torch.ops import lazy13 as LZ
-    from ark_blst_tpu_torch.oracle import pairing as OP
+def _word_values(words) -> list:
+    """(rows, 12, m) canonical words on the host -> each row's values (the
+    words' number times 2^-384 mod p)."""
     from ark_blst_tpu_torch.oracle.field import P
 
+    inv = pow(1 << 384, -1, P)
+    u = words.numpy().astype("uint32").astype(object)
+    return [[sum(int(u[r, k, j]) << (32 * k) for k in range(12)) * inv % P
+             for j in range(u.shape[2])] for r in range(u.shape[0])]
+
+
+def _chain_oracle(torch, lines, f, ps, qs) -> int:
+    """The word lines and f of the first CHAIN_ORACLE_COLS pairs (identities
+    skipped) against the oracle's prepare_g2 (by value) and miller_loop (f
+    conjugated back, as the pipeline does). Returns the columns held."""
+    from ark_blst_tpu_torch.curves import pairing as PR
+    from ark_blst_tpu_torch.ops import convert as CV
+    from ark_blst_tpu_torch.oracle import pairing as OP
+
     cols = [i for i in range(CHAIN_ORACLE_COLS) if ps[i] is not None and qs[i] is not None]
-    got = coeffs[..., cols].cpu()
+    got = _word_values(lines[..., cols].reshape(-1, 12, len(cols)).cpu())
     for j, i in enumerate(cols):
         want = OP.prepare_g2(qs[i])
         for e, line in enumerate(want):
-            vals = [LZ.digits_to_ints(got[e, r, :, j : j + 1])[0] % P for r in range(6)]
-            check(vals == [v * LZ.R13 % P for fp2 in line for v in fp2],
+            vals = [got[6 * e + r][j] for r in range(6)]
+            check(vals == [v for fp2 in line for v in fp2],
                   f"K5-chain: pair {i}, event {e} differs from the oracle's prepare_g2")
     fs = CV.fp12_from_dev(PR.egress(PR._conj(f[..., cols].contiguous())))
     check(fs == [OP.miller_loop(ps[i], qs[i]) for i in cols],
@@ -1401,51 +1481,72 @@ def _miller_by_event(PS, f, coeffs, pxy, schedule) -> None:
 
 def phase_tower_chains(torch, dev, ptxas: dict) -> tuple:
     """K5-chain and K6-chain (the prepare and the Miller loop, all 68 events
-    in one launch each) on the pipeline's inputs at N = 8192 and at the
-    ragged CHAIN_RAGGED_N: by canonical value against their plain versions
-    (K6's on the kernel's lines), every event's line and f, digits within
-    4096; at 8192 also against the oracle on a sample; each timed beside
-    its plain version, its bound and (at 8192) the same events launched
-    one by one (`by_event_ms`), with its launch shape."""
+    in one launch each) through the fused pipeline's entries
+    (`prepare_lines`, `miller_lines`: Q and P strict limbs in, R = (Q, 1)
+    and f = one formed in the kernels, the lines words between) on the
+    pipeline's pairs at N = 8192 and at the ragged CHAIN_RAGGED_N: the
+    lines word for word and f by canonical value against their plain
+    versions (K6's on the kernel's lines; K6 also on those lines as
+    digits, an unfused prepare's), f's digits within 4096; at 8192 also
+    against the oracle on a sample; each timed beside its plain version
+    and its bound, with its launch shape; beside, the same kernels on the
+    digit entries' edges (`prepare_chain`, `miller_chain`: digits in and
+    between, the edges before this layout) with their bound
+    (`digit_edges_ms`, `bound_digit_edges_ms`) and, at 8192, the same
+    events launched one by one (`by_event_ms`)."""
     from ark_blst_tpu_torch.curves import pairing as PR
     from ark_blst_tpu_torch.curves import pairing_steps as PS
+    from ark_blst_tpu_torch.ops import words as W
 
     t_phase = time.perf_counter()
     sched = PR.MILLER_EVENTS
-    work = chain_work(sched)
+    work, work_digits = chain_work(sched), chain_work(sched, digit_edges=True)
     out = {"prepare": {}, "miller": {}}
     oracle_cols = 0
     for n in (PAIRING_N, CHAIN_RAGGED_N):
-        q, pxy, f1, ps, qs = chain_inputs(torch, dev, n)
-        coeffs = PS.prepare_chain(q, sched)
-        plain_ms, want = _once_ms(torch, lambda: PS.prepare_chain_plain(q, sched))
-        err5 = _held_values(torch, "K5-chain", coeffs.reshape(-1, 30, n),
-                            want.reshape(-1, 30, n))
-        f = PS.miller_chain(f1, coeffs, pxy, sched)
-        plain6_ms, want6 = _once_ms(torch, lambda: PS.miller_chain_plain(f1, coeffs, pxy, sched))
+        q, p, ps, qs = chain_inputs(torch, dev, n)
+        lines = PS.prepare_lines(q, sched)
+        plain_ms, want = _once_ms(torch, lambda: PS.prepare_lines_plain(q, sched))
+        check(lines.shape == (len(sched), 6, W.WORDS, n) and torch.equal(lines, want),
+              "K5-chain's word lines differ from prepare_lines_plain's")
+        f = PS.miller_lines(lines, p, sched)
+        plain6_ms, want6 = _once_ms(torch, lambda: PS.miller_lines_plain(lines, p, sched))
         err6 = _held_values(torch, "K6-chain", f, want6)
+        err6 = max(err6, _held_values(torch, "K6-chain on digit lines",
+                                      PS.miller_lines(W.words_to_digits_plain(lines), p, sched),
+                                      want6))
         if n == PAIRING_N:
-            oracle_cols = _chain_oracle(torch, coeffs, f, ps, qs)
-        for name, kernel, err, fn, p_ms, by_event in (
-                ("prepare", PS.PREPARE_KERNEL, err5, lambda: PS.prepare_chain(q, sched), plain_ms,
-                 lambda: _prepare_by_event(PS, q, sched)),
-                ("miller", PS.MILLER_KERNEL, err6,
-                 lambda: PS.miller_chain(f1, coeffs, pxy, sched), plain6_ms,
-                 lambda: _miller_by_event(PS, f1, coeffs, pxy, sched))):
+            oracle_cols = _chain_oracle(torch, lines, f, ps, qs)
+        q_dig, pxy_dig, f1 = digit_chain_inputs(torch, q, p)
+        coeffs_dig = PS.prepare_chain(q_dig, sched)
+        for name, kernel, err, fn, p_ms, digit_fn, by_event in (
+                ("prepare", PS.PREPARE_KERNEL, 0, lambda: PS.prepare_lines(q, sched), plain_ms,
+                 lambda: PS.prepare_chain(q_dig, sched),
+                 lambda: _prepare_by_event(PS, q_dig, sched)),
+                ("miller", PS.MILLER_KERNEL, err6, lambda: PS.miller_lines(lines, p, sched),
+                 plain6_ms, lambda: PS.miller_chain(f1, coeffs_dig, pxy_dig, sched),
+                 lambda: _miller_by_event(PS, f1, coeffs_dig, pxy_dig, sched))):
             nbytes, ops = work[name]
             bms, by = bound_ms(n * nbytes, n * ops)
+            dbms, dby = bound_ms(n * work_digits[name][0], n * work_digits[name][1])
             out[name][n] = {"n": n, "max_abs_err": err, "ms": cuda_ms(torch, fn, 3),
                             "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
+                            "digit_edges_ms": cuda_ms(torch, digit_fn, 3),
+                            "bound_digit_edges_ms": dbms, "bound_digit_edges_by": dby,
                             "launch": _tower32_shape(torch, kernel, n)}
             if n == PAIRING_N:
                 out[name][n]["by_event_ms"] = cuda_ms(torch, by_event, 3)
-        del q, pxy, f1, coeffs, want, f, want6
+        out["prepare"][n]["lines_bytes"] = lines.numel() * 4
+        out["prepare"][n]["lines_bytes_as_digits"] = coeffs_dig.numel() * 4
+        del q, p, lines, want, f, want6, q_dig, pxy_dig, f1, coeffs_dig
     torch.cuda.empty_cache()
     emit({"phase": "tower_chains", "events": len(sched), "value_equal": True,
           "real_inputs": True, "oracle_columns": oracle_cols,
           "prepare": list(out["prepare"].values()), "miller": list(out["miller"].values()),
           "ops_per_element": {k: v[1] for k, v in work.items()},
           "bytes_per_element": {k: v[0] for k, v in work.items()},
+          "ops_per_element_digit_edges": {k: v[1] for k, v in work_digits.items()},
+          "bytes_per_element_digit_edges": {k: v[0] for k, v in work_digits.items()},
           "ptxas": {"prepare": ptxas["prepare_step.cu"], "miller": ptxas["miller_step.cu"]},
           "seconds": time.perf_counter() - t_phase})
     return tuple({**v[PAIRING_N], "at_ragged": v[CHAIN_RAGGED_N]} for v in out.values())
@@ -1465,6 +1566,7 @@ def phase_final_exp_chains(torch, dev, ptxas: dict) -> tuple:
     from ark_blst_tpu_torch.curves import pairing as PR
     from ark_blst_tpu_torch.ops import convert as CV
     from ark_blst_tpu_torch.ops import final_exp as FE
+    from ark_blst_tpu_torch.ops import words as W
     from ark_blst_tpu_torch.oracle import pairing as OP
 
     t_phase = time.perf_counter()
@@ -1477,12 +1579,12 @@ def phase_final_exp_chains(torch, dev, ptxas: dict) -> tuple:
         f = PR._masked_miller(p, PR.prepare_g2(q), p_inf, q_inf)
         words = FE.easy(f)
         easy_plain_ms, t2 = _once_ms(torch, lambda: FE.easy_plain(f))
-        err_easy = _held_values(torch, "FE-easy", FE.words_to_digits_plain(words), t2)
+        err_easy = _held_values(torch, "FE-easy", W.words_to_digits_plain(words), t2)
         got = FE.hard(words)
         hard_plain_ms, want = _once_ms(torch, lambda: FE.hard_plain(t2))
         err_hard = _held_values(torch, "FE-hard", got, want)
         _held_values(torch, "FE-hard on easy_plain's words",
-                     FE.hard(FE.digits_to_words_plain(t2)), want)
+                     FE.hard(W.digits_to_words_plain(t2)), want)
         if n == PAIRING_N:
             cols = CHAIN_ORACLE_COLS
             vals = CV.fp12_from_dev(PR.egress(got[..., :cols].contiguous()))
@@ -1595,10 +1697,14 @@ def run_pairing_stages(torch, dev, ps, qs, expected, profiled: bool, fuse: bool 
     ((p, p_inf), (q, q_inf)), summary = _stage(
         torch, lambda: (B._g1_batch(ps, dev), B._g2_batch(qs, dev)), profiled, need_device=False)
     yield "ingest", summary
-    coeffs, summary = _stage(torch, lambda: PR.prepare_g2(q, fuse, engine), profiled)
+    chains = fuse and engine == "lazy"  # the fused stages: a chain each, checked
+    coeffs, summary = _stage(torch, lambda: PR.prepare_g2(q, fuse, engine), profiled,
+                             expect=("prepare_chain_kernel",) if chains else (),
+                             attempts=4 if chains else 2)
     yield "prepare_g2", summary
     f, summary = _stage(
-        torch, lambda: PR._masked_miller(p, coeffs, p_inf, q_inf, fuse, engine), profiled)
+        torch, lambda: PR._masked_miller(p, coeffs, p_inf, q_inf, fuse, engine), profiled,
+        expect=("miller_chain_kernel",) if chains else (), attempts=4 if chains else 2)
     yield "miller_loop", summary
     f, summary = _stage(torch, lambda: PR.final_exp(f, fuse, engine), profiled)
     yield "final_exp", summary
@@ -1665,6 +1771,25 @@ def _check_chains(launches: dict, want: tuple, what: str) -> None:
     check(got == want, f"{what} launched K5 and K6 {got} times, expected {want}")
 
 
+# The fused stages' launches on the card (the profiler's device events, the
+# chain's own among them) at most: the prepare a stack of Q and K5; the
+# Miller loop a stack of P, K6, the conjugation and the identity mask
+STAGE_MAX_LAUNCHES = {"prepare_g2": 10, "miller_loop": 30}
+STAGE_CHAIN = {"prepare_g2": "prepare_step", "miller_loop": "miller_step"}
+
+
+def _check_stage_launches(staged: dict, profiled: dict) -> None:
+    """The fused prepare_g2 and miller_loop: each launches its chain once
+    and no other kernel of the port, and at most STAGE_MAX_LAUNCHES device
+    kernels in all (no ingest, no starting values in eager torch)."""
+    for stage, most in STAGE_MAX_LAUNCHES.items():
+        want = {STAGE_CHAIN[stage]: 1}
+        check(staged[stage]["launches"] == want,
+              f"{stage} launched {staged[stage]['launches']}, expected {want}")
+        got = profiled[stage]["kernel_launches"]
+        check(got <= most, f"{stage} launched {got} device kernels, expected at most {most}")
+
+
 def phase_pairing(torch, dev, ps, qs, expected) -> dict:
     from ark_blst_tpu_torch import bls12 as B
 
@@ -1687,9 +1812,10 @@ def phase_pairing(torch, dev, ps, qs, expected) -> dict:
           f"a kernel of the path was not launched: {launches}")
     _check_fused_batch(launches, "pairing batch")
 
-    stages = {name + "_ms": summary["wall_ms"]
-              for name, summary in run_pairing_stages(torch, dev, ps, qs, expected, False)}
+    staged = dict(run_pairing_stages(torch, dev, ps, qs, expected, False))
+    stages = {name + "_ms": summary["wall_ms"] for name, summary in staged.items()}
     profiled = dict(run_pairing_stages(torch, dev, ps, qs, expected, True))
+    _check_stage_launches(staged, profiled)
     wall = sum(v["wall_ms"] for v in profiled.values())
     device = sum(v["device_ms"] for v in profiled.values())
 
@@ -1714,7 +1840,10 @@ def phase_pairing(torch, dev, ps, qs, expected) -> dict:
 
     emit({"phase": "pairing", "n": n, "distinct": PAIRING_DISTINCT, "ok": True,
           "identities_one": True, "seconds": dt, "pairings_per_s": n / dt,
-          "launches": launches, "stages": stages, "peak_mem_gib": peak_gib,
+          "launches": launches, "stages": stages,
+          "stage_launches": {k: v["launches"] for k, v in staged.items()},
+          "prepared_lines_bytes": prep.stacked.numel() * 4, "prepared_layout": prep.layout,
+          "peak_mem_gib": peak_gib,
           "prepared": {"ok": True, "prepare_s": prep_s, "seconds": dt_prep,
                        "pairings_per_s": n / dt_prep, "launches": prep_launches,
                        "default_device_ok": True}})
@@ -1856,6 +1985,16 @@ def phase_pairing_strict(torch, dev, ps, qs, expected) -> dict:
               f"{what}: the engines disagree")
     for v in multi.values():
         del v["values"]
+    # the lazy multi_pairing warm, three calls (the verifier's product of
+    # pairings: K5, K6, the product fold on K4, FE-easy, FE-hard)
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        PR.multi_pairing(pm, qm, pim, qim)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    emit({"phase": "multi_pairing", "n": m, "gpu": _smi()[0], "seconds_warm": runs,
+          "seconds_first": multi["lazy"]["multi_pairing_s"]})
 
     n = len(ps)
     emit({"phase": "pairing_strict", "n": n, "ok": True, "equal_to_lazy": True,
@@ -2889,7 +3028,10 @@ def main() -> int:
                      launches_pairing_unfused=unfused["prepare_step"],
                      launches_distributed={"pairing": dist_launches["pairing"]["prepare_step"]},
                      at_ragged=k5c["at_ragged"], launch=k5c["launch"],
-                     by_event_ms=k5c["by_event_ms"],
+                     by_event_ms=k5c["by_event_ms"], digit_edges_ms=k5c["digit_edges_ms"],
+                     bound_digit_edges_ms=k5c["bound_digit_edges_ms"],
+                     lines_bytes=k5c["lines_bytes"],
+                     lines_bytes_as_digits=k5c["lines_bytes_as_digits"],
                      one_event={"doubling": {k: k5[k] for k in ONE_EVENT_KEYS},
                                 "addition": {k: k5["addition"][k] for k in ONE_EVENT_KEYS}}),
         _kernel_line("miller_chain", "miller_step.cu",
@@ -2900,7 +3042,8 @@ def main() -> int:
                      launches_pairing_unfused=unfused["miller_step"],
                      launches_distributed={"pairing": dist_launches["pairing"]["miller_step"]},
                      at_ragged=k6c["at_ragged"], launch=k6c["launch"],
-                     by_event_ms=k6c["by_event_ms"],
+                     by_event_ms=k6c["by_event_ms"], digit_edges_ms=k6c["digit_edges_ms"],
+                     bound_digit_edges_ms=k6c["bound_digit_edges_ms"],
                      one_event={"with_square": {k: k6[k] for k in ONE_EVENT_KEYS},
                                 "line_only": {k: k6["line_only"][k] for k in ONE_EVENT_KEYS}}),
         *strict_lines,

@@ -39,9 +39,12 @@ their inputs' values). Then, for each width N of `--widths` (the pairs of
 the pipeline's real inputs, 8 distinct, as chip_smoke.py's phase
 `tower_chains` makes them) and each E of `--chains`, one line for the
 two chains of all 68 events in the library's builds at E elements a
-block (six threads an element for K5, eight for K6): their times, their
-edges alone, their blocks an SM and waves, and whether their output
-equals the default shape's. Then, for each width N, FE-easy at its
+block (six threads an element for K5, eight for K6): their times and
+their edges alone in each layout of the edges (`strict_words`, the fused
+pipeline's: strict Q and P in, R = (Q, 1) and f = one formed in the
+kernels, the lines as words; `digits`, the digit entries': R, Q, f, P
+and the lines as digits), their blocks an SM and waves, and whether
+their output equals the default shape's. Then, for each width N, FE-easy at its
 default shape and FE-hard at each shape of `--fe` (a build of its own,
 bounded as K4's: `-DFE_HARD_THREADS=T -DFE_HARD_MIN_BLOCKS=M`) on the
 easy part of the first N pairs' real Miller outputs (identities masked):
@@ -72,6 +75,7 @@ CHAIN_ELEMS = "32,16,8"
 CHAIN_WIDTHS = "8192,1024"
 K5_THREADS_PER_ELEM, K6_THREADS_PER_ELEM = 6, 8
 SMEM_RESERVED = 1024  # shared memory the card reserves a block
+DIG, LIM, WRD = 0, 1, 2  # the chains' edge formats (csrc/tower381.cuh EdgeFormat)
 
 
 def _shapes(arg: str) -> list:
@@ -170,9 +174,9 @@ def main() -> int:
     entries = {"k3": ("tower_cyc_sqr_shaped", [vp, vp, i64, i32, i32, i32, vp]),
                "k4": ("tower_fp12_mul_shaped", [vp, vp, vp, i64, i32, i32, i32, vp]),
                "k5": ("pairing_prepare_chain_shaped",
-                      [vp, vp, vp, vp, i64, i32, vp, i32, i32, i32, vp]),
+                      [vp, vp, vp, vp, i64, i32, vp, i32, i32, i32, i32, i32, vp]),
                "k6": ("pairing_miller_chain_shaped",
-                      [vp, vp, vp, vp, i64, i32, vp, i32, i32, i32, vp]),
+                      [vp, vp, vp, vp, i64, i32, vp, i32, i32, i32, i32, i32, vp]),
                "k11": ("tower_fp12_sqr_shaped", [vp, vp, i64, i32, i32, i32, vp]),
                "k12": ("tower_fp12_mul_by_014_shaped", [vp, vp, vp, i64, i32, i32, i32, vp]),
                "fe": ("final_exp_hard_shaped", [vp, vp, vp, i64, vp, i32, vp, i32, i32, vp])}
@@ -249,7 +253,7 @@ def main() -> int:
             for edges in (0, 1):
                 run = lambda e=edges, add=add, k5=k5: launch(  # noqa: E731
                     k5, r.data_ptr(), q.data_ptr(), out[6:].data_ptr(), out[:6].data_ptr(), N, 1,
-                    flags([not add]), E, T, e, stream)
+                    flags([not add]), DIG, DIG, E, T, e, stream)
                 res[f"ms_{key}_edges_only" if edges else f"ms_{key}"] = timed(run)
                 if edges:  # R out, and the line rows R's components
                     res[f"{key}_edges_value_equal"] = edges_hold([r])
@@ -260,12 +264,13 @@ def main() -> int:
         k6, res = shape_line("k6", E, T)
         for w in (True, False):
             run = lambda w=w: launch(k6, f.data_ptr(), c.data_ptr(), pxy.data_ptr(),  # noqa: E731
-                                     out.data_ptr(), N, 1, flags([w]), E, T, 0, stream)
+                                     out.data_ptr(), N, 1, flags([w]), DIG, DIG, E, T, 0,
+                                     stream)
             key = "with_square" if w else "line_only"
             res[f"ms_{key}"] = timed(run)
             res[f"equal_{key}"] = bool(torch.equal(out, ref6[w]))
         run = lambda: launch(k6, f.data_ptr(), c.data_ptr(), pxy.data_ptr(),  # noqa: E731
-                             out.data_ptr(), N, 1, flags([True]), E, T, 1, stream)
+                             out.data_ptr(), N, 1, flags([True]), DIG, DIG, E, T, 1, stream)
         res["ms_edges_only"] = timed(run)
         res["edges_value_equal"] = edges_hold([f])
         print(json.dumps(res), flush=True)
@@ -293,31 +298,44 @@ def main() -> int:
     k6, occ6 = lib(PS.MILLER_KERNEL.lib_path, *entries["k6"]), \
         lib(PS.MILLER_KERNEL.lib_path, "pairing_miller_chain_shape", [ctypes.POINTER(i32)] * 4)
     for n in (int(w) for w in args.widths.split(",") if w):
-        q, pxy_n, f1, _, _ = CS.chain_inputs(torch, dev, n)
-        r1 = PS._r_start(q)
-        ref_c = PS.prepare_chain(q, PR.MILLER_EVENTS)
-        ref_f = PS.miller_chain(f1, ref_c, pxy_n, PR.MILLER_EVENTS)
-        coeffs, fo = torch.empty_like(ref_c), torch.empty_like(f1)
+        # each layout of the edges: K5's (r, q, in and out formats) and K6's
+        # (f, P, line and P formats) pointers with their outputs' references
+        qt, pt, _, _ = CS.chain_inputs(torch, dev, n)
+        q = torch.stack([qt[0][0], qt[0][1], qt[1][0], qt[1][1]])
+        pxy = torch.stack([pt[0], pt[1]])
+        q_dig, pxy_dig, f1 = CS.digit_chain_inputs(torch, qt, pt)
+        r1 = PS._r_start(q_dig)
+        lines = PS.prepare_lines(qt, PR.MILLER_EVENTS)
+        c_dig = PS.prepare_chain(q_dig, PR.MILLER_EVENTS)
+        layouts = {
+            "strict_words": ((0, q.data_ptr(), LIM, WRD), lines,
+                             (0, pxy.data_ptr(), WRD, LIM),
+                             PS.miller_lines(lines, pt, PR.MILLER_EVENTS)),
+            "digits": ((r1.data_ptr(), q_dig.data_ptr(), DIG, DIG), c_dig,
+                       (f1.data_ptr(), pxy_dig.data_ptr(), DIG, DIG),
+                       PS.miller_chain(f1, c_dig, pxy_dig, PR.MILLER_EVENTS))}
         for E in (int(e) for e in args.chains.split(",") if e):
             res = {"kernel": "chains", "n": n, "elements_per_block": E}
-            for which, fn, occ, T in (("k5", k5, occ5, K5_THREADS_PER_ELEM * E),
-                                      ("k6", k6, occ6, K6_THREADS_PER_ELEM * E)):
+            for which, occ, T in (("k5", occ5, K5_THREADS_PER_ELEM * E),
+                                  ("k6", occ6, K6_THREADS_PER_ELEM * E)):
                 line = {"threads": T, **occupancy(occ, E, T)}
                 line["blocks"] = -(-n // E)
                 line["waves"] = line["blocks"] / (sms * max(line["blocks_per_sm"], 1))
-                for edges in (0, 1):
-                    if which == "k5":
-                        run = lambda e=edges, T=T: launch(  # noqa: E731
-                            k5, r1.data_ptr(), q.data_ptr(), coeffs.data_ptr(), 0, n, events,
-                            sched, E, T, e, stream)
-                    else:
-                        run = lambda e=edges, T=T: launch(  # noqa: E731
-                            k6, f1.data_ptr(), ref_c.data_ptr(), pxy_n.data_ptr(),
-                            fo.data_ptr(), n, events, sched, E, T, e, stream)
-                    line["ms_edges_only" if edges else "ms"] = timed(run)
-                    if not edges:
-                        line["equal"] = bool(torch.equal(coeffs, ref_c) if which == "k5"
-                                             else torch.equal(fo, ref_f))
+                for name, (a5, c_ref, a6, f_ref) in layouts.items():
+                    got = torch.empty_like(c_ref if which == "k5" else f_ref)
+                    for only in (0, 1):
+                        if which == "k5":
+                            run = lambda e=only, T=T, a=a5, o=got: launch(  # noqa: E731
+                                k5, a[0], a[1], o.data_ptr(), 0, n, events, sched, a[2], a[3],
+                                E, T, e, stream)
+                        else:
+                            run = lambda e=only, T=T, a=a6, c=c_ref, o=got: launch(  # noqa: E731
+                                k6, a[0], c.data_ptr(), a[1], o.data_ptr(), n, events, sched,
+                                a[2], a[3], E, T, e, stream)
+                        line[f"ms_{name}_edges_only" if only else f"ms_{name}"] = timed(run)
+                        if not only:
+                            line[f"equal_{name}"] = bool(
+                                torch.equal(got, c_ref if which == "k5" else f_ref))
                 res[which] = line
             print(json.dumps(res), flush=True)
 

@@ -130,29 +130,40 @@ def test_chain_schedule_limit_matches_the_header():
 
 
 @pytest.mark.parametrize("bad", ["rows", "events", "dtype", "device"])
-@pytest.mark.parametrize("kernel", ["prepare_chain", "miller_chain"])
+@pytest.mark.parametrize("kernel", ["prepare_chain", "miller_chain", "prepare_lines",
+                                    "miller_lines"])
 def test_chain_wrappers_reject_what_the_kernels_do_not_take(kernel, bad):
     """K5's and K6's chains take (rows, 30, N) int32 stacks, lines (E', 6,
     30, N) with E' at least the schedule's events, 1 to MAX_EVENTS events,
-    all on one device; only CPU tensors take the plain version."""
+    all on one device; the fused pipeline's entries strict (24, N) limbs
+    and lines (E', 6, 12 or 30, N); only CPU tensors take the plain
+    version."""
     import torch
 
     z = lambda *shape: torch.zeros(shape, dtype=torch.int32)  # noqa: E731
     sched = [True, False]
     q, f, c, pxy = z(4, 30, 4), z(12, 30, 4), z(2, 6, 30, 4), z(2, 30, 4)
+    limbs, words = [z(24, 4) for _ in range(4)], z(2, 6, 12, 4)
     if bad == "rows":
-        q, pxy = z(5, 30, 4), z(3, 30, 4)
+        q, pxy, words = z(5, 30, 4), z(3, 30, 4), z(2, 6, 24, 4)
+        limbs[-1] = z(23, 4)
     elif bad == "events":  # one past the longest schedule; more events than lines
-        sched = [True] * (PS.MAX_EVENTS + 1) if kernel == "prepare_chain" else [True] * 3
+        sched = [True] * (PS.MAX_EVENTS + 1) if kernel.startswith("prepare") else [True] * 3
     elif bad == "dtype":
-        q, f = q.long(), f.long()
+        q, f, words = q.long(), f.long(), words.long()
+        limbs = [x.long() for x in limbs]
     else:
-        q, f, c, pxy = (x.to("meta") for x in (q, f, c, pxy))
+        q, f, c, pxy, words = (x.to("meta") for x in (q, f, c, pxy, words))
+        limbs = [x.to("meta") for x in limbs]
     with pytest.raises(ValueError):
         if kernel == "prepare_chain":
             PS.prepare_chain(q, sched)
-        else:
+        elif kernel == "miller_chain":
             PS.miller_chain(f, c, pxy, sched)
+        elif kernel == "prepare_lines":
+            PS.prepare_lines(((limbs[0], limbs[1]), (limbs[2], limbs[3])), sched)
+        else:
+            PS.miller_lines(words, (limbs[2], limbs[3]), sched)
 
 
 def test_identity_rows_decode_to_identity():

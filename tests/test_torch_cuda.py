@@ -37,6 +37,7 @@ from ark_blst_tpu_torch.ops import lazy13 as LZ
 from ark_blst_tpu_torch.ops import mont_mul as MM
 from ark_blst_tpu_torch.ops import convert as CV
 from ark_blst_tpu_torch.ops import strict_field as SF
+from ark_blst_tpu_torch.ops import words as W
 from ark_blst_tpu_torch.ops.limbs import FP, FR, FieldSpec, ints_to_limbs
 from ark_blst_tpu_torch.oracle import curve as OC
 from ark_blst_tpu_torch.oracle import field as OF
@@ -333,6 +334,32 @@ def test_chains_value_equal_to_plain_ragged(dev):
     assert vals == [OP.miller_loop(ps[i], qs[(i + 1) % 4]) for i in range(4)]
 
 
+def test_edge_chains_value_equal_to_plain_ragged(dev):
+    """The fused pipeline's entries at a ragged N (1000), one launch each:
+    `prepare_lines` (strict Q in, R = (Q, 1) formed in K5-chain) word for
+    word against its plain version; `miller_lines` (strict P in, f = one
+    formed in K6-chain) on those word lines and on their digits by value
+    against its plain version, and against the oracle's Miller loop on the
+    four distinct pairs."""
+    from ark_blst_tpu_torch.ops import tower_lazy as TL
+
+    n, sched = 1000, PR.MILLER_EVENTS
+    rng = random.Random(24)
+    ps = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    qs = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    (p, _), (q, _) = B._g1_batch([ps[i % 4] for i in range(n)], dev), \
+        B._g2_batch([qs[(i + 1) % 4] for i in range(n)], dev)
+    lines = _launched_once(PS.PREPARE_KERNEL, lambda: PS.prepare_lines(q, sched))
+    assert lines.shape == (68, 6, W.WORDS, n)
+    assert torch.equal(lines, PS.prepare_lines_plain(q, sched))
+    want = PS.miller_lines_plain(lines, p, sched)
+    for c in (lines, W.words_to_digits_plain(lines)):
+        got = _launched_once(PS.MILLER_KERNEL, lambda: PS.miller_lines(c, p, sched))
+        _value_equal(got, want)
+    vals = CV.fp12_from_dev(TL.fp12_egress(TL.unstack12(PR._conj(got[..., :4].contiguous()))))
+    assert vals == [OP.miller_loop(ps[i], qs[(i + 1) % 4]) for i in range(4)]
+
+
 def test_fused_pairing_launches_one_chain_each(dev):
     """A fused batch launches K5, K6, FE-easy and FE-hard once each and no
     K3 or K4, a prepare alone K5 once, a prepared batch K6 and the final
@@ -364,6 +391,26 @@ def test_fused_pairing_launches_one_chain_each(dev):
     assert got == OP.final_exp(OP.multi_miller_loop(list(zip(pb[:8], qb[:8]))))
 
 
+def test_prepared_layouts_pair_under_either_fuse_on_card(dev):
+    """A prepare made fused (words) or unfused (digits) pairs under either
+    `fuse`: equal to the oracle, K6 once a fused pairing on either layout,
+    K11 and K12 on either layout unfused."""
+    rng = random.Random(25)
+    ps = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    qs = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    pb, qb = [ps[i % 4] for i in range(16)], [qs[(i + 2) % 4] for i in range(16)]
+    pb[1] = None
+    want = [OF.FP12_ONE if i == 1 else OP.pairing(ps[i % 4], qs[(i + 2) % 4]) for i in range(16)]
+    for prep_fuse, layout in ((True, "words"), (False, "digits")):
+        prep = B.prepare_g2_batch(qb, fuse=prep_fuse, device=dev)
+        assert prep.layout == layout
+        for fuse in (True, False):
+            before = [k.launches for k in (PS.MILLER_KERNEL, K12.KERNEL)]
+            assert B.pairing_batch(pb, prep, fuse=fuse, device=dev) == want, (layout, fuse)
+            after = [k.launches for k in (PS.MILLER_KERNEL, K12.KERNEL)]
+            assert [a - b for a, b in zip(after, before)] == ([1, 0] if fuse else [0, 68])
+
+
 def _miller_outputs(dev, n):
     """f of n pairs of 4 distinct (P, Q) as the fused pipeline hands it to
     the final exponentiation (K5-chain, K6-chain, identity pairs masked to
@@ -390,11 +437,11 @@ def test_final_exp_chains_value_equal_to_plain(dev, n):
     words = _launched_once(FE.KERNEL_EASY, lambda: FE.easy(f))
     assert words.shape == (12, FE.WORDS, n)
     t2 = FE.easy_plain(f)
-    _value_equal(FE.words_to_digits_plain(words), t2)
+    _value_equal(W.words_to_digits_plain(words), t2)
     want = FE.hard_plain(t2)
     got = _launched_once(FE.KERNEL_HARD, lambda: FE.hard(words))
     _value_equal(got, want)
-    t2_words = FE.digits_to_words_plain(t2)
+    t2_words = W.digits_to_words_plain(t2)
     _value_equal(_launched_once(FE.KERNEL_HARD, lambda: FE.hard(t2_words)), want)
     cols = min(n, 8)
     vals = CV.fp12_from_dev(PR.egress(got[..., :cols].contiguous()))
@@ -413,7 +460,7 @@ def _real_f_and_legs(dev):
     qs = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
     (p, _), (q, _) = B._g1_batch([ps[i % 4] for i in range(64)], dev), \
         B._g2_batch([qs[(i + 1) % 4] for i in range(64)], dev)
-    coeffs = PR.prepare_g2(q, events=4)
+    coeffs = PR.prepare_g2(q, fuse=False, events=4)  # digits, as the unfused prepare's
     px, py = TL.fp_ingest(p[0]), TL.fp_ingest(p[1])
     pxy = torch.stack([px, py])
     f = TL.stack12(PR._fp12_one_like(px))

@@ -39,6 +39,7 @@ from ark_blst_tpu_torch.ops import final_exp as FE
 from ark_blst_tpu_torch.ops import fp_inv as FI
 from ark_blst_tpu_torch.ops import lazy13 as LZ
 from ark_blst_tpu_torch.ops import tower_lazy as TL
+from ark_blst_tpu_torch.ops import words as W
 from ark_blst_tpu_torch.oracle import curve as OC
 from ark_blst_tpu_torch.oracle import field as OF
 from ark_blst_tpu_torch.oracle import pairing as OP
@@ -166,7 +167,7 @@ def test_words_to_digits_plain():
     rng = random.Random(44)
     vals = [0, 1, OF.P - 1] + [rng.randrange(OF.P) for _ in range(9)]
     words = np.array([FE._words(v) for v in vals], np.uint32).view(np.int32).T
-    got = FE.words_to_digits_plain(torch.from_numpy(words.copy())[None])
+    got = W.words_to_digits_plain(torch.from_numpy(words.copy())[None])
     assert got.shape == (1, 30, len(vals)) and int(got.abs().max()) <= 4096
     assert [x % OF.P for x in LZ.digits_to_ints(got[0])] == [v * LZ.R13 % OF.P for v in vals]
 

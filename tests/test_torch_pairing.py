@@ -2,8 +2,10 @@
 ops/cyc_sqr.py and the tuple-level entry points of `bls12.py`) against the JAX package.
 
 The plain versions of K3, K5 and K6 (one event and the chains of
-`prepare_chain` / `miller_chain`) and the truncated prepare_g2 /
-miller_loop are held against the JAX lazy tower digit for digit; the whole
+`prepare_chain` / `miller_chain`) and the truncated unfused prepare_g2 /
+miller_loop are held against the JAX lazy tower digit for digit, the
+fused pipeline's entries (`prepare_lines` / `miller_lines`, word lines)
+by canonical value; each prepared layout pairs under either `fuse`; the whole
 pairing on the CPU is held against the JAX package's oracle by value, and
 so is the port's own oracle copy. (The JAX package's own pairing tests are
 all in the slow lane; these are the tier-1 guard of the port's pairing.)
@@ -30,7 +32,9 @@ from ark_blst_tpu_torch.curves import pairing_steps as PS
 from ark_blst_tpu_torch.ops import convert as CV
 from ark_blst_tpu_torch.ops import cyc_sqr as K3
 from ark_blst_tpu_torch.ops import final_exp as FE
+from ark_blst_tpu_torch.ops import lazy13 as LZ
 from ark_blst_tpu_torch.ops import tower_lazy as TL
+from ark_blst_tpu_torch.ops import words as W
 from ark_blst_tpu_torch.oracle import curve as OC
 from ark_blst_tpu_torch.oracle import field as OF
 from ark_blst_tpu_torch.oracle import pairing as OP
@@ -152,16 +156,54 @@ def jax_truncated():
     return jq, jp, jc, DP.miller_loop(jp, jc, fuse=False, engine="lazy", events=TRUNCATED)
 
 
-def test_prepare_g2_and_miller_loop_truncated_match_jax(jax_truncated):
+def _canonical(stack: torch.Tensor) -> list:
+    """(..., 30, n) digits -> each row's canonical value mod p (host ints)."""
+    return [x % OF.P for x in LZ.digits_to_ints(stack.reshape(-1, 30, stack.shape[-1])
+                                                .transpose(0, 1))]
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+def test_prepare_g2_and_miller_loop_truncated_match_jax(jax_truncated, fuse):
+    """The truncated prepare and Miller loop against JAX's `fuse=False`: the
+    unfused path digit for digit; the fused one by canonical value, its
+    lines the canonical words of JAX's coefficients."""
     events = TRUNCATED
     jq, jp, jc, jf = jax_truncated
-    got_c = PR.prepare_g2(CV.tree_from_jax(jq), events=events)
-    assert got_c.shape == (events, 6, 30, 4)
-    assert torch.equal(got_c, CV.coeffs_from_jax(jc))
-    got_f = PR.miller_loop(CV.tree_from_jax(jp), got_c, events=events)
+    got_c = PR.prepare_g2(CV.tree_from_jax(jq), fuse=fuse, events=events)
+    want_c = CV.coeffs_from_jax(jc)
+    if fuse:
+        assert got_c.shape == (events, 6, W.WORDS, 4)
+        assert torch.equal(got_c, W.digits_to_words_plain(want_c))
+    else:
+        assert got_c.shape == (events, 6, 30, 4)
+        assert torch.equal(got_c, want_c)
+    got_f = PR.miller_loop(CV.tree_from_jax(jp), got_c, fuse=fuse, events=events)
     assert got_f.shape == (12, 30, 4)
-    for g, w in zip(got_f, JTL._flat12(jf)):
-        assert (g.numpy() == _np(w)).all()
+    want_f = torch.from_numpy(np.stack([_np(w) for w in JTL._flat12(jf)]).astype(np.int32))
+    if fuse:
+        assert _canonical(got_f) == _canonical(want_f)
+    else:
+        assert torch.equal(got_f, want_f)
+
+
+@pytest.mark.parametrize("lines", ["words", "digits"])
+def test_edge_entries_plain_match_jax_truncated(jax_truncated, lines):
+    """`prepare_lines` and `miller_lines` on CPU tensors (their plain
+    versions) from the strict Q and P against the JAX `fuse=False` prepare
+    and Miller loop over 8 events: the lines the canonical words of JAX's
+    coefficients; f from those words by canonical value, and from JAX's
+    digit lines digit for digit."""
+    jq, jp, jc, jf = jax_truncated
+    schedule = PR.MILLER_EVENTS[:TRUNCATED]
+    words = PS.prepare_lines(CV.tree_from_jax(jq), schedule)
+    assert torch.equal(words, W.digits_to_words_plain(CV.coeffs_from_jax(jc)))
+    c = words if lines == "words" else CV.coeffs_from_jax(jc)
+    got = PR._conj(PS.miller_lines(c, CV.tree_from_jax(jp), schedule))
+    want = torch.from_numpy(np.stack([_np(w) for w in JTL._flat12(jf)]).astype(np.int32))
+    if lines == "words":
+        assert _canonical(got) == _canonical(want)
+    else:
+        assert torch.equal(got, want)
 
 
 def test_chains_on_cpu_match_jax_truncated(jax_truncated):
@@ -216,13 +258,49 @@ def test_pairing_batch_cpu_matches_oracle():
     assert got[1] == OF.FP12_ONE and got[2] == OF.FP12_ONE
 
 
-def test_prepared_equals_unprepared():
-    prep = B.prepare_g2_batch(QS4, device="cpu")
-    assert prep.stacked.shape == (PR.NUM_EVENTS, 6, 30, 4)
+@pytest.mark.parametrize("fuse", [True, False])
+def test_prepared_equals_unprepared(fuse):
+    """A prepared batch (words fused, digits unfused) pairs as the
+    unprepared one does."""
+    prep = B.prepare_g2_batch(QS4, fuse=fuse, device="cpu")
+    assert prep.stacked.shape == (PR.NUM_EVENTS, 6, W.WORDS if fuse else 30, 4)
+    assert prep.layout == ("words" if fuse else "digits")
     ps = [PS4[1], PS4[0], None, PS4[3]]
-    got = B.pairing_batch(ps, prep, device="cpu")
-    assert got == B.pairing_batch(ps, QS4, device="cpu")
+    got = B.pairing_batch(ps, prep, fuse=fuse, device="cpu")
+    assert got == B.pairing_batch(ps, QS4, fuse=fuse, device="cpu")
     assert got[0] == JOP.pairing(PS4[1], QS4[0]) and got[2] == OF.FP12_ONE
+
+
+@pytest.fixture(scope="module")
+def prepared_formats():
+    """Two pairs (an identity Q among them) prepared in each layout: lazy
+    fused (words), lazy unfused (digits), strict (limbs)."""
+    qs = [QS4[2], None]
+    q, q_inf = B._g2_batch(qs, torch.device("cpu"))
+    return qs, {"words": PR.prepare_g2_device(q, q_inf),
+                "digits": PR.prepare_g2_device(q, q_inf, fuse=False),
+                "limbs": PR.prepare_g2_device(q, q_inf, engine="strict")}
+
+
+@pytest.mark.parametrize("fuse", [True, False])
+@pytest.mark.parametrize("layout", ["words", "digits", "limbs"])
+def test_prepared_formats_pair_under_either_fuse(prepared_formats, layout, fuse):
+    """Each prepare layout paired under fuse=True and fuse=False: the Miller
+    product (`multi_miller_loop_prepared`) against the oracle's, and for
+    the lazy layouts the pairings (`pairing_prepared`) against the
+    oracle's."""
+    qs, preps = prepared_formats
+    prep = preps[layout]
+    assert prep.layout == layout
+    rows = {"words": W.WORDS, "digits": 30, "limbs": 24}[layout]
+    assert prep.stacked.shape == (PR.NUM_EVENTS, 6, rows, 2)
+    ps = [PS4[3], PS4[1]]
+    p, p_inf = B._g1_batch(ps, torch.device("cpu"))
+    mml = PR.multi_miller_loop_prepared(p, prep, p_inf, fuse)
+    assert CV.fp12_from_dev(mml) == [JOP.multi_miller_loop([(PS4[3], QS4[2])])]
+    if layout != "limbs":
+        got = CV.fp12_from_dev(PR.pairing_prepared(p, prep, p_inf, fuse))
+        assert got == [JOP.pairing(PS4[3], QS4[2]), OF.FP12_ONE]
 
 
 @pytest.mark.parametrize("prep_dev,pair_dev", [("cpu:0", "cpu:0"), ("cpu:0", "cpu"),

@@ -45,6 +45,8 @@ from ark_blst_tpu_torch.ops import fp12_mul_by_014 as K12
 from ark_blst_tpu_torch.ops import fp12_sqr as K11
 from ark_blst_tpu_torch.ops import lazy13 as LZ
 from ark_blst_tpu_torch.ops import tower_lazy as TL
+from ark_blst_tpu_torch.ops import words as W
+from ark_blst_tpu_torch.ops.limbs import ints_to_limbs
 from ark_blst_tpu_torch.oracle import curve as OC
 from ark_blst_tpu_torch.oracle import field as OF
 from ark_blst_tpu_torch.oracle import pairing as OP
@@ -70,15 +72,21 @@ HARNESS = r"""
 // the stacks: K5-chain (op 13) on R (6, 30, n) and Q (4, 30, n), result
 // the lines (p1, 6, 30, n) then R (6, 30, n); K6-chain (op 14) on f (12,
 // 30, n), the lines (p1, 6, 30, n) and P (2, 30, n), result f (12, 30,
-// n). Ops 11/12: tower381.cuh's
-// conversions of p1 Fp rows, digits (p1, 30, n) -> words (p1, 12, n) and
-// back. Ops 5/6: the G1/G2 mixed addition of K2/K2-G2 on (5, 12, n)
-// or (10, 12, n) canonical R16 words, result (3, 12, n) or (6, 12, n).
+// n). Ops 17-19: the chains on the fused pipeline's edges, in blocks as
+// ops 0-4, the schedule after the stacks: K5-chain (op 17) on strict Q
+// (4, 24, n), R = (Q, 1) formed in the chain, result the lines as words
+// (p1, 6, 12, n); K6-chain (op 18 on word lines (p1, 6, 12, n), op 19 on
+// digit lines (p1, 6, 30, n)) and strict P (2, 24, n), f = one formed in
+// the chain, result f (12, 30, n). Ops 11/12: tower381.cuh's edge
+// formats on p1 Fp rows, format p2 (t381::EdgeFormat): rows (p1, K, n)
+// -> words (p1, 12, n) (read_row) and words -> rows (write_row). Ops 5/6:
+// the G1/G2 mixed addition of K2/K2-G2 on (5, 12, n) or (10, 12, n)
+// canonical R16 words, result (3, 12, n) or (6, 12, n).
 // Ops 7/8: the G1/G2 bucket accumulation of W = p1 windows, B = p2
 // buckets, S = 1024 streams: points (24, n) or (48, n) words, digits (W, n),
 // result the dump (W, B, 45 or 90, S). Ops 9/10: K11 (fp12 square) and K12
 // (the sparse line product) on tower381.cuh, result (12, 30, n), in blocks
-// as ops 0-4. Ops 15-17: the final exponentiation's chain programs of
+// as ops 0-4. Ops 15/16: the final exponentiation's chain programs of
 // final_exp.cuh, in blocks as ops 0-4: FE-easy (op 15) on f (12, 30, n) and
 // the Frobenius words (432 int32) after it, result (12, 12, n) words;
 // FE-hard (op 16) on value 0 as words (12, 12, n), then the program (p1
@@ -149,24 +157,30 @@ int main() {
   long long hdr[4];
   if (fread(hdr, sizeof(long long), 4, stdin) != 4) return 2;
   const long long op = hdr[0], n = hdr[1], param = hdr[2], B = hdr[3];
-  if (op < 0 || op > 16) return 2;
+  if (op < 0 || op > 19) return 2;
   const bool tower = op <= 4 || op == 9 || op == 10;
   const long long plane = 30 * n, S = 1024;
   size_t in_size, out_size;
   const long long frob_ints = fexp::FROB_POWERS * 6 * 2 * 12;
-  if (op >= 15) {
+  if (op == 15 || op == 16) {
     in_size = op == 15 ? 12 * plane + frob_ints : 12 * 12 * n + 4 * param + frob_ints;
     out_size = op == 15 ? 12 * 12 * n : 12 * plane;
   } else if (op == 13 || op == 14) {
     in_size = (op == 13 ? 10 : 14 + 6 * param) * plane + param;
     out_size = (op == 13 ? 6 * param + 6 : 12) * plane;
+  } else if (op >= 17) {
+    in_size = op == 17 ? 4 * 24 * n + param
+                       : 6 * param * (op == 18 ? 12 : 30) * n + 2 * 24 * n + param;
+    out_size = op == 17 ? 6 * param * 12 * n : 12 * plane;
   } else if (tower) {
     static const int in_rows[] = {12, 24, 6, 10, 20, 0, 0, 0, 0, 12, 18};
     in_size = in_rows[op] * plane;
     out_size = 12 * plane;
   } else if (op == 11 || op == 12) {
-    in_size = param * (op == 11 ? 30 : 12) * n;
-    out_size = param * (op == 11 ? 12 : 30) * n;
+    if (B < t381::DIGIT_ROWS || B > t381::WORD_ROWS) return 2;
+    const long long k = t381::row_entries(static_cast<int>(B));
+    in_size = param * (op == 11 ? k : 12) * n;
+    out_size = param * (op == 11 ? 12 : k) * n;
   } else if (op == 5 || op == 6) {  // NC = 1 or 2 Fp components a coordinate
     const long long nc = op - 4;
     in_size = 5 * nc * 12 * n;
@@ -191,13 +205,15 @@ int main() {
   }
   for (long long r = 0; (op == 11 || op == 12) && r < param; ++r)
     for (long long i = 0; i < n; ++i) {
+      const int fmt = static_cast<int>(B);
+      const long long k = t381::row_entries(fmt);
       f381::Fp v;
       if (op == 11) {
-        t381::digits_to_words(x + r * 30 * n + i, n, v);
+        t381::read_row(x + r * k * n + i, n, fmt, v);
         g381::store(v, out.data() + r * 12 * n + i, n);
       } else {
         g381::load(x + r * 12 * n + i, n, v);
-        t381::words_to_digits(v, out.data() + r * 30 * n + i, n);
+        t381::write_row(v, out.data() + r * k * n + i, n, fmt);
       }
     }
   const int p1 = static_cast<int>(param);
@@ -219,6 +235,21 @@ int main() {
     const t381::MillerChain c{x, x + 12 * plane, pxy, o, schedule(p1, pxy + 2 * plane), 0};
     run_chain(n, B, t381::MILLER_SLOTS,
               [&](const t381::Block& b, const HostPhases& ph) { t381::miller_chain(b, c, ph); });
+  }
+  if (op == 18 || op == 19) {
+    const int fmt = op == 18 ? t381::WORD_ROWS : t381::DIGIT_ROWS;
+    const int* pxy = x + 6 * param * t381::row_entries(fmt) * n;
+    const t381::MillerChain c{nullptr, x, pxy, o, schedule(p1, pxy + 2 * 24 * n), 0};
+    run_chain(n, B, t381::MILLER_SLOTS, [&](const t381::Block& b, const HostPhases& ph) {
+      if (op == 18) t381::miller_chain<t381::WORD_ROWS, t381::LIMB_ROWS>(b, c, ph);
+      else t381::miller_chain<t381::DIGIT_ROWS, t381::LIMB_ROWS>(b, c, ph);
+    });
+  }
+  if (op == 17) {
+    const t381::PrepareChain c{nullptr, x, o, nullptr, schedule(p1, x + 4 * 24 * n), 0};
+    run_chain(n, B, t381::PREPARE_SLOTS, [&](const t381::Block& b, const HostPhases& ph) {
+      t381::prepare_chain<t381::LIMB_ROWS, t381::WORD_ROWS>(b, c, ph);
+    });
   }
   if (op == 1)
     run_blocks(n, B, t381::FP12_MUL_SLOTS, t381::FP12_MUL_PHASES,
@@ -337,7 +368,7 @@ def real_inputs():
     rs = torch.stack([qx[0], qx[1], qy[0], qy[1], one, zero])
     for _ in range(2):
         rs = PS.prepare_step(rs)[:6]
-    coeffs = PR.prepare_g2(q, events=3)
+    coeffs = PR.prepare_g2(q, fuse=False, events=3)  # digits, as the unfused prepare's
     pxy = torch.stack([TL.fp_ingest(p[0]), TL.fp_ingest(p[1])])
     fs = TL.stack12(PR._fp12_one_like(pxy[0]))
     for i in range(2):
@@ -529,11 +560,124 @@ def test_miller_chain_host_oracle(harness):
     assert values(got) == values(fp12_stack(want))
 
 
-@pytest.mark.parametrize("kernel", ["prepare_chain", "miller_chain"])
+def strict_pairs(n: int, seed: int):
+    """n random pairs as the fused pipeline's entry points hold them: Q as
+    strict limbs (4, 24, n) (qx re, im, qy re, im), P (2, 24, n), and the
+    affine points."""
+    rng = np.random.default_rng(seed)
+    ks = [int(rng.integers(1, 1 << 62)) for _ in range(2 * n)]
+    ps = [OC.scalar_mul(OF.G1_GEN, k) for k in ks[:n]]
+    qs = [OC.g2_mul(OF.G2_GEN, k) for k in ks[n:]]
+    q = torch.stack([*CV.fp2_to_dev([x[0] for x in qs]), *CV.fp2_to_dev([x[1] for x in qs])])
+    p = torch.stack([CV.fp_to_dev([x[0] for x in ps]), CV.fp_to_dev([x[1] for x in ps])])
+    return q, p, ps, qs
+
+
+def edge_args(kernel, q, p, lines, schedule):
+    """The harness call of a chain on the fused pipeline's edges (op,
+    events, stacks..., result shape): K5-chain on strict Q, lines out as
+    words; K6-chain on word (or digit) lines and strict P."""
+    e, n = len(schedule), q.shape[-1]
+    if kernel == "prepare_lines":
+        return 17, e, q, flags(schedule), (e, 6, W.WORDS, n)
+    op = 18 if lines.shape[2] == W.WORDS else 19
+    return op, e, lines[:e].contiguous(), p, flags(schedule), (12, 30, n)
+
+
+def word_values(stack: torch.Tensor) -> list:
+    """(k, 12, n) canonical words -> each Fp row's value (the words' number
+    times 2^-384 mod p), host ints."""
+    inv = pow(1 << 384, -1, OF.P)
+    u = stack.numpy().astype(np.uint32).astype(object)
+    return [[sum(int(u[r, k, j]) << (32 * k) for k in range(W.WORDS)) * inv % OF.P
+             for j in range(stack.shape[2])] for r in range(stack.shape[0])]
+
+
+def test_prepare_lines_host_oracle(harness):
+    """K5-chain on the fused pipeline's edges over all 68 events for five
+    points (blocks of 4, the second ragged): Q read as strict limbs, R =
+    (Q, 1) formed in the chain, every event's line stored as canonical
+    words equal to the oracle's prepare_g2, and word for word to
+    `prepare_lines_plain`."""
+    q, _, _, qs = strict_pairs(5, 14)
+    e = PR.NUM_EVENTS
+    got = run(harness, 17, e, q, flags(PR.MILLER_EVENTS), shape=(e, 6, W.WORDS, 5), buckets=4)
+    want = [OP.prepare_g2(x) for x in qs]
+    assert word_values(got.reshape(6 * e, W.WORDS, 5)) == [
+        [w[k][r // 2][r % 2] for w in want] for k in range(e) for r in range(6)]
+    assert torch.equal(got, PS.prepare_lines_plain(((q[0], q[1]), (q[2], q[3])), PR.MILLER_EVENTS))
+
+
+@pytest.mark.parametrize("lines", ["words", "digits"])
+def test_miller_lines_host_oracle(harness, lines):
+    """K6-chain on the fused pipeline's edges over all 68 events for five
+    pairs (blocks of 4): f = one formed in the chain, P read as strict
+    limbs, the lines as K5-chain's words (or as digits, an unfused
+    prepare's) -> f against the oracle's miller_loop (conjugated back) and
+    `miller_lines_plain` by value; digits within 4096."""
+    q, p, ps, qs = strict_pairs(5, 15)
+    c = PS.prepare_lines_plain(((q[0], q[1]), (q[2], q[3])), PR.MILLER_EVENTS)
+    if lines == "digits":
+        c = W.words_to_digits_plain(c)
+    args = edge_args("miller_lines", q, p, c, PR.MILLER_EVENTS)
+    got = run(harness, *args[:-1], shape=args[-1], buckets=4)
+    assert int(got.abs().max()) <= 4096
+    want = [OF.fp12_conj(OP.miller_loop(a, b)) for a, b in zip(ps, qs)]
+    assert values(got) == values(fp12_stack(want))
+    assert values(got) == values(PS.miller_lines_plain(c, (p[0], p[1]), PR.MILLER_EVENTS))
+
+
+# Strict limb values: 0, 1, p - 1, R mod p, then values in [p, 2^384) that
+# the load must reduce (p, 2^384 - 1, the largest multiple of p below
+# 2^384, and p + R mod p), then random canonical ones
+_R_MOD_P = (1 << 384) % OF.P
+_LIMB_VALUES = [0, 1, OF.P - 1, _R_MOD_P, OF.P, (1 << 384) - 1, (((1 << 384) - 1) // OF.P) * OF.P,
+                OF.P + _R_MOD_P]
+
+
+@pytest.mark.parametrize("fmt", ["limbs", "words"])
+def test_edge_format_rows_host(harness, fmt):
+    """tower381.cuh's loads and stores of the strict-limb and word formats
+    against Python ints: a limb row loads as the canonical words of its
+    value mod p (the values in [p, 2^384) reduced), and canonical words
+    store as the limbs of their number; words load and store as they are,
+    and both round trips return a canonical row unchanged."""
+    rng = random.Random(16)
+    vals = _LIMB_VALUES + [rng.randrange(OF.P) for _ in range(N)]
+    n = len(vals)
+    words = torch.from_numpy(np.array([W.split(v % OF.P) for v in vals], np.uint32)
+                             .T.copy().view(np.int32))[None]
+    if fmt == "limbs":
+        limbs = torch.from_numpy(ints_to_limbs(vals, 24).T.copy())[None]
+        assert torch.equal(run(harness, 11, 1, limbs, shape=(1, W.WORDS, n), buckets=1), words)
+        canon = torch.from_numpy(ints_to_limbs([v % OF.P for v in vals], 24).T.copy())[None]
+        back = run(harness, 12, 1, words, shape=(1, 24, n), buckets=1)
+        assert torch.equal(back, canon)
+        assert torch.equal(run(harness, 11, 1, back, shape=(1, W.WORDS, n), buckets=1), words)
+    else:
+        assert torch.equal(run(harness, 11, 1, words, shape=(1, W.WORDS, n), buckets=2), words)
+        assert torch.equal(run(harness, 12, 1, words, shape=(1, W.WORDS, n), buckets=2), words)
+
+
+@pytest.mark.parametrize("kernel", ["prepare_chain", "miller_chain", "prepare_lines",
+                                    "miller_lines"])
 def test_chain_host_truncated(harness, kernel):
-    """A chain of 8 events with two additions on the pipeline's inputs (R
-    after two doublings, f after two events) against its plain version
-    by value, digits within 4096."""
+    """A chain of 8 events with two additions against its plain version: on
+    the pipeline's digit inputs (R after two doublings, f after two events)
+    by value, digits within 4096; on the fused pipeline's edges (strict Q
+    and P, R = (Q, 1) and f = one formed in the chain, word lines) the
+    lines word for word and f by value."""
+    if kernel.endswith("lines"):
+        q, p, _, _ = strict_pairs(N, 12)
+        qx, qy, pp = (q[0], q[1]), (q[2], q[3]), (p[0], p[1])
+        want = PS.prepare_lines_plain((qx, qy), SCHEDULE_8)
+        args = edge_args(kernel, q, p, want, SCHEDULE_8)
+        got = run(harness, *args[:-1], shape=args[-1], buckets=BLOCK)
+        if kernel == "prepare_lines":
+            assert torch.equal(got, want)
+        else:
+            assert_value_equal(got, PS.miller_lines_plain(want, pp, SCHEDULE_8))
+        return
     r, q, f, _, pxy, _ = real_inputs()
     n = r.shape[-1]
     if kernel == "prepare_chain":
@@ -567,7 +711,7 @@ def test_miller_step_host(harness, with_sqr, source):
 @pytest.mark.parametrize("kernel", ["cyc_sqr", "miller_sqr", "miller_line", "fp12_mul",
                                     "prepare_dbl", "prepare_add", "fp12_sqr", "mul_by_014",
                                     "prepare_chain", "miller_chain", "final_exp_easy",
-                                    "final_exp_hard"])
+                                    "final_exp_hard", "prepare_lines", "miller_lines"])
 def test_tower381_phases_have_no_hazards(harness, kernel):
     """Each phase's jobs are independent: run in reverse order they give the
     same digits (on the card they run at once); for the chains over 8
@@ -582,6 +726,13 @@ def test_tower381_phases_have_no_hazards(harness, kernel):
                     PROGRAM, FROB, (12, 30, f.shape[-1]))
         assert torch.equal(run(harness, *args[:-1], shape=args[-1], buckets=3),
                            run(harness, *args[:-1], shape=args[-1], buckets=-3))
+        return
+    if kernel.endswith("lines"):
+        q, p, _, _ = strict_pairs(N, 13)
+        lines = PS.prepare_lines_plain(((q[0], q[1]), (q[2], q[3])), SCHEDULE_8)
+        args = edge_args(kernel, q, p, lines, SCHEDULE_8)
+        assert torch.equal(run(harness, *args[:-1], shape=args[-1], buckets=BLOCK),
+                           run(harness, *args[:-1], shape=args[-1], buckets=-BLOCK))
         return
     if kernel.endswith("chain"):
         r, q, f, _, pxy, _ = real_inputs()
@@ -698,14 +849,14 @@ def test_final_exp_chains_host_oracle(harness):
     n = f.shape[-1]
     words = run(harness, 15, 0, f, FROB, shape=(12, FE.WORDS, n), buckets=3)
     assert (words.numpy().view(np.uint32)[:, -1] <= OF.P >> 352).all()
-    assert values(FE.words_to_digits_plain(words)) == values(fp12_stack(
+    assert values(W.words_to_digits_plain(words)) == values(fp12_stack(
         [easy_oracle(x) for x in fs]))
     t2 = FE.easy_plain(f)
-    assert values(FE.words_to_digits_plain(words)) == values(t2)
+    assert values(W.words_to_digits_plain(words)) == values(t2)
     got = run(harness, 16, len(FE.HARD_PROGRAM), words, PROGRAM, FROB, buckets=3)
     assert int(got.abs().max()) <= 4096
     assert values(got) == values(fp12_stack([OP.final_exp(x) for x in fs]))
-    got = run(harness, 16, len(FE.HARD_PROGRAM), FE.digits_to_words_plain(t2), PROGRAM, FROB,
+    got = run(harness, 16, len(FE.HARD_PROGRAM), W.digits_to_words_plain(t2), PROGRAM, FROB,
               buckets=3)
     assert_value_equal(got, FE.hard_plain(t2))
 
@@ -718,7 +869,7 @@ def test_final_exp_frobenius_host_oracle(harness, power):
     rng = random.Random(30 + power)
     a = [random_fp12(rng) for _ in range(N)]
     program = [FE._load(FE.T2), FE._op(FE.FROB, power), FE._op(FE.OUT)]
-    got = run(harness, 16, len(program), FE.digits_to_words_plain(fp12_stack(a)),
+    got = run(harness, 16, len(program), W.digits_to_words_plain(fp12_stack(a)),
               torch.tensor(program, dtype=torch.int32).reshape(-1), FROB, buckets=BLOCK)
     assert int(got.abs().max()) <= 4096
     assert values(got) == values(fp12_stack([OF.fp12_frobenius(x, power) for x in a]))
