@@ -10,14 +10,17 @@
 // products, through the lazy tower) run between XLA's own ops. The port had
 // launched each of those once (32 K3, 37 K4, 36 K1 and one K1-inv a batch)
 // with ~2,700 launches of eager radix-13 glue between them; here:
-//   FE-easy  f (12, 30, N) digits -> t2 = (conj(f) f^-1)^(p^2 + 1) as
-//            (12, 12, N) words;
-//   FE-hard  t2 (words) -> the hard part as (12, 30, N) digits
-//            within 4096: five ladders of x (63 squares and 5 products
-//            each), two lone squares, ten products, three Frobenius maps.
+//   FE-easy  f (12, 30, N) digits, or (12, 12, N) words as the fused
+//            pairing's K6-chain stores them -> t2 = (conj(f) f^-1)^(p^2 +
+//            1) as (12, 12, N) words;
+//   FE-hard  t2 (words) -> the hard part as (12, 30, N) digits within
+//            4096, or as the strict (12, 24, N) limbs the pairing returns
+//            (so the lazy egress, ~900 eager launches, does not run): five
+//            ladders of x (63 squares and 5 products each), two lone
+//            squares, ten products, three Frobenius maps.
 // The outputs equal the plain versions (ops/final_exp.py: easy_plain,
 // hard_plain, the same chain over K3's and K4's plain versions on digits)
-// by canonical value.
+// by canonical value; the limbs are canonical, so equal them limb for limb.
 //
 // What bounds them: operations. FE-hard makes 317 cyclotomic squares (18
 // Montgomery products of 12 x 32-bit words and ~107 modular sums each) and
@@ -44,6 +47,9 @@ namespace {
 // K3's (nine an element: a square's nine products in one round), each
 // bounded for two blocks an SM, as many as shared memory holds at E = 32.
 // scripts/tower_probe.py (--fe) builds FE-hard at other bounds and times it.
+// Each kernel is instantiated for the edge formats its callers use
+// (tower381.cuh EdgeFormat): FE-easy's input digits or words, FE-hard's
+// output digits or strict limbs.
 constexpr int kEasyThreads = 192;
 constexpr int kEasyMinBlocks = 2;
 #ifndef FE_HARD_THREADS
@@ -54,19 +60,40 @@ constexpr int kEasyMinBlocks = 2;
 #endif
 constexpr int kElems = 32;
 
+template <int IN_FMT>
 __global__ void __launch_bounds__(kEasyThreads, kEasyMinBlocks) easy_kernel(
     const int* __restrict__ f, int* __restrict__ out, const int* __restrict__ frob, long long n,
     int E) {
   extern __shared__ t381::u32 smem[];
   const t381::Block b{smem, E, static_cast<long long>(blockIdx.x) * E, n};
-  fexp::easy_chain(b, fexp::EasyChain{f, out, frob}, t381::BlockPhases{E});
+  fexp::easy_chain<IN_FMT>(b, fexp::EasyChain{f, out, frob}, t381::BlockPhases{E});
 }
 
+template <int OUT_FMT>
 __global__ void __launch_bounds__(FE_HARD_THREADS, FE_HARD_MIN_BLOCKS) hard_kernel(
     fexp::HardChain c, long long n, int E) {
   extern __shared__ t381::u32 smem[];
   const t381::Block b{smem, E, static_cast<long long>(blockIdx.x) * E, n};
-  fexp::hard_chain(b, c, t381::BlockPhases{E});
+  fexp::hard_chain<OUT_FMT>(b, c, t381::BlockPhases{E});
+}
+
+using EasyKernel = void (*)(const int*, int*, const int*, long long, int);
+using HardKernel = void (*)(fexp::HardChain, long long, int);
+const EasyKernel kEasyDigits = easy_kernel<t381::DIGIT_ROWS>;
+const EasyKernel kEasyWords = easy_kernel<t381::WORD_ROWS>;
+const HardKernel kHardDigits = hard_kernel<t381::DIGIT_ROWS>;
+const HardKernel kHardLimbs = hard_kernel<t381::LIMB_ROWS>;
+
+EasyKernel easy_for(int in_fmt) {
+  return in_fmt == t381::DIGIT_ROWS ? kEasyDigits
+         : in_fmt == t381::WORD_ROWS ? kEasyWords
+                                     : nullptr;
+}
+
+HardKernel hard_for(int out_fmt) {
+  return out_fmt == t381::DIGIT_ROWS ? kHardDigits
+         : out_fmt == t381::LIMB_ROWS ? kHardLimbs
+                                      : nullptr;
 }
 
 int smem_bytes(int E) { return E * fexp::SLOTS * t381::SLOT * 4; }
@@ -93,51 +120,58 @@ int shape_of(Kernel kernel, int default_threads, int* elems, int* threads, int* 
 
 }  // namespace
 
-// FE-easy: f (12, 30, n) digits, out: (12, 12, n) words, frob: (3, 6, 2,
-// 12) words (ops/final_exp.py:FROB_WORDS); int32, contiguous, on the device
-// of `stream`. Returns cudaGetLastError() after the launch (0 on success).
+// FE-easy: f of format in_fmt ((12, 30, n) digits or (12, 12, n) words;
+// t381::EdgeFormat), out: (12, 12, n) words, frob: (3, 6, 2, 12) words
+// (ops/final_exp.py:FROB_WORDS); int32, contiguous, on the device of
+// `stream`. Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int final_exp_easy(const int* f, int* out, const int* frob, long long n,
-                              void* stream) {
+                              int in_fmt, void* stream) {
+  const EasyKernel kernel = easy_for(in_fmt);
+  if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
-  const int err = prepare(easy_kernel, kElems);
+  const int err = prepare(kernel, kElems);
   if (err) return err;
-  easy_kernel<<<static_cast<unsigned>((n + kElems - 1) / kElems), kEasyThreads,
-                smem_bytes(kElems), static_cast<cudaStream_t>(stream)>>>(f, out, frob, n,
-                                                                         kElems);
+  kernel<<<static_cast<unsigned>((n + kElems - 1) / kElems), kEasyThreads, smem_bytes(kElems),
+           static_cast<cudaStream_t>(stream)>>>(f, out, frob, n, kElems);
   return static_cast<int>(cudaGetLastError());
 }
 
 // FE-hard at a given shape (threads <= FE_HARD_THREADS). in: value 0, the
 // (12, 12, n) words of FE-easy; scratch: (values - 1, 12, 12, n) words;
-// out: (12, 30, n) digits; prog: nops ops of four int32
+// out: (12, 30, n) digits or (12, 24, n) strict limbs by out_fmt
+// (t381::EdgeFormat); prog: nops ops of four int32
 // (ops/final_exp.py:HARD_PROGRAM); frob as for FE-easy. Returns
 // cudaGetLastError() after the launch.
 extern "C" int final_exp_hard_shaped(const int* in, int* scratch, int* out,
                                      long long n, const int* prog, int nops, const int* frob,
-                                     int E, int threads, void* stream) {
+                                     int out_fmt, int E, int threads, void* stream) {
+  const HardKernel kernel = hard_for(out_fmt);
+  if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
-  const int err = prepare(hard_kernel, E);
+  const int err = prepare(kernel, E);
   if (err) return err;
   const fexp::HardChain c{in, scratch, out, prog, nops, frob};
-  hard_kernel<<<static_cast<unsigned>((n + E - 1) / E), threads, smem_bytes(E),
-                static_cast<cudaStream_t>(stream)>>>(c, n, E);
+  kernel<<<static_cast<unsigned>((n + E - 1) / E), threads, smem_bytes(E),
+           static_cast<cudaStream_t>(stream)>>>(c, n, E);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int final_exp_hard(const int* in, int* scratch, int* out, long long n,
-                              const int* prog, int nops, const int* frob, void* stream) {
-  return final_exp_hard_shaped(in, scratch, out, n, prog, nops, frob, kElems, FE_HARD_THREADS,
-                               stream);
+                              const int* prog, int nops, const int* frob, int out_fmt,
+                              void* stream) {
+  return final_exp_hard_shaped(in, scratch, out, n, prog, nops, frob, out_fmt, kElems,
+                               FE_HARD_THREADS, stream);
 }
 
 // A launch shape and the blocks an SM holds at it (the occupancy API at the
-// compiled registers and the shape's shared memory): on entry, elems and
-// threads > 0 name the shape, 0 the default, which they then hold. Return
-// the CUDA error of the query (0 on success).
+// fused pairing's builds' registers, FE-easy on words and FE-hard to limbs,
+// and the shape's shared memory): on entry, elems and threads > 0 name the
+// shape, 0 the default, which they then hold. Return the CUDA error of the
+// query (0 on success).
 extern "C" int final_exp_easy_shape(int* elems, int* threads, int* smem, int* blocks_per_sm) {
-  return shape_of(easy_kernel, kEasyThreads, elems, threads, smem, blocks_per_sm);
+  return shape_of(kEasyWords, kEasyThreads, elems, threads, smem, blocks_per_sm);
 }
 
 extern "C" int final_exp_hard_shape(int* elems, int* threads, int* smem, int* blocks_per_sm) {
-  return shape_of(hard_kernel, FE_HARD_THREADS, elems, threads, smem, blocks_per_sm);
+  return shape_of(kHardLimbs, FE_HARD_THREADS, elems, threads, smem, blocks_per_sm);
 }

@@ -9,7 +9,11 @@
 // barrier between. Nothing crosses the stacks as digits between FE-easy's
 // load of f and FE-hard's store of the result: FE-easy writes its output as
 // words, FE-hard reads them and keeps its values t0-t6 as words in a scratch
-// stack between uses.
+// stack between uses. The outer edges take the formats of tower381.cuh
+// (template parameters, an instantiation each): FE-easy loads f as digits
+// or as words (the fused pairing's K6-chain stores conj(f) as words, and
+// the identity mask selects on them), FE-hard stores its result as digits
+// or as the strict (24, n) limbs the pairing returns.
 //
 // FE-easy is a fixed program: f into slots 0-5; the inverse of
 // tower_lazy.fp12_inv -> fp6_inv -> fp2_inv as phases of Fp2 products and
@@ -28,7 +32,7 @@
 //   CONJ               A <- conj(A)
 //   FROB p             A <- A^(p^power), p = 1, 2, 3
 //   STORE v            value v <- A
-//   OUT                the output digits <- A
+//   OUT                the output <- A (digits or strict limbs)
 // Value 0 is the input, FE-easy's words; values 1 .. V-1 live in the
 // scratch stack as words.
 //
@@ -254,17 +258,18 @@ __device__ __forceinline__ void fp2_inv_job(const Elem& m, int src, int dst) {
   t381::store(m, dst, r);
 }
 
-// FE-easy: f (12, 30, n) digits in, the easy part (12, 12, n) words out.
+// FE-easy: f of format IN_FMT in ((12, 30, n) digits or (12, 12, n) words),
+// the easy part (12, 12, n) words out.
 struct EasyChain {
   const int* f;
   int* out;
   const int* frob;
 };
 
-template <class Phase>
+template <int IN_FMT = t381::DIGIT_ROWS, class Phase>
 __device__ __forceinline__ void easy_chain(const Block& b, const EasyChain& c,
                                            const Phase& phase) {
-  phase(FP12_FP, [&](int op, int e) { t381::load_component(b, c.f, op, op, e); });
+  phase(FP12_FP, [&](int op, int e) { t381::load_component(b, c.f, op, op, e, IN_FMT); });
   phase(12, [&](int op, int e) { t381::run_sqr(b.elem(e), EASY_SQUARES[op]); });
   phase(6, [&](int op, int e) { t381::run(b.elem(e), EASY_SQUARES_FP6[op]); });
   phase(3, [&](int op, int e) { t381::run(b.elem(e), EASY_T[op]); });
@@ -300,8 +305,8 @@ enum HardCode { H_LOAD = 1, H_SQR = 2, H_MUL = 3, H_CONJ = 4, H_FROB = 5, H_STOR
 constexpr int HARD_OP_INTS = 4;  // code, a, b, flags
 
 // in: value 0, a (12, 12, n) word stack; scratch: values 1 .. V-1, (V - 1,
-// 12, 12, n) words; out: (12, 30, n) digits; prog: nops ops of HARD_OP_INTS
-// int32 each.
+// 12, 12, n) words; out: (12, 30, n) digits or (12, 24, n) strict limbs, by
+// the chain's OUT_FMT; prog: nops ops of HARD_OP_INTS int32 each.
 struct HardChain {
   const int* in;
   int* scratch;
@@ -322,7 +327,7 @@ __device__ __forceinline__ void load_value(const Block& b, const HardChain& c, i
   t381::store_fp(b.elem(e), comp / 2, comp % 2, x);
 }
 
-template <class Phase>
+template <int OUT_FMT = t381::DIGIT_ROWS, class Phase>
 __device__ __forceinline__ void hard_chain(const Block& b, const HardChain& c,
                                            const Phase& phase) {
 #pragma unroll 1
@@ -362,7 +367,8 @@ __device__ __forceinline__ void hard_chain(const Block& b, const HardChain& c,
         });
         break;
       default:  // H_OUT
-        phase(FP12_FP, [&](int k, int e) { t381::store_component(b, c.out, k, k, e); });
+        phase(FP12_FP,
+              [&](int k, int e) { t381::store_component(b, c.out, k, k, e, OUT_FMT); });
         break;
     }
   }

@@ -694,13 +694,15 @@ __device__ __forceinline__ void set_component(const Block& b, int c, bool one, i
 }
 
 // Fp component `from` (slot from / 2, half from % 2) -> row c of the stack
-// dst, of format fmt.
+// dst, of format fmt; negated first when asked (p - x, 0 for 0).
 __device__ __forceinline__ void store_component(const Block& b, int* dst, int c, int from,
-                                                int e, int fmt = DIGIT_ROWS) {
+                                                int e, int fmt = DIGIT_ROWS,
+                                                bool negate = false) {
   const long long i = b.i0 + e;
   if (i >= b.n) return;
   Fp x;
   load_fp(b.elem(e), from / 2, from % 2, x);
+  if (negate) f381::neg(x, x);
   write_row(x, dst + static_cast<long long>(c) * row_entries(fmt) * b.n + i, b.n, fmt);
 }
 
@@ -904,9 +906,12 @@ __device__ __forceinline__ void prepare_chain(const Block& b, const PrepareChain
 
 // K6-chain: f (12, 30, n) digits, the lines coeffs (events, 6, K, n) of
 // format LINE_FMT and P (2, K', n) of format P_FMT in (template parameters,
-// as K5-chain's); without f (f null), f = one formed at LOAD. f after the
-// events into out (12, 30, n) digits. With edges_only, the conversions
-// alone: f, P and every line in, out = f.
+// as K5-chain's); without f (f null), f = one formed at LOAD. After the
+// events, out of format F_FMT: DIGIT_ROWS f as (12, 30, n) digits;
+// WORD_ROWS conj(f) as (12, 12, n) words, components 6-11 negated in the
+// store (the fused pairing's hand-over to FE-easy: x < 0 conjugates the
+// Miller loop). With edges_only, the conversions alone: f, P and every
+// line in, out = f (conj(f) as words).
 struct MillerChain {
   const int* f;
   const int* coeffs;
@@ -921,7 +926,8 @@ struct MillerChain {
 // SQR_RESULT at a doubling or LEGS alone at an addition, P014, then R014
 // beside the next event's line; STORE (slots 0-5). The products without a
 // scaling run on run_mul, as K11's and K12's.
-template <int LINE_FMT = DIGIT_ROWS, int P_FMT = DIGIT_ROWS, class Phase>
+template <int LINE_FMT = DIGIT_ROWS, int P_FMT = DIGIT_ROWS, int F_FMT = DIGIT_ROWS,
+          class Phase>
 __device__ __forceinline__ void miller_chain(const Block& b, const MillerChain& c,
                                              const Phase& phase) {
   phase(MILLER_INPUTS, [&](int op, int e) {
@@ -956,7 +962,9 @@ __device__ __forceinline__ void miller_chain(const Block& b, const MillerChain& 
       else load_line(op - 6, e);
     });
   }
-  phase(12, [&](int op, int e) { store_component(b, c.out, op, op, e); });
+  phase(12, [&](int op, int e) {
+    store_component(b, c.out, op, op, e, F_FMT, F_FMT == WORD_ROWS && op >= 6);
+  });
 }
 
 #ifdef __CUDACC__

@@ -152,16 +152,16 @@ def cpu_operands(name: str, tensors) -> bool:
     return False
 
 
-def stacked_operands(name: str, tensors, rows) -> bool:
-    """Check the operands of a tower kernel: each a `(rows[i], 30, N)` int32
-    stack, N the same for all, all on one device (`cpu_operands`: True for
-    CPU tensors, False for contiguous CUDA tensors, raises otherwise). The
-    digits are not checked: the kernels take |digit| <= 8191 (mul-ready or
-    canonical), which every value of the lazy tower satisfies
-    (csrc/tower381.cuh)."""
+def stacked_operands(name: str, tensors, rows, width: int = 30) -> bool:
+    """Check the operands of a tower kernel: each a `(rows[i], width, N)`
+    int32 stack (30 digits a component, or 12 canonical words), N the same
+    for all, all on one device (`cpu_operands`: True for CPU tensors, False
+    for contiguous CUDA tensors, raises otherwise). The digits are not
+    checked: the kernels take |digit| <= 8191 (mul-ready or canonical),
+    which every value of the lazy tower satisfies (csrc/tower381.cuh)."""
     n = tensors[0].shape[-1]
     for t, r in zip(tensors, rows):
-        if t.dim() != 3 or tuple(t.shape) != (r, 30, n):
-            raise ValueError(f"{name} wants {[(r, 30, 'N') for r in rows]} stacks, "
+        if t.dim() != 3 or tuple(t.shape) != (r, width, n):
+            raise ValueError(f"{name} wants {[(r, width, 'N') for r in rows]} stacks, "
                              f"got {[tuple(x.shape) for x in tensors]}")
     return cpu_operands(name, tensors)

@@ -13,6 +13,13 @@ per element). Two engines and two styles, as there:
     FE-hard launch for the final exponentiation (`ops/final_exp.py`). Q
     and P enter the chains as the strict `(24, N)` limbs they are given,
     and the line coefficients are canonical 32-bit words `(E, 6, 12, N)`.
+    `pairing` and `pairing_prepared` keep f in words from K6 on: K6
+    stores conj(f) as `(12, 12, N)` words, the identity mask selects on
+    words, FE-easy loads them, and FE-hard stores the strict `(24, N)`
+    limbs the entry returns: no egress runs. The multi-pairings fold f as
+    digits on K4, then FE-easy and FE-hard to limbs. `prepare_g2`,
+    `miller_loop` and `final_exp` keep their forms (words, digits,
+    digits), the JAX functions' own.
   - `fuse=False`, the JAX `fuse=False` branch as the TPU runs it: the
     prepare steps on the tower (K1 through `tower_lazy._mul`), Q and P
     ingested strict -> lazy, the line coefficients digits `(E, 6, 30,
@@ -39,7 +46,7 @@ The pipeline:
 4. `final_exp`: easy part (`fp12_inv`, a Frobenius map, products), then
    the cyclotomic chain: five `cyclotomic_exp_x_conj` ladders, products,
    Frobenius maps, two lone cyclotomic squares.
-5. `egress`: lazy -> strict (24, N) limbs.
+5. `egress`: lazy -> strict (24, N) limbs (lazy fused: FE-hard's store).
 
 The `lax.scan`s of the TPU's fused path (the prepare, the Miller loop)
 and its final exponentiation are one chain kernel each here; the kernel
@@ -51,6 +58,8 @@ from __future__ import annotations
 
 from types import SimpleNamespace
 
+import functools
+
 import torch
 
 from ..ops import cyc_sqr as K3
@@ -60,7 +69,7 @@ from ..ops import fp12_mul_by_014 as K12
 from ..ops import fp12_sqr as K11
 from ..ops import tower as TS
 from ..ops import tower_lazy as TL
-from ..ops.words import WORDS, words_to_digits_plain
+from ..ops.words import WORDS, digits_to_words_plain, words_to_digits_plain
 from ..oracle import pairing as OP
 from . import pairing_steps as PS
 
@@ -134,6 +143,15 @@ def egress(x, engine="lazy"):
     lazy stacked (12, 30, N) is canonicalized, the strict one is already."""
     _tower(engine)
     return TL.fp12_egress(TL.unstack12(x)) if engine == "lazy" else x
+
+
+def _final_strict(f, fuse=True, engine="lazy"):
+    """`final_exp`, then the strict fp12 batch: lazy fused, FE-easy (f as
+    digits or words) and FE-hard storing the strict limbs, no egress;
+    otherwise `egress` of `final_exp`."""
+    if engine == "lazy" and fuse:
+        return TL.unstack12(FE.hard(FE.easy(f), out="limbs"))
+    return egress(final_exp(f, fuse, engine), engine)
 
 
 # --- G2 line-coefficient precomputation ----------------------------------------
@@ -262,6 +280,34 @@ def _masked_miller(p, coeffs, p_inf, q_inf, fuse=True, engine="lazy", events=Non
     return TS.select(skip, TS.fp12_one(skip.shape, skip.device), f)
 
 
+@functools.lru_cache(maxsize=16)
+def _fp12_one_words(device: str) -> torch.Tensor:
+    """fp12 one as a (12, 12, 1) word stack on the device, made once: R mod
+    p (one's canonical Montgomery words) in component 0, zero elsewhere."""
+    one = TL.stack12(TL.fp12_one(torch.zeros((30, 1), dtype=torch.int32)))
+    return digits_to_words_plain(one).to(device)
+
+
+def _masked_miller_words(p, coeffs, skip):
+    """The fused pairing's Miller loop on word lines: conj(f) as (12, 12, N)
+    words from K6-chain (`miller_lines`, f_fmt words), the pairs holding an
+    identity set to one by one select on the words."""
+    f = PS.miller_lines(coeffs, p, MILLER_EVENTS, PS.FMT_WORDS)
+    return f if skip is None else torch.where(skip, _fp12_one_words(str(f.device)), f)
+
+
+def _pairing(p, coeffs, p_inf, q_inf, fuse, engine):
+    """Elementwise pairings on lines of any layout: lazy fused on word lines
+    the word route (K6-chain's conj(f) as words, the mask on words, FE-easy
+    on words, FE-hard to strict limbs); otherwise the Miller loop and its
+    mask in the engine's form, then `_final_strict`."""
+    if engine == "lazy" and fuse and coeffs.shape[-2] == WORDS:
+        f = _masked_miller_words(p, coeffs, _skip_mask(p_inf, q_inf))
+    else:
+        f = _masked_miller(p, coeffs, p_inf, q_inf, fuse, engine)
+    return _final_strict(f, fuse, engine)
+
+
 def miller_product(p, q, p_inf=None, q_inf=None, fuse=True, engine="lazy"):
     """prod_i of the Miller loops of (P_i, Q_i), identity pairs giving one:
     the engine's fp12 of batch 1."""
@@ -279,15 +325,13 @@ def multi_miller_loop(p, q, p_inf=None, q_inf=None, fuse=True, engine="lazy"):
 def multi_pairing(p, q, p_inf=None, q_inf=None, fuse=True, engine="lazy"):
     """prod_i e(P_i, Q_i) for inputs as in `multi_miller_loop`: one final
     exponentiation of the Miller product, a strict fp12 of batch 1."""
-    f = miller_product(p, q, p_inf, q_inf, fuse, engine)
-    return egress(final_exp(f, fuse, engine), engine)
+    return _final_strict(miller_product(p, q, p_inf, q_inf, fuse, engine), fuse, engine)
 
 
 def pairing(p, q, p_inf=None, q_inf=None, fuse=True, engine="lazy"):
     """Elementwise e(P_i, Q_i) for strict inputs as in `multi_miller_loop`:
     a strict fp12 batch (24, N) leaves. Identity inputs yield one."""
-    f = _masked_miller(p, prepare_g2(q, fuse, engine), p_inf, q_inf, fuse, engine)
-    return egress(final_exp(f, fuse, engine), engine)
+    return _pairing(p, prepare_g2(q, fuse, engine), p_inf, q_inf, fuse, engine)
 
 
 # --- sharded multi-pairing -----------------------------------------------------
@@ -310,7 +354,8 @@ def multi_pairing_sharded(p, q, mesh, p_inf=None, q_inf=None, axis: str = "data"
     Rank r takes the r-th contiguous shard of the N pairs and runs
     `prepare_g2`, `miller_loop`, the identity mask and `_fold_mul` on it:
     one fp12 per rank. The ranks gather those, every rank multiplies them
-    (`_fold_mul`) and runs one `final_exp` (if `final`) and the egress.
+    (`_fold_mul`) and runs one `final_exp` and the egress (`_final_strict`,
+    if `final`; else the egress alone).
     `events` truncates the Miller loop to its first events, as in
     `prepare_g2`. N must be a multiple of the world (pad with identity
     pairs and masks otherwise): where the JAX package asserts, this raises
@@ -329,9 +374,7 @@ def multi_pairing_sharded(p, q, mesh, p_inf=None, q_inf=None, axis: str = "data"
     coeffs = prepare_g2(qs, fuse, engine, events)
     f = _masked_miller(ps, coeffs, skip, None, fuse, engine, events)
     f = _fold_mul(_gather_fp12(mesh, _fold_mul(f, m, engine), engine), world, engine)
-    if final:
-        f = final_exp(f, fuse, engine)
-    return egress(f, engine)
+    return _final_strict(f, fuse, engine) if final else egress(f, engine)
 
 
 # --- prepared G2 reuse ----------------------------------------------------------
@@ -371,11 +414,10 @@ def _check_prepared(p, prepared: DeviceG2Prepared) -> None:
 
 
 def pairing_prepared(p, prepared: DeviceG2Prepared, p_inf=None, fuse=True):
-    """Elementwise pairing against precomputed line coefficients."""
+    """Elementwise pairing against precomputed line coefficients (lazy fused
+    on a "words" stack: the word route of `pairing`)."""
     _check_prepared(p, prepared)
-    eng = prepared.engine
-    f = _masked_miller(p, prepared.stacked, p_inf, prepared.q_inf, fuse, eng)
-    return egress(final_exp(f, fuse, eng), eng)
+    return _pairing(p, prepared.stacked, p_inf, prepared.q_inf, fuse, prepared.engine)
 
 
 def multi_miller_loop_prepared(p, prepared: DeviceG2Prepared, p_inf=None, fuse=True):

@@ -19,7 +19,9 @@ Two pairs of entries launch them, on the edges' formats of
 * the fused pipeline's, `prepare_lines` and `miller_lines`: Q and P enter
   as the strict `(24, N)` limbs the entry points hold, R = (Q, 1) and f =
   one are formed in the kernels, and the lines cross from K5 to K6 as
-  canonical words `(E, 6, 12, N)` (`ops/words.py`); f leaves as digits;
+  canonical words `(E, 6, 12, N)` (`ops/words.py`); f leaves as digits,
+  or, for the fused pairing, as conj(f) in canonical words `(12, 12, N)`
+  (`f_fmt=FMT_WORDS`), the form FE-easy loads;
 * the digit entries, `prepare_chain` / `miller_chain` and their chains of
   one event `prepare_step` / `miller_step`: every edge radix-13 digits,
   the same field elements as their plain versions in other digits
@@ -39,18 +41,20 @@ import ctypes
 import torch
 
 from ..cuda import CudaKernel, cpu_operands, stacked_operands
+from ..ops import final_exp as FE
 from ..ops import tower_lazy as TL
-from ..ops.words import WORDS, digits_to_words_plain, words_to_digits_plain
+from ..ops.words import (FMT_DIGITS, FMT_LIMBS, FMT_WORDS, WORDS, digits_to_words_plain,
+                         words_to_digits_plain)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# n, events, schedule, the two edges' formats, stream
+# n, events, schedule, the two edges' formats (K6: and f's out), stream
 _CHAIN_ARGS = [ctypes.c_longlong, _I, _P, _I, _I, _P]
 PREPARE_KERNEL = CudaKernel("prepare_step.cu", "pairing_prepare_chain", [_P] * 4 + _CHAIN_ARGS)
-MILLER_KERNEL = CudaKernel("miller_step.cu", "pairing_miller_chain", [_P] * 4 + _CHAIN_ARGS)
+MILLER_KERNEL = CudaKernel("miller_step.cu", "pairing_miller_chain",
+                           [_P] * 4 + _CHAIN_ARGS[:-1] + [_I, _P])
 MAX_EVENTS = 128  # the longest schedule a chain takes (csrc/tower381.cuh)
 # The edges' formats of csrc/tower381.cuh (EdgeFormat), by a row's entries
-FMT_DIGITS, FMT_LIMBS, FMT_WORDS = 0, 1, 2
 FORMAT_OF_ROW = {30: FMT_DIGITS, 24: FMT_LIMBS, WORDS: FMT_WORDS}
 
 
@@ -259,14 +263,15 @@ def miller_chain_plain(f_stk: torch.Tensor, coeffs: torch.Tensor, pxy: torch.Ten
 
 
 def _miller_launch(f_stk, coeffs, pxy, sched, line_fmt=FMT_DIGITS,
-                   p_fmt=FMT_DIGITS) -> torch.Tensor:
+                   p_fmt=FMT_DIGITS, f_fmt=FMT_DIGITS) -> torch.Tensor:
     events, flags = sched
     n = pxy.shape[-1]
-    out = torch.empty((12, 30, n), dtype=torch.int32, device=pxy.device)
+    rows = WORDS if f_fmt == FMT_WORDS else 30
+    out = torch.empty((12, rows, n), dtype=torch.int32, device=pxy.device)
     with torch.cuda.device(pxy.device):
         MILLER_KERNEL.launch(0 if f_stk is None else f_stk.data_ptr(), coeffs.data_ptr(),
                              pxy.data_ptr(), out.data_ptr(), n, events, flags, line_fmt, p_fmt,
-                             _stream(pxy))
+                             f_fmt, _stream(pxy))
     return out
 
 
@@ -294,32 +299,40 @@ def miller_chain(f_stk: torch.Tensor, coeffs: torch.Tensor, pxy: torch.Tensor,
     return _miller_launch(f_stk, coeffs, pxy, sched)
 
 
-def miller_lines_plain(coeffs: torch.Tensor, p, schedule) -> torch.Tensor:
+def miller_lines_plain(coeffs: torch.Tensor, p, schedule, f_fmt=FMT_DIGITS) -> torch.Tensor:
     """`miller_lines`' plain PyTorch version: word lines as digits
     (`words_to_digits_plain`), P ingested (`fp_ingest`), then
-    `miller_chain_plain` from f = one."""
+    `miller_chain_plain` from f = one; with f_fmt FMT_WORDS, conj(f) as
+    words (`digits_to_words_plain`)."""
     e = len(schedule)
     lines = coeffs[:e]
     if lines.shape[2] == WORDS:
         lines = words_to_digits_plain(lines)
     pxy = torch.stack([TL.fp_ingest(p[0]), TL.fp_ingest(p[1])])
-    return miller_chain_plain(TL.stack12(TL.fp12_one(pxy[0])), lines, pxy, schedule)
+    f = miller_chain_plain(TL.stack12(TL.fp12_one(pxy[0])), lines, pxy, schedule)
+    return digits_to_words_plain(FE.conj(f)) if f_fmt == FMT_WORDS else f
 
 
-def miller_lines(coeffs: torch.Tensor, p, schedule) -> torch.Tensor:
+def miller_lines(coeffs: torch.Tensor, p, schedule, f_fmt=FMT_DIGITS) -> torch.Tensor:
     """The fused pipeline's Miller loop from f = one: the lines (E', 6, 12,
     N) words as `prepare_lines` gives them or (E', 6, 30, N) digits as the
     unfused prepare does (E' >= the schedule's E), p = (px, py) strict
-    (24, N) limbs -> f (12, 30, N) digits: one K6 launch for CUDA tensors,
-    P read as limbs and f = one formed in the kernel; the plain version
-    for CPU tensors."""
+    (24, N) limbs -> f (12, 30, N) digits, or with f_fmt FMT_WORDS (word
+    lines only) conj(f) as (12, 12, N) canonical words, the fused
+    pairing's input to FE-easy: one K6 launch for CUDA tensors, P read as
+    limbs, f = one formed in the kernel and conjugated in its store; the
+    plain version for CPU tensors."""
     schedule = list(schedule)
     sched = _schedule(schedule)
     _check_lines("miller_lines", coeffs, (30, WORDS), len(schedule), p[0].shape[-1])
+    if f_fmt not in (FMT_DIGITS, FMT_WORDS) or \
+            (f_fmt == FMT_WORDS and coeffs.shape[2] != WORDS):
+        raise ValueError("miller_lines stores f as digits, or conj(f) as words from word lines")
     pxy = _strict_stack("miller_lines", [p[0], p[1]])
     if cpu_operands("miller_lines", [coeffs, pxy]):
-        return miller_lines_plain(coeffs, p, schedule)
-    return _miller_launch(None, coeffs, pxy, sched, FORMAT_OF_ROW[coeffs.shape[2]], FMT_LIMBS)
+        return miller_lines_plain(coeffs, p, schedule, f_fmt)
+    return _miller_launch(None, coeffs, pxy, sched, FORMAT_OF_ROW[coeffs.shape[2]], FMT_LIMBS,
+                          f_fmt)
 
 
 def miller_step(f_stk: torch.Tensor, c_stk: torch.Tensor, pxy: torch.Tensor,

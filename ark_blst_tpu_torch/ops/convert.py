@@ -34,7 +34,7 @@ def fp_to_dev(values) -> torch.Tensor:
 def fp_from_dev(arr: torch.Tensor) -> list:
     """stacked (24, N) Montgomery-R16 limbs -> list of ints."""
     rinv = pow(FP.mont_r, -1, FP.modulus)
-    mat = arr.reshape(arr.shape[0], -1).T.cpu().numpy()
+    mat = arr.reshape(arr.shape[0], -1).cpu().numpy().T  # a row of limbs: one copy, no kernel
     return [v * rinv % FP.modulus for v in limbs_to_ints(mat)]
 
 

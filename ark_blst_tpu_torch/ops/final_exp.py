@@ -9,9 +9,14 @@ the lazy tower's inverse and Frobenius maps) between XLA's own ops. The
 kernels (`csrc/final_exp.cu` on `csrc/final_exp.cuh`) keep each element in
 shared memory as 32-bit Montgomery words from f's load to the result's
 store:
-  FE-easy  `easy`: f (12, 30, N) -> t2 = conj(f) f^-1, times its Frobenius
-           square; on the card t2 comes back as a (12, 12, N) word stack;
-  FE-hard  `hard`: t2 (those words) -> the hard part, (12, 30, N) digits:
+  FE-easy  `easy`: f (12, 30, N) digits, or (12, 12, N) canonical words as
+           the fused pairing's K6-chain stores them -> t2 = conj(f) f^-1,
+           times its Frobenius square; on the card t2 comes back as a (12,
+           12, N) word stack;
+  FE-hard  `hard`: t2 (those words) -> the hard part, (12, 30, N) digits,
+           or with `out="limbs"` the strict (12, 24, N) limbs the pairing
+           returns (`tower_lazy.unstack12` nests them), so no lazy egress
+           runs:
            `HARD_PROGRAM`, five ladders of x, two lone cyclotomic squares,
            ten products, three Frobenius maps.
 The chain is written once: `easy_part` and `run_program` walk it over an
@@ -21,7 +26,9 @@ walk it over `PLAIN_OPS`: K3's and K4's plain versions,
 `tower_lazy.fp12_inv`, `frobenius` and `conj`, in the order the port has
 always run them, so on CPU tensors every result is digit for digit what
 it was. A kernel's output is the same field element in other digits:
-canonical, within 4096.
+canonical, within 4096; its words and strict limbs are canonical, equal
+to the plain version's (`digits_to_words_plain`, `tower_lazy.fp12_egress`)
+word for word and limb for limb.
 """
 
 from __future__ import annotations
@@ -40,12 +47,15 @@ from . import cyc_sqr as K3
 from . import fp12_mul as K4
 from . import lazy13 as LZ
 from . import tower_lazy as TL
-from .words import WORDS, split
+from .words import FMT_DIGITS, FMT_LIMBS, FMT_WORDS, WORDS, split, words_to_digits_plain
 
 _P = ctypes.c_void_p
-KERNEL_EASY = CudaKernel("final_exp.cu", "final_exp_easy", [_P, _P, _P, ctypes.c_longlong, _P])
+_I = ctypes.c_int
+KERNEL_EASY = CudaKernel("final_exp.cu", "final_exp_easy",
+                         [_P, _P, _P, ctypes.c_longlong, _I, _P])
 KERNEL_HARD = CudaKernel("final_exp.cu", "final_exp_hard",
-                         [_P, _P, _P, ctypes.c_longlong, _P, ctypes.c_int, _P, _P])
+                         [_P, _P, _P, ctypes.c_longlong, _P, _I, _P, _I, _P])
+LIMBS = 24  # strict 16-bit limbs of an Fp component (`ops/convert.py`)
 
 # The |x| square-and-multiply ladder as segments: after the leading bit, a
 # set bit at gap L costs L squarings then one product; trailing zeros are
@@ -223,33 +233,50 @@ def _is_words(x: torch.Tensor) -> bool:
 
 
 def easy(f: torch.Tensor) -> torch.Tensor:
-    """The easy part of f (12, 30, N) int32: one FE-easy launch for a CUDA
-    tensor, whose result is a (12, 12, N) word stack for `hard`; the plain
-    version's digits for a CPU one."""
-    if stacked_operands("final_exp_easy", [f], [12]):
-        return easy_plain(f)
+    """The easy part of f, (12, 30, N) digits or (12, 12, N) canonical words
+    (the layout read from the shape), int32: one FE-easy launch for a CUDA
+    tensor, whose result is a (12, 12, N) word stack for `hard`; for a CPU
+    one the plain version's digits (of the words' digits,
+    `words_to_digits_plain`)."""
+    words = _is_words(f)
+    if stacked_operands("final_exp_easy", [f], [12], WORDS if words else LZ.ELEM):
+        return easy_plain(words_to_digits_plain(f) if words else f)
     n = f.shape[-1]
     out = torch.empty((12, WORDS, n), dtype=torch.int32, device=f.device)
     _, frob = _tables(str(f.device))
     with torch.cuda.device(f.device):
-        KERNEL_EASY.launch(f.data_ptr(), out.data_ptr(), frob.data_ptr(), n, _stream(f))
+        KERNEL_EASY.launch(f.data_ptr(), out.data_ptr(), frob.data_ptr(), n,
+                           FMT_WORDS if words else FMT_DIGITS, _stream(f))
     return out
 
 
-def hard(t2: torch.Tensor) -> torch.Tensor:
-    """The hard part of t2 -> (12, 30, N) digits: one FE-hard launch for a
-    CUDA tensor, t2 the (12, 12, N) words that `easy` returns there; the
-    plain version for a CPU one, t2 the digits that `easy` returns there."""
+def hard_limbs_plain(t2: torch.Tensor) -> torch.Tensor:
+    """FE-hard's plain version with `out="limbs"`: `hard_plain`, egressed
+    (`tower_lazy.fp12_egress`) and stacked in its leaf order, (12, 24,
+    N)."""
+    return torch.stack(TL._flat12(TL.fp12_egress(TL.unstack12(hard_plain(t2)))))
+
+
+def hard(t2: torch.Tensor, out: str = "digits") -> torch.Tensor:
+    """The hard part of t2 -> (12, 30, N) digits, or with out="limbs" the
+    strict (12, 24, N) limbs (`tower_lazy.unstack12` nests them): one FE-hard
+    launch for a CUDA tensor, t2 the (12, 12, N) words that `easy` returns
+    there; the plain version for a CPU one (`hard_plain`,
+    `hard_limbs_plain`), t2 the digits that `easy` returns there."""
+    if out not in ("digits", "limbs"):
+        raise ValueError(f"final_exp_hard stores digits or limbs, not {out!r}")
     if not t2.is_cuda and stacked_operands("final_exp_hard", [t2], [12]):
-        return hard_plain(t2)
+        return hard_plain(t2) if out == "digits" else hard_limbs_plain(t2)
     if t2.dtype != torch.int32 or not _is_words(t2) or not t2.is_contiguous():
         raise ValueError("on the card final_exp_hard takes FE-easy's word stack: (12, 12, N) "
                          f"contiguous int32, not {tuple(t2.shape)} {t2.dtype}")
     n = t2.shape[-1]
     scratch = torch.empty((HARD_VALUES - 1, 12, WORDS, n), dtype=torch.int32, device=t2.device)
-    out = torch.empty((12, LZ.ELEM, n), dtype=torch.int32, device=t2.device)
+    rows = LZ.ELEM if out == "digits" else LIMBS
+    res = torch.empty((12, rows, n), dtype=torch.int32, device=t2.device)
     prog, frob = _tables(str(t2.device))
     with torch.cuda.device(t2.device):
-        KERNEL_HARD.launch(t2.data_ptr(), scratch.data_ptr(), out.data_ptr(), n,
-                           prog.data_ptr(), len(HARD_PROGRAM), frob.data_ptr(), _stream(t2))
-    return out
+        KERNEL_HARD.launch(t2.data_ptr(), scratch.data_ptr(), res.data_ptr(), n,
+                           prog.data_ptr(), len(HARD_PROGRAM), frob.data_ptr(),
+                           FMT_DIGITS if out == "digits" else FMT_LIMBS, _stream(t2))
+    return res

@@ -427,7 +427,9 @@ def stack12(a) -> torch.Tensor:
 
 
 def unstack12(x: torch.Tensor):
-    """Stacked (12, 30, *batch) -> fp12 value (views of x)."""
+    """Stacked (12, 30, *batch) -> fp12 value (views of x). Any stack of 12
+    component rows nests so: FE-hard's strict (12, 24, N) limbs become the
+    strict fp12 in `fp12_egress`'s leaf order."""
     return _pack12([x[c] for c in range(12)])
 
 

@@ -20,6 +20,9 @@ from . import lazy13 as LZ
 from . import tower_lazy as TL
 
 WORDS = 12  # 32-bit words of an Fp component in the card's word stacks
+# The formats of a kernel's edge rows (csrc/tower381.cuh EdgeFormat):
+# radix-13 digits, strict 16-bit limbs, canonical words
+FMT_DIGITS, FMT_LIMBS, FMT_WORDS = 0, 1, 2
 
 
 def split(m: int) -> list:

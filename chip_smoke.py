@@ -76,28 +76,33 @@ Phases, one JSON line each:
               real inputs (the pairs of phase 8 as strict limbs; R = (Q,
               1) and f = one formed in the kernels; the lines as 32-bit
               words between) at N = 8192 and at the ragged N = 1000:
-              every event's line word for word and f by canonical value
-              against the plain versions (K6's on the kernel's lines, as
-              words and as digits), f's digits within 4096; at 8192 the
-              lines and f of the first eight pairs (identities skipped)
-              against the oracle's prepare_g2 and miller_loop; each timed
-              beside its plain version and its bound, the digit entries'
-              run of the same events (`prepare_chain`, `miller_chain`,
-              digits in and between) beside with their bound, and the
-              lines' bytes in each layout, with the launch shape and
-              ptxas;
+              every event's line word for word against the plain version;
+              K6-chain in the fused pairing's layout (conj(f) stored as
+              words) word for word, and storing f as digits (the
+              multi-pairings' fold; on the lines as words and as digits)
+              by canonical value, f's digits within 4096; at 8192 the
+              lines, f and conj(f) of the first eight pairs (identities
+              skipped) against the oracle's prepare_g2 and miller_loop;
+              each timed beside its plain version and its bound, K6's f as
+              digits beside, the digit entries' run of the same events
+              (`prepare_chain`, `miller_chain`, digits in and between)
+              beside with their bound, and the lines' bytes in each layout,
+              with the launch shape and ptxas; the card's clocks,
+              temperature and power draw before and after the timings;
      final_exp_chains  FE-easy and FE-hard, the fused final
               exponentiation in two launches (`ops/final_exp.py`: the easy
               part to 32-bit words, the hard part's program from them), on
-              real Miller outputs of the phase-8 pairs (the fused prepare
-              and Miller loop, identities masked to one) at N = 8192, the
-              ragged 1000 and 1 (a multi-pairing's): FE-easy's words and
-              FE-hard's digits (on those words and on the plain easy part's
-              digits) by canonical value against their plain versions,
-              digits within 4096; at 8192 the first eight results (an
-              identity among them) against the oracle's pairings; each
-              timed beside its plain version and its bound, with its launch
-              shape and ptxas;
+              real Miller outputs of the phase-8 pairs (the fused pairing's
+              route: conj(f) as words, identities masked to one on words)
+              at N = 8192, the ragged 1000 and 1 (a multi-pairing's):
+              FE-easy on those words and on their digits word for word
+              against its plain version, FE-hard storing strict limbs limb
+              for limb (on FE-easy's words and on the plain easy part's)
+              and storing digits (within 4096) by value; at 8192 the first
+              eight results (an identity among them) against the oracle's
+              pairings; each timed in the fused pairing's layout beside its
+              plain version and its bound, the other layout beside, with
+              its launch shape and ptxas;
   8. pairing  8192 pairings of 8 distinct (P, Q) pairs (P_i = P[i mod 8],
               Q_i = Q[(3i+1) mod 8], the construction of the JAX package's
               bench.py) with one identity P and one identity Q, through the
@@ -105,13 +110,16 @@ Phases, one JSON line each:
               against the oracle pairing (the identity pairs against one),
               the launches of K1, K1-inv, K3-K6 and FE-easy/FE-hard in that
               call (K5, K6, FE-easy and FE-hard once, K1, K1-inv, K3 and K4
-              never, checked), pairings/s of a
-              warm call, the stages (ingest, prepare_g2, miller_loop,
-              final_exp, egress) rerun with a synchronize between them and
-              once more under `torch.profiler` (prepare_g2 and
-              miller_loop each launch their chain once and no other
-              kernel of the port, and at most 10 and 30 device kernels in
-              all, checked), the peak device memory;
+              never, and the lazy egress never called, checked),
+              pairings/s of a warm call, the stages (ingest, prepare_g2,
+              miller_loop: K6-chain storing conj(f) as words and the mask
+              on words; final_exp: FE-easy on words, FE-hard storing the
+              strict limbs; egress: host codecs alone) rerun with a
+              synchronize between them and once more under
+              `torch.profiler` (each launches its chains once and no other
+              kernel of the port, and at most 10, 6, 4 and 0 device kernels,
+              12 in all, checked; the egress's none also as dispatched),
+              the peak device memory;
               then the prepared path (`prepare_g2_batch` once, one K5
               launch; `pairing_batch` against it, one K6, FE-easy and
               FE-hard launch and no K5),
@@ -132,8 +140,10 @@ Phases, one JSON line each:
               cyclotomic square, and a profiled rerun; then `multi_pairing` and
               `multi_miller_loop_prepared` on both engines at 1024 pairs,
               equal to each other and the first to the oracle's product;
-              and line `multi_pairing`: the lazy one warm, three calls,
-              with the card's name and power limit;
+              and line `multi_pairing`: the lazy one warm, three calls
+              (the lazy egress never called, checked), with the card's
+              name and power limit, and its device kernels under the
+              profiler and as dispatched;
      api      the arkworks API's batch entries with their defaults (the
               card's routes): `G1Projective.msm` over 2^20 G1Affine bases
               of `curves/instance.py` (made affine on the card, brought to
@@ -279,15 +289,18 @@ words (DIGITS_TO_WORDS_OPS) and of each output one back
 products and sums, Q (K5) or P (K6) in once as strict limbs
 (LIMBS_TO_WORDS_OPS: packed, four conditional subtractions), each
 event's 6 line components out (K5) or in (K6) as words (no conversion),
-and f out once as digits (`chain_work`), and bytes as those components
+and conj(f) out once as words, 6 negations (K6 storing f as digits
+beside: 12 conversions; `chain_work`), and bytes as those components
 read or written once (96 bytes a limb component, 48 a word one, 120 a
 digit one); beside, the digit entries' edges (R and Q or f and P in, the
 lines out and in, all as converted digits); FE-easy and FE-hard
 count their Fp2 and fp12 work (the inverse by the shortest window chain
 for p - 2, FE-hard's squares and products from its program), f in as
-digits and the easy part out as words (FE-easy), the easy part in as
-words and the result out as digits (FE-hard; `final_exp_work`), their
-values' scratch words left out as the kernel's own. The one-launch
+words and the easy part out as words (FE-easy), the easy part in as
+words and the result out as strict limbs, a split of each word
+(FE-hard; `final_exp_work`), the digit layouts beside (f in, the result
+out as converted digits), their values' scratch words left out as the
+kernel's own. The one-launch
 kernels' lines (and the chains' one-event runs) give the radix-13 work's
 bound beside (`bound_radix13_ms`), and their IMAD floor counts the
 launch's products
@@ -532,22 +545,24 @@ def fp_inv_ops(bits) -> int:
 
 def final_exp_work() -> dict:
     """(bytes, int32 instructions) an element of FE-easy and FE-hard, the
-    work the function needs. FE-easy: f's 12 components in from digits,
-    fp12_inv (26 Fp2 products and 15 Fp2 squares with FE-easy's, 62 Fp2 sums
-    and 13 products by xi, 3 Fp2 and 1 Fp negations, the norm's 4 products
-    and 1 sum, its inverse by the shortest window chain for p - 2), the two
-    fp12 products and the Frobenius square's 5 Fp2 products; t2 out as
-    words. FE-hard, counted from HARD_PROGRAM: its cyclotomic squares and
-    fp12 products, each Frobenius map's 5 Fp2 products (6 Fp2 negations for
-    an odd power), each conjugation's 3 Fp2 negations; t2 in as words, the
-    result out as digits."""
+    work the function needs. FE-easy: f's 12 components in as words (the
+    fused pairing's; "easy_digits": from digits, converted), fp12_inv (26
+    Fp2 products and 15 Fp2 squares with FE-easy's, 62 Fp2 sums and 13
+    products by xi, 3 Fp2 and 1 Fp negations, the norm's 4 products and 1
+    sum, its inverse by the shortest window chain for p - 2), the two fp12
+    products and the Frobenius square's 5 Fp2 products; t2 out as words.
+    FE-hard, counted from HARD_PROGRAM: its cyclotomic squares and fp12
+    products, each Frobenius map's 5 Fp2 products (6 Fp2 negations for an
+    odd power), each conjugation's 3 Fp2 negations; t2 in as words, the
+    result out as strict limbs (a word split in two: a store; "hard_digits":
+    as digits, converted)."""
     from ark_blst_tpu_torch.ops import final_exp as FE
     from ark_blst_tpu_torch.ops import fp_inv as FI
 
     fp2_sqr = 2 * MONT_MUL32_OPS + 3 * ADD32_OPS
     easy = (26 * FP2_MUL32_OPS + 15 * fp2_sqr + (62 + 13) * 2 * ADD32_OPS + 7 * NEG32_OPS
             + (window_chain_products(FI.P_MINUS_2_BITS) + 4) * MONT_MUL32_OPS + ADD32_OPS
-            + 2 * FP12_MUL32_OPS + 5 * FP2_MUL32_OPS + 12 * DIGITS_TO_WORDS_OPS)
+            + 2 * FP12_MUL32_OPS + 5 * FP2_MUL32_OPS)
     prog = FE.HARD_PROGRAM
     conjs = sum(c == FE.CONJ for c, *_ in prog) + sum(
         bin(fl).count("1") for c, _, _, fl in prog if c == FE.LOAD)
@@ -555,9 +570,11 @@ def final_exp_work() -> dict:
             + sum(c == FE.MUL for c, *_ in prog) * FP12_MUL32_OPS
             + sum(5 * FP2_MUL32_OPS + 12 * NEG32_OPS * (a % 2) for c, a, _, _ in prog
                   if c == FE.FROB)
-            + conjs * 6 * NEG32_OPS + 12 * WORDS_TO_DIGITS_OPS)
-    words = 12 * 4 * FE.WORDS  # an fp12 as words
-    return {"easy": (12 * ELEM_BYTES + words, easy), "hard": (words + 12 * ELEM_BYTES, hard)}
+            + conjs * 6 * NEG32_OPS)
+    words = 12 * WORD_BYTES  # an fp12 as words
+    return {"easy": (2 * words, easy), "hard": (words + 12 * LIMB_BYTES, hard),
+            "easy_digits": (12 * ELEM_BYTES + words, easy + 12 * DIGITS_TO_WORDS_OPS),
+            "hard_digits": (words + 12 * ELEM_BYTES, hard + 12 * WORDS_TO_DIGITS_OPS)}
 
 
 def strict_ops(op: str, limbs: int) -> int:
@@ -1112,6 +1129,8 @@ def _stage(torch, fn, profiled: bool, need_device: bool = True, expect: tuple = 
             break
     summary = {"profile_attempts": attempt, "device_ms_from": "profiler",
                "kernel_launches": sum(count.values()),
+               "device_kernels": sum(c for name, c in count.items()
+                                     if not name.startswith(("Memcpy", "Memset"))),
                "top": [{"kernel": name[:60], "count": count[name], "device_ms": t / 1e6}
                        for name, t in ns.most_common(5)]}
     if not seen and need_device:
@@ -1123,9 +1142,9 @@ def _stage(torch, fn, profiled: bool, need_device: bool = True, expect: tuple = 
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
         device_ms = start.elapsed_time(end)
-        summary.update(device_ms_from="cuda_events", top=[],
-                       kernel_launches=_dispatched_launches(torch, fn),
-                       kernel_launches_from="dispatch")
+        dispatched = _dispatched_launches(torch, fn)
+        summary.update(device_ms_from="cuda_events", top=[], kernel_launches=dispatched,
+                       device_kernels=dispatched, kernel_launches_from="dispatch")
     check(device_ms > 0 or not need_device, "the stage ran nothing on the card")
     return out, {"wall_ms": wall_ms, "device_ms": device_ms,
                  "busy_share": device_ms / wall_ms, **summary}
@@ -1413,23 +1432,28 @@ def chain_work(schedule, digit_edges: bool = False) -> dict:
     schedule, the work the function needs: K5-chain each event's products
     and sums, Q in once, each event's 6 line components out; K6-chain each
     event's products and sums, P in once, each event's 6 line components
-    in, f out once as digits. The fused pipeline's edges: Q and P strict
-    limbs (packed, reduced), the lines words (no conversion); with
-    digit_edges the digit entries' edges: R and Q (K5) or f and P (K6) in
-    and the lines both ways as digits, converted."""
+    in, f out once. The fused pipeline's edges: Q and P strict limbs
+    (packed, reduced), the lines words (no conversion), f out as the fused
+    pairing's conj(f) in words (6 negations; "miller_f_digits": f as
+    digits, converted, as the multi-pairings' fold takes it); with
+    digit_edges the digit entries' edges: R and Q (K5) or f and P (K6) in,
+    the lines both ways and f out as digits, converted."""
     e = len(schedule)
     prepare = sum(PREPARE32_OPS[not d] for d in schedule)
-    miller = sum(MILLER32_OPS[d] for d in schedule) + 12 * WORDS_TO_DIGITS_OPS
+    miller = sum(MILLER32_OPS[d] for d in schedule)
+    f_digits = 12 * WORDS_TO_DIGITS_OPS
     if digit_edges:
         return {
             "prepare": ((PREPARE_INPUTS[True] + 6 * e) * ELEM_BYTES,
                         prepare + PREPARE_INPUTS[True] * DIGITS_TO_WORDS_OPS
                         + 6 * e * WORDS_TO_DIGITS_OPS),
             "miller": ((14 + 6 * e + 12) * ELEM_BYTES,
-                       miller + (14 + 6 * e) * DIGITS_TO_WORDS_OPS)}
+                       miller + f_digits + (14 + 6 * e) * DIGITS_TO_WORDS_OPS)}
+    p_lines = 2 * LIMB_BYTES + 6 * e * WORD_BYTES
+    miller += 2 * LIMBS_TO_WORDS_OPS
     return {"prepare": (4 * LIMB_BYTES + 6 * e * WORD_BYTES, prepare + 4 * LIMBS_TO_WORDS_OPS),
-            "miller": (2 * LIMB_BYTES + 6 * e * WORD_BYTES + 12 * ELEM_BYTES,
-                       miller + 2 * LIMBS_TO_WORDS_OPS)}
+            "miller": (p_lines + 12 * WORD_BYTES, miller + 6 * NEG32_OPS),
+            "miller_f_digits": (p_lines + 12 * ELEM_BYTES, miller + f_digits)}
 
 
 def _word_values(words) -> list:
@@ -1443,10 +1467,12 @@ def _word_values(words) -> list:
              for j in range(u.shape[2])] for r in range(u.shape[0])]
 
 
-def _chain_oracle(torch, lines, f, ps, qs) -> int:
-    """The word lines and f of the first CHAIN_ORACLE_COLS pairs (identities
-    skipped) against the oracle's prepare_g2 (by value) and miller_loop (f
-    conjugated back, as the pipeline does). Returns the columns held."""
+def _chain_oracle(torch, lines, f, f_words, ps, qs) -> int:
+    """The word lines, f (digits) and conj(f) (words) of the first
+    CHAIN_ORACLE_COLS pairs (identities skipped) against the oracle's
+    prepare_g2 (by value) and miller_loop (f conjugated back, as the
+    pipeline does; the words' value as they are: the conjugation applied
+    once, in K6-chain's store). Returns the columns held."""
     from ark_blst_tpu_torch.curves import pairing as PR
     from ark_blst_tpu_torch.ops import convert as CV
     from ark_blst_tpu_torch.oracle import pairing as OP
@@ -1459,10 +1485,24 @@ def _chain_oracle(torch, lines, f, ps, qs) -> int:
             vals = [got[6 * e + r][j] for r in range(6)]
             check(vals == [v for fp2 in line for v in fp2],
                   f"K5-chain: pair {i}, event {e} differs from the oracle's prepare_g2")
+    want = [OP.miller_loop(ps[i], qs[i]) for i in cols]
     fs = CV.fp12_from_dev(PR.egress(PR._conj(f[..., cols].contiguous())))
-    check(fs == [OP.miller_loop(ps[i], qs[i]) for i in cols],
-          "K6-chain differs from the oracle's miller_loop")
+    check(fs == want, "K6-chain differs from the oracle's miller_loop")
+    got = _word_values(f_words[..., cols].cpu())
+    check(got == [[w[r // 6][r // 2 % 3][r % 2] for w in want] for r in range(12)],
+          "K6-chain's conj(f) words differ from the oracle's miller_loop")
     return len(cols)
+
+
+def _clocks() -> str:
+    """The card's SM clock and its maximum, temperature and power draw now,
+    as nvidia-smi gives them (beside the chains' times)."""
+    line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(line, flush=True)
+    return line
 
 
 def _prepare_by_event(PS, q, schedule) -> None:
@@ -1485,15 +1525,18 @@ def phase_tower_chains(torch, dev, ptxas: dict) -> tuple:
     (`prepare_lines`, `miller_lines`: Q and P strict limbs in, R = (Q, 1)
     and f = one formed in the kernels, the lines words between) on the
     pipeline's pairs at N = 8192 and at the ragged CHAIN_RAGGED_N: the
-    lines word for word and f by canonical value against their plain
-    versions (K6's on the kernel's lines; K6 also on those lines as
-    digits, an unfused prepare's), f's digits within 4096; at 8192 also
-    against the oracle on a sample; each timed beside its plain version
-    and its bound, with its launch shape; beside, the same kernels on the
+    lines word for word against their plain version; K6-chain in the fused
+    pairing's layout (conj(f) stored as words) word for word, and storing
+    f as digits (the multi-pairings' fold; also on the lines as digits, an
+    unfused prepare's) by canonical value, its digits within 4096; at 8192
+    also against the oracle on a sample; each timed beside its plain
+    version and its bound, with its launch shape (K6's f as digits beside:
+    `f_digits_ms`, `bound_f_digits_ms`); beside, the same kernels on the
     digit entries' edges (`prepare_chain`, `miller_chain`: digits in and
-    between, the edges before this layout) with their bound
+    between, the edges before these layouts) with their bound
     (`digit_edges_ms`, `bound_digit_edges_ms`) and, at 8192, the same
-    events launched one by one (`by_event_ms`)."""
+    events launched one by one (`by_event_ms`). The card's clocks before
+    and after the timings (`clocks`)."""
     from ark_blst_tpu_torch.curves import pairing as PR
     from ark_blst_tpu_torch.curves import pairing_steps as PS
     from ark_blst_tpu_torch.ops import words as W
@@ -1503,27 +1546,34 @@ def phase_tower_chains(torch, dev, ptxas: dict) -> tuple:
     work, work_digits = chain_work(sched), chain_work(sched, digit_edges=True)
     out = {"prepare": {}, "miller": {}}
     oracle_cols = 0
+    clocks = {"before": _clocks()}
     for n in (PAIRING_N, CHAIN_RAGGED_N):
         q, p, ps, qs = chain_inputs(torch, dev, n)
         lines = PS.prepare_lines(q, sched)
         plain_ms, want = _once_ms(torch, lambda: PS.prepare_lines_plain(q, sched))
         check(lines.shape == (len(sched), 6, W.WORDS, n) and torch.equal(lines, want),
               "K5-chain's word lines differ from prepare_lines_plain's")
+        fw = PS.miller_lines(lines, p, sched, PS.FMT_WORDS)
+        plain6_ms, want6w = _once_ms(
+            torch, lambda: PS.miller_lines_plain(lines, p, sched, PS.FMT_WORDS))
+        check(fw.shape == (12, W.WORDS, n) and torch.equal(fw, want6w),
+              "K6-chain's conj(f) words differ from miller_lines_plain's")
         f = PS.miller_lines(lines, p, sched)
-        plain6_ms, want6 = _once_ms(torch, lambda: PS.miller_lines_plain(lines, p, sched))
-        err6 = _held_values(torch, "K6-chain", f, want6)
+        plain6d_ms, want6 = _once_ms(torch, lambda: PS.miller_lines_plain(lines, p, sched))
+        err6 = _held_values(torch, "K6-chain, f as digits", f, want6)
         err6 = max(err6, _held_values(torch, "K6-chain on digit lines",
                                       PS.miller_lines(W.words_to_digits_plain(lines), p, sched),
                                       want6))
         if n == PAIRING_N:
-            oracle_cols = _chain_oracle(torch, lines, f, ps, qs)
+            oracle_cols = _chain_oracle(torch, lines, f, fw, ps, qs)
         q_dig, pxy_dig, f1 = digit_chain_inputs(torch, q, p)
         coeffs_dig = PS.prepare_chain(q_dig, sched)
         for name, kernel, err, fn, p_ms, digit_fn, by_event in (
                 ("prepare", PS.PREPARE_KERNEL, 0, lambda: PS.prepare_lines(q, sched), plain_ms,
                  lambda: PS.prepare_chain(q_dig, sched),
                  lambda: _prepare_by_event(PS, q_dig, sched)),
-                ("miller", PS.MILLER_KERNEL, err6, lambda: PS.miller_lines(lines, p, sched),
+                ("miller", PS.MILLER_KERNEL, 0,
+                 lambda: PS.miller_lines(lines, p, sched, PS.FMT_WORDS),
                  plain6_ms, lambda: PS.miller_chain(f1, coeffs_dig, pxy_dig, sched),
                  lambda: _miller_by_event(PS, f1, coeffs_dig, pxy_dig, sched))):
             nbytes, ops = work[name]
@@ -1536,12 +1586,18 @@ def phase_tower_chains(torch, dev, ptxas: dict) -> tuple:
                             "launch": _tower32_shape(torch, kernel, n)}
             if n == PAIRING_N:
                 out[name][n]["by_event_ms"] = cuda_ms(torch, by_event, 3)
+        fbms, fby = bound_ms(n * work["miller_f_digits"][0], n * work["miller_f_digits"][1])
+        out["miller"][n].update(
+            f_digits_ms=cuda_ms(torch, lambda: PS.miller_lines(lines, p, sched), 3),
+            f_digits_plain_ms=plain6d_ms, f_digits_max_abs_err=err6, bound_f_digits_ms=fbms,
+            bound_f_digits_by=fby)
         out["prepare"][n]["lines_bytes"] = lines.numel() * 4
         out["prepare"][n]["lines_bytes_as_digits"] = coeffs_dig.numel() * 4
-        del q, p, lines, want, f, want6, q_dig, pxy_dig, f1, coeffs_dig
+        del q, p, lines, want, fw, want6w, f, want6, q_dig, pxy_dig, f1, coeffs_dig
+    clocks["after"] = _clocks()
     torch.cuda.empty_cache()
     emit({"phase": "tower_chains", "events": len(sched), "value_equal": True,
-          "real_inputs": True, "oracle_columns": oracle_cols,
+          "real_inputs": True, "oracle_columns": oracle_cols, "clocks": clocks,
           "prepare": list(out["prepare"].values()), "miller": list(out["miller"].values()),
           "ops_per_element": {k: v[1] for k, v in work.items()},
           "bytes_per_element": {k: v[0] for k, v in work.items()},
@@ -1554,18 +1610,23 @@ def phase_tower_chains(torch, dev, ptxas: dict) -> tuple:
 
 def phase_final_exp_chains(torch, dev, ptxas: dict) -> tuple:
     """FE-easy and FE-hard (the fused final exponentiation, one launch each)
-    on real Miller outputs (the first n pairs of phase 8, the fused prepare
-    and Miller loop, the identity pairs masked to one) at FINAL_EXP_WIDTHS:
-    FE-easy's words against `easy_plain`'s digits by canonical value, FE-hard
-    on those words and on `easy_plain`'s digits against `hard_plain` by
-    value, digits within 4096; at 8192 the first CHAIN_ORACLE_COLS results
-    (an identity among them) against the oracle's pairings; each timed
-    beside its plain version (on the card the lazy tower's products run on
-    K1, its inverse on K1-inv) and its bound, with its launch shape."""
+    on real Miller outputs (the first n pairs of phase 8 through the fused
+    pairing's route: the fused prepare, K6-chain storing conj(f) as words,
+    the identity pairs masked to one on words) at FINAL_EXP_WIDTHS, in the
+    fused pairing's layouts and in the others their callers use: FE-easy
+    on those words and on their digits, word for word against `easy_plain`
+    (the words canonical); FE-hard storing strict limbs limb for limb
+    against `hard_limbs_plain`, also on `easy_plain`'s words, and storing
+    digits (within 4096) by value; at 8192 the first CHAIN_ORACLE_COLS
+    results (an identity among them) against the oracle's pairings; each
+    timed beside its plain version (on the card the lazy tower's products
+    run on K1, its inverse on K1-inv) and its bound, with its launch shape
+    (the other layout beside: `digits_ms`, `bound_digits_ms`)."""
     from ark_blst_tpu_torch import bls12 as B
     from ark_blst_tpu_torch.curves import pairing as PR
     from ark_blst_tpu_torch.ops import convert as CV
     from ark_blst_tpu_torch.ops import final_exp as FE
+    from ark_blst_tpu_torch.ops import tower_lazy as TL
     from ark_blst_tpu_torch.ops import words as W
     from ark_blst_tpu_torch.oracle import pairing as OP
 
@@ -1576,30 +1637,43 @@ def phase_final_exp_chains(torch, dev, ptxas: dict) -> tuple:
     oracle_cols = 0
     for n in FINAL_EXP_WIDTHS:
         (p, p_inf), (q, q_inf) = B._g1_batch(ps[:n], dev), B._g2_batch(qs[:n], dev)
-        f = PR._masked_miller(p, PR.prepare_g2(q), p_inf, q_inf)
+        f = PR._masked_miller_words(p, PR.prepare_g2(q), PR._skip_mask(p_inf, q_inf))
+        f_digits = W.words_to_digits_plain(f)
         words = FE.easy(f)
-        easy_plain_ms, t2 = _once_ms(torch, lambda: FE.easy_plain(f))
-        err_easy = _held_values(torch, "FE-easy", W.words_to_digits_plain(words), t2)
-        got = FE.hard(words)
-        hard_plain_ms, want = _once_ms(torch, lambda: FE.hard_plain(t2))
-        err_hard = _held_values(torch, "FE-hard", got, want)
-        _held_values(torch, "FE-hard on easy_plain's words",
-                     FE.hard(W.digits_to_words_plain(t2)), want)
+        easy_plain_ms, t2 = _once_ms(torch, lambda: FE.easy_plain(W.words_to_digits_plain(f)))
+        t2_words = W.digits_to_words_plain(t2)
+        check(torch.equal(words, t2_words), "FE-easy on words differs from easy_plain")
+        check(torch.equal(FE.easy(f_digits), t2_words), "FE-easy on digits differs from easy_plain")
+        got = FE.hard(words, out="limbs")
+        hard_plain_ms, want = _once_ms(torch, lambda: FE.hard_limbs_plain(t2))
+        check(got.shape == (12, 24, n) and torch.equal(got, want),
+              "FE-hard's strict limbs differ from hard_limbs_plain")
+        check(torch.equal(FE.hard(t2_words, out="limbs"), want),
+              "FE-hard on easy_plain's words differs from hard_limbs_plain")
+        got_digits = FE.hard(words)
+        err_digits = int(got_digits.abs().max())
+        check(err_digits <= 4096 and torch.equal(
+            torch.stack(TL._flat12(TL.fp12_egress(TL.unstack12(got_digits)))), want),
+            "FE-hard's digits differ from hard_limbs_plain by value")
         if n == PAIRING_N:
             cols = CHAIN_ORACLE_COLS
-            vals = CV.fp12_from_dev(PR.egress(got[..., :cols].contiguous()))
+            vals = CV.fp12_from_dev(TL.unstack12(got[..., :cols]))
             check(vals == [OP.pairing(ps[i], qs[i]) for i in range(cols)],
                   "FE-easy and FE-hard differ from the oracle's pairings")
             oracle_cols = cols
-        for name, kernel, err, fn, plain_ms in (
-                ("easy", FE.KERNEL_EASY, err_easy, lambda: FE.easy(f), easy_plain_ms),
-                ("hard", FE.KERNEL_HARD, err_hard, lambda: FE.hard(words), hard_plain_ms)):
-            nbytes, ops = work[name]
-            bms, by = bound_ms(n * nbytes, n * ops)
-            out[name][n] = {"n": n, "max_abs_err": err, "ms": cuda_ms(torch, fn, 3),
+        for name, kernel, fn, digits_fn, plain_ms in (
+                ("easy", FE.KERNEL_EASY, lambda: FE.easy(f), lambda: FE.easy(f_digits),
+                 easy_plain_ms),
+                ("hard", FE.KERNEL_HARD, lambda: FE.hard(words, out="limbs"),
+                 lambda: FE.hard(words), hard_plain_ms)):
+            bms, by = bound_ms(n * work[name][0], n * work[name][1])
+            dbms, dby = bound_ms(n * work[name + "_digits"][0], n * work[name + "_digits"][1])
+            out[name][n] = {"n": n, "max_abs_err": 0, "ms": cuda_ms(torch, fn, 3),
                             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                            "launch": _tower32_shape(torch, kernel, n)}
-        del p, q, f, words, t2, got, want
+                            "digits_ms": cuda_ms(torch, digits_fn, 3), "bound_digits_ms": dbms,
+                            "bound_digits_by": dby, "launch": _tower32_shape(torch, kernel, n)}
+        out["hard"][n]["digits_max_abs_err"] = err_digits
+        del p, q, f, f_digits, words, t2, t2_words, got, want, got_digits
     torch.cuda.empty_cache()
     emit({"phase": "final_exp_chains", "value_equal": True, "real_inputs": True,
           "oracle_columns": oracle_cols, "easy": list(out["easy"].values()),
@@ -1689,7 +1763,11 @@ def run_pairing_stages(torch, dev, ps, qs, expected, profiled: bool, fuse: bool 
                        engine: str = "lazy"):
     """The pairing's stages one by one: ingest (host codecs to strict limbs
     on the card), prepare_g2, miller_loop (with the identity mask),
-    final_exp, egress (strict limbs back to host ints)."""
+    final_exp, egress (strict limbs back to host ints). Lazy fused, the
+    entry's word route: miller_loop K6-chain storing conj(f) as words and
+    the mask on words, final_exp FE-easy on words and FE-hard storing the
+    strict limbs, egress the host codecs alone (`egress_dispatched`: the
+    ops it ran on the card, as dispatched; none)."""
     from ark_blst_tpu_torch import bls12 as B
     from ark_blst_tpu_torch.curves import pairing as PR
     from ark_blst_tpu_torch.ops import convert as CV
@@ -1702,14 +1780,23 @@ def run_pairing_stages(torch, dev, ps, qs, expected, profiled: bool, fuse: bool 
                              expect=("prepare_chain_kernel",) if chains else (),
                              attempts=4 if chains else 2)
     yield "prepare_g2", summary
-    f, summary = _stage(
-        torch, lambda: PR._masked_miller(p, coeffs, p_inf, q_inf, fuse, engine), profiled,
-        expect=("miller_chain_kernel",) if chains else (), attempts=4 if chains else 2)
+    if chains:
+        miller = lambda: PR._masked_miller_words(p, coeffs, PR._skip_mask(p_inf, q_inf))  # noqa: E731
+    else:
+        miller = lambda: PR._masked_miller(p, coeffs, p_inf, q_inf, fuse, engine)  # noqa: E731
+    f, summary = _stage(torch, miller, profiled, expect=("miller_chain_kernel",) if chains else (),
+                        attempts=4 if chains else 2)
     yield "miller_loop", summary
-    f, summary = _stage(torch, lambda: PR.final_exp(f, fuse, engine), profiled)
+    final = PR._final_strict if chains else PR.final_exp
+    f, summary = _stage(torch, lambda: final(f, fuse, engine), profiled,
+                        expect=("easy_kernel", "hard_kernel") if chains else (),
+                        attempts=4 if chains else 2)
     yield "final_exp", summary
-    out, summary = _stage(torch, lambda: CV.fp12_from_dev(PR.egress(f, engine)), profiled,
-                          need_device=engine == "lazy")
+    egress = (lambda: CV.fp12_from_dev(f)) if chains else \
+        (lambda: CV.fp12_from_dev(PR.egress(f, engine)))
+    out, summary = _stage(torch, egress, profiled, need_device=engine == "lazy" and not chains)
+    if chains:
+        summary["egress_dispatched"] = _dispatched_launches(torch, egress)
     yield "egress", summary
     check(out == expected, "staged pairing results differ from the oracle")
 
@@ -1772,22 +1859,59 @@ def _check_chains(launches: dict, want: tuple, what: str) -> None:
 
 
 # The fused stages' launches on the card (the profiler's device events, the
-# chain's own among them) at most: the prepare a stack of Q and K5; the
-# Miller loop a stack of P, K6, the conjugation and the identity mask
-STAGE_MAX_LAUNCHES = {"prepare_g2": 10, "miller_loop": 30}
-STAGE_CHAIN = {"prepare_g2": "prepare_step", "miller_loop": "miller_step"}
+# chains' own among them) at most: the prepare a stack of Q and K5; the
+# Miller loop the stack of P, K6 (conj(f) stored as words), the mask's or
+# and its select; the final exponentiation FE-easy and FE-hard; the egress
+# none (host codecs on FE-hard's limbs, copied to the host)
+STAGE_MAX_LAUNCHES = {"prepare_g2": 10, "miller_loop": 6, "final_exp": 4, "egress": 0}
+STAGE_CHAINS = {"prepare_g2": {"prepare_step": 1}, "miller_loop": {"miller_step": 1},
+                "final_exp": {"final_exp_easy": 1, "final_exp_hard": 1}, "egress": {}}
+PAIRING_MAX_DEVICE_KERNELS = 12  # prepare_g2 to egress, a fused batch
 
 
-def _check_stage_launches(staged: dict, profiled: dict) -> None:
-    """The fused prepare_g2 and miller_loop: each launches its chain once
-    and no other kernel of the port, and at most STAGE_MAX_LAUNCHES device
-    kernels in all (no ingest, no starting values in eager torch)."""
+def _check_stage_launches(staged: dict, profiled: dict) -> int:
+    """The fused stages from prepare_g2 to egress: each launches its chains
+    once and no other kernel of the port (the counters), at most
+    STAGE_MAX_LAUNCHES device kernels (the profiler's events, copies left
+    out), the egress none also as dispatched (a stage the profiler returned
+    no event for is not taken for one that launched none), and at most
+    PAIRING_MAX_DEVICE_KERNELS in all. Returns that sum."""
+    total = 0
     for stage, most in STAGE_MAX_LAUNCHES.items():
-        want = {STAGE_CHAIN[stage]: 1}
+        want = STAGE_CHAINS[stage]
         check(staged[stage]["launches"] == want,
               f"{stage} launched {staged[stage]['launches']}, expected {want}")
-        got = profiled[stage]["kernel_launches"]
+        got = profiled[stage]["device_kernels"]
         check(got <= most, f"{stage} launched {got} device kernels, expected at most {most}")
+        total += got
+    for summary in (staged["egress"], profiled["egress"]):
+        check(summary["egress_dispatched"] == 0,
+              f"the egress ran {summary['egress_dispatched']} ops on the card")
+    check(total <= PAIRING_MAX_DEVICE_KERNELS,
+          f"a fused batch launched {total} device kernels from prepare_g2 to egress, expected "
+          f"at most {PAIRING_MAX_DEVICE_KERNELS}")
+    return total
+
+
+class _EgressCalls:
+    """Counts the calls of the lazy egress (`curves/pairing.py:egress`, the
+    eager radix-13 to strict conversion) while it is entered; the fused
+    pairing's word route calls it never."""
+
+    def __enter__(self):
+        from ark_blst_tpu_torch.curves import pairing as PR
+
+        self.calls, self._pr, self._egress = 0, PR, PR.egress
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self._egress(*args, **kwargs)
+
+        PR.egress = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._pr.egress = self._egress
 
 
 def phase_pairing(torch, dev, ps, qs, expected) -> dict:
@@ -1801,9 +1925,11 @@ def phase_pairing(torch, dev, ps, qs, expected) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     for k in kernels.values():
         k.launches = 0
-    t0 = time.perf_counter()
-    got = B.pairing_batch(ps, qs, device=dev)  # the main path
-    dt = time.perf_counter() - t0
+    with _EgressCalls() as egress:
+        t0 = time.perf_counter()
+        got = B.pairing_batch(ps, qs, device=dev)  # the main path
+        dt = time.perf_counter() - t0
+    check(egress.calls == 0, f"the fused pairing batch ran the lazy egress {egress.calls} times")
     launches = {name: kernels[name].launches for name in names}
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     bad = sum(g != e for g, e in zip(got, expected))
@@ -1815,7 +1941,7 @@ def phase_pairing(torch, dev, ps, qs, expected) -> dict:
     staged = dict(run_pairing_stages(torch, dev, ps, qs, expected, False))
     stages = {name + "_ms": summary["wall_ms"] for name, summary in staged.items()}
     profiled = dict(run_pairing_stages(torch, dev, ps, qs, expected, True))
-    _check_stage_launches(staged, profiled)
+    device_kernels = _check_stage_launches(staged, profiled)
     wall = sum(v["wall_ms"] for v in profiled.values())
     device = sum(v["device_ms"] for v in profiled.values())
 
@@ -1828,9 +1954,11 @@ def phase_pairing(torch, dev, ps, qs, expected) -> dict:
     _check_final_exp({k: kernels[k].launches for k in names}, (0, 0), "prepare_g2_batch")
     B.pairing_batch(ps, prep, device=dev)  # warm-up
     kernels = _reset_launches()
-    t0 = time.perf_counter()
-    got_prep = B.pairing_batch(ps, prep, device=dev)
-    dt_prep = time.perf_counter() - t0
+    with _EgressCalls() as egress:
+        t0 = time.perf_counter()
+        got_prep = B.pairing_batch(ps, prep, device=dev)
+        dt_prep = time.perf_counter() - t0
+    check(egress.calls == 0, "the prepared pairing batch ran the lazy egress")
     prep_launches = {name: kernels[name].launches for name in names}
     check(got_prep == got, "prepared pairings differ from the unprepared ones")
     _check_fused_batch(prep_launches, "prepared pairing batch", prepared=True)
@@ -1840,8 +1968,12 @@ def phase_pairing(torch, dev, ps, qs, expected) -> dict:
 
     emit({"phase": "pairing", "n": n, "distinct": PAIRING_DISTINCT, "ok": True,
           "identities_one": True, "seconds": dt, "pairings_per_s": n / dt,
-          "launches": launches, "stages": stages,
+          "launches": launches, "egress_calls": 0, "stages": stages,
           "stage_launches": {k: v["launches"] for k, v in staged.items()},
+          "device_kernels": device_kernels,
+          "stage_device_kernels": {k: v.get("device_kernels") for k, v in profiled.items()},
+          "egress_dispatched": [staged["egress"]["egress_dispatched"],
+                                profiled["egress"]["egress_dispatched"]],
           "prepared_lines_bytes": prep.stacked.numel() * 4, "prepared_layout": prep.layout,
           "peak_mem_gib": peak_gib,
           "prepared": {"ok": True, "prepare_s": prep_s, "seconds": dt_prep,
@@ -1986,15 +2118,24 @@ def phase_pairing_strict(torch, dev, ps, qs, expected) -> dict:
     for v in multi.values():
         del v["values"]
     # the lazy multi_pairing warm, three calls (the verifier's product of
-    # pairings: K5, K6, the product fold on K4, FE-easy, FE-hard)
+    # pairings: K5, K6, the product fold on K4, FE-easy, FE-hard storing the
+    # strict limbs: no egress), then one under the profiler for its device
+    # kernels (copies left out) and once more as dispatched
     runs = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        PR.multi_pairing(pm, qm, pim, qim)
-        torch.cuda.synchronize()
-        runs.append(time.perf_counter() - t0)
+    with _EgressCalls() as egress:
+        for _ in range(3):
+            t0 = time.perf_counter()
+            PR.multi_pairing(pm, qm, pim, qim)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+    check(egress.calls == 0, "multi_pairing ran the lazy egress")
+    call = lambda: PR.multi_pairing(pm, qm, pim, qim)  # noqa: E731
+    _, prof = _stage(torch, call, True, expect=("easy_kernel", "hard_kernel"), attempts=3)
     emit({"phase": "multi_pairing", "n": m, "gpu": _smi()[0], "seconds_warm": runs,
-          "seconds_first": multi["lazy"]["multi_pairing_s"]})
+          "seconds_first": multi["lazy"]["multi_pairing_s"], "egress_calls": 0,
+          "device_kernels": prof["device_kernels"], "device_events": prof["kernel_launches"],
+          "device_ms": prof["device_ms"], "device_ms_from": prof["device_ms_from"],
+          "dispatched": _dispatched_launches(torch, call), "top": prof["top"]})
 
     n = len(ps)
     emit({"phase": "pairing_strict", "n": n, "ok": True, "equal_to_lazy": True,
@@ -3012,7 +3153,8 @@ def main() -> int:
                        launches_pairing_unfused=unfused["final_exp_" + part],
                        launches_distributed={
                            "pairing": dist_launches["pairing"]["final_exp_" + part]},
-                       at_widths=res["at_widths"], launch=res["launch"])
+                       at_widths=res["at_widths"], launch=res["launch"],
+                       digits_ms=res["digits_ms"], bound_digits_ms=res["bound_digits_ms"])
           for part, replaces, res in (
               ("easy", "ark_blst_tpu/ops/pallas_lazy.py:63 (mul12) and :41 (the easy part of "
                        "the fused final exponentiation, ark_blst_tpu/curves/pairing.py:438-443: "
@@ -3044,6 +3186,7 @@ def main() -> int:
                      at_ragged=k6c["at_ragged"], launch=k6c["launch"],
                      by_event_ms=k6c["by_event_ms"], digit_edges_ms=k6c["digit_edges_ms"],
                      bound_digit_edges_ms=k6c["bound_digit_edges_ms"],
+                     f_digits_ms=k6c["f_digits_ms"], bound_f_digits_ms=k6c["bound_f_digits_ms"],
                      one_event={"with_square": {k: k6[k] for k in ONE_EVENT_KEYS},
                                 "line_only": {k: k6["line_only"][k] for k in ONE_EVENT_KEYS}}),
         *strict_lines,

@@ -40,14 +40,18 @@ the pipeline's real inputs, 8 distinct, as chip_smoke.py's phase
 `tower_chains` makes them) and each E of `--chains`, one line for the
 two chains of all 68 events in the library's builds at E elements a
 block (six threads an element for K5, eight for K6): their times and
-their edges alone in each layout of the edges (`strict_words`, the fused
-pipeline's: strict Q and P in, R = (Q, 1) and f = one formed in the
-kernels, the lines as words; `digits`, the digit entries': R, Q, f, P
-and the lines as digits), their blocks an SM and waves, and whether
-their output equals the default shape's. Then, for each width N, FE-easy at its
-default shape and FE-hard at each shape of `--fe` (a build of its own,
-bounded as K4's: `-DFE_HARD_THREADS=T -DFE_HARD_MIN_BLOCKS=M`) on the
-easy part of the first N pairs' real Miller outputs (identities masked):
+their edges alone in each layout of the edges (`pairing`, the fused
+pairing's: strict Q and P in, R = (Q, 1) and f = one formed in the
+kernels, the lines as words, K6 storing conj(f) as words (K6 only: K5's
+is `strict_words`'); `strict_words`, the same with f stored as digits, as
+the multi-pairings' fold takes it; `digits`, the digit entries': R, Q, f,
+P and the lines as digits), their blocks an SM and waves, and whether
+their output equals the default shape's. Then, for each width N, FE-easy
+at its default shape on f as words (the fused pairing's conj(f), the
+identities masked to one) and on its digits, and FE-hard at each shape of
+`--fe` (a build of its own, bounded as K4's: `-DFE_HARD_THREADS=T
+-DFE_HARD_MIN_BLOCKS=M`) on the easy part of the first N pairs' real
+Miller outputs, storing strict limbs (the fused pairing's) and digits:
 their times, blocks an SM, waves and whether FE-hard's output equals the
 library's bit for bit. Needs a card; imports no JAX.
 """
@@ -176,10 +180,11 @@ def main() -> int:
                "k5": ("pairing_prepare_chain_shaped",
                       [vp, vp, vp, vp, i64, i32, vp, i32, i32, i32, i32, i32, vp]),
                "k6": ("pairing_miller_chain_shaped",
-                      [vp, vp, vp, vp, i64, i32, vp, i32, i32, i32, i32, i32, vp]),
+                      [vp, vp, vp, vp, i64, i32, vp, i32, i32, i32, i32, i32, i32, vp]),
                "k11": ("tower_fp12_sqr_shaped", [vp, vp, i64, i32, i32, i32, vp]),
                "k12": ("tower_fp12_mul_by_014_shaped", [vp, vp, vp, i64, i32, i32, i32, vp]),
-               "fe": ("final_exp_hard_shaped", [vp, vp, vp, i64, vp, i32, vp, i32, i32, vp])}
+               "fe": ("final_exp_hard_shaped",
+                      [vp, vp, vp, i64, vp, i32, vp, i32, i32, i32, vp])}
 
     def flags(schedule):
         return (ctypes.c_ubyte * len(schedule))(*[int(x) for x in schedule])
@@ -264,13 +269,14 @@ def main() -> int:
         k6, res = shape_line("k6", E, T)
         for w in (True, False):
             run = lambda w=w: launch(k6, f.data_ptr(), c.data_ptr(), pxy.data_ptr(),  # noqa: E731
-                                     out.data_ptr(), N, 1, flags([w]), DIG, DIG, E, T, 0,
+                                     out.data_ptr(), N, 1, flags([w]), DIG, DIG, DIG, E, T, 0,
                                      stream)
             key = "with_square" if w else "line_only"
             res[f"ms_{key}"] = timed(run)
             res[f"equal_{key}"] = bool(torch.equal(out, ref6[w]))
         run = lambda: launch(k6, f.data_ptr(), c.data_ptr(), pxy.data_ptr(),  # noqa: E731
-                             out.data_ptr(), N, 1, flags([True]), DIG, DIG, E, T, 1, stream)
+                             out.data_ptr(), N, 1, flags([True]), DIG, DIG, DIG, E, T, 1,
+                             stream)
         res["ms_edges_only"] = timed(run)
         res["edges_value_equal"] = edges_hold([f])
         print(json.dumps(res), flush=True)
@@ -298,8 +304,9 @@ def main() -> int:
     k6, occ6 = lib(PS.MILLER_KERNEL.lib_path, *entries["k6"]), \
         lib(PS.MILLER_KERNEL.lib_path, "pairing_miller_chain_shape", [ctypes.POINTER(i32)] * 4)
     for n in (int(w) for w in args.widths.split(",") if w):
-        # each layout of the edges: K5's (r, q, in and out formats) and K6's
-        # (f, P, line and P formats) pointers with their outputs' references
+        # each layout of the edges: K5's (r, q, in and out formats; None: the
+        # layout is K6's alone) and K6's (f, P, line, P and f formats)
+        # pointers with their outputs' references
         qt, pt, _, _ = CS.chain_inputs(torch, dev, n)
         q = torch.stack([qt[0][0], qt[0][1], qt[1][0], qt[1][1]])
         pxy = torch.stack([pt[0], pt[1]])
@@ -308,11 +315,13 @@ def main() -> int:
         lines = PS.prepare_lines(qt, PR.MILLER_EVENTS)
         c_dig = PS.prepare_chain(q_dig, PR.MILLER_EVENTS)
         layouts = {
+            "pairing": (None, lines, (0, pxy.data_ptr(), WRD, LIM, WRD),
+                        PS.miller_lines(lines, pt, PR.MILLER_EVENTS, PS.FMT_WORDS)),
             "strict_words": ((0, q.data_ptr(), LIM, WRD), lines,
-                             (0, pxy.data_ptr(), WRD, LIM),
+                             (0, pxy.data_ptr(), WRD, LIM, DIG),
                              PS.miller_lines(lines, pt, PR.MILLER_EVENTS)),
             "digits": ((r1.data_ptr(), q_dig.data_ptr(), DIG, DIG), c_dig,
-                       (f1.data_ptr(), pxy_dig.data_ptr(), DIG, DIG),
+                       (f1.data_ptr(), pxy_dig.data_ptr(), DIG, DIG, DIG),
                        PS.miller_chain(f1, c_dig, pxy_dig, PR.MILLER_EVENTS))}
         for E in (int(e) for e in args.chains.split(",") if e):
             res = {"kernel": "chains", "n": n, "elements_per_block": E}
@@ -322,6 +331,8 @@ def main() -> int:
                 line["blocks"] = -(-n // E)
                 line["waves"] = line["blocks"] / (sms * max(line["blocks_per_sm"], 1))
                 for name, (a5, c_ref, a6, f_ref) in layouts.items():
+                    if which == "k5" and a5 is None:
+                        continue
                     got = torch.empty_like(c_ref if which == "k5" else f_ref)
                     for only in (0, 1):
                         if which == "k5":
@@ -331,7 +342,7 @@ def main() -> int:
                         else:
                             run = lambda e=only, T=T, a=a6, c=c_ref, o=got: launch(  # noqa: E731
                                 k6, a[0], c.data_ptr(), a[1], o.data_ptr(), n, events, sched,
-                                a[2], a[3], E, T, e, stream)
+                                a[2], a[3], a[4], E, T, e, stream)
                         line[f"ms_{name}_edges_only" if only else f"ms_{name}"] = timed(run)
                         if not only:
                             line[f"equal_{name}"] = bool(
@@ -341,28 +352,35 @@ def main() -> int:
 
     from ark_blst_tpu_torch import bls12 as B
 
+    from ark_blst_tpu_torch.ops import words as W
+
     ps, qs, _, _ = CS.pairing_inputs()
     for n in (int(w) for w in args.widths.split(",") if w):
         (p, p_inf), (q, q_inf) = B._g1_batch(ps[:n], dev), B._g2_batch(qs[:n], dev)
-        f = PR._masked_miller(p, PR.prepare_g2(q), p_inf, q_inf)
+        f = PR._masked_miller_words(p, PR.prepare_g2(q), PR._skip_mask(p_inf, q_inf))
+        f_digits = W.words_to_digits_plain(f)
         words = FE.easy(f)
-        ref = FE.hard(words)
+        refs = {"limbs": FE.hard(words, out="limbs"), "digits": FE.hard(words)}
         prog, frob = FE._tables(str(dev))
         scratch = torch.empty((FE.HARD_VALUES - 1, 12, FE.WORDS, n), dtype=torch.int32,
                               device=dev)
-        fo = torch.empty_like(ref)
-        res = {"kernel": "final_exp", "n": n, "easy_ms": timed(lambda: FE.easy(f))}
+        res = {"kernel": "final_exp", "n": n, "easy_ms": timed(lambda: FE.easy(f)),
+               "easy_digits_ms": timed(lambda: FE.easy(f_digits)),
+               "easy_equal": bool(torch.equal(FE.easy(f_digits), words))}
         res["easy_launch"] = CS._tower32_shape(torch, FE.KERNEL_EASY, n)
         print(json.dumps(res), flush=True)
         for E, T in _shapes(args.fe):
             fn, res = shape_line("fe", E, T)
             res["n"], res["blocks"] = n, -(-n // E)
             res["waves"] = res["blocks"] / (sms * max(res["blocks_per_sm"], 1))
-            run = lambda fn=fn, E=E, T=T: launch(  # noqa: E731
-                fn, words.data_ptr(), scratch.data_ptr(), fo.data_ptr(), n, prog.data_ptr(),
-                len(FE.HARD_PROGRAM), frob.data_ptr(), E, T, stream)
-            res["ms"] = timed(run)
-            res["equal"] = bool(torch.equal(fo, ref))
+            for out_name, fmt in (("limbs", LIM), ("digits", DIG)):
+                fo = torch.empty_like(refs[out_name])
+                run = lambda fn=fn, E=E, T=T, fo=fo, fmt=fmt: launch(  # noqa: E731
+                    fn, words.data_ptr(), scratch.data_ptr(), fo.data_ptr(), n, prog.data_ptr(),
+                    len(FE.HARD_PROGRAM), frob.data_ptr(), fmt, E, T, stream)
+                key = "" if out_name == "limbs" else "_digits"
+                res["ms" + key] = timed(run)
+                res["equal" + key] = bool(torch.equal(fo, refs[out_name]))
             print(json.dumps(res), flush=True)
     return 0
 

@@ -411,6 +411,57 @@ def test_prepared_layouts_pair_under_either_fuse_on_card(dev):
             assert [a - b for a, b in zip(after, before)] == ([1, 0] if fuse else [0, 68])
 
 
+def test_word_route_value_equal_to_plain_ragged(dev):
+    """The fused pairing's word route at a ragged N (1000), one launch each:
+    K6-chain storing conj(f) as words, FE-easy loading words and FE-hard
+    storing strict limbs, word for word and limb for limb against their
+    plain versions (words and limbs are canonical); the limbs of the four
+    distinct pairs against the oracle's pairing."""
+    from ark_blst_tpu_torch.ops import tower_lazy as TL
+
+    n, sched = 1000, PR.MILLER_EVENTS
+    rng = random.Random(26)
+    ps = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    qs = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    (p, _), (q, _) = B._g1_batch([ps[i % 4] for i in range(n)], dev), \
+        B._g2_batch([qs[(i + 1) % 4] for i in range(n)], dev)
+    lines = PS.prepare_lines(q, sched)
+    f = _launched_once(PS.MILLER_KERNEL, lambda: PS.miller_lines(lines, p, sched, PS.FMT_WORDS))
+    assert f.shape == (12, W.WORDS, n)
+    assert torch.equal(f, PS.miller_lines_plain(lines, p, sched, PS.FMT_WORDS))
+    words = _launched_once(FE.KERNEL_EASY, lambda: FE.easy(f))
+    t2 = FE.easy_plain(W.words_to_digits_plain(f))
+    assert torch.equal(words, W.digits_to_words_plain(t2))
+    got = _launched_once(FE.KERNEL_HARD, lambda: FE.hard(words, out="limbs"))
+    assert got.shape == (12, 24, n)
+    assert torch.equal(got, FE.hard_limbs_plain(t2))
+    vals = CV.fp12_from_dev(TL.unstack12(got[..., :4]))
+    assert vals == [OP.pairing(ps[i], qs[(i + 1) % 4]) for i in range(4)]
+
+
+def test_fused_pairing_runs_no_egress_on_card(dev, monkeypatch):
+    """`pairing_batch` (plain and prepared) and `multi_pairing` on the card
+    never call the lazy egress: FE-hard stores the strict limbs; the
+    results equal the oracle, identity pairs one."""
+    rng = random.Random(27)
+    ps = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    qs = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    pb, qb = [ps[i % 4] for i in range(24)], [qs[(i + 1) % 4] for i in range(24)]
+    pb[3], qb[6] = None, None
+    want = [OF.FP12_ONE if i in (3, 6) else OP.pairing(pb[i], qb[i]) for i in range(24)]
+
+    def no_egress(*args, **kwargs):
+        raise AssertionError("the lazy egress ran")
+
+    monkeypatch.setattr(PR, "egress", no_egress)
+    assert B.pairing_batch(pb, qb, device=dev) == want
+    assert B.pairing_batch(pb, B.prepare_g2_batch(qb, device=dev), device=dev) == want
+    assert B.pairing_batch(pb, B.prepare_g2_batch(qb, fuse=False, device=dev),
+                           device=dev) == want
+    assert B.multi_pairing(pb[:8], qb[:8], device=dev) == OP.final_exp(
+        OP.multi_miller_loop([(a, b) for a, b in zip(pb[:8], qb[:8]) if a and b]))
+
+
 def _miller_outputs(dev, n):
     """f of n pairs of 4 distinct (P, Q) as the fused pipeline hands it to
     the final exponentiation (K5-chain, K6-chain, identity pairs masked to

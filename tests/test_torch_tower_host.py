@@ -77,7 +77,8 @@ HARNESS = r"""
 // (4, 24, n), R = (Q, 1) formed in the chain, result the lines as words
 // (p1, 6, 12, n); K6-chain (op 18 on word lines (p1, 6, 12, n), op 19 on
 // digit lines (p1, 6, 30, n)) and strict P (2, 24, n), f = one formed in
-// the chain, result f (12, 30, n). Ops 11/12: tower381.cuh's edge
+// the chain, result f (12, 30, n); op 20 as op 18, result conj(f) as
+// words (12, 12, n), the fused pairing's layout. Ops 11/12: tower381.cuh's edge
 // formats on p1 Fp rows, format p2 (t381::EdgeFormat): rows (p1, K, n)
 // -> words (p1, 12, n) (read_row) and words -> rows (write_row). Ops 5/6:
 // the G1/G2 mixed addition of K2/K2-G2 on (5, 12, n) or (10, 12, n)
@@ -90,7 +91,9 @@ HARNESS = r"""
 // final_exp.cuh, in blocks as ops 0-4: FE-easy (op 15) on f (12, 30, n) and
 // the Frobenius words (432 int32) after it, result (12, 12, n) words;
 // FE-hard (op 16) on value 0 as words (12, 12, n), then the program (p1
-// ops of 4 int32), then the Frobenius words, result (12, 30, n) digits.
+// ops of 4 int32), then the Frobenius words, result (12, 30, n) digits;
+// op 21 FE-easy on f as words (12, 12, n), op 22 FE-hard with the result
+// as strict limbs (12, 24, n), the fused pairing's edges.
 // One block program over the batch: blocks of E elements, each phase's jobs
 // in order (reversed if asked), with the slots' memory filled with a
 // pattern first, so that a job reading a slot no earlier phase wrote goes
@@ -157,21 +160,23 @@ int main() {
   long long hdr[4];
   if (fread(hdr, sizeof(long long), 4, stdin) != 4) return 2;
   const long long op = hdr[0], n = hdr[1], param = hdr[2], B = hdr[3];
-  if (op < 0 || op > 19) return 2;
+  if (op < 0 || op > 22) return 2;
   const bool tower = op <= 4 || op == 9 || op == 10;
   const long long plane = 30 * n, S = 1024;
   size_t in_size, out_size;
   const long long frob_ints = fexp::FROB_POWERS * 6 * 2 * 12;
-  if (op == 15 || op == 16) {
-    in_size = op == 15 ? 12 * plane + frob_ints : 12 * 12 * n + 4 * param + frob_ints;
-    out_size = op == 15 ? 12 * 12 * n : 12 * plane;
+  if (op == 15 || op == 16 || op == 21 || op == 22) {
+    const bool easy = op == 15 || op == 21;
+    in_size = easy ? (op == 15 ? 30 : 12) * 12 * n + frob_ints
+                   : 12 * 12 * n + 4 * param + frob_ints;
+    out_size = easy ? 12 * 12 * n : 12 * (op == 16 ? 30 : 24) * n;
   } else if (op == 13 || op == 14) {
     in_size = (op == 13 ? 10 : 14 + 6 * param) * plane + param;
     out_size = (op == 13 ? 6 * param + 6 : 12) * plane;
   } else if (op >= 17) {
     in_size = op == 17 ? 4 * 24 * n + param
-                       : 6 * param * (op == 18 ? 12 : 30) * n + 2 * 24 * n + param;
-    out_size = op == 17 ? 6 * param * 12 * n : 12 * plane;
+                       : 6 * param * (op == 19 ? 30 : 12) * n + 2 * 24 * n + param;
+    out_size = op == 17 ? 6 * param * 12 * n : 12 * (op == 20 ? 12 : 30) * n;
   } else if (tower) {
     static const int in_rows[] = {12, 24, 6, 10, 20, 0, 0, 0, 0, 12, 18};
     in_size = in_rows[op] * plane;
@@ -236,13 +241,15 @@ int main() {
     run_chain(n, B, t381::MILLER_SLOTS,
               [&](const t381::Block& b, const HostPhases& ph) { t381::miller_chain(b, c, ph); });
   }
-  if (op == 18 || op == 19) {
-    const int fmt = op == 18 ? t381::WORD_ROWS : t381::DIGIT_ROWS;
+  if (op >= 18 && op <= 20) {
+    const int fmt = op == 19 ? t381::DIGIT_ROWS : t381::WORD_ROWS;
     const int* pxy = x + 6 * param * t381::row_entries(fmt) * n;
     const t381::MillerChain c{nullptr, x, pxy, o, schedule(p1, pxy + 2 * 24 * n), 0};
     run_chain(n, B, t381::MILLER_SLOTS, [&](const t381::Block& b, const HostPhases& ph) {
       if (op == 18) t381::miller_chain<t381::WORD_ROWS, t381::LIMB_ROWS>(b, c, ph);
-      else t381::miller_chain<t381::DIGIT_ROWS, t381::LIMB_ROWS>(b, c, ph);
+      else if (op == 19) t381::miller_chain<t381::DIGIT_ROWS, t381::LIMB_ROWS>(b, c, ph);
+      else
+        t381::miller_chain<t381::WORD_ROWS, t381::LIMB_ROWS, t381::WORD_ROWS>(b, c, ph);
     });
   }
   if (op == 17) {
@@ -279,22 +286,38 @@ int main() {
                [&](const t381::Block& b, int ph, int j, int e) {
                  t381::mul_by_014_job(b, x, x + 12 * plane, o, ph, j, e);
                });
-  if (op == 15) {
-    const fexp::EasyChain c{x, o, x + 12 * plane};
-    run_chain(n, B, fexp::SLOTS,
-              [&](const t381::Block& b, const HostPhases& ph) { fexp::easy_chain(b, c, ph); });
+  if (op == 15 || op == 21) {
+    const fexp::EasyChain c{x, o, x + 12 * (op == 15 ? 30 : 12) * n};
+    run_chain(n, B, fexp::SLOTS, [&](const t381::Block& b, const HostPhases& ph) {
+      if (op == 15) fexp::easy_chain(b, c, ph);
+      else fexp::easy_chain<t381::WORD_ROWS>(b, c, ph);
+    });
   }
-  if (op == 16) {
+  if (op == 16 || op == 22) {
     const long long in_len = 12 * 12 * n;
     std::vector<int> scratch(static_cast<size_t>(15 * 12 * 12 * n));
     const fexp::HardChain c{x, scratch.data(), o, x + in_len, p1, x + in_len + 4 * param};
-    run_chain(n, B, fexp::SLOTS,
-              [&](const t381::Block& b, const HostPhases& ph) { fexp::hard_chain(b, c, ph); });
+    run_chain(n, B, fexp::SLOTS, [&](const t381::Block& b, const HostPhases& ph) {
+      if (op == 16) fexp::hard_chain(b, c, ph);
+      else fexp::hard_chain<t381::LIMB_ROWS>(b, c, ph);
+    });
   }
   fwrite(out.data(), sizeof(int), out.size(), stdout);
   return 0;
 }
 """
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _share_cpu_among_workers():
+    """Split the torch threads among the pytest-xdist workers while the
+    module runs (one thread per core in every worker oversubscribes the
+    machine)."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    prev = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    yield
+    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module")
@@ -576,10 +599,13 @@ def strict_pairs(n: int, seed: int):
 def edge_args(kernel, q, p, lines, schedule):
     """The harness call of a chain on the fused pipeline's edges (op,
     events, stacks..., result shape): K5-chain on strict Q, lines out as
-    words; K6-chain on word (or digit) lines and strict P."""
+    words; K6-chain on word (or digit) lines and strict P, f out as digits
+    (or, for "miller_lines_words", conj(f) as words)."""
     e, n = len(schedule), q.shape[-1]
     if kernel == "prepare_lines":
         return 17, e, q, flags(schedule), (e, 6, W.WORDS, n)
+    if kernel == "miller_lines_words":
+        return 20, e, lines[:e].contiguous(), p, flags(schedule), (12, W.WORDS, n)
     op = 18 if lines.shape[2] == W.WORDS else 19
     return op, e, lines[:e].contiguous(), p, flags(schedule), (12, 30, n)
 
@@ -627,6 +653,23 @@ def test_miller_lines_host_oracle(harness, lines):
     assert values(got) == values(PS.miller_lines_plain(c, (p[0], p[1]), PR.MILLER_EVENTS))
 
 
+def test_miller_lines_words_host_oracle(harness):
+    """K6-chain in the fused pairing's layout over all 68 events for five
+    pairs (blocks of 4): word lines and strict P in, conj(f) stored as
+    canonical words, equal by value to the oracle's miller_loop (the
+    conjugation applied once, in the store) and word for word to
+    `miller_lines_plain(..., FMT_WORDS)`."""
+    q, p, ps, qs = strict_pairs(5, 15)
+    c = PS.prepare_lines_plain(((q[0], q[1]), (q[2], q[3])), PR.MILLER_EVENTS)
+    args = edge_args("miller_lines_words", q, p, c, PR.MILLER_EVENTS)
+    got = run(harness, *args[:-1], shape=args[-1], buckets=4)
+    assert (got.numpy().view(np.uint32)[:, -1] <= OF.P >> 352).all()
+    want = [OP.miller_loop(a, b) for a, b in zip(ps, qs)]
+    assert word_values(got) == [[w[r // 6][r // 2 % 3][r % 2] for w in want] for r in range(12)]
+    assert torch.equal(got, PS.miller_lines_plain(c, (p[0], p[1]), PR.MILLER_EVENTS,
+                                                  PS.FMT_WORDS))
+
+
 # Strict limb values: 0, 1, p - 1, R mod p, then values in [p, 2^384) that
 # the load must reduce (p, 2^384 - 1, the largest multiple of p below
 # 2^384, and p + R mod p), then random canonical ones
@@ -660,14 +703,14 @@ def test_edge_format_rows_host(harness, fmt):
 
 
 @pytest.mark.parametrize("kernel", ["prepare_chain", "miller_chain", "prepare_lines",
-                                    "miller_lines"])
+                                    "miller_lines", "miller_lines_words"])
 def test_chain_host_truncated(harness, kernel):
     """A chain of 8 events with two additions against its plain version: on
     the pipeline's digit inputs (R after two doublings, f after two events)
     by value, digits within 4096; on the fused pipeline's edges (strict Q
     and P, R = (Q, 1) and f = one formed in the chain, word lines) the
-    lines word for word and f by value."""
-    if kernel.endswith("lines"):
+    lines word for word and f by value, conj(f) as words word for word."""
+    if "lines" in kernel:
         q, p, _, _ = strict_pairs(N, 12)
         qx, qy, pp = (q[0], q[1]), (q[2], q[3]), (p[0], p[1])
         want = PS.prepare_lines_plain((qx, qy), SCHEDULE_8)
@@ -675,8 +718,10 @@ def test_chain_host_truncated(harness, kernel):
         got = run(harness, *args[:-1], shape=args[-1], buckets=BLOCK)
         if kernel == "prepare_lines":
             assert torch.equal(got, want)
-        else:
+        elif kernel == "miller_lines":
             assert_value_equal(got, PS.miller_lines_plain(want, pp, SCHEDULE_8))
+        else:
+            assert torch.equal(got, PS.miller_lines_plain(want, pp, SCHEDULE_8, PS.FMT_WORDS))
         return
     r, q, f, _, pxy, _ = real_inputs()
     n = r.shape[-1]
@@ -711,23 +756,31 @@ def test_miller_step_host(harness, with_sqr, source):
 @pytest.mark.parametrize("kernel", ["cyc_sqr", "miller_sqr", "miller_line", "fp12_mul",
                                     "prepare_dbl", "prepare_add", "fp12_sqr", "mul_by_014",
                                     "prepare_chain", "miller_chain", "final_exp_easy",
-                                    "final_exp_hard", "prepare_lines", "miller_lines"])
+                                    "final_exp_hard", "prepare_lines", "miller_lines",
+                                    "miller_lines_words", "final_exp_easy_words",
+                                    "final_exp_hard_limbs"])
 def test_tower381_phases_have_no_hazards(harness, kernel):
     """Each phase's jobs are independent: run in reverse order they give the
     same digits (on the card they run at once); for the chains over 8
     events with two additions, the phases between events too; for the final
     exponentiation's chains every phase of their programs (FE-hard on
-    FE-easy's words of real Miller outputs)."""
+    FE-easy's words of real Miller outputs), in each layout of their
+    edges."""
     if kernel.startswith("final_exp"):
         f = fp12_stack(miller_fs())
-        args = (15, 0, f, FROB, (12, FE.WORDS, f.shape[-1]))
-        if kernel == "final_exp_hard":
-            args = (16, len(FE.HARD_PROGRAM), run(harness, *args[:-1], shape=args[-1], buckets=3),
-                    PROGRAM, FROB, (12, 30, f.shape[-1]))
+        n = f.shape[-1]
+        args = (15, 0, f, FROB, (12, FE.WORDS, n))
+        if kernel == "final_exp_easy_words":
+            args = (21, 0, W.digits_to_words_plain(f), FROB, (12, FE.WORDS, n))
+        if kernel.startswith("final_exp_hard"):
+            limbs = kernel.endswith("limbs")
+            args = (22 if limbs else 16, len(FE.HARD_PROGRAM),
+                    run(harness, *args[:-1], shape=args[-1], buckets=3), PROGRAM, FROB,
+                    (12, 24 if limbs else 30, n))
         assert torch.equal(run(harness, *args[:-1], shape=args[-1], buckets=3),
                            run(harness, *args[:-1], shape=args[-1], buckets=-3))
         return
-    if kernel.endswith("lines"):
+    if "lines" in kernel:
         q, p, _, _ = strict_pairs(N, 13)
         lines = PS.prepare_lines_plain(((q[0], q[1]), (q[2], q[3])), SCHEDULE_8)
         args = edge_args(kernel, q, p, lines, SCHEDULE_8)
@@ -859,6 +912,26 @@ def test_final_exp_chains_host_oracle(harness):
     got = run(harness, 16, len(FE.HARD_PROGRAM), W.digits_to_words_plain(t2), PROGRAM, FROB,
               buckets=3)
     assert_value_equal(got, FE.hard_plain(t2))
+
+
+def test_final_exp_chains_host_pairing_edges(harness):
+    """The final exponentiation's chains on the fused pairing's edges, on
+    three real Miller outputs and f = 1 (blocks of 3): FE-easy loading f as
+    canonical words gives FE-easy's words on f's digits word for word;
+    FE-hard storing strict limbs gives `hard_limbs_plain` (the plain
+    FE-hard, then `tower_lazy.fp12_egress`) limb for limb, and the oracle's
+    final_exp as strict limbs (`fp12_to_dev`)."""
+    fs = miller_fs()
+    f = fp12_stack(fs)
+    n = f.shape[-1]
+    words = run(harness, 21, 0, W.digits_to_words_plain(f), FROB, shape=(12, FE.WORDS, n),
+                buckets=3)
+    assert torch.equal(words, run(harness, 15, 0, f, FROB, shape=(12, FE.WORDS, n), buckets=3))
+    got = run(harness, 22, len(FE.HARD_PROGRAM), words, PROGRAM, FROB, shape=(12, 24, n),
+              buckets=3)
+    assert torch.equal(got, FE.hard_limbs_plain(FE.easy_plain(f)))
+    want = TL._flat12(CV.fp12_to_dev([OP.final_exp(x) for x in fs]))
+    assert torch.equal(got, torch.stack(want))
 
 
 @pytest.mark.parametrize("power", [1, 2, 3])
