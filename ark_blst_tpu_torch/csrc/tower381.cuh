@@ -725,7 +725,11 @@ __device__ __forceinline__ void cyc_sqr_job(const Block& b, const int* x, int* o
 
 // K4: LOAD (a into components 0-11, b into 12-23), PRODUCTS, FP6, RESULT,
 // STORE from slot FP12_MUL_OUT (or, when the kernel runs its edges alone,
-// a from slot 0).
+// a from slot 0). The edges' formats are template parameters, as the
+// chains': a and b of format IN_FMT, out of format OUT_FMT (the unfused
+// path's digits throughout; the multi-pairings' fold words in, words or
+// strict limbs out). The product is the same field element in any layout:
+// no conjugation at the edges.
 enum Fp12MulStep { M12_LOAD, M12_PRODUCTS, M12_FP6, M12_RESULT, M12_STORE };
 
 constexpr int FP12_MUL_PHASES = 5;
@@ -740,17 +744,20 @@ __device__ __forceinline__ int fp12_mul_jobs(int ph) {
   }
 }
 
+template <int IN_FMT = DIGIT_ROWS, int OUT_FMT = DIGIT_ROWS>
 __device__ __forceinline__ void fp12_mul_job(const Block& b, const int* x, const int* y, int* out,
                                              int edges_only, int ph, int op, int e) {
   switch (ph) {
     case M12_LOAD:
-      if (op < 12) load_component(b, x, op, op, e);
-      else load_component(b, y, op - 12, op, e);
+      if (op < 12) load_component(b, x, op, op, e, IN_FMT);
+      else load_component(b, y, op - 12, op, e, IN_FMT);
       break;
     case M12_PRODUCTS: run_mul(b.elem(e), FP12_MUL_PRODUCTS[op]); break;
     case M12_FP6: run(b.elem(e), FP12_MUL_FP6[op]); break;
     case M12_RESULT: run(b.elem(e), FP12_MUL_RESULT[op]); break;
-    default: store_component(b, out, op, edges_only ? op : 2 * FP12_MUL_OUT + op, e); break;
+    default:
+      store_component(b, out, op, edges_only ? op : 2 * FP12_MUL_OUT + op, e, OUT_FMT);
+      break;
   }
 }
 

@@ -13,13 +13,16 @@ per element). Two engines and two styles, as there:
     FE-hard launch for the final exponentiation (`ops/final_exp.py`). Q
     and P enter the chains as the strict `(24, N)` limbs they are given,
     and the line coefficients are canonical 32-bit words `(E, 6, 12, N)`.
-    `pairing` and `pairing_prepared` keep f in words from K6 on: K6
+    On word lines every pairing entry keeps f in words from K6 on: K6
     stores conj(f) as `(12, 12, N)` words, the identity mask selects on
-    words, FE-easy loads them, and FE-hard stores the strict `(24, N)`
-    limbs the entry returns: no egress runs. The multi-pairings fold f as
-    digits on K4, then FE-easy and FE-hard to limbs. `prepare_g2`,
-    `miller_loop` and `final_exp` keep their forms (words, digits,
-    digits), the JAX functions' own.
+    words, and the entry returns strict `(24, N)` limbs with no egress:
+    `pairing` and `pairing_prepared` through FE-easy (words in) and
+    FE-hard (limbs out); the multi-pairings fold the words on K4's word
+    edges (`ops/fp12_mul.py`), then `multi_pairing` runs FE-easy and
+    FE-hard on the product, and `multi_miller_loop` stores it as strict
+    limbs from the fold's last level. `prepare_g2`, `miller_loop` and
+    `final_exp` keep their forms (words, digits, digits), the JAX
+    functions' own.
   - `fuse=False`, the JAX `fuse=False` branch as the TPU runs it: the
     prepare steps on the tower (K1 through `tower_lazy._mul`), Q and P
     ingested strict -> lazy, the line coefficients digits `(E, 6, 30,
@@ -46,7 +49,8 @@ The pipeline:
 4. `final_exp`: easy part (`fp12_inv`, a Frobenius map, products), then
    the cyclotomic chain: five `cyclotomic_exp_x_conj` ladders, products,
    Frobenius maps, two lone cyclotomic squares.
-5. `egress`: lazy -> strict (24, N) limbs (lazy fused: FE-hard's store).
+5. `egress`: lazy -> strict (24, N) limbs (lazy fused: FE-hard's store,
+   or for the Miller product K4's).
 
 The `lax.scan`s of the TPU's fused path (the prepare, the Miller loop)
 and its final exponentiation are one chain kernel each here; the kernel
@@ -244,7 +248,8 @@ def _fp12_ones(f, n: int, engine):
 
 
 def _fold_mul(f, n, engine="lazy"):
-    """Tree product of an engine's fp12 batch over its batch axis -> batch 1."""
+    """Tree product of an engine's fp12 batch over its batch axis -> batch 1
+    (the lazy engine's on digits, K4 a level)."""
     mul = _final_ops(engine).mul
     if engine == "lazy":
         cat = lambda a, b: torch.cat([a, b], dim=-1)  # noqa: E731
@@ -288,12 +293,39 @@ def _fp12_one_words(device: str) -> torch.Tensor:
     return digits_to_words_plain(one).to(device)
 
 
-def _masked_miller_words(p, coeffs, skip):
+def _on_words(coeffs, fuse, engine) -> bool:
+    """The word route: the lazy engine fused on word lines."""
+    return engine == "lazy" and fuse and coeffs.shape[-2] == WORDS
+
+
+def _masked_miller_words(p, coeffs, skip, events=None):
     """The fused pairing's Miller loop on word lines: conj(f) as (12, 12, N)
     words from K6-chain (`miller_lines`, f_fmt words), the pairs holding an
     identity set to one by one select on the words."""
-    f = PS.miller_lines(coeffs, p, MILLER_EVENTS, PS.FMT_WORDS)
+    ev = MILLER_EVENTS if events is None else MILLER_EVENTS[:events]
+    f = PS.miller_lines(coeffs, p, ev, PS.FMT_WORDS)
     return f if skip is None else torch.where(skip, _fp12_one_words(str(f.device)), f)
+
+
+def _fold_words(f, n: int, out: str = "words"):
+    """Tree product of a (12, 12, n) word stack over its batch axis on K4's
+    word edges, padded with one -> batch 1: (12, 12, 1) words, or with
+    out="limbs" the strict (12, 24, 1) limbs that the last level stores (at
+    n = 1, where the tree has no level, one launch against one). conj is a
+    ring automorphism, so the fold of the Miller loops' words conj(f_i) is
+    conj(prod f_i), their product as `miller_loop` gives it."""
+    one = _fp12_one_words(str(f.device))
+    size = 1 << max(0, n - 1).bit_length()
+    if size != n:
+        f = torch.cat([f, one.expand(-1, -1, size - n)], dim=-1)
+    if size == 1:
+        return K4.fp12_mul(f, one, out="limbs") if out == "limbs" else f
+    while size > 1:
+        half = size // 2
+        f = K4.fp12_mul(f[..., :half].contiguous(), f[..., half:size].contiguous(),
+                        out=out if half == 1 else "words")
+        size = half
+    return f
 
 
 def _pairing(p, coeffs, p_inf, q_inf, fuse, engine):
@@ -301,31 +333,54 @@ def _pairing(p, coeffs, p_inf, q_inf, fuse, engine):
     the word route (K6-chain's conj(f) as words, the mask on words, FE-easy
     on words, FE-hard to strict limbs); otherwise the Miller loop and its
     mask in the engine's form, then `_final_strict`."""
-    if engine == "lazy" and fuse and coeffs.shape[-2] == WORDS:
+    if _on_words(coeffs, fuse, engine):
         f = _masked_miller_words(p, coeffs, _skip_mask(p_inf, q_inf))
     else:
         f = _masked_miller(p, coeffs, p_inf, q_inf, fuse, engine)
     return _final_strict(f, fuse, engine)
 
 
-def miller_product(p, q, p_inf=None, q_inf=None, fuse=True, engine="lazy"):
-    """prod_i of the Miller loops of (P_i, Q_i), identity pairs giving one:
-    the engine's fp12 of batch 1."""
-    f = _masked_miller(p, prepare_g2(q, fuse, engine), p_inf, q_inf, fuse, engine)
-    return _fold_mul(f, p[0].shape[-1], engine)
+def _fold_strict(f, n: int, words: bool, final: bool, fuse=True, engine="lazy"):
+    """A batch of n Miller loops -> their product as the strict fp12 of
+    batch 1, with `final` final-exponentiated. On words (the word route):
+    `_fold_words`, then FE-easy (words) and FE-hard (limbs), or the fold's
+    last level storing the strict limbs: no egress. Otherwise `_fold_mul`
+    in the engine's form, then `_final_strict` or `egress`."""
+    if words:
+        if final:
+            return _final_strict(_fold_words(f, n), fuse, engine)
+        return TL.unstack12(_fold_words(f, n, out="limbs"))
+    f = _fold_mul(f, n, engine)
+    return _final_strict(f, fuse, engine) if final else egress(f, engine)
+
+
+def _product(p, coeffs, skip, fuse, engine, final: bool):
+    """The Miller loops of the pairs on lines of any layout, identity pairs
+    one, folded to their product (`_fold_strict`): lazy fused on word lines
+    the word route (K6-chain's conj(f) as words, the mask on words, the
+    fold on K4's word edges); otherwise the Miller loop and its mask in the
+    engine's form."""
+    words = _on_words(coeffs, fuse, engine)
+    if words:
+        f = _masked_miller_words(p, coeffs, skip)
+    else:
+        f = _masked_miller(p, coeffs, skip, None, fuse, engine)
+    return _fold_strict(f, p[0].shape[-1], words, final, fuse, engine)
 
 
 def multi_miller_loop(p, q, p_inf=None, q_inf=None, fuse=True, engine="lazy"):
     """p = (px, py) strict (24, N); q = (qx, qy) strict fp2; *_inf optional
     bool masks (N,). Returns the strict fp12 product of batch 1, not
     final-exponentiated."""
-    return egress(miller_product(p, q, p_inf, q_inf, fuse, engine), engine)
+    return _product(p, prepare_g2(q, fuse, engine), _skip_mask(p_inf, q_inf), fuse, engine,
+                    final=False)
 
 
 def multi_pairing(p, q, p_inf=None, q_inf=None, fuse=True, engine="lazy"):
     """prod_i e(P_i, Q_i) for inputs as in `multi_miller_loop`: one final
     exponentiation of the Miller product, a strict fp12 of batch 1."""
-    return _final_strict(miller_product(p, q, p_inf, q_inf, fuse, engine), fuse, engine)
+    return _product(p, prepare_g2(q, fuse, engine), _skip_mask(p_inf, q_inf), fuse, engine,
+                    final=True)
 
 
 def pairing(p, q, p_inf=None, q_inf=None, fuse=True, engine="lazy"):
@@ -338,7 +393,8 @@ def pairing(p, q, p_inf=None, q_inf=None, fuse=True, engine="lazy"):
 
 def _gather_fp12(mesh, f, engine):
     """One fp12 (batch 1) of the engine's form on every rank -> the world's,
-    batch `world` in rank order, in one gather."""
+    batch `world` in rank order, in one gather (a lazy stack of any rows:
+    digits or words)."""
     tree = TL.unstack12(f) if engine == "lazy" else f
     got = TS.tree_map(lambda x: x[..., 0], mesh.all_gather_tree(tree))
     return TL.stack12(got) if engine == "lazy" else got
@@ -352,12 +408,14 @@ def multi_pairing_sharded(p, q, mesh, p_inf=None, q_inf=None, axis: str = "data"
     strict fp12 of batch 1 on its device.
 
     Rank r takes the r-th contiguous shard of the N pairs and runs
-    `prepare_g2`, `miller_loop`, the identity mask and `_fold_mul` on it:
-    one fp12 per rank. The ranks gather those, every rank multiplies them
-    (`_fold_mul`) and runs one `final_exp` and the egress (`_final_strict`,
-    if `final`; else the egress alone).
-    `events` truncates the Miller loop to its first events, as in
-    `prepare_g2`. N must be a multiple of the world (pad with identity
+    `prepare_g2`, the Miller loop, the identity mask and the fold on it:
+    one fp12 per rank. The ranks gather those in one collective, every rank
+    multiplies them and runs one final exponentiation (if `final`; else
+    the product alone), ending in the strict limbs (`_fold_strict`). Lazy
+    fused the word route of `multi_pairing`: each rank folds K6-chain's
+    words on K4's word edges, and the ranks gather the (12, 12, 1) words.
+    `events` truncates the Miller loop to its first events, as
+    in `prepare_g2`. N must be a multiple of the world (pad with identity
     pairs and masks otherwise): where the JAX package asserts, this raises
     `ValueError`."""
     _tower(engine)
@@ -372,9 +430,12 @@ def multi_pairing_sharded(p, q, mesh, p_inf=None, q_inf=None, axis: str = "data"
     if skip is not None:
         skip = cut(skip)
     coeffs = prepare_g2(qs, fuse, engine, events)
-    f = _masked_miller(ps, coeffs, skip, None, fuse, engine, events)
-    f = _fold_mul(_gather_fp12(mesh, _fold_mul(f, m, engine), engine), world, engine)
-    return _final_strict(f, fuse, engine) if final else egress(f, engine)
+    words = _on_words(coeffs, fuse, engine)
+    if words:
+        f = _fold_words(_masked_miller_words(ps, coeffs, skip, events), m)
+    else:
+        f = _fold_mul(_masked_miller(ps, coeffs, skip, None, fuse, engine, events), m, engine)
+    return _fold_strict(_gather_fp12(mesh, f, engine), world, words, final, fuse, engine)
 
 
 # --- prepared G2 reuse ----------------------------------------------------------
@@ -422,8 +483,8 @@ def pairing_prepared(p, prepared: DeviceG2Prepared, p_inf=None, fuse=True):
 
 def multi_miller_loop_prepared(p, prepared: DeviceG2Prepared, p_inf=None, fuse=True):
     """`multi_miller_loop` against precomputed line coefficients: the strict
-    fp12 product of batch 1."""
+    fp12 product of batch 1 (lazy fused on a "words" stack: the word route
+    of `multi_miller_loop`)."""
     _check_prepared(p, prepared)
-    eng = prepared.engine
-    f = _masked_miller(p, prepared.stacked, p_inf, prepared.q_inf, fuse, eng)
-    return egress(_fold_mul(f, prepared.n, eng), eng)
+    return _product(p, prepared.stacked, _skip_mask(p_inf, prepared.q_inf), fuse,
+                    prepared.engine, final=False)

@@ -10,7 +10,8 @@ kernels (`csrc/final_exp.cu` on `csrc/final_exp.cuh`) keep each element in
 shared memory as 32-bit Montgomery words from f's load to the result's
 store:
   FE-easy  `easy`: f (12, 30, N) digits, or (12, 12, N) canonical words as
-           the fused pairing's K6-chain stores them -> t2 = conj(f) f^-1,
+           the fused pairing's K6-chain stores them (or as K4 stores the
+           multi-pairings' product, N = 1) -> t2 = conj(f) f^-1,
            times its Frobenius square; on the card t2 comes back as a (12,
            12, N) word stack;
   FE-hard  `hard`: t2 (those words) -> the hard part, (12, 30, N) digits,
@@ -27,8 +28,9 @@ walk it over `PLAIN_OPS`: K3's and K4's plain versions,
 always run them, so on CPU tensors every result is digit for digit what
 it was. A kernel's output is the same field element in other digits:
 canonical, within 4096; its words and strict limbs are canonical, equal
-to the plain version's (`digits_to_words_plain`, `tower_lazy.fp12_egress`)
-word for word and limb for limb.
+to the plain version's (`digits_to_words_plain`, then
+`words_to_limbs_plain`: limb for limb `tower_lazy.fp12_egress`) word for
+word and limb for limb.
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ from . import cyc_sqr as K3
 from . import fp12_mul as K4
 from . import lazy13 as LZ
 from . import tower_lazy as TL
-from .words import FMT_DIGITS, FMT_LIMBS, FMT_WORDS, WORDS, split, words_to_digits_plain
+from .words import (FMT_DIGITS, FMT_LIMBS, FMT_WORDS, LIMBS, WORDS, digits_to_words_plain,
+                    split, words_to_digits_plain, words_to_limbs_plain)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,7 +58,6 @@ KERNEL_EASY = CudaKernel("final_exp.cu", "final_exp_easy",
                          [_P, _P, _P, ctypes.c_longlong, _I, _P])
 KERNEL_HARD = CudaKernel("final_exp.cu", "final_exp_hard",
                          [_P, _P, _P, ctypes.c_longlong, _P, _I, _P, _I, _P])
-LIMBS = 24  # strict 16-bit limbs of an Fp component (`ops/convert.py`)
 
 # The |x| square-and-multiply ladder as segments: after the leading bit, a
 # set bit at gap L costs L squarings then one product; trailing zeros are
@@ -251,10 +253,11 @@ def easy(f: torch.Tensor) -> torch.Tensor:
 
 
 def hard_limbs_plain(t2: torch.Tensor) -> torch.Tensor:
-    """FE-hard's plain version with `out="limbs"`: `hard_plain`, egressed
-    (`tower_lazy.fp12_egress`) and stacked in its leaf order, (12, 24,
-    N)."""
-    return torch.stack(TL._flat12(TL.fp12_egress(TL.unstack12(hard_plain(t2)))))
+    """FE-hard's plain version with `out="limbs"`: `hard_plain`, to words
+    and split into the strict (12, 24, N) limbs, as the kernel stores them
+    (`words_to_limbs_plain`; limb for limb the lazy egress,
+    `tower_lazy.fp12_egress`, in its leaf order)."""
+    return words_to_limbs_plain(digits_to_words_plain(hard_plain(t2)))
 
 
 def hard(t2: torch.Tensor, out: str = "digits") -> torch.Tensor:

@@ -4,12 +4,13 @@ the lazy tower's digits.
 The chains (`csrc/tower381.cuh`) hold an Fp component as 12 canonical
 32-bit Montgomery words, v 2^384 mod p in [0, p), kept in int32: a stack
 is `(..., 12, n)`, word k of element i at `[..., k, i]`. K5-chain hands its
-lines to K6-chain in that form (`curves/pairing_steps.py`), and FE-easy its
-result to FE-hard (`ops/final_exp.py`). The plain versions here turn such
-a stack into the lazy tower's digits and back, to hold the words against
-a plain version's digits and to hand a word-taking kernel the value of
-digits. (The strict `(24, n)` limbs of `ops/convert.py` are the same
-number as the words, two limbs to a word.)
+lines to K6-chain in that form (`curves/pairing_steps.py`), FE-easy its
+result to FE-hard (`ops/final_exp.py`), and K4 its products to the next
+level of the multi-pairings' fold (`ops/fp12_mul.py`). The plain versions
+here turn such a stack into the lazy tower's digits and back, to hold the
+words against a plain version's digits and to hand a word-taking kernel
+the value of digits, and into the strict `(24, n)` limbs of
+`ops/convert.py`, the same number as the words, two limbs to a word.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from . import lazy13 as LZ
 from . import tower_lazy as TL
 
 WORDS = 12  # 32-bit words of an Fp component in the card's word stacks
+LIMBS = 24  # strict 16-bit limbs of an Fp component (`ops/convert.py`)
 # The formats of a kernel's edge rows (csrc/tower381.cuh EdgeFormat):
 # radix-13 digits, strict 16-bit limbs, canonical words
 FMT_DIGITS, FMT_LIMBS, FMT_WORDS = 0, 1, 2
@@ -62,3 +64,14 @@ def digits_to_words_plain(d: torch.Tensor) -> torch.Tensor:
     w = limbs[0::2] | (limbs[1::2] << 16)
     w = torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
     return w.reshape(WORDS, *d.shape[:-2], d.shape[-1]).movedim(0, -2).contiguous()
+
+
+def words_to_limbs_plain(w: torch.Tensor) -> torch.Tensor:
+    """(..., 12, n) canonical words -> (..., 24, n) strict 16-bit limbs of
+    the same number (`ops/convert.py`'s layout: word k is limb 2k | limb
+    2k + 1 << 16): the plain version of the kernels' store of strict limbs,
+    equal to the lazy egress (`tower_lazy.fp_egress`) of the words' digits
+    limb for limb."""
+    u = w.long() & 0xFFFFFFFF
+    limbs = torch.stack([u & 0xFFFF, u >> 16], dim=-2)  # (..., 12, 2, n)
+    return limbs.reshape(*w.shape[:-2], LIMBS, w.shape[-1]).to(torch.int32)

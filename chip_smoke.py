@@ -69,7 +69,12 @@ Phases, one JSON line each:
               where the plain versions are field operations), each with
               its registers, stack, shared memory and launch shape and its
               bound beside the radix-13 one (K5 and K6 as chains of one
-              event);
+              event); K4 also in its word layouts (words -> words and
+              words -> strict limbs, the multi-pairings' product fold) on
+              the words of its operands and of the real ones, at 8192 and
+              at each width of the fold (4096 down to 1), word for word
+              and limb for limb against its plain version, each timed
+              beside the digit layout at the same width;
      tower_chains  K5-chain and K6-chain, the prepare's and the Miller
               loop's 68 events in one launch each, through the fused
               pipeline's entries (`prepare_lines`, `miller_lines`) on its
@@ -79,7 +84,7 @@ Phases, one JSON line each:
               every event's line word for word against the plain version;
               K6-chain in the fused pairing's layout (conj(f) stored as
               words) word for word, and storing f as digits (the
-              multi-pairings' fold; on the lines as words and as digits)
+              public `miller_loop`'s; on the lines as words and as digits)
               by canonical value, f's digits within 4096; at 8192 the
               lines, f and conj(f) of the first eight pairs (identities
               skipped) against the oracle's prepare_g2 and miller_loop;
@@ -140,10 +145,18 @@ Phases, one JSON line each:
               cyclotomic square, and a profiled rerun; then `multi_pairing` and
               `multi_miller_loop_prepared` on both engines at 1024 pairs,
               equal to each other and the first to the oracle's product;
-              and line `multi_pairing`: the lazy one warm, three calls
-              (the lazy egress never called, checked), with the card's
-              name and power limit, and its device kernels under the
-              profiler and as dispatched;
+              and line `multi_pairing`: the word route of `multi_pairing`,
+              `multi_miller_loop` and `multi_miller_loop_prepared` at 1024
+              pairs and of `multi_pairing` at 8192, each run once with the
+              counts at 0 (K6 once, K4 ceil(log2 N) times on words, the
+              Miller product's last level once to strict limbs, no digit
+              K4, the lazy egress never called; checked), limb for limb
+              against the digit route it replaced (K6 storing f as
+              digits, the fold on K4's digits, the eager egress) and
+              against the oracle's product, both routes timed in turns,
+              with their device kernels under the profiler and as
+              dispatched, the digit route's egress alone timed, with the
+              card's name and power limit;
      api      the arkworks API's batch entries with their defaults (the
               card's routes): `G1Projective.msm` over 2^20 G1Affine bases
               of `curves/instance.py` (made affine on the card, brought to
@@ -157,7 +170,8 @@ Phases, one JSON line each:
               8's checked results, its split and pairings/s beside a
               tuple-level call's; `Bls12.multi_miller_loop` then
               `final_exponentiation` over the first 1024 pairs against the
-              oracle's product; the generator pairing's bytes and every
+              oracle's product (K4 nine times on words and once to strict
+              limbs, the lazy egress never called; checked); the generator pairing's bytes and every
               `msm_g1` vector of `tests/vectors/bls12_381.json` through
               the device routes; a validated compressed round trip of the
               MSM results and 64 bases a curve;
@@ -239,7 +253,12 @@ the fused batch's launches, the prepared batch's, the unfused one's and
 the sharded pairing's, their times at 8192 with the other widths',
 K1-scan one level of the G1 MSM (64 x 65,536) and the other three levels
 and the whole `batch_inverse` at 2^22 beside; K3 and K4 give the unfused
-pairing's launches (the path that runs them; the fused batch's 0 beside); K11 and K12 the unfused pairing's;
+pairing's launches (the path that runs them; the fused batch's 0 beside); K4's word
+layouts (`fp12_mul_words`, `fp12_mul_limbs`) the launches of
+`multi_pairing` and of `multi_miller_loop` at 1024, each multi-pairing
+entry's, the API's and the sharded pairing's beside, their times at 8192
+and at each width of the fold with the digit layout's; K11 and K12 the
+unfused pairing's;
 K7-K10 give as `launches` the sum over the two scan MSM runs, each run's
 count and the strict pairing's beside it, and their Fp times at 2^22, Fr
 and broadcast times beside; every kernel phase distributed launches gives
@@ -285,7 +304,9 @@ event (85 or 49 products and 277 or 119 sums), FP12_SQR32_OPS an fp12
 square (36 and 158), MUL_BY_014_32_OPS a sparse line product (45 and
 119), and per launch the conversion of each input Fp component from digits to
 words (DIGITS_TO_WORDS_OPS) and of each output one back
-(WORDS_TO_DIGITS_OPS); K5-chain and K6-chain count each event's
+(WORDS_TO_DIGITS_OPS); K4's word layouts the product alone, its 24
+components in and 12 out as words or strict limbs (a load or a store, in
+the bytes alone); K5-chain and K6-chain count each event's
 products and sums, Q (K5) or P (K6) in once as strict limbs
 (LIMBS_TO_WORDS_OPS: packed, four conditional subtractions), each
 event's 6 line components out (K5) or in (K6) as words (no conversion),
@@ -328,6 +349,7 @@ them is bytes-bound.
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import os
 import re
@@ -665,7 +687,8 @@ def all_kernels() -> dict:
     """The kernels by name: K1, K1-inv and K1-scan (its up and down passes;
     one source with K1-inv), K2 (the G1 and G2 MSMs; each bucket kernel's
     source also holds its point conversion), K3 and K4 (the unfused final
-    exponentiation, K4 also the multi-pairing's product fold), K5 and K6
+    exponentiation; K4's word layouts, words -> words and words -> strict
+    limbs, the multi-pairings' product fold, a counter each), K5 and K6
     (the fused prepare and Miller loop), FE-easy and FE-hard (the fused
     final exponentiation; one source), K7-K10 (the strict engine; one
     source, four entry points), K11 and K12 (the unfused Miller loop):
@@ -686,7 +709,8 @@ def all_kernels() -> dict:
             "g1_point_words": MB.KERNEL_G1_WORDS,
             "bucket_accumulate_g2": MB.KERNEL_G2, "g2_point_words": MB.KERNEL_G2_WORDS,
             "cyc_sqr": K3.KERNEL,
-            "fp12_mul": K4.KERNEL, "prepare_step": PS.PREPARE_KERNEL,
+            "fp12_mul": K4.KERNEL, "fp12_mul_words": K4.KERNEL_WORDS,
+            "fp12_mul_limbs": K4.KERNEL_LIMBS, "prepare_step": PS.PREPARE_KERNEL,
             "miller_step": PS.MILLER_KERNEL, "final_exp_easy": FE.KERNEL_EASY,
             "final_exp_hard": FE.KERNEL_HARD,
             **{"strict_" + op: k for op, k in SF.KERNELS.items()},
@@ -1222,16 +1246,17 @@ def _held_values(torch, name: str, got, want) -> int:
     return err
 
 
-def _tower32_shape(torch, kernel, n: int) -> dict:
+def _tower32_shape(torch, kernel, n: int, formats: tuple = ()) -> dict:
     """The launch shape of K3-K6, K11 or K12 from its C entry
-    `<symbol>_shape`: elements and threads a block, shared bytes a block,
-    the blocks an SM holds (the occupancy API), and the grid's waves and
-    warps an SM at n."""
+    `<symbol>_shape` (K4's word layouts: `formats`, its in and out
+    EdgeFormat, first): elements and threads a block, shared bytes a
+    block, the blocks an SM holds (the occupancy API), and the grid's waves
+    and warps an SM at n."""
     fn = getattr(ctypes.CDLL(str(kernel.lib_path)), kernel.symbol + "_shape")
-    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.argtypes = [ctypes.c_int] * len(formats) + [ctypes.POINTER(ctypes.c_int)] * 4
     fn.restype = ctypes.c_int
     vals = [ctypes.c_int() for _ in range(4)]
-    err = fn(*(ctypes.byref(v) for v in vals))
+    err = fn(*formats, *(ctypes.byref(v) for v in vals))
     check(err == 0, f"{kernel.symbol}_shape: CUDA error {err}")
     elems, threads, smem, per_sm = (v.value for v in vals)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1307,11 +1332,82 @@ def phase_k4(torch, dev, real, sass: dict, ptxas: dict) -> dict:
         torch, lambda: K4.fp12_mul(a, b), lambda: K4.fp12_mul_plain(a, b),
         nbytes, n * (FP12_MUL32_OPS + conv), None if imad is None else n * (54 + 36) * imad)}
     res["bound_radix13_ms"], res["bound_radix13_by"] = bound_ms(nbytes, n * FP12_MUL_OPS)
+    res["ptxas"] = _k4_ptxas(ptxas["fp12_mul.cu"], "digits")
+    layouts = phase_k4_words(torch, a, b, f_real, g_real, imad, ptxas["fp12_mul.cu"])
     emit({"phase": "k4", "n": n, "value_equal": True, "real_inputs": True, **res,
           "ops_per_product": FP12_MUL32_OPS, "ops_per_product_radix13": FP12_MUL_OPS,
-          "ops_conversions": conv, "imad_per_product": imad, "ptxas": ptxas["fp12_mul.cu"],
-          "launch": _tower32_shape(torch, K4.KERNEL, n)})
-    return res
+          "ops_conversions": conv, "imad_per_product": imad,
+          "ptxas_library": ptxas["fp12_mul.cu"], "launch": _tower32_shape(torch, K4.KERNEL, n),
+          "gpu": _smi()[0], **layouts})
+    return res, layouts
+
+
+# K4's layouts (csrc/fp12_mul.cu): (in, out) EdgeFormat of each
+# instantiation, digits 0, limbs 1, words 2
+K4_LAYOUTS = {"digits": (0, 0), "words": (2, 2), "limbs": (2, 1)}
+# the widths of the multi-pairings' fold levels: 8192 pairs fold from 4096
+# down to 1 (1,024 pairs from 512)
+K4_FOLD_WIDTHS = tuple(1 << k for k in range(12, -1, -1))
+K4_REPS = 20  # launches a timing of K4's layouts at 8192 (one of three has read 6x the others)
+
+
+def _k4_ptxas(summary: dict, layout: str) -> dict | None:
+    """Registers and stack of one K4 instantiation, by its template
+    arguments in the mangled name (the library's spills are shared)."""
+    fmt_in, fmt_out = K4_LAYOUTS[layout]
+    return next((v for k, v in summary["entries"].items()
+                 if f"fp12_mul_kernelILi{fmt_in}ELi{fmt_out}E" in k), None)
+
+
+def phase_k4_words(torch, a, b, f_real, g_real, imad, ptxas_k4: dict) -> dict:
+    """K4's word layouts (the multi-pairings' fold: words -> words, and
+    words -> strict limbs at its last level) at N = 8192 on the canonical
+    words of K4's random operands and of real Miller values, word for word
+    and limb for limb against their plain versions, each timed beside its
+    plain version, its bound and the digit layout; then at each width of
+    the fold (`K4_FOLD_WIDTHS`), held against the plain version and timed
+    beside the digit layout at the same width; with registers and launch
+    shape."""
+    from ark_blst_tpu_torch.ops import fp12_mul as K4
+    from ark_blst_tpu_torch.ops import words as W
+
+    n = a.shape[-1]
+    aw, bw = W.digits_to_words_plain(a), W.digits_to_words_plain(b)
+    fw, gw = W.digits_to_words_plain(f_real), W.digits_to_words_plain(g_real)
+    out = {}
+    for layout, kernel, rows_bytes in (("words", K4.KERNEL_WORDS, WORD_BYTES),
+                                       ("limbs", K4.KERNEL_LIMBS, LIMB_BYTES)):
+        name = "K4 " + layout
+        err = max(_held(torch, name, K4.fp12_mul(x, y, out=layout),
+                        K4.fp12_mul_plain(x, y, layout)) for x, y in ((aw, bw), (fw, gw)))
+        nbytes = n * (24 * WORD_BYTES + 12 * rows_bytes)
+        res = {"max_abs_err": err, **_timed(
+            torch, lambda: K4.fp12_mul(aw, bw, out=layout),
+            lambda: K4.fp12_mul_plain(aw, bw, layout), nbytes, n * FP12_MUL32_OPS,
+            None if imad is None else n * 54 * imad)}
+        # the layout and the digits in turns (layout, digits, digits, layout),
+        # K4_REPS launches each: `ms` and `digits_ms` are their means
+        runs = {"ms": [], "digits_ms": []}
+        for turn in ("ms", "digits_ms", "digits_ms", "ms"):
+            fn = (lambda: K4.fp12_mul(aw, bw, out=layout)) if turn == "ms" else \
+                (lambda: K4.fp12_mul(a, b))
+            runs[turn].append(cuda_ms(torch, fn, K4_REPS))
+        res.update({k: sum(v) / len(v) for k, v in runs.items()}, runs=runs)
+        widths = {}
+        for w in K4_FOLD_WIDTHS:
+            x, y = aw[..., :w].contiguous(), bw[..., :w].contiguous()
+            xd, yd = a[..., :w].contiguous(), b[..., :w].contiguous()
+            _held(torch, f"{name} at {w}", K4.fp12_mul(x, y, out=layout),
+                  K4.fp12_mul_plain(x, y, layout))
+            widths[w] = {
+                "ms": cuda_ms(torch, lambda: K4.fp12_mul(x, y, out=layout), 5),
+                "digits_ms": cuda_ms(torch, lambda: K4.fp12_mul(xd, yd), 5),
+                "bound_ms": bound_ms(w * (24 * WORD_BYTES + 12 * rows_bytes),
+                                     w * FP12_MUL32_OPS)[0]}
+        res.update(at_widths=widths, ptxas=_k4_ptxas(ptxas_k4, layout),
+                   launch=_tower32_shape(torch, kernel, n, K4_LAYOUTS[layout]))
+        out[layout] = res
+    return out
 
 
 def real_event_inputs(torch, p, q):
@@ -1435,7 +1531,7 @@ def chain_work(schedule, digit_edges: bool = False) -> dict:
     in, f out once. The fused pipeline's edges: Q and P strict limbs
     (packed, reduced), the lines words (no conversion), f out as the fused
     pairing's conj(f) in words (6 negations; "miller_f_digits": f as
-    digits, converted, as the multi-pairings' fold takes it); with
+    digits, converted, as the public `miller_loop` takes it); with
     digit_edges the digit entries' edges: R and Q (K5) or f and P (K6) in,
     the lines both ways and f out as digits, converted."""
     e = len(schedule)
@@ -1527,7 +1623,7 @@ def phase_tower_chains(torch, dev, ptxas: dict) -> tuple:
     pipeline's pairs at N = 8192 and at the ragged CHAIN_RAGGED_N: the
     lines word for word against their plain version; K6-chain in the fused
     pairing's layout (conj(f) stored as words) word for word, and storing
-    f as digits (the multi-pairings' fold; also on the lines as digits, an
+    f as digits (the public `miller_loop`'s; also on the lines as digits, an
     unfused prepare's) by canonical value, its digits within 4096; at 8192
     also against the oracle on a sample; each timed beside its plain
     version and its bound, with its launch shape (K6's f as digits beside:
@@ -1821,10 +1917,11 @@ def _profile_totals(profiled: dict) -> dict:
 # hold the inverse and the Frobenius maps
 PAIRING_K1 = {True: {"mont_mul": 0, "fp_inv": 0}, False: {"mont_mul": 658, "fp_inv": 1}}
 # the fused pairing's kernels, each launched once a batch, and the lazy
-# tower's that it no longer launches (K1, K1-inv, K3; K4 stays in the
-# multi-pairings' product fold)
+# tower's that it no longer launches (K1, K1-inv, K3, K4; K4's word layouts
+# run the multi-pairings' product fold)
 PAIRING_FUSED = ("prepare_step", "miller_step", "final_exp_easy", "final_exp_hard")
-PAIRING_NAMES = ("mont_mul", "fp_inv", "cyc_sqr", "fp12_mul") + PAIRING_FUSED
+PAIRING_NAMES = ("mont_mul", "fp_inv", "cyc_sqr", "fp12_mul", "fp12_mul_words",
+                 "fp12_mul_limbs") + PAIRING_FUSED
 
 
 def _check_pairing_k1(launches: dict, fuse: bool, what: str) -> None:
@@ -1847,7 +1944,8 @@ def _check_fused_batch(launches: dict, what: str, prepared: bool = False) -> Non
     _check_chains(launches, (0 if prepared else 1, 1), what)
     _check_final_exp(launches, (1, 1), what)
     _check_pairing_k1(launches, True, what)
-    check(launches["cyc_sqr"] == 0 and launches["fp12_mul"] == 0,
+    check(all(launches[k] == 0 for k in ("cyc_sqr", "fp12_mul", "fp12_mul_words",
+                                         "fp12_mul_limbs")),
           f"{what} launched K3 or K4: {launches}")
 
 
@@ -1894,24 +1992,31 @@ def _check_stage_launches(staged: dict, profiled: dict) -> int:
 
 
 class _EgressCalls:
-    """Counts the calls of the lazy egress (`curves/pairing.py:egress`, the
-    eager radix-13 to strict conversion) while it is entered; the fused
-    pairing's word route calls it never."""
+    """Counts the calls of the lazy egress (`curves/pairing.py:egress` and
+    the eager radix-13 to strict conversion it runs,
+    `tower_lazy.fp12_egress`) while it is entered; the word routes of the
+    fused pairing and of the multi-pairings call it never."""
 
     def __enter__(self):
         from ark_blst_tpu_torch.curves import pairing as PR
+        from ark_blst_tpu_torch.ops import tower_lazy as TL
 
-        self.calls, self._pr, self._egress = 0, PR, PR.egress
+        self.calls = 0
+        self._saved = [(PR, "egress", PR.egress), (TL, "fp12_egress", TL.fp12_egress)]
 
-        def counted(*args, **kwargs):
-            self.calls += 1
-            return self._egress(*args, **kwargs)
+        def counting(fn):
+            def counted(*args, **kwargs):
+                self.calls += 1
+                return fn(*args, **kwargs)
+            return counted
 
-        PR.egress = counted
+        for mod, name, fn in self._saved:
+            setattr(mod, name, counting(fn))
         return self
 
     def __exit__(self, *exc):
-        self._pr.egress = self._egress
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
 
 
 def phase_pairing(torch, dev, ps, qs, expected) -> dict:
@@ -2020,6 +2125,8 @@ def phase_pairing_unfused(torch, dev, ps, qs, expected, fused) -> dict:
     _check_final_exp(launches, (0, 0), "unfused pairing batch")
     check(launches["cyc_sqr"] == 317 and launches["fp12_mul"] == 37,
           f"K3/K4 launches per unfused batch: {launches}")
+    check(launches["fp12_mul_words"] == 0 and launches["fp12_mul_limbs"] == 0,
+          f"the unfused batch launched K4's word layouts: {launches}")
     check(all(launches[k] > 0 for k in ("mont_mul", "fp_inv", "cyc_sqr", "fp12_mul")),
           f"a kernel of the path was not launched: {launches}")
     _check_pairing_k1(launches, False, "unfused pairing batch")
@@ -2117,25 +2224,8 @@ def phase_pairing_strict(torch, dev, ps, qs, expected) -> dict:
               f"{what}: the engines disagree")
     for v in multi.values():
         del v["values"]
-    # the lazy multi_pairing warm, three calls (the verifier's product of
-    # pairings: K5, K6, the product fold on K4, FE-easy, FE-hard storing the
-    # strict limbs: no egress), then one under the profiler for its device
-    # kernels (copies left out) and once more as dispatched
-    runs = []
-    with _EgressCalls() as egress:
-        for _ in range(3):
-            t0 = time.perf_counter()
-            PR.multi_pairing(pm, qm, pim, qim)
-            torch.cuda.synchronize()
-            runs.append(time.perf_counter() - t0)
-    check(egress.calls == 0, "multi_pairing ran the lazy egress")
-    call = lambda: PR.multi_pairing(pm, qm, pim, qim)  # noqa: E731
-    _, prof = _stage(torch, call, True, expect=("easy_kernel", "hard_kernel"), attempts=3)
-    emit({"phase": "multi_pairing", "n": m, "gpu": _smi()[0], "seconds_warm": runs,
-          "seconds_first": multi["lazy"]["multi_pairing_s"], "egress_calls": 0,
-          "device_kernels": prof["device_kernels"], "device_events": prof["kernel_launches"],
-          "device_ms": prof["device_ms"], "device_ms_from": prof["device_ms_from"],
-          "dispatched": _dispatched_launches(torch, call), "top": prof["top"]})
+    multi_launches = phase_multi_pairing(torch, p, q, p_inf, q_inf, expected,
+                                         multi["lazy"]["multi_pairing_s"])
 
     n = len(ps)
     emit({"phase": "pairing_strict", "n": n, "ok": True, "equal_to_lazy": True,
@@ -2144,7 +2234,139 @@ def phase_pairing_strict(torch, dev, ps, qs, expected) -> dict:
           "stage_launches": stage_launches, "launches_per_miller_event": per_event,
           "launches_per_cyclotomic_sqr": per_cyc_sqr, "peak_mem_gib": peak_gib, "multi": {"n": m, "engines_agree": True, **multi}})
     emit({"phase": "pairing_strict_profile", **_profile_totals(profiled), "stages": profiled})
-    return {op: launches["strict_" + op] for op in SF.KERNELS}
+    return {op: launches["strict_" + op] for op in SF.KERNELS}, multi_launches
+
+
+# The multi-pairing entries of phase multi_pairing: (name, pairs, the
+# entry's kind); the Miller product's kinds end in K4's store of strict
+# limbs, `multi_pairing` in FE-easy and FE-hard
+MULTI_ENTRIES = (("multi_pairing", STRICT_MULTI_N, "final"),
+                 ("multi_miller_loop", STRICT_MULTI_N, "miller"),
+                 ("multi_miller_loop_prepared", STRICT_MULTI_N, "prepared"),
+                 ("multi_pairing_8192", PAIRING_N, "final"))
+MULTI_TURNS = 3  # calls of each route, in turns (word, digit, digit, word, ...)
+
+
+def _digit_miller_product(PR, final: bool, coeffs=None):
+    """`multi_miller_loop` (or `multi_pairing`, with `final`) on the digit
+    route the word route replaced: K6-chain storing f as digits, the digit
+    mask, the fold on K4's digits, then the eager egress (or FE-easy on
+    digits and FE-hard to limbs); on `coeffs` (a prepared stack's lines)
+    when given, without the prepare."""
+    def product(p, q, p_inf=None, q_inf=None):
+        lines = PR.prepare_g2(q) if coeffs is None else coeffs
+        f = PR._fold_mul(PR._masked_miller(p, lines, p_inf, q_inf), p[0].shape[-1])
+        return PR._final_strict(f) if final else PR.egress(f)
+    return product
+
+
+def _multi_routes(PR, p, q, p_inf, q_inf, kind: str) -> tuple:
+    """An entry's call on the word route (the entry itself), the same
+    product on the digit route it replaced (`_digit_miller_product`), and
+    the digit route's Miller product before its egress (for the egress
+    alone)."""
+    n = p[0].shape[-1]
+    if kind == "prepared":
+        prep = PR.prepare_g2_device(q, q_inf)
+        word = lambda: PR.multi_miller_loop_prepared(p, prep, p_inf)  # noqa: E731
+        lines, q_inf = prep.stacked, prep.q_inf
+    else:
+        word = {"final": lambda: PR.multi_pairing(p, q, p_inf, q_inf),
+                "miller": lambda: PR.multi_miller_loop(p, q, p_inf, q_inf)}[kind]
+        lines = PR.prepare_g2(q)
+    digit = functools.partial(  # the prepared entry's on its stack, the others' with a prepare
+        _digit_miller_product(PR, kind == "final", lines if kind == "prepared" else None),
+        p, q, p_inf, q_inf)
+    product = lambda: PR._fold_mul(PR._masked_miller(p, lines, p_inf, q_inf), n)  # noqa: E731
+    return word, digit, product
+
+
+def phase_multi_pairing(torch, p, q, p_inf, q_inf, expected, first_s: float) -> dict:
+    """The multi-pairings on the word route (`MULTI_ENTRIES`: `multi_pairing`,
+    `multi_miller_loop` and `multi_miller_loop_prepared` at 1,024 pairs,
+    `multi_pairing` at 8192): each run once with the counts at 0 before it
+    (K6-chain once, K4 ceil(log2 N) on words, the Miller product's last
+    level K4's limbs store, no digit K4; the lazy egress never called,
+    checked), its result against the digit route's limb for limb and
+    against the oracle's product of the checked pairings (the Miller
+    product through the oracle's final exponentiation); then both routes
+    timed in turns, MULTI_TURNS calls each, under the profiler (device
+    kernels, device time) and as dispatched, and the digit route's eager
+    egress alone. Emits line `multi_pairing`; returns each entry's
+    launches."""
+    from ark_blst_tpu_torch.curves import pairing as PR
+    from ark_blst_tpu_torch.ops import convert as CV
+    from ark_blst_tpu_torch.oracle import pairing as OP
+
+    out, launches = {}, {}
+    leaves = lambda t: [x for a in t for b in a for x in b]  # noqa: E731
+    for name, m, kind in MULTI_ENTRIES:
+        pm, qm = tuple(x[:, :m] for x in p), tuple(tuple(x[:, :m] for x in c) for c in q)
+        pim, qim = p_inf[:m], q_inf[:m]
+        word, digit, product = _multi_routes(PR, pm, qm, pim, qim, kind)
+        word()  # warm-up (and the prepare, for the prepared entry)
+        torch.cuda.synchronize()
+        kernels = _reset_launches()
+        with _EgressCalls() as egress:
+            got = word()  # the path
+            torch.cuda.synchronize()
+        counts = {k: v.launches for k, v in kernels.items() if v.launches}
+        check(egress.calls == 0, f"{name} ran the lazy egress {egress.calls} times")
+        levels = (m - 1).bit_length()
+        final = kind == "final"
+        want = {"miller_step": 1, "fp12_mul_words": levels - (0 if final else 1),
+                "fp12_mul_limbs": 0 if final else 1,
+                "final_exp_easy": int(final), "final_exp_hard": int(final),
+                "prepare_step": 0 if kind == "prepared" else 1}
+        check(counts == {k: v for k, v in want.items() if v},
+              f"{name} launched {counts}, expected {want}")
+        ref = digit()
+        check(all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(ref))),
+              f"{name} differs from the digit route")
+        value = CV.fp12_from_dev(got)[0]
+        check((value if final else OP.final_exp(value)) == _fp12_product(expected[:m]),
+              f"{name} differs from the oracle's product")
+        runs = {"words": [], "digits": []}
+        for turn in range(MULTI_TURNS):
+            for route in (("words", "digits") if turn % 2 == 0 else ("digits", "words")):
+                fn = word if route == "words" else digit
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                runs[route].append(time.perf_counter() - t0)
+        res = {"n": m, "seconds": runs["words"], "digit_route_seconds": runs["digits"],
+               "launches": counts, "egress_calls": 0, "equal_to_digit_route": True,
+               "equal_to_oracle": True}
+        # the profiler has returned no event of K5 or K6 in some runs of a
+        # call (the word route's, in this phase): a profile missing a chain
+        # of the call is taken again, then timed by CUDA events and counted
+        # as dispatched (`_stage`)
+        chains = ("miller_chain_kernel", "fp12_mul_kernel") + (
+            () if kind == "prepared" else ("prepare_chain_kernel",))
+        for route, fn in (("words", word), ("digits", digit)):
+            _, prof = _stage(torch, fn, True, expect=chains, attempts=4)
+            key = "" if route == "words" else "digit_route_"
+            res.update({key + "device_kernels": prof["device_kernels"],
+                        key + "device_events": prof["kernel_launches"],
+                        key + "device_ms": prof["device_ms"],
+                        key + "device_ms_from": prof["device_ms_from"],
+                        key + "dispatched": _dispatched_launches(torch, fn),
+                        key + "top": prof["top"]})
+        if not final:  # the digit route's eager egress alone, on its product
+            f = product()
+            egress_s = []
+            for _ in range(MULTI_TURNS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                PR.egress(f)
+                torch.cuda.synchronize()
+                egress_s.append(time.perf_counter() - t0)
+            res.update(egress_alone_seconds=egress_s,
+                       egress_dispatched=_dispatched_launches(torch, lambda: PR.egress(f)))
+        out[name], launches[name] = res, counts
+    emit({"phase": "multi_pairing", "gpu": _smi()[0], "seconds_first": first_s, **out})
+    return launches
 
 
 # --- the arkworks API surface on the card's MSM and pairing paths --------------
@@ -2261,7 +2483,7 @@ def _api_msm(torch, dev, curve_name: str) -> tuple:
     return res, bases, out
 
 
-def phase_api(torch, dev, ps, qs, expected, fused) -> None:
+def phase_api(torch, dev, ps, qs, expected, fused) -> dict:
     """The arkworks API's batch entries on the card: G1Projective.msm at
     2^20 and G2Projective.msm at 2^16 on the known-answer instances; the
     phase-8 instance through `Bls12.pairing_batch`, plain and prepared,
@@ -2327,21 +2549,43 @@ def phase_api(torch, dev, ps, qs, expected, fused) -> None:
     # Miller loop on the card, final exponentiation on the host
     m = API_MULTI_N
     kernels = _reset_launches()
-    t0 = time.perf_counter()
-    mlo = T.Bls12.multi_miller_loop(gp[:m], gq[:m])  # backend None: the device route
-    t1 = time.perf_counter()
+    with _EgressCalls() as egress:
+        t0 = time.perf_counter()
+        mlo = T.Bls12.multi_miller_loop(gp[:m], gq[:m])  # backend None: the device route
+        t1 = time.perf_counter()
     e = T.Bls12.final_exponentiation(mlo)
     t2 = time.perf_counter()
-    launches = {k: kernels[k].launches for k in ("fp12_mul", "prepare_step", "miller_step",
+    launches = {k: kernels[k].launches for k in ("fp12_mul", "fp12_mul_words", "fp12_mul_limbs",
+                                                  "prepare_step", "miller_step",
                                                   "final_exp_easy", "final_exp_hard")}
+    check(egress.calls == 0, f"api multi_miller_loop ran the lazy egress {egress.calls} times")
     check(isinstance(mlo, T.MillerLoopOutput) and e.v == _fp12_product(expected[:m]),
           "api multi_miller_loop + final_exponentiation differs from the oracle's product")
-    check(all(launches[k] > 0 for k in ("fp12_mul", "prepare_step", "miller_step")),
-          f"a kernel of the API Miller loop was not launched: {launches}")
+    levels = (m - 1).bit_length()
+    check((launches["fp12_mul"], launches["fp12_mul_words"], launches["fp12_mul_limbs"])
+          == (0, levels - 1, 1), f"api multi_miller_loop's fold launched {launches}, expected "
+                                 f"K4 {levels - 1} times on words and once to limbs")
     _check_chains(launches, (1, 1), "api multi_miller_loop")
     _check_final_exp(launches, (0, 0), "api multi_miller_loop (final exponentiation on the host)")
-    emit({"phase": "api_miller", "n": m, "ok": True, "multi_miller_loop_s": t1 - t0,
-          "final_exponentiation_host_s": t2 - t1, "launches": launches})
+    first_s, host_fe_s = t1 - t0, t2 - t1
+    # the same call in turns with the digit route the word route replaced
+    # (`_digit_miller_product` in place of `curves/pairing.py:multi_miller_loop`)
+    turns = {"words": [], "digits": []}
+    for route in ("words", "digits", "digits", "words"):
+        saved = PR.multi_miller_loop
+        if route == "digits":
+            PR.multi_miller_loop = _digit_miller_product(PR, final=False)
+        try:
+            t0 = time.perf_counter()
+            again = T.Bls12.multi_miller_loop(gp[:m], gq[:m])
+            turns[route].append(time.perf_counter() - t0)
+        finally:
+            PR.multi_miller_loop = saved
+        check(again == mlo, f"api multi_miller_loop on the {route} route differs")
+    emit({"phase": "api_miller", "n": m, "ok": True, "multi_miller_loop_s": first_s,
+          "final_exponentiation_host_s": host_fe_s, "launches": launches, "egress_calls": 0,
+          "seconds_in_turns": turns})
+    miller_launches = launches
     del gp, gq, prep
 
     # the repo's vectors, through the device routes
@@ -2366,6 +2610,7 @@ def phase_api(torch, dev, ps, qs, expected, fused) -> None:
           "msm_g1_vectors": len(vecs["msm_g1"]), "vectors_s": vectors_s,
           "round_trip_points": len(round_trip), "round_trip_s": time.perf_counter() - t0})
     emit({"phase": "api", "ok": True, "seconds": time.perf_counter() - t_phase})
+    return miller_launches
 
 
 def phase_fp_inv_batch(torch, dev) -> dict:
@@ -2753,8 +2998,10 @@ def distributed_pairing(torch, dev, mesh, ps, qs, expected) -> tuple:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {name: kernels[name].launches for name in names}
-    check(all(launches[k] > 0 for k in PAIRING_FUSED + ("fp12_mul",)),
+    check(all(launches[k] > 0 for k in PAIRING_FUSED + ("fp12_mul_words",)),
           f"a kernel of the path was not launched: {launches}")
+    check(launches["fp12_mul"] == 0 and launches["fp12_mul_limbs"] == 0,
+          f"the sharded multi-pairing folded off K4's words: {launches}")
     _check_pairing_k1(launches, True, "sharded multi-pairing")
     _check_chains(launches, (1, 1), "sharded multi-pairing")
     _check_final_exp(launches, (1, 1), "sharded multi-pairing")
@@ -2765,7 +3012,7 @@ def distributed_pairing(torch, dev, mesh, ps, qs, expected) -> tuple:
     flat = lambda t: [x for a in t for b in a for x in b]  # noqa: E731
     check(all(torch.equal(a, b) for a, b in zip(flat(got), flat(single))),
           "sharded multi-pairing differs from multi_pairing")
-    like = torch.zeros((12, 30, 1), dtype=torch.int32, device=dev)
+    like = torch.zeros((12, 12, 1), dtype=torch.int32, device=dev)  # a rank's words
     res = {"engine": "lazy", "fuse": True, "events": 68, "final": True,
            "collective": str(mesh.backend), "world": mesh.size, "n": len(ps), "ok": True,
            "equal_to_oracle_product": True, "equal_to_multi_pairing": True,
@@ -2947,8 +3194,9 @@ def rank_main(argv) -> int:
                "gather_ms": _gather_ms(torch, mesh,
                                        torch.zeros((12, 30, 1), dtype=torch.int32, device=dev)),
                "fp12": CV.fp12_from_dev(got)}
-    check(all(pairing["launches"][k] > 0 for k in PAIRING_FUSED + ("fp12_mul",)),
+    check(all(pairing["launches"][k] > 0 for k in PAIRING_FUSED + ("fp12_mul_words",)),
           f"rank {a.rank}: {pairing['launches']}")
+    check(pairing["launches"]["fp12_mul"] == 0, f"rank {a.rank} folded on K4's digits")
     _check_chains(pairing["launches"], (1, 1), f"rank {a.rank}'s sharded pairing")
     _check_final_exp(pairing["launches"], (1, 1), f"rank {a.rank}'s sharded pairing")
     with open(a.out, "w") as f:
@@ -3020,7 +3268,7 @@ def main() -> int:
     (p, _), (q, _) = B._g1_batch(ps, dev), B._g2_batch(qs, dev)
     real = real_event_inputs(torch, p, q)
     k3 = phase_k3(torch, dev, real, sass["cyc_sqr.cu"], ptxas)
-    k4 = phase_k4(torch, dev, real, sass["fp12_mul.cu"], ptxas)
+    k4, k4w = phase_k4(torch, dev, real, sass["fp12_mul.cu"], ptxas)
     k5 = phase_k5(torch, dev, real, sass["prepare_step.cu"], ptxas)
     k6 = phase_k6(torch, dev, real, sass["miller_step.cu"], ptxas)
     k11, k12 = phase_k11_k12(torch, dev, real, sass, ptxas)
@@ -3031,9 +3279,10 @@ def main() -> int:
     launches, fused = phase_pairing(torch, dev, ps, qs, pairs_expected)
     unfused = phase_pairing_unfused(torch, dev, ps, qs, pairs_expected, fused)
     torch.cuda.empty_cache()
-    strict_pairing = phase_pairing_strict(torch, dev, ps, qs, pairs_expected)
+    strict_pairing, multi_launches = phase_pairing_strict(torch, dev, ps, qs,
+                                                          pairs_expected)
     torch.cuda.empty_cache()
-    phase_api(torch, dev, ps, qs, pairs_expected, fused)
+    api_launches = phase_api(torch, dev, ps, qs, pairs_expected, fused)
     t0 = time.perf_counter()
     res, dist_launches["pairing"] = distributed_pairing(torch, dev, mesh, ps, qs, pairs_expected)
     emit({"phase": "distributed_pairing", **res})
@@ -3145,8 +3394,25 @@ def main() -> int:
         _kernel_line("fp12_mul", "fp12_mul.cu",
                      "ark_blst_tpu/ops/pallas_lazy.py:63 (ops/tower_lazy.py:567 mul12)",
                      unfused["fp12_mul"], k4, launches_pairing_fused=launches["fp12_mul"],
+                     launches_multi={name: c.get("fp12_mul", 0)
+                                     for name, c in multi_launches.items()},
                      launches_distributed={"pairing": dist_launches["pairing"]["fp12_mul"]},
-                     bound_radix13_ms=k4["bound_radix13_ms"]),
+                     bound_radix13_ms=k4["bound_radix13_ms"], ptxas=k4["ptxas"]),
+        *[_kernel_line("fp12_mul_" + layout, "fp12_mul.cu",
+                       "ark_blst_tpu/ops/pallas_lazy.py:63 (ops/tower_lazy.py:567 mul12, under "
+                       "the multi-pairings' product fold, ark_blst_tpu/curves/pairing.py:470 "
+                       "_fold_mul" + (" and :485 _egress)" if layout == "limbs" else ")"),
+                       multi_launches[main]["fp12_mul_" + layout], k4w[layout],
+                       launches_multi={name: c.get("fp12_mul_" + layout, 0)
+                                       for name, c in multi_launches.items()},
+                       launches_api_miller=api_launches["fp12_mul_" + layout],
+                       launches_distributed={
+                           "pairing": dist_launches["pairing"]["fp12_mul_" + layout]},
+                       launches_pairing_fused=launches["fp12_mul_" + layout],
+                       launches_pairing_unfused=unfused["fp12_mul_" + layout],
+                       digits_ms=k4w[layout]["digits_ms"], at_widths=k4w[layout]["at_widths"],
+                       launch=k4w[layout]["launch"], ptxas=k4w[layout]["ptxas"])
+          for layout, main in (("words", "multi_pairing"), ("limbs", "multi_miller_loop"))],
         *[_kernel_line("final_exp_" + part, "final_exp.cu", replaces,
                        launches["final_exp_" + part], res,
                        launches_prepared=launches["prepared"]["final_exp_" + part],

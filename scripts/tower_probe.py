@@ -35,8 +35,10 @@ at n = 1 and n = 32 squares, K4, K5's doubling and addition (one event),
 K6 with and without the square (one event), K11 or K12, each with its
 edges alone, and whether the output equals the library's default shape's
 bit for bit (every shape computes the same words; the edges alone store
-their inputs' values). Then, for each width N of `--widths` (the pairs of
-the pipeline's real inputs, 8 distinct, as chip_smoke.py's phase
+their inputs' values); K4 also on its word layouts (words in, words or
+strict limbs out: the multi-pairings' fold) on the words of its
+operands. Then, for each width N of `--widths` (the pairs of the
+pipeline's real inputs, 8 distinct, as chip_smoke.py's phase
 `tower_chains` makes them) and each E of `--chains`, one line for the
 two chains of all 68 events in the library's builds at E elements a
 block (six threads an element for K5, eight for K6): their times and
@@ -44,7 +46,7 @@ their edges alone in each layout of the edges (`pairing`, the fused
 pairing's: strict Q and P in, R = (Q, 1) and f = one formed in the
 kernels, the lines as words, K6 storing conj(f) as words (K6 only: K5's
 is `strict_words`'); `strict_words`, the same with f stored as digits, as
-the multi-pairings' fold takes it; `digits`, the digit entries': R, Q, f,
+the public `miller_loop` takes it; `digits`, the digit entries': R, Q, f,
 P and the lines as digits), their blocks an SM and waves, and whether
 their output equals the default shape's. Then, for each width N, FE-easy
 at its default shape on f as words (the fused pairing's conj(f), the
@@ -136,6 +138,7 @@ def main() -> int:
     from ark_blst_tpu_torch.ops import final_exp as FE
     from ark_blst_tpu_torch.ops import fp12_sqr as K11
     from ark_blst_tpu_torch.ops import lazy13 as LZ
+    from ark_blst_tpu_torch.ops import words as W
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout
@@ -176,7 +179,7 @@ def main() -> int:
 
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     entries = {"k3": ("tower_cyc_sqr_shaped", [vp, vp, i64, i32, i32, i32, vp]),
-               "k4": ("tower_fp12_mul_shaped", [vp, vp, vp, i64, i32, i32, i32, vp]),
+               "k4": ("tower_fp12_mul_shaped", [vp, vp, vp, i64, i32, i32, i32, i32, i32, vp]),
                "k5": ("pairing_prepare_chain_shaped",
                       [vp, vp, vp, vp, i64, i32, vp, i32, i32, i32, i32, i32, vp]),
                "k6": ("pairing_miller_chain_shaped",
@@ -230,6 +233,9 @@ def main() -> int:
     out = torch.empty_like(x)
     ref3 = {n: K3.cyc_sqr(x, n) for n in (1, 32)}
     ref4 = K4.fp12_mul(a, b)
+    # K4's word layouts (the multi-pairings' fold) on the words of a and b
+    aw, bw = W.digits_to_words_plain(a), W.digits_to_words_plain(b)
+    ref4w = {"words": K4.fp12_mul(aw, bw, out="words"), "limbs": K4.fp12_mul(aw, bw, out="limbs")}
     ref5 = {add: PS.prepare_step(r, q if add else None) for add in (False, True)}
     ref6 = {w: PS.miller_step(f, c, pxy, w) for w in (True, False)}
     ref11, ref12 = K11.fp12_sqr(f), K12.fp12_mul_by_014(f, c)
@@ -244,12 +250,21 @@ def main() -> int:
         k4, res = shape_line("k4", E, T)
         for edges in (0, 1):
             run = lambda e=edges, k4=k4: launch(k4, a.data_ptr(), b.data_ptr(),  # noqa: E731
-                                                out.data_ptr(), N, E, T, e, stream)
+                                                out.data_ptr(), N, DIG, DIG, E, T, e, stream)
             res["ms_edges_only" if edges else "ms"] = timed(run)
             if edges:
                 res["edges_value_equal"] = edges_hold([a])
             else:
                 res["equal"] = bool(torch.equal(out, ref4))
+        for name, fmt in (("words", WRD), ("limbs", LIM)):
+            got = torch.empty_like(ref4w[name])
+            for edges in (0, 1):
+                run = lambda e=edges, k4=k4, fmt=fmt, got=got: launch(  # noqa: E731
+                    k4, aw.data_ptr(), bw.data_ptr(), got.data_ptr(), N, WRD, fmt, E, T, e,
+                    stream)
+                res[f"ms_{name}_edges_only" if edges else f"ms_{name}"] = timed(run)
+                if not edges:
+                    res[f"equal_{name}"] = bool(torch.equal(got, ref4w[name]))
         print(json.dumps(res), flush=True)
     for E, T in _shapes(args.k5):
         k5, res = shape_line("k5", E, T)
@@ -351,8 +366,6 @@ def main() -> int:
             print(json.dumps(res), flush=True)
 
     from ark_blst_tpu_torch import bls12 as B
-
-    from ark_blst_tpu_torch.ops import words as W
 
     ps, qs, _, _ = CS.pairing_inputs()
     for n in (int(w) for w in args.widths.split(",") if w):

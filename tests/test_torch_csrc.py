@@ -75,11 +75,11 @@ def test_strict_header_constants(name, spec):
     [MM.KERNEL, MB.KERNEL, K3.KERNEL, K4.KERNEL, PS.PREPARE_KERNEL, PS.MILLER_KERNEL,
      MB.KERNEL_G2, MB.KERNEL_G2_WORDS, *SF.KERNELS.values(), K11.KERNEL, K12.KERNEL,
      MB.KERNEL_G1_WORDS, FI.KERNEL_INV, FI.KERNEL_UP, FI.KERNEL_DOWN, FE.KERNEL_EASY,
-     FE.KERNEL_HARD],
+     FE.KERNEL_HARD, K4.KERNEL_WORDS, K4.KERNEL_LIMBS],
     ids=["mont_mul", "bucket", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step",
          "bucket_g2", "g2_point_words", *("strict_" + op for op in SF.KERNELS), "fp12_sqr",
          "fp12_mul_by_014", "g1_point_words", "fp_inv", "scan_up", "scan_down",
-         "final_exp_easy", "final_exp_hard"])
+         "final_exp_easy", "final_exp_hard", "fp12_mul_words", "fp12_mul_limbs"])
 def test_kernel_sources_export_their_entry(kernel):
     src = (KC.CSRC_DIR / kernel.source).read_text()
     assert re.search(rf'extern "C" int {kernel.symbol}\(', src)
@@ -93,16 +93,19 @@ def test_kernel_sources_export_their_entry(kernel):
 @pytest.mark.parametrize("bad", ["rows", "digits_or_batch", "dtype", "device"])
 @pytest.mark.parametrize("kernel", ["cyc_sqr", "fp12_mul", "prepare_step", "miller_step",
                                     "fp12_sqr", "fp12_mul_by_014", "final_exp_easy",
-                                    "final_exp_hard"])
+                                    "final_exp_hard", "fp12_mul_words", "fp12_mul_limbs"])
 def test_tower_wrappers_reject_what_the_kernels_do_not_take(kernel, bad):
-    """Only (rows, 30, N) int32 stacks on one device reach a tower kernel,
-    and only CPU tensors take the plain version: a meta tensor raises."""
+    """Only (rows, 30, N) int32 stacks (K4's word layouts: (12, 12, N)
+    words) on one device reach a tower kernel, and only CPU tensors take
+    the plain version: a meta tensor raises."""
     import torch
 
     rows = {"cyc_sqr": [12], "fp12_mul": [12, 12], "prepare_step": [6, 4],
             "miller_step": [12, 6, 2], "fp12_sqr": [12], "fp12_mul_by_014": [12, 6],
-            "final_exp_easy": [12], "final_exp_hard": [12]}[kernel]
-    ops = [torch.zeros((r, 30, 4), dtype=torch.int32) for r in rows]
+            "final_exp_easy": [12], "final_exp_hard": [12], "fp12_mul_words": [12, 12],
+            "fp12_mul_limbs": [12, 12]}[kernel]
+    width = 12 if kernel.startswith("fp12_mul_") and "014" not in kernel else 30
+    ops = [torch.zeros((r, width, 4), dtype=torch.int32) for r in rows]
     if bad == "rows":
         ops[-1] = torch.zeros((rows[-1] + 1, 30, 4), dtype=torch.int32)
     elif bad == "digits_or_batch":  # a batch that differs, or 29 digits for one operand
@@ -119,7 +122,9 @@ def test_tower_wrappers_reject_what_the_kernels_do_not_take(kernel, bad):
             "fp12_sqr": lambda: K11.fp12_sqr(ops[0]),
             "fp12_mul_by_014": lambda: K12.fp12_mul_by_014(*ops),
             "final_exp_easy": lambda: FE.easy(ops[0]),
-            "final_exp_hard": lambda: FE.hard(ops[0])}[kernel]
+            "final_exp_hard": lambda: FE.hard(ops[0]),
+            "fp12_mul_words": lambda: K4.fp12_mul(*ops, out="words"),
+            "fp12_mul_limbs": lambda: K4.fp12_mul(*ops, out="limbs")}[kernel]
     with pytest.raises(ValueError):
         call()
 
@@ -207,13 +212,14 @@ def test_build_all_starts_one_nvcc_per_source(monkeypatch):
 def test_every_kernel_source_is_built_once(monkeypatch):
     """The twelve kernel sources of the port, one nvcc each: every
     `csrc/*.cu` belongs to a kernel, the tower kernels K11/K12 have their
-    own, K1-inv and K1-scan's two passes share `fp_inv.cu`, and FE-easy and
-    FE-hard share `final_exp.cu`."""
+    own, K1-inv and K1-scan's two passes share `fp_inv.cu`, FE-easy and
+    FE-hard share `final_exp.cu`, and K4's three layouts `fp12_mul.cu`."""
     started = []
     monkeypatch.setattr(KC.CudaKernel, "start_build", lambda self: started.append(self) or None)
     kernels = [MM.KERNEL, MB.KERNEL, MB.KERNEL_G2, K3.KERNEL, K4.KERNEL, PS.PREPARE_KERNEL,
                PS.MILLER_KERNEL, *SF.KERNELS.values(), K11.KERNEL, K12.KERNEL,
-               FI.KERNEL_INV, FI.KERNEL_UP, FI.KERNEL_DOWN, FE.KERNEL_EASY, FE.KERNEL_HARD]
+               FI.KERNEL_INV, FI.KERNEL_UP, FI.KERNEL_DOWN, FE.KERNEL_EASY, FE.KERNEL_HARD,
+               K4.KERNEL_WORDS, K4.KERNEL_LIMBS]
     owners = KC.build_all(kernels)
     assert sorted(k.source for k in owners) == sorted(p.name for p in KC.CSRC_DIR.glob("*.cu"))
     assert len(owners) == 12 and started == owners

@@ -283,6 +283,86 @@ def test_k4_value_equal_to_plain(dev, n):
     _value_equal(got, K4.fp12_mul_plain(a, b))
 
 
+def _words(rng, n, dev):
+    """(12, 12, n) canonical words of random values below 8p (the digits of
+    `_stack` to words), one and zero in the first columns."""
+    w = W.digits_to_words_plain(_stack(rng, 12, n, "cpu", top=TOP_8P))
+    w[..., :1] = PR._fp12_one_words("cpu")
+    w[..., 1:2] = 0
+    return w.to(dev)
+
+
+@pytest.mark.parametrize("out", ["words", "limbs"])
+@pytest.mark.parametrize("n", [1024, 37, 1])
+def test_k4_word_layouts_equal_to_plain(dev, n, out):
+    """K4 on the multi-pairings' word edges (words -> words, words -> strict
+    limbs), one launch of its own layout, at the fold's widths and ragged:
+    word for word and limb for limb against its plain version, and against
+    the digit layout's product of the same values (K4 on the words'
+    digits), the limbs through the lazy egress."""
+    from ark_blst_tpu_torch.ops import tower_lazy as TL
+
+    rng = np.random.default_rng(8)
+    a, b = _words(rng, n, dev), _words(rng, n, dev)
+    kernel = K4.KERNEL_WORDS if out == "words" else K4.KERNEL_LIMBS
+    got = _launched_once(kernel, lambda: K4.fp12_mul(a, b, out=out))
+    assert got.shape == (12, W.WORDS if out == "words" else 24, n)
+    assert torch.equal(got, K4.fp12_mul_plain(a, b, out))
+    digits = K4.fp12_mul(W.words_to_digits_plain(a), W.words_to_digits_plain(b))
+    if out == "words":
+        assert torch.equal(got, W.digits_to_words_plain(digits))
+    else:
+        assert torch.equal(got, torch.stack(TL._flat12(TL.fp12_egress(TL.unstack12(digits)))))
+
+
+def test_multi_pairings_fold_on_words(dev, monkeypatch):
+    """The multi-pairings on the card: K6-chain storing conj(f) as words
+    (never f as digits), the fold on K4's word layouts, ceil(log2 N)
+    launches, `multi_miller_loop`'s last level storing the strict limbs
+    (at N = 1 one launch against one), no digit K4 and no egress; the
+    results equal the oracle's products, identity pairs one."""
+    from ark_blst_tpu_torch.ops import tower_lazy as TL
+
+    rng = random.Random(28)
+    ps = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    qs = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    pb, qb = [ps[i % 4] for i in range(40)], [qs[(i + 1) % 4] for i in range(40)]
+    pb[3], qb[6] = None, None
+    formats = []
+    miller_lines = PS.miller_lines
+
+    def spy(coeffs, p, schedule, f_fmt=PS.FMT_DIGITS):
+        formats.append(f_fmt)
+        return miller_lines(coeffs, p, schedule, f_fmt)
+
+    def no_egress(*args, **kwargs):
+        raise AssertionError("the lazy egress ran")
+
+    monkeypatch.setattr(PS, "miller_lines", spy)
+    monkeypatch.setattr(PR, "egress", no_egress)
+    monkeypatch.setattr(TL, "fp12_egress", no_egress)
+    kernels = (K4.KERNEL, K4.KERNEL_WORDS, K4.KERNEL_LIMBS, FE.KERNEL_EASY, FE.KERNEL_HARD)
+
+    def launches(fn):
+        before = [k.launches for k in kernels]
+        out = fn()
+        torch.cuda.synchronize()
+        return out, [k.launches - b for k, b in zip(kernels, before)]
+
+    for n in (40, 1):
+        pairs = [(a, b) for a, b in zip(pb[:n], qb[:n]) if a and b]
+        mlo = OP.multi_miller_loop(pairs)
+        got, k = launches(lambda: B.multi_miller_loop(pb[:n], qb[:n], device=dev))
+        assert got == mlo and k == [0, (n - 1).bit_length() - 1 if n > 1 else 0, 1, 0, 0], n
+        (p, p_inf), (q, q_inf) = B._g1_batch(pb[:n], dev), B._g2_batch(qb[:n], dev)
+        prep = PR.prepare_g2_device(q, q_inf)
+        got, k = launches(lambda: PR.multi_miller_loop_prepared(p, prep, p_inf))
+        assert CV.fp12_from_dev(got) == [mlo] and k[0] == 0 and k[2] == 1, n
+        got, k = launches(lambda: B.multi_pairing(pb[:n], qb[:n], device=dev))
+        assert got == OP.final_exp(mlo) and k == [0, (n - 1).bit_length(), 0, 1, 1], n
+    assert formats == [PS.FMT_WORDS] * 6
+
+
 @pytest.mark.parametrize("is_add", [False, True])
 def test_k5_value_equal_to_plain(dev, is_add):
     rng = np.random.default_rng(6)
@@ -364,14 +444,15 @@ def test_fused_pairing_launches_one_chain_each(dev):
     """A fused batch launches K5, K6, FE-easy and FE-hard once each and no
     K3 or K4, a prepare alone K5 once, a prepared batch K6 and the final
     exponentiation's two chains once, `multi_pairing` each chain once (and
-    K4 for its product fold); the results equal the oracle."""
+    K4 on words for its product fold, no digit K4); the results equal the
+    oracle."""
     rng = random.Random(21)
     ps = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
     qs = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
     pb = [ps[i % 4] for i in range(40)]
     qb = [qs[(i + 3) % 4] for i in range(40)]
     chains = (PS.PREPARE_KERNEL, PS.MILLER_KERNEL, FE.KERNEL_EASY, FE.KERNEL_HARD, K3.KERNEL,
-              K4.KERNEL)
+              K4.KERNEL, K4.KERNEL_WORDS)
 
     def launches(fn):
         before = [k.launches for k in chains]
@@ -381,13 +462,13 @@ def test_fused_pairing_launches_one_chain_each(dev):
 
     want = [OP.pairing(ps[i % 4], qs[(i + 3) % 4]) for i in range(40)]
     got, n = launches(lambda: B.pairing_batch(pb, qb, device=dev))
-    assert got == want and n == [1, 1, 1, 1, 0, 0]
+    assert got == want and n == [1, 1, 1, 1, 0, 0, 0]
     prep, n = launches(lambda: B.prepare_g2_batch(qb, device=dev))
-    assert n == [1, 0, 0, 0, 0, 0]
+    assert n == [1, 0, 0, 0, 0, 0, 0]
     got, n = launches(lambda: B.pairing_batch(pb, prep, device=dev))
-    assert got == want and n == [0, 1, 1, 1, 0, 0]
+    assert got == want and n == [0, 1, 1, 1, 0, 0, 0]
     got, n = launches(lambda: B.multi_pairing(pb[:8], qb[:8], device=dev))
-    assert n == [1, 1, 1, 1, 0, 3]
+    assert n == [1, 1, 1, 1, 0, 0, 3]
     assert got == OP.final_exp(OP.multi_miller_loop(list(zip(pb[:8], qb[:8]))))
 
 
@@ -736,8 +817,9 @@ def test_distributed_msm_world_of_one(dev, nccl_mesh):
 
 def test_distributed_pairing_world_of_one(dev, nccl_mesh):
     """`multi_pairing_sharded` over 64 pairs (one identity on each side) over
-    NCCL, fused with the final exponentiation, equals the unsharded
-    `multi_pairing` limb for limb and the oracle's product."""
+    NCCL, fused with the final exponentiation (the rank's fold on K4's
+    words), equals the unsharded `multi_pairing` limb for limb and the
+    oracle's product."""
     rng = random.Random(19)
     ps = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
     qs = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
@@ -745,7 +827,8 @@ def test_distributed_pairing_world_of_one(dev, nccl_mesh):
     qb = [qs[(3 * i + 1) % 4] for i in range(64)]
     pb[5], qb[6] = None, None
     (p, p_inf), (q, q_inf) = B._g1_batch(pb, dev), B._g2_batch(qb, dev)
-    kernels = (K4.KERNEL, FE.KERNEL_EASY, FE.KERNEL_HARD, PS.PREPARE_KERNEL, PS.MILLER_KERNEL)
+    kernels = (K4.KERNEL_WORDS, FE.KERNEL_EASY, FE.KERNEL_HARD, PS.PREPARE_KERNEL,
+               PS.MILLER_KERNEL)
     before = [k.launches for k in kernels]
     got = PR.multi_pairing_sharded(p, q, nccl_mesh, p_inf=p_inf, q_inf=q_inf)
     torch.cuda.synchronize()

@@ -9,7 +9,7 @@ mask selects on words, FE-easy loads them, and FE-hard stores the strict
 and strict limbs are canonical, so the entries are held exactly: against
 the JAX package's `pairing` (run as on the CPU, its strict engine) limb for
 limb, an identity P and an identity Q among the pairs; `multi_pairing`
-against the oracle's product. The route's edges one by one:
+(its product folded on words) against the oracle's product. The route's edges one by one:
 tests/test_torch_pairing_edges.py; the kernels' block programs in these
 layouts under g++: tests/test_torch_tower_host.py; the kernels on the
 card: tests/test_torch_cuda.py.
@@ -123,10 +123,12 @@ def test_word_route_matches_jax(inputs, jax_pairing, word_route, entry):
 
 
 def test_multi_pairing_runs_no_egress(inputs, word_route):
-    """`multi_pairing` folds f as digits (K4), then FE-easy on digits and
-    FE-hard to strict limbs: the oracle's product, and no egress."""
+    """`multi_pairing` folds K6-chain's conj(f) words on K4's word edges,
+    then FE-easy on words and FE-hard to strict limbs: the oracle's
+    product, and no egress (the word route of the multi-pairings:
+    tests/test_torch_multi_words.py)."""
     p, q, p_inf, q_inf = inputs
     got = CV.fp12_from_dev(PR.multi_pairing(p, q, p_inf, q_inf))
     want = JOP.final_exp(JOP.multi_miller_loop([(PS4[0], QS4[0]), (PS4[3], QS4[3])]))
     assert got == [want]
-    assert word_route == [PS.FMT_DIGITS]
+    assert word_route == [PS.FMT_WORDS]

@@ -1,7 +1,8 @@
 """The CUDA code of K2-K6, K11, K12, FE-easy and FE-hard compiled for the
 CPU with the host C++ compiler and undefined-behaviour checks, against
 the kernels' plain PyTorch versions: K3, K4, K5, K6, K11 and K12 on the
-32-bit tower (csrc/tower381.cuh) and the G1 and G2 bucket additions
+32-bit tower (csrc/tower381.cuh; K4 also on the multi-pairings' word
+edges) and the G1 and G2 bucket additions
 (csrc/group381.cuh, K2 and K2-G2), all on 32-bit Montgomery words, by
 value; K3, K4, K11 and K12 also against the oracle; K5 and K6 also as
 the chains the pipeline launches (all 68 events of the prepare and of the
@@ -93,7 +94,10 @@ HARNESS = r"""
 // FE-hard (op 16) on value 0 as words (12, 12, n), then the program (p1
 // ops of 4 int32), then the Frobenius words, result (12, 30, n) digits;
 // op 21 FE-easy on f as words (12, 12, n), op 22 FE-hard with the result
-// as strict limbs (12, 24, n), the fused pairing's edges.
+// as strict limbs (12, 24, n), the fused pairing's edges. Ops 23/24: K4 on
+// the multi-pairings' word edges, in blocks as ops 0-4: a and b as words
+// (24, 12, n), result words (12, 12, n) (op 23) or strict limbs (12, 24, n)
+// (op 24).
 // One block program over the batch: blocks of E elements, each phase's jobs
 // in order (reversed if asked), with the slots' memory filled with a
 // pattern first, so that a job reading a slot no earlier phase wrote goes
@@ -160,12 +164,15 @@ int main() {
   long long hdr[4];
   if (fread(hdr, sizeof(long long), 4, stdin) != 4) return 2;
   const long long op = hdr[0], n = hdr[1], param = hdr[2], B = hdr[3];
-  if (op < 0 || op > 22) return 2;
+  if (op < 0 || op > 24) return 2;
   const bool tower = op <= 4 || op == 9 || op == 10;
   const long long plane = 30 * n, S = 1024;
   size_t in_size, out_size;
   const long long frob_ints = fexp::FROB_POWERS * 6 * 2 * 12;
-  if (op == 15 || op == 16 || op == 21 || op == 22) {
+  if (op == 23 || op == 24) {
+    in_size = 24 * 12 * n;
+    out_size = 12 * (op == 23 ? 12 : 24) * n;
+  } else if (op == 15 || op == 16 || op == 21 || op == 22) {
     const bool easy = op == 15 || op == 21;
     in_size = easy ? (op == 15 ? 30 : 12) * 12 * n + frob_ints
                    : 12 * 12 * n + 4 * param + frob_ints;
@@ -263,6 +270,17 @@ int main() {
                [&](int ph) { return t381::fp12_mul_jobs(ph); },
                [&](const t381::Block& b, int ph, int j, int e) {
                  t381::fp12_mul_job(b, x, x + 12 * plane, o, 0, ph, j, e);
+               });
+  if (op == 23 || op == 24)
+    run_blocks(n, B, t381::FP12_MUL_SLOTS, t381::FP12_MUL_PHASES,
+               [&](int ph) { return t381::fp12_mul_jobs(ph); },
+               [&](const t381::Block& b, int ph, int j, int e) {
+                 if (op == 23)
+                   t381::fp12_mul_job<t381::WORD_ROWS, t381::WORD_ROWS>(b, x, x + 12 * 12 * n, o,
+                                                                         0, ph, j, e);
+                 else
+                   t381::fp12_mul_job<t381::WORD_ROWS, t381::LIMB_ROWS>(b, x, x + 12 * 12 * n, o,
+                                                                         0, ph, j, e);
                });
   if (op == 2 || op == 3 || op == 13) {
     const int flag = op == 2;
@@ -479,6 +497,37 @@ def test_cyc_sqr_host_oracle(harness, nsq):
 def test_fp12_mul_host(harness):
     a, b = digit_stacks(2, 12, 12, top=TOP_8P)
     assert_value_equal(run(harness, 1, 0, a, b, buckets=BLOCK), K4.fp12_mul_plain(a, b))
+
+
+def fp12_words(elems) -> torch.Tensor:
+    """Oracle fp12 values -> (12, 12, n) canonical Montgomery words (v
+    2^384 mod p), the chains' and K4's word stacks."""
+    cols = [[c for b in e for a in b for c in a] for e in elems]
+    arr = np.array([[W.split(v[r] * (1 << 384) % OF.P) for v in cols] for r in range(12)],
+                   np.uint32)  # (12, n, 12)
+    return torch.from_numpy(np.ascontiguousarray(arr.transpose(0, 2, 1)).view(np.int32))
+
+
+@pytest.mark.parametrize("out", ["words", "limbs"])
+def test_fp12_mul_words_host_oracle(harness, out):
+    """tower381.cuh's K4 on the multi-pairings' word edges (words in, words
+    or strict limbs out; blocks of 8, the second ragged) on random
+    canonical elements, one and zero among them: word for word (limb for
+    limb) equal to `fp12_mul_plain` in that layout and to the oracle's
+    fp12_mul, with no conjugation at the edges."""
+    rng = random.Random(22)
+    a = [random_fp12(rng) for _ in range(N)]
+    b = [random_fp12(rng) for _ in range(N)]
+    a[0], b[1] = OF.FP12_ONE, OF.FP12_ZERO
+    wa, wb = fp12_words(a), fp12_words(b)
+    want = [OF.fp12_mul(x, y) for x, y in zip(a, b)]
+    if out == "words":
+        got = run(harness, 23, 0, wa, wb, shape=(12, W.WORDS, N), buckets=BLOCK)
+        assert torch.equal(got, fp12_words(want))
+    else:
+        got = run(harness, 24, 0, wa, wb, shape=(12, 24, N), buckets=BLOCK)
+        assert torch.equal(got, torch.stack(TL._flat12(CV.fp12_to_dev(want))))
+    assert torch.equal(got, K4.fp12_mul_plain(wa, wb, out))
 
 
 def test_fp12_mul_host_oracle(harness):
@@ -758,7 +807,8 @@ def test_miller_step_host(harness, with_sqr, source):
                                     "prepare_chain", "miller_chain", "final_exp_easy",
                                     "final_exp_hard", "prepare_lines", "miller_lines",
                                     "miller_lines_words", "final_exp_easy_words",
-                                    "final_exp_hard_limbs"])
+                                    "final_exp_hard_limbs", "fp12_mul_words",
+                                    "fp12_mul_limbs"])
 def test_tower381_phases_have_no_hazards(harness, kernel):
     """Each phase's jobs are independent: run in reverse order they give the
     same digits (on the card they run at once); for the chains over 8
@@ -784,6 +834,14 @@ def test_tower381_phases_have_no_hazards(harness, kernel):
         q, p, _, _ = strict_pairs(N, 13)
         lines = PS.prepare_lines_plain(((q[0], q[1]), (q[2], q[3])), SCHEDULE_8)
         args = edge_args(kernel, q, p, lines, SCHEDULE_8)
+        assert torch.equal(run(harness, *args[:-1], shape=args[-1], buckets=BLOCK),
+                           run(harness, *args[:-1], shape=args[-1], buckets=-BLOCK))
+        return
+    if kernel in ("fp12_mul_words", "fp12_mul_limbs"):
+        rng = random.Random(19)
+        a, b = (fp12_words([random_fp12(rng) for _ in range(N)]) for _ in range(2))
+        args = (23 if kernel.endswith("words") else 24, 0, a, b,
+                (12, W.WORDS if kernel.endswith("words") else 24, N))
         assert torch.equal(run(harness, *args[:-1], shape=args[-1], buckets=BLOCK),
                            run(harness, *args[:-1], shape=args[-1], buckets=-BLOCK))
         return
