@@ -10,9 +10,10 @@
 // products, through the lazy tower) run between XLA's own ops. The port had
 // launched each of those once (32 K3, 37 K4, 36 K1 and one K1-inv a batch)
 // with ~2,700 launches of eager radix-13 glue between them; here:
-//   FE-easy  f (12, 30, N) digits, or (12, 12, N) words as the fused
-//            pairing's K6-chain stores them -> t2 = (conj(f) f^-1)^(p^2 +
-//            1) as (12, 12, N) words;
+//   FE-easy  f (12, 30, N) digits, (12, 12, N) words as the fused
+//            pairing's K6-chain stores them, or (12, 24, N) strict limbs as
+//            the strict engine's K6-chain stores them -> t2 = (conj(f)
+//            f^-1)^(p^2 + 1) as (12, 12, N) words;
 //   FE-hard  t2 (words) -> the hard part as (12, 30, N) digits within
 //            4096, or as the strict (12, 24, N) limbs the pairing returns
 //            (so the lazy egress, ~900 eager launches, does not run): five
@@ -21,6 +22,10 @@
 // The outputs equal the plain versions (ops/final_exp.py: easy_plain,
 // hard_plain, the same chain over K3's and K4's plain versions on digits)
 // by canonical value; the limbs are canonical, so equal them limb for limb.
+// The strict engine's final exponentiation (curves/pairing.py:422-467 with
+// engine="strict": the x-ladders' fori_loops and the chain over the strict
+// tower, every op a pallas_field.py:66 _block_call) is the same pair of
+// launches on its strict limbs: FE-easy loading them, FE-hard storing them.
 //
 // What bounds them: operations. FE-hard makes 317 cyclotomic squares (18
 // Montgomery products of 12 x 32-bit words and ~107 modular sums each) and
@@ -48,8 +53,8 @@ namespace {
 // bounded for two blocks an SM, as many as shared memory holds at E = 32.
 // scripts/tower_probe.py (--fe) builds FE-hard at other bounds and times it.
 // Each kernel is instantiated for the edge formats its callers use
-// (tower381.cuh EdgeFormat): FE-easy's input digits or words, FE-hard's
-// output digits or strict limbs.
+// (tower381.cuh EdgeFormat): FE-easy's input digits, words or strict limbs,
+// FE-hard's output digits or strict limbs.
 constexpr int kEasyThreads = 192;
 constexpr int kEasyMinBlocks = 2;
 #ifndef FE_HARD_THREADS
@@ -81,12 +86,14 @@ using EasyKernel = void (*)(const int*, int*, const int*, long long, int);
 using HardKernel = void (*)(fexp::HardChain, long long, int);
 const EasyKernel kEasyDigits = easy_kernel<t381::DIGIT_ROWS>;
 const EasyKernel kEasyWords = easy_kernel<t381::WORD_ROWS>;
+const EasyKernel kEasyLimbs = easy_kernel<t381::LIMB_ROWS>;
 const HardKernel kHardDigits = hard_kernel<t381::DIGIT_ROWS>;
 const HardKernel kHardLimbs = hard_kernel<t381::LIMB_ROWS>;
 
 EasyKernel easy_for(int in_fmt) {
   return in_fmt == t381::DIGIT_ROWS ? kEasyDigits
          : in_fmt == t381::WORD_ROWS ? kEasyWords
+         : in_fmt == t381::LIMB_ROWS ? kEasyLimbs
                                      : nullptr;
 }
 
@@ -120,8 +127,8 @@ int shape_of(Kernel kernel, int default_threads, int* elems, int* threads, int* 
 
 }  // namespace
 
-// FE-easy: f of format in_fmt ((12, 30, n) digits or (12, 12, n) words;
-// t381::EdgeFormat), out: (12, 12, n) words, frob: (3, 6, 2, 12) words
+// FE-easy: f of format in_fmt ((12, 30, n) digits, (12, 12, n) words or
+// (12, 24, n) strict limbs; t381::EdgeFormat), out: (12, 12, n) words, frob: (3, 6, 2, 12) words
 // (ops/final_exp.py:FROB_WORDS); int32, contiguous, on the device of
 // `stream`. Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int final_exp_easy(const int* f, int* out, const int* frob, long long n,

@@ -10,10 +10,11 @@
 // load of f and FE-hard's store of the result: FE-easy writes its output as
 // words, FE-hard reads them and keeps its values t0-t6 as words in a scratch
 // stack between uses. The outer edges take the formats of tower381.cuh
-// (template parameters, an instantiation each): FE-easy loads f as digits
-// or as words (the fused pairing's K6-chain stores conj(f) as words, and
-// the identity mask selects on them), FE-hard stores its result as digits
-// or as the strict (24, n) limbs the pairing returns.
+// (template parameters, an instantiation each): FE-easy loads f as digits,
+// as words (the fused pairing's K6-chain stores conj(f) as words, and the
+// identity mask selects on them) or as strict limbs (the strict engine's
+// fp12, as its K6-chain stores conj(f)), FE-hard stores its result as
+// digits or as the strict (24, n) limbs the pairing returns.
 //
 // FE-easy is a fixed program: f into slots 0-5; the inverse of
 // tower_lazy.fp12_inv -> fp6_inv -> fp2_inv as phases of Fp2 products and
@@ -258,8 +259,8 @@ __device__ __forceinline__ void fp2_inv_job(const Elem& m, int src, int dst) {
   t381::store(m, dst, r);
 }
 
-// FE-easy: f of format IN_FMT in ((12, 30, n) digits or (12, 12, n) words),
-// the easy part (12, 12, n) words out.
+// FE-easy: f of format IN_FMT in ((12, 30, n) digits, (12, 12, n) words or
+// (12, 24, n) strict limbs), the easy part (12, 12, n) words out.
 struct EasyChain {
   const int* f;
   int* out;

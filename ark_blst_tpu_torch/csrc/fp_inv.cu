@@ -1,5 +1,6 @@
 // K1-inv and K1-scan: the lazy engine's inversion chains on Hopper
-// (sm_90a), each chain in one launch.
+// (sm_90a), each chain in one launch; K7-inv: the strict engine's Fermat
+// ladder, the same chain on strict limbs.
 //
 // Replace, on the TPU, the lax.scans of ark_blst_tpu/ops/pallas_lazy.py:41
 // mont_mul_stacked (K1) that run inside one compiled program:
@@ -7,11 +8,17 @@
 //            (fuse=True) and curves/msm_pallas2.py:394 _fermat_inv;
 //   K1-scan  the up and down scans of one level of the blocked batch
 //            inversion, curves/msm_pallas2.py:434 _batch_inverse.
+//   K7-inv   the Fermat ladder a^(p-2) of the strict engine,
+//            ops/dispatch.py:143 fp_inv: the lax.scan of :139 fp_pow over
+//            ops/pallas_field.py:66 _block_call (K7), reached from
+//            ops/tower.py fp2_inv and the strict group's to_affine.
 // The port had turned every step of each scan into a K1 launch (608 for a
-// ladder, 3 g for a level of g rows); here a chain is one launch.
-// Input and output are the lazy engine's (30, n) int32 digit stacks; the
-// outputs equal the plain versions (ops/fp_inv.py) by canonical value, their
-// digits canonical and within 4096.
+// ladder, 3 g for a level of g rows) or a K7 launch (610 for the strict
+// ladder: 381 squares and 229 products); here a chain is one launch.
+// K1's input and output are the lazy engine's (30, n) int32 digit stacks;
+// the outputs equal the plain versions (ops/fp_inv.py) by canonical value,
+// their digits canonical and within 4096. K7-inv's are the strict (24, n)
+// limbs, canonical, equal to its plain version limb for limb.
 //
 // What bounds them: operations. K1-inv makes 608 dependent 12-word CIOS
 // products per element (~912 instructions each) against 240 bytes of
@@ -35,10 +42,13 @@ namespace {
 
 constexpr int kThreads = 128;
 
+// The ladder on the edge format FMT: digits (K1-inv) or strict limbs
+// (K7-inv).
+template <int FMT>
 __global__ void __launch_bounds__(kThreads) fp_inv_kernel(const int* __restrict__ x,
                                                           int* __restrict__ out, long long n) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < n) finv::inv_elem(x + i, out + i, n);
+  if (i < n) finv::inv_elem<FMT>(x + i, out + i, n);
 }
 
 __global__ void __launch_bounds__(kThreads) scan_up_kernel(const int* __restrict__ z,
@@ -69,14 +79,26 @@ int shape_of(Kernel kernel, int* threads, int* blocks_per_sm) {
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads, 0));
 }
 
+template <int FMT>
+int launch_inv(const int* x, int* out, long long n, void* stream) {
+  if (n <= 0) return 0;
+  fp_inv_kernel<FMT><<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(x, out,
+                                                                                      n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x, out: (30, n) int32, contiguous, on the device of `stream`.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int lz_fp_inv(const int* x, int* out, long long n, void* stream) {
-  if (n <= 0) return 0;
-  fp_inv_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(x, out, n);
-  return static_cast<int>(cudaGetLastError());
+  return launch_inv<t381::DIGIT_ROWS>(x, out, n, stream);
+}
+
+// K7-inv. x, out: (24, n) int32 strict limbs, contiguous, on the device of
+// `stream`. Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int sf_fp_inv(const int* x, int* out, long long n, void* stream) {
+  return launch_inv<t381::LIMB_ROWS>(x, out, n, stream);
 }
 
 // z: (30, g m) int32; pre: (12, g m) int32 scratch; total: (30, m) int32.
@@ -99,7 +121,11 @@ extern "C" int lz_scan_down(const int* z, const int* pre, const int* inv_total, 
 // Each kernel's block size and the blocks an SM holds (the occupancy API at
 // the compiled registers). Return the CUDA error of the query (0 on success).
 extern "C" int lz_fp_inv_shape(int* threads, int* blocks_per_sm) {
-  return shape_of(fp_inv_kernel, threads, blocks_per_sm);
+  return shape_of(fp_inv_kernel<t381::DIGIT_ROWS>, threads, blocks_per_sm);
+}
+
+extern "C" int sf_fp_inv_shape(int* threads, int* blocks_per_sm) {
+  return shape_of(fp_inv_kernel<t381::LIMB_ROWS>, threads, blocks_per_sm);
 }
 
 extern "C" int lz_scan_up_shape(int* threads, int* blocks_per_sm) {

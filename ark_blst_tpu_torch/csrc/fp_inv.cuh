@@ -1,7 +1,9 @@
-// Device bodies of K1-inv and K1-scan (fp_inv.cu): the lazy engine's two
-// inversion chains on the 32-bit Montgomery layer of fp381.cuh, one thread
-// an element (the Fermat ladder) or a column (the blocked batch
-// inversion's up and down passes), every link of a chain in registers.
+// Device bodies of K1-inv, K1-scan and K7-inv (fp_inv.cu): the lazy
+// engine's two inversion chains and the strict engine's Fermat ladder on
+// the 32-bit Montgomery layer of fp381.cuh, one thread an element (the
+// Fermat ladder, on digits or on strict limbs) or a column (the blocked
+// batch inversion's up and down passes), every link of a chain in
+// registers.
 //
 // Domains: the digit stacks are the lazy engine's (balanced radix-13
 // digits, |d| <= 8191, of a value x R13 with R13 = 2^390).
@@ -11,6 +13,9 @@
 // products on words holds the same field elements as the same chain of
 // lazy products on digits (ops/fp_inv.py, the plain versions), each in its
 // own Montgomery form, so the outputs agree by value, not digit for digit.
+// The strict limbs (R = 2^384, canonical) are the words' own number, so
+// K7-inv's ladder equals the strict engine's loop of products
+// (ops/dispatch.py fp_pow) limb for limb.
 //
 // No operation has undefined behaviour (unsigned arithmetic, as in
 // fp381.cuh); the header compiles as host C++ too, so
@@ -47,14 +52,20 @@ __device__ __forceinline__ void fermat(const Fp& x, Fp& r) {
   }
 }
 
-// K1-inv, one element: 30 digits at x[k * stride] of a value X = v R13 ->
-// 30 digits at out[k * stride] of v^-1 R13 = R13^2 X^-1 mod p (0 for X = 0
-// mod p).
+// One element's inverse on the edge format FMT (tower381.cuh EdgeFormat),
+// the entries at x[k * stride] and out[k * stride]:
+//   DIGIT_ROWS  K1-inv: 30 digits of X = v R13 -> 30 digits of v^-1 R13 =
+//               R13^2 X^-1 mod p;
+//   LIMB_ROWS   K7-inv, the strict engine's: 24 limbs of X = v R (any
+//               value below 2^384, reduced on the load) -> the 24 canonical
+//               limbs of v^-1 R = R^2 X^-1 mod p, the words' own number;
+// 0 for X = 0 mod p.
+template <int FMT = t381::DIGIT_ROWS>
 __device__ __forceinline__ void inv_elem(const int* x, int* out, long long stride) {
   Fp v, r;
-  t381::digits_to_words(x, stride, v);
+  t381::read_row(x, stride, FMT, v);
   fermat(v, r);
-  t381::words_to_digits(r, out, stride);
+  t381::write_row(r, out, stride, FMT);
 }
 
 // K1-scan, the up pass of one column j of a (30, g m) digit stack z, read

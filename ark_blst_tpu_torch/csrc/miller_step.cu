@@ -15,8 +15,11 @@
 // (pairing_steps.miller_lines); the digit entries give f, C and P as
 // digits. f leaves as (12, 30, N) digits within 4096, or, for the fused
 // pairing on word lines, as conj(f) in (12, 12, N) canonical words, the
-// form FE-easy loads. One event is the chain of one
-// (pairing_steps.miller_step).
+// form FE-easy loads. The strict engine's Miller loop (curves/pairing.py:
+// 359, its lax.scan over the strict tower's ops, each a pallas_field.py:66
+// _block_call) gives its lines (K = 24) and P as strict limbs and takes
+// conj(f) as canonical (12, 24, N) strict limbs. One event is the chain of
+// one (pairing_steps.miller_step).
 //
 // What bounds it: operations. 36 + 4 + 45 = 85 Montgomery products of 12 x
 // 32-bit words with the square (49 without), ~0.9K instructions each, and
@@ -66,8 +69,9 @@ __global__ void __launch_bounds__(kMaxThreads) miller_chain_kernel(
 // The layouts (lines, P, f out): the digit entries' (digits throughout),
 // the fused pairing's (word lines, strict P, conj(f) as words), the fused
 // Miller loop's as the public miller_loop and the multi-pairings' product
-// fold take it (word lines, strict P, f as digits) and an unfused
-// prepare's lines paired fused (digit lines, strict P, f as digits).
+// fold take it (word lines, strict P, f as digits), an unfused
+// prepare's lines paired fused (digit lines, strict P, f as digits) and the
+// strict engine's (strict lines and P, conj(f) as canonical strict limbs).
 using Kernel = void (*)(const int*, const int*, const int*, int*, long long, t381::Schedule,
                         int, int);
 const Kernel kDigits = miller_chain_kernel<t381::DIGIT_ROWS, t381::DIGIT_ROWS, t381::DIGIT_ROWS>;
@@ -75,10 +79,13 @@ const Kernel kPairing = miller_chain_kernel<t381::WORD_ROWS, t381::LIMB_ROWS, t3
 const Kernel kFused = miller_chain_kernel<t381::WORD_ROWS, t381::LIMB_ROWS, t381::DIGIT_ROWS>;
 const Kernel kDigitLines =
     miller_chain_kernel<t381::DIGIT_ROWS, t381::LIMB_ROWS, t381::DIGIT_ROWS>;
+const Kernel kStrict = miller_chain_kernel<t381::LIMB_ROWS, t381::LIMB_ROWS, t381::LIMB_ROWS>;
 
 Kernel kernel_for(int line_fmt, int p_fmt, int f_fmt) {
   if (f_fmt == t381::WORD_ROWS)
     return line_fmt == t381::WORD_ROWS && p_fmt == t381::LIMB_ROWS ? kPairing : nullptr;
+  if (f_fmt == t381::LIMB_ROWS)
+    return line_fmt == t381::LIMB_ROWS && p_fmt == t381::LIMB_ROWS ? kStrict : nullptr;
   if (f_fmt != t381::DIGIT_ROWS) return nullptr;
   if (line_fmt == t381::DIGIT_ROWS && p_fmt == t381::DIGIT_ROWS) return kDigits;
   if (line_fmt == t381::WORD_ROWS && p_fmt == t381::LIMB_ROWS) return kFused;
@@ -93,9 +100,10 @@ int smem_bytes(int E) { return E * t381::MILLER_SLOTS * t381::SLOT * 4; }
 // The chain at a given shape: E elements and `threads` threads a block
 // (threads <= 512); dbl[i] != 0 where event i squares f, for 1 <= events
 // <= 128; coeffs of format line_fmt, pxy of format p_fmt
-// (t381::EdgeFormat: digits and digits, words and limbs, or digits and
-// limbs); out of format f_fmt (digits: f; words: conj(f), with word lines
-// and strict P only); f may be null (f = one formed in the kernel). With
+// (t381::EdgeFormat: digits and digits, words and limbs, digits and limbs,
+// or limbs and limbs); out of format f_fmt (digits: f; words: conj(f), with
+// word lines and strict P only; strict limbs: conj(f), with strict lines
+// and P only); f may be null (f = one formed in the kernel). With
 // edges_only, the conversions alone (f, P and every line in, out = f: the
 // cost of the kernel's edges, for scripts/tower_probe.py). Returns
 // cudaGetLastError() after the launch.
@@ -119,8 +127,8 @@ extern "C" int pairing_miller_chain_shaped(const int* f, const int* coeffs, cons
 }
 
 // f: (12, 30, n) digits or null, coeffs: (events, 6, K, n) of format
-// line_fmt, pxy: (2, K', n) of format p_fmt, out: (12, 30, n) digits of f
-// or (12, 12, n) words of conj(f) by f_fmt; int32, contiguous, on the
+// line_fmt, pxy: (2, K', n) of format p_fmt, out: (12, 30, n) digits of f,
+// (12, 12, n) words or (12, 24, n) strict limbs of conj(f) by f_fmt; int32, contiguous, on the
 // device of `stream`. Returns cudaGetLastError() after the launch (0 on
 // success).
 extern "C" int pairing_miller_chain(const int* f, const int* coeffs, const int* pxy, int* out,

@@ -12,7 +12,10 @@
 // The edges' formats (tower381.cuh): the fused pipeline gives Q as the
 // strict (24, N) limbs it holds, forms R = (Q, 1) in the kernel, and takes
 // the lines as canonical 32-bit words (K' = 12), which K6-chain loads as
-// they are (pairing_steps.prepare_lines); the digit entries give and take
+// they are (pairing_steps.prepare_lines); the strict engine's prepare
+// (curves/pairing.py:262, its lax.scan over the strict tower's ops, each a
+// pallas_field.py:66 _block_call) takes them as canonical strict limbs (K'
+// = 24), its own lines' layout; the digit entries give and take
 // radix-13 digits (K = K' = 30, digits within 4096). One event is the
 // chain of one (pairing_steps.prepare_step).
 //
@@ -70,15 +73,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) prepare_chain_kernel(
   t381::prepare_chain<IN_FMT, OUT_FMT>(b, c, t381::BlockPhases{E});
 }
 
-// The layouts: the digit entries' (digits in and out) and the fused
-// pipeline's (strict limbs in, words out).
+// The layouts: the digit entries' (digits in and out), the fused
+// pipeline's (strict limbs in, words out) and the strict engine's (strict
+// limbs in and out: its (events, 6, 24, N) lines, canonical).
 using Kernel = void (*)(const int*, const int*, int*, int*, long long, t381::Schedule, int, int);
 const Kernel kDigits = prepare_chain_kernel<t381::DIGIT_ROWS, t381::DIGIT_ROWS>;
 const Kernel kFused = prepare_chain_kernel<t381::LIMB_ROWS, t381::WORD_ROWS>;
+const Kernel kStrict = prepare_chain_kernel<t381::LIMB_ROWS, t381::LIMB_ROWS>;
 
 Kernel kernel_for(int in_fmt, int out_fmt) {
   if (in_fmt == t381::DIGIT_ROWS && out_fmt == t381::DIGIT_ROWS) return kDigits;
   if (in_fmt == t381::LIMB_ROWS && out_fmt == t381::WORD_ROWS) return kFused;
+  if (in_fmt == t381::LIMB_ROWS && out_fmt == t381::LIMB_ROWS) return kStrict;
   return nullptr;
 }
 
@@ -89,8 +95,8 @@ int smem_bytes(int E) { return E * t381::PREPARE_SLOTS * t381::SLOT * 4; }
 // The chain at a given shape: E elements and `threads` threads a block
 // (threads <= kThreads); dbl[i] != 0 where event i is a doubling, for
 // 1 <= events <= 128; r and q of format in_fmt, coeffs and r_out of format
-// out_fmt (t381::EdgeFormat: digits and digits, or limbs and words). r may
-// be null (R = (Q, 1) formed in the
+// out_fmt (t381::EdgeFormat: digits and digits, limbs and words, or limbs
+// and limbs). r may be null (R = (Q, 1) formed in the
 // kernel), q when r is given and no event is an addition, r_out when R is
 // not wanted. With edges_only, the conversions alone (every line row c
 // holds R's component c, r_out R: the cost of the kernel's edges, for

@@ -915,10 +915,12 @@ __device__ __forceinline__ void prepare_chain(const Block& b, const PrepareChain
 // format LINE_FMT and P (2, K', n) of format P_FMT in (template parameters,
 // as K5-chain's); without f (f null), f = one formed at LOAD. After the
 // events, out of format F_FMT: DIGIT_ROWS f as (12, 30, n) digits;
-// WORD_ROWS conj(f) as (12, 12, n) words, components 6-11 negated in the
-// store (the fused pairing's hand-over to FE-easy: x < 0 conjugates the
-// Miller loop). With edges_only, the conversions alone: f, P and every
-// line in, out = f (conj(f) as words).
+// WORD_ROWS conj(f) as (12, 12, n) words (the fused pairing's hand-over to
+// FE-easy) or LIMB_ROWS conj(f) as (12, 24, n) canonical strict limbs (the
+// strict engine's Miller loop), components 6-11 negated in the store (x <
+// 0 conjugates the Miller loop; the negation of 0 is 0). With edges_only,
+// the conversions alone: f, P and every line in, out = f (conj(f) in the
+// store's format).
 struct MillerChain {
   const int* f;
   const int* coeffs;
@@ -970,7 +972,7 @@ __device__ __forceinline__ void miller_chain(const Block& b, const MillerChain& 
     });
   }
   phase(12, [&](int op, int e) {
-    store_component(b, c.out, op, op, e, F_FMT, F_FMT == WORD_ROWS && op >= 6);
+    store_component(b, c.out, op, op, e, F_FMT, F_FMT != DIGIT_ROWS && op >= 6);
   });
 }
 

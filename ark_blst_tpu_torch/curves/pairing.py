@@ -34,11 +34,22 @@ per element). Two engines and two styles, as there:
     lines; on the card the kernels on 32-bit words (K3-K6, K11, K12)
     return their own digits of the same field elements. Either Miller
     loop takes either prepare's lines.
-* `engine="strict"`: the strict radix-16 tower (`ops/tower.py`, every op a
-  K7-K10 launch), f the nested fp12 tuple of `(24, N)` limb tensors,
-  coefficients `(E, 6, 24, N)` limbs; ingest and egress do nothing, and `fuse`
-  has no fused kernel to choose (the JAX strict `fuse=True` is a
-  `lax.scan` of the same steps).
+* `engine="strict"`: the strict radix-16 engine's values, f the nested
+  fp12 tuple of canonical `(24, N)` limb tensors (R = 2^384, the chains'
+  words' own number), coefficients `(E, 6, 24, N)` limbs; ingest and
+  egress do nothing.
+  - `fuse=True` (the default): the JAX strict `fuse=True` runs the same
+    steps under `lax.scan`s (the prepare, the Miller loop, the x-ladders);
+    here they are the lazy fused path's chain kernels on strict-limb
+    edges: one K5 launch storing the lines as strict limbs, one K6 launch
+    on them storing conj(f) as `(12, 24, N)` strict limbs (the identity
+    mask selects on that stack), FE-easy loading those limbs and FE-hard
+    storing the result's, the nested tuple views of the stack. The
+    multi-pairings' product fold stays on the strict tower.
+  - `fuse=False`, the JAX eager loops: the strict tower (`ops/tower.py`),
+    every op a K7-K10 launch, its Fp inverse one K7-inv launch
+    (`ops/dispatch.py:fp_inv`). Its limbs equal the fused route's: both are
+    canonical.
 
 The pipeline:
 1. `prepare_g2`: Q -> line coefficients of the 68 events (63 doublings,
@@ -73,7 +84,7 @@ from ..ops import fp12_mul_by_014 as K12
 from ..ops import fp12_sqr as K11
 from ..ops import tower as TS
 from ..ops import tower_lazy as TL
-from ..ops.words import WORDS, digits_to_words_plain, words_to_digits_plain
+from ..ops.words import WORDS, digits_to_words_plain, words_to_digits_plain, words_to_limbs_plain
 from ..oracle import pairing as OP
 from . import pairing_steps as PS
 
@@ -150,12 +161,20 @@ def egress(x, engine="lazy"):
 
 
 def _final_strict(f, fuse=True, engine="lazy"):
-    """`final_exp`, then the strict fp12 batch: lazy fused, FE-easy (f as
-    digits or words) and FE-hard storing the strict limbs, no egress;
-    otherwise `egress` of `final_exp`."""
-    if engine == "lazy" and fuse:
-        return TL.unstack12(FE.hard(FE.easy(f), out="limbs"))
+    """`final_exp`, then the strict fp12 batch: fused on either engine,
+    FE-easy (f as a stack of lazy digits or words or of strict limbs; a
+    strict nested fp12 is stacked first) and FE-hard storing the strict
+    limbs, no egress; otherwise `egress` of `final_exp`."""
+    _tower(engine)
+    if fuse:
+        return TL.unstack12(FE.hard(FE.easy(_stacked(f)), out="limbs"))
     return egress(final_exp(f, fuse, engine), engine)
+
+
+def _stacked(f) -> torch.Tensor:
+    """An fp12 batch as a stack of its 12 component rows: a stack as it is,
+    a nested fp12 (the strict engine's) stacked."""
+    return f if isinstance(f, torch.Tensor) else TL.stack12(f)
 
 
 # --- G2 line-coefficient precomputation ----------------------------------------
@@ -164,10 +183,14 @@ def prepare_g2(q, fuse=True, engine="lazy", events=None) -> torch.Tensor:
     """Affine G2 batch (qx, qy) of strict fp2 leaves (24, N) -> line
     coefficients (E, 6, L, N), E = 68 (or `events`), rows c0, c1, c2 of
     each event: L = 12 canonical words lazy fused (one K5 launch on Q as
-    given), 30 digits lazy unfused, 24 limbs strict. Identity inputs give
-    finite garbage; the Miller loop's caller masks those pairs to one."""
+    given), 30 digits lazy unfused, 24 canonical limbs strict (fused one
+    K5 launch storing them, unfused the strict tower's steps). Identity
+    inputs give finite garbage; the Miller loop's caller masks those pairs
+    to one."""
     T = _tower(engine)
     ev = MILLER_EVENTS if events is None else MILLER_EVENTS[:events]
+    if T is TS and fuse:
+        return PS.prepare_lines(q, ev, PS.FMT_LIMBS)
     if T is TS:
         qx, qy = q
     elif fuse:
@@ -189,10 +212,13 @@ def miller_loop(p, coeffs, fuse=True, engine="lazy", events=None):
     (E, 6, L, N) from `prepare_g2` of the same engine (lazy: words or
     digits, from either `fuse`). Returns the engine's fp12 batch,
     conjugated (x < 0): lazy a stacked (12, 30, N), strict the nested
-    tuple of (24, N). Lazy fused: one K6 launch on P and the lines as
-    given."""
+    tuple of (24, N). Fused: one K6 launch on P and the lines as given
+    (strict: conj(f) stored as strict limbs, the tuple views of that
+    stack)."""
     T = _tower(engine)
     ev = MILLER_EVENTS if events is None else MILLER_EVENTS[:events]
+    if T is TS and fuse:
+        return TL.unstack12(PS.miller_lines(coeffs, p, ev, PS.FMT_LIMBS))
     if T is TS:
         px, py = p
         f = _fp12_one_like(px, TS)
@@ -228,13 +254,17 @@ def cyclotomic_exp_x_conj(f, fuse=True, engine="lazy"):
 
 def final_exp(f, fuse=True, engine="lazy"):
     """Easy part, then the BLS12-381 cyclotomic addition chain (the chain of
-    `oracle/pairing.py:final_exp`), on the engine's fp12 batch. Lazy fused:
-    one FE-easy and one FE-hard launch (`ops/final_exp.py`), the easy part
-    handed over as words; otherwise the same chain (`easy_part`, then
-    `HARD_PROGRAM`) op by op on the engine's ops."""
+    `oracle/pairing.py:final_exp`), on the engine's fp12 batch. Fused: one
+    FE-easy and one FE-hard launch (`ops/final_exp.py`), the easy part
+    handed over as words (strict: f stacked, FE-easy loading its limbs and
+    FE-hard storing the result's, the tuple views of that stack);
+    otherwise the same chain (`easy_part`, then `HARD_PROGRAM`) op by op on
+    the engine's ops."""
     E = _final_ops(engine)
     if engine == "lazy" and fuse:
         return FE.hard(FE.easy(f))
+    if fuse:
+        return _final_strict(f, fuse, engine)
     return FE.run_program(FE.HARD_PROGRAM, FE.easy_part(f, E), E)
 
 
@@ -275,9 +305,12 @@ def _skip_mask(p_inf, q_inf):
 
 def _masked_miller(p, coeffs, p_inf, q_inf, fuse=True, engine="lazy", events=None):
     """Miller loop, then the pairs holding an identity set to one (before
-    any final exponentiation sees them)."""
-    f = miller_loop(p, coeffs, fuse, engine, events)
+    any final exponentiation sees them); strict fused, the mask selects on
+    K6-chain's stack of limbs before it is nested (`_masked_miller_stack`)."""
     skip = _skip_mask(p_inf, q_inf)
+    if engine == "strict" and fuse:
+        return TL.unstack12(_masked_miller_stack(p, coeffs, skip, events, PS.FMT_LIMBS))
+    f = miller_loop(p, coeffs, fuse, engine, events)
     if skip is None:
         return f
     if engine == "lazy":
@@ -293,18 +326,38 @@ def _fp12_one_words(device: str) -> torch.Tensor:
     return digits_to_words_plain(one).to(device)
 
 
+@functools.lru_cache(maxsize=16)
+def _fp12_one_limbs(device: str) -> torch.Tensor:
+    """fp12 one as a strict (12, 24, 1) limb stack on the device, made once."""
+    return words_to_limbs_plain(_fp12_one_words("cpu")).to(device)
+
+
 def _on_words(coeffs, fuse, engine) -> bool:
     """The word route: the lazy engine fused on word lines."""
     return engine == "lazy" and fuse and coeffs.shape[-2] == WORDS
 
 
-def _masked_miller_words(p, coeffs, skip, events=None):
-    """The fused pairing's Miller loop on word lines: conj(f) as (12, 12, N)
-    words from K6-chain (`miller_lines`, f_fmt words), the pairs holding an
-    identity set to one by one select on the words."""
+def _stack_format(coeffs, fuse, engine):
+    """The layout of conj(f) on the fused routes that keep the Miller loop's
+    f a stack up to FE-easy: words on the word route, strict limbs on the
+    strict engine fused; None on the others."""
+    if _on_words(coeffs, fuse, engine):
+        return PS.FMT_WORDS
+    return PS.FMT_LIMBS if engine == "strict" and fuse else None
+
+
+def _masked_miller_stack(p, coeffs, skip, events=None, f_fmt=PS.FMT_WORDS):
+    """The fused Miller loop that keeps f a stack: conj(f) from K6-chain
+    (`miller_lines`) as (12, 12, N) words on word lines (the fused
+    pairing's), or with f_fmt FMT_LIMBS as (12, 24, N) strict limbs on
+    strict lines (the strict engine's); the pairs holding an identity set
+    to one by one select on the stack."""
     ev = MILLER_EVENTS if events is None else MILLER_EVENTS[:events]
-    f = PS.miller_lines(coeffs, p, ev, PS.FMT_WORDS)
-    return f if skip is None else torch.where(skip, _fp12_one_words(str(f.device)), f)
+    f = PS.miller_lines(coeffs, p, ev, f_fmt)
+    if skip is None:
+        return f
+    one = (_fp12_one_words if f_fmt == PS.FMT_WORDS else _fp12_one_limbs)(str(f.device))
+    return torch.where(skip, one, f)
 
 
 def _fold_words(f, n: int, out: str = "words"):
@@ -331,10 +384,12 @@ def _fold_words(f, n: int, out: str = "words"):
 def _pairing(p, coeffs, p_inf, q_inf, fuse, engine):
     """Elementwise pairings on lines of any layout: lazy fused on word lines
     the word route (K6-chain's conj(f) as words, the mask on words, FE-easy
-    on words, FE-hard to strict limbs); otherwise the Miller loop and its
-    mask in the engine's form, then `_final_strict`."""
-    if _on_words(coeffs, fuse, engine):
-        f = _masked_miller_words(p, coeffs, _skip_mask(p_inf, q_inf))
+    on words, FE-hard to strict limbs), strict fused the same on strict
+    limbs; otherwise the Miller loop and its mask in the engine's form;
+    then `_final_strict`."""
+    f_fmt = _stack_format(coeffs, fuse, engine)
+    if f_fmt is not None:
+        f = _masked_miller_stack(p, coeffs, _skip_mask(p_inf, q_inf), f_fmt=f_fmt)
     else:
         f = _masked_miller(p, coeffs, p_inf, q_inf, fuse, engine)
     return _final_strict(f, fuse, engine)
@@ -362,7 +417,7 @@ def _product(p, coeffs, skip, fuse, engine, final: bool):
     engine's form."""
     words = _on_words(coeffs, fuse, engine)
     if words:
-        f = _masked_miller_words(p, coeffs, skip)
+        f = _masked_miller_stack(p, coeffs, skip)
     else:
         f = _masked_miller(p, coeffs, skip, None, fuse, engine)
     return _fold_strict(f, p[0].shape[-1], words, final, fuse, engine)
@@ -432,7 +487,7 @@ def multi_pairing_sharded(p, q, mesh, p_inf=None, q_inf=None, axis: str = "data"
     coeffs = prepare_g2(qs, fuse, engine, events)
     words = _on_words(coeffs, fuse, engine)
     if words:
-        f = _fold_words(_masked_miller_words(ps, coeffs, skip, events), m)
+        f = _fold_words(_masked_miller_stack(ps, coeffs, skip, events), m)
     else:
         f = _fold_mul(_masked_miller(ps, coeffs, skip, None, fuse, engine, events), m, engine)
     return _fold_strict(_gather_fp12(mesh, f, engine), world, words, final, fuse, engine)

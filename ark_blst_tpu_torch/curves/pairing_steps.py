@@ -21,7 +21,12 @@ Two pairs of entries launch them, on the edges' formats of
   one are formed in the kernels, and the lines cross from K5 to K6 as
   canonical words `(E, 6, 12, N)` (`ops/words.py`); f leaves as digits,
   or, for the fused pairing, as conj(f) in canonical words `(12, 12, N)`
-  (`f_fmt=FMT_WORDS`), the form FE-easy loads;
+  (`f_fmt=FMT_WORDS`), the form FE-easy loads; on the strict engine's
+  edges (`lines_fmt=FMT_LIMBS`, `f_fmt=FMT_LIMBS`) the lines cross as its
+  canonical strict limbs `(E, 6, 24, N)` and conj(f) leaves as strict
+  limbs `(12, 24, N)`, the strict `prepare_g2` and `miller_loop` (the
+  `lax.scan`s of `ark_blst_tpu/curves/pairing.py:262` and `:359` over the
+  strict tower);
 * the digit entries, `prepare_chain` / `miller_chain` and their chains of
   one event `prepare_step` / `miller_step`: every edge radix-13 digits,
   the same field elements as their plain versions in other digits
@@ -43,8 +48,8 @@ import torch
 from ..cuda import CudaKernel, cpu_operands, stacked_operands
 from ..ops import final_exp as FE
 from ..ops import tower_lazy as TL
-from ..ops.words import (FMT_DIGITS, FMT_LIMBS, FMT_WORDS, WORDS, digits_to_words_plain,
-                         words_to_digits_plain)
+from ..ops.words import (FMT_DIGITS, FMT_LIMBS, FMT_WORDS, LIMBS, WORDS, digits_to_words_plain,
+                         limbs_to_digits_plain, words_to_digits_plain, words_to_limbs_plain)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,9 +58,16 @@ _CHAIN_ARGS = [ctypes.c_longlong, _I, _P, _I, _I, _P]
 PREPARE_KERNEL = CudaKernel("prepare_step.cu", "pairing_prepare_chain", [_P] * 4 + _CHAIN_ARGS)
 MILLER_KERNEL = CudaKernel("miller_step.cu", "pairing_miller_chain",
                            [_P] * 4 + _CHAIN_ARGS[:-1] + [_I, _P])
+# the strict engine's instantiations (strict limbs at every edge), each
+# counting its own launches
+PREPARE_KERNEL_LIMBS = CudaKernel("prepare_step.cu", "pairing_prepare_chain",
+                                  [_P] * 4 + _CHAIN_ARGS)
+MILLER_KERNEL_LIMBS = CudaKernel("miller_step.cu", "pairing_miller_chain",
+                                 [_P] * 4 + _CHAIN_ARGS[:-1] + [_I, _P])
 MAX_EVENTS = 128  # the longest schedule a chain takes (csrc/tower381.cuh)
 # The edges' formats of csrc/tower381.cuh (EdgeFormat), by a row's entries
-FORMAT_OF_ROW = {30: FMT_DIGITS, 24: FMT_LIMBS, WORDS: FMT_WORDS}
+FORMAT_OF_ROW = {30: FMT_DIGITS, LIMBS: FMT_LIMBS, WORDS: FMT_WORDS}
+ROWS_OF_FORMAT = {fmt: rows for rows, fmt in FORMAT_OF_ROW.items()}
 
 
 # --- the event math -------------------------------------------------------------
@@ -171,9 +183,10 @@ def _prepare_launch(r_stk, q_stk, sched, coeffs, r_out, in_fmt=FMT_DIGITS,
     events, flags = sched
     x = q_stk if r_stk is None else r_stk
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    kernel = PREPARE_KERNEL_LIMBS if out_fmt == FMT_LIMBS else PREPARE_KERNEL
     with torch.cuda.device(x.device):
-        PREPARE_KERNEL.launch(ptr(r_stk), ptr(q_stk), coeffs.data_ptr(), ptr(r_out),
-                              x.shape[-1], events, flags, in_fmt, out_fmt, _stream(x))
+        kernel.launch(ptr(r_stk), ptr(q_stk), coeffs.data_ptr(), ptr(r_out), x.shape[-1],
+                      events, flags, in_fmt, out_fmt, _stream(x))
 
 
 def prepare_chain(q_stk: torch.Tensor, schedule) -> torch.Tensor:
@@ -214,28 +227,34 @@ def _strict_stack(name: str, leaves) -> torch.Tensor:
     return torch.stack(leaves)
 
 
-def prepare_lines_plain(q, schedule) -> torch.Tensor:
+def prepare_lines_plain(q, schedule, lines_fmt=FMT_WORDS) -> torch.Tensor:
     """`prepare_lines`' plain PyTorch version: Q ingested (`fp2_ingest`),
-    `prepare_chain_plain`, the lines as words (`digits_to_words_plain`)."""
+    `prepare_chain_plain`, the lines as words (`digits_to_words_plain`),
+    or with lines_fmt FMT_LIMBS as strict limbs (`words_to_limbs_plain` of
+    those)."""
     qx, qy = TL.fp2_ingest(q[0]), TL.fp2_ingest(q[1])
     lines = prepare_chain_plain(torch.stack([qx[0], qx[1], qy[0], qy[1]]), schedule)
-    return digits_to_words_plain(lines)
+    words = digits_to_words_plain(lines)
+    return words_to_limbs_plain(words) if lines_fmt == FMT_LIMBS else words
 
 
-def prepare_lines(q, schedule) -> torch.Tensor:
-    """The fused pipeline's G2 prepare: q = (qx, qy), strict fp2 pairs of
-    (24, N) limbs, over a schedule of events -> the lines as canonical
-    words (E, 6, 12, N): one K5 launch for CUDA tensors, Q read as limbs
-    and R = (Q, 1) formed in the kernel; the plain version for CPU
-    tensors."""
+def prepare_lines(q, schedule, lines_fmt=FMT_WORDS) -> torch.Tensor:
+    """The G2 prepare on strict Q: q = (qx, qy), strict fp2 pairs of (24, N)
+    limbs, over a schedule of events -> the lines as canonical words (E, 6,
+    12, N), the fused pipeline's, or with lines_fmt FMT_LIMBS as canonical
+    strict limbs (E, 6, 24, N), the strict engine's: one K5 launch for
+    CUDA tensors, Q read as limbs and R = (Q, 1) formed in the kernel; the
+    plain version for CPU tensors."""
     schedule = list(schedule)
     sched = _schedule(schedule)
+    if lines_fmt not in (FMT_WORDS, FMT_LIMBS):
+        raise ValueError("prepare_lines stores the lines as words or as strict limbs")
     q_stk = _strict_stack("prepare_lines", [q[0][0], q[0][1], q[1][0], q[1][1]])
     if cpu_operands("prepare_lines", [q_stk]):
-        return prepare_lines_plain(q, schedule)
-    coeffs = torch.empty((len(schedule), 6, WORDS, q_stk.shape[-1]), dtype=torch.int32,
-                         device=q_stk.device)
-    _prepare_launch(None, q_stk, sched, coeffs, None, FMT_LIMBS, FMT_WORDS)
+        return prepare_lines_plain(q, schedule, lines_fmt)
+    coeffs = torch.empty((len(schedule), 6, ROWS_OF_FORMAT[lines_fmt], q_stk.shape[-1]),
+                         dtype=torch.int32, device=q_stk.device)
+    _prepare_launch(None, q_stk, sched, coeffs, None, FMT_LIMBS, lines_fmt)
     return coeffs
 
 
@@ -266,12 +285,12 @@ def _miller_launch(f_stk, coeffs, pxy, sched, line_fmt=FMT_DIGITS,
                    p_fmt=FMT_DIGITS, f_fmt=FMT_DIGITS) -> torch.Tensor:
     events, flags = sched
     n = pxy.shape[-1]
-    rows = WORDS if f_fmt == FMT_WORDS else 30
-    out = torch.empty((12, rows, n), dtype=torch.int32, device=pxy.device)
+    out = torch.empty((12, ROWS_OF_FORMAT[f_fmt], n), dtype=torch.int32, device=pxy.device)
+    kernel = MILLER_KERNEL_LIMBS if f_fmt == FMT_LIMBS else MILLER_KERNEL
     with torch.cuda.device(pxy.device):
-        MILLER_KERNEL.launch(0 if f_stk is None else f_stk.data_ptr(), coeffs.data_ptr(),
-                             pxy.data_ptr(), out.data_ptr(), n, events, flags, line_fmt, p_fmt,
-                             f_fmt, _stream(pxy))
+        kernel.launch(0 if f_stk is None else f_stk.data_ptr(), coeffs.data_ptr(),
+                      pxy.data_ptr(), out.data_ptr(), n, events, flags, line_fmt, p_fmt, f_fmt,
+                      _stream(pxy))
     return out
 
 
@@ -301,33 +320,47 @@ def miller_chain(f_stk: torch.Tensor, coeffs: torch.Tensor, pxy: torch.Tensor,
 
 def miller_lines_plain(coeffs: torch.Tensor, p, schedule, f_fmt=FMT_DIGITS) -> torch.Tensor:
     """`miller_lines`' plain PyTorch version: word lines as digits
-    (`words_to_digits_plain`), P ingested (`fp_ingest`), then
+    (`words_to_digits_plain`), strict limb lines ingested
+    (`limbs_to_digits_plain`), P ingested (`fp_ingest`), then
     `miller_chain_plain` from f = one; with f_fmt FMT_WORDS, conj(f) as
-    words (`digits_to_words_plain`)."""
+    words (`digits_to_words_plain`), with FMT_LIMBS as strict limbs
+    (`words_to_limbs_plain` of those)."""
     e = len(schedule)
     lines = coeffs[:e]
     if lines.shape[2] == WORDS:
         lines = words_to_digits_plain(lines)
+    elif lines.shape[2] == LIMBS:
+        lines = limbs_to_digits_plain(lines)
     pxy = torch.stack([TL.fp_ingest(p[0]), TL.fp_ingest(p[1])])
     f = miller_chain_plain(TL.stack12(TL.fp12_one(pxy[0])), lines, pxy, schedule)
-    return digits_to_words_plain(FE.conj(f)) if f_fmt == FMT_WORDS else f
+    if f_fmt == FMT_DIGITS:
+        return f
+    words = digits_to_words_plain(FE.conj(f))
+    return words_to_limbs_plain(words) if f_fmt == FMT_LIMBS else words
+
+
+# The layouts miller_lines stores f in, by the lines' row entries
+_F_FORMATS = {30: (FMT_DIGITS,), WORDS: (FMT_DIGITS, FMT_WORDS), LIMBS: (FMT_LIMBS,)}
 
 
 def miller_lines(coeffs: torch.Tensor, p, schedule, f_fmt=FMT_DIGITS) -> torch.Tensor:
-    """The fused pipeline's Miller loop from f = one: the lines (E', 6, 12,
-    N) words as `prepare_lines` gives them or (E', 6, 30, N) digits as the
-    unfused prepare does (E' >= the schedule's E), p = (px, py) strict
-    (24, N) limbs -> f (12, 30, N) digits, or with f_fmt FMT_WORDS (word
-    lines only) conj(f) as (12, 12, N) canonical words, the fused
-    pairing's input to FE-easy: one K6 launch for CUDA tensors, P read as
-    limbs, f = one formed in the kernel and conjugated in its store; the
-    plain version for CPU tensors."""
+    """The Miller loop on strict P from f = one: the lines (E', 6, 12, N)
+    words as `prepare_lines` gives them, (E', 6, 30, N) digits as the
+    unfused prepare does, or (E', 6, 24, N) strict limbs as the strict
+    engine's prepare does (E' >= the schedule's E), p = (px, py) strict
+    (24, N) limbs -> f (12, 30, N) digits; or conj(f), with f_fmt
+    FMT_WORDS (word lines only) as (12, 12, N) canonical words, the fused
+    pairing's input to FE-easy, with FMT_LIMBS (strict lines only, and
+    there the only layout) as (12, 24, N) canonical strict limbs, the
+    strict engine's: one K6 launch for CUDA tensors, P read as limbs, f =
+    one formed in the kernel and conjugated in its store; the plain
+    version for CPU tensors."""
     schedule = list(schedule)
     sched = _schedule(schedule)
-    _check_lines("miller_lines", coeffs, (30, WORDS), len(schedule), p[0].shape[-1])
-    if f_fmt not in (FMT_DIGITS, FMT_WORDS) or \
-            (f_fmt == FMT_WORDS and coeffs.shape[2] != WORDS):
-        raise ValueError("miller_lines stores f as digits, or conj(f) as words from word lines")
+    _check_lines("miller_lines", coeffs, tuple(_F_FORMATS), len(schedule), p[0].shape[-1])
+    if f_fmt not in _F_FORMATS[coeffs.shape[2]]:
+        raise ValueError("miller_lines stores f as digits, or conj(f) as words from word lines "
+                         "or as strict limbs from strict lines")
     pxy = _strict_stack("miller_lines", [p[0], p[1]])
     if cpu_operands("miller_lines", [coeffs, pxy]):
         return miller_lines_plain(coeffs, p, schedule, f_fmt)

@@ -3,7 +3,9 @@
 
 Counterpart of `ark_blst_tpu/ops/dispatch.py`. There is one route: the
 `strict_field` wrappers, which launch K7-K10 for CUDA tensors and run their
-plain versions for CPU tensors. The JAX package's backend switch
+plain versions for CPU tensors; the Fp inverse, whose Fermat ladder the
+JAX package runs as one `lax.scan` of K7, is one K7-inv launch
+(`fp_inv.fp_inv_limbs`). The JAX package's backend switch
 (`set_backend`, `use_pallas`) and its array-engine adapters are test hooks
 and XLA:CPU workarounds there, and are not ported.
 """
@@ -11,6 +13,7 @@ and XLA:CPU workarounds there, and are not ported.
 from __future__ import annotations
 
 from . import fieldops as FO
+from . import fp_inv as FI
 from . import strict_field as SF
 from .limbs import FP, FieldSpec
 
@@ -68,7 +71,12 @@ def fp_pow(a, exponent: int, spec: FieldSpec = FP):
 
 
 def fp_inv(a, spec: FieldSpec = FP):
-    """Fermat inverse (0 -> 0), batch-parallel."""
+    """Fermat inverse (0 -> 0), batch-parallel: over Fp the ladder in one
+    K7-inv launch for a CUDA tensor, its plain version (this module's
+    `fp_pow` loop on the plain product) for a CPU one; over another field
+    `fp_pow`."""
+    if spec == FP:
+        return FI.fp_inv_limbs(a)
     return fp_pow(a, spec.modulus - 2, spec)
 
 

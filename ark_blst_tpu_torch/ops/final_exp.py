@@ -9,9 +9,10 @@ the lazy tower's inverse and Frobenius maps) between XLA's own ops. The
 kernels (`csrc/final_exp.cu` on `csrc/final_exp.cuh`) keep each element in
 shared memory as 32-bit Montgomery words from f's load to the result's
 store:
-  FE-easy  `easy`: f (12, 30, N) digits, or (12, 12, N) canonical words as
+  FE-easy  `easy`: f (12, 30, N) digits, (12, 12, N) canonical words as
            the fused pairing's K6-chain stores them (or as K4 stores the
-           multi-pairings' product, N = 1) -> t2 = conj(f) f^-1,
+           multi-pairings' product, N = 1), or (12, 24, N) strict limbs, the
+           strict engine's fp12 stacked -> t2 = conj(f) f^-1,
            times its Frobenius square; on the card t2 comes back as a (12,
            12, N) word stack;
   FE-hard  `hard`: t2 (those words) -> the hard part, (12, 30, N) digits,
@@ -50,7 +51,7 @@ from . import fp12_mul as K4
 from . import lazy13 as LZ
 from . import tower_lazy as TL
 from .words import (FMT_DIGITS, FMT_LIMBS, FMT_WORDS, LIMBS, WORDS, digits_to_words_plain,
-                    split, words_to_digits_plain, words_to_limbs_plain)
+                    limbs_to_digits_plain, split, words_to_digits_plain, words_to_limbs_plain)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,6 +59,9 @@ KERNEL_EASY = CudaKernel("final_exp.cu", "final_exp_easy",
                          [_P, _P, _P, ctypes.c_longlong, _I, _P])
 KERNEL_HARD = CudaKernel("final_exp.cu", "final_exp_hard",
                          [_P, _P, _P, ctypes.c_longlong, _P, _I, _P, _I, _P])
+# FE-easy on the strict engine's limbs, counting its own launches
+KERNEL_EASY_LIMBS = CudaKernel("final_exp.cu", "final_exp_easy",
+                               [_P, _P, _P, ctypes.c_longlong, _I, _P])
 
 # The |x| square-and-multiply ladder as segments: after the leading bit, a
 # set bit at gap L costs L squarings then one product; trailing zeros are
@@ -234,21 +238,29 @@ def _is_words(x: torch.Tensor) -> bool:
     return x.dim() == 3 and tuple(x.shape[:2]) == (12, WORDS)
 
 
+# FE-easy's input layouts by a row's entries: the format and the plain
+# version's conversion to digits
+_EASY_IN = {LZ.ELEM: (FMT_DIGITS, lambda f: f), WORDS: (FMT_WORDS, words_to_digits_plain),
+            LIMBS: (FMT_LIMBS, limbs_to_digits_plain)}
+
+
 def easy(f: torch.Tensor) -> torch.Tensor:
-    """The easy part of f, (12, 30, N) digits or (12, 12, N) canonical words
-    (the layout read from the shape), int32: one FE-easy launch for a CUDA
-    tensor, whose result is a (12, 12, N) word stack for `hard`; for a CPU
-    one the plain version's digits (of the words' digits,
-    `words_to_digits_plain`)."""
-    words = _is_words(f)
-    if stacked_operands("final_exp_easy", [f], [12], WORDS if words else LZ.ELEM):
-        return easy_plain(words_to_digits_plain(f) if words else f)
+    """The easy part of f, (12, 30, N) digits, (12, 12, N) canonical words
+    or (12, 24, N) strict limbs (the layout read from the shape), int32:
+    one FE-easy launch for a CUDA tensor, whose result is a (12, 12, N)
+    word stack for `hard`; for a CPU one the plain version's digits (of
+    the words' or the limbs' digits, `words_to_digits_plain`,
+    `limbs_to_digits_plain`)."""
+    rows = f.shape[1] if f.dim() == 3 and f.shape[1] in _EASY_IN else LZ.ELEM
+    fmt, to_digits = _EASY_IN[rows]
+    if stacked_operands("final_exp_easy", [f], [12], rows):
+        return easy_plain(to_digits(f))
     n = f.shape[-1]
     out = torch.empty((12, WORDS, n), dtype=torch.int32, device=f.device)
     _, frob = _tables(str(f.device))
+    kernel = KERNEL_EASY_LIMBS if fmt == FMT_LIMBS else KERNEL_EASY
     with torch.cuda.device(f.device):
-        KERNEL_EASY.launch(f.data_ptr(), out.data_ptr(), frob.data_ptr(), n,
-                           FMT_WORDS if words else FMT_DIGITS, _stream(f))
+        kernel.launch(f.data_ptr(), out.data_ptr(), frob.data_ptr(), n, fmt, _stream(f))
     return out
 
 

@@ -1,5 +1,5 @@
 """K1-inv and K1-scan: the lazy engine's inversion chains, each one CUDA
-launch.
+launch; K7-inv: the strict engine's Fermat ladder, one launch.
 
 Counterpart of the `lax.scan`s over `ark_blst_tpu/ops/pallas_lazy.py:41
 mont_mul_stacked` (K1) that the JAX package runs inside one compiled
@@ -12,7 +12,11 @@ batch inversion `curves/msm_pallas2.py:434 _batch_inverse`. The kernels
            thread an element;
   K1-scan  `scan_up` and `scan_down`: one level of the batch inversion over
            a (30, g m) stack read as g rows of m columns, one thread a
-           column.
+           column;
+  K7-inv   `fp_inv_limbs`: a^(p-2) per element of a strict (24, *batch) limb
+           stack, one thread an element: the `lax.scan` of
+           `ark_blst_tpu/ops/dispatch.py:128 fp_pow` over K7
+           (`ops/pallas_field.py:66 _block_call`) that `:143 fp_inv` runs.
 Their plain versions (`fp_inv_plain`, `scan_up_plain`, `scan_down_plain`)
 are the loops of lazy products (`mont_mul_plain`) the port ran before, so on
 CPU tensors every result is digit for digit what it was. A kernel's output
@@ -20,7 +24,10 @@ is the same field element in other digits: canonical, within 4096.
 
 Domains: a digit stack holds X = x R13 (R13 = 2^390); a Montgomery product
 is a b / R13, so the ladder gives X^(p-2) / R13^(p-3) = x^-1 R13, the
-Montgomery inverse (0 for x = 0).
+Montgomery inverse (0 for x = 0). A strict stack holds X = x R (R = 2^384)
+as canonical limbs, the kernel's words' own number: K7-inv's result is the
+canonical x^-1 R, equal to its plain version (the strict engine's loop of
+products, `ops/dispatch.py:fp_pow`) limb for limb.
 """
 
 from __future__ import annotations
@@ -31,7 +38,9 @@ import torch
 
 from ..cuda import CudaKernel, cpu_operands
 from ..oracle.field import P
+from . import fieldops as FO
 from . import lazy13 as LZ
+from .limbs import FP
 from .mont_mul import mont_mul_plain
 
 # MSB-first bits of p - 2 for the Fermat ladder
@@ -46,6 +55,7 @@ KERNEL_UP = CudaKernel("fp_inv.cu", "lz_scan_up",
                        [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P])
 KERNEL_DOWN = CudaKernel("fp_inv.cu", "lz_scan_down",
                          [_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P])
+KERNEL_INV_LIMBS = CudaKernel("fp_inv.cu", "sf_fp_inv", [_P, _P, ctypes.c_longlong, _P])
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -90,6 +100,36 @@ def fp_inv(a: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(a.device):
         KERNEL_INV.launch(a.data_ptr(), out.data_ptr(), a[0].numel(), _stream(a))
     return out
+
+
+# --- K7-inv: the strict engine's Fermat ladder ----------------------------------
+
+def fp_inv_limbs_plain(a: torch.Tensor) -> torch.Tensor:
+    """K7-inv's plain PyTorch version: the strict engine's square-and-multiply
+    over the 381 bits of p - 2 from one (`ops/dispatch.py:fp_pow`: 381
+    squares and 229 products), on the plain Montgomery product
+    (`fieldops.mul`)."""
+    f = FO.consts(FP.mont_r, a.shape[1:], FP, a.device)
+    for bit in bin(P - 2)[2:]:
+        f = FO.mul(f, f, FP)
+        if bit == "1":
+            f = FO.mul(f, a, FP)
+    return f
+
+
+def fp_inv_limbs(a: torch.Tensor) -> torch.Tensor:
+    """Montgomery inverse of every element of a strict (24, *batch) int32
+    limb stack (0 for a zero element), canonical limbs: the CUDA kernel for
+    a CUDA tensor, the plain version for a CPU one."""
+    if a.dim() < 2 or a.shape[0] != FP.num_limbs:
+        raise ValueError(f"fp_inv_limbs wants a (24, *batch) stack, got {tuple(a.shape)}")
+    x = a.reshape(FP.num_limbs, -1).contiguous()
+    if cpu_operands("fp_inv_limbs", [x]):
+        return fp_inv_limbs_plain(a)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        KERNEL_INV_LIMBS.launch(x.data_ptr(), out.data_ptr(), x.shape[1], _stream(x))
+    return out.reshape(a.shape)
 
 
 # --- K1-scan: one level of the blocked batch inversion -------------------------

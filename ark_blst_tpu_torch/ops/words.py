@@ -75,3 +75,11 @@ def words_to_limbs_plain(w: torch.Tensor) -> torch.Tensor:
     u = w.long() & 0xFFFFFFFF
     limbs = torch.stack([u & 0xFFFF, u >> 16], dim=-2)  # (..., 12, 2, n)
     return limbs.reshape(*w.shape[:-2], LIMBS, w.shape[-1]).to(torch.int32)
+
+
+def limbs_to_digits_plain(x: torch.Tensor) -> torch.Tensor:
+    """(..., 24, n) strict limbs (v 2^384, any number below 2^384, taken mod
+    p) -> (..., 30, n) digits of the same field elements in the lazy domain
+    (`tower_lazy.fp_ingest`): the plain version of the kernels' load of
+    strict limbs, to hand a plain version the value of a strict stack."""
+    return TL.fp_ingest(x.movedim(-2, 0)).movedim(0, -2).contiguous()

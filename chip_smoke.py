@@ -18,7 +18,12 @@ Phases, one JSON line each:
               against the oracle's inverses on a sample: K1-inv (the Fermat
               ladder) at 8192 (the pairing batch), 1,024 (the G1 MSM's
               root), 256 (the G2 MSM's) and 1 (a multi-pairing) with X =
-              0, 1, p-1 and R mod p in the first lanes; K1-scan's up and
+              0, 1, p-1 and R mod p in the first lanes; K7-inv (the strict
+              engine's ladder on strict limbs) at 8192, 1000 and 1 on
+              canonical limbs with the same first lanes, limb for limb
+              against its plain version (the strict loop of products on the
+              plain product) and the oracle on a sample, timed beside
+              K1-inv and the 610 K7 launches it replaced; K1-scan's up and
               down passes at the G1 MSM's two levels (64 rows of 65,536
               and of 1,024 columns) and the G2 MSM's (64 rows of 16,384
               and of 256);
@@ -92,8 +97,13 @@ Phases, one JSON line each:
               digits beside, the digit entries' run of the same events
               (`prepare_chain`, `miller_chain`, digits in and between)
               beside with their bound, and the lines' bytes in each layout,
-              with the launch shape and ptxas; the card's clocks,
-              temperature and power draw before and after the timings;
+              with the launch shape and ptxas; both chains on the strict
+              engine's edges (the lines and conj(f) as strict limbs, its
+              fused `prepare_g2` and `miller_loop`) limb for limb against
+              their plain versions and the word chains' output, timed
+              beside the word instantiations in the same run; the card's
+              clocks, temperature and power draw before and after the
+              timings;
      final_exp_chains  FE-easy and FE-hard, the fused final
               exponentiation in two launches (`ops/final_exp.py`: the easy
               part to 32-bit words, the hard part's program from them), on
@@ -107,7 +117,9 @@ Phases, one JSON line each:
               eight results (an identity among them) against the oracle's
               pairings; each timed in the fused pairing's layout beside its
               plain version and its bound, the other layout beside, with
-              its launch shape and ptxas;
+              its launch shape and ptxas; FE-easy on the strict engine's
+              fused route (K5-chain and K6-chain on strict limbs, the mask
+              on the limbs) word for word, timed beside FE-easy on words;
   8. pairing  8192 pairings of 8 distinct (P, Q) pairs (P_i = P[i mod 8],
               Q_i = Q[(3i+1) mod 8], the construction of the JAX package's
               bench.py) with one identity P and one identity Q, through the
@@ -138,13 +150,21 @@ Phases, one JSON line each:
               with pairings/s, stages and their launches, a profiled
               rerun, peak memory and the prepared path with fuse=False;
      pairing_strict  the same instance through the tensor entry
-              `pairing(..., engine="strict")`: limb for limb against the
-              lazy engine's output and against the oracle, on K7-K10 alone
-              (every other kernel at 0 launches), with stages, K7-K10
-              launches per stage, per Miller event (mean) and per
-              cyclotomic square, and a profiled rerun; then `multi_pairing` and
-              `multi_miller_loop_prepared` on both engines at 1024 pairs,
-              equal to each other and the first to the oracle's product;
+              `pairing(..., engine="strict")` on both routes, timed in
+              turns (fused, unfused, unfused, fused), each limb for limb
+              against the lazy engine's output and against the oracle:
+              fused (the default) on the chains' strict-limb
+              instantiations, K5-chain, K6-chain and FE-easy once each and
+              FE-hard once, no K7-K10 or K7-inv (checked), its stages
+              (at most 10, 6, 4 and 0 device kernels, 12 in all, the
+              egress none also as dispatched; checked) and a profiled
+              rerun; unfused (`fuse=False`) on K7-K10 and one K7-inv
+              ladder, no chain (checked), with stages, K7-K10 launches
+              per stage, per Miller event (mean) and per cyclotomic
+              square, and a profiled rerun; then `multi_pairing` and
+              `multi_miller_loop_prepared` at 1024 pairs on the lazy
+              engine and both strict routes, equal to each other and the
+              first to the oracle's product, with their launches;
               and line `multi_pairing`: the word route of `multi_pairing`,
               `multi_miller_loop` and `multi_miller_loop_prepared` at 1024
               pairs and of `multi_pairing` at 8192, each run once with the
@@ -158,7 +178,7 @@ Phases, one JSON line each:
               dispatched, the digit route's egress alone timed, with the
               card's name and power limit;
      api      the arkworks API's batch entries with their defaults (the
-              card's routes): `G1Projective.msm` over 2^20 G1Affine bases
+              card's routes): `G1Projective.msm` over 2^18 G1Affine bases
               of `curves/instance.py` (made affine on the card, brought to
               the host, the identity and the zero scalar included) with
               Scalar scalars, and `G2Projective.msm` over 2^16, each
@@ -260,8 +280,15 @@ entry's, the API's and the sharded pairing's beside, their times at 8192
 and at each width of the fold with the digit layout's; K11 and K12 the
 unfused pairing's;
 K7-K10 give as `launches` the sum over the two scan MSM runs, each run's
-count and the strict pairing's beside it, and their Fp times at 2^22, Fr
-and broadcast times beside; every kernel phase distributed launches gives
+count and the strict pairing's beside it (the unfused route's; the fused
+route's 0 and the strict multi-pairings' beside), and their Fp times at
+2^22, Fr and broadcast times beside; the strict engine's chains
+(`prepare_chain_limbs`, `miller_chain_limbs`, `final_exp_easy_limbs`)
+the fused strict batch's launches, their times at 8192 with the other
+widths' and the word instantiation's in the same run (`words_ms`), their
+registers; K7-inv (`fp_inv_limbs`) the unfused strict batch's launch, the
+scan MSMs' and `msm_naive`'s, its times at 8192 and the other widths with
+K1-inv's and the K7 loop's it replaced beside; every kernel phase distributed launches gives
 those launches per path as `launches_distributed`) and, last, {"ok": true, "device": {...}}. Any failure raises: the
 script then exits non-zero and prints no last line. Without CUDA it exits 1.
 
@@ -386,9 +413,10 @@ SCAN_C = 8  # the JAX package's msm default: W = 32, B = 256
 # temporaries (3x G1's per element) and the time limit
 SCAN = {"g1": (20, 1024, 17), "g2": (18, 256, 19)}
 NAIVE_LOG_N, NAIVE_SEED = 12, 23
-# the API phase: curve -> (log2 bases, seed); 2^20 is a KZG/Groth16 size, 2^22
-# would spend ~2 minutes in the host codecs alone
-API_MSM = {"g1": (20, 29), "g2": (16, 31)}
+# the API phase: curve -> (log2 bases, seed); G1 is cut from 2^20 (a
+# KZG/Groth16 size) to 2^18 for the time limit: the host codecs took ~45 s
+# of it at 2^20 (2^22 would spend ~2 minutes in them)
+API_MSM = {"g1": (18, 29), "g2": (16, 31)}
 API_MULTI_N = 1024
 API_ROUNDTRIP = 64
 # phase distributed: the sharded scan MSM and msm_auto instances (log2 bases,
@@ -530,9 +558,11 @@ ELEM_BYTES = 30 * 4  # one Fp element of digits
 LIMB_BYTES = 24 * 4  # one Fp element of strict limbs
 WORD_BYTES = 12 * 4  # one Fp element of words
 # phase k1_chains: K1-inv at the pairing batch, the G1 MSM's root, the G2
-# MSM's root and a multi-pairing's width; K1-scan at the G1 MSM's two levels
+# MSM's root and a multi-pairing's width (K7-inv at the pairing batch, the
+# ragged width near a multi-pairing's 1,024 and one, K7_INV_WIDTHS); K1-scan at the G1 MSM's two levels
 # at 2^22 and the G2 MSM's two at 2^20 (rows, columns)
 K1_INV_WIDTHS = (PAIRING_N, 1024, 256, 1)
+K7_INV_WIDTHS = (PAIRING_N, CHAIN_RAGGED_N, 1)
 K1_SCAN_LEVELS = ((64, 1 << 16), (64, 1 << 10), (64, 1 << 14), (64, 1 << 8))
 
 
@@ -577,7 +607,8 @@ def final_exp_work() -> dict:
     products, each Frobenius map's 5 Fp2 products (6 Fp2 negations for an
     odd power), each conjugation's 3 Fp2 negations; t2 in as words, the
     result out as strict limbs (a word split in two: a store; "hard_digits":
-    as digits, converted)."""
+    as digits, converted); "easy_limbs": FE-easy with f in as the strict
+    engine's limbs (a repack, counted in the bytes alone)."""
     from ark_blst_tpu_torch.ops import final_exp as FE
     from ark_blst_tpu_torch.ops import fp_inv as FI
 
@@ -595,6 +626,7 @@ def final_exp_work() -> dict:
             + conjs * 6 * NEG32_OPS)
     words = 12 * WORD_BYTES  # an fp12 as words
     return {"easy": (2 * words, easy), "hard": (words + 12 * LIMB_BYTES, hard),
+            "easy_limbs": (12 * LIMB_BYTES + words, easy),
             "easy_digits": (12 * ELEM_BYTES + words, easy + 12 * DIGITS_TO_WORDS_OPS),
             "hard_digits": (words + 12 * ELEM_BYTES, hard + 12 * WORDS_TO_DIGITS_OPS)}
 
@@ -685,14 +717,17 @@ def imad_floor_ms(imads: float) -> float:
 
 def all_kernels() -> dict:
     """The kernels by name: K1, K1-inv and K1-scan (its up and down passes;
-    one source with K1-inv), K2 (the G1 and G2 MSMs; each bucket kernel's
-    source also holds its point conversion), K3 and K4 (the unfused final
+    one source with K1-inv), K7-inv (the strict engine's Fermat ladder, the
+    same source), K2 (the G1 and G2 MSMs; each bucket kernel's source also
+    holds its point conversion), K3 and K4 (the unfused final
     exponentiation; K4's word layouts, words -> words and words -> strict
     limbs, the multi-pairings' product fold, a counter each), K5 and K6
-    (the fused prepare and Miller loop), FE-easy and FE-hard (the fused
-    final exponentiation; one source), K7-K10 (the strict engine; one
-    source, four entry points), K11 and K12 (the unfused Miller loop):
-    twelve sources."""
+    (the fused prepare and Miller loop; their strict-limb instantiations,
+    the strict engine's fused route, a counter each), FE-easy and FE-hard
+    (the fused final exponentiation; one source; FE-easy on strict limbs
+    a counter of its own), K7-K10 (the strict engine; one source, four
+    entry points), K11 and K12 (the unfused Miller loop): twelve
+    sources."""
     from ark_blst_tpu_torch.curves import msm_bucket as MB
     from ark_blst_tpu_torch.curves import pairing_steps as PS
     from ark_blst_tpu_torch.ops import cyc_sqr as K3
@@ -705,14 +740,17 @@ def all_kernels() -> dict:
     from ark_blst_tpu_torch.ops import strict_field as SF
 
     return {"mont_mul": MM.KERNEL, "fp_inv": FI.KERNEL_INV, "scan_up": FI.KERNEL_UP,
-            "scan_down": FI.KERNEL_DOWN, "bucket_accumulate": MB.KERNEL,
+            "scan_down": FI.KERNEL_DOWN, "fp_inv_limbs": FI.KERNEL_INV_LIMBS,
+            "bucket_accumulate": MB.KERNEL,
             "g1_point_words": MB.KERNEL_G1_WORDS,
             "bucket_accumulate_g2": MB.KERNEL_G2, "g2_point_words": MB.KERNEL_G2_WORDS,
             "cyc_sqr": K3.KERNEL,
             "fp12_mul": K4.KERNEL, "fp12_mul_words": K4.KERNEL_WORDS,
             "fp12_mul_limbs": K4.KERNEL_LIMBS, "prepare_step": PS.PREPARE_KERNEL,
             "miller_step": PS.MILLER_KERNEL, "final_exp_easy": FE.KERNEL_EASY,
-            "final_exp_hard": FE.KERNEL_HARD,
+            "final_exp_hard": FE.KERNEL_HARD, "prepare_chain_limbs": PS.PREPARE_KERNEL_LIMBS,
+            "miller_chain_limbs": PS.MILLER_KERNEL_LIMBS,
+            "final_exp_easy_limbs": FE.KERNEL_EASY_LIMBS,
             **{"strict_" + op: k for op, k in SF.KERNELS.items()},
             "fp12_sqr": K11.KERNEL, "fp12_mul_by_014": K12.KERNEL}
 
@@ -851,9 +889,62 @@ def _oracle_sample(torch, name: str, x, got, k: int = 64) -> None:
           f"{name} differs from the oracle's inverses")
 
 
+def strict_limb_stack(torch, gen, dev, n: int):
+    """(24, n) canonical strict limbs on the card, random (the top limb
+    below p's), with 0, 1, p - 1 and R mod p (one) in the first lanes."""
+    from ark_blst_tpu_torch.ops.limbs import int_to_limbs
+    from ark_blst_tpu_torch.oracle.field import P
+
+    x = torch.randint(0, 1 << 16, (24, n), generator=gen, device=dev, dtype=torch.int32)
+    x[23] = torch.randint(0, P >> 368, (n,), generator=gen, device=dev, dtype=torch.int32)
+    for col, v in enumerate((0, 1, P - 1, (1 << 384) % P)[:n]):
+        x[:, col] = torch.tensor([int(d) for d in int_to_limbs(v, 24)], dtype=torch.int32,
+                                 device=dev)
+    return x
+
+
+def phase_k7_inv(torch, dev, gen) -> dict:
+    """K7-inv (the strict Fermat ladder, one launch) at K7_INV_WIDTHS on
+    canonical strict limbs, limb for limb against its plain version and on
+    a sample against the oracle's inverses; timed beside K1-inv (the same
+    ladder on digits, `k1_inv_ms`, in turns with it) and the loop of 610 K7
+    launches it replaced (`k7_loop_ms`), with its bound (the shortest
+    window chain's products; the limbs' load and store a repack, counted in
+    the bytes) and launch shape."""
+    from ark_blst_tpu_torch.ops import convert as CV
+    from ark_blst_tpu_torch.ops import dispatch as D
+    from ark_blst_tpu_torch.ops import fp_inv as FI
+    from ark_blst_tpu_torch.ops import lazy13 as LZ
+    from ark_blst_tpu_torch.oracle.field import P
+
+    out = {}
+    for n in K7_INV_WIDTHS:
+        x = strict_limb_stack(torch, gen, dev, n)
+        xd = torch.randint(-LZ.F_BOUND, LZ.F_BOUND + 1, (30, n), generator=gen, device=dev,
+                           dtype=torch.int32)  # K1-inv's digits, timed in turns
+        plain_ms, want = _once_ms(torch, lambda: FI.fp_inv_limbs_plain(x))
+        got = FI.fp_inv_limbs(x)
+        err = int((got.long() - want.long()).abs().max())
+        check(err == 0 and torch.equal(got, want), "K7-inv differs from its plain version")
+        vals = CV.fp_from_dev(x[:, :64])
+        check(CV.fp_from_dev(got[:, :64]) == [pow(v, -1, P) if v else 0 for v in vals],
+              "K7-inv differs from the oracle's inverses")
+        bms, by = bound_ms(n * 2 * LIMB_BYTES,
+                           n * window_chain_products(FI.P_MINUS_2_BITS) * MONT_MUL32_OPS)
+        k1_ms = cuda_ms(torch, lambda: FI.fp_inv(xd), 3)
+        ms = cuda_ms(torch, lambda: FI.fp_inv_limbs(x), 3)
+        out[n] = {"n": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                  "bound_by": by,
+                  "k1_inv_ms": [k1_ms, cuda_ms(torch, lambda: FI.fp_inv(xd), 3)],
+                  "k7_loop_ms": cuda_ms(torch, lambda: D.fp_pow(x, P - 2), 1),
+                  "launch": _launch_shape(torch, FI.KERNEL_INV_LIMBS, n)}
+    return out
+
+
 def phase_k1_chains(torch, dev, ptxas: dict) -> dict:
     """K1-inv and K1-scan against their plain versions by value and against
-    the oracle on a sample, timed at the main path's widths."""
+    the oracle on a sample, timed at the main path's widths; K7-inv beside
+    (`phase_k7_inv`)."""
     from ark_blst_tpu_torch.ops import fp_inv as FI
     from ark_blst_tpu_torch.ops import lazy13 as LZ
     from ark_blst_tpu_torch.oracle.field import P
@@ -914,11 +1005,15 @@ def phase_k1_chains(torch, dev, ptxas: dict) -> dict:
              "plain_ms": plain_ms}
     del z, got, want
     torch.cuda.empty_cache()
+    inv7 = phase_k7_inv(torch, dev, gen)
+    torch.cuda.empty_cache()
     res = {"fp_inv": {**inv[PAIRING_N], "at_widths": [inv[n] for n in K1_INV_WIDTHS[1:]]},
-           "scan": {**scan[0], "levels": scan, "batch_inverse": whole}}
+           "scan": {**scan[0], "levels": scan, "batch_inverse": whole},
+           "fp_inv_limbs": {**inv7[PAIRING_N],
+                            "at_widths": [inv7[n] for n in K7_INV_WIDTHS[1:]]}}
     emit({"phase": "k1_chains", "ok": True, "fp_inv": list(inv.values()), "scan_levels": scan,
-          "batch_inverse": whole, "ptxas": ptxas["fp_inv.cu"],
-          "seconds": time.perf_counter() - t_phase})
+          "batch_inverse": whole, "fp_inv_limbs": list(inv7.values()),
+          "ptxas": ptxas["fp_inv.cu"], "seconds": time.perf_counter() - t_phase})
     return res
 
 
@@ -1351,6 +1446,13 @@ K4_FOLD_WIDTHS = tuple(1 << k for k in range(12, -1, -1))
 K4_REPS = 20  # launches a timing of K4's layouts at 8192 (one of three has read 6x the others)
 
 
+def _ptxas_of(summary: dict, fragment: str) -> dict | None:
+    """Registers and stack of the kernel entry whose mangled name holds
+    `fragment` (an instantiation by its template arguments, as
+    "prepare_chain_kernelILi1ELi1E"; the library's spills are shared)."""
+    return next((v for k, v in summary["entries"].items() if fragment in k), None)
+
+
 def _k4_ptxas(summary: dict, layout: str) -> dict | None:
     """Registers and stack of one K4 instantiation, by its template
     arguments in the mangled name (the library's spills are shared)."""
@@ -1531,9 +1633,12 @@ def chain_work(schedule, digit_edges: bool = False) -> dict:
     in, f out once. The fused pipeline's edges: Q and P strict limbs
     (packed, reduced), the lines words (no conversion), f out as the fused
     pairing's conj(f) in words (6 negations; "miller_f_digits": f as
-    digits, converted, as the public `miller_loop` takes it); with
-    digit_edges the digit entries' edges: R and Q (K5) or f and P (K6) in,
-    the lines both ways and f out as digits, converted."""
+    digits, converted, as the public `miller_loop` takes it); the strict
+    engine's edges ("prepare_limbs", "miller_limbs"): Q and P as above, the
+    lines and conj(f) as canonical strict limbs, a repack each way counted
+    in the bytes alone; with digit_edges the digit entries' edges: R and Q
+    (K5) or f and P (K6) in, the lines both ways and f out as digits,
+    converted."""
     e = len(schedule)
     prepare = sum(PREPARE32_OPS[not d] for d in schedule)
     miller = sum(MILLER32_OPS[d] for d in schedule)
@@ -1549,7 +1654,11 @@ def chain_work(schedule, digit_edges: bool = False) -> dict:
     miller += 2 * LIMBS_TO_WORDS_OPS
     return {"prepare": (4 * LIMB_BYTES + 6 * e * WORD_BYTES, prepare + 4 * LIMBS_TO_WORDS_OPS),
             "miller": (p_lines + 12 * WORD_BYTES, miller + 6 * NEG32_OPS),
-            "miller_f_digits": (p_lines + 12 * ELEM_BYTES, miller + f_digits)}
+            "miller_f_digits": (p_lines + 12 * ELEM_BYTES, miller + f_digits),
+            "prepare_limbs": (4 * LIMB_BYTES + 6 * e * LIMB_BYTES,
+                              prepare + 4 * LIMBS_TO_WORDS_OPS),
+            "miller_limbs": (2 * LIMB_BYTES + 6 * e * LIMB_BYTES + 12 * LIMB_BYTES,
+                             miller + 6 * NEG32_OPS)}
 
 
 def _word_values(words) -> list:
@@ -1640,7 +1749,7 @@ def phase_tower_chains(torch, dev, ptxas: dict) -> tuple:
     t_phase = time.perf_counter()
     sched = PR.MILLER_EVENTS
     work, work_digits = chain_work(sched), chain_work(sched, digit_edges=True)
-    out = {"prepare": {}, "miller": {}}
+    out, strict = {"prepare": {}, "miller": {}}, {"prepare": {}, "miller": {}}
     oracle_cols = 0
     clocks = {"before": _clocks()}
     for n in (PAIRING_N, CHAIN_RAGGED_N):
@@ -1689,7 +1798,11 @@ def phase_tower_chains(torch, dev, ptxas: dict) -> tuple:
             bound_f_digits_by=fby)
         out["prepare"][n]["lines_bytes"] = lines.numel() * 4
         out["prepare"][n]["lines_bytes_as_digits"] = coeffs_dig.numel() * 4
+        strict_chains(torch, strict, n, q, p, lines, fw)
         del q, p, lines, want, fw, want6w, f, want6, q_dig, pxy_dig, f1, coeffs_dig
+    q, p, _, _ = chain_inputs(torch, dev, 1)  # the strict chains at one pair too
+    lines = PS.prepare_lines(q, sched)
+    strict_chains(torch, strict, 1, q, p, lines, PS.miller_lines(lines, p, sched, PS.FMT_WORDS))
     clocks["after"] = _clocks()
     torch.cuda.empty_cache()
     emit({"phase": "tower_chains", "events": len(sched), "value_equal": True,
@@ -1700,8 +1813,55 @@ def phase_tower_chains(torch, dev, ptxas: dict) -> tuple:
           "ops_per_element_digit_edges": {k: v[1] for k, v in work_digits.items()},
           "bytes_per_element_digit_edges": {k: v[0] for k, v in work_digits.items()},
           "ptxas": {"prepare": ptxas["prepare_step.cu"], "miller": ptxas["miller_step.cu"]},
+          "strict": {k: list(v.values()) for k, v in strict.items()},
           "seconds": time.perf_counter() - t_phase})
-    return tuple({**v[PAIRING_N], "at_ragged": v[CHAIN_RAGGED_N]} for v in out.values())
+    for name, source, fragment in (("prepare", "prepare_step.cu", "prepare_chain_kernelILi1ELi1E"),
+                                   ("miller", "miller_step.cu",
+                                    "miller_chain_kernelILi1ELi1ELi1E")):
+        strict[name][PAIRING_N]["ptxas"] = _ptxas_of(ptxas[source], fragment)
+    return (*({**v[PAIRING_N], "at_ragged": v[CHAIN_RAGGED_N]} for v in out.values()),
+            *({**v[PAIRING_N], "at_widths": [v[CHAIN_RAGGED_N], v[1]]} for v in strict.values()))
+
+
+def strict_chains(torch, res: dict, n: int, q, p, lines, fw) -> None:
+    """K5-chain and K6-chain on the strict engine's edges at n pairs (strict
+    Q and P in, the lines and conj(f) as strict limbs: the strict
+    `prepare_g2` and `miller_loop`, `fuse=True`): limb for limb against
+    their plain versions and against the word instantiations' lines and
+    conj(f) split into limbs (at 8192, 1,000 and 1); each timed beside the
+    word instantiation in
+    the same run (`words_ms`: the fused pipeline's, timed right after),
+    with its bound (`chain_work`'s "prepare_limbs", "miller_limbs") and
+    launch shape; into res[name][n]."""
+    from ark_blst_tpu_torch.curves import pairing as PR
+    from ark_blst_tpu_torch.curves import pairing_steps as PS
+    from ark_blst_tpu_torch.ops import words as W
+
+    sched, work = PR.MILLER_EVENTS, chain_work(PR.MILLER_EVENTS)
+    limbs = PS.prepare_lines(q, sched, PS.FMT_LIMBS)
+    plain5_ms, want5 = _once_ms(torch, lambda: PS.prepare_lines_plain(q, sched, PS.FMT_LIMBS))
+    check(limbs.shape == (len(sched), 6, W.LIMBS, n) and torch.equal(limbs, want5)
+          and torch.equal(limbs, W.words_to_limbs_plain(lines)),
+          "K5-chain's strict lines differ from their plain version's")
+    f = PS.miller_lines(limbs, p, sched, PS.FMT_LIMBS)
+    plain6_ms, want6 = _once_ms(
+        torch, lambda: PS.miller_lines_plain(limbs, p, sched, PS.FMT_LIMBS))
+    check(f.shape == (12, W.LIMBS, n) and torch.equal(f, want6)
+          and torch.equal(f, W.words_to_limbs_plain(fw)),
+          "K6-chain's strict conj(f) differs from its plain version's")
+    for name, kernel, fn, words_fn, plain_ms in (
+            ("prepare", PS.PREPARE_KERNEL_LIMBS, lambda: PS.prepare_lines(q, sched, PS.FMT_LIMBS),
+             lambda: PS.prepare_lines(q, sched), plain5_ms),
+            ("miller", PS.MILLER_KERNEL_LIMBS,
+             lambda: PS.miller_lines(limbs, p, sched, PS.FMT_LIMBS),
+             lambda: PS.miller_lines(lines, p, sched, PS.FMT_WORDS), plain6_ms)):
+        nbytes, ops = work[name + "_limbs"]
+        bms, by = bound_ms(n * nbytes, n * ops)
+        res[name][n] = {"n": n, "max_abs_err": 0, "ms": cuda_ms(torch, fn, 3),
+                        "words_ms": cuda_ms(torch, words_fn, 3), "plain_ms": plain_ms,
+                        "bound_ms": bms, "bound_by": by,
+                        "launch": _tower32_shape(torch, kernel, n)}
+    res["prepare"][n]["lines_bytes"] = limbs.numel() * 4
 
 
 def phase_final_exp_chains(torch, dev, ptxas: dict) -> tuple:
@@ -1717,7 +1877,11 @@ def phase_final_exp_chains(torch, dev, ptxas: dict) -> tuple:
     results (an identity among them) against the oracle's pairings; each
     timed beside its plain version (on the card the lazy tower's products
     run on K1, its inverse on K1-inv) and its bound, with its launch shape
-    (the other layout beside: `digits_ms`, `bound_digits_ms`)."""
+    (the other layout beside: `digits_ms`, `bound_digits_ms`); FE-easy on
+    the strict engine's fused route (`easy_limbs`: K5-chain and K6-chain on
+    strict limbs, the mask on the limbs, FE-easy loading them) word for word
+    against the same, timed beside FE-easy on words (`words_ms`) in the
+    same run."""
     from ark_blst_tpu_torch import bls12 as B
     from ark_blst_tpu_torch.curves import pairing as PR
     from ark_blst_tpu_torch.ops import convert as CV
@@ -1729,17 +1893,29 @@ def phase_final_exp_chains(torch, dev, ptxas: dict) -> tuple:
     t_phase = time.perf_counter()
     work = final_exp_work()
     ps, qs, _, _ = pairing_inputs()
-    out = {"easy": {}, "hard": {}}
+    out = {"easy": {}, "hard": {}, "easy_limbs": {}}
     oracle_cols = 0
     for n in FINAL_EXP_WIDTHS:
         (p, p_inf), (q, q_inf) = B._g1_batch(ps[:n], dev), B._g2_batch(qs[:n], dev)
-        f = PR._masked_miller_words(p, PR.prepare_g2(q), PR._skip_mask(p_inf, q_inf))
+        skip = PR._skip_mask(p_inf, q_inf)
+        f = PR._masked_miller_stack(p, PR.prepare_g2(q), skip)
+        # the strict engine's fused route: conj(f) as strict limbs, masked
+        f_limbs = PR._masked_miller_stack(p, PR.prepare_g2(q, engine="strict"), skip,
+                                          f_fmt=W.FMT_LIMBS)
+        check(torch.equal(f_limbs, W.words_to_limbs_plain(f)),
+              "the strict route's conj(f) limbs differ from the word route's words")
         f_digits = W.words_to_digits_plain(f)
         words = FE.easy(f)
         easy_plain_ms, t2 = _once_ms(torch, lambda: FE.easy_plain(W.words_to_digits_plain(f)))
         t2_words = W.digits_to_words_plain(t2)
         check(torch.equal(words, t2_words), "FE-easy on words differs from easy_plain")
         check(torch.equal(FE.easy(f_digits), t2_words), "FE-easy on digits differs from easy_plain")
+        check(torch.equal(FE.easy(f_limbs), t2_words),
+              "FE-easy on strict limbs differs from easy_plain")
+        easy_limbs_plain_ms, t2_limbs = _once_ms(
+            torch, lambda: FE.easy_plain(W.limbs_to_digits_plain(f_limbs)))
+        check(torch.equal(W.digits_to_words_plain(t2_limbs), t2_words),
+              "easy_plain on strict limbs differs from easy_plain on words")
         got = FE.hard(words, out="limbs")
         hard_plain_ms, want = _once_ms(torch, lambda: FE.hard_limbs_plain(t2))
         check(got.shape == (12, 24, n) and torch.equal(got, want),
@@ -1769,11 +1945,18 @@ def phase_final_exp_chains(torch, dev, ptxas: dict) -> tuple:
                             "digits_ms": cuda_ms(torch, digits_fn, 3), "bound_digits_ms": dbms,
                             "bound_digits_by": dby, "launch": _tower32_shape(torch, kernel, n)}
         out["hard"][n]["digits_max_abs_err"] = err_digits
-        del p, q, f, f_digits, words, t2, t2_words, got, want, got_digits
+        bms, by = bound_ms(n * work["easy_limbs"][0], n * work["easy_limbs"][1])
+        out["easy_limbs"][n] = {"n": n, "max_abs_err": 0,
+                                "ms": cuda_ms(torch, lambda: FE.easy(f_limbs), 3),
+                                "words_ms": cuda_ms(torch, lambda: FE.easy(f), 3),
+                                "plain_ms": easy_limbs_plain_ms, "bound_ms": bms, "bound_by": by,
+                                "launch": _tower32_shape(torch, FE.KERNEL_EASY_LIMBS, n)}
+        del p, q, f, f_digits, f_limbs, words, t2, t2_words, t2_limbs, got, want, got_digits
     torch.cuda.empty_cache()
+    out["easy_limbs"][PAIRING_N]["ptxas"] = _ptxas_of(ptxas["final_exp.cu"], "easy_kernelILi1E")
     emit({"phase": "final_exp_chains", "value_equal": True, "real_inputs": True,
           "oracle_columns": oracle_cols, "easy": list(out["easy"].values()),
-          "hard": list(out["hard"].values()),
+          "hard": list(out["hard"].values()), "easy_limbs": list(out["easy_limbs"].values()),
           "ops_per_element": {k: v[1] for k, v in work.items()},
           "bytes_per_element": {k: v[0] for k, v in work.items()},
           "ptxas": ptxas["final_exp.cu"], "seconds": time.perf_counter() - t_phase})
@@ -1859,25 +2042,29 @@ def run_pairing_stages(torch, dev, ps, qs, expected, profiled: bool, fuse: bool 
                        engine: str = "lazy"):
     """The pairing's stages one by one: ingest (host codecs to strict limbs
     on the card), prepare_g2, miller_loop (with the identity mask),
-    final_exp, egress (strict limbs back to host ints). Lazy fused, the
-    entry's word route: miller_loop K6-chain storing conj(f) as words and
-    the mask on words, final_exp FE-easy on words and FE-hard storing the
-    strict limbs, egress the host codecs alone (`egress_dispatched`: the
-    ops it ran on the card, as dispatched; none)."""
+    final_exp, egress (strict limbs back to host ints). Fused, the entry's
+    route that keeps f a stack: miller_loop K6-chain storing conj(f) as
+    words (lazy) or strict limbs (strict) and the mask on that stack,
+    final_exp FE-easy on it and FE-hard storing the strict limbs, egress
+    the host codecs alone (`egress_dispatched`: the ops it ran on the card,
+    as dispatched; none)."""
     from ark_blst_tpu_torch import bls12 as B
     from ark_blst_tpu_torch.curves import pairing as PR
+    from ark_blst_tpu_torch.curves import pairing_steps as PS
     from ark_blst_tpu_torch.ops import convert as CV
 
     ((p, p_inf), (q, q_inf)), summary = _stage(
         torch, lambda: (B._g1_batch(ps, dev), B._g2_batch(qs, dev)), profiled, need_device=False)
     yield "ingest", summary
-    chains = fuse and engine == "lazy"  # the fused stages: a chain each, checked
+    chains = fuse  # the fused stages: a chain each, checked
+    f_fmt = PS.FMT_WORDS if engine == "lazy" else PS.FMT_LIMBS
     coeffs, summary = _stage(torch, lambda: PR.prepare_g2(q, fuse, engine), profiled,
                              expect=("prepare_chain_kernel",) if chains else (),
                              attempts=4 if chains else 2)
     yield "prepare_g2", summary
     if chains:
-        miller = lambda: PR._masked_miller_words(p, coeffs, PR._skip_mask(p_inf, q_inf))  # noqa: E731
+        miller = lambda: PR._masked_miller_stack(  # noqa: E731
+            p, coeffs, PR._skip_mask(p_inf, q_inf), f_fmt=f_fmt)
     else:
         miller = lambda: PR._masked_miller(p, coeffs, p_inf, q_inf, fuse, engine)  # noqa: E731
     f, summary = _stage(torch, miller, profiled, expect=("miller_chain_kernel",) if chains else (),
@@ -1967,16 +2154,17 @@ STAGE_CHAINS = {"prepare_g2": {"prepare_step": 1}, "miller_loop": {"miller_step"
 PAIRING_MAX_DEVICE_KERNELS = 12  # prepare_g2 to egress, a fused batch
 
 
-def _check_stage_launches(staged: dict, profiled: dict) -> int:
+def _check_stage_launches(staged: dict, profiled: dict, chains: dict = STAGE_CHAINS) -> int:
     """The fused stages from prepare_g2 to egress: each launches its chains
-    once and no other kernel of the port (the counters), at most
+    (`chains`, by stage: the lazy engine's or the strict engine's
+    instantiations) once and no other kernel of the port (the counters), at most
     STAGE_MAX_LAUNCHES device kernels (the profiler's events, copies left
     out), the egress none also as dispatched (a stage the profiler returned
     no event for is not taken for one that launched none), and at most
     PAIRING_MAX_DEVICE_KERNELS in all. Returns that sum."""
     total = 0
     for stage, most in STAGE_MAX_LAUNCHES.items():
-        want = STAGE_CHAINS[stage]
+        want = chains[stage]
         check(staged[stage]["launches"] == want,
               f"{stage} launched {staged[stage]['launches']}, expected {want}")
         got = profiled[stage]["device_kernels"]
@@ -2161,12 +2349,52 @@ def _fp12_product(values) -> tuple:
     return acc
 
 
-def phase_pairing_strict(torch, dev, ps, qs, expected) -> dict:
+# The strict engine's fused route (`pairing(..., engine="strict")`, fuse on):
+# the chains' strict-limb instantiations and FE-hard, each launched once a
+# batch, stage by stage; no other kernel of the port
+STRICT_FUSED = ("prepare_chain_limbs", "miller_chain_limbs", "final_exp_easy_limbs",
+                "final_exp_hard")
+STRICT_STAGE_CHAINS = {"prepare_g2": {"prepare_chain_limbs": 1},
+                       "miller_loop": {"miller_chain_limbs": 1},
+                       "final_exp": {"final_exp_easy_limbs": 1, "final_exp_hard": 1},
+                       "egress": {}}
+STRICT_TURNS = (True, False, False, True)  # `fuse` of the timed strict calls, in turns
+# the multi-pairings' routes of phase pairing_strict: (name, engine, fuse)
+STRICT_MULTI_ROUTES = (("lazy", "lazy", True), ("strict_fused", "strict", True),
+                       ("strict_unfused", "strict", False))
+
+
+def _check_strict_route(launches: dict, fuse: bool, what: str) -> None:
+    """The launches of a strict pairing batch: fused, the chains' strict
+    instantiations and FE-hard once each and nothing else; unfused, K7-K10
+    and one K7-inv ladder (the fp2 inverse of the final exponentiation) and
+    nothing else."""
+    from ark_blst_tpu_torch.ops import strict_field as SF
+
+    got = {k: v for k, v in launches.items() if v}
+    if fuse:
+        want = {k: 1 for k in STRICT_FUSED}
+        check(got == want, f"{what} launched {got}, expected {want}")
+        return
+    strict_names = {"strict_" + op for op in SF.KERNELS}
+    check(set(got) == strict_names | {"fp_inv_limbs"} and got["fp_inv_limbs"] == 1,
+          f"{what} launched {got}, expected K7-K10 and one K7-inv")
+
+
+def phase_pairing_strict(torch, dev, ps, qs, expected) -> tuple:
     """The phase-8 instance through the tensor entry `pairing(...,
-    engine="strict")` on K7-K10 alone, limb for limb against the lazy
-    engine's output, with launches, stages and a profiled rerun; then
-    `multi_pairing` and `multi_miller_loop_prepared` on both engines at
-    STRICT_MULTI_N pairs."""
+    engine="strict")` on both routes, timed in turns (STRICT_TURNS): fused
+    (the default: K5-chain, K6-chain and FE-easy on strict limbs, FE-hard;
+    no K7-K10 or K7-inv, checked) and unfused (`fuse=False`: K7-K10 and
+    one K7-inv ladder, no chain, checked), each limb for limb against the
+    lazy engine's output and against the oracle; each route's stages (the
+    fused stages checked at most 10, 6, 4 and 0 device kernels, 12 in all,
+    the egress none also as dispatched) and a profiled rerun; the unfused
+    route's K7-K10 launches per stage, per Miller event (mean) and per
+    cyclotomic square; then `multi_pairing` and `multi_miller_loop_prepared`
+    at STRICT_MULTI_N pairs on the lazy engine and both strict routes
+    (STRICT_MULTI_ROUTES), equal to each other and the first to the
+    oracle's product, with their seconds and launches."""
     import ark_blst_tpu_torch as T
     from ark_blst_tpu_torch import bls12 as B
     from ark_blst_tpu_torch.curves import pairing as PR
@@ -2176,28 +2404,40 @@ def phase_pairing_strict(torch, dev, ps, qs, expected) -> dict:
 
     (p, p_inf), (q, q_inf) = B._g1_batch(ps, dev), B._g2_batch(qs, dev)
     lazy = T.pairing(p, q, p_inf=p_inf, q_inf=q_inf, device=dev)
+    T.pairing(p, q, p_inf=p_inf, q_inf=q_inf, engine="strict", device=dev)  # warm-up
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    kernels = _reset_launches()
-    t0 = time.perf_counter()
-    out = T.pairing(p, q, p_inf=p_inf, q_inf=q_inf, engine="strict", device=dev)  # the path
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
-    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-    strict_names = {"strict_" + op for op in SF.KERNELS}
-    check(all(launches[k] > 0 for k in strict_names), f"K7-K10 not all launched: {launches}")
-    check(all(v == 0 for k, v in launches.items() if k not in strict_names),
-          f"the strict pairing launched a lazy kernel: {launches}")
     leaves = lambda t: [x for a in t for b in a for x in b]  # noqa: E731
-    check(all(torch.equal(a, b) for a, b in zip(leaves(out), leaves(lazy))),
-          "strict pairing limbs differ from the lazy engine's")
-    check(CV.fp12_from_dev(out) == expected, "strict pairings differ from the oracle")
+    routes = {True: {"seconds": []}, False: {"seconds": []}}
+    for fuse in STRICT_TURNS:
+        first = "launches" not in routes[fuse]
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels = _reset_launches()
+        t0 = time.perf_counter()
+        out = T.pairing(p, q, p_inf=p_inf, q_inf=q_inf, fuse=fuse, engine="strict",
+                        device=dev)  # the path
+        torch.cuda.synchronize()
+        routes[fuse]["seconds"].append(time.perf_counter() - t0)
+        if not first:
+            continue
+        what = f"the strict pairing batch (fuse={fuse})"
+        launches = {name: k.launches for name, k in kernels.items()}
+        _check_strict_route(launches, fuse, what)
+        check(all(torch.equal(a, b) for a, b in zip(leaves(out), leaves(lazy))),
+              f"{what}: limbs differ from the lazy engine's")
+        check(CV.fp12_from_dev(out) == expected, f"{what} differs from the oracle")
+        routes[fuse].update(launches={k: v for k, v in launches.items() if v},
+                            peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+        if not fuse:
+            unfused_out = out
 
-    stages, stage_launches = _staged(torch, dev, ps, qs, expected, engine="strict")
-    profiled = dict(run_pairing_stages(torch, dev, ps, qs, expected, True, engine="strict"))
+    fused_staged = dict(run_pairing_stages(torch, dev, ps, qs, expected, False, engine="strict"))
+    fused_profiled = dict(run_pairing_stages(torch, dev, ps, qs, expected, True, engine="strict"))
+    device_kernels = _check_stage_launches(fused_staged, fused_profiled, STRICT_STAGE_CHAINS)
+    stages, stage_launches = _staged(torch, dev, ps, qs, expected, fuse=False, engine="strict")
+    profiled = dict(run_pairing_stages(torch, dev, ps, qs, expected, True, fuse=False,
+                                       engine="strict"))
     before = _launch_counts()
-    TS.fp12_cyclotomic_sqr(out)
+    TS.fp12_cyclotomic_sqr(unfused_out)
     per_cyc_sqr = {k: v - before[k] for k, v in _launch_counts().items() if v != before[k]}
     per_event = {k: v / len(PR.MILLER_EVENTS) for k, v in stage_launches["miller_loop"].items()}
 
@@ -2206,35 +2446,52 @@ def phase_pairing_strict(torch, dev, ps, qs, expected) -> dict:
     pim, qim = p_inf[:m], q_inf[:m]
     want = _fp12_product(expected[:m])
     multi = {}
-    for engine in ("lazy", "strict"):
+    for name, engine, fuse in STRICT_MULTI_ROUTES:
+        kernels = _reset_launches()
         t0 = time.perf_counter()
-        mp = PR.multi_pairing(pm, qm, pim, qim, engine=engine)
+        mp = PR.multi_pairing(pm, qm, pim, qim, fuse=fuse, engine=engine)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        prep = PR.prepare_g2_device(qm, qim, engine=engine)
-        mml = PR.multi_miller_loop_prepared(pm, prep, pim)
+        prep = PR.prepare_g2_device(qm, qim, fuse=fuse, engine=engine)
+        mml = PR.multi_miller_loop_prepared(pm, prep, pim, fuse=fuse)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        check(CV.fp12_from_dev(mp) == [want], f"{engine} multi_pairing differs from the oracle")
-        multi[engine] = {"multi_pairing_s": t1 - t0, "prepared_multi_miller_s": t2 - t1,
-                         "values": (leaves(mp), leaves(mml))}
+        check(CV.fp12_from_dev(mp) == [want], f"{name} multi_pairing differs from the oracle")
+        multi[name] = {"multi_pairing_s": t1 - t0, "prepared_multi_miller_s": t2 - t1,
+                       "launches": {k: v.launches for k, v in kernels.items() if v.launches},
+                       "values": (leaves(mp), leaves(mml))}
     for i, what in enumerate(("multi_pairing", "multi_miller_loop_prepared")):
-        check(all(torch.equal(a, b) for a, b in
-                  zip(multi["lazy"]["values"][i], multi["strict"]["values"][i])),
-              f"{what}: the engines disagree")
+        for name in ("strict_fused", "strict_unfused"):
+            check(all(torch.equal(a, b) for a, b in
+                      zip(multi["lazy"]["values"][i], multi[name]["values"][i])),
+                  f"{what}: the lazy engine and the {name} route disagree")
     for v in multi.values():
         del v["values"]
     multi_launches = phase_multi_pairing(torch, p, q, p_inf, q_inf, expected,
                                          multi["lazy"]["multi_pairing_s"])
 
     n = len(ps)
+    fused, unfused = routes[True], routes[False]
     emit({"phase": "pairing_strict", "n": n, "ok": True, "equal_to_lazy": True,
-          "seconds": dt, "pairings_per_s": n / dt, "launches": launches,
-          "strict_launches": sum(launches[k] for k in strict_names), "stages": stages,
-          "stage_launches": stage_launches, "launches_per_miller_event": per_event,
-          "launches_per_cyclotomic_sqr": per_cyc_sqr, "peak_mem_gib": peak_gib, "multi": {"n": m, "engines_agree": True, **multi}})
-    emit({"phase": "pairing_strict_profile", **_profile_totals(profiled), "stages": profiled})
-    return {op: launches["strict_" + op] for op in SF.KERNELS}, multi_launches
+          "gpu": _smi()[0], "turns": ["fused" if f else "unfused" for f in STRICT_TURNS],
+          "fused": {**fused, "pairings_per_s": n / min(fused["seconds"]),
+                    "device_kernels": device_kernels,
+                    "stages": {k + "_ms": v["wall_ms"] for k, v in fused_staged.items()},
+                    "stage_launches": {k: v["launches"] for k, v in fused_staged.items()},
+                    "stage_device_kernels": {k: v.get("device_kernels")
+                                             for k, v in fused_profiled.items()},
+                    "egress_dispatched": [fused_staged["egress"]["egress_dispatched"],
+                                          fused_profiled["egress"]["egress_dispatched"]]},
+          "unfused": {**unfused, "pairings_per_s": n / min(unfused["seconds"]),
+                      "strict_launches": sum(unfused["launches"].values()), "stages": stages,
+                      "stage_launches": stage_launches,
+                      "launches_per_miller_event": per_event,
+                      "launches_per_cyclotomic_sqr": per_cyc_sqr},
+          "multi": {"n": m, "routes_agree": True, **multi}})
+    emit({"phase": "pairing_strict_profile", "fused": {**_profile_totals(fused_profiled),
+                                                       "stages": fused_profiled},
+          "unfused": {**_profile_totals(profiled), "stages": profiled}})
+    return unfused["launches"], fused["launches"], multi, multi_launches
 
 
 # The multi-pairing entries of phase multi_pairing: (name, pairs, the
@@ -2485,7 +2742,7 @@ def _api_msm(torch, dev, curve_name: str) -> tuple:
 
 def phase_api(torch, dev, ps, qs, expected, fused) -> dict:
     """The arkworks API's batch entries on the card: G1Projective.msm at
-    2^20 and G2Projective.msm at 2^16 on the known-answer instances; the
+    2^18 and G2Projective.msm at 2^16 on the known-answer instances; the
     phase-8 instance through `Bls12.pairing_batch`, plain and prepared,
     equal to phase 8's checked results; `Bls12.multi_miller_loop` and
     `final_exponentiation` at 1024 pairs; the repo's vectors (the
@@ -2762,16 +3019,20 @@ def phase_fpmul(torch, dev) -> dict:
     return res
 
 
-def _strict_launches() -> dict:
+def _strict_kernels() -> dict:
+    """The strict engine's kernels by op: K7-K10 and K7-inv ("inv")."""
+    from ark_blst_tpu_torch.ops import fp_inv as FI
     from ark_blst_tpu_torch.ops import strict_field as SF
 
-    return {op: k.launches for op, k in SF.KERNELS.items()}
+    return {**SF.KERNELS, "inv": FI.KERNEL_INV_LIMBS}
+
+
+def _strict_launches() -> dict:
+    return {op: k.launches for op, k in _strict_kernels().items()}
 
 
 def _reset_strict_launches() -> None:
-    from ark_blst_tpu_torch.ops import strict_field as SF
-
-    for k in SF.KERNELS.values():
+    for k in _strict_kernels().values():
         k.launches = 0
 
 
@@ -3273,14 +3534,14 @@ def main() -> int:
     k6 = phase_k6(torch, dev, real, sass["miller_step.cu"], ptxas)
     k11, k12 = phase_k11_k12(torch, dev, real, sass, ptxas)
     del real
-    k5c, k6c = phase_tower_chains(torch, dev, ptxas)
+    k5c, k6c, k5s, k6s = phase_tower_chains(torch, dev, ptxas)
     torch.cuda.empty_cache()
-    fe_easy, fe_hard = phase_final_exp_chains(torch, dev, ptxas)
+    fe_easy, fe_hard, fe_easy_limbs = phase_final_exp_chains(torch, dev, ptxas)
     launches, fused = phase_pairing(torch, dev, ps, qs, pairs_expected)
     unfused = phase_pairing_unfused(torch, dev, ps, qs, pairs_expected, fused)
     torch.cuda.empty_cache()
-    strict_pairing, multi_launches = phase_pairing_strict(torch, dev, ps, qs,
-                                                          pairs_expected)
+    strict_pairing, strict_fused, strict_multi, multi_launches = phase_pairing_strict(
+        torch, dev, ps, qs, pairs_expected)
     torch.cuda.empty_cache()
     api_launches = phase_api(torch, dev, ps, qs, pairs_expected, fused)
     t0 = time.perf_counter()
@@ -3319,9 +3580,42 @@ def main() -> int:
                      launches_msm_scan=scan["g1"][op], launches_msm_scan_g2=scan["g2"][op],
                      launches_msm_naive=naive[op],
                      launches_distributed={"msm_scan": dist_launches["scan"][op]},
-                     launches_pairing_strict=strict_pairing[op], fr=k7_k10[op]["fr"],
-                     broadcast=k7_k10[op]["broadcast"])
+                     launches_pairing_strict=strict_pairing.get("strict_" + op, 0),
+                     launches_pairing_strict_fused=strict_fused.get("strict_" + op, 0),
+                     launches_multi={name: v["launches"].get("strict_" + op, 0)
+                                     for name, v in strict_multi.items()},
+                     fr=k7_k10[op]["fr"], broadcast=k7_k10[op]["broadcast"])
         for op in bodies]
+    strict_chain_lines = [
+        _kernel_line(name, source, replaces, strict_fused.get(name, 0), res,
+                     launches_pairing_strict_unfused=strict_pairing.get(name, 0),
+                     launches_multi={route: v["launches"].get(name, 0)
+                                     for route, v in strict_multi.items()},
+                     **{k: res[k] for k in ("at_ragged", "at_widths", "words_ms", "launch",
+                                            "ptxas", "lines_bytes") if k in res})
+        for name, source, replaces, res in (
+            ("prepare_chain_limbs", "prepare_step.cu",
+             "ark_blst_tpu/ops/pallas_field.py:66 (K7-K10 under the strict prepare's lax.scan, "
+             "ark_blst_tpu/curves/pairing.py:262)", k5s),
+            ("miller_chain_limbs", "miller_step.cu",
+             "ark_blst_tpu/ops/pallas_field.py:66 (K7-K10 under the strict Miller lax.scan, "
+             "ark_blst_tpu/curves/pairing.py:359)", k6s),
+            ("final_exp_easy_limbs", "final_exp.cu",
+             "ark_blst_tpu/ops/pallas_field.py:66 (K7-K10 in the strict final exponentiation, "
+             "ark_blst_tpu/curves/pairing.py:422 and :430-467: its easy part)", fe_easy_limbs))]
+    inv7 = chains["fp_inv_limbs"]
+    strict_chain_lines.append(_kernel_line(
+        "fp_inv_limbs", "fp_inv.cu",
+        "ark_blst_tpu/ops/pallas_field.py:66 (K7 under the Fermat lax.scan of "
+        "ark_blst_tpu/ops/dispatch.py:139 fp_pow, from :143 fp_inv)",
+        strict_pairing.get("fp_inv_limbs", 0), inv7,
+        launches_pairing_strict_fused=strict_fused.get("fp_inv_limbs", 0),
+        launches_msm_scan=scan["g1"]["inv"], launches_msm_scan_g2=scan["g2"]["inv"],
+        launches_msm_naive=naive["inv"],
+        launches_multi={route: v["launches"].get("fp_inv_limbs", 0)
+                        for route, v in strict_multi.items()},
+        at_widths=inv7["at_widths"], launch=inv7["launch"],
+        ptxas=_ptxas_of(ptxas["fp_inv.cu"], "fp_inv_kernelILi1E")))
 
     emit({"kernels": [
         _kernel_line("mont_mul", "mont_mul.cu", "ark_blst_tpu/ops/pallas_lazy.py:41",
@@ -3456,6 +3750,7 @@ def main() -> int:
                      one_event={"with_square": {k: k6[k] for k in ONE_EVENT_KEYS},
                                 "line_only": {k: k6["line_only"][k] for k in ONE_EVENT_KEYS}}),
         *strict_lines,
+        *strict_chain_lines,
         _kernel_line("fp12_sqr", "fp12_sqr.cu",
                      "ark_blst_tpu/ops/pallas_lazy.py:63 (ops/tower_lazy.py:570 sqr12)",
                      unfused["fp12_sqr"], k11, bound_radix13_ms=k11["bound_radix13_ms"]),

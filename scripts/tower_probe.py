@@ -370,7 +370,7 @@ def main() -> int:
     ps, qs, _, _ = CS.pairing_inputs()
     for n in (int(w) for w in args.widths.split(",") if w):
         (p, p_inf), (q, q_inf) = B._g1_batch(ps[:n], dev), B._g2_batch(qs[:n], dev)
-        f = PR._masked_miller_words(p, PR.prepare_g2(q), PR._skip_mask(p_inf, q_inf))
+        f = PR._masked_miller_stack(p, PR.prepare_g2(q), PR._skip_mask(p_inf, q_inf))
         f_digits = W.words_to_digits_plain(f)
         words = FE.easy(f)
         refs = {"limbs": FE.hard(words, out="limbs"), "digits": FE.hard(words)}

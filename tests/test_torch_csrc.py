@@ -75,11 +75,13 @@ def test_strict_header_constants(name, spec):
     [MM.KERNEL, MB.KERNEL, K3.KERNEL, K4.KERNEL, PS.PREPARE_KERNEL, PS.MILLER_KERNEL,
      MB.KERNEL_G2, MB.KERNEL_G2_WORDS, *SF.KERNELS.values(), K11.KERNEL, K12.KERNEL,
      MB.KERNEL_G1_WORDS, FI.KERNEL_INV, FI.KERNEL_UP, FI.KERNEL_DOWN, FE.KERNEL_EASY,
-     FE.KERNEL_HARD, K4.KERNEL_WORDS, K4.KERNEL_LIMBS],
+     FE.KERNEL_HARD, K4.KERNEL_WORDS, K4.KERNEL_LIMBS, FI.KERNEL_INV_LIMBS,
+     PS.PREPARE_KERNEL_LIMBS, PS.MILLER_KERNEL_LIMBS, FE.KERNEL_EASY_LIMBS],
     ids=["mont_mul", "bucket", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step",
          "bucket_g2", "g2_point_words", *("strict_" + op for op in SF.KERNELS), "fp12_sqr",
          "fp12_mul_by_014", "g1_point_words", "fp_inv", "scan_up", "scan_down",
-         "final_exp_easy", "final_exp_hard", "fp12_mul_words", "fp12_mul_limbs"])
+         "final_exp_easy", "final_exp_hard", "fp12_mul_words", "fp12_mul_limbs",
+         "fp_inv_limbs", "prepare_chain_limbs", "miller_chain_limbs", "final_exp_easy_limbs"])
 def test_kernel_sources_export_their_entry(kernel):
     src = (KC.CSRC_DIR / kernel.source).read_text()
     assert re.search(rf'extern "C" int {kernel.symbol}\(', src)
@@ -171,6 +173,28 @@ def test_chain_wrappers_reject_what_the_kernels_do_not_take(kernel, bad):
             PS.miller_lines(words, (limbs[2], limbs[3]), sched)
 
 
+@pytest.mark.parametrize("call", ["prepare_digits", "miller_limbs_from_words",
+                                  "miller_words_from_limbs", "miller_digits_from_limbs"])
+def test_chain_edges_reject_layouts_without_an_instantiation(call):
+    """The chains' entries take only the edge layouts that have an
+    instantiation: K5-chain stores the lines as words or strict limbs;
+    K6-chain stores conj(f) as strict limbs from strict lines alone, and
+    from strict lines nothing else."""
+    import torch
+
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32)  # noqa: E731
+    q, p, sched = ((z(24, 4), z(24, 4)), (z(24, 4), z(24, 4))), (z(24, 4), z(24, 4)), [True]
+    with pytest.raises(ValueError):
+        if call == "prepare_digits":
+            PS.prepare_lines(q, sched, PS.FMT_DIGITS)
+        elif call == "miller_limbs_from_words":
+            PS.miller_lines(z(1, 6, 12, 4), p, sched, PS.FMT_LIMBS)
+        elif call == "miller_words_from_limbs":
+            PS.miller_lines(z(1, 6, 24, 4), p, sched, PS.FMT_WORDS)
+        else:
+            PS.miller_lines(z(1, 6, 24, 4), p, sched)
+
+
 def test_identity_rows_decode_to_identity():
     import torch
 
@@ -212,14 +236,16 @@ def test_build_all_starts_one_nvcc_per_source(monkeypatch):
 def test_every_kernel_source_is_built_once(monkeypatch):
     """The twelve kernel sources of the port, one nvcc each: every
     `csrc/*.cu` belongs to a kernel, the tower kernels K11/K12 have their
-    own, K1-inv and K1-scan's two passes share `fp_inv.cu`, FE-easy and
-    FE-hard share `final_exp.cu`, and K4's three layouts `fp12_mul.cu`."""
+    own, K1-inv, K1-scan's two passes and K7-inv share `fp_inv.cu`,
+    FE-easy and FE-hard share `final_exp.cu`, K4's three layouts
+    `fp12_mul.cu`, and the chains' strict instantiations their sources."""
     started = []
     monkeypatch.setattr(KC.CudaKernel, "start_build", lambda self: started.append(self) or None)
     kernels = [MM.KERNEL, MB.KERNEL, MB.KERNEL_G2, K3.KERNEL, K4.KERNEL, PS.PREPARE_KERNEL,
                PS.MILLER_KERNEL, *SF.KERNELS.values(), K11.KERNEL, K12.KERNEL,
                FI.KERNEL_INV, FI.KERNEL_UP, FI.KERNEL_DOWN, FE.KERNEL_EASY, FE.KERNEL_HARD,
-               K4.KERNEL_WORDS, K4.KERNEL_LIMBS]
+               K4.KERNEL_WORDS, K4.KERNEL_LIMBS, FI.KERNEL_INV_LIMBS, PS.PREPARE_KERNEL_LIMBS,
+               PS.MILLER_KERNEL_LIMBS, FE.KERNEL_EASY_LIMBS]
     owners = KC.build_all(kernels)
     assert sorted(k.source for k in owners) == sorted(p.name for p in KC.CSRC_DIR.glob("*.cu"))
     assert len(owners) == 12 and started == owners

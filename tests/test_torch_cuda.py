@@ -1,6 +1,7 @@
 """The CUDA kernels on the card against their plain PyTorch versions, and the
 G1 and G2 MSMs, the strict engine's scan MSM and the batched pairing (fused,
-unfused and strict) on the card against the host oracle; the arkworks API's
+unfused, and strict on both routes: the chains on strict limbs, and K7-K10
+with the K7-inv ladder) on the card against the host oracle; the arkworks API's
 device routes against the checked-in vectors and its host route; the
 sharded MSMs and multi-pairing in a world of one over NCCL (`-k
 distributed`).
@@ -626,8 +627,8 @@ def test_k12_value_equal_to_plain(dev, source):
 
 def test_unfused_and_strict_pairing_on_card_match_fused(dev):
     """32 pairs with an identity on each side: the unfused pipeline (K11,
-    K12, no K5/K6) and the strict engine (K7-K10 alone) give the fused
-    path's results."""
+    K12, no K5/K6) and the strict engine unfused (K7-K10 and K7-inv, no
+    chain) give the fused path's results."""
     rng = random.Random(17)
     ps = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
     qs = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
@@ -647,7 +648,7 @@ def test_unfused_and_strict_pairing_on_card_match_fused(dev):
     lazy_kernels = (MM.KERNEL, K3.KERNEL, K4.KERNEL, FE.KERNEL_EASY, FE.KERNEL_HARD) + \
         tower
     before = [k.launches for k in lazy_kernels] + [SF.KERNELS["mont_mul"].launches]
-    strict = T.pairing(p, q, p_inf=p_inf, q_inf=q_inf, engine="strict", device=dev)
+    strict = T.pairing(p, q, p_inf=p_inf, q_inf=q_inf, fuse=False, engine="strict", device=dev)
     torch.cuda.synchronize()
     after = [k.launches for k in lazy_kernels] + [SF.KERNELS["mont_mul"].launches]
     assert after[:-1] == before[:-1] and after[-1] > before[-1]
@@ -680,6 +681,102 @@ def test_prepared_pairing_with_default_devices(dev):
     prep = B.prepare_g2_batch(qs)
     assert prep.stacked.is_cuda
     assert B.pairing_batch(ps, prep) == [OP.pairing(p, q) for p, q in zip(ps, qs)]
+
+
+def test_strict_fused_pairing_on_card(dev):
+    """The strict engine fused on the card, 32 pairs with an identity on
+    each side: `pairing` launches its K5-chain, K6-chain and FE-easy
+    instantiations on strict limbs and FE-hard once each and no K7-K10 or
+    K7-inv, limb for limb the lazy engine's and the unfused strict route's
+    results; the unfused route launches no chain and its Fermat ladder is
+    one K7-inv launch; `multi_pairing` on the fused route against the
+    oracle's product."""
+    rng = random.Random(28)
+    ps = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    qs = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    pb = [ps[i % 4] for i in range(32)]
+    qb = [qs[(i + 1) % 4] for i in range(32)]
+    pb[3], qb[4] = None, None
+    (p, p_inf), (q, q_inf) = B._g1_batch(pb, dev), B._g2_batch(qb, dev)
+    chains = (PS.PREPARE_KERNEL_LIMBS, PS.MILLER_KERNEL_LIMBS, FE.KERNEL_EASY_LIMBS,
+              FE.KERNEL_HARD, FI.KERNEL_INV_LIMBS, *SF.KERNELS.values())
+
+    def launches(fn):
+        before = [k.launches for k in chains]
+        out = fn()
+        torch.cuda.synchronize()
+        return out, [k.launches - b for k, b in zip(chains, before)]
+
+    flat = lambda t: [x for a in t for b in a for x in b]  # noqa: E731
+    lazy = flat(T.pairing(p, q, p_inf=p_inf, q_inf=q_inf, device=dev))
+    fused, n = launches(lambda: T.pairing(p, q, p_inf=p_inf, q_inf=q_inf, engine="strict",
+                                          device=dev))
+    assert n == [1, 1, 1, 1, 0, 0, 0, 0, 0]
+    assert all(torch.equal(a, b) for a, b in zip(flat(fused), lazy))
+    unfused, n = launches(lambda: T.pairing(p, q, p_inf=p_inf, q_inf=q_inf, fuse=False,
+                                            engine="strict", device=dev))
+    assert n[:5] == [0, 0, 0, 0, 1] and all(k > 0 for k in n[5:])
+    assert all(torch.equal(a, b) for a, b in zip(flat(unfused), lazy))
+    m = 8
+    pm, qm = tuple(x[:, :m] for x in p), tuple(tuple(x[:, :m] for x in c) for c in q)
+    got = PR.multi_pairing(pm, qm, p_inf[:m], q_inf[:m], engine="strict")
+    want = OP.final_exp(OP.multi_miller_loop(
+        [(a, b) for a, b in zip(pb[:m], qb[:m]) if a and b]))
+    assert CV.fp12_from_dev(got) == [want]
+
+
+def test_strict_chains_equal_to_plain_ragged(dev):
+    """The chains' strict-limb instantiations at a ragged N (1000), one
+    launch each, limb for limb and word for word against their plain
+    versions (every output canonical): K5-chain storing the lines as strict
+    limbs, K6-chain on them storing conj(f) as strict limbs, FE-easy
+    loading those limbs; FE-hard on its words to strict limbs; the four
+    distinct pairs against the oracle's pairing."""
+    from ark_blst_tpu_torch.ops import tower_lazy as TL
+
+    n, sched = 1000, PR.MILLER_EVENTS
+    rng = random.Random(29)
+    ps = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    qs = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    (p, _), (q, _) = B._g1_batch([ps[i % 4] for i in range(n)], dev), \
+        B._g2_batch([qs[(i + 1) % 4] for i in range(n)], dev)
+    lines = _launched_once(PS.PREPARE_KERNEL_LIMBS,
+                           lambda: PS.prepare_lines(q, sched, PS.FMT_LIMBS))
+    assert lines.shape == (68, 6, W.LIMBS, n)
+    assert torch.equal(lines, PS.prepare_lines_plain(q, sched, PS.FMT_LIMBS))
+    f = _launched_once(PS.MILLER_KERNEL_LIMBS,
+                       lambda: PS.miller_lines(lines, p, sched, PS.FMT_LIMBS))
+    assert f.shape == (12, W.LIMBS, n)
+    assert torch.equal(f, PS.miller_lines_plain(lines, p, sched, PS.FMT_LIMBS))
+    words = _launched_once(FE.KERNEL_EASY_LIMBS, lambda: FE.easy(f))
+    t2 = FE.easy_plain(W.limbs_to_digits_plain(f))
+    assert torch.equal(words, W.digits_to_words_plain(t2))
+    got = _launched_once(FE.KERNEL_HARD, lambda: FE.hard(words, out="limbs"))
+    assert torch.equal(got, FE.hard_limbs_plain(t2))
+    vals = CV.fp12_from_dev(TL.unstack12(got[..., :4]))
+    assert vals == [OP.pairing(ps[i], qs[(i + 1) % 4]) for i in range(4)]
+
+
+@pytest.mark.parametrize("n", [1, 1000, 8192])
+def test_k7_inv_equal_to_plain(dev, n):
+    """The strict Fermat ladder (K7-inv) on canonical strict limbs, 0, 1,
+    p-1 and R mod p in the first lanes, one launch, limb for limb against
+    its plain version (the strict engine's loop of products) and on a
+    sample against R^2 X^-1 mod p; `ops/dispatch.fp_inv` launches it once
+    and no K7."""
+    from ark_blst_tpu_torch.ops import dispatch as D
+
+    rng = random.Random(n)
+    r = (1 << 384) % OF.P
+    vals = ([0, 1, OF.P - 1, r] + [rng.randrange(OF.P) for _ in range(n)])[:n]
+    x = torch.from_numpy(ints_to_limbs(vals, 24).T.copy()).to(dev)
+    got = _launched_once(FI.KERNEL_INV_LIMBS, lambda: FI.fp_inv_limbs(x))
+    assert torch.equal(got, FI.fp_inv_limbs_plain(x))
+    want = [pow(v, -1, OF.P) * r * r % OF.P if v else 0 for v in vals[:16]]
+    assert CV.fp_from_dev(got[:, :16]) == [w * pow(r, -1, OF.P) % OF.P for w in want]
+    before = SF.KERNELS["mont_mul"].launches
+    assert torch.equal(_launched_once(FI.KERNEL_INV_LIMBS, lambda: D.fp_inv(x)), got)
+    assert SF.KERNELS["mont_mul"].launches == before
 
 
 def _strict_stack(rng, spec, n, dev):

@@ -1,4 +1,4 @@
-"""K1-inv and K1-scan's wrappers on the CPU (`ops/fp_inv.py`): CPU tensors
+"""K1-inv's, K1-scan's and K7-inv's wrappers on the CPU (`ops/fp_inv.py`): CPU tensors
 take the plain versions, which are the loops of lazy products the port ran
 before, digit for digit, and agree with the JAX package: the Fermat ladder
 digit for digit with JAX `tower_lazy.fp_inv(fuse=False)` (its product
@@ -27,7 +27,7 @@ from ark_blst_tpu_torch.ops import tower_lazy as TL
 from ark_blst_tpu_torch.oracle import field as OF
 
 P = OF.P
-KERNELS = (FI.KERNEL_INV, FI.KERNEL_UP, FI.KERNEL_DOWN)
+KERNELS = (FI.KERNEL_INV, FI.KERNEL_UP, FI.KERNEL_DOWN, FI.KERNEL_INV_LIMBS)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -123,10 +123,12 @@ def test_cpu_calls_launch_nothing():
     before = [k.launches for k in KERNELS] + [MM.KERNEL.launches]
     FI.batch_inverse(z)
     FI.fp_inv(z[:, :4].contiguous())
+    FI.fp_inv_limbs(torch.zeros((24, 2, 2), dtype=torch.int32))
     assert [k.launches for k in KERNELS] + [MM.KERNEL.launches] == before
 
 
-@pytest.mark.parametrize("bad", ["rows", "dim", "dtype", "device", "g", "inv_total", "pre"])
+@pytest.mark.parametrize("bad", ["rows", "dim", "dtype", "device", "g", "inv_total", "pre",
+                                 "limb_rows", "limb_dtype", "limb_device"])
 def test_wrappers_reject_what_the_kernels_do_not_take(bad):
     z = torch.zeros((30, 16), dtype=torch.int32)
     pre, total = FI.scan_up(z, 4)
@@ -138,6 +140,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
         "g": lambda: FI.scan_up(z, 3),
         "inv_total": lambda: FI.scan_down(z, pre, total[:, :2], 4),
         "pre": lambda: FI.scan_down(z, pre[:2], total, 4),
+        "limb_rows": lambda: FI.fp_inv_limbs(z),
+        "limb_dtype": lambda: FI.fp_inv_limbs(torch.zeros((24, 4), dtype=torch.int64)),
+        "limb_device": lambda: FI.fp_inv_limbs(torch.zeros((24, 4), dtype=torch.int32,
+                                                           device="meta")),
     }[bad]
     with pytest.raises(ValueError):
         call()

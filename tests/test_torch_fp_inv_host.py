@@ -1,5 +1,6 @@
-"""K1-inv and K1-scan's per-thread bodies (csrc/fp_inv.cuh) compiled for
-the CPU with the host C++ compiler and undefined-behaviour checks.
+"""K1-inv's, K1-scan's and K7-inv's per-thread bodies (csrc/fp_inv.cuh)
+compiled for the CPU with the host C++ compiler and undefined-behaviour
+checks.
 
 The Fermat ladder is held against R13^2 X^-1 mod p (Python `pow`) on
 random digit stacks and on X = 0, 1, p-1 and R mod p; the up and down
@@ -8,6 +9,9 @@ versions (`ops/fp_inv.py`) by value; and a whole blocked inversion at
 8192 elements (one level of 64 rows, the ladder on the 128 column
 products) built from the compiled bodies against the JAX package's exact
 host inversion. Every output's digits are checked to be within 4096. The
+strict engine's ladder (K7-inv, on strict limbs) is held against R^2 X^-1
+mod p and limb for limb against its plain version (`fp_inv_limbs_plain`,
+the strict engine's loop of products), values in [p, 2^384) reduced. The
 kernels themselves run only on the card (tests/test_torch_cuda.py).
 Skipped where no host C++ compiler is installed.
 """
@@ -27,6 +31,7 @@ from ark_blst_tpu.curves import msm_pallas2 as JMP2
 from ark_blst_tpu_torch import cuda as KC
 from ark_blst_tpu_torch.ops import fp_inv as FI
 from ark_blst_tpu_torch.ops import lazy13 as LZ
+from ark_blst_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_ints
 from ark_blst_tpu_torch.oracle import field as OF
 
 P = OF.P
@@ -41,19 +46,23 @@ HARNESS = r"""
 // stdin: op, g, m, 0 (int64 each), then the operands (int32); stdout: the
 // result. n = g m elements. Ops: 0 the ladder on (30, n) digits -> (30, n);
 // 1 the up pass on z (30, n) -> pre (12, n) words, then total (30, m);
-// 2 the down pass on z (30, n), pre (12, n), inv_total (30, m) -> (30, n).
+// 2 the down pass on z (30, n), pre (12, n), inv_total (30, m) -> (30, n);
+// 3 the ladder on (24, n) strict limbs -> (24, n).
 int main() {
   long long hdr[4];
   if (fread(hdr, sizeof(long long), 4, stdin) != 4) return 2;
   const long long op = hdr[0], g = hdr[1], m = hdr[2], n = g * m;
-  if (op < 0 || op > 2 || g < 1 || m < 1) return 2;
-  const size_t in_size = op == 0 ? 30 * n : op == 1 ? 30 * n : 42 * n + 30 * m;
-  const size_t out_size = op == 1 ? 12 * n + 30 * m : 30 * n;
+  if (op < 0 || op > 3 || g < 1 || m < 1) return 2;
+  const size_t in_size = op == 3 ? 24 * n : op <= 1 ? 30 * n : 42 * n + 30 * m;
+  const size_t out_size = op == 3 ? 24 * n : op == 1 ? 12 * n + 30 * m : 30 * n;
   std::vector<int> in(in_size), out(out_size);
   if (fread(in.data(), sizeof(int), in.size(), stdin) != in.size()) return 3;
   const int* z = in.data();
   if (op == 0)
     for (long long i = 0; i < n; ++i) finv::inv_elem(z + i, out.data() + i, n);
+  if (op == 3)
+    for (long long i = 0; i < n; ++i)
+      finv::inv_elem<t381::LIMB_ROWS>(z + i, out.data() + i, n);
   auto* pre = reinterpret_cast<f381::u32*>(op == 1 ? out.data() : in.data() + 30 * n);
   for (long long j = 0; op == 1 && j < m; ++j)
     finv::scan_up_col(z, pre, out.data() + 12 * n, static_cast<int>(g), m, j);
@@ -145,6 +154,23 @@ def test_fermat_ladder_host(harness):
     got = ladder(harness, x.contiguous())
     assert int(got.abs().max()) <= 4096
     assert values(got) == [inverse_value(v) for v in values(x)]
+
+
+def test_strict_fermat_ladder_host(harness):
+    """K7-inv's body on strict limbs: 0, 1, p-1, R mod p, values in [p,
+    2^384) that the load reduces (p, 2^384 - 1, p + 1) and random
+    canonical values -> the canonical limbs of R^2 X^-1 mod p, limb for
+    limb `fp_inv_limbs_plain` on the canonical inputs."""
+    rng = np.random.default_rng(3)
+    r = (1 << 384) % P
+    vals = [0, 1, P - 1, r, P, (1 << 384) - 1, P + 1] + [
+        int.from_bytes(rng.bytes(48), "little") % P for _ in range(25)]
+    x = torch.from_numpy(ints_to_limbs(vals, 24).T.copy())
+    got = run(harness, 3, 1, len(vals), x).reshape(24, -1)
+    want = [pow(v, -1, P) * r * r % P if v % P else 0 for v in vals]
+    assert [int(v) for v in limbs_to_ints(got.T.numpy())] == want
+    canon = torch.from_numpy(ints_to_limbs([v % P for v in vals], 24).T.copy())
+    assert torch.equal(got, FI.fp_inv_limbs_plain(canon))
 
 
 @pytest.mark.parametrize("g,m", [(4, 8), (64, 3)])

@@ -111,7 +111,7 @@ def test_identity_mask_on_words(inputs, miller_both):
     identity pairs and leaves the others' words as K6-chain stored them."""
     p, _, p_inf, q_inf, lines = inputs
     _, words = miller_both
-    got = PR._masked_miller_words(p, lines, p_inf | q_inf)
+    got = PR._masked_miller_stack(p, lines, p_inf | q_inf)
     one = _word_limbs(PR._fp12_one_words("cpu").expand(-1, -1, 2))
     assert torch.equal(_word_limbs(got[..., 1:3]), one)
     assert torch.equal(_egressed(TL.stack12(TL.fp12_one(torch.zeros(30, 2, dtype=torch.int32)))),

@@ -1,9 +1,12 @@
 """The port's strict-engine pairing steps (`curves/pairing.py`,
 `engine="strict"`) against the JAX package: `prepare_g2` and `miller_loop`
-over all 68 events at batch 2 against JAX `prepare_g2`/`miller_loop`
-(`engine="strict", fuse=False`), limb for limb (strict values are
-canonical, so the tolerance is zero), and the identity mask of the Miller
-product by value against the oracle.
+over all 68 events at batch 2, on both routes (`fuse=True`: the chains on
+strict limbs, on CPU tensors their plain versions; `fuse=False`: the strict
+tower step by step), against JAX `prepare_g2`/`miller_loop`
+(`engine="strict", fuse=False`, the same steps as its `lax.scan`s) and
+against each other, limb for limb (strict values are canonical, so the
+tolerance is zero), and the identity mask of the Miller product by value
+against the oracle.
 """
 
 import os
@@ -53,27 +56,46 @@ def _q(qs):
 
 
 @pytest.fixture(scope="module")
-def strict_miller():
-    """The port's strict coefficients and Miller loop of (PS2, QS2)."""
+def strict_routes():
+    """The port's strict coefficients and Miller loop of (PS2, QS2) on each
+    route, by `fuse`."""
     before = {k: v.launches for k, v in SF.KERNELS.items()}
-    coeffs = PR.prepare_g2(_q(QS2), engine="strict")
-    f = PR.miller_loop(_p(PS2), coeffs, engine="strict")
+    out = {}
+    for fuse in (True, False):
+        coeffs = PR.prepare_g2(_q(QS2), fuse=fuse, engine="strict")
+        out[fuse] = coeffs, PR.miller_loop(_p(PS2), coeffs, fuse=fuse, engine="strict")
     assert {k: v.launches for k, v in SF.KERNELS.items()} == before  # CPU: plain versions
-    return coeffs, f
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_strict():
+    """JAX's strict coefficients and Miller loop of (PS2, QS2), eager."""
+    jq = (JCV.fp2_to_dev([x[0] for x in QS2]), JCV.fp2_to_dev([x[1] for x in QS2]))
+    jp = (JCV.fp_to_dev([x[0] for x in PS2]), JCV.fp_to_dev([x[1] for x in PS2]))
+    jc = DP.prepare_g2(jq, fuse=False, engine="strict")
+    return jc, DP.miller_loop(jp, jc, fuse=False, engine="strict")
+
+
+@pytest.fixture(params=[True, False], ids=["fused", "unfused"])
+def fuse(request):
+    return request.param
+
+
+@pytest.fixture
+def strict_miller(fuse, strict_routes):
+    return strict_routes[fuse]
 
 
 def test_schedule_has_all_events():
     assert PR.NUM_EVENTS == DP.NUM_EVENTS == 68 and sum(PR.MILLER_EVENTS) == 63
 
 
-def test_prepare_and_miller_loop_match_jax(strict_miller):
+def test_prepare_and_miller_loop_match_jax(strict_miller, jax_strict):
     coeffs, f = strict_miller
-    jq = (JCV.fp2_to_dev([x[0] for x in QS2]), JCV.fp2_to_dev([x[1] for x in QS2]))
-    jp = (JCV.fp_to_dev([x[0] for x in PS2]), JCV.fp_to_dev([x[1] for x in PS2]))
-    jc = DP.prepare_g2(jq, fuse=False, engine="strict")
+    jc, jf = jax_strict
     assert coeffs.shape == (68, 6, 24, 2)
     assert torch.equal(coeffs, CV.coeffs_from_jax(jc))
-    jf = DP.miller_loop(jp, jc, fuse=False, engine="strict")
     got, want = _leaves(f), _leaves(jf)
     assert len(got) == len(want) == 12
     for g, w in zip(got, want):
@@ -82,14 +104,25 @@ def test_prepare_and_miller_loop_match_jax(strict_miller):
     assert CV.fp12_from_dev(f) == [OP.miller_loop(p, q) for p, q in zip(PS2, QS2)]
 
 
-def test_identity_mask_sets_one(strict_miller):
+def test_identity_mask_sets_one(strict_miller, fuse):
     """The pairs that hold an identity (either mask) leave the Miller loop
-    as one; the others as they were."""
+    as one; the others as they were (fused: the mask on the stacked
+    limbs)."""
     coeffs, f = strict_miller
     p_inf, q_inf = torch.tensor([True, False]), torch.tensor([False, False])
-    got = PR._masked_miller(_p(PS2), coeffs, p_inf, q_inf, engine="strict")
+    got = PR._masked_miller(_p(PS2), coeffs, p_inf, q_inf, fuse=fuse, engine="strict")
     assert all(x.shape == (24, 2) for x in _leaves(got))
     assert CV.fp12_from_dev(got) == [OF.FP12_ONE, CV.fp12_from_dev(f)[1]]
+
+
+def test_strict_routes_agree(strict_routes):
+    """The fused route's lines and conj(f) equal the unfused route's limb for
+    limb: both canonical; the fused f leaves are views of one (12, 24, N)
+    stack."""
+    (c1, f1), (c0, f0) = strict_routes[True], strict_routes[False]
+    assert torch.equal(c1, c0)
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(f1), _leaves(f0)))
+    assert all(x._base is _leaves(f1)[0]._base for x in _leaves(f1))
 
 
 def test_engine_names_are_checked():

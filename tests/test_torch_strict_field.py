@@ -10,7 +10,9 @@ ops/dispatch.py) against the JAX package, on the same numpy-seeded limbs:
 * the three interpret-mode cases of tests/test_pallas.py (mismatched
   broadcast shapes, `mul_many` with mixed shapes) against JAX
   `pallas_field` with `INTERPRET = True` on the 2-limb test field;
-* `fp_inv`, `fp_sqrt_candidate` and `fp_mul_small` against the oracle.
+* `fp_inv`, `fp_sqrt_candidate` and `fp_mul_small` against the oracle;
+  the Fp `fp_inv` (K7-inv's route, on CPU tensors its plain version) limb
+  for limb against JAX `ops/dispatch.fp_inv`, 0 and 1 included.
 """
 
 import random
@@ -21,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from ark_blst_tpu.ops import dispatch as JD
 from ark_blst_tpu.ops import fieldops as JFO
 from ark_blst_tpu.ops import limbs as JL
 from ark_blst_tpu.ops import pallas_field as JPF
@@ -225,6 +228,22 @@ def test_fp_inv_matches_oracle(field):
     vals = [0, 1, p - 1] + [random.Random(3).randrange(1, p) for _ in range(3)]
     got = _plain(D.fp_inv(_mont(vals, spec), spec), spec)
     assert got == [0 if v == 0 else pow(v, -1, p) for v in vals]
+
+
+def test_fp_inv_matches_jax_dispatch():
+    """The Fp inverse of `ops/dispatch.py` (one K7-inv launch on the card)
+    limb for limb against JAX `ops/dispatch.fp_inv` (its `lax.scan` of
+    products) on the same limbs: 0, 1, R mod p (Montgomery one), p - 1 and
+    random canonical values, in a (24, 2, 4) batch."""
+    p = FP.modulus
+    rng = random.Random(5)
+    vals = [0, 1, (1 << 384) % p, p - 1] + [rng.randrange(p) for _ in range(4)]
+    x = stacked(vals, 24)
+    got = D.fp_inv(port(x).reshape(24, 2, 4))
+    want = np.asarray(JD.fp_inv(jnp.asarray(x.astype(np.uint32)))).astype(np.int64)
+    assert got.shape == (24, 2, 4)
+    assert (got.reshape(24, 8).numpy().astype(np.int64) == want).all()
+    assert want[:, 0].sum() == 0  # 0 -> 0
 
 
 def test_fp_sqrt_candidate_and_mul_small_match_oracle():

@@ -7,10 +7,13 @@ edges) and the G1 and G2 bucket additions
 value; K3, K4, K11 and K12 also against the oracle; K5 and K6 also as
 the chains the pipeline launches (all 68 events of the prepare and of the
 Miller loop in one block program) against their plain versions and the
-oracle; the fused final exponentiation's two chain programs
-(csrc/final_exp.cuh: FE-easy, and FE-hard walking `HARD_PROGRAM`) on real
-Miller outputs against the oracle's easy part and final_exp, and the
-Frobenius maps' constants on random elements against the oracle.
+oracle, also on the fused pipeline's and the strict engine's edges
+(strict Q and P in; the lines as words or strict limbs; f as digits,
+conj(f) as words or strict limbs); the fused final exponentiation's two
+chain programs (csrc/final_exp.cuh: FE-easy, and FE-hard walking
+`HARD_PROGRAM`) on real Miller outputs against the oracle's easy part and
+final_exp, FE-easy also loading words or strict limbs, and the Frobenius
+maps' constants on random elements against the oracle.
 
 The headers compile as plain C++ when __CUDACC__ is not defined; a small
 harness runs each bucket kernel's per-thread body over a batch, or, for
@@ -97,7 +100,13 @@ HARNESS = r"""
 // as strict limbs (12, 24, n), the fused pairing's edges. Ops 23/24: K4 on
 // the multi-pairings' word edges, in blocks as ops 0-4: a and b as words
 // (24, 12, n), result words (12, 12, n) (op 23) or strict limbs (12, 24, n)
-// (op 24).
+// (op 24). Ops 25-27: the chains on the strict engine's edges, in blocks as
+// ops 0-4: K5-chain (op 25) on strict Q (4, 24, n), the schedule after it,
+// result the lines as strict limbs (p1, 6, 24, n); K6-chain (op 26) on
+// strict lines (p1, 6, 24, n) and strict P (2, 24, n), the schedule after
+// them, result conj(f) as strict limbs (12, 24, n); FE-easy (op 27) on f
+// as strict limbs (12, 24, n) and the Frobenius words, result (12, 12, n)
+// words.
 // One block program over the batch: blocks of E elements, each phase's jobs
 // in order (reversed if asked), with the slots' memory filled with a
 // pattern first, so that a job reading a slot no earlier phase wrote goes
@@ -164,7 +173,7 @@ int main() {
   long long hdr[4];
   if (fread(hdr, sizeof(long long), 4, stdin) != 4) return 2;
   const long long op = hdr[0], n = hdr[1], param = hdr[2], B = hdr[3];
-  if (op < 0 || op > 24) return 2;
+  if (op < 0 || op > 27) return 2;
   const bool tower = op <= 4 || op == 9 || op == 10;
   const long long plane = 30 * n, S = 1024;
   size_t in_size, out_size;
@@ -172,14 +181,17 @@ int main() {
   if (op == 23 || op == 24) {
     in_size = 24 * 12 * n;
     out_size = 12 * (op == 23 ? 12 : 24) * n;
-  } else if (op == 15 || op == 16 || op == 21 || op == 22) {
-    const bool easy = op == 15 || op == 21;
-    in_size = easy ? (op == 15 ? 30 : 12) * 12 * n + frob_ints
+  } else if (op == 15 || op == 16 || op == 21 || op == 22 || op == 27) {
+    const bool easy = op == 15 || op == 21 || op == 27;
+    in_size = easy ? (op == 15 ? 30 : op == 27 ? 24 : 12) * 12 * n + frob_ints
                    : 12 * 12 * n + 4 * param + frob_ints;
     out_size = easy ? 12 * 12 * n : 12 * (op == 16 ? 30 : 24) * n;
   } else if (op == 13 || op == 14) {
     in_size = (op == 13 ? 10 : 14 + 6 * param) * plane + param;
     out_size = (op == 13 ? 6 * param + 6 : 12) * plane;
+  } else if (op == 25 || op == 26) {
+    in_size = op == 25 ? 4 * 24 * n + param : 6 * param * 24 * n + 2 * 24 * n + param;
+    out_size = op == 25 ? 6 * param * 24 * n : 12 * 24 * n;
   } else if (op >= 17) {
     in_size = op == 17 ? 4 * 24 * n + param
                        : 6 * param * (op == 19 ? 30 : 12) * n + 2 * 24 * n + param;
@@ -259,10 +271,18 @@ int main() {
         t381::miller_chain<t381::WORD_ROWS, t381::LIMB_ROWS, t381::WORD_ROWS>(b, c, ph);
     });
   }
-  if (op == 17) {
+  if (op == 17 || op == 25) {
     const t381::PrepareChain c{nullptr, x, o, nullptr, schedule(p1, x + 4 * 24 * n), 0};
     run_chain(n, B, t381::PREPARE_SLOTS, [&](const t381::Block& b, const HostPhases& ph) {
-      t381::prepare_chain<t381::LIMB_ROWS, t381::WORD_ROWS>(b, c, ph);
+      if (op == 17) t381::prepare_chain<t381::LIMB_ROWS, t381::WORD_ROWS>(b, c, ph);
+      else t381::prepare_chain<t381::LIMB_ROWS, t381::LIMB_ROWS>(b, c, ph);
+    });
+  }
+  if (op == 26) {
+    const int* pxy = x + 6 * param * 24 * n;
+    const t381::MillerChain c{nullptr, x, pxy, o, schedule(p1, pxy + 2 * 24 * n), 0};
+    run_chain(n, B, t381::MILLER_SLOTS, [&](const t381::Block& b, const HostPhases& ph) {
+      t381::miller_chain<t381::LIMB_ROWS, t381::LIMB_ROWS, t381::LIMB_ROWS>(b, c, ph);
     });
   }
   if (op == 1)
@@ -304,11 +324,12 @@ int main() {
                [&](const t381::Block& b, int ph, int j, int e) {
                  t381::mul_by_014_job(b, x, x + 12 * plane, o, ph, j, e);
                });
-  if (op == 15 || op == 21) {
-    const fexp::EasyChain c{x, o, x + 12 * (op == 15 ? 30 : 12) * n};
+  if (op == 15 || op == 21 || op == 27) {
+    const fexp::EasyChain c{x, o, x + 12 * (op == 15 ? 30 : op == 27 ? 24 : 12) * n};
     run_chain(n, B, fexp::SLOTS, [&](const t381::Block& b, const HostPhases& ph) {
       if (op == 15) fexp::easy_chain(b, c, ph);
-      else fexp::easy_chain<t381::WORD_ROWS>(b, c, ph);
+      else if (op == 21) fexp::easy_chain<t381::WORD_ROWS>(b, c, ph);
+      else fexp::easy_chain<t381::LIMB_ROWS>(b, c, ph);
     });
   }
   if (op == 16 || op == 22) {
@@ -648,11 +669,17 @@ def strict_pairs(n: int, seed: int):
 def edge_args(kernel, q, p, lines, schedule):
     """The harness call of a chain on the fused pipeline's edges (op,
     events, stacks..., result shape): K5-chain on strict Q, lines out as
-    words; K6-chain on word (or digit) lines and strict P, f out as digits
-    (or, for "miller_lines_words", conj(f) as words)."""
+    words (or, for "prepare_limbs", the strict engine's, as strict limbs);
+    K6-chain on word (or digit) lines and strict P, f out as digits (or,
+    for "miller_lines_words", conj(f) as words; for "miller_limbs", strict
+    lines in and conj(f) out as strict limbs)."""
     e, n = len(schedule), q.shape[-1]
     if kernel == "prepare_lines":
         return 17, e, q, flags(schedule), (e, 6, W.WORDS, n)
+    if kernel == "prepare_limbs":
+        return 25, e, q, flags(schedule), (e, 6, W.LIMBS, n)
+    if kernel == "miller_limbs":
+        return 26, e, lines[:e].contiguous(), p, flags(schedule), (12, W.LIMBS, n)
     if kernel == "miller_lines_words":
         return 20, e, lines[:e].contiguous(), p, flags(schedule), (12, W.WORDS, n)
     op = 18 if lines.shape[2] == W.WORDS else 19
@@ -719,6 +746,26 @@ def test_miller_lines_words_host_oracle(harness):
                                                   PS.FMT_WORDS))
 
 
+def test_strict_chains_host_oracle(harness):
+    """K5-chain and K6-chain on the strict engine's edges over all 68 events
+    for three pairs (blocks of 2, the second ragged): Q read as strict
+    limbs, every event's line stored as canonical strict limbs equal to
+    the oracle's prepare_g2 (`fp_to_dev` of its values) limb for limb; on
+    those lines and strict P, conj(f) stored as strict limbs equal to the
+    oracle's miller_loop (`fp12_to_dev`) limb for limb."""
+    q, p, ps, qs = strict_pairs(3, 17)
+    e = PR.NUM_EVENTS
+    lines = run(harness, 25, e, q, flags(PR.MILLER_EVENTS), shape=(e, 6, W.LIMBS, 3), buckets=2)
+    want = [OP.prepare_g2(x) for x in qs]
+    assert torch.equal(lines, torch.stack([torch.stack([
+        CV.fp_to_dev([w[k][r // 2][r % 2] for w in want]) for r in range(6)])
+        for k in range(e)]))
+    got = run(harness, 26, e, lines, p, flags(PR.MILLER_EVENTS), shape=(12, W.LIMBS, 3),
+              buckets=2)
+    want = CV.fp12_to_dev([OP.miller_loop(a, b) for a, b in zip(ps, qs)])
+    assert torch.equal(got, torch.stack(TL._flat12(want)))
+
+
 # Strict limb values: 0, 1, p - 1, R mod p, then values in [p, 2^384) that
 # the load must reduce (p, 2^384 - 1, the largest multiple of p below
 # 2^384, and p + R mod p), then random canonical ones
@@ -752,13 +799,25 @@ def test_edge_format_rows_host(harness, fmt):
 
 
 @pytest.mark.parametrize("kernel", ["prepare_chain", "miller_chain", "prepare_lines",
-                                    "miller_lines", "miller_lines_words"])
+                                    "miller_lines", "miller_lines_words", "prepare_limbs",
+                                    "miller_limbs"])
 def test_chain_host_truncated(harness, kernel):
     """A chain of 8 events with two additions against its plain version: on
     the pipeline's digit inputs (R after two doublings, f after two events)
     by value, digits within 4096; on the fused pipeline's edges (strict Q
     and P, R = (Q, 1) and f = one formed in the chain, word lines) the
-    lines word for word and f by value, conj(f) as words word for word."""
+    lines word for word and f by value, conj(f) as words word for word; on
+    the strict engine's (strict lines out and in, conj(f) out as strict
+    limbs) limb for limb."""
+    if "limbs" in kernel:
+        q, p, _, _ = strict_pairs(N, 13)
+        want = PS.prepare_lines_plain(((q[0], q[1]), (q[2], q[3])), SCHEDULE_8, PS.FMT_LIMBS)
+        args = edge_args(kernel, q, p, want, SCHEDULE_8)
+        got = run(harness, *args[:-1], shape=args[-1], buckets=BLOCK)
+        if kernel == "miller_limbs":
+            want = PS.miller_lines_plain(want, (p[0], p[1]), SCHEDULE_8, PS.FMT_LIMBS)
+        assert torch.equal(got, want)
+        return
     if "lines" in kernel:
         q, p, _, _ = strict_pairs(N, 12)
         qx, qy, pp = (q[0], q[1]), (q[2], q[3]), (p[0], p[1])
@@ -990,6 +1049,20 @@ def test_final_exp_chains_host_pairing_edges(harness):
     assert torch.equal(got, FE.hard_limbs_plain(FE.easy_plain(f)))
     want = TL._flat12(CV.fp12_to_dev([OP.final_exp(x) for x in fs]))
     assert torch.equal(got, torch.stack(want))
+
+
+def test_final_exp_easy_host_strict_limbs(harness):
+    """FE-easy loading f as the strict engine's limbs, on three real Miller
+    outputs and f = 1 (blocks of 3): word for word FE-easy on f's digits,
+    and the oracle's easy part by value."""
+    fs = miller_fs()
+    f = fp12_stack(fs)
+    n = f.shape[-1]
+    limbs = W.words_to_limbs_plain(W.digits_to_words_plain(f))
+    words = run(harness, 27, 0, limbs, FROB, shape=(12, FE.WORDS, n), buckets=3)
+    assert torch.equal(words, run(harness, 15, 0, f, FROB, shape=(12, FE.WORDS, n), buckets=3))
+    assert values(W.words_to_digits_plain(words)) == values(fp12_stack(
+        [easy_oracle(x) for x in fs]))
 
 
 @pytest.mark.parametrize("power", [1, 2, 3])
