@@ -15,8 +15,11 @@ the identity, which yields one):
 All of them run on the card by default and raise without one
 (`resolve_device`); `device="cpu"` runs the kernels' plain versions.
 `fuse=` and `engine=` choose the pipeline as in the JAX package
-(`curves/pairing.py`): the lazy engine fused (K5, K6; the default) or
-unfused (K11, K12), or the strict engine (K7-K10). The final
+(`curves/pairing.py`), for either engine: the lazy engine (the default)
+fused on K5-chain, K6-chain, FE-easy and FE-hard or unfused on K11, K12,
+K3 and K4; the strict engine fused on the same chains with strict-limb
+edges (its multi-pairings' product fold on K4) or unfused on K7-K10. The
+final
 exponentiation of `Bls12.multi_miller_loop`'s output runs on the host
 oracle, as in the JAX package.
 """
@@ -58,9 +61,9 @@ def pairing(p, q, *, p_inf=None, q_inf=None, fuse=True, engine="lazy", device="c
     q = ((qx0, qx1), (qy0, qy1)): the same for affine G2 points over Fp2;
     p_inf, q_inf: optional (N,) bool identity masks (those pairs yield one;
     their coordinates must still be finite field elements); fuse, engine:
-    the pipeline ("lazy" or "strict"; `fuse` chooses among the lazy
-    engine's kernels). Returns the strict fp12 batch, nested like the
-    oracle's values, each leaf (24, N) on `device`."""
+    the pipeline ("lazy" or "strict"; for either, `fuse` chooses the
+    chain kernels or the unfused route). Returns the strict fp12 batch,
+    nested like the oracle's values, each leaf (24, N) on `device`."""
     dev = resolve_device(device)
     p = tuple(x.to(dev, torch.int32) for x in p)
     q = tuple(tuple(x.to(dev, torch.int32) for x in c) for c in q)

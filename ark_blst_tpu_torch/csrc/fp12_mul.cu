@@ -2,8 +2,11 @@
 //
 // Replaces the mul12 instance of the TPU kernel
 // ark_blst_tpu/ops/pallas_lazy.py:tower_fused (built by
-// ark_blst_tpu/ops/tower_lazy.py:_fused_op("mul12")). Here: a, b -> out =
-// a * b, in one of three layouts of the edges (tower381.cuh EdgeFormat,
+// ark_blst_tpu/ops/tower_lazy.py:_fused_op("mul12")), and, on strict
+// limbs, the strict tower's fp12 product (ops/pallas_field.py:66
+// _block_call, K7-K10) in the strict multi-pairings' product fold
+// (ark_blst_tpu/curves/pairing.py:470 _fold_mul). Here: a, b -> out =
+// a * b, in one of four layouts of the edges (tower381.cuh EdgeFormat,
 // an instantiation each):
 //   digits -> digits  a, b, out (12, 30, N) int32 digits, the unfused
 //                     path's; equal to tower_lazy.fp12_mul_many([(a, b)])
@@ -14,9 +17,13 @@
 //                     the conversions are row copies;
 //   words -> limbs    out the strict (12, 24, N) limbs, the fold's last
 //                     level in multi_miller_loop: the Miller product
-//                     leaves as a 16-bit split of its words.
+//                     leaves as a 16-bit split of its words;
+//   limbs -> limbs    a, b, out the strict (12, 24, N) limbs, the strict
+//                     engine's fused multi-pairings' fold on K6-chain's
+//                     conj(f): a load is a repack (reduced below p), a
+//                     store a split.
 // Words and limbs are canonical: equal to the plain version's word for
-// word and limb for limb.
+// word and limb for limb (on limbs, the strict tower's fp12_mul's).
 //
 // What bounds it: operations. 54 Montgomery products of 12 x 32-bit words
 // (~0.9K instructions each) and ~220 modular sums; on digits also the
@@ -74,15 +81,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) fp12_mul_kernel(
   }
 }
 
-// The layouts (in, out): the unfused path's digits, the fold's words, and
-// its last level's words in and strict limbs out.
+// The layouts (in, out): the unfused path's digits, the fold's words, its
+// last level's words in and strict limbs out, and the strict engine's
+// fold on strict limbs.
 using Kernel = void (*)(const int*, const int*, int*, long long, int, int);
 const Kernel kDigits = fp12_mul_kernel<t381::DIGIT_ROWS, t381::DIGIT_ROWS>;
 const Kernel kWords = fp12_mul_kernel<t381::WORD_ROWS, t381::WORD_ROWS>;
 const Kernel kLimbs = fp12_mul_kernel<t381::WORD_ROWS, t381::LIMB_ROWS>;
+const Kernel kLimbsLimbs = fp12_mul_kernel<t381::LIMB_ROWS, t381::LIMB_ROWS>;
 
 Kernel kernel_for(int in_fmt, int out_fmt) {
   if (in_fmt == t381::DIGIT_ROWS) return out_fmt == t381::DIGIT_ROWS ? kDigits : nullptr;
+  if (in_fmt == t381::LIMB_ROWS) return out_fmt == t381::LIMB_ROWS ? kLimbsLimbs : nullptr;
   if (in_fmt != t381::WORD_ROWS) return nullptr;
   return out_fmt == t381::WORD_ROWS ? kWords : out_fmt == t381::LIMB_ROWS ? kLimbs : nullptr;
 }
@@ -92,8 +102,8 @@ int smem_bytes(int E) { return E * t381::FP12_MUL_SLOTS * t381::SLOT * 4; }
 }  // namespace
 
 // fp12_mul at a given shape: a and b of format in_fmt, out of format
-// out_fmt (t381::EdgeFormat: digits and digits, words and words, or words
-// and limbs), E elements and `threads` threads a block (threads <=
+// out_fmt (t381::EdgeFormat: digits and digits, words and words, words
+// and limbs, or limbs and limbs), E elements and `threads` threads a block (threads <=
 // kThreads); with edges_only, the loads and stores alone (out = a, the
 // cost of the kernel's edges, for scripts/tower_probe.py). Returns
 // cudaGetLastError() after the launch.
@@ -120,7 +130,8 @@ extern "C" int tower_fp12_mul(const int* a, const int* b, int* out, long long n,
 }
 
 // a, b: (12, K, n) of format in_fmt, out: (12, K', n) of format out_fmt
-// (digits and digits, words and words, or words and strict limbs); int32,
+// (digits and digits, words and words, words and strict limbs, or strict
+// limbs and strict limbs); int32,
 // contiguous, on the device of `stream`. Returns cudaGetLastError() after
 // the launch (0 on success; cudaErrorInvalidValue for another layout).
 extern "C" int tower_fp12_mul_formats(const int* a, const int* b, int* out, long long n,

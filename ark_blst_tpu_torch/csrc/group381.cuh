@@ -3,7 +3,9 @@
 // for G1, Fp2 for G2): the complete mixed addition of RCB15, the points'
 // conversion to words, the per-thread body, the accumulation of one
 // (window, stream), and the conversion of its buckets into the dump's
-// packed radix-13 digits.
+// packed radix-13 digits. Beside them the complete projective addition
+// and doubling of RCB15 (`complete_add`, `complete_dbl`), the group law of
+// the scan MSM's chains (scan_msm.cuh).
 //
 // Value parity: the addition computes the same algebraic expressions as
 // ark_blst_tpu_torch/curves/lazy_group.py:mixed_add over FP_LAZY or
@@ -98,6 +100,86 @@ __device__ __forceinline__ void mixed_add(F& X, F& Y, F& Z, const F& X2, const F
   mul(z3, t4, a);
   mul(t0t, t3, s);
   add(a, s, Z);
+}
+
+// Complete projective addition (X1 : Y1 : Z1) += (X2 : Y2 : Z2), RCB15
+// Algorithm 7 with a = 0 and b3 = 3b (f381::mul_b3), in place, right for
+// every pair of points (the identity, a doubling, inverses):
+//   t0 = X1 X2, t1 = Y1 Y2, t2 = Z1 Z2,
+//   t3 = (X1 + Y1)(X2 + Y2) - (t0 + t1), t4 = (Y1 + Z1)(Y2 + Z2) - (t1 + t2),
+//   ty = (X1 + Z1)(X2 + Z2) - (t0 + t2), t0' = 3 t0, t2' = b3 t2,
+//   z3 = t1 + t2', t1' = t1 - t2', ty' = b3 ty,
+//   X3 = t3 t1' - t4 ty', Y3 = t1' z3 + ty' t0', Z3 = z3 t4 + t0' t3
+// 12 products in F. These are the expressions of
+// ark_blst_tpu_torch/curves/group.py:CurveOps.add; every value is
+// canonical and every operation exact, so the result equals the plain
+// version's limb for limb as projective coordinates (not only as a point).
+// The second point must not alias the first.
+template <class F>
+__device__ __forceinline__ void complete_add(F& X1, F& Y1, F& Z1, const F& X2, const F& Y2,
+                                             const F& Z2) {
+  using namespace f381;
+  F t0, t1, t2, t3, t4, ty, s;
+  mul(X1, X2, t0);
+  mul(Y1, Y2, t1);
+  mul(Z1, Z2, t2);
+  add(X1, Y1, t3);
+  add(X2, Y2, s);
+  mul(t3, s, t3);
+  add(t0, t1, s);
+  sub(t3, s, t3);
+  add(Y1, Z1, t4);
+  add(Y2, Z2, s);
+  mul(t4, s, t4);
+  add(t1, t2, s);
+  sub(t4, s, t4);
+  add(X1, Z1, ty);
+  add(X2, Z2, s);
+  mul(ty, s, ty);
+  add(t0, t2, s);
+  sub(ty, s, ty);
+  F t0t, z3, a;
+  mul_small<3>(t0, t0t);
+  mul_b3(t2, t2);
+  add(t1, t2, z3);
+  sub(t1, t2, t1);
+  mul_b3(ty, ty);
+  mul(t3, t1, a);
+  mul(t4, ty, s);
+  sub(a, s, X1);
+  mul(t1, z3, a);
+  mul(ty, t0t, s);
+  add(a, s, Y1);
+  mul(z3, t4, a);
+  mul(t0t, t3, s);
+  add(a, s, Z1);
+}
+
+// Complete projective doubling of (X : Y : Z), RCB15 Algorithm 9 with
+// a = 0, in place: the expressions of curves/group.py:CurveOps.double,
+//   t0 = Y^2, tyz = Y Z, t2 = b3 Z^2, txy = X Y, y8 = 8 t0,
+//   tdiff = t0 - 3 t2,
+//   X3 = 2 tdiff txy, Y3 = t2 y8 + tdiff (t0 + t2), Z3 = tyz y8
+// 8 products in F; equal to the plain version's limb for limb.
+template <class F>
+__device__ __forceinline__ void complete_dbl(F& X, F& Y, F& Z) {
+  using namespace f381;
+  F t0, t2, y8, s, a;
+  mul(Y, Y, t0);
+  mul(X, Y, X);  // txy
+  mul(Y, Z, Y);  // tyz
+  mul(Z, Z, Z);
+  mul_b3(Z, t2);
+  mul_small<8>(t0, y8);
+  add(t0, t2, s);  // Y^2 + b3 Z^2
+  mul_small<3>(t2, a);
+  sub(t0, a, t0);  // tdiff
+  mul(t0, X, X);
+  add(X, X, X);
+  mul(t2, y8, a);
+  mul(Y, y8, Z);
+  mul(t0, s, s);
+  add(a, s, Y);
 }
 
 // 15 packed rows of one lazy component (balanced radix-13 digits, biased

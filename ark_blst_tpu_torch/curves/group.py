@@ -9,7 +9,9 @@ field batches: stacked `(24, *batch)` limb tensors for G1, fp2 pairs of
 them for G2; homogeneous projective in Montgomery form, identity
 (0 : 1 : 0). One `CurveOps` per curve binds a `FieldAdapter`, so G1 and G2
 share all code. Every field op runs through `ops/dispatch.py`, i.e. K7-K10
-for CUDA tensors.
+for CUDA tensors; the scan MSM's chains (`ops/scan_msm.py`) run the same
+additions and doublings in one launch each, with these as their plain
+versions.
 
 Constructors take the torch device where the JAX package's arrays had none.
 """

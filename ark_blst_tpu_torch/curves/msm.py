@@ -4,27 +4,29 @@ drivers (window digits, padding, cancellation).
 Counterpart of `ark_blst_tpu/curves/msm.py`: `window_digits`,
 `window_digits_signed`, `_pad_inputs`, `MsmAborted`, and the single-device
 scan pipeline `msm` with `msm_naive`, on the RCB15 group law of
-`curves/group.py` (every field op K7-K10 on the card):
+`curves/group.py`:
 
-* bucket accumulation: a loop over per-lane point streams; each step
-  gathers the addressed bucket of every (lane, window), does ONE batched
-  complete addition over the whole (lanes x windows) front, and scatters
-  the result back;
-* lane reduction: log2(lanes) halving rounds of batched additions;
+* bucket accumulation: every (lane, window) stream's points added into its
+  buckets, one scan-acc launch (`ops/scan_msm.py`);
+* lane reduction: log2(lanes) halving rounds of batched additions
+  (`_fold_axis`, K7-K10 a field op: each round is wide);
 * bucket reduction: running/total suffix sums over the 2^c - 1 nonzero
-  buckets, batched across windows;
-* window reduction: Horner (c doublings and one addition per window) on a
-  batch of one.
+  buckets of every window, one scan-red launch;
+* window reduction: Horner (c doublings and one addition per window), one
+  scan-horner launch.
 
-The JAX `use_jit`/`fuse` switch collapses to the eager branch of its
-`_scan`: PyTorch runs eagerly, one launch per field op.
+The JAX package runs the three scans as `lax.scan`s inside one program on
+the TPU (`fuse=True`) and as eager loops otherwise; here they are one
+chain kernel each, whose plain versions, the loops of the JAX `fuse=False`
+branch, run on CPU tensors. `msm_naive` keeps the JAX `scalar_mul` ladder
+(`curves/group.py`) on K7-K10.
 
 Beside it, as in the JAX module:
 
 * `msm_sharded`: the scan pipeline on every rank of a `torch.distributed`
   mesh (`distributed.global_mesh`), the ranks' window sums gathered and
-  folded in rank order (`_fold_leading_scan`), then Horner on the device
-  or on host ints (`_horner_host`);
+  folded in rank order (`_fold_leading_scan`, K7-K10), then Horner on the
+  device (scan-horner) or on host ints (`_horner_host`);
 * `msm_auto`: on the card the bucket MSM (`msm_bucket.msm`, K2) at the
   curve's default window, on the CPU this scan MSM at the (c, lanes) of
   the memory-budgeted planner (`config.plan_msm`).
@@ -37,6 +39,7 @@ import torch
 from ..config import plan_msm
 from ..device import resolve_device
 from ..ops import convert as CV
+from ..ops import scan_msm as SM
 from ..ops import tower as T
 from ..ops.limbs import FP, FR, LIMB_BITS
 from ..oracle import curve as OC
@@ -116,46 +119,6 @@ def _pad_inputs(curve: str, points, scalars: torch.Tensor, multiple: int):
 
 # --- the scan pipeline ---------------------------------------------------------
 
-def _tree_get(pt, idx: torch.Tensor):
-    """Gather along the trailing bucket axis of every coordinate leaf;
-    idx (*batch[:-1], 1) int64."""
-    return T.tree_map(lambda x: torch.gather(x, -1, idx[None].expand(x.shape[:-1] + (1,))), pt)
-
-
-def _tree_put(pt, idx: torch.Tensor, val) -> None:
-    """Scatter `val` back along the trailing bucket axis, in place: the
-    indices are unique per (lane, window) row, so nothing collides."""
-    def put(x, v):
-        x.scatter_(-1, idx[None].expand(x.shape[:-1] + (1,)), v.expand(x.shape[:-1] + (1,)))
-
-    T.tree_map(put, pt, val)
-
-
-def _bucket_accumulate(curve: CurveOps, points, digits: torch.Tensor, lanes: int, c: int):
-    """Per-lane loop accumulating points into (lanes, W, B) buckets.
-
-    points: projective batch, coordinate leaves (L, N); digits: (W, N). N
-    must equal lanes * steps; point i belongs to lane i mod lanes. Returns
-    buckets with batch (lanes, W, B), B = 2^c."""
-    W = digits.shape[0]
-    B = 1 << c
-    n = digits.shape[-1]
-    steps = n // lanes
-    if steps * lanes != n:
-        raise ValueError(f"{n} points do not split into {lanes} lanes")
-    dev = digits.device
-    # (L, N) -> (steps, L, lanes): step j holds points j*lanes .. j*lanes+lanes-1
-    pts = T.tree_map(lambda x: x.reshape(x.shape[0], steps, lanes).movedim(1, 0), points)
-    digs = digits.reshape(W, steps, lanes).movedim(1, 0)  # (steps, W, lanes)
-    buckets = T.tree_map(lambda x: x.contiguous(), curve.identity((lanes, W, B), dev))
-    for j in range(steps):
-        idx = digs[j].movedim(0, 1)[..., None].to(torch.int64)  # (lanes, W, 1)
-        cur = _tree_get(buckets, idx)  # batch (lanes, W, 1)
-        ptb = T.tree_map(lambda x: x[j][..., None, None], pts)  # (L, lanes, 1, 1)
-        _tree_put(buckets, idx, curve.add(cur, ptb))
-    return buckets
-
-
 def _fold_axis(curve: CurveOps, pt, axis_size: int):
     """Log-depth tree reduction of the leading batch axis (size a power of 2)."""
     if axis_size & (axis_size - 1):
@@ -169,46 +132,15 @@ def _fold_axis(curve: CurveOps, pt, axis_size: int):
     return T.tree_map(lambda x: x[:, 0], pt)
 
 
-def _bucket_reduce(curve: CurveOps, buckets):
-    """(W, B) buckets -> (W,) window sums: sum_b b * bucket[b].
-
-    Running/total suffix accumulation, highest digit first:
-    `running += bucket[b]; total += running`, batched across all windows.
-    Bucket 0 is dropped (a zero digit contributes nothing)."""
-    leaf = buckets[0][0] if isinstance(buckets[0], tuple) else buckets[0]
-    W, B = leaf.shape[1:]
-    dev = leaf.device
-    # leaves (L, W, B) -> (B-1, L, W), highest digit first
-    seq = T.tree_map(lambda x: x[..., 1:].movedim(-1, 0).flip(0), buckets)
-    running, total = curve.identity((W,), dev), curve.identity((W,), dev)
-    for b in range(B - 1):
-        running = curve.add(running, T.tree_map(lambda x: x[b], seq))
-        total = curve.add(total, running)
-    return total  # batch (W,)
-
-
-def _horner(curve: CurveOps, window_sums, c: int):
-    """(W,) window sums -> the result point, batch (1,):
-    res = sum_w S_w << (c*w), MSB window first."""
-    seq = T.tree_map(lambda x: x.movedim(-1, 0).flip(0)[..., None], window_sums)  # (W, L, 1)
-    leaf = seq[0][0] if isinstance(seq[0], tuple) else seq[0]
-    acc = curve.identity((1,), leaf.device)
-    for w in range(leaf.shape[0]):
-        for _ in range(c):
-            acc = curve.double(acc)
-        acc = curve.add(acc, T.tree_map(lambda x: x[w], seq))
-    return acc
-
-
 def _msm_local(curve: CurveOps, points, scalars: torch.Tensor, c: int, lanes: int):
     """Single-device MSM up to the window sums: returns (W,)-batched partials."""
     lanes = min(lanes, max(1, scalars.shape[-1]))
     lanes = 1 << (lanes.bit_length() - 1)  # round down to a power of two
     points, scalars = _pad_inputs(curve.name, points, scalars, lanes)
     digits = window_digits(scalars, c)
-    buckets = _bucket_accumulate(curve, points, digits, lanes, c)
+    buckets = SM.bucket_accumulate(curve, points, digits, lanes, c)  # scan-acc
     buckets = _fold_axis(curve, buckets, lanes)  # batch (W, B)
-    return _bucket_reduce(curve, buckets)  # batch (W,)
+    return SM.bucket_reduce(curve, buckets)  # batch (W,), scan-red
 
 
 def _to_device(points, scalars, device):
@@ -224,11 +156,12 @@ def msm(points, scalars, curve: CurveOps = G1, c: int = 8, lanes: int = 1024, *,
     points allowed); scalars: (16, N) plain (non-Montgomery) Fr limbs.
     Returns the strict projective result with batch shape (1,), on
     `device`. c = 8 is the JAX package's default. lanes defaults to 1024,
-    not the JAX package's 128 (a TPU tile): the accumulation takes N/lanes
-    sequential steps of launch-bound batched additions, so wider lanes
-    shorten it at the price of (lanes, W, 2^c) buckets in memory."""
+    not the JAX package's 128 (a TPU tile): scan-acc runs a thread for each
+    of the lanes x W streams, N/lanes dependent additions each, so wider
+    lanes give the card more threads and shorter chains at the price of
+    (lanes, W, 2^c) buckets in memory."""
     points, scalars = _to_device(points, scalars, device)
-    return _horner(curve, _msm_local(curve, points, scalars, c, lanes), c)
+    return SM.horner(curve, _msm_local(curve, points, scalars, c, lanes), c)
 
 
 def msm_naive(points, scalars, curve: CurveOps = G1, *, device="cuda"):
@@ -331,4 +264,4 @@ def msm_sharded(points, scalars, mesh, curve: CurveOps = G1, c: int = 8, lanes: 
     folded = _fold_leading_scan(curve, mesh.all_gather_tree(sums))
     if finish == "host":
         return _horner_host(curve, folded, c)
-    return _horner(curve, folded, c)
+    return SM.horner(curve, folded, c)

@@ -45,7 +45,9 @@ per element). Two engines and two styles, as there:
     on them storing conj(f) as `(12, 24, N)` strict limbs (the identity
     mask selects on that stack), FE-easy loading those limbs and FE-hard
     storing the result's, the nested tuple views of the stack. The
-    multi-pairings' product fold stays on the strict tower.
+    multi-pairings keep conj(f) that stack and fold it on K4's strict-limb
+    edges (limbs -> limbs, one launch a level), then FE-easy and FE-hard
+    or the product's limbs as they are.
   - `fuse=False`, the JAX eager loops: the strict tower (`ops/tower.py`),
     every op a K7-K10 launch, its Fp inverse one K7-inv launch
     (`ops/dispatch.py:fp_inv`). Its limbs equal the fused route's: both are
@@ -84,7 +86,8 @@ from ..ops import fp12_mul_by_014 as K12
 from ..ops import fp12_sqr as K11
 from ..ops import tower as TS
 from ..ops import tower_lazy as TL
-from ..ops.words import WORDS, digits_to_words_plain, words_to_digits_plain, words_to_limbs_plain
+from ..ops.words import (LIMBS, WORDS, digits_to_words_plain, words_to_digits_plain,
+                         words_to_limbs_plain)
 from ..oracle import pairing as OP
 from . import pairing_steps as PS
 
@@ -279,7 +282,8 @@ def _fp12_ones(f, n: int, engine):
 
 def _fold_mul(f, n, engine="lazy"):
     """Tree product of an engine's fp12 batch over its batch axis -> batch 1
-    (the lazy engine's on digits, K4 a level)."""
+    (the lazy engine's on digits, K4 a level; the strict engine's on its
+    tower, the unfused routes')."""
     mul = _final_ops(engine).mul
     if engine == "lazy":
         cat = lambda a, b: torch.cat([a, b], dim=-1)  # noqa: E731
@@ -332,16 +336,12 @@ def _fp12_one_limbs(device: str) -> torch.Tensor:
     return words_to_limbs_plain(_fp12_one_words("cpu")).to(device)
 
 
-def _on_words(coeffs, fuse, engine) -> bool:
-    """The word route: the lazy engine fused on word lines."""
-    return engine == "lazy" and fuse and coeffs.shape[-2] == WORDS
-
-
 def _stack_format(coeffs, fuse, engine):
     """The layout of conj(f) on the fused routes that keep the Miller loop's
-    f a stack up to FE-easy: words on the word route, strict limbs on the
-    strict engine fused; None on the others."""
-    if _on_words(coeffs, fuse, engine):
+    f a stack up to FE-easy and through the multi-pairings' fold: words on
+    the word route (the lazy engine fused on word lines), strict limbs on
+    the strict engine fused; None on the others."""
+    if engine == "lazy" and fuse and coeffs.shape[-2] == WORDS:
         return PS.FMT_WORDS
     return PS.FMT_LIMBS if engine == "strict" and fuse else None
 
@@ -360,23 +360,28 @@ def _masked_miller_stack(p, coeffs, skip, events=None, f_fmt=PS.FMT_WORDS):
     return torch.where(skip, one, f)
 
 
-def _fold_words(f, n: int, out: str = "words"):
-    """Tree product of a (12, 12, n) word stack over its batch axis on K4's
-    word edges, padded with one -> batch 1: (12, 12, 1) words, or with
-    out="limbs" the strict (12, 24, 1) limbs that the last level stores (at
-    n = 1, where the tree has no level, one launch against one). conj is a
-    ring automorphism, so the fold of the Miller loops' words conj(f_i) is
-    conj(prod f_i), their product as `miller_loop` gives it."""
-    one = _fp12_one_words(str(f.device))
+def _fold_stack(f, n: int, out: str | None = None):
+    """Tree product of an fp12 stack over its batch axis on K4, padded with
+    one -> batch 1. K6-chain's conj(f) as (12, 12, n) words (the word
+    route) folds on K4's word edges to (12, 12, 1) words, or with
+    out="limbs" to the strict (12, 24, 1) limbs that the last level stores
+    (at n = 1, where the tree has no level, one launch against one); the
+    strict engine's (12, 24, n) limbs fold limbs -> limbs (no launch at n
+    = 1). conj is a ring automorphism, so the fold of the Miller loops'
+    conj(f_i) is conj(prod f_i), their product as `miller_loop` gives
+    it."""
+    inner = "limbs" if f.shape[-2] == LIMBS else "words"
+    last = out or inner
+    one = (_fp12_one_limbs if inner == "limbs" else _fp12_one_words)(str(f.device))
     size = 1 << max(0, n - 1).bit_length()
     if size != n:
         f = torch.cat([f, one.expand(-1, -1, size - n)], dim=-1)
     if size == 1:
-        return K4.fp12_mul(f, one, out="limbs") if out == "limbs" else f
+        return f if last == inner else K4.fp12_mul(f, one, out=last)
     while size > 1:
         half = size // 2
         f = K4.fp12_mul(f[..., :half].contiguous(), f[..., half:size].contiguous(),
-                        out=out if half == 1 else "words")
+                        out=last if half == 1 else inner)
         size = half
     return f
 
@@ -395,32 +400,34 @@ def _pairing(p, coeffs, p_inf, q_inf, fuse, engine):
     return _final_strict(f, fuse, engine)
 
 
-def _fold_strict(f, n: int, words: bool, final: bool, fuse=True, engine="lazy"):
+def _fold_strict(f, n: int, fmt, final: bool, fuse=True, engine="lazy"):
     """A batch of n Miller loops -> their product as the strict fp12 of
-    batch 1, with `final` final-exponentiated. On words (the word route):
-    `_fold_words`, then FE-easy (words) and FE-hard (limbs), or the fold's
-    last level storing the strict limbs: no egress. Otherwise `_fold_mul`
-    in the engine's form, then `_final_strict` or `egress`."""
-    if words:
+    batch 1, with `final` final-exponentiated. On a stack (`fmt` FMT_WORDS,
+    the word route, or FMT_LIMBS, the strict engine fused): `_fold_stack`,
+    then FE-easy and FE-hard, or the product's strict limbs (the word
+    route's last level stores them, a strict stack is them): no egress.
+    Otherwise (`fmt` None) `_fold_mul` in the engine's form, then
+    `_final_strict` or `egress`."""
+    if fmt is not None:
         if final:
-            return _final_strict(_fold_words(f, n), fuse, engine)
-        return TL.unstack12(_fold_words(f, n, out="limbs"))
+            return _final_strict(_fold_stack(f, n), fuse, engine)
+        return TL.unstack12(_fold_stack(f, n, out="limbs"))
     f = _fold_mul(f, n, engine)
     return _final_strict(f, fuse, engine) if final else egress(f, engine)
 
 
 def _product(p, coeffs, skip, fuse, engine, final: bool):
     """The Miller loops of the pairs on lines of any layout, identity pairs
-    one, folded to their product (`_fold_strict`): lazy fused on word lines
-    the word route (K6-chain's conj(f) as words, the mask on words, the
-    fold on K4's word edges); otherwise the Miller loop and its mask in the
-    engine's form."""
-    words = _on_words(coeffs, fuse, engine)
-    if words:
-        f = _masked_miller_stack(p, coeffs, skip)
+    one, folded to their product (`_fold_strict`): on the fused routes that
+    keep f a stack (`_stack_format`: lazy on word lines, strict) K6-chain's
+    conj(f), the mask on the stack and the fold on K4's edges of that
+    stack; otherwise the Miller loop and its mask in the engine's form."""
+    fmt = _stack_format(coeffs, fuse, engine)
+    if fmt is not None:
+        f = _masked_miller_stack(p, coeffs, skip, f_fmt=fmt)
     else:
         f = _masked_miller(p, coeffs, skip, None, fuse, engine)
-    return _fold_strict(f, p[0].shape[-1], words, final, fuse, engine)
+    return _fold_strict(f, p[0].shape[-1], fmt, final, fuse, engine)
 
 
 def multi_miller_loop(p, q, p_inf=None, q_inf=None, fuse=True, engine="lazy"):
@@ -446,13 +453,14 @@ def pairing(p, q, p_inf=None, q_inf=None, fuse=True, engine="lazy"):
 
 # --- sharded multi-pairing -----------------------------------------------------
 
-def _gather_fp12(mesh, f, engine):
-    """One fp12 (batch 1) of the engine's form on every rank -> the world's,
-    batch `world` in rank order, in one gather (a lazy stack of any rows:
-    digits or words)."""
-    tree = TL.unstack12(f) if engine == "lazy" else f
-    got = TS.tree_map(lambda x: x[..., 0], mesh.all_gather_tree(tree))
-    return TL.stack12(got) if engine == "lazy" else got
+def _gather_fp12(mesh, f):
+    """One fp12 (batch 1) on every rank -> the world's, batch `world` in rank
+    order, in one gather, in the form it has: a stack of any rows (lazy
+    digits or words, strict limbs) or the strict engine's nested tuple."""
+    stacked = isinstance(f, torch.Tensor)
+    got = TS.tree_map(lambda x: x[..., 0],
+                      mesh.all_gather_tree(TL.unstack12(f) if stacked else f))
+    return TL.stack12(got) if stacked else got
 
 
 def multi_pairing_sharded(p, q, mesh, p_inf=None, q_inf=None, axis: str = "data",
@@ -468,7 +476,9 @@ def multi_pairing_sharded(p, q, mesh, p_inf=None, q_inf=None, axis: str = "data"
     multiplies them and runs one final exponentiation (if `final`; else
     the product alone), ending in the strict limbs (`_fold_strict`). Lazy
     fused the word route of `multi_pairing`: each rank folds K6-chain's
-    words on K4's word edges, and the ranks gather the (12, 12, 1) words.
+    words on K4's word edges, and the ranks gather the (12, 12, 1) words;
+    strict fused the same on K4's strict-limb edges, the ranks gathering
+    the (12, 24, 1) limbs.
     `events` truncates the Miller loop to its first events, as
     in `prepare_g2`. N must be a multiple of the world (pad with identity
     pairs and masks otherwise): where the JAX package asserts, this raises
@@ -485,12 +495,12 @@ def multi_pairing_sharded(p, q, mesh, p_inf=None, q_inf=None, axis: str = "data"
     if skip is not None:
         skip = cut(skip)
     coeffs = prepare_g2(qs, fuse, engine, events)
-    words = _on_words(coeffs, fuse, engine)
-    if words:
-        f = _fold_words(_masked_miller_stack(ps, coeffs, skip, events), m)
+    fmt = _stack_format(coeffs, fuse, engine)
+    if fmt is not None:
+        f = _fold_stack(_masked_miller_stack(ps, coeffs, skip, events, fmt), m)
     else:
         f = _fold_mul(_masked_miller(ps, coeffs, skip, None, fuse, engine, events), m, engine)
-    return _fold_strict(_gather_fp12(mesh, f, engine), world, words, final, fuse, engine)
+    return _fold_strict(_gather_fp12(mesh, f), world, fmt, final, fuse, engine)
 
 
 # --- prepared G2 reuse ----------------------------------------------------------

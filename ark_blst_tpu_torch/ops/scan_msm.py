@@ -1,0 +1,217 @@
+"""scan-acc, scan-red and scan-horner: the strict engine's scan MSM's three
+scans, each one hand-written CUDA launch.
+
+Counterpart of the `lax.scan`s of `ark_blst_tpu/curves/msm.py:138 _scan`,
+which the JAX package runs inside one compiled program over
+`ark_blst_tpu/ops/pallas_field.py:66 _block_call` (K7-K10):
+  scan-acc     `:155 _bucket_accumulate`: every (lane, window) stream's
+               points added into its buckets by the complete RCB15
+               addition;
+  scan-red     `:199 _bucket_reduce`: the running/total suffix sums of
+               each window's buckets, highest first, bucket 0 dropped;
+  scan-horner  `:227 _horner`: c doublings and one addition a window,
+               most significant first.
+The kernels (`csrc/scan_msm.cu` on `csrc/scan_msm.cuh` and
+`csrc/group381.cuh`) run each chain in one thread on 32-bit Montgomery
+words and store canonical strict limbs. Their plain versions
+(`bucket_accumulate_plain`, `bucket_reduce_plain`, `horner_plain`) are
+the loops on the strict group law (`curves/group.py`, K7-K10 a field op)
+that the port ran before, step for step the JAX `fuse=False` branch: every
+value is canonical and the two compute the same expressions, so the
+kernels' outputs equal them limb for limb.
+
+Points are the strict engine's nested tuples (`curves/group.py`): G1
+(X, Y, Z) of `(24, *batch)` limb leaves, G2 the same with fp2 pairs. A
+kernel takes them stacked, `(3 nc, 24, *batch)` (`stack_point`; nc = 1 or
+2 Fp components a coordinate), and returns the nested views of its output
+stack (`point_of`). Each wrapper launches its kernel for CUDA tensors and
+counts the launch, runs the plain version for CPU tensors, and raises for
+anything else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..cuda import CudaKernel, cpu_operands
+from . import tower as T
+from .limbs import FP
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+KERNEL_ACC = CudaKernel("scan_msm.cu", "scan_msm_accumulate",
+                        [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P])
+KERNEL_RED = CudaKernel("scan_msm.cu", "scan_msm_reduce", [_P, _P, _I, _I, _I, _P])
+KERNEL_HORNER = CudaKernel("scan_msm.cu", "scan_msm_horner", [_P, _P, _I, _I, _I, _P])
+KERNELS = {"scan_acc": KERNEL_ACC, "scan_red": KERNEL_RED, "scan_horner": KERNEL_HORNER}
+
+
+def _nc(stack: torch.Tensor) -> int:
+    """Fp components of a coordinate, read from a `(3 nc, 24, *batch)`
+    stack: 1 on G1, 2 on G2."""
+    if stack.shape[0] not in (3, 6):
+        raise ValueError(f"a point stack has 3 or 6 leaves, got {stack.shape[0]}")
+    return stack.shape[0] // 3
+
+
+def stack_point(pt) -> torch.Tensor:
+    """A strict point batch (nested tuples of `(24, *batch)` leaves) -> one
+    `(3 nc, 24, *batch)` stack, its leaves in order (x, y, z; re before
+    im)."""
+    leaves = [x for c in pt for x in (c if isinstance(c, tuple) else (c,))]
+    return torch.stack(leaves)
+
+
+def point_of(stack: torch.Tensor):
+    """A `(3 nc, 24, *batch)` stack -> the nested point (fp2 pairs where nc
+    = 2), views of the stack."""
+    if _nc(stack) == 1:
+        return (stack[0], stack[1], stack[2])
+    return tuple((stack[2 * k], stack[2 * k + 1]) for k in range(3))
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# --- scan-acc: the bucket accumulation ------------------------------------------
+
+def _tree_get(pt, idx: torch.Tensor):
+    """Gather along the trailing bucket axis of every coordinate leaf;
+    idx (*batch[:-1], 1) int64."""
+    return T.tree_map(lambda x: torch.gather(x, -1, idx[None].expand(x.shape[:-1] + (1,))), pt)
+
+
+def _tree_put(pt, idx: torch.Tensor, val) -> None:
+    """Scatter `val` back along the trailing bucket axis, in place: the
+    indices are unique per (lane, window) row, so nothing collides."""
+    def put(x, v):
+        x.scatter_(-1, idx[None].expand(x.shape[:-1] + (1,)), v.expand(x.shape[:-1] + (1,)))
+
+    T.tree_map(put, pt, val)
+
+
+def _steps(digits: torch.Tensor, lanes: int) -> int:
+    n = digits.shape[-1]
+    steps = n // max(lanes, 1)
+    if lanes < 1 or steps * lanes != n:
+        raise ValueError(f"{n} points do not split into {lanes} lanes")
+    return steps
+
+
+def bucket_accumulate_plain(curve, points, digits: torch.Tensor, lanes: int, c: int):
+    """scan-acc's plain version: the per-lane loop accumulating points into
+    (lanes, W, B) buckets, B = 2^c.
+
+    points: projective batch, coordinate leaves (24, N); digits: (W, N)
+    window digits below B. N must equal lanes * steps; point i belongs to
+    lane i mod lanes. Each step gathers the addressed bucket of every
+    (lane, window), adds the point to it (bucket first) in ONE batched
+    complete addition over the whole front, and scatters the result back;
+    a zero digit adds into bucket 0. Returns buckets with batch (lanes, W,
+    B)."""
+    W = digits.shape[0]
+    B = 1 << c
+    steps = _steps(digits, lanes)
+    dev = digits.device
+    # (L, N) -> (steps, L, lanes): step j holds points j*lanes .. j*lanes+lanes-1
+    pts = T.tree_map(lambda x: x.reshape(x.shape[0], steps, lanes).movedim(1, 0), points)
+    digs = digits.reshape(W, steps, lanes).movedim(1, 0)  # (steps, W, lanes)
+    buckets = T.tree_map(lambda x: x.contiguous(), curve.identity((lanes, W, B), dev))
+    for j in range(steps):
+        idx = digs[j].movedim(0, 1)[..., None].to(torch.int64)  # (lanes, W, 1)
+        cur = _tree_get(buckets, idx)  # batch (lanes, W, 1)
+        ptb = T.tree_map(lambda x: x[j][..., None, None], pts)  # (L, lanes, 1, 1)
+        _tree_put(buckets, idx, curve.add(cur, ptb))
+    return buckets
+
+
+def bucket_accumulate(curve, points, digits: torch.Tensor, lanes: int, c: int):
+    """The (lanes, W, 2^c) buckets of `bucket_accumulate_plain`: one scan-acc
+    launch for CUDA tensors (a thread a (lane, window) stream; the digits
+    taken mod 2^c), the plain loop for CPU tensors."""
+    _steps(digits, lanes)
+    if not 1 <= c <= 16:
+        raise ValueError(f"window c must be in [1, 16], got {c}")
+    pts = stack_point(points)
+    n, W = digits.shape[-1], digits.shape[0]
+    if pts.dim() != 3 or pts.shape[1:] != (FP.num_limbs, n) or digits.dim() != 2:
+        raise ValueError(f"bucket_accumulate wants (24, {n}) point leaves and (W, {n}) digits, "
+                         f"got {tuple(pts.shape)} and {tuple(digits.shape)}")
+    if cpu_operands("bucket_accumulate", [pts, digits]):
+        return bucket_accumulate_plain(curve, points, digits, lanes, c)
+    B = 1 << c
+    out = torch.empty((pts.shape[0], FP.num_limbs, lanes, W, B), dtype=torch.int32,
+                      device=pts.device)
+    with torch.cuda.device(pts.device):
+        KERNEL_ACC.launch(pts.data_ptr(), digits.data_ptr(), out.data_ptr(), n, lanes, W, B,
+                          _nc(pts), _stream(pts))
+    return point_of(out)
+
+
+# --- scan-red: the bucket reduction ----------------------------------------------
+
+def bucket_reduce_plain(curve, buckets):
+    """scan-red's plain version: (W, B) buckets -> (W,) window sums,
+    sum_b b * bucket[b], by the running/total suffix accumulation, highest
+    digit first: `running += bucket[b]; total += running`, batched across
+    all windows. Bucket 0 is dropped (a zero digit contributes nothing)."""
+    leaf = buckets[0][0] if isinstance(buckets[0], tuple) else buckets[0]
+    W, B = leaf.shape[1:]
+    dev = leaf.device
+    # leaves (L, W, B) -> (B-1, L, W), highest digit first
+    seq = T.tree_map(lambda x: x[..., 1:].movedim(-1, 0).flip(0), buckets)
+    running, total = curve.identity((W,), dev), curve.identity((W,), dev)
+    for b in range(B - 1):
+        running = curve.add(running, T.tree_map(lambda x: x[b], seq))
+        total = curve.add(total, running)
+    return total  # batch (W,)
+
+
+def bucket_reduce(curve, buckets):
+    """The (W,) window sums of `bucket_reduce_plain`: one scan-red launch for
+    CUDA tensors (a thread a window), the plain loop for CPU tensors."""
+    bk = stack_point(buckets)
+    if bk.dim() != 4 or bk.shape[1] != FP.num_limbs:
+        raise ValueError(f"bucket_reduce wants (24, W, B) leaves, got {tuple(bk.shape)}")
+    if cpu_operands("bucket_reduce", [bk]):
+        return bucket_reduce_plain(curve, buckets)
+    W, B = bk.shape[2:]
+    out = torch.empty(bk.shape[:3], dtype=torch.int32, device=bk.device)
+    with torch.cuda.device(bk.device):
+        KERNEL_RED.launch(bk.data_ptr(), out.data_ptr(), W, B, _nc(bk), _stream(bk))
+    return point_of(out)
+
+
+# --- scan-horner: the window reduction ------------------------------------------
+
+def horner_plain(curve, window_sums, c: int):
+    """scan-horner's plain version: (W,) window sums -> the result point,
+    batch (1,): res = sum_w S_w << (c*w), MSB window first, c doublings
+    (of the identity too, at the first window) and one addition a
+    window."""
+    seq = T.tree_map(lambda x: x.movedim(-1, 0).flip(0)[..., None], window_sums)  # (W, L, 1)
+    leaf = seq[0][0] if isinstance(seq[0], tuple) else seq[0]
+    acc = curve.identity((1,), leaf.device)
+    for w in range(leaf.shape[0]):
+        for _ in range(c):
+            acc = curve.double(acc)
+        acc = curve.add(acc, T.tree_map(lambda x: x[w], seq))
+    return acc
+
+
+def horner(curve, window_sums, c: int):
+    """The result point of `horner_plain`, batch (1,): one scan-horner launch
+    (one thread) for CUDA tensors, the plain loop for CPU tensors."""
+    sums = stack_point(window_sums)
+    if sums.dim() != 3 or sums.shape[1] != FP.num_limbs:
+        raise ValueError(f"horner wants (24, W) leaves, got {tuple(sums.shape)}")
+    if cpu_operands("horner", [sums]):
+        return horner_plain(curve, window_sums, c)
+    out = torch.empty((sums.shape[0], FP.num_limbs, 1), dtype=torch.int32, device=sums.device)
+    with torch.cuda.device(sums.device):
+        KERNEL_HORNER.launch(sums.data_ptr(), out.data_ptr(), sums.shape[2], c, _nc(sums),
+                             _stream(sums))
+    return point_of(out)

@@ -6,7 +6,7 @@ card: the quickest proof that the port builds and runs its main path there.
 
 Phases, one JSON line each:
   1. env      the card's name and power limit; builds the kernels from
-              their twelve sources (one nvcc per source, all in parallel)
+              their thirteen sources (one nvcc per source, all in parallel)
               and reports build seconds, registers, spills and static SASS
               counts;
   2. k1       K1 (mont_mul) against its plain PyTorch version at 2^22
@@ -79,7 +79,10 @@ Phases, one JSON line each:
               the words of its operands and of the real ones, at 8192 and
               at each width of the fold (4096 down to 1), word for word
               and limb for limb against its plain version, each timed
-              beside the digit layout at the same width;
+              beside the digit layout at the same width; and in the
+              strict engine's layout (strict limbs -> strict limbs, its
+              multi-pairings' fold) on the strict limbs of those words,
+              likewise;
      tower_chains  K5-chain and K6-chain, the prepare's and the Miller
               loop's 68 events in one launch each, through the fused
               pipeline's entries (`prepare_lines`, `miller_lines`) on its
@@ -164,7 +167,10 @@ Phases, one JSON line each:
               square, and a profiled rerun; then `multi_pairing` and
               `multi_miller_loop_prepared` at 1024 pairs on the lazy
               engine and both strict routes, equal to each other and the
-              first to the oracle's product, with their launches;
+              first to the oracle's product, with their launches, each
+              entry counted from 0: the strict fused route's fold on K4's
+              strict limbs 10 times and no K7-K10 launch (checked), its
+              prepared Miller product against the oracle's;
               and line `multi_pairing`: the word route of `multi_pairing`,
               `multi_miller_loop` and `multi_miller_loop_prepared` at 1024
               pairs and of `multi_pairing` at 8192, each run once with the
@@ -207,17 +213,25 @@ Phases, one JSON line each:
               pair (24, 1024, 32, 1) x (24, 1024, 1, 1);
  10. fpmul    32 chained K7 products over 2^20 Fp elements (bench.py's
               bench_fpmul), checked against the oracle, products/s;
- 11. msm_scan the strict engine's scan Pippenger MSM (`curves/msm.py:msm`)
+ 11. msm_scan the strict engine's scan Pippenger MSM (`curves/msm.py:msm`):
+              first its three chains (`ops/scan_msm.py`: scan-acc, the
+              bucket accumulation; scan-red, the running/total sums;
+              scan-horner) against their plain loops (K7-K10 on the card)
+              limb for limb at a check size, 2^14 G1 bases and 1024 lanes,
+              each on the plain loop's own input, timed beside it; then
               at 2^20 distinct G1 bases (`curves/instance.py`, with an
               identity point and a zero scalar), c = 8, 1024 lanes, then
               `G1.to_affine` of the result on the card, both checked
-              against the expected point, with the launches of K7-K10 in
-              that run, its peak memory and points/s; then the stages
-              (digits, accumulate, fold, reduce, horner) rerun with a
-              synchronize between them, and once more under
-              `torch.profiler`;
- 12. msm_scan_g2  the same for G2 at 2^18 bases, c = 8, 256 lanes; its
-              `to_affine` inverts in Fp2, which launches K10;
+              against the expected point, each chain launched once and
+              K7-K10 only in the fold across lanes and in `to_affine`
+              (checked, their counts printed), its peak memory and
+              points/s; then the stages (digits, accumulate, fold,
+              reduce, horner) rerun with a synchronize between them, and
+              once more under `torch.profiler`; each chain's time at full
+              width beside its bound, launch shape and ptxas;
+ 12. msm_scan_g2  the same for G2 (the check at 2^12 bases, 256 lanes;
+              the run at 2^18 bases, c = 8, 256 lanes); its `to_affine`
+              inverts in Fp2, which launches K10;
  13. msm_naive   a 2^12 G1 instance through `msm_naive` and through `msm`,
               both checked, and `G1.to_affine` of the 2^12 bases (one batch
               inversion, one Fermat ladder at batch 1 on K7) checked point
@@ -241,9 +255,13 @@ phase distributed, the sharded entries on `torch.distributed`, in lines
               exponentiation) after phase api: equal to the oracle's
               product of the checked pairings and, limb for limb, to the
               unsharded `multi_pairing`, timed in turns with it, with K1
-              and K3-K6 launches, the gather and a profiled rerun;
-     distributed_msm_scan  `msm_sharded` (the scan MSM, K7-K10) at 2^16
-              G1 bases, c = 8, 1024 lanes, `finish="host"`;
+              and K3-K6 launches, the gather and a profiled rerun; then on
+              the strict engine fused (the chains on strict limbs, the
+              fold on K4's strict limbs, no K7-K10; checked), limb for
+              limb the lazy result;
+     distributed_msm_scan  `msm_sharded` (the scan MSM: scan-acc and
+              scan-red once, K7-K10 in the fold; checked) at 2^16 G1
+              bases, c = 8, 1024 lanes, `finish="host"`;
      distributed_msm_auto  `msm_auto` at 2^20 G1 bases on the card: one K2
               launch (the bucket route), no strict kernel, the point
               checked; then the world of one is destroyed;
@@ -279,10 +297,19 @@ layouts (`fp12_mul_words`, `fp12_mul_limbs`) the launches of
 entry's, the API's and the sharded pairing's beside, their times at 8192
 and at each width of the fold with the digit layout's; K11 and K12 the
 unfused pairing's;
-K7-K10 give as `launches` the sum over the two scan MSM runs, each run's
+K7-K10 give as `launches` the sum over the two scan MSM runs (the fold
+across lanes and `to_affine`), each run's
 count and the strict pairing's beside it (the unfused route's; the fused
 route's 0 and the strict multi-pairings' beside), and their Fp times at
-2^22, Fr and broadcast times beside; the strict engine's chains
+2^22, Fr and broadcast times beside; K4 on strict limbs
+(`fp12_mul_limbs_limbs`) the strict fused `multi_pairing`'s launches at
+1024, its prepared Miller product's and the sharded strict pairing's
+beside, its times at 8192 and each fold width with the digit layout's;
+the scan chains (`scan_acc`, `scan_red`, `scan_horner`) the G1 scan MSM's
+launches, the G2 one's and the sharded scan's beside, their times at full
+width (G1; G2's under `g2`) beside their bounds, their plain loops' times
+and their own at the check size, launch shapes and ptxas; the strict
+engine's chains
 (`prepare_chain_limbs`, `miller_chain_limbs`, `final_exp_easy_limbs`)
 the fused strict batch's launches, their times at 8192 with the other
 widths' and the word instantiation's in the same run (`words_ms`), their
@@ -370,7 +397,15 @@ strict kernels K7-K10 count bytes as 4 L per operand and result element
 (int32 limbs), and instructions by `strict_ops`: three per 32 x 32-bit
 word product, two per word of a carry chain, three per word of the
 conditional subtraction, two per word packed or unpacked; every one of
-them is bytes-bound.
+them is bytes-bound. K4 on strict limbs counts K4's product and each
+input component's load from limbs (LIMBS_TO_WORDS_OPS). The scan chains
+count complete additions (COMPLETE_ADD32_OPS: 12 products and 27 Fp sums
+on G1, 12 Fp2 products and 58 Fp sums on G2) and doublings
+(COMPLETE_DBL32_OPS: 8 products and 13 sums, 8 Fp2 products and 28 Fp
+sums), and each point component converted once from limbs: scan-acc one
+addition a point and window, its bytes the points, digits and buckets
+once; scan-red 2 (B - 1) additions a window; scan-horner W (c doublings
+and an addition) (`scan_chain_work`).
 """
 
 from __future__ import annotations
@@ -412,6 +447,9 @@ SCAN_C = 8  # the JAX package's msm default: W = 32, B = 256
 # curve: (log2 bases, lanes, seed); G2 is cut to 2^18 for the Fp2 fold's
 # temporaries (3x G1's per element) and the time limit
 SCAN = {"g1": (20, 1024, 17), "g2": (18, 256, 19)}
+# the scan chains against their plain loops (K7-K10 on the card, a launch
+# per field op): curve -> (log2 bases, lanes, seed), the full width's lanes
+SCAN_CHECK = {"g1": (14, 1024, 47), "g2": (12, 256, 53)}
 NAIVE_LOG_N, NAIVE_SEED = 12, 23
 # the API phase: curve -> (log2 bases, seed); G1 is cut from 2^20 (a
 # KZG/Groth16 size) to 2^18 for the time limit: the host codecs took ~45 s
@@ -488,6 +526,16 @@ G2_BUCKET_ADD_OPS = G2_MIXED_ADD32_OPS + 2 * 72 + 48  # + bucket load/store, poi
 G1_MIXED_ADD32_OPS = 11 * MONT_MUL32_OPS + 21 * ADD32_OPS
 G1_BUCKET_ADD_OPS = G1_MIXED_ADD32_OPS + 2 * 36 + 24  # + bucket load/store, point load
 BUCKET_ADD_OPS = {"g1": G1_BUCKET_ADD_OPS, "g2": G2_BUCKET_ADD_OPS}
+# The scan MSM's chains on group381.cuh's complete_add / complete_dbl: an
+# addition 12 products and 27 Fp sums on G1 (the three operand-sum legs
+# 12, 3 t0 2, two mul_b3 8, z3 and t1' 2, the results 3), 12 Fp2 products
+# and 58 Fp sums on G2 (19 Fp2 sums, two each, and two mul_b3 of 10); a
+# doubling 8 products and 13 Fp sums on G1 (8 t0 3, mul_b3 4, 3 t2 2, the
+# sum and difference 2, 2X and Y3 2), 8 Fp2 products and 28 Fp sums on G2
+COMPLETE_ADD32_OPS = {"g1": 12 * MONT_MUL32_OPS + 27 * ADD32_OPS,
+                      "g2": 12 * FP2_MUL32_OPS + 58 * ADD32_OPS}
+COMPLETE_DBL32_OPS = {"g1": 8 * MONT_MUL32_OPS + 13 * ADD32_OPS,
+                      "g2": 8 * FP2_MUL32_OPS + 28 * ADD32_OPS}
 R13_BUCKET_ADD_OPS = {"g1": G1_R13_BUCKET_ADD_OPS, "g2": G2_R13_BUCKET_ADD_OPS}
 # one bucket component into the dump's digits: the product by 2^390 mod p,
 # 30 digits cut out (three instructions each), one balanced fold, packing
@@ -726,8 +774,9 @@ def all_kernels() -> dict:
     the strict engine's fused route, a counter each), FE-easy and FE-hard
     (the fused final exponentiation; one source; FE-easy on strict limbs
     a counter of its own), K7-K10 (the strict engine; one source, four
-    entry points), K11 and K12 (the unfused Miller loop): twelve
-    sources."""
+    entry points), K4 on strict limbs (the strict multi-pairings' fold),
+    scan-acc, scan-red and scan-horner (the scan MSM's chains; one source),
+    K11 and K12 (the unfused Miller loop): thirteen sources."""
     from ark_blst_tpu_torch.curves import msm_bucket as MB
     from ark_blst_tpu_torch.curves import pairing_steps as PS
     from ark_blst_tpu_torch.ops import cyc_sqr as K3
@@ -737,6 +786,7 @@ def all_kernels() -> dict:
     from ark_blst_tpu_torch.ops import fp12_sqr as K11
     from ark_blst_tpu_torch.ops import fp_inv as FI
     from ark_blst_tpu_torch.ops import mont_mul as MM
+    from ark_blst_tpu_torch.ops import scan_msm as SM
     from ark_blst_tpu_torch.ops import strict_field as SF
 
     return {"mont_mul": MM.KERNEL, "fp_inv": FI.KERNEL_INV, "scan_up": FI.KERNEL_UP,
@@ -746,12 +796,13 @@ def all_kernels() -> dict:
             "bucket_accumulate_g2": MB.KERNEL_G2, "g2_point_words": MB.KERNEL_G2_WORDS,
             "cyc_sqr": K3.KERNEL,
             "fp12_mul": K4.KERNEL, "fp12_mul_words": K4.KERNEL_WORDS,
-            "fp12_mul_limbs": K4.KERNEL_LIMBS, "prepare_step": PS.PREPARE_KERNEL,
+            "fp12_mul_limbs": K4.KERNEL_LIMBS, "fp12_mul_limbs_limbs": K4.KERNEL_LIMBS_LIMBS,
+            "prepare_step": PS.PREPARE_KERNEL,
             "miller_step": PS.MILLER_KERNEL, "final_exp_easy": FE.KERNEL_EASY,
             "final_exp_hard": FE.KERNEL_HARD, "prepare_chain_limbs": PS.PREPARE_KERNEL_LIMBS,
             "miller_chain_limbs": PS.MILLER_KERNEL_LIMBS,
             "final_exp_easy_limbs": FE.KERNEL_EASY_LIMBS,
-            **{"strict_" + op: k for op, k in SF.KERNELS.items()},
+            **{"strict_" + op: k for op, k in SF.KERNELS.items()}, **SM.KERNELS,
             "fp12_sqr": K11.KERNEL, "fp12_mul_by_014": K12.KERNEL}
 
 
@@ -1439,7 +1490,7 @@ def phase_k4(torch, dev, real, sass: dict, ptxas: dict) -> dict:
 
 # K4's layouts (csrc/fp12_mul.cu): (in, out) EdgeFormat of each
 # instantiation, digits 0, limbs 1, words 2
-K4_LAYOUTS = {"digits": (0, 0), "words": (2, 2), "limbs": (2, 1)}
+K4_LAYOUTS = {"digits": (0, 0), "words": (2, 2), "limbs": (2, 1), "limbs_limbs": (1, 1)}
 # the widths of the multi-pairings' fold levels: 8192 pairs fold from 4096
 # down to 1 (1,024 pairs from 512)
 K4_FOLD_WIDTHS = tuple(1 << k for k in range(12, -1, -1))
@@ -1462,50 +1513,58 @@ def _k4_ptxas(summary: dict, layout: str) -> dict | None:
 
 
 def phase_k4_words(torch, a, b, f_real, g_real, imad, ptxas_k4: dict) -> dict:
-    """K4's word layouts (the multi-pairings' fold: words -> words, and
-    words -> strict limbs at its last level) at N = 8192 on the canonical
-    words of K4's random operands and of real Miller values, word for word
-    and limb for limb against their plain versions, each timed beside its
-    plain version, its bound and the digit layout; then at each width of
-    the fold (`K4_FOLD_WIDTHS`), held against the plain version and timed
-    beside the digit layout at the same width; with registers and launch
-    shape."""
+    """K4's word and strict-limb layouts (the multi-pairings' fold: words
+    -> words, words -> strict limbs at its last level, and the strict
+    engine's limbs -> limbs) at N = 8192 on the canonical words (or their
+    strict limbs) of K4's random operands and of real Miller values, word
+    for word and limb for limb against their plain versions, each timed
+    beside its plain version, its bound and the digit layout; then at each
+    width of the fold (`K4_FOLD_WIDTHS`), held against the plain version
+    and timed beside the digit layout at the same width; with registers and
+    launch shape."""
     from ark_blst_tpu_torch.ops import fp12_mul as K4
     from ark_blst_tpu_torch.ops import words as W
 
     n = a.shape[-1]
     aw, bw = W.digits_to_words_plain(a), W.digits_to_words_plain(b)
     fw, gw = W.digits_to_words_plain(f_real), W.digits_to_words_plain(g_real)
+    words, limbs = (aw, bw, fw, gw), tuple(W.words_to_limbs_plain(x) for x in (aw, bw, fw, gw))
     out = {}
-    for layout, kernel, rows_bytes in (("words", K4.KERNEL_WORDS, WORD_BYTES),
-                                       ("limbs", K4.KERNEL_LIMBS, LIMB_BYTES)):
+    # layout: its kernel, operands, out=, bytes of an input and an output Fp
+    # element, and its loads' instructions an element (a repack of strict
+    # limbs reduced below p)
+    for layout, kernel, (xa, xb, xf, xg), store, in_bytes, out_bytes, load_ops in (
+            ("words", K4.KERNEL_WORDS, words, "words", WORD_BYTES, WORD_BYTES, 0),
+            ("limbs", K4.KERNEL_LIMBS, words, "limbs", WORD_BYTES, LIMB_BYTES, 0),
+            ("limbs_limbs", K4.KERNEL_LIMBS_LIMBS, limbs, "limbs", LIMB_BYTES, LIMB_BYTES,
+             24 * LIMBS_TO_WORDS_OPS)):
         name = "K4 " + layout
-        err = max(_held(torch, name, K4.fp12_mul(x, y, out=layout),
-                        K4.fp12_mul_plain(x, y, layout)) for x, y in ((aw, bw), (fw, gw)))
-        nbytes = n * (24 * WORD_BYTES + 12 * rows_bytes)
+        err = max(_held(torch, name, K4.fp12_mul(x, y, out=store),
+                        K4.fp12_mul_plain(x, y, store)) for x, y in ((xa, xb), (xf, xg)))
+        nbytes = n * (24 * in_bytes + 12 * out_bytes)
         res = {"max_abs_err": err, **_timed(
-            torch, lambda: K4.fp12_mul(aw, bw, out=layout),
-            lambda: K4.fp12_mul_plain(aw, bw, layout), nbytes, n * FP12_MUL32_OPS,
+            torch, lambda: K4.fp12_mul(xa, xb, out=store),
+            lambda: K4.fp12_mul_plain(xa, xb, store), nbytes, n * (FP12_MUL32_OPS + load_ops),
             None if imad is None else n * 54 * imad)}
         # the layout and the digits in turns (layout, digits, digits, layout),
         # K4_REPS launches each: `ms` and `digits_ms` are their means
         runs = {"ms": [], "digits_ms": []}
         for turn in ("ms", "digits_ms", "digits_ms", "ms"):
-            fn = (lambda: K4.fp12_mul(aw, bw, out=layout)) if turn == "ms" else \
+            fn = (lambda: K4.fp12_mul(xa, xb, out=store)) if turn == "ms" else \
                 (lambda: K4.fp12_mul(a, b))
             runs[turn].append(cuda_ms(torch, fn, K4_REPS))
         res.update({k: sum(v) / len(v) for k, v in runs.items()}, runs=runs)
         widths = {}
         for w in K4_FOLD_WIDTHS:
-            x, y = aw[..., :w].contiguous(), bw[..., :w].contiguous()
+            x, y = xa[..., :w].contiguous(), xb[..., :w].contiguous()
             xd, yd = a[..., :w].contiguous(), b[..., :w].contiguous()
-            _held(torch, f"{name} at {w}", K4.fp12_mul(x, y, out=layout),
-                  K4.fp12_mul_plain(x, y, layout))
+            _held(torch, f"{name} at {w}", K4.fp12_mul(x, y, out=store),
+                  K4.fp12_mul_plain(x, y, store))
             widths[w] = {
-                "ms": cuda_ms(torch, lambda: K4.fp12_mul(x, y, out=layout), 5),
+                "ms": cuda_ms(torch, lambda: K4.fp12_mul(x, y, out=store), 5),
                 "digits_ms": cuda_ms(torch, lambda: K4.fp12_mul(xd, yd), 5),
-                "bound_ms": bound_ms(w * (24 * WORD_BYTES + 12 * rows_bytes),
-                                     w * FP12_MUL32_OPS)[0]}
+                "bound_ms": bound_ms(w * (24 * in_bytes + 12 * out_bytes),
+                                     w * (FP12_MUL32_OPS + load_ops))[0]}
         res.update(at_widths=widths, ptxas=_k4_ptxas(ptxas_k4, layout),
                    launch=_tower32_shape(torch, kernel, n, K4_LAYOUTS[layout]))
         out[layout] = res
@@ -2394,13 +2453,17 @@ def phase_pairing_strict(torch, dev, ps, qs, expected) -> tuple:
     cyclotomic square; then `multi_pairing` and `multi_miller_loop_prepared`
     at STRICT_MULTI_N pairs on the lazy engine and both strict routes
     (STRICT_MULTI_ROUTES), equal to each other and the first to the
-    oracle's product, with their seconds and launches."""
+    oracle's product, with their seconds and launches, each entry counted
+    from 0: the strict fused route's fold on K4's strict limbs,
+    ceil(log2 N) launches, and no K7-K10 launch (checked), its prepared
+    Miller product against the oracle's."""
     import ark_blst_tpu_torch as T
     from ark_blst_tpu_torch import bls12 as B
     from ark_blst_tpu_torch.curves import pairing as PR
     from ark_blst_tpu_torch.ops import convert as CV
     from ark_blst_tpu_torch.ops import strict_field as SF
     from ark_blst_tpu_torch.ops import tower as TS
+    from ark_blst_tpu_torch.oracle import pairing as OP
 
     (p, p_inf), (q, q_inf) = B._g1_batch(ps, dev), B._g2_batch(qs, dev)
     lazy = T.pairing(p, q, p_inf=p_inf, q_inf=q_inf, device=dev)
@@ -2446,20 +2509,36 @@ def phase_pairing_strict(torch, dev, ps, qs, expected) -> tuple:
     pim, qim = p_inf[:m], q_inf[:m]
     want = _fp12_product(expected[:m])
     multi = {}
+    levels = (m - 1).bit_length()
     for name, engine, fuse in STRICT_MULTI_ROUTES:
         kernels = _reset_launches()
         t0 = time.perf_counter()
         mp = PR.multi_pairing(pm, qm, pim, qim, fuse=fuse, engine=engine)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        mp_launches = {k: v.launches for k, v in kernels.items() if v.launches}
         prep = PR.prepare_g2_device(qm, qim, fuse=fuse, engine=engine)
+        torch.cuda.synchronize()
+        kernels = _reset_launches()
+        t2 = time.perf_counter()
         mml = PR.multi_miller_loop_prepared(pm, prep, pim, fuse=fuse)
         torch.cuda.synchronize()
-        t2 = time.perf_counter()
+        t3 = time.perf_counter()
+        mml_launches = {k: v.launches for k, v in kernels.items() if v.launches}
         check(CV.fp12_from_dev(mp) == [want], f"{name} multi_pairing differs from the oracle")
-        multi[name] = {"multi_pairing_s": t1 - t0, "prepared_multi_miller_s": t2 - t1,
-                       "launches": {k: v.launches for k, v in kernels.items() if v.launches},
-                       "values": (leaves(mp), leaves(mml))}
+        if name == "strict_fused":
+            # the fold on K4's strict limbs, one launch a level, no K7-K10
+            chains = {"fp12_mul_limbs_limbs": levels, "miller_chain_limbs": 1}
+            check(mp_launches == {**chains, "prepare_chain_limbs": 1, "final_exp_easy_limbs": 1,
+                                  "final_exp_hard": 1},
+                  f"strict fused multi_pairing launched {mp_launches}")
+            check(mml_launches == chains,
+                  f"strict fused multi_miller_loop_prepared launched {mml_launches}")
+            check(OP.final_exp(CV.fp12_from_dev(mml)[0]) == want,
+                  "strict fused multi_miller_loop_prepared differs from the oracle")
+        multi[name] = {"multi_pairing_s": t1 - t0, "prepare_s": t2 - t1,
+                       "prepared_multi_miller_s": t3 - t2, "launches": mp_launches,
+                       "launches_prepared": mml_launches, "values": (leaves(mp), leaves(mml))}
     for i, what in enumerate(("multi_pairing", "multi_miller_loop_prepared")):
         for name in ("strict_fused", "strict_unfused"):
             check(all(torch.equal(a, b) for a, b in
@@ -3046,31 +3125,119 @@ def _affine_of(curve, xa, ya, inf) -> list:
 
 def run_scan_stages(torch, curve, lanes: int, points, scalars, expected, profiled: bool):
     """The scan MSM's stages one by one (no padding: n is a multiple of
-    lanes), each ended by a synchronize; yields (stage, summary)."""
+    lanes), each ended by a synchronize: the digits, the three chains
+    (scan-acc, scan-red, scan-horner) and the fold across lanes between
+    them; yields (stage, summary, its output)."""
     from ark_blst_tpu_torch.curves import msm as M
+    from ark_blst_tpu_torch.ops import scan_msm as SM
 
     digs, summary = _stage(torch, lambda: M.window_digits(scalars, SCAN_C), profiled)
-    yield "digits", summary
+    yield "digits", summary, digs
     bk, summary = _stage(
-        torch, lambda: M._bucket_accumulate(curve, points, digs, lanes, SCAN_C), profiled)
-    yield "accumulate", summary
+        torch, lambda: SM.bucket_accumulate(curve, points, digs, lanes, SCAN_C), profiled,
+        expect=("accumulate_kernel",))
+    yield "accumulate", summary, bk
     bk, summary = _stage(torch, lambda: M._fold_axis(curve, bk, lanes), profiled)
-    yield "fold", summary
-    ws, summary = _stage(torch, lambda: M._bucket_reduce(curve, bk), profiled)
-    yield "reduce", summary
-    out, summary = _stage(torch, lambda: M._horner(curve, ws, SCAN_C), profiled)
-    yield "horner", summary
+    yield "fold", summary, bk
+    ws, summary = _stage(torch, lambda: SM.bucket_reduce(curve, bk), profiled,
+                         expect=("reduce_kernel",))
+    yield "reduce", summary, ws
+    out, summary = _stage(torch, lambda: SM.horner(curve, ws, SCAN_C), profiled,
+                          expect=("horner_kernel",))
+    yield "horner", summary, out
     check(_affine(curve, out) == [expected], "staged scan MSM result differs")
 
 
-def phase_msm_scan(torch, dev, phase: str, curve_name: str) -> dict:
-    """The scan MSM at full width through `curves/msm.py:msm`, then
-    `to_affine` on the card: the slice's main path."""
+SCAN_CHAINS = ("scan_acc", "scan_red", "scan_horner")
+SCAN_KIND = {"scan_acc": 0, "scan_red": 1, "scan_horner": 2}  # scan_msm_shape's kinds
+
+
+def scan_chain_work(curve_name: str, n: int, lanes: int, c: int) -> dict:
+    """(bytes, int32 instructions) of each chain at an MSM of n points over
+    `lanes` lanes at window c, the work the function needs: scan-acc one
+    complete addition a point and window and each point's 3 nc components
+    converted once from strict limbs (LIMBS_TO_WORDS_OPS), the points and
+    digits read once and the buckets written once as limbs; scan-red 2 (B -
+    1) additions a window and each bucket in once; scan-horner W (c
+    doublings and an addition) and each window sum in once."""
+    nc = 2 if curve_name == "g2" else 1
+    W, B, comp = -(-256 // c), 1 << c, 3 * nc
+    add, dbl = COMPLETE_ADD32_OPS[curve_name], COMPLETE_DBL32_OPS[curve_name]
+    load = comp * LIMBS_TO_WORDS_OPS
+    return {
+        "scan_acc": (comp * LIMB_BYTES * (n + lanes * W * B) + 4 * W * n,
+                     n * W * add + n * load),
+        "scan_red": (comp * LIMB_BYTES * W * (B + 1), W * (B - 1) * (2 * add + load)),
+        "scan_horner": (comp * LIMB_BYTES * (W + 1), W * (c * dbl + add + load))}
+
+
+def _scan_shape(torch, kernel, kind: int, nc: int, total_threads: int) -> dict:
+    """A chain's block size and blocks an SM (`scan_msm_shape`, the
+    occupancy API at its registers and stack) and the waves of its grid."""
+    fn = getattr(ctypes.CDLL(str(kernel.lib_path)), "scan_msm_shape")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    threads, per_sm = ctypes.c_int(), ctypes.c_int()
+    err = fn(kind, nc, ctypes.byref(threads), ctypes.byref(per_sm))
+    check(err == 0, f"scan_msm_shape: CUDA error {err}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = -(-total_threads // threads.value)
+    return {"threads": threads.value, "blocks": blocks, "blocks_per_sm": per_sm.value,
+            "sms": sms, "waves": blocks / (sms * max(per_sm.value, 1)),
+            "threads_total": total_threads}
+
+
+def check_scan_chains(torch, dev, curve, curve_name: str) -> dict:
+    """scan-acc, scan-red and scan-horner against their plain loops (K7-K10
+    on the card) limb for limb at the check size (SCAN_CHECK), each on the
+    plain loop's own input (the fold across lanes between), the result
+    against the instance's point; each chain's time (CUDA events) beside
+    its plain loop's (one call) at that size."""
+    from ark_blst_tpu_torch.curves import msm as M
+    from ark_blst_tpu_torch.curves.instance import distinct_bases
+    from ark_blst_tpu_torch.ops import scan_msm as SM
+
+    log_n, lanes, seed = SCAN_CHECK[curve_name]
+    points, scalars, expected = distinct_bases(log_n, seed, dev, curve_name)
+    digits = M.window_digits(scalars, SCAN_C)
+    res = {}
+
+    def hold(name, kernel_fn, plain_fn):
+        plain_ms, want = _once_ms(torch, plain_fn)
+        err = _held(torch, name, SM.stack_point(kernel_fn()), SM.stack_point(want))
+        res[name] = {"max_abs_err": err, "check_ms": cuda_ms(torch, kernel_fn, 2),
+                     "plain_ms": plain_ms, "check_n": scalars.shape[1], "check_lanes": lanes}
+        return want
+
+    bk = hold("scan_acc", lambda: SM.bucket_accumulate(curve, points, digits, lanes, SCAN_C),
+              lambda: SM.bucket_accumulate_plain(curve, points, digits, lanes, SCAN_C))
+    folded = M._fold_axis(curve, bk, lanes)
+    sums = hold("scan_red", lambda: SM.bucket_reduce(curve, folded),
+                lambda: SM.bucket_reduce_plain(curve, folded))
+    out = hold("scan_horner", lambda: SM.horner(curve, sums, SCAN_C),
+               lambda: SM.horner_plain(curve, sums, SCAN_C))
+    check(_affine(curve, out) == [expected], f"{curve_name} scan chains at the check size: "
+          "the result differs from the expected point")
+    return res
+
+
+def phase_msm_scan(torch, dev, phase: str, curve_name: str, ptxas: dict) -> tuple:
+    """The scan MSM: its three chains against their plain loops at the check
+    size (`check_scan_chains`), then at full width through
+    `curves/msm.py:msm` (the slice's main path), then `to_affine` on the
+    card, both checked against the expected point; the chains launched once
+    each and K7-K10 only in the fold across lanes (its staged rerun's
+    count) and in `to_affine` (checked); the stages rerun with a
+    synchronize between them and once more under the profiler; each
+    chain's time at full width beside its bound, launch shape and ptxas.
+    Returns (the path's launches, the chains' lines)."""
     from ark_blst_tpu_torch.curves import msm as M
     from ark_blst_tpu_torch.curves.group import G1, G2
     from ark_blst_tpu_torch.curves.instance import distinct_bases
+    from ark_blst_tpu_torch.ops import scan_msm as SM
 
     curve = G2 if curve_name == "g2" else G1
+    chains = check_scan_chains(torch, dev, curve, curve_name)
     log_n, lanes, seed = SCAN[curve_name]
     t0 = time.perf_counter()
     points, scalars, expected = distinct_bases(log_n, seed, dev, curve_name)
@@ -3078,35 +3245,66 @@ def phase_msm_scan(torch, dev, phase: str, curve_name: str) -> dict:
     emit({"phase": "instance", "curve": curve_name, "n": scalars.shape[1],
           "seconds": time.perf_counter() - t0})
     torch.cuda.reset_peak_memory_stats(dev)
-    _reset_strict_launches()
+    kernels = _reset_launches()
     t0 = time.perf_counter()
     out = M.msm(points, scalars, curve, c=SCAN_C, lanes=lanes, device=dev)  # the main path
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in kernels.items() if v.launches}
+    before = _launch_counts()
     affine = curve.to_affine(out)
     torch.cuda.synchronize()
     dt_affine = time.perf_counter() - t0 - dt
-    launches = _strict_launches()
+    affine_launches = {k: v - before[k] for k, v in _launch_counts().items() if v != before[k]}
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     check(all(x.shape == (24, 1) and x.device == dev
               for x in (out if curve_name == "g1" else sum(out, ()))), "result shape")
     check(_affine(curve, out) == [expected], f"{phase} result differs from the expected point")
     check(_affine_of(curve, *affine) == [expected], f"{phase}: to_affine differs")
-    needed = ("mont_mul", "add", "sub") + (("neg",) if curve_name == "g2" else ())
-    check(all(launches[k] > 0 for k in needed), f"a kernel of the path was not launched: {launches}")
+    strict = {"strict_mont_mul", "strict_add", "strict_sub", "strict_neg"}
+    check(all(launches.get(k) == 1 for k in SCAN_CHAINS)
+          and set(launches) <= strict | set(SCAN_CHAINS)
+          and all(launches.get(k, 0) > 0 for k in ("strict_mont_mul", "strict_add", "strict_sub")),
+          f"{phase}: the path launched {launches}, expected each chain once and K7-K10")
+    check(set(affine_launches) <= strict | {"fp_inv_limbs"},
+          f"{phase}: to_affine launched {affine_launches}")
 
-    stages = {name + "_ms": summary["wall_ms"] for name, summary in
+    staged = {name: (summary, value) for name, summary, value in
               run_scan_stages(torch, curve, lanes, points, scalars, expected, False)}
-    profiled = dict(run_scan_stages(torch, curve, lanes, points, scalars, expected, True))
+    fold_launches = staged["fold"][0]["launches"]
+    check(fold_launches == {k: v for k, v in launches.items() if k in strict},
+          f"{phase}: K7-K10 ran outside the fold across lanes: {launches} against the "
+          f"fold's {fold_launches}")
+    stages = {name + "_ms": v[0]["wall_ms"] for name, v in staged.items()}
+    profiled = {name: summary for name, summary, _ in
+                run_scan_stages(torch, curve, lanes, points, scalars, expected, True)}
     wall = sum(v["wall_ms"] for v in profiled.values())
     device = sum(v["device_ms"] for v in profiled.values())
     n = scalars.shape[1]
+    digs, bk, sums = (staged[k][1] for k in ("digits", "fold", "reduce"))
+    calls = {"scan_acc": lambda: SM.bucket_accumulate(curve, points, digs, lanes, SCAN_C),
+             "scan_red": lambda: SM.bucket_reduce(curve, bk),
+             "scan_horner": lambda: SM.horner(curve, sums, SCAN_C)}
+    work = scan_chain_work(curve_name, n, lanes, SCAN_C)
+    nc, W = (2 if curve_name == "g2" else 1), digs.shape[0]
+    threads = {"scan_acc": lanes * W, "scan_red": W, "scan_horner": 1}
+    for name in SCAN_CHAINS:
+        bms, by = bound_ms(*work[name])
+        chains[name].update(
+            ms=cuda_ms(torch, calls[name], 2), bound_ms=bms, bound_by=by, bytes=work[name][0],
+            instructions=work[name][1],
+            launch=_scan_shape(torch, SM.KERNELS[name], SCAN_KIND[name], nc, threads[name]),
+            ptxas=_ptxas_of(ptxas, {"scan_acc": "accumulate_kernel", "scan_red": "reduce_kernel",
+                                    "scan_horner": "horner_kernel"}[name]
+                            + ("IN4f3813Fp2E" if nc == 2 else "IN4f3812FpE")))
     emit({"phase": phase, "n": n, "c": SCAN_C, "lanes": lanes, "ok": True, "seconds": dt,
           "points_per_s": n / dt, "to_affine_s": dt_affine, "launches": launches,
-          "stages": stages, "peak_mem_gib": peak_gib})
+          "to_affine_launches": affine_launches, "fold_launches": fold_launches,
+          "stages": stages, "stage_launches": {k: v[0]["launches"] for k, v in staged.items()},
+          "peak_mem_gib": peak_gib, "chains": chains, "gpu": _smi()[0]})
     emit({"phase": phase + "_profile", "wall_ms": wall, "device_ms": device,
           "busy_share": device / wall, "stages": profiled})
-    return launches
+    return {**launches, **{"to_affine_" + k: v for k, v in affine_launches.items()}}, chains
 
 
 def phase_msm_naive(torch, dev) -> dict:
@@ -3243,7 +3441,10 @@ def distributed_pairing(torch, dev, mesh, ps, qs, expected) -> tuple:
     """`multi_pairing_sharded` in the world of one over the phase-8 instance,
     fused, all 68 events and the final exponentiation: equal to the
     oracle's product of the checked pairings and, limb for limb, to the
-    unsharded `multi_pairing`."""
+    unsharded `multi_pairing`; then on the strict engine fused (the chains
+    on strict limbs, the fold on K4's strict limbs, no K7-K10; checked),
+    limb for limb the lazy result. Returns the line and the launches, the
+    strict route's as `strict:<kernel>`."""
     from ark_blst_tpu_torch import bls12 as B
     from ark_blst_tpu_torch.curves import pairing as PR
     from ark_blst_tpu_torch.ops import convert as CV
@@ -3282,18 +3483,37 @@ def distributed_pairing(torch, dev, mesh, ps, qs, expected) -> tuple:
            "gather_ms": _gather_ms(torch, mesh, like)}
     _, prof = _stage(torch, run, profiled=True)
     res["profile"] = {k: prof[k] for k in ("wall_ms", "device_ms", "busy_share", "device_ms_from")}
-    return res, launches
+    # the strict engine fused: the chains on strict limbs, the rank's fold on
+    # K4's strict limbs (ceil(log2 N) launches; none after the gather of one)
+    kernels = _reset_launches()
+    t0 = time.perf_counter()
+    strict = PR.multi_pairing_sharded(p, q, mesh, p_inf=p_inf, q_inf=q_inf, engine="strict")
+    torch.cuda.synchronize()
+    strict_s = time.perf_counter() - t0
+    strict_launches = {k: v.launches for k, v in kernels.items() if v.launches}
+    want_launches = {"prepare_chain_limbs": 1, "miller_chain_limbs": 1,
+                     "fp12_mul_limbs_limbs": (len(ps) - 1).bit_length(),
+                     "final_exp_easy_limbs": 1, "final_exp_hard": 1}
+    check(strict_launches == want_launches,
+          f"the strict sharded multi-pairing launched {strict_launches}, expected {want_launches}")
+    check(all(torch.equal(a, b) for a, b in zip(flat(strict), flat(got))),
+          "the strict sharded multi-pairing differs from the lazy one")
+    res["strict"] = {"engine": "strict", "fuse": True, "seconds": strict_s,
+                     "launches": strict_launches, "equal_to_lazy": True}
+    return res, {**launches, **{"strict:" + k: v for k, v in strict_launches.items()}}
 
 
 def distributed_scan_and_auto(torch, dev, mesh) -> tuple:
-    """`msm_sharded` (the scan MSM, K7-K10) in the world of one at 2^16 with
-    the host finish, and `msm_auto` on the card at 2^20, which must take the
+    """`msm_sharded` (the scan MSM: scan-acc and scan-red once each, K7-K10
+    in the fold across lanes; checked) in the world of one at 2^16 with the
+    host finish, and `msm_auto` on the card at 2^20, which must take the
     bucket route (one K2 launch, no strict kernel); both against their
     instances' expected points."""
     from ark_blst_tpu_torch.curves import msm as M
     from ark_blst_tpu_torch.curves import msm_bucket as MB
     from ark_blst_tpu_torch.curves.group import G1
     from ark_blst_tpu_torch.curves.instance import distinct_bases
+    from ark_blst_tpu_torch.ops import scan_msm as SM
 
     points, scalars, expected = distinct_bases(DIST_SCAN_LOG_N, DIST_SCAN_SEED, dev, "g1")
     _reset_launches()
@@ -3303,9 +3523,14 @@ def distributed_scan_and_auto(torch, dev, mesh) -> tuple:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     scan_launches = _strict_launches()
+    chain_launches = {k: v.launches for k, v in SM.KERNELS.items()}
     check(_affine(G1, out) == [expected], "sharded scan MSM differs from the expected point")
     check(all(scan_launches[k] > 0 for k in ("mont_mul", "add", "sub")),
           f"a kernel of the path was not launched: {scan_launches}")
+    # the host finish: scan-acc and scan-red on the rank, no scan-horner
+    check(chain_launches == {"scan_acc": 1, "scan_red": 1, "scan_horner": 0},
+          f"the sharded scan MSM's chains launched {chain_launches}")
+    scan_launches.update(chain_launches)
     scan = {"backend": "scan", "collective": str(mesh.backend), "world": mesh.size,
             "n": scalars.shape[1], "c": SCAN_C, "lanes": SCAN["g1"][1], "finish": "host",
             "ok": True, "seconds": dt, "launches": scan_launches}
@@ -3319,7 +3544,8 @@ def distributed_scan_and_auto(torch, dev, mesh) -> tuple:
     dt = time.perf_counter() - t0
     auto_launches = {name: kernels[name].launches for name in _msm_kernel_names(MB.KC2_G1)}
     check(_affine(G1, out) == [expected], "msm_auto differs from the expected point")
-    check(auto_launches["bucket_accumulate"] == 1 and not any(_strict_launches().values()),
+    check(auto_launches["bucket_accumulate"] == 1 and not any(_strict_launches().values())
+          and not any(k.launches for k in SM.KERNELS.values()),
           f"msm_auto did not take the bucket route: {auto_launches}")
     _check_k1_family(auto_launches, scalars.shape[1], MB.KC2_G1)
     auto = {"route": "bucket", "n": scalars.shape[1], "ok": True, "seconds": dt,
@@ -3566,18 +3792,27 @@ def main() -> int:
     k7_k10 = phase_k7_k10(torch, dev)
     torch.cuda.empty_cache()
     phase_fpmul(torch, dev)
-    scan = {}
+    scan, scan_chains = {}, {}
     for name, phase in (("g1", "msm_scan"), ("g2", "msm_scan_g2")):
-        scan[name] = phase_msm_scan(torch, dev, phase, name)
+        scan[name], scan_chains[name] = phase_msm_scan(torch, dev, phase, name,
+                                                       ptxas["scan_msm.cu"])
         torch.cuda.empty_cache()
     naive = phase_msm_naive(torch, dev)
+
+    def scan_strict(curve: str, key: str) -> int:
+        """A strict kernel's launches in a scan MSM run: the fold across
+        lanes and `to_affine`."""
+        return scan[curve].get(key, 0) + scan[curve].get("to_affine_" + key, 0)
+
     bodies = {"mont_mul": "_mul_body :39", "add": "_add_body :43", "sub": "_sub_body :48",
               "neg": "_neg_body :56"}
     strict_lines = [
         _kernel_line("strict_" + op, "strict_field.cu",
                      f"ark_blst_tpu/ops/pallas_field.py:66 ({bodies[op]})",
-                     scan["g1"][op] + scan["g2"][op], k7_k10[op],
-                     launches_msm_scan=scan["g1"][op], launches_msm_scan_g2=scan["g2"][op],
+                     scan_strict("g1", "strict_" + op) + scan_strict("g2", "strict_" + op),
+                     k7_k10[op],
+                     launches_msm_scan=scan_strict("g1", "strict_" + op),
+                     launches_msm_scan_g2=scan_strict("g2", "strict_" + op),
                      launches_msm_naive=naive[op],
                      launches_distributed={"msm_scan": dist_launches["scan"][op]},
                      launches_pairing_strict=strict_pairing.get("strict_" + op, 0),
@@ -3610,12 +3845,45 @@ def main() -> int:
         "ark_blst_tpu/ops/dispatch.py:139 fp_pow, from :143 fp_inv)",
         strict_pairing.get("fp_inv_limbs", 0), inv7,
         launches_pairing_strict_fused=strict_fused.get("fp_inv_limbs", 0),
-        launches_msm_scan=scan["g1"]["inv"], launches_msm_scan_g2=scan["g2"]["inv"],
+        launches_msm_scan=scan_strict("g1", "fp_inv_limbs"),
+        launches_msm_scan_g2=scan_strict("g2", "fp_inv_limbs"),
         launches_msm_naive=naive["inv"],
         launches_multi={route: v["launches"].get("fp_inv_limbs", 0)
                         for route, v in strict_multi.items()},
         at_widths=inv7["at_widths"], launch=inv7["launch"],
         ptxas=_ptxas_of(ptxas["fp_inv.cu"], "fp_inv_kernelILi1E")))
+    strict_chain_lines.append(_kernel_line(
+        "fp12_mul_limbs_limbs", "fp12_mul.cu",
+        "ark_blst_tpu/ops/pallas_field.py:66 (K7-K10 in the strict tower's fp12_mul under the "
+        "strict multi-pairings' product fold, ark_blst_tpu/curves/pairing.py:470 _fold_mul)",
+        strict_multi["strict_fused"]["launches"].get("fp12_mul_limbs_limbs", 0),
+        k4w["limbs_limbs"],
+        launches_multi_prepared=strict_multi["strict_fused"]["launches_prepared"].get(
+            "fp12_mul_limbs_limbs", 0),
+        launches_multi_unfused=strict_multi["strict_unfused"]["launches"].get(
+            "fp12_mul_limbs_limbs", 0),
+        launches_distributed={"pairing": dist_launches["pairing"].get(
+            "strict:fp12_mul_limbs_limbs", 0)},
+        digits_ms=k4w["limbs_limbs"]["digits_ms"], at_widths=k4w["limbs_limbs"]["at_widths"],
+        launch=k4w["limbs_limbs"]["launch"], ptxas=k4w["limbs_limbs"]["ptxas"]))
+    scan_replaces = {
+        "scan_acc": ":155 _bucket_accumulate",
+        "scan_red": ":199 _bucket_reduce, its scan at :223",
+        "scan_horner": ":227 _horner, its fori_loop at :241"}
+    for name, where in scan_replaces.items():
+        g1, g2 = scan_chains["g1"][name], scan_chains["g2"][name]
+        strict_chain_lines.append(_kernel_line(
+            name, "scan_msm.cu",
+            "ark_blst_tpu/ops/pallas_field.py:66 (K7-K10 under the lax.scan of "
+            "ark_blst_tpu/curves/msm.py:138 _scan from " + where + ")",
+            scan["g1"].get(name, 0), g1, launches_msm_scan_g2=scan["g2"].get(name, 0),
+            launches_distributed={"msm_scan": dist_launches["scan"].get(name, 0)},
+            check_ms=g1["check_ms"], check_n=g1["check_n"], check_lanes=g1["check_lanes"],
+            bytes=g1["bytes"], instructions=g1["instructions"], launch=g1["launch"],
+            ptxas=g1["ptxas"],
+            g2={k: g2[k] for k in ("ms", "plain_ms", "check_ms", "check_n", "check_lanes",
+                                   "max_abs_err", "bound_ms", "bound_by", "bytes",
+                                   "instructions", "launch", "ptxas")}))
 
     emit({"kernels": [
         _kernel_line("mont_mul", "mont_mul.cu", "ark_blst_tpu/ops/pallas_lazy.py:41",

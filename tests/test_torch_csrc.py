@@ -20,6 +20,7 @@ from ark_blst_tpu_torch.ops import fp12_sqr as K11
 from ark_blst_tpu_torch.ops import fp_inv as FI
 from ark_blst_tpu_torch.ops import lazy13 as LZ
 from ark_blst_tpu_torch.ops import mont_mul as MM
+from ark_blst_tpu_torch.ops import scan_msm as SM
 from ark_blst_tpu_torch.ops import strict_field as SF
 from ark_blst_tpu_torch.ops.limbs import FP, FR
 
@@ -76,18 +77,20 @@ def test_strict_header_constants(name, spec):
      MB.KERNEL_G2, MB.KERNEL_G2_WORDS, *SF.KERNELS.values(), K11.KERNEL, K12.KERNEL,
      MB.KERNEL_G1_WORDS, FI.KERNEL_INV, FI.KERNEL_UP, FI.KERNEL_DOWN, FE.KERNEL_EASY,
      FE.KERNEL_HARD, K4.KERNEL_WORDS, K4.KERNEL_LIMBS, FI.KERNEL_INV_LIMBS,
-     PS.PREPARE_KERNEL_LIMBS, PS.MILLER_KERNEL_LIMBS, FE.KERNEL_EASY_LIMBS],
+     PS.PREPARE_KERNEL_LIMBS, PS.MILLER_KERNEL_LIMBS, FE.KERNEL_EASY_LIMBS,
+     K4.KERNEL_LIMBS_LIMBS, *SM.KERNELS.values()],
     ids=["mont_mul", "bucket", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step",
          "bucket_g2", "g2_point_words", *("strict_" + op for op in SF.KERNELS), "fp12_sqr",
          "fp12_mul_by_014", "g1_point_words", "fp_inv", "scan_up", "scan_down",
          "final_exp_easy", "final_exp_hard", "fp12_mul_words", "fp12_mul_limbs",
-         "fp_inv_limbs", "prepare_chain_limbs", "miller_chain_limbs", "final_exp_easy_limbs"])
+         "fp_inv_limbs", "prepare_chain_limbs", "miller_chain_limbs", "final_exp_easy_limbs",
+         "fp12_mul_limbs_limbs", *SM.KERNELS])
 def test_kernel_sources_export_their_entry(kernel):
     src = (KC.CSRC_DIR / kernel.source).read_text()
     assert re.search(rf'extern "C" int {kernel.symbol}\(', src)
     assert any(f'#include "{h}"' in src
                for h in ("lazy13.cuh", "tower381.cuh", "group381.cuh", "strict16.cuh",
-                         "fp_inv.cuh", "final_exp.cuh"))
+                         "fp_inv.cuh", "final_exp.cuh", "scan_msm.cuh"))
     assert kernel.lib_path.parent == KC.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in KC.NVCC_FLAGS
 
@@ -95,7 +98,8 @@ def test_kernel_sources_export_their_entry(kernel):
 @pytest.mark.parametrize("bad", ["rows", "digits_or_batch", "dtype", "device"])
 @pytest.mark.parametrize("kernel", ["cyc_sqr", "fp12_mul", "prepare_step", "miller_step",
                                     "fp12_sqr", "fp12_mul_by_014", "final_exp_easy",
-                                    "final_exp_hard", "fp12_mul_words", "fp12_mul_limbs"])
+                                    "final_exp_hard", "fp12_mul_words", "fp12_mul_limbs",
+                                    "fp12_mul_limbs_limbs"])
 def test_tower_wrappers_reject_what_the_kernels_do_not_take(kernel, bad):
     """Only (rows, 30, N) int32 stacks (K4's word layouts: (12, 12, N)
     words) on one device reach a tower kernel, and only CPU tensors take
@@ -105,8 +109,9 @@ def test_tower_wrappers_reject_what_the_kernels_do_not_take(kernel, bad):
     rows = {"cyc_sqr": [12], "fp12_mul": [12, 12], "prepare_step": [6, 4],
             "miller_step": [12, 6, 2], "fp12_sqr": [12], "fp12_mul_by_014": [12, 6],
             "final_exp_easy": [12], "final_exp_hard": [12], "fp12_mul_words": [12, 12],
-            "fp12_mul_limbs": [12, 12]}[kernel]
+            "fp12_mul_limbs": [12, 12], "fp12_mul_limbs_limbs": [12, 12]}[kernel]
     width = 12 if kernel.startswith("fp12_mul_") and "014" not in kernel else 30
+    width = 24 if kernel == "fp12_mul_limbs_limbs" else width
     ops = [torch.zeros((r, width, 4), dtype=torch.int32) for r in rows]
     if bad == "rows":
         ops[-1] = torch.zeros((rows[-1] + 1, 30, 4), dtype=torch.int32)
@@ -126,7 +131,38 @@ def test_tower_wrappers_reject_what_the_kernels_do_not_take(kernel, bad):
             "final_exp_easy": lambda: FE.easy(ops[0]),
             "final_exp_hard": lambda: FE.hard(ops[0]),
             "fp12_mul_words": lambda: K4.fp12_mul(*ops, out="words"),
-            "fp12_mul_limbs": lambda: K4.fp12_mul(*ops, out="limbs")}[kernel]
+            "fp12_mul_limbs": lambda: K4.fp12_mul(*ops, out="limbs"),
+            "fp12_mul_limbs_limbs": lambda: K4.fp12_mul(*ops)}[kernel]
+    with pytest.raises(ValueError):
+        call()
+
+
+@pytest.mark.parametrize("bad", ["dtype", "device", "shape"])
+@pytest.mark.parametrize("chain", ["scan_acc", "scan_red", "scan_horner"])
+def test_scan_wrappers_reject_what_the_kernels_do_not_take(chain, bad):
+    """The scan chains take int32 strict limb stacks on one device, their
+    point leaves (24, *batch) and scan-acc's digits (W, N) with N a multiple
+    of the lanes; anything else raises (a meta tensor too: only CPU
+    tensors take the plain loops)."""
+    import torch
+
+    from ark_blst_tpu_torch.curves.group import G1
+
+    batch = {"scan_acc": (8,), "scan_red": (4, 16), "scan_horner": (4,)}[chain]
+    pt = tuple(torch.zeros((24, *batch), dtype=torch.int32) for _ in range(3))
+    digits = torch.zeros((4, 8), dtype=torch.int32)
+    if bad == "dtype":
+        pt = (pt[0].long(), *pt[1:])
+    elif bad == "device":
+        pt = tuple(x.to("meta") for x in pt)
+        digits = digits.to("meta")
+    elif chain == "scan_acc":
+        digits = digits[:, :7]  # 7 points do not split into 2 lanes
+    else:
+        pt = tuple(x[:23] for x in pt)
+    call = {"scan_acc": lambda: SM.bucket_accumulate(G1, pt, digits, 2, 4),
+            "scan_red": lambda: SM.bucket_reduce(G1, pt),
+            "scan_horner": lambda: SM.horner(G1, pt, 4)}[chain]
     with pytest.raises(ValueError):
         call()
 
@@ -234,21 +270,23 @@ def test_build_all_starts_one_nvcc_per_source(monkeypatch):
 
 
 def test_every_kernel_source_is_built_once(monkeypatch):
-    """The twelve kernel sources of the port, one nvcc each: every
+    """The thirteen kernel sources of the port, one nvcc each: every
     `csrc/*.cu` belongs to a kernel, the tower kernels K11/K12 have their
     own, K1-inv, K1-scan's two passes and K7-inv share `fp_inv.cu`,
-    FE-easy and FE-hard share `final_exp.cu`, K4's three layouts
-    `fp12_mul.cu`, and the chains' strict instantiations their sources."""
+    FE-easy and FE-hard share `final_exp.cu`, K4's four layouts
+    `fp12_mul.cu`, the chains' strict instantiations their sources, and
+    the scan MSM's three chains `scan_msm.cu`."""
     started = []
     monkeypatch.setattr(KC.CudaKernel, "start_build", lambda self: started.append(self) or None)
     kernels = [MM.KERNEL, MB.KERNEL, MB.KERNEL_G2, K3.KERNEL, K4.KERNEL, PS.PREPARE_KERNEL,
                PS.MILLER_KERNEL, *SF.KERNELS.values(), K11.KERNEL, K12.KERNEL,
                FI.KERNEL_INV, FI.KERNEL_UP, FI.KERNEL_DOWN, FE.KERNEL_EASY, FE.KERNEL_HARD,
                K4.KERNEL_WORDS, K4.KERNEL_LIMBS, FI.KERNEL_INV_LIMBS, PS.PREPARE_KERNEL_LIMBS,
-               PS.MILLER_KERNEL_LIMBS, FE.KERNEL_EASY_LIMBS]
+               PS.MILLER_KERNEL_LIMBS, FE.KERNEL_EASY_LIMBS, K4.KERNEL_LIMBS_LIMBS,
+               *SM.KERNELS.values()]
     owners = KC.build_all(kernels)
     assert sorted(k.source for k in owners) == sorted(p.name for p in KC.CSRC_DIR.glob("*.cu"))
-    assert len(owners) == 12 and started == owners
+    assert len(owners) == 13 and started == owners
 
 
 def test_cached_build_keeps_its_ptxas_log(monkeypatch, tmp_path):

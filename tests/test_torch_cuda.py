@@ -1,7 +1,9 @@
 """The CUDA kernels on the card against their plain PyTorch versions, and the
-G1 and G2 MSMs, the strict engine's scan MSM and the batched pairing (fused,
-unfused, and strict on both routes: the chains on strict limbs, and K7-K10
-with the K7-inv ladder) on the card against the host oracle; the arkworks API's
+G1 and G2 MSMs, the strict engine's scan MSM (its three chains, `-k scan`)
+and the batched pairing (fused, unfused, and strict on both routes: the
+chains on strict limbs with the multi-pairings' fold on K4's strict limbs,
+`-k strict`, and K7-K10 with the K7-inv ladder) on the card against the
+host oracle; the arkworks API's
 device routes against the checked-in vectors and its host route; the
 sharded MSMs and multi-pairing in a world of one over NCCL (`-k
 distributed`).
@@ -37,6 +39,7 @@ from ark_blst_tpu_torch.ops import fp_inv as FI
 from ark_blst_tpu_torch.ops import lazy13 as LZ
 from ark_blst_tpu_torch.ops import mont_mul as MM
 from ark_blst_tpu_torch.ops import convert as CV
+from ark_blst_tpu_torch.ops import scan_msm as SM
 from ark_blst_tpu_torch.ops import strict_field as SF
 from ark_blst_tpu_torch.ops import words as W
 from ark_blst_tpu_torch.ops.limbs import FP, FR, FieldSpec, ints_to_limbs
@@ -314,6 +317,61 @@ def test_k4_word_layouts_equal_to_plain(dev, n, out):
         assert torch.equal(got, W.digits_to_words_plain(digits))
     else:
         assert torch.equal(got, torch.stack(TL._flat12(TL.fp12_egress(TL.unstack12(digits)))))
+
+
+@pytest.mark.parametrize("n", [1024, 37, 1])
+def test_k4_strict_limbs_equal_to_plain(dev, n):
+    """K4 limbs -> limbs (the strict engine's multi-pairings' fold), one
+    launch of its own layout, at the fold's widths and ragged: limb for
+    limb against its plain version and the strict tower's `fp12_mul` on
+    the same limbs; one column of limbs above p (2^384 - 1, loaded
+    reduced)."""
+    from ark_blst_tpu_torch.ops import tower as TS
+    from ark_blst_tpu_torch.ops import tower_lazy as TL
+
+    rng = np.random.default_rng(9)
+    a, b = W.words_to_limbs_plain(_words(rng, n, dev)), W.words_to_limbs_plain(_words(rng, n, dev))
+    got = _launched_once(K4.KERNEL_LIMBS_LIMBS, lambda: K4.fp12_mul(a, b))
+    assert got.shape == (12, 24, n)
+    assert torch.equal(got, K4.fp12_mul_plain(a, b, "limbs"))
+    assert torch.equal(got, TL.stack12(TS.fp12_mul(TL.unstack12(a), TL.unstack12(b))))
+    a[..., -1:] = 0xFFFF
+    got = _launched_once(K4.KERNEL_LIMBS_LIMBS, lambda: K4.fp12_mul(a, b))
+    assert torch.equal(got, K4.fp12_mul_plain(a, b, "limbs"))
+
+
+def test_strict_multi_pairings_fold_on_k4_limbs(dev):
+    """The strict fused multi-pairings on the card at N = 40 (an identity on
+    each side): K4 limbs -> limbs ceil(log2 N) = 6 times, K5-chain and
+    K6-chain on strict limbs once, no K7-K10 launch; `multi_pairing` (with
+    FE-easy on limbs and FE-hard once) and `multi_miller_loop_prepared`
+    against the oracle's products, limb for limb the unfused route's."""
+    rng = random.Random(30)
+    ps = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    qs = [OC.g2_mul(OF.G2_GEN, rng.randrange(1, OF.R)) for _ in range(4)]
+    pb, qb = [ps[i % 4] for i in range(40)], [qs[(i + 1) % 4] for i in range(40)]
+    pb[3], qb[6] = None, None
+    (p, p_inf), (q, q_inf) = B._g1_batch(pb, dev), B._g2_batch(qb, dev)
+    kernels = (K4.KERNEL_LIMBS_LIMBS, PS.PREPARE_KERNEL_LIMBS, PS.MILLER_KERNEL_LIMBS,
+               FE.KERNEL_EASY_LIMBS, FE.KERNEL_HARD, *SF.KERNELS.values())
+
+    def launches(fn):
+        before = [k.launches for k in kernels]
+        out = fn()
+        torch.cuda.synchronize()
+        return out, [k.launches - b for k, b in zip(kernels, before)]
+
+    mlo = OP.multi_miller_loop([(a, b) for a, b in zip(pb, qb) if a and b])
+    flat = lambda t: [x for a in t for b in a for x in b]  # noqa: E731
+    got, k = launches(lambda: PR.multi_pairing(p, q, p_inf, q_inf, engine="strict"))
+    assert k == [6, 1, 1, 1, 1, 0, 0, 0, 0]
+    assert CV.fp12_from_dev(got) == [OP.final_exp(mlo)]
+    unfused = PR.multi_pairing(p, q, p_inf, q_inf, fuse=False, engine="strict")
+    assert all(torch.equal(x, y) for x, y in zip(flat(got), flat(unfused)))
+    prep = PR.prepare_g2_device(q, q_inf, engine="strict")
+    got, k = launches(lambda: PR.multi_miller_loop_prepared(p, prep, p_inf))
+    assert k == [6, 0, 1, 0, 0, 0, 0, 0, 0]
+    assert CV.fp12_from_dev(got) == [mlo]
 
 
 def test_multi_pairings_fold_on_words(dev, monkeypatch):
@@ -820,6 +878,8 @@ def test_strict_kernels_reject_other_fields(dev):
 
 
 def test_scan_msm_on_card_matches_oracle(dev):
+    """The scan MSM on the card: scan-acc, scan-red and scan-horner once
+    each, K7-K10 in the fold across lanes."""
     rng = random.Random(14)
     base = [OC.scalar_mul(OF.G1_GEN, rng.randrange(1, OF.R)) for _ in range(8)]
     pts = [base[i % 8] for i in range(2048)]
@@ -829,11 +889,37 @@ def test_scan_msm_on_card_matches_oracle(dev):
     for i, s in enumerate(scs):
         if pts[i] is not None:
             agg[i % 8] += s
-    before = {k: v.launches for k, v in SF.KERNELS.items()}
+    kernels = {**SF.KERNELS, **SM.KERNELS}
+    before = {k: v.launches for k, v in kernels.items()}
     out = M.msm(CV.g1_to_dev(pts), CV.fr_to_dev(scs), c=4, device=dev)
     torch.cuda.synchronize()
     assert all(SF.KERNELS[k].launches > before[k] for k in ("mont_mul", "add", "sub"))
+    assert all(SM.KERNELS[k].launches == before[k] + 1 for k in SM.KERNELS)
     assert out[0].is_cuda and CV.g1_from_dev(out) == [OC.msm(base, agg)]
+
+
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_scan_chains_equal_to_plain(dev, curve):
+    """scan-acc, scan-red and scan-horner on the card, one launch each,
+    against their plain loops on the card limb for limb: 2^12 points of
+    `curves/instance.py` (an identity point and a zero scalar), c = 8,
+    256 lanes (G1) or 64 (G2), each chain on the plain loop's own input."""
+    from ark_blst_tpu_torch.curves.group import G1 as CG1, G2 as CG2
+
+    cv = CG2 if curve == "g2" else CG1
+    lanes = 64 if curve == "g2" else 256
+    points, scalars, expected = distinct_bases(12, 6, dev, curve)
+    digits = M.window_digits(scalars, 8)
+    got = _launched_once(SM.KERNEL_ACC, lambda: SM.bucket_accumulate(cv, points, digits, lanes, 8))
+    want = SM.bucket_accumulate_plain(cv, points, digits, lanes, 8)
+    assert torch.equal(SM.stack_point(got), SM.stack_point(want))
+    folded = M._fold_axis(cv, want, lanes)
+    got = _launched_once(SM.KERNEL_RED, lambda: SM.bucket_reduce(cv, folded))
+    sums = SM.bucket_reduce_plain(cv, folded)
+    assert torch.equal(SM.stack_point(got), SM.stack_point(sums))
+    got = _launched_once(SM.KERNEL_HORNER, lambda: SM.horner(cv, sums, 8))
+    assert torch.equal(SM.stack_point(got), SM.stack_point(SM.horner_plain(cv, sums, 8)))
+    assert (CV.g2_from_dev if curve == "g2" else CV.g1_from_dev)(got) == [expected]
 
 
 VEC_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "vectors", "bls12_381.json")

@@ -157,7 +157,7 @@ def k4_outs(monkeypatch):
 
 @pytest.mark.parametrize("n", [1, 3, 4])
 def test_word_fold_matches_jax_fold_mul(n, k4_outs):
-    """`_fold_words` on the words of conj(x_i) against JAX `_fold_mul` and
+    """`_fold_stack` on the words of conj(x_i) against JAX `_fold_mul` and
     `_egress` on conj(x_i) limb for limb, and against the conjugation of
     JAX's fold of the x_i (conj is an automorphism): to words (then split)
     and to strict limbs from the last level; ceil(log2 n) levels, the last
@@ -167,12 +167,12 @@ def test_word_fold_matches_jax_fold_mul(n, k4_outs):
     jf = JTL.fp12_conj(_jax_lazy(vals))
     want = _jax_limbs(DP._fold_mul(JTL, jf, n))
     assert torch.equal(want, _jax_limbs(JTL.fp12_conj(DP._fold_mul(JTL, _jax_lazy(vals), n))))
-    limbs = PR._fold_words(_words(conj), n, out="limbs")
+    limbs = PR._fold_stack(_words(conj), n, out="limbs")
     levels = (n - 1).bit_length()
     assert k4_outs == ["words"] * (levels - 1) + ["limbs"]
     assert limbs.shape == (12, 24, 1) and torch.equal(limbs, want)
     k4_outs.clear()
-    words = PR._fold_words(_words(conj), n)
+    words = PR._fold_stack(_words(conj), n)
     assert k4_outs == ["words"] * levels
     assert torch.equal(W.words_to_limbs_plain(words), want)
     acc = OF.FP12_ONE
