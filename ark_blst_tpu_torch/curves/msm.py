@@ -7,7 +7,8 @@ scan pipeline `msm` with `msm_naive`, on the RCB15 group law of
 `curves/group.py`:
 
 * bucket accumulation: every (lane, window) stream's points added into its
-  buckets, one scan-acc launch (`ops/scan_msm.py`);
+  buckets, scan-acc (`ops/scan_msm.py`: three launches, the points to
+  words, the walk by a team of threads a stream, the split to limbs);
 * lane reduction: log2(lanes) halving rounds of batched additions
   (`_fold_axis`, K7-K10 a field op: each round is wide);
 * bucket reduction: running/total suffix sums over the 2^c - 1 nonzero
@@ -18,7 +19,7 @@ scan pipeline `msm` with `msm_naive`, on the RCB15 group law of
 The JAX package runs the three scans as `lax.scan`s inside one program on
 the TPU (`fuse=True`) and as eager loops otherwise; here they are one
 chain kernel each, whose plain versions, the loops of the JAX `fuse=False`
-branch, run on CPU tensors. `msm_naive` keeps the JAX `scalar_mul` ladder
+branch, run on CPU tensors (scan-acc is three kernels). `msm_naive` keeps the JAX `scalar_mul` ladder
 (`curves/group.py`) on K7-K10.
 
 Beside it, as in the JAX module:
@@ -156,10 +157,11 @@ def msm(points, scalars, curve: CurveOps = G1, c: int = 8, lanes: int = 1024, *,
     points allowed); scalars: (16, N) plain (non-Montgomery) Fr limbs.
     Returns the strict projective result with batch shape (1,), on
     `device`. c = 8 is the JAX package's default. lanes defaults to 1024,
-    not the JAX package's 128 (a TPU tile): scan-acc runs a thread for each
-    of the lanes x W streams, N/lanes dependent additions each, so wider
-    lanes give the card more threads and shorter chains at the price of
-    (lanes, W, 2^c) buckets in memory."""
+    not the JAX package's 128 (a TPU tile): scan-acc runs a team of threads
+    for each of the lanes x W streams, N/lanes dependent additions each,
+    so wider lanes give the card more threads and shorter chains at the
+    price of (lanes, W, 2^c) buckets in memory (and as much again, half
+    as words, in scan-acc's scratch while it runs)."""
     points, scalars = _to_device(points, scalars, device)
     return SM.horner(curve, _msm_local(curve, points, scalars, c, lanes), c)
 

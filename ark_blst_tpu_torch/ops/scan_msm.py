@@ -1,5 +1,5 @@
 """scan-acc, scan-red and scan-horner: the strict engine's scan MSM's three
-scans, each one hand-written CUDA launch.
+scans as hand-written CUDA launches.
 
 Counterpart of the `lax.scan`s of `ark_blst_tpu/curves/msm.py:138 _scan`,
 which the JAX package runs inside one compiled program over
@@ -12,13 +12,20 @@ which the JAX package runs inside one compiled program over
   scan-horner  `:227 _horner`: c doublings and one addition a window,
                most significant first.
 The kernels (`csrc/scan_msm.cu` on `csrc/scan_msm.cuh` and
-`csrc/group381.cuh`) run each chain in one thread on 32-bit Montgomery
-words and store canonical strict limbs. Their plain versions
+`csrc/group381.cuh`) compute on 32-bit Montgomery words and store
+canonical strict limbs. scan-acc is three launches: the points to word
+records (`point_words`), the walk of each stream by a team of threads
+over word-record buckets in a scratch (`accumulate_words`), and the
+buckets' split into the strict limb stack (`split_buckets`); scan-red
+runs a window a thread, scan-horner one thread. Their plain versions
 (`bucket_accumulate_plain`, `bucket_reduce_plain`, `horner_plain`) are
 the loops on the strict group law (`curves/group.py`, K7-K10 a field op)
 that the port ran before, step for step the JAX `fuse=False` branch: every
 value is canonical and the two compute the same expressions, so the
-kernels' outputs equal them limb for limb.
+kernels' outputs equal them limb for limb. scan-acc's passes have plain
+versions of their own (`point_words_plain`, `accumulate_words_plain`,
+`split_buckets_plain`), whose composition is `bucket_accumulate_plain`'s
+stack.
 
 Points are the strict engine's nested tuples (`curves/group.py`): G1
 (X, Y, Z) of `(24, *batch)` limb leaves, G2 the same with fp2 pairs. A
@@ -37,15 +44,34 @@ import torch
 
 from ..cuda import CudaKernel, cpu_operands
 from . import tower as T
+from . import words as WD
 from .limbs import FP
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+KERNEL_WORDS = CudaKernel("scan_msm.cu", "scan_msm_point_words", [_P, _P, _L, _I, _P])
 KERNEL_ACC = CudaKernel("scan_msm.cu", "scan_msm_accumulate",
-                        [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P])
+                        [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P])
+KERNEL_SPLIT = CudaKernel("scan_msm.cu", "scan_msm_split", [_P, _P, _L, _I, _P])
 KERNEL_RED = CudaKernel("scan_msm.cu", "scan_msm_reduce", [_P, _P, _I, _I, _I, _P])
 KERNEL_HORNER = CudaKernel("scan_msm.cu", "scan_msm_horner", [_P, _P, _I, _I, _I, _P])
-KERNELS = {"scan_acc": KERNEL_ACC, "scan_red": KERNEL_RED, "scan_horner": KERNEL_HORNER}
+KERNELS = {"scan_acc_words": KERNEL_WORDS, "scan_acc_walk": KERNEL_ACC,
+           "scan_acc_split": KERNEL_SPLIT, "scan_red": KERNEL_RED, "scan_horner": KERNEL_HORNER}
+
+RECORD = 3 * WD.WORDS  # words of a G1 point or bucket record (x, y, z); G2's are twice as long
+# scan-acc's walk: (threads a team, threads a block) by nc, timed by
+# scripts/scan_acc_probe.py (an H100 80GB HBM3 at 700 W, the scan MSM's
+# full widths). G1: a team of 3 takes the six products of a phase two
+# each, 47.7 ms against 47.9 for teams of 2, 48.9 for one thread a stream,
+# 51.4 for teams of 6 and 62.8 for one thread a stream with the addition
+# written straight through (200 registers). G2: a team of 18 takes the 18
+# Fp legs one each, 64.3 ms in 1.29 waves, the fastest shape measured that
+# fills a wave of the card, as the walk's design asks; teams of 6 in
+# 96-thread blocks run 49.9 ms in 0.43 of a wave, 9 x 288 54.5, 2 and 3
+# 62.5, 1 103.8, the straight-line thread 164.9 (255 registers, 968 B of
+# stack)
+ACC_SHAPE = {1: (3, 96), 2: (18, 288)}
 
 
 def _nc(stack: torch.Tensor) -> int:
@@ -128,10 +154,113 @@ def bucket_accumulate_plain(curve, points, digits: torch.Tensor, lanes: int, c: 
     return buckets
 
 
+def _int32(w: torch.Tensor) -> torch.Tensor:
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def _records(words: torch.Tensor) -> torch.Tensor:
+    """(3 nc, 12, n) words -> (n, 36 nc) records, point-major."""
+    return words.permute(2, 0, 1).reshape(words.shape[2], -1).contiguous()
+
+
+def _words_of(records: torch.Tensor) -> torch.Tensor:
+    """(n, 36 nc) records -> (3 nc, 12, n) words."""
+    return records.reshape(records.shape[0], -1, WD.WORDS).permute(1, 2, 0)
+
+
+def _nc_of_records(records: torch.Tensor) -> int:
+    if records.dim() != 2 or records.shape[1] not in (RECORD, 2 * RECORD):
+        raise ValueError(f"word records are (n, {RECORD}) or (n, {2 * RECORD}), "
+                         f"got {tuple(records.shape)}")
+    return records.shape[1] // RECORD
+
+
+def point_words_plain(pts: torch.Tensor) -> torch.Tensor:
+    """scan-acc's first pass, plain: a `(3 nc, 24, n)` strict limb stack (any
+    number below 2^384, taken mod p) -> `(n, 36 nc)` canonical word records,
+    point-major (component q at words [12 q, 12 q + 12))."""
+    return _records(WD.digits_to_words_plain(WD.limbs_to_digits_plain(pts)))
+
+
+def point_words(pts: torch.Tensor) -> torch.Tensor:
+    """The records of `point_words_plain`: one launch of scan-acc's point
+    conversion for CUDA tensors, the plain version for CPU tensors."""
+    if pts.dim() != 3 or pts.shape[1] != FP.num_limbs:
+        raise ValueError(f"point_words wants a (3 nc, 24, n) stack, got {tuple(pts.shape)}")
+    nc = _nc(pts)
+    if cpu_operands("point_words", [pts]):
+        return point_words_plain(pts)
+    n = pts.shape[2]
+    pw = torch.empty((n, nc * RECORD), dtype=torch.int32, device=pts.device)
+    with torch.cuda.device(pts.device):
+        KERNEL_WORDS.launch(pts.data_ptr(), pw.data_ptr(), n, nc, _stream(pts))
+    return pw
+
+
+def accumulate_words_plain(curve, pw: torch.Tensor, digits: torch.Tensor, lanes: int, c: int):
+    """scan-acc's walk, plain: the `(lanes W B, 36 nc)` word records of the
+    buckets of `bucket_accumulate_plain` (the digits taken mod B = 2^c),
+    bucket b of (lane l, window w) at record (l W + w) B + b, from the
+    points' records `pw` (`point_words`)."""
+    _nc_of_records(pw)
+    pts = point_of(WD.words_to_limbs_plain(_words_of(pw)))
+    bk = bucket_accumulate_plain(curve, pts, digits & ((1 << c) - 1), lanes, c)
+    limbs = stack_point(bk).long()  # (3 nc, 24, lanes, W, B)
+    words = limbs[:, 0::2] | (limbs[:, 1::2] << 16)
+    return _records(_int32(words.reshape(words.shape[0], WD.WORDS, -1)))
+
+
+def accumulate_words(curve, pw: torch.Tensor, digits: torch.Tensor, lanes: int,
+                     c: int) -> torch.Tensor:
+    """The records of `accumulate_words_plain`: one launch of scan-acc's walk
+    for CUDA tensors (a team of threads a (lane, window) stream, at the
+    curve's `ACC_SHAPE`; the digits taken mod 2^c), the plain version for
+    CPU tensors."""
+    nc = _nc_of_records(pw)
+    _steps(digits, lanes)
+    n, W = pw.shape[0], digits.shape[0]
+    if digits.dim() != 2 or digits.shape[1] != n:
+        raise ValueError(f"accumulate_words wants (W, {n}) digits, got {tuple(digits.shape)}")
+    if not 1 <= c <= 16:
+        raise ValueError(f"window c must be in [1, 16], got {c}")
+    if cpu_operands("accumulate_words", [pw, digits]):
+        return accumulate_words_plain(curve, pw, digits, lanes, c)
+    team, block = ACC_SHAPE[nc]
+    B = 1 << c
+    bk = torch.empty((lanes * W * B, nc * RECORD), dtype=torch.int32, device=pw.device)
+    with torch.cuda.device(pw.device):
+        KERNEL_ACC.launch(pw.data_ptr(), digits.data_ptr(), bk.data_ptr(), n, lanes, W, B, nc,
+                          team, block, _stream(pw))
+    return bk
+
+
+def split_buckets_plain(bk: torch.Tensor, lanes: int, W: int, B: int) -> torch.Tensor:
+    """scan-acc's last pass, plain: `(lanes W B, 36 nc)` word records ->
+    the `(3 nc, 24, lanes, W, B)` strict limb stack."""
+    limbs = WD.words_to_limbs_plain(_words_of(bk))  # (3 nc, 24, E)
+    return limbs.reshape(limbs.shape[0], FP.num_limbs, lanes, W, B).contiguous()
+
+
+def split_buckets(bk: torch.Tensor, lanes: int, W: int, B: int) -> torch.Tensor:
+    """The stack of `split_buckets_plain`: one launch of scan-acc's split
+    for CUDA tensors, the plain version for CPU tensors."""
+    nc = _nc_of_records(bk)
+    if bk.shape[0] != lanes * W * B:
+        raise ValueError(f"{bk.shape[0]} records are not {lanes} x {W} x {B} buckets")
+    if cpu_operands("split_buckets", [bk]):
+        return split_buckets_plain(bk, lanes, W, B)
+    out = torch.empty((3 * nc, FP.num_limbs, lanes, W, B), dtype=torch.int32,
+                      device=bk.device)
+    with torch.cuda.device(bk.device):
+        KERNEL_SPLIT.launch(bk.data_ptr(), out.data_ptr(), bk.shape[0], nc, _stream(bk))
+    return out
+
+
 def bucket_accumulate(curve, points, digits: torch.Tensor, lanes: int, c: int):
-    """The (lanes, W, 2^c) buckets of `bucket_accumulate_plain`: one scan-acc
-    launch for CUDA tensors (a thread a (lane, window) stream; the digits
-    taken mod 2^c), the plain loop for CPU tensors."""
+    """The (lanes, W, 2^c) buckets of `bucket_accumulate_plain`: for CUDA
+    tensors scan-acc's three launches (`point_words`, `accumulate_words`,
+    `split_buckets`; the digits taken mod 2^c), for CPU tensors the plain
+    loop."""
     _steps(digits, lanes)
     if not 1 <= c <= 16:
         raise ValueError(f"window c must be in [1, 16], got {c}")
@@ -142,13 +271,8 @@ def bucket_accumulate(curve, points, digits: torch.Tensor, lanes: int, c: int):
                          f"got {tuple(pts.shape)} and {tuple(digits.shape)}")
     if cpu_operands("bucket_accumulate", [pts, digits]):
         return bucket_accumulate_plain(curve, points, digits, lanes, c)
-    B = 1 << c
-    out = torch.empty((pts.shape[0], FP.num_limbs, lanes, W, B), dtype=torch.int32,
-                      device=pts.device)
-    with torch.cuda.device(pts.device):
-        KERNEL_ACC.launch(pts.data_ptr(), digits.data_ptr(), out.data_ptr(), n, lanes, W, B,
-                          _nc(pts), _stream(pts))
-    return point_of(out)
+    bk = accumulate_words(curve, point_words(pts), digits, lanes, c)
+    return point_of(split_buckets(bk, lanes, W, 1 << c))
 
 
 # --- scan-red: the bucket reduction ----------------------------------------------

@@ -218,7 +218,9 @@ Phases, one JSON line each:
               bucket accumulation; scan-red, the running/total sums;
               scan-horner) against their plain loops (K7-K10 on the card)
               limb for limb at a check size, 2^14 G1 bases and 1024 lanes,
-              each on the plain loop's own input, timed beside it; then
+              each on the plain loop's own input, timed beside it, and
+              scan-acc's three launches (its point words, its walk, its
+              split) each against its plain version there; then
               at 2^20 distinct G1 bases (`curves/instance.py`, with an
               identity point and a zero scalar), c = 8, 1024 lanes, then
               `G1.to_affine` of the result on the card, both checked
@@ -227,8 +229,11 @@ Phases, one JSON line each:
               (checked, their counts printed), its peak memory and
               points/s; then the stages (digits, accumulate, fold,
               reduce, horner) rerun with a synchronize between them, and
-              once more under `torch.profiler`; each chain's time at full
-              width beside its bound, launch shape and ptxas;
+              once more under `torch.profiler`; each launch's time at full
+              width beside its bound, launch shape and ptxas; scan-acc's
+              time as a function (its three launches) beside the
+              function's bound, its scratch bytes, and its fixed cost and
+              time a step from its times at the two sizes;
  12. msm_scan_g2  the same for G2 (the check at 2^12 bases, 256 lanes;
               the run at 2^18 bases, c = 8, 256 lanes); its `to_affine`
               inverts in Fp2, which launches K10;
@@ -305,10 +310,14 @@ route's 0 and the strict multi-pairings' beside), and their Fp times at
 (`fp12_mul_limbs_limbs`) the strict fused `multi_pairing`'s launches at
 1024, its prepared Miller product's and the sharded strict pairing's
 beside, its times at 8192 and each fold width with the digit layout's;
-the scan chains (`scan_acc`, `scan_red`, `scan_horner`) the G1 scan MSM's
-launches, the G2 one's and the sharded scan's beside, their times at full
-width (G1; G2's under `g2`) beside their bounds, their plain loops' times
-and their own at the check size, launch shapes and ptxas; the strict
+the scan chains (`scan_acc_words`, `scan_acc_walk`, `scan_acc_split`:
+scan-acc's point words, walk and split; `scan_red`, `scan_horner`) the G1
+scan MSM's launches, the G2 one's and the sharded scan's beside, their
+times at full width (G1; G2's under `g2`) beside their bounds, their plain
+versions' times and their own at the check size, launch shapes and ptxas;
+`scan_acc` scan-acc as one function (its three launches, `launches` its
+walk's), its time, bound, plain time, fixed cost, time a step and scratch
+bytes; the strict
 engine's chains
 (`prepare_chain_limbs`, `miller_chain_limbs`, `final_exp_easy_limbs`)
 the fused strict batch's launches, their times at 8192 with the other
@@ -404,8 +413,10 @@ on G1, 12 Fp2 products and 58 Fp sums on G2) and doublings
 (COMPLETE_DBL32_OPS: 8 products and 13 sums, 8 Fp2 products and 28 Fp
 sums), and each point component converted once from limbs: scan-acc one
 addition a point and window, its bytes the points, digits and buckets
-once; scan-red 2 (B - 1) additions a window; scan-horner W (c doublings
-and an addition) (`scan_chain_work`).
+once (as a function; its point words the conversion, its walk the
+additions on words, its split bytes alone); scan-red 2 (B - 1) additions
+a window; scan-horner W (c doublings and an addition)
+(`scan_chain_work`).
 """
 
 from __future__ import annotations
@@ -3135,7 +3146,7 @@ def run_scan_stages(torch, curve, lanes: int, points, scalars, expected, profile
     yield "digits", summary, digs
     bk, summary = _stage(
         torch, lambda: SM.bucket_accumulate(curve, points, digs, lanes, SCAN_C), profiled,
-        expect=("accumulate_kernel",))
+        expect=("words_kernel", "walk_kernel", "split_kernel"))
     yield "accumulate", summary, bk
     bk, summary = _stage(torch, lambda: M._fold_axis(curve, bk, lanes), profiled)
     yield "fold", summary, bk
@@ -3148,51 +3159,71 @@ def run_scan_stages(torch, curve, lanes: int, points, scalars, expected, profile
     check(_affine(curve, out) == [expected], "staged scan MSM result differs")
 
 
-SCAN_CHAINS = ("scan_acc", "scan_red", "scan_horner")
-SCAN_KIND = {"scan_acc": 0, "scan_red": 1, "scan_horner": 2}  # scan_msm_shape's kinds
+# the scan MSM's launches: scan-acc's three (its point words, its walk, its
+# split), scan-red, scan-horner
+SCAN_CHAINS = ("scan_acc_words", "scan_acc_walk", "scan_acc_split", "scan_red", "scan_horner")
+SCAN_KIND = {"scan_acc_walk": 0, "scan_red": 1, "scan_horner": 2, "scan_acc_words": 3,
+             "scan_acc_split": 4}  # scan_msm_shape's kinds
+SCAN_ENTRY = {"scan_acc_walk": "walk_kernel", "scan_acc_words": "words_kernel",
+              "scan_acc_split": "split_kernel", "scan_red": "reduce_kernel",
+              "scan_horner": "horner_kernel"}  # their kernels' names
 
 
 def scan_chain_work(curve_name: str, n: int, lanes: int, c: int) -> dict:
     """(bytes, int32 instructions) of each chain at an MSM of n points over
-    `lanes` lanes at window c, the work the function needs: scan-acc one
-    complete addition a point and window and each point's 3 nc components
-    converted once from strict limbs (LIMBS_TO_WORDS_OPS), the points and
-    digits read once and the buckets written once as limbs; scan-red 2 (B -
-    1) additions a window and each bucket in once; scan-horner W (c
-    doublings and an addition) and each window sum in once."""
+    `lanes` lanes at window c, the work the function needs: scan-acc
+    (`scan_acc`, whatever launches implement it) one complete
+    addition a point and window and each point's 3 nc components converted
+    once from strict limbs (LIMBS_TO_WORDS_OPS), the points and digits read
+    once and the buckets written once as limbs; its launches each their
+    own: the point words the conversion, the limbs in and the words out;
+    the walk the additions, the words and digits in and the buckets out as
+    words; the split the words in and the limbs out (two instructions a
+    limb); scan-red 2 (B - 1) additions a window and each bucket in once;
+    scan-horner W (c doublings and an addition) and each window sum in
+    once."""
     nc = 2 if curve_name == "g2" else 1
     W, B, comp = -(-256 // c), 1 << c, 3 * nc
+    E = lanes * W * B
     add, dbl = COMPLETE_ADD32_OPS[curve_name], COMPLETE_DBL32_OPS[curve_name]
     load = comp * LIMBS_TO_WORDS_OPS
     return {
-        "scan_acc": (comp * LIMB_BYTES * (n + lanes * W * B) + 4 * W * n,
-                     n * W * add + n * load),
+        "scan_acc": (comp * LIMB_BYTES * (n + E) + 4 * W * n, n * W * add + n * load),
+        "scan_acc_words": (comp * (LIMB_BYTES + WORD_BYTES) * n, n * load),
+        "scan_acc_walk": (comp * WORD_BYTES * (n + E) + 4 * W * n, n * W * add),
+        "scan_acc_split": (comp * (WORD_BYTES + LIMB_BYTES) * E, comp * 2 * 24 * E),
         "scan_red": (comp * LIMB_BYTES * W * (B + 1), W * (B - 1) * (2 * add + load)),
         "scan_horner": (comp * LIMB_BYTES * (W + 1), W * (c * dbl + add + load))}
 
 
-def _scan_shape(torch, kernel, kind: int, nc: int, total_threads: int) -> dict:
-    """A chain's block size and blocks an SM (`scan_msm_shape`, the
-    occupancy API at its registers and stack) and the waves of its grid."""
+def _scan_shape(torch, kernel, kind: int, nc: int, total_threads: int, team: int = 1,
+                block: int = 1) -> dict:
+    """A launch's block size and blocks an SM (`scan_msm_shape`, the
+    occupancy API at its registers, stack and shared memory; scan-acc's
+    walk at its team and block) and the waves of its grid."""
     fn = getattr(ctypes.CDLL(str(kernel.lib_path)), "scan_msm_shape")
-    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
     fn.restype = ctypes.c_int
     threads, per_sm = ctypes.c_int(), ctypes.c_int()
-    err = fn(kind, nc, ctypes.byref(threads), ctypes.byref(per_sm))
+    err = fn(kind, nc, team, block, ctypes.byref(threads), ctypes.byref(per_sm))
     check(err == 0, f"scan_msm_shape: CUDA error {err}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks = -(-total_threads // threads.value)
-    return {"threads": threads.value, "blocks": blocks, "blocks_per_sm": per_sm.value,
-            "sms": sms, "waves": blocks / (sms * max(per_sm.value, 1)),
-            "threads_total": total_threads}
+    res = {"threads": threads.value, "blocks": blocks, "blocks_per_sm": per_sm.value,
+           "sms": sms, "waves": blocks / (sms * max(per_sm.value, 1)),
+           "threads_total": total_threads}
+    return {**res, "team": team} if kind == SCAN_KIND["scan_acc_walk"] else res
 
 
 def check_scan_chains(torch, dev, curve, curve_name: str) -> dict:
     """scan-acc, scan-red and scan-horner against their plain loops (K7-K10
     on the card) limb for limb at the check size (SCAN_CHECK), each on the
     plain loop's own input (the fold across lanes between), the result
-    against the instance's point; each chain's time (CUDA events) beside
-    its plain loop's (one call) at that size."""
+    against the instance's point; scan-acc as the function
+    (`scan_acc`, its three launches) and each launch against its
+    plain version on the same input (the point words and the walk's bucket
+    records word for word, the split limb for limb); each one's time (CUDA
+    events) beside its plain version's (one call) at that size."""
     from ark_blst_tpu_torch.curves import msm as M
     from ark_blst_tpu_torch.curves.instance import distinct_bases
     from ark_blst_tpu_torch.ops import scan_msm as SM
@@ -3202,15 +3233,24 @@ def check_scan_chains(torch, dev, curve, curve_name: str) -> dict:
     digits = M.window_digits(scalars, SCAN_C)
     res = {}
 
-    def hold(name, kernel_fn, plain_fn):
+    def hold(name, kernel_fn, plain_fn, stack=SM.stack_point):
         plain_ms, want = _once_ms(torch, plain_fn)
-        err = _held(torch, name, SM.stack_point(kernel_fn()), SM.stack_point(want))
+        err = _held(torch, name, stack(kernel_fn()), stack(want))
         res[name] = {"max_abs_err": err, "check_ms": cuda_ms(torch, kernel_fn, 2),
                      "plain_ms": plain_ms, "check_n": scalars.shape[1], "check_lanes": lanes}
         return want
 
-    bk = hold("scan_acc", lambda: SM.bucket_accumulate(curve, points, digits, lanes, SCAN_C),
+    bk = hold("scan_acc",
+              lambda: SM.bucket_accumulate(curve, points, digits, lanes, SCAN_C),
               lambda: SM.bucket_accumulate_plain(curve, points, digits, lanes, SCAN_C))
+    pts, W, B, same = SM.stack_point(points), digits.shape[0], 1 << SCAN_C, lambda x: x
+    pw = hold("scan_acc_words", lambda: SM.point_words(pts), lambda: SM.point_words_plain(pts),
+              same)
+    words = hold("scan_acc_walk", lambda: SM.accumulate_words(curve, pw, digits, lanes, SCAN_C),
+                 lambda: SM.accumulate_words_plain(curve, pw, digits, lanes, SCAN_C), same)
+    hold("scan_acc_split", lambda: SM.split_buckets(words, lanes, W, B),
+         lambda: SM.split_buckets_plain(words, lanes, W, B), same)
+    del pw, words
     folded = M._fold_axis(curve, bk, lanes)
     sums = hold("scan_red", lambda: SM.bucket_reduce(curve, folded),
                 lambda: SM.bucket_reduce_plain(curve, folded))
@@ -3282,21 +3322,42 @@ def phase_msm_scan(torch, dev, phase: str, curve_name: str, ptxas: dict) -> tupl
     device = sum(v["device_ms"] for v in profiled.values())
     n = scalars.shape[1]
     digs, bk, sums = (staged[k][1] for k in ("digits", "fold", "reduce"))
-    calls = {"scan_acc": lambda: SM.bucket_accumulate(curve, points, digs, lanes, SCAN_C),
+    nc, W, B = (2 if curve_name == "g2" else 1), digs.shape[0], 1 << SCAN_C
+    pts = SM.stack_point(points)
+    pw = SM.point_words(pts)
+    words = SM.accumulate_words(curve, pw, digs, lanes, SCAN_C)
+    calls = {"scan_acc": lambda: SM.bucket_accumulate(curve, points, digs, lanes,
+                                                               SCAN_C),
+             "scan_acc_words": lambda: SM.point_words(pts),
+             "scan_acc_walk": lambda: SM.accumulate_words(curve, pw, digs, lanes, SCAN_C),
+             "scan_acc_split": lambda: SM.split_buckets(words, lanes, W, B),
              "scan_red": lambda: SM.bucket_reduce(curve, bk),
              "scan_horner": lambda: SM.horner(curve, sums, SCAN_C)}
     work = scan_chain_work(curve_name, n, lanes, SCAN_C)
-    nc, W = (2 if curve_name == "g2" else 1), digs.shape[0]
-    threads = {"scan_acc": lanes * W, "scan_red": W, "scan_horner": 1}
-    for name in SCAN_CHAINS:
+    team, block = SM.ACC_SHAPE[nc]
+    threads = {"scan_acc_words": n, "scan_acc_walk": lanes * W * team,
+               "scan_acc_split": lanes * W * B, "scan_red": W, "scan_horner": 1}
+    for name in ("scan_acc", *SCAN_CHAINS):
         bms, by = bound_ms(*work[name])
-        chains[name].update(
-            ms=cuda_ms(torch, calls[name], 2), bound_ms=bms, bound_by=by, bytes=work[name][0],
-            instructions=work[name][1],
-            launch=_scan_shape(torch, SM.KERNELS[name], SCAN_KIND[name], nc, threads[name]),
-            ptxas=_ptxas_of(ptxas, {"scan_acc": "accumulate_kernel", "scan_red": "reduce_kernel",
-                                    "scan_horner": "horner_kernel"}[name]
-                            + ("IN4f3813Fp2E" if nc == 2 else "IN4f3812FpE")))
+        chains[name].update(ms=cuda_ms(torch, calls[name], 2), bound_ms=bms, bound_by=by,
+                            bytes=work[name][0], instructions=work[name][1])
+        if name in SCAN_KIND:
+            chains[name].update(
+                launch=_scan_shape(torch, SM.KERNELS[name], SCAN_KIND[name], nc, threads[name],
+                                   *((team, block) if name == "scan_acc_walk" else (1, 1))),
+                ptxas=_ptxas_of(ptxas, SCAN_ENTRY[name]
+                                + ("IN4f3813Fp2E" if nc == 2 else "IN4f3812FpE")))
+    # scan-acc's fixed cost (the identity's stores, the conversions, the
+    # split) and its time a step, from the function's times at the check
+    # size and at full width (the same lanes and windows: 16 and n / lanes
+    # additions a stream)
+    fn = chains["scan_acc"]
+    steps_check, steps = fn["check_n"] // lanes, n // lanes
+    per_step = (fn["ms"] - fn["check_ms"]) / (steps - steps_check)
+    fn.update(per_step_ms=per_step, fixed_ms=fn["check_ms"] - steps_check * per_step,
+              scratch_bytes=words.numel() * words.element_size(),
+              out_bytes=3 * nc * LIMB_BYTES * lanes * W * B)
+    del pw, words
     emit({"phase": phase, "n": n, "c": SCAN_C, "lanes": lanes, "ok": True, "seconds": dt,
           "points_per_s": n / dt, "to_affine_s": dt_affine, "launches": launches,
           "to_affine_launches": affine_launches, "fold_launches": fold_launches,
@@ -3504,7 +3565,8 @@ def distributed_pairing(torch, dev, mesh, ps, qs, expected) -> tuple:
 
 
 def distributed_scan_and_auto(torch, dev, mesh) -> tuple:
-    """`msm_sharded` (the scan MSM: scan-acc and scan-red once each, K7-K10
+    """`msm_sharded` (the scan MSM: scan-acc's three launches and scan-red
+    once each, K7-K10
     in the fold across lanes; checked) in the world of one at 2^16 with the
     host finish, and `msm_auto` on the card at 2^20, which must take the
     bucket route (one K2 launch, no strict kernel); both against their
@@ -3527,8 +3589,10 @@ def distributed_scan_and_auto(torch, dev, mesh) -> tuple:
     check(_affine(G1, out) == [expected], "sharded scan MSM differs from the expected point")
     check(all(scan_launches[k] > 0 for k in ("mont_mul", "add", "sub")),
           f"a kernel of the path was not launched: {scan_launches}")
-    # the host finish: scan-acc and scan-red on the rank, no scan-horner
-    check(chain_launches == {"scan_acc": 1, "scan_red": 1, "scan_horner": 0},
+    # the host finish: scan-acc (its three launches) and scan-red on the
+    # rank, no scan-horner
+    check(chain_launches == {"scan_acc_words": 1, "scan_acc_walk": 1, "scan_acc_split": 1,
+                             "scan_red": 1, "scan_horner": 0},
           f"the sharded scan MSM's chains launched {chain_launches}")
     scan_launches.update(chain_launches)
     scan = {"backend": "scan", "collective": str(mesh.backend), "world": mesh.size,
@@ -3866,24 +3930,39 @@ def main() -> int:
             "strict:fp12_mul_limbs_limbs", 0)},
         digits_ms=k4w["limbs_limbs"]["digits_ms"], at_widths=k4w["limbs_limbs"]["at_widths"],
         launch=k4w["limbs_limbs"]["launch"], ptxas=k4w["limbs_limbs"]["ptxas"]))
+    scan_where = "ark_blst_tpu/ops/pallas_field.py:66 (K7-K10 under the lax.scan of " \
+        "ark_blst_tpu/curves/msm.py:138 _scan from "
+    line_keys = ("ms", "plain_ms", "check_ms", "check_n", "check_lanes", "max_abs_err",
+                 "bound_ms", "bound_by", "bytes", "instructions")
+    # scan-acc as one function (its three launches, each its own line
+    # below): `launches` its walk's, the three beside
+    acc_keys = (*line_keys, "fixed_ms", "per_step_ms", "scratch_bytes", "out_bytes")
+    g1 = scan_chains["g1"]["scan_acc"]
+    strict_chain_lines.append(_kernel_line(
+        "scan_acc", "scan_msm.cu", scan_where + ":155 _bucket_accumulate; scan-acc's three "
+        "launches as one function)", scan["g1"].get("scan_acc_walk", 0), g1,
+        launches_of={k: scan["g1"].get(k, 0)
+                     for k in ("scan_acc_words", "scan_acc_walk", "scan_acc_split")},
+        launches_msm_scan_g2=scan["g2"].get("scan_acc_walk", 0),
+        **{k: g1[k] for k in acc_keys if k not in ("ms", "plain_ms", "max_abs_err",
+                                                     "bound_ms", "bound_by")},
+        g2={k: scan_chains["g2"]["scan_acc"][k] for k in acc_keys}))
     scan_replaces = {
-        "scan_acc": ":155 _bucket_accumulate",
+        "scan_acc_words": ":155 _bucket_accumulate; scan-acc's point words",
+        "scan_acc_walk": ":155 _bucket_accumulate; scan-acc's walk",
+        "scan_acc_split": ":155 _bucket_accumulate; scan-acc's split",
         "scan_red": ":199 _bucket_reduce, its scan at :223",
         "scan_horner": ":227 _horner, its fori_loop at :241"}
     for name, where in scan_replaces.items():
         g1, g2 = scan_chains["g1"][name], scan_chains["g2"][name]
         strict_chain_lines.append(_kernel_line(
-            name, "scan_msm.cu",
-            "ark_blst_tpu/ops/pallas_field.py:66 (K7-K10 under the lax.scan of "
-            "ark_blst_tpu/curves/msm.py:138 _scan from " + where + ")",
+            name, "scan_msm.cu", scan_where + where + ")",
             scan["g1"].get(name, 0), g1, launches_msm_scan_g2=scan["g2"].get(name, 0),
             launches_distributed={"msm_scan": dist_launches["scan"].get(name, 0)},
             check_ms=g1["check_ms"], check_n=g1["check_n"], check_lanes=g1["check_lanes"],
             bytes=g1["bytes"], instructions=g1["instructions"], launch=g1["launch"],
             ptxas=g1["ptxas"],
-            g2={k: g2[k] for k in ("ms", "plain_ms", "check_ms", "check_n", "check_lanes",
-                                   "max_abs_err", "bound_ms", "bound_by", "bytes",
-                                   "instructions", "launch", "ptxas")}))
+            g2={k: g2[k] for k in (*line_keys, "launch", "ptxas")}))
 
     emit({"kernels": [
         _kernel_line("mont_mul", "mont_mul.cu", "ark_blst_tpu/ops/pallas_lazy.py:41",

@@ -78,13 +78,15 @@ def test_strict_header_constants(name, spec):
      MB.KERNEL_G1_WORDS, FI.KERNEL_INV, FI.KERNEL_UP, FI.KERNEL_DOWN, FE.KERNEL_EASY,
      FE.KERNEL_HARD, K4.KERNEL_WORDS, K4.KERNEL_LIMBS, FI.KERNEL_INV_LIMBS,
      PS.PREPARE_KERNEL_LIMBS, PS.MILLER_KERNEL_LIMBS, FE.KERNEL_EASY_LIMBS,
-     K4.KERNEL_LIMBS_LIMBS, *SM.KERNELS.values()],
+     K4.KERNEL_LIMBS_LIMBS, SM.KERNEL_WORDS, SM.KERNEL_ACC, SM.KERNEL_SPLIT, SM.KERNEL_RED,
+     SM.KERNEL_HORNER],
     ids=["mont_mul", "bucket", "cyc_sqr", "fp12_mul", "prepare_step", "miller_step",
          "bucket_g2", "g2_point_words", *("strict_" + op for op in SF.KERNELS), "fp12_sqr",
          "fp12_mul_by_014", "g1_point_words", "fp_inv", "scan_up", "scan_down",
          "final_exp_easy", "final_exp_hard", "fp12_mul_words", "fp12_mul_limbs",
          "fp_inv_limbs", "prepare_chain_limbs", "miller_chain_limbs", "final_exp_easy_limbs",
-         "fp12_mul_limbs_limbs", *SM.KERNELS])
+         "fp12_mul_limbs_limbs", "scan_acc_words", "scan_acc", "scan_acc_split", "scan_red",
+         "scan_horner"])  # scan_acc: the walk's entry, scan_msm_accumulate
 def test_kernel_sources_export_their_entry(kernel):
     src = (KC.CSRC_DIR / kernel.source).read_text()
     assert re.search(rf'extern "C" int {kernel.symbol}\(', src)

@@ -1,5 +1,6 @@
 """The CUDA kernels on the card against their plain PyTorch versions, and the
-G1 and G2 MSMs, the strict engine's scan MSM (its three chains, `-k scan`)
+G1 and G2 MSMs, the strict engine's scan MSM (its three chains, scan-acc's
+three launches among them, `-k scan`)
 and the batched pairing (fused, unfused, and strict on both routes: the
 chains on strict limbs with the multi-pairings' fold on K4's strict limbs,
 `-k strict`, and K7-K10 with the K7-inv ladder) on the card against the
@@ -920,6 +921,88 @@ def test_scan_chains_equal_to_plain(dev, curve):
     got = _launched_once(SM.KERNEL_HORNER, lambda: SM.horner(cv, sums, 8))
     assert torch.equal(SM.stack_point(got), SM.stack_point(SM.horner_plain(cv, sums, 8)))
     assert (CV.g2_from_dev if curve == "g2" else CV.g1_from_dev)(got) == [expected]
+
+
+# scan-acc's card cases: (c, digits, one step a stream): random scalars'
+# digits at c = 4 and c = 8, every digit equal, every digit 0, n = lanes
+SCAN_ACC_CASES = {"c4": (4, "random", False), "c8": (8, "random", False),
+                  "equal_digits": (8, "equal", False), "zero_digits": (8, "zero", False),
+                  "one_step": (8, "random", True)}
+
+
+def _scan_acc_instance(dev, curve: str, case: str):
+    """2^12 points of `curves/instance.py` (an identity point and a zero
+    scalar; n = lanes for one step a stream) in other projective
+    coordinates (each scaled by a random z), 256 lanes (G1) or 64 (G2), and
+    the case's digits."""
+    c, kind, one_step = SCAN_ACC_CASES[case]
+    lanes = 64 if curve == "g2" else 256
+    points, scalars, _ = distinct_bases(12, 6, dev, curve)
+    n = lanes if one_step else scalars.shape[1]
+    rng = random.Random(f"{curve}-{case}")
+    z = CV.fp_to_dev([rng.randrange(1, OF.P) for _ in range(n)]).to(dev)
+    scale = lambda x: SF.mont_mul(x[:, :n].contiguous(), z, FP)  # noqa: E731
+    points = tuple(tuple(scale(x) for x in co) if isinstance(co, tuple) else scale(co)
+                   for co in points)
+    W = -(-256 // c)
+    if kind == "random":
+        digits = M.window_digits(scalars[:, :n].contiguous(), c)
+    else:
+        value = 0 if kind == "zero" else (1 << c) - 3
+        digits = torch.full((W, n), value, dtype=torch.int32, device=dev)
+    return points, digits, lanes, c
+
+
+@pytest.mark.parametrize("case", list(SCAN_ACC_CASES))
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_scan_acc_cases_equal_to_plain(dev, curve, case):
+    """scan-acc's three launches (the point words, the walk, the split) on
+    the card, once each, against `bucket_accumulate_plain` on the card limb
+    for limb, and each launch against its plain version on the same input:
+    random digits at c = 4 and c = 8, every digit equal (one bucket takes
+    every point of a stream, in order), every digit 0, one step a stream."""
+    from ark_blst_tpu_torch.curves.group import G1 as CG1, G2 as CG2
+
+    cv = CG2 if curve == "g2" else CG1
+    points, digits, lanes, c = _scan_acc_instance(dev, curve, case)
+    W, B = digits.shape[0], 1 << c
+    want = SM.stack_point(SM.bucket_accumulate_plain(cv, points, digits, lanes, c))
+    before = {k: v.launches for k, v in SM.KERNELS.items()}
+    got = SM.stack_point(SM.bucket_accumulate(cv, points, digits, lanes, c))
+    torch.cuda.synchronize()
+    assert {k: v.launches - before[k] for k, v in SM.KERNELS.items()} == {
+        "scan_acc_words": 1, "scan_acc_walk": 1, "scan_acc_split": 1, "scan_red": 0,
+        "scan_horner": 0}
+    assert torch.equal(got, want)
+    pts = SM.stack_point(points)
+    pw = _launched_once(SM.KERNEL_WORDS, lambda: SM.point_words(pts))
+    assert torch.equal(pw, SM.point_words_plain(pts))
+    bk = _launched_once(SM.KERNEL_ACC, lambda: SM.accumulate_words(cv, pw, digits, lanes, c))
+    assert torch.equal(bk, SM.accumulate_words_plain(cv, pw, digits, lanes, c))
+    out = _launched_once(SM.KERNEL_SPLIT, lambda: SM.split_buckets(bk, lanes, W, B))
+    assert torch.equal(out, SM.split_buckets_plain(bk, lanes, W, B))
+
+
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_scan_acc_team_shapes_agree(dev, curve):
+    """scan-acc's walk at other (team, block) shapes than `ACC_SHAPE`, one
+    thread a stream included, through its C entry (the wrapper launches
+    `ACC_SHAPE` only), gives the plain version's records."""
+    from ark_blst_tpu_torch.curves.group import G1 as CG1, G2 as CG2
+
+    cv = CG2 if curve == "g2" else CG1
+    points, digits, lanes, c = _scan_acc_instance(dev, curve, "c8")
+    pw = SM.point_words(SM.stack_point(points))
+    want = SM.accumulate_words_plain(cv, pw, digits, lanes, c)
+    shapes = ([(1, 64), (2, 64), (3, 96), (6, 96), (9, 288), (18, 144), (18, 288)]
+              if curve == "g2"
+              else [(1, 64), (2, 96), (3, 96), (6, 96), (6, 288)])
+    for team, block in shapes:
+        got = torch.empty_like(want)
+        SM.KERNEL_ACC.launch(pw.data_ptr(), digits.data_ptr(), got.data_ptr(), pw.shape[0],
+                             lanes, digits.shape[0], 1 << c, pw.shape[1] // SM.RECORD, team,
+                             block, torch.cuda.current_stream(dev).cuda_stream)
+        assert torch.equal(got, want), (team, block)
 
 
 VEC_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "vectors", "bls12_381.json")

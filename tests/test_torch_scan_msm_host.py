@@ -1,7 +1,8 @@
 """The scan MSM's chains on the CPU: the complete RCB15 addition and
-doubling of csrc/group381.cuh and the walks of csrc/scan_msm.cuh (scan-acc's
-stream body, scan-red's window walk, scan-horner's walk), compiled for the
-CPU with the host C++ compiler and undefined-behaviour checks, and the
+doubling of csrc/group381.cuh and the bodies of csrc/scan_msm.cuh (scan-acc's
+three passes, its walk's team phases run job by job, in order and last
+first; scan-red's window walk; scan-horner's walk), compiled for the CPU
+with the host C++ compiler and undefined-behaviour checks, and the
 chains' plain loops (`ops/scan_msm.py`) against the JAX package.
 
 Strict values are canonical and both sides compute the same expressions,
@@ -14,7 +15,11 @@ points (Z != 1, an identity point and a zero scalar), 8 lanes, c = 4,
 against `bucket_accumulate_plain`, `bucket_reduce_plain` and
 `horner_plain`; those loops against JAX `curves/msm.py`
 `_bucket_accumulate`, `_bucket_reduce` and `_horner` with `fuse=False`
-digit for digit. The kernels themselves run only on the card
+digit for digit; scan-acc's passes, each against its plain version and
+together against `bucket_accumulate_plain`, on G1 and G2 with random
+digits at c = 4 and c = 8, every digit equal, every digit 0 and one step
+a stream, limbs of numbers in [p, 2^384) and digits up to 2^16 (taken
+mod 2^c). The kernels themselves run only on the card
 (tests/test_torch_cuda.py). Skipped where no host C++ compiler is
 installed.
 """
@@ -59,21 +64,70 @@ def _share_cpu_among_workers():
 
 
 HARNESS = r"""
+#include <algorithm>
 #include <cstdio>
 #include <vector>
 #include "scan_msm.cuh"
 
-// stdin: op, nc, n, a, b (int64 each), then the operands (int32); stdout:
-// the result. Point stacks are (3 nc, 24, *batch) strict limbs, nc = 1
-// (G1) or 2 (G2). Ops: 0 complete_add(p, q) on two (3 nc, 24, n) stacks;
-// 1 complete_dbl(p); 2 scan-acc: points (3 nc, 24, n) and digits (a, n),
-// lanes b, B = 16 -> (3 nc, 24, b, a, 16), the streams run last first;
-// 3 scan-red: buckets (3 nc, 24, n, a) -> (3 nc, 24, n); 4 scan-horner:
-// sums (3 nc, 24, n) at c = a -> (3 nc, 24, 1).
+// The walk's team on the CPU: every job of a phase in turn, in order or
+// last first (the jobs of a phase are independent).
+struct HostTeam {
+  bool reverse;
+  template <class Job>
+  void phase(int jobs, Job job) const {
+    if (reverse)
+      for (int j = jobs - 1; j >= 0; --j) job(j);
+    else
+      for (int j = 0; j < jobs; ++j) job(j);
+  }
+};
+
+// stdin: op, nc, n, a, b, c, rev (int64 each), then the operands (int32);
+// stdout: the result. Point stacks are (3 nc, 24, *batch) strict limbs,
+// nc = 1 (G1) or 2 (G2); records (*, 36 nc) words. Ops: 0
+// complete_add(p, q) on two (3 nc, 24, n) stacks; 1 complete_dbl(p); 2
+// scan-acc's three passes: points (3 nc, 24, n) and digits (a, n), lanes
+// b, B = 2^c -> (3 nc, 24, b, a, B), the streams run last first; 3
+// scan-red: buckets (3 nc, 24, n, a) -> (3 nc, 24, n); 4 scan-horner: sums
+// (3 nc, 24, n) at c = a -> (3 nc, 24, 1); 5 scan-acc's point words:
+// (3 nc, 24, n) -> (n, 36 nc); 6 its walk: records (n, 36 nc) and digits
+// (a, n), lanes b, B = 2^c -> (b a B, 36 nc); 7 its split: records
+// (n, 36 nc) -> (3 nc, 24, n). rev runs each phase's jobs last first.
 template <class F>
-int run(long long op, long long n, long long a, long long b, const int* x, int* out) {
+void words_pass(const int* pts, int* pw, long long n) {
+  for (long long i = 0; i < n; ++i) smsm::point_to_words<F>(pts, pw, n, i);
+}
+
+template <class F>
+void walk_pass(const HostTeam& team, const int* pw, const int* digs, int* bk, long long n,
+               int lanes, int W, int B) {
+  std::vector<f381::u32> sm(smsm::ACC_SLOTS<F> * f381::NW, 0xDEADBEEFu);
+  const smsm::TeamMem m{sm.data(), 1};
+  for (long long s = static_cast<long long>(lanes) * W - 1; s >= 0; --s) {
+    const int l = static_cast<int>(s % lanes), w = static_cast<int>(s / lanes);
+    int* base = smsm::stream_buckets<F>(bk, W, B, l, w);
+    team.phase(B * smsm::PV<F>, [&](int j) { smsm::init_job<F>(base, j); });
+    smsm::walk_stream<F>(team, m, pw, digs, bk, n, lanes, W, B, l, w);
+  }
+}
+
+template <class F>
+void split_pass(const HostTeam& team, const int* bk, int* out, long long E) {
+  std::vector<f381::u32> sm(smsm::PW<F> * (smsm::SPLIT_ELEMS + 1), 0xDEADBEEFu);
+  for (long long e0 = 0; e0 < E; e0 += smsm::SPLIT_ELEMS) {
+    const int count = static_cast<int>(std::min<long long>(smsm::SPLIT_ELEMS, E - e0));
+    team.phase(count * smsm::PV<F>, [&](int j) { smsm::split_load<F>(bk, sm.data(), e0, j); });
+    team.phase(count, [&](int e) { smsm::split_store<F>(sm.data(), out, E, e0, e); });
+  }
+}
+
+template <class F>
+int run(long long op, long long n, long long a, long long b, long long c, const HostTeam& team,
+        const int* x, int* out) {
   constexpr int R = 3 * g381::NC<F>;
+  constexpr int PW = smsm::PW<F>;
   const long long cs = smsm::LIMBS * n;
+  const int B = 1 << c;
   if (op <= 1) {
     for (long long i = 0; i < n; ++i) {
       F X, Y, Z;
@@ -88,33 +142,48 @@ int run(long long op, long long n, long long a, long long b, const int* x, int* 
       smsm::write_point(X, Y, Z, out + i, n, cs);
     }
   } else if (op == 2) {
-    for (long long s = a * b - 1; s >= 0; --s)
-      smsm::accumulate_stream<F>(x, x + R * cs, out, n, static_cast<int>(b),
-                                 static_cast<int>(a), 16, static_cast<int>(s % b),
-                                 static_cast<int>(s / b));
+    const long long E = a * b * B;
+    std::vector<int> pw(n * PW, -1), bk(E * PW, -1);
+    words_pass<F>(x, pw.data(), n);
+    walk_pass<F>(team, pw.data(), x + R * cs, bk.data(), n, static_cast<int>(b),
+                 static_cast<int>(a), B);
+    split_pass<F>(team, bk.data(), out, E);
   } else if (op == 3) {
     for (long long w = 0; w < n; ++w)
       smsm::reduce_window<F>(x, out, static_cast<int>(n), static_cast<int>(a),
                              static_cast<int>(w));
-  } else {
+  } else if (op == 4) {
     smsm::horner_walk<F>(x, out, static_cast<int>(n), static_cast<int>(a));
+  } else if (op == 5) {
+    words_pass<F>(x, out, n);
+  } else if (op == 6) {
+    walk_pass<F>(team, x, x + n * PW, out, n, static_cast<int>(b), static_cast<int>(a), B);
+  } else {
+    split_pass<F>(team, x, out, n);
   }
   return 0;
 }
 
 int main() {
-  long long hdr[5];
-  if (fread(hdr, sizeof(long long), 5, stdin) != 5) return 2;
-  const long long op = hdr[0], nc = hdr[1], n = hdr[2], a = hdr[3], b = hdr[4];
-  if (op < 0 || op > 4 || (nc != 1 && nc != 2) || n < 1) return 2;
-  const long long pt = 3 * nc * 24;  // rows of a point stack
-  const long long in_size = op == 0 ? 2 * pt * n : op == 2 ? (pt + a) * n : op == 3 ? pt * n * a
-                                                                                    : pt * n;
-  const long long out_size = op <= 1 ? pt * n : op == 2 ? pt * b * a * 16 : op == 3 ? pt * n : pt;
+  long long hdr[7];
+  if (fread(hdr, sizeof(long long), 7, stdin) != 7) return 2;
+  const long long op = hdr[0], nc = hdr[1], n = hdr[2], a = hdr[3], b = hdr[4], c = hdr[5];
+  if (op < 0 || op > 7 || (nc != 1 && nc != 2) || n < 1 || c < 0 || c > 16) return 2;
+  const HostTeam team{hdr[6] != 0};
+  const long long pt = 3 * nc * 24, rec = 3 * nc * 12;  // rows of a point stack, record words
+  const long long B = 1LL << c;
+  long long in_size = pt * n, out_size = pt * n;
+  if (op == 0) in_size = 2 * pt * n;
+  if (op == 2) in_size = (pt + a) * n, out_size = pt * b * a * B;
+  if (op == 3) in_size = pt * n * a;
+  if (op == 4) out_size = pt;
+  if (op == 5) out_size = rec * n;
+  if (op == 6) in_size = (rec + a) * n, out_size = rec * b * a * B;
+  if (op == 7) in_size = rec * n;
   std::vector<int> in(in_size), out(out_size, -1);
   if (fread(in.data(), sizeof(int), in.size(), stdin) != in.size()) return 3;
-  if (nc == 1) run<f381::Fp>(op, n, a, b, in.data(), out.data());
-  else run<f381::Fp2>(op, n, a, b, in.data(), out.data());
+  if (nc == 1) run<f381::Fp>(op, n, a, b, c, team, in.data(), out.data());
+  else run<f381::Fp2>(op, n, a, b, c, team, in.data(), out.data());
   fwrite(out.data(), sizeof(int), out.size(), stdout);
   return 0;
 }
@@ -146,9 +215,10 @@ def harness():
     return str(exe)
 
 
-def run(exe, op: int, curve, *stacks, n: int, a: int = 0, b: int = 0, shape) -> torch.Tensor:
+def run(exe, op: int, curve, *stacks, n: int, a: int = 0, b: int = 0, c: int = 0,
+        rev: bool = False, shape) -> torch.Tensor:
     nc = 2 if curve.name == "g2" else 1
-    hdr = np.array([op, nc, n, a, b], np.int64).tobytes()
+    hdr = np.array([op, nc, n, a, b, c, int(rev)], np.int64).tobytes()
     data = b"".join(np.ascontiguousarray(s.numpy(), np.int32).tobytes() for s in stacks)
     proc = subprocess.run([exe], input=hdr + data, capture_output=True, timeout=600)
     assert proc.returncode == 0, proc.stderr.decode()
@@ -242,13 +312,13 @@ def instances():
 
 @pytest.mark.parametrize("name", ["g1", "g2"])
 def test_scan_walks_host(harness, instances, name):
-    """scan-acc's stream body (every stream, last first), scan-red's window
-    walk and scan-horner's walk against the plain loops limb for limb, each
-    on the plain loop's own input; the result is the MSM."""
+    """scan-acc's three passes (the walk's streams last first), scan-red's
+    window walk and scan-horner's walk against the plain loops limb for
+    limb, each on the plain loop's own input; the result is the MSM."""
     curve, inst = CURVES[name], instances[name]
     W = inst["digits"].shape[0]
     pts = SM.stack_point(inst["points"])
-    got = run(harness, 2, curve, pts, inst["digits"], n=N, a=W, b=LANES,
+    got = run(harness, 2, curve, pts, inst["digits"], n=N, a=W, b=LANES, c=C,
               shape=(pts.shape[0], 24, LANES, W, 1 << C))
     assert torch.equal(got, SM.stack_point(inst["buckets"]))
     folded = SM.stack_point(inst["folded"])
@@ -259,6 +329,100 @@ def test_scan_walks_host(harness, instances, name):
     assert torch.equal(got, SM.stack_point(inst["result"]))
     from_dev = CV.g2_from_dev if name == "g2" else CV.g1_from_dev
     assert from_dev(SM.point_of(got)) == [inst["want"]]
+
+
+# scan-acc's cases: (points, lanes, c, digits): random scalars' digits at
+# c = 4 and c = 8, every digit equal (one bucket takes every point of a
+# stream, in order), every digit 0, and one step a stream (n = lanes)
+ACC_CASES = {"c4": (32, 8, 4, "random"), "c8": (32, 8, 8, "random"),
+             "equal_digits": (32, 4, 4, "equal"), "zero_digits": (32, 4, 4, "zero"),
+             "one_step": (8, 8, 8, "random")}
+
+
+def acc_instance(curve, case: str):
+    """Points in random projective coordinates (point 3 the identity) and
+    the case's digits."""
+    n, lanes, c, kind = ACC_CASES[case]
+    rng = random.Random(f"{curve.name}-{case}")
+    base = affine_points(curve, rng, 4)
+    pts = [base[i % 4] for i in range(n)]
+    pts[3] = None
+    points = scaled(curve, to_dev(curve, pts), rng)
+    W = -(-256 // c)
+    if kind == "random":
+        digits = M.window_digits(CV.fr_to_dev([rng.randrange(OF.R) for _ in range(n)]), c)
+    else:
+        digits = torch.full((W, n), 0 if kind == "zero" else (1 << c) - 3, dtype=torch.int32)
+    return points, digits, lanes, c
+
+
+@pytest.mark.parametrize("case", list(ACC_CASES))
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_scan_acc_passes_host(harness, name, case):
+    """scan-acc's three passes under the harness, the walk's phases job by
+    job (in order and last first), against `bucket_accumulate_plain` limb
+    for limb; and each pass alone (the point words, the walk's bucket
+    records, the split) against its plain version on the same input."""
+    curve = CURVES[name]
+    points, digits, lanes, c = acc_instance(curve, case)
+    n, W, B = digits.shape[1], digits.shape[0], 1 << c
+    pts = SM.stack_point(points)
+    want = SM.stack_point(SM.bucket_accumulate_plain(curve, points, digits, lanes, c))
+    for rev in (False, True):
+        got = run(harness, 2, curve, pts, digits, n=n, a=W, b=lanes, c=c, rev=rev,
+                  shape=want.shape)
+        assert torch.equal(got, want)
+    rec = SM.RECORD * pts.shape[0] // 3
+    pw = run(harness, 5, curve, pts, n=n, shape=(n, rec))
+    assert torch.equal(pw, SM.point_words_plain(pts))
+    bk = run(harness, 6, curve, pw, digits, n=n, a=W, b=lanes, c=c, shape=(lanes * W * B, rec))
+    assert torch.equal(bk, SM.accumulate_words_plain(curve, pw, digits, lanes, c))
+    out = run(harness, 7, curve, bk, n=lanes * W * B, rev=True, shape=(pts.shape[0], 24, bk.shape[0]))
+    assert torch.equal(out.reshape(want.shape), SM.split_buckets_plain(bk, lanes, W, B))
+    assert torch.equal(out.reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_scan_acc_takes_limbs_and_digits_as_the_kernel_does_host(harness, name):
+    """The point words reduce limbs of numbers in [p, 2^384) to their
+    residues, and the walk takes digits mod 2^c (digits up to 2^16),
+    against the plain versions."""
+    curve = CURVES[name]
+    rng = random.Random(61 if name == "g1" else 62)
+    n, lanes, c = 16, 4, 4
+    nc = 2 if name == "g2" else 1
+    vals = [[rng.randrange(1 << 384) if k % 2 else rng.randrange(OF.P, 1 << 384)
+             for k in range(n)] for _ in range(3 * nc)]
+    pts = torch.tensor([[[(v >> (16 * j)) & 0xFFFF for v in row] for j in range(24)]
+                        for row in vals], dtype=torch.int32)
+    pw = run(harness, 5, curve, pts, n=n, shape=(n, SM.RECORD * nc))
+    assert torch.equal(pw, SM.point_words_plain(pts))
+    words = [[sum((int(pw[i, 12 * q + k]) & 0xFFFFFFFF) << (32 * k) for k in range(12))
+              for i in range(n)] for q in range(3 * nc)]
+    assert words == [[v % OF.P for v in row] for row in vals]
+    points, _, _, _ = acc_instance(curve, "c4")
+    pw = SM.point_words_plain(SM.stack_point(points))[:n]
+    digits = torch.tensor([[rng.randrange(1 << 16) for _ in range(n)] for _ in range(64)],
+                          dtype=torch.int32)
+    bk = run(harness, 6, curve, pw, digits, n=n, a=64, b=lanes, c=c,
+             shape=(lanes * 64 * 16, SM.RECORD * nc))
+    assert torch.equal(bk, SM.accumulate_words_plain(curve, pw, digits, lanes, c))
+
+
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_scan_acc_plain_passes_compose(name):
+    """The plain versions of scan-acc's passes, and the wrappers on CPU
+    tensors, compose to `bucket_accumulate_plain`'s stack limb for limb."""
+    curve = CURVES[name]
+    points, digits, lanes, c = acc_instance(curve, "c4")
+    W, B = digits.shape[0], 1 << c
+    want = SM.stack_point(SM.bucket_accumulate_plain(curve, points, digits, lanes, c))
+    pw = SM.point_words(SM.stack_point(points))
+    bk = SM.accumulate_words(curve, pw, digits, lanes, c)
+    assert bk.shape == (lanes * W * B, SM.RECORD * want.shape[0] // 3)
+    assert torch.equal(SM.split_buckets(bk, lanes, W, B), want)
+    assert torch.equal(SM.stack_point(SM.bucket_accumulate(curve, points, digits, lanes, c)),
+                       want)
 
 
 def _to_jax(tree):
