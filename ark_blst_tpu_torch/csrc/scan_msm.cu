@@ -53,23 +53,60 @@
 // 164.9 against 103.8 on G2 (255 registers, 968 B of stack). What the
 // interpreted walk's time splits into (the products' issue rate, their
 // latency, the interpreter's loads and barriers) is not measured.
+//
+// scan-red's and scan-horner's design (scan_msm.cuh reduce_team,
+// horner_team). W = 32 windows at c = 8 are too few chains to fill the
+// card, so a chain's latency is their time: one thread a chain, the group
+// law out of line at 255 registers with stack, each bucket converted from
+// limbs inside the chain, ran 46 us (G1) and 161 us (G2) a dependent
+// addition. Now one block a chain runs the additions' and doublings' Fp
+// products and sums as jobs in phases on operands in shared memory (the
+// job tables of scan-acc's walk, and a doubling's): the products one a
+// thread on its first threads, in lockstep, the sums, whose code paths
+// differ from job to job, one or two a warp (a warp running several would
+// take them in turn); scan-red's running and total additions of
+// neighbouring steps in the same phases (B steps for 2 (B - 1) additions),
+// the buckets converted off the chain (a column of word records in shared
+// memory, refilled every `column` steps); scan-horner's window sums
+// converted into shared memory before its walk. What is left is the chain
+// of products: on an H100 80GB HBM3 at 700 W a step of scan-red runs ~2x
+// its two products' latency. The shapes are launch arguments
+// (ops/scan_msm.py RED_SHAPE, HORNER_SHAPE, timed by
+// scripts/scan_red_probe.py beside one product's latency on the card).
 #include "scan_msm.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;
-constexpr int kMaxAccBlock = 288;  // threads a block of the walk, at most
+constexpr int kMaxAccBlock = 288;    // threads a block of the walk, at most
+constexpr int kMaxChainBlock = 256;  // of scan-red and scan-horner
+constexpr long long kMaxSmem = 232448;  // shared bytes a block can have
 
 // A team's share of a phase: jobs rank, rank + size, ...; then the block's
-// barrier (every team of the block runs the same phases: each stream has
-// n / lanes steps).
+// barrier (every team of a block runs the same phases: each of scan-acc's
+// streams has n / lanes steps).
 struct BlockTeam {
   int rank, size;
   bool active;
   template <class Job>
   __device__ __forceinline__ void phase(int jobs, Job job) const {
-    if (active)
+    if (active && rank < size)
       for (int j = rank; j < jobs; j += size) job(j);
+    __syncthreads();
+  }
+  // A block that is one team (scan-red, scan-horner): job j on lane
+  // j / ways of warp j % ways (ways at most the block's whole warps), so
+  // that a sum phase's jobs, whose code paths differ, run in warps of their
+  // own (job i and job i + ways, scan-red's two additions' job i, share a
+  // warp and a path); a block of less than a warp is one such warp. Then
+  // the barrier.
+  template <class Job>
+  __device__ __forceinline__ void spread(int jobs, int ways, Job job) const {
+    const int warps = blockDim.x / 32, w = threadIdx.x / 32;
+    const int lanes = warps > 0 ? 32 : static_cast<int>(blockDim.x);
+    if (ways > (warps > 0 ? warps : 1)) ways = warps > 0 ? warps : 1;
+    if (active && w < ways)
+      for (int j = w + ways * static_cast<int>(threadIdx.x % 32); j < jobs; j += lanes * ways)
+        job(j);
     __syncthreads();
   }
 };
@@ -129,24 +166,58 @@ int walk_smem(int team, int block) {
   return smsm::ACC_SLOTS<F> * f381::NW * ((block / team) | 1) * 4;
 }
 
+// scan-red: a block a window, its products on threads 0 .. team - 1, its
+// sums spread over its warps; its slots, then its column of `column` word
+// records, in shared memory.
 template <class F>
-__global__ void __launch_bounds__(kThreads) reduce_kernel(const int* __restrict__ bk,
-                                                          int* __restrict__ out, int W, int B) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w < W) smsm::reduce_window<F>(bk, out, W, B, w);
+__global__ void __launch_bounds__(kMaxChainBlock) reduce_kernel(const int* __restrict__ bk,
+                                                                int* __restrict__ out, int W,
+                                                                int B, int team, int column) {
+  extern __shared__ f381::u32 smem[];
+  const BlockTeam tm{static_cast<int>(threadIdx.x), team, true};
+  const smsm::TeamMem m{smem, 1};
+  smsm::reduce_team<F>(tm, m, smem + smsm::RED_SLOTS<F> * f381::NW, column, bk, out, W, B,
+                       blockIdx.x);
+}
+
+// scan-horner: one block, as a window of scan-red's; the column of W
+// records after the slots.
+template <class F>
+__global__ void __launch_bounds__(kMaxChainBlock) horner_kernel(const int* __restrict__ sums,
+                                                                int* __restrict__ out, int W,
+                                                                int c, int team) {
+  extern __shared__ f381::u32 smem[];
+  const BlockTeam tm{static_cast<int>(threadIdx.x), team, true};
+  const smsm::TeamMem m{smem, 1};
+  smsm::horner_team<F>(tm, m, smem + smsm::HORNER_SLOTS<F> * f381::NW, sums, out, W, c);
+}
+
+// Shared bytes of a scan-red block (a column of `column` records) and of
+// scan-horner's (W records).
+template <class F>
+long long red_smem(int column) {
+  return 4LL * (smsm::RED_SLOTS<F> * f381::NW + static_cast<long long>(column) * smsm::PW<F>);
 }
 
 template <class F>
-__global__ void __launch_bounds__(32) horner_kernel(const int* __restrict__ sums,
-                                                    int* __restrict__ out, int W, int c) {
-  if (blockIdx.x == 0 && threadIdx.x == 0) smsm::horner_walk<F>(sums, out, W, c);
+long long horner_smem(int W) {
+  return 4LL * (smsm::HORNER_SLOTS<F> * f381::NW + static_cast<long long>(W) * smsm::PW<F>);
 }
 
-int blocks(long long threads) { return static_cast<int>((threads + kThreads - 1) / kThreads); }
+// Allows `kernel` `smem` bytes of dynamic shared memory (above the 48 KB
+// default), or refuses what a block cannot have.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, long long smem) {
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
 
 template <class Kernel>
-cudaError_t occupancy(Kernel kernel, int threads, int smem, int* blocks_per_sm) {
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, threads, smem);
+cudaError_t occupancy(Kernel kernel, int threads, long long smem, int* blocks_per_sm) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, threads,
+                                                       static_cast<size_t>(smem));
 }
 
 }  // namespace
@@ -171,11 +242,8 @@ template <class F>
 cudaError_t launch_walk(const int* pw, const int* digs, int* bk, long long n, int lanes, int W,
                         int B, int team, int block, cudaStream_t s) {
   const int smem = walk_smem<F>(team, block);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        walk_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err = allow_smem(walk_kernel<F>, smem);
+  if (err != cudaSuccess) return err;
   const long long streams = static_cast<long long>(lanes) * W, tpb = block / team;
   const int grid = static_cast<int>((streams + tpb - 1) / tpb);
   walk_kernel<F><<<grid, block, smem, s>>>(pw, digs, bk, n, lanes, W, B, team);
@@ -214,60 +282,98 @@ extern "C" int scan_msm_split(const int* bk, int* out, long long E, int nc, void
   return static_cast<int>(cudaGetLastError());
 }
 
-// bk (3 nc, 24, W, B) strict limbs -> out (3 nc, 24, W), the window sums.
-extern "C" int scan_msm_reduce(const int* bk, int* out, int W, int B, int nc, void* stream) {
-  if (nc != 1 && nc != 2) return static_cast<int>(cudaErrorInvalidValue);
-  if (W <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nc == 1)
-    reduce_kernel<f381::Fp><<<blocks(W), kThreads, 0, s>>>(bk, out, W, B);
-  else
-    reduce_kernel<f381::Fp2><<<blocks(W), kThreads, 0, s>>>(bk, out, W, B);
-  return static_cast<int>(cudaGetLastError());
+template <class F>
+cudaError_t launch_reduce(const int* bk, int* out, int W, int B, int team, int block, int column,
+                          cudaStream_t s) {
+  const long long smem = red_smem<F>(column);
+  const cudaError_t err = allow_smem(reduce_kernel<F>, smem);
+  if (err != cudaSuccess) return err;
+  reduce_kernel<F><<<W, block, smem, s>>>(bk, out, W, B, team, column);
+  return cudaGetLastError();
 }
 
-// sums (3 nc, 24, W) strict limbs -> out (3 nc, 24, 1), Horner at window c.
-extern "C" int scan_msm_horner(const int* sums, int* out, int W, int c, int nc, void* stream) {
-  if (nc != 1 && nc != 2) return static_cast<int>(cudaErrorInvalidValue);
+// bk (3 nc, 24, W, B) strict limbs -> out (3 nc, 24, W), the window sums:
+// a block of `block` threads a window (at most kMaxChainBlock), its
+// products one a thread on `team` of them, its sums spread over its
+// warps, converting `column` buckets at a time into its column in shared
+// memory.
+extern "C" int scan_msm_reduce(const int* bk, int* out, int W, int B, int nc, int team,
+                               int block, int column, void* stream) {
+  if ((nc != 1 && nc != 2) || team < 1 || block < team || block > kMaxChainBlock ||
+      column < 1 || B < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (W <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nc == 1)
-    horner_kernel<f381::Fp><<<1, 32, 0, s>>>(sums, out, W, c);
-  else
-    horner_kernel<f381::Fp2><<<1, 32, 0, s>>>(sums, out, W, c);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      nc == 1 ? launch_reduce<f381::Fp>(bk, out, W, B, team, block, column, s)
+              : launch_reduce<f381::Fp2>(bk, out, W, B, team, block, column, s);
+  return static_cast<int>(err);
+}
+
+template <class F>
+cudaError_t launch_horner(const int* sums, int* out, int W, int c, int team, int block,
+                          cudaStream_t s) {
+  const long long smem = horner_smem<F>(W);
+  const cudaError_t err = allow_smem(horner_kernel<F>, smem);
+  if (err != cudaSuccess) return err;
+  horner_kernel<F><<<1, block, smem, s>>>(sums, out, W, c, team);
+  return cudaGetLastError();
+}
+
+// sums (3 nc, 24, W) strict limbs -> out (3 nc, 24, 1), Horner at window c,
+// walked by one block of `block` threads (at most kMaxChainBlock), its
+// products one a thread on `team` of them, its sums spread over its warps.
+extern "C" int scan_msm_horner(const int* sums, int* out, int W, int c, int nc, int team,
+                               int block, void* stream) {
+  if ((nc != 1 && nc != 2) || team < 1 || block < team || block > kMaxChainBlock || W < 0 ||
+      c < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = nc == 1 ? launch_horner<f381::Fp>(sums, out, W, c, team, block, s)
+                                  : launch_horner<f381::Fp2>(sums, out, W, c, team, block, s);
+  return static_cast<int>(err);
 }
 
 // A launch's shape: kind 0 scan-acc's walk (at `team` and `block`), 1
-// scan-red, 2 scan-horner, 3 scan-acc's point words, 4 its split, on G1
-// (nc = 1) or G2 (nc = 2): its threads a block and the blocks an SM holds
-// at its registers, stack and shared memory (the occupancy API). Returns
-// the CUDA error of the query (0 on success).
-extern "C" int scan_msm_shape(int kind, int nc, int team, int block, int* threads,
+// scan-red (at `block` and a column of `records` buckets), 2 scan-horner
+// (at `block`, `records` = W window sums), 3
+// scan-acc's point words, 4 its split, on G1 (nc = 1) or G2 (nc = 2): its
+// threads a block and the blocks an SM holds at its registers, stack and
+// shared memory (the occupancy API). Returns the CUDA error of the query
+// (0 on success).
+extern "C" int scan_msm_shape(int kind, int nc, int team, int block, int records, int* threads,
                               int* blocks_per_sm) {
-  if ((nc != 1 && nc != 2) || kind < 0 || kind > 4 ||
-      (kind == 0 && (team < 1 || block < team || block % team != 0 || block > kMaxAccBlock)))
+  const bool bad = kind <= 2 && (team < 1 || block < team ||
+                                 block > (kind == 0 ? kMaxAccBlock : kMaxChainBlock) ||
+                                 (kind == 0 && block % team != 0));
+  if ((nc != 1 && nc != 2) || kind < 0 || kind > 4 || bad || records < 0 ||
+      (kind == 1 && records < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool g1 = nc == 1;
   cudaError_t err = cudaSuccess;
   if (kind == 0) {
     *threads = block;
     const int smem = g1 ? walk_smem<f381::Fp>(team, block) : walk_smem<f381::Fp2>(team, block);
-    if (smem > 48 * 1024)
-      err = g1 ? cudaFuncSetAttribute(walk_kernel<f381::Fp>,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
-               : cudaFuncSetAttribute(walk_kernel<f381::Fp2>,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = g1 ? allow_smem(walk_kernel<f381::Fp>, smem) : allow_smem(walk_kernel<f381::Fp2>, smem);
     if (err == cudaSuccess)
       err = g1 ? occupancy(walk_kernel<f381::Fp>, block, smem, blocks_per_sm)
                : occupancy(walk_kernel<f381::Fp2>, block, smem, blocks_per_sm);
   } else if (kind == 1) {
-    *threads = kThreads;
-    err = g1 ? occupancy(reduce_kernel<f381::Fp>, kThreads, 0, blocks_per_sm)
-             : occupancy(reduce_kernel<f381::Fp2>, kThreads, 0, blocks_per_sm);
+    *threads = block;
+    const long long smem = g1 ? red_smem<f381::Fp>(records) : red_smem<f381::Fp2>(records);
+    err = g1 ? allow_smem(reduce_kernel<f381::Fp>, smem)
+             : allow_smem(reduce_kernel<f381::Fp2>, smem);
+    if (err == cudaSuccess)
+      err = g1 ? occupancy(reduce_kernel<f381::Fp>, block, smem, blocks_per_sm)
+               : occupancy(reduce_kernel<f381::Fp2>, block, smem, blocks_per_sm);
   } else if (kind == 2) {
-    *threads = 32;
-    err = g1 ? occupancy(horner_kernel<f381::Fp>, 32, 0, blocks_per_sm)
-             : occupancy(horner_kernel<f381::Fp2>, 32, 0, blocks_per_sm);
+    *threads = block;
+    const long long smem = g1 ? horner_smem<f381::Fp>(records) : horner_smem<f381::Fp2>(records);
+    err = g1 ? allow_smem(horner_kernel<f381::Fp>, smem)
+             : allow_smem(horner_kernel<f381::Fp2>, smem);
+    if (err == cudaSuccess)
+      err = g1 ? occupancy(horner_kernel<f381::Fp>, block, smem, blocks_per_sm)
+               : occupancy(horner_kernel<f381::Fp2>, block, smem, blocks_per_sm);
   } else if (kind == 3) {
     *threads = 128;
     err = g1 ? occupancy(words_kernel<f381::Fp>, 128, 0, blocks_per_sm)

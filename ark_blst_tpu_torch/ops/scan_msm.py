@@ -17,7 +17,8 @@ canonical strict limbs. scan-acc is three launches: the points to word
 records (`point_words`), the walk of each stream by a team of threads
 over word-record buckets in a scratch (`accumulate_words`), and the
 buckets' split into the strict limb stack (`split_buckets`); scan-red
-runs a window a thread, scan-horner one thread. Their plain versions
+walks each window, scan-horner the window sums, by a team of threads a
+chain (`RED_SHAPE`, `HORNER_SHAPE`). Their plain versions
 (`bucket_accumulate_plain`, `bucket_reduce_plain`, `horner_plain`) are
 the loops on the strict group law (`curves/group.py`, K7-K10 a field op)
 that the port ran before, step for step the JAX `fuse=False` branch: every
@@ -54,8 +55,9 @@ KERNEL_WORDS = CudaKernel("scan_msm.cu", "scan_msm_point_words", [_P, _P, _L, _I
 KERNEL_ACC = CudaKernel("scan_msm.cu", "scan_msm_accumulate",
                         [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P])
 KERNEL_SPLIT = CudaKernel("scan_msm.cu", "scan_msm_split", [_P, _P, _L, _I, _P])
-KERNEL_RED = CudaKernel("scan_msm.cu", "scan_msm_reduce", [_P, _P, _I, _I, _I, _P])
-KERNEL_HORNER = CudaKernel("scan_msm.cu", "scan_msm_horner", [_P, _P, _I, _I, _I, _P])
+KERNEL_RED = CudaKernel("scan_msm.cu", "scan_msm_reduce",
+                        [_P, _P, _I, _I, _I, _I, _I, _I, _P])
+KERNEL_HORNER = CudaKernel("scan_msm.cu", "scan_msm_horner", [_P, _P, _I, _I, _I, _I, _I, _P])
 KERNELS = {"scan_acc_words": KERNEL_WORDS, "scan_acc_walk": KERNEL_ACC,
            "scan_acc_split": KERNEL_SPLIT, "scan_red": KERNEL_RED, "scan_horner": KERNEL_HORNER}
 
@@ -72,6 +74,20 @@ RECORD = 3 * WD.WORDS  # words of a G1 point or bucket record (x, y, z); G2's ar
 # 62.5, 1 103.8, the straight-line thread 164.9 (255 registers, 968 B of
 # stack)
 ACC_SHAPE = {1: (3, 96), 2: (18, 288)}
+# scan-red: (threads that take the products, threads a block, buckets the
+# block's column holds) by nc, timed by scripts/scan_red_probe.py (an H100
+# 80GB HBM3 at 700 W, W = 32 windows of B = 256): a block walks a window,
+# both additions of a step one Fp product a thread (12 on G1, 36 Karatsuba
+# legs on G2), each sum job on a warp with its twin of the other addition.
+# G1 12 x 192 x 128 1.488 ms (column 256 1.486; the sums on the products'
+# warp, 12 x 12, 1.778; products two a thread, 6 x 192, 2.331); G2 36 x
+# 192 x 128 2.425 ms (36 x 256 2.651, 36 x 36 2.840, 18 x 192 3.543)
+RED_SHAPE = {1: (12, 192, 128), 2: (36, 192, 128)}
+# scan-horner: (threads that take the products, threads a block) by nc, an
+# addition's products one a thread, its sums one a warp: G1 6 x 192 1.545
+# ms (6 x 6 1.686, 4 x 192 1.649), G2 18 x 256 2.560 ms (18 x 192 2.608,
+# 18 x 18 2.861, 12 x 256 2.706)
+HORNER_SHAPE = {1: (6, 192), 2: (18, 256)}
 
 
 def _nc(stack: torch.Tensor) -> int:
@@ -296,16 +312,18 @@ def bucket_reduce_plain(curve, buckets):
 
 def bucket_reduce(curve, buckets):
     """The (W,) window sums of `bucket_reduce_plain`: one scan-red launch for
-    CUDA tensors (a thread a window), the plain loop for CPU tensors."""
+    CUDA tensors (a block of threads a window, at the curve's `RED_SHAPE`),
+    the plain loop for CPU tensors."""
     bk = stack_point(buckets)
     if bk.dim() != 4 or bk.shape[1] != FP.num_limbs:
         raise ValueError(f"bucket_reduce wants (24, W, B) leaves, got {tuple(bk.shape)}")
     if cpu_operands("bucket_reduce", [bk]):
         return bucket_reduce_plain(curve, buckets)
     W, B = bk.shape[2:]
+    nc = _nc(bk)
     out = torch.empty(bk.shape[:3], dtype=torch.int32, device=bk.device)
     with torch.cuda.device(bk.device):
-        KERNEL_RED.launch(bk.data_ptr(), out.data_ptr(), W, B, _nc(bk), _stream(bk))
+        KERNEL_RED.launch(bk.data_ptr(), out.data_ptr(), W, B, nc, *RED_SHAPE[nc], _stream(bk))
     return point_of(out)
 
 
@@ -328,7 +346,8 @@ def horner_plain(curve, window_sums, c: int):
 
 def horner(curve, window_sums, c: int):
     """The result point of `horner_plain`, batch (1,): one scan-horner launch
-    (one thread) for CUDA tensors, the plain loop for CPU tensors."""
+    (one block, `HORNER_SHAPE`) for CUDA tensors, the plain loop for CPU
+    tensors."""
     sums = stack_point(window_sums)
     if sums.dim() != 3 or sums.shape[1] != FP.num_limbs:
         raise ValueError(f"horner wants (24, W) leaves, got {tuple(sums.shape)}")
@@ -337,5 +356,5 @@ def horner(curve, window_sums, c: int):
     out = torch.empty((sums.shape[0], FP.num_limbs, 1), dtype=torch.int32, device=sums.device)
     with torch.cuda.device(sums.device):
         KERNEL_HORNER.launch(sums.data_ptr(), out.data_ptr(), sums.shape[2], c, _nc(sums),
-                             _stream(sums))
+                             *HORNER_SHAPE[_nc(sums)], _stream(sums))
     return point_of(out)

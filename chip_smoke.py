@@ -314,7 +314,9 @@ the scan chains (`scan_acc_words`, `scan_acc_walk`, `scan_acc_split`:
 scan-acc's point words, walk and split; `scan_red`, `scan_horner`) the G1
 scan MSM's launches, the G2 one's and the sharded scan's beside, their
 times at full width (G1; G2's under `g2`) beside their bounds, their plain
-versions' times and their own at the check size, launch shapes and ptxas;
+versions' times and their own at the check size, launch shapes (the
+walk's team; scan-red's team, block and column; scan-horner's team) and
+ptxas;
 `scan_acc` scan-acc as one function (its three launches, `launches` its
 walk's), its time, bound, plain time, fixed cost, time a step and scratch
 bytes; the strict
@@ -3197,22 +3199,27 @@ def scan_chain_work(curve_name: str, n: int, lanes: int, c: int) -> dict:
 
 
 def _scan_shape(torch, kernel, kind: int, nc: int, total_threads: int, team: int = 1,
-                block: int = 1) -> dict:
+                block: int = 1, records: int = 0) -> dict:
     """A launch's block size and blocks an SM (`scan_msm_shape`, the
     occupancy API at its registers, stack and shared memory; scan-acc's
-    walk at its team and block) and the waves of its grid."""
+    walk at its team and block, scan-red at its team, block and column of
+    `records` buckets, scan-horner at its team, block and W = `records`)
+    and the waves of its grid."""
     fn = getattr(ctypes.CDLL(str(kernel.lib_path)), "scan_msm_shape")
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
     fn.restype = ctypes.c_int
     threads, per_sm = ctypes.c_int(), ctypes.c_int()
-    err = fn(kind, nc, team, block, ctypes.byref(threads), ctypes.byref(per_sm))
+    err = fn(kind, nc, team, block, records, ctypes.byref(threads), ctypes.byref(per_sm))
     check(err == 0, f"scan_msm_shape: CUDA error {err}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks = -(-total_threads // threads.value)
     res = {"threads": threads.value, "blocks": blocks, "blocks_per_sm": per_sm.value,
            "sms": sms, "waves": blocks / (sms * max(per_sm.value, 1)),
            "threads_total": total_threads}
-    return {**res, "team": team} if kind == SCAN_KIND["scan_acc_walk"] else res
+    if kind == SCAN_KIND["scan_red"]:
+        return {**res, "team": team, "column": records}
+    return {**res, "team": team} if kind in (SCAN_KIND["scan_acc_walk"],
+                                            SCAN_KIND["scan_horner"]) else res
 
 
 def check_scan_chains(torch, dev, curve, curve_name: str) -> dict:
@@ -3335,8 +3342,13 @@ def phase_msm_scan(torch, dev, phase: str, curve_name: str, ptxas: dict) -> tupl
              "scan_horner": lambda: SM.horner(curve, sums, SCAN_C)}
     work = scan_chain_work(curve_name, n, lanes, SCAN_C)
     team, block = SM.ACC_SHAPE[nc]
+    red_team, red_block, red_column = SM.RED_SHAPE[nc]
+    horner_team, horner_block = SM.HORNER_SHAPE[nc]
     threads = {"scan_acc_words": n, "scan_acc_walk": lanes * W * team,
-               "scan_acc_split": lanes * W * B, "scan_red": W, "scan_horner": 1}
+               "scan_acc_split": lanes * W * B, "scan_red": W * red_block,
+               "scan_horner": horner_block}
+    shapes = {"scan_acc_walk": (team, block, 0), "scan_red": (red_team, red_block, red_column),
+              "scan_horner": (horner_team, horner_block, W)}
     for name in ("scan_acc", *SCAN_CHAINS):
         bms, by = bound_ms(*work[name])
         chains[name].update(ms=cuda_ms(torch, calls[name], 2), bound_ms=bms, bound_by=by,
@@ -3344,7 +3356,7 @@ def phase_msm_scan(torch, dev, phase: str, curve_name: str, ptxas: dict) -> tupl
         if name in SCAN_KIND:
             chains[name].update(
                 launch=_scan_shape(torch, SM.KERNELS[name], SCAN_KIND[name], nc, threads[name],
-                                   *((team, block) if name == "scan_acc_walk" else (1, 1))),
+                                   *shapes.get(name, (1, 1, 0))),
                 ptxas=_ptxas_of(ptxas, SCAN_ENTRY[name]
                                 + ("IN4f3813Fp2E" if nc == 2 else "IN4f3812FpE")))
     # scan-acc's fixed cost (the identity's stores, the conversions, the

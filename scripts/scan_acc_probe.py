@@ -130,9 +130,9 @@ def _straight(torch, slib, pw, digits, lanes: int, c: int, block: int):
 
 def _blocks_per_sm(lib, nc: int, team: int, block: int) -> int:
     fn = lib.scan_msm_shape
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
     threads, per_sm = ctypes.c_int(), ctypes.c_int()
-    err = fn(0, nc, team, block, ctypes.byref(threads), ctypes.byref(per_sm))
+    err = fn(0, nc, team, block, 0, ctypes.byref(threads), ctypes.byref(per_sm))
     if err:
         raise RuntimeError(f"scan_msm_shape: CUDA error {err}")
     return per_sm.value

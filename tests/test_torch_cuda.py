@@ -1,6 +1,7 @@
 """The CUDA kernels on the card against their plain PyTorch versions, and the
 G1 and G2 MSMs, the strict engine's scan MSM (its three chains, scan-acc's
-three launches among them, `-k scan`)
+three launches among them, scan-red's and scan-horner's edge cases and
+launch shapes, `-k scan`)
 and the batched pairing (fused, unfused, and strict on both routes: the
 chains on strict limbs with the multi-pairings' fold on K4's strict limbs,
 `-k strict`, and K7-K10 with the K7-inv ladder) on the card against the
@@ -1002,6 +1003,93 @@ def test_scan_acc_team_shapes_agree(dev, curve):
         SM.KERNEL_ACC.launch(pw.data_ptr(), digits.data_ptr(), got.data_ptr(), pw.shape[0],
                              lanes, digits.shape[0], 1 << c, pw.shape[1] // SM.RECORD, team,
                              block, torch.cuda.current_stream(dev).cuda_stream)
+        assert torch.equal(got, want), (team, block)
+
+
+# scan-red's card cases: (windows, buckets a window); scan-horner's:
+# (windows, c), c = 1 with the W = 256 windows of a 256-bit scalar
+SCAN_RED_CASES = {"b2_w32": (32, 2), "b16_w32": (32, 16), "b256_w32": (32, 256),
+                  "b16_w1": (1, 16), "b256_w1": (1, 256)}
+SCAN_HORNER_CASES = {"c1": (256, 1), "c8": (32, 8)}
+
+
+def _scaled_points(dev, curve: str, n: int, seed: int):
+    """n points of `curves/instance.py` (its identity point among them when
+    n covers it) as a `(3 nc, 24, n)` stack, each scaled by a random z."""
+    points, _, _ = distinct_bases(max(4, (n - 1).bit_length()), seed, dev, curve)
+    rng = random.Random(f"{curve}-{seed}-{n}")
+    z = CV.fp_to_dev([rng.randrange(1, OF.P) for _ in range(n)]).to(dev)
+    stack = SM.stack_point(points)[..., :n].contiguous()
+    return torch.stack([SF.mont_mul(x.contiguous(), z, FP) for x in stack])
+
+
+@pytest.mark.parametrize("case", list(SCAN_RED_CASES))
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_scan_red_cases_equal_to_plain(dev, curve, case):
+    """scan-red on the card, one launch, against `bucket_reduce_plain` on
+    the card limb for limb: B = 2, 16 and 256 at W = 32 and W = 1, the
+    buckets points in random projective coordinates (bucket 0 a point: it
+    is dropped), window 0 all the identity at W = 32."""
+    from ark_blst_tpu_torch.curves.group import G1 as CG1, G2 as CG2
+
+    cv = CG2 if curve == "g2" else CG1
+    W, B = SCAN_RED_CASES[case]
+    stack = _scaled_points(dev, curve, W * B, 7).reshape(-1, 24, W, B)
+    if W > 1:
+        stack[:, :, 0] = SM.stack_point(cv.identity((B,), dev))
+    buckets = SM.point_of(stack.contiguous())
+    got = _launched_once(SM.KERNEL_RED, lambda: SM.bucket_reduce(cv, buckets))
+    assert torch.equal(SM.stack_point(got), SM.stack_point(SM.bucket_reduce_plain(cv, buckets)))
+
+
+@pytest.mark.parametrize("case", list(SCAN_HORNER_CASES))
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_scan_horner_cases_equal_to_plain(dev, curve, case):
+    """scan-horner on the card, one launch, against `horner_plain` on the
+    card limb for limb: c = 1 over 256 window sums (its column above 48 KB
+    of shared memory on G2) and c = 8 over 32, the top window's sum the
+    identity."""
+    from ark_blst_tpu_torch.curves.group import G1 as CG1, G2 as CG2
+
+    cv = CG2 if curve == "g2" else CG1
+    W, c = SCAN_HORNER_CASES[case]
+    stack = _scaled_points(dev, curve, W, 8)
+    stack[..., W - 1] = SM.stack_point(cv.identity((1,), dev))[..., 0]
+    sums = SM.point_of(stack)
+    got = _launched_once(SM.KERNEL_HORNER, lambda: SM.horner(cv, sums, c))
+    assert torch.equal(SM.stack_point(got), SM.stack_point(SM.horner_plain(cv, sums, c)))
+
+
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_scan_red_horner_shapes_agree(dev, curve):
+    """scan-red at other (team, block, column) shapes than `RED_SHAPE` (the
+    products on one thread, the sums on one warp or on fewer warps than
+    jobs, blocks that are not whole warps, columns of 1, 2, 64 and 255
+    buckets) and scan-horner at other (team, block)
+    shapes than `HORNER_SHAPE`, through their C entries, give the wrappers'
+    outputs."""
+    from ark_blst_tpu_torch.curves.group import G1 as CG1, G2 as CG2
+
+    cv = CG2 if curve == "g2" else CG1
+    nc = 2 if curve == "g2" else 1
+    W, B = 32, 256
+    bk = _scaled_points(dev, curve, W * B, 9).reshape(-1, 24, W, B).contiguous()
+    want = SM.stack_point(SM.bucket_reduce(cv, SM.point_of(bk)))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    shapes = ([(1, 1, 2), (6, 32, 128), (12, 96, 1), (18, 200, 255), (36, 36, 2),
+               (36, 256, 64)]
+              if curve == "g2"
+              else [(1, 1, 2), (4, 64, 128), (6, 6, 1), (12, 12, 255), (12, 100, 2),
+                    (32, 256, 64)])
+    for team, block, column in shapes:
+        got = torch.empty_like(want)
+        SM.KERNEL_RED.launch(bk.data_ptr(), got.data_ptr(), W, B, nc, team, block, column, stream)
+        assert torch.equal(got, want), (team, block, column)
+    sums = want.contiguous()
+    want = SM.stack_point(SM.horner(cv, SM.point_of(sums), 8))
+    for team, block in ((1, 1), (4, 32), (6, 6), (12, 96), (18, 18), (32, 200), (64, 256)):
+        got = torch.empty_like(want)
+        SM.KERNEL_HORNER.launch(sums.data_ptr(), got.data_ptr(), W, 8, nc, team, block, stream)
         assert torch.equal(got, want), (team, block)
 
 

@@ -13,7 +13,14 @@ random points with Z != 1, P + P, P + (-P), the identity on either side
 and the identity doubled; the three walks on a G1 and a G2 instance of 64
 points (Z != 1, an identity point and a zero scalar), 8 lanes, c = 4,
 against `bucket_accumulate_plain`, `bucket_reduce_plain` and
-`horner_plain`; those loops against JAX `curves/msm.py`
+`horner_plain` (scan-red's and scan-horner's team walks with their
+phases' jobs in order and last first, scan-red's buckets through a column
+of 1, 5 and 16 buckets); scan-red's walk at
+B = 2 and 16, on a window of identities, of equal buckets (the running
+sum doubles through the complete addition) and with a bucket 0 that is
+not the identity, and scan-horner's at W = 1, c = 1 and on identity
+window sums, each against its plain loop and the oracle; those loops
+against JAX `curves/msm.py`
 `_bucket_accumulate`, `_bucket_reduce` and `_horner` with `fuse=False`
 digit for digit; scan-acc's passes, each against its plain version and
 together against `bucket_accumulate_plain`, on G1 and G2 with random
@@ -69,8 +76,9 @@ HARNESS = r"""
 #include <vector>
 #include "scan_msm.cuh"
 
-// The walk's team on the CPU: every job of a phase in turn, in order or
-// last first (the jobs of a phase are independent).
+// The walks' team on the CPU: every job of a phase in turn, in order or
+// last first (the jobs of a phase are independent); a phase spread over
+// warps on the card is one more phase here.
 struct HostTeam {
   bool reverse;
   template <class Job>
@@ -80,6 +88,10 @@ struct HostTeam {
     else
       for (int j = 0; j < jobs; ++j) job(j);
   }
+  template <class Job>
+  void spread(int jobs, int, Job job) const {
+    phase(jobs, job);
+  }
 };
 
 // stdin: op, nc, n, a, b, c, rev (int64 each), then the operands (int32);
@@ -88,8 +100,10 @@ struct HostTeam {
 // complete_add(p, q) on two (3 nc, 24, n) stacks; 1 complete_dbl(p); 2
 // scan-acc's three passes: points (3 nc, 24, n) and digits (a, n), lanes
 // b, B = 2^c -> (3 nc, 24, b, a, B), the streams run last first; 3
-// scan-red: buckets (3 nc, 24, n, a) -> (3 nc, 24, n); 4 scan-horner: sums
-// (3 nc, 24, n) at c = a -> (3 nc, 24, 1); 5 scan-acc's point words:
+// scan-red's team walk: buckets (3 nc, 24, n, a) -> (3 nc, 24, n), a
+// column of b >= 1 buckets, the windows last first; 4
+// scan-horner's team walk: sums (3 nc, 24, n) at c = a -> (3 nc, 24, 1)
+// (c = a may exceed 16); 5 scan-acc's point words:
 // (3 nc, 24, n) -> (n, 36 nc); 6 its walk: records (n, 36 nc) and digits
 // (a, n), lanes b, B = 2^c -> (b a B, 36 nc); 7 its split: records
 // (n, 36 nc) -> (3 nc, 24, n). rev runs each phase's jobs last first.
@@ -149,11 +163,19 @@ int run(long long op, long long n, long long a, long long b, long long c, const 
                  static_cast<int>(a), B);
     split_pass<F>(team, bk.data(), out, E);
   } else if (op == 3) {
-    for (long long w = 0; w < n; ++w)
-      smsm::reduce_window<F>(x, out, static_cast<int>(n), static_cast<int>(a),
-                             static_cast<int>(w));
+    // one team's slots and column, reused window after window (last first)
+    const int column = static_cast<int>(b);
+    std::vector<f381::u32> sm(smsm::RED_SLOTS<F> * f381::NW + static_cast<long long>(column) * PW,
+                              0xDEADBEEFu);
+    const smsm::TeamMem m{sm.data(), 1};
+    for (long long w = n - 1; w >= 0; --w)
+      smsm::reduce_team<F>(team, m, sm.data() + smsm::RED_SLOTS<F> * f381::NW, column, x, out,
+                           static_cast<int>(n), static_cast<int>(a), static_cast<int>(w));
   } else if (op == 4) {
-    smsm::horner_walk<F>(x, out, static_cast<int>(n), static_cast<int>(a));
+    std::vector<f381::u32> sm(smsm::HORNER_SLOTS<F> * f381::NW + n * PW, 0xDEADBEEFu);
+    const smsm::TeamMem m{sm.data(), 1};
+    smsm::horner_team<F>(team, m, sm.data() + smsm::HORNER_SLOTS<F> * f381::NW, x, out,
+                         static_cast<int>(n), static_cast<int>(a));
   } else if (op == 5) {
     words_pass<F>(x, out, n);
   } else if (op == 6) {
@@ -168,7 +190,9 @@ int main() {
   long long hdr[7];
   if (fread(hdr, sizeof(long long), 7, stdin) != 7) return 2;
   const long long op = hdr[0], nc = hdr[1], n = hdr[2], a = hdr[3], b = hdr[4], c = hdr[5];
-  if (op < 0 || op > 7 || (nc != 1 && nc != 2) || n < 1 || c < 0 || c > 16) return 2;
+  if (op < 0 || op > 7 || (nc != 1 && nc != 2) || n < 1 || c < 0 || c > 16 || b < 0 ||
+      (op == 3 && b < 1))
+    return 2;
   const HostTeam team{hdr[6] != 0};
   const long long pt = 3 * nc * 24, rec = 3 * nc * 12;  // rows of a point stack, record words
   const long long B = 1LL << c;
@@ -322,13 +346,105 @@ def test_scan_walks_host(harness, instances, name):
               shape=(pts.shape[0], 24, LANES, W, 1 << C))
     assert torch.equal(got, SM.stack_point(inst["buckets"]))
     folded = SM.stack_point(inst["folded"])
-    got = run(harness, 3, curve, folded, n=W, a=1 << C, shape=folded.shape[:3])
-    assert torch.equal(got, SM.stack_point(inst["sums"]))
+    for column in (1, 5, 16):
+        for rev in (False, True):
+            got = run(harness, 3, curve, folded, n=W, a=1 << C, b=column, rev=rev,
+                      shape=folded.shape[:3])
+            assert torch.equal(got, SM.stack_point(inst["sums"])), (column, rev)
     sums = SM.stack_point(inst["sums"])
-    got = run(harness, 4, curve, sums, n=W, a=C, shape=(sums.shape[0], 24, 1))
-    assert torch.equal(got, SM.stack_point(inst["result"]))
+    for rev in (False, True):
+        got = run(harness, 4, curve, sums, n=W, a=C, rev=rev, shape=(sums.shape[0], 24, 1))
+        assert torch.equal(got, SM.stack_point(inst["result"]))
     from_dev = CV.g2_from_dev if name == "g2" else CV.g1_from_dev
     assert from_dev(SM.point_of(got)) == [inst["want"]]
+
+
+# scan-red's cases: (windows, buckets a window, window 0's buckets):
+# random, every bucket the identity, every bucket one point (the same
+# coordinates), bucket 0 a point (dropped; the others random)
+RED_CASES = {"b2": (3, 2, "random"), "b16": (2, 16, "random"),
+             "identity_buckets": (2, 8, "identity"), "equal_buckets": (2, 8, "equal"),
+             "bucket0_point": (2, 8, "random")}
+
+
+def red_instance(curve, case: str):
+    """(3 nc, 24, W, B) buckets in random projective coordinates, window 0
+    the case's and the others random points (bucket 0 of window 0 the
+    identity, as a zero digit leaves it, but in case `bucket0_point`); and
+    the window sums sum_b b bucket[w, b] from the oracle."""
+    W, B, kind = RED_CASES[case]
+    rng = random.Random(f"red-{curve.name}-{case}")
+    pts = affine_points(curve, rng, W * B)
+    if kind == "identity":
+        pts[:B] = [None] * B
+    elif kind == "equal":
+        pts[:B] = [pts[1]] * B
+    if case != "bucket0_point":
+        pts[0] = None
+    stack = SM.stack_point(scaled(curve, to_dev(curve, pts), rng)).reshape(-1, 24, W, B)
+    if kind == "equal":  # the same coordinates in every bucket of window 0
+        stack[:, :, 0] = stack[:, :, 0, 1:2]
+    mul = OC.g2_mul if curve.name == "g2" else OC.scalar_mul
+    add = OC.g2_add if curve.name == "g2" else OC.add
+    want = []
+    for w in range(W):
+        acc = None
+        for b in range(1, B):
+            acc = add(acc, mul(pts[w * B + b], b))
+        want.append(acc)
+    return stack.contiguous(), want
+
+
+@pytest.mark.parametrize("case", list(RED_CASES))
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_scan_red_cases_host(harness, name, case):
+    """scan-red's team walk under the harness, its phases' jobs in order and
+    last first, its buckets through columns of 1, 3 and 128 buckets,
+    against `bucket_reduce_plain` limb for limb and the
+    oracle's window sums: B = 2 and 16, a window of identities, a window
+    of equal buckets (running = k P, doubled through the complete
+    addition), a bucket 0 that is a point (dropped)."""
+    curve = CURVES[name]
+    stack, want = red_instance(curve, case)
+    W, B = stack.shape[2:]
+    plain = SM.stack_point(SM.bucket_reduce_plain(curve, SM.point_of(stack)))
+    for column in (1, 3, 128):
+        for rev in (False, True):
+            got = run(harness, 3, curve, stack, n=W, a=B, b=column, rev=rev, shape=plain.shape)
+            assert torch.equal(got, plain), (column, rev)
+    from_dev = CV.g2_from_dev if name == "g2" else CV.g1_from_dev
+    assert from_dev(SM.point_of(plain)) == want
+
+
+# scan-horner's cases: (windows, c, identity windows)
+HORNER_CASES = {"w1_c1": (1, 1, ()), "identity_sums": (4, 2, (3, 1)), "w3_c8": (3, 8, (0,))}
+
+
+@pytest.mark.parametrize("case", list(HORNER_CASES))
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_scan_horner_cases_host(harness, name, case):
+    """scan-horner's team walk under the harness, its phases' jobs in order
+    and last first, against `horner_plain` limb for limb and the oracle's
+    sum_w sum[w] 2^(c w): one window at c = 1, window sums that are the
+    identity (the first window's among them), c = 8."""
+    curve = CURVES[name]
+    W, c, zero = HORNER_CASES[case]
+    rng = random.Random(f"horner-{name}-{case}")
+    pts = affine_points(curve, rng, W)
+    for w in zero:
+        pts[w] = None
+    sums = SM.stack_point(scaled(curve, to_dev(curve, pts), rng))
+    plain = SM.stack_point(SM.horner_plain(curve, SM.point_of(sums), c))
+    for rev in (False, True):
+        got = run(harness, 4, curve, sums, n=W, a=c, rev=rev, shape=plain.shape)
+        assert torch.equal(got, plain), rev
+    mul = OC.g2_mul if name == "g2" else OC.scalar_mul
+    add = OC.g2_add if name == "g2" else OC.add
+    want = None
+    for w, p in enumerate(pts):
+        want = add(want, mul(p, 1 << (c * w)))
+    from_dev = CV.g2_from_dev if name == "g2" else CV.g1_from_dev
+    assert from_dev(SM.point_of(plain)) == [want]
 
 
 # scan-acc's cases: (points, lanes, c, digits): random scalars' digits at
