@@ -1,6 +1,6 @@
 // K1-inv and K1-scan: the lazy engine's inversion chains on Hopper
-// (sm_90a), each chain in one launch; K7-inv: the strict engine's Fermat
-// ladder, the same chain on strict limbs.
+// (sm_90a), each chain in one launch; K7-inv: the strict engine's
+// inversion, the same body on strict limbs.
 //
 // Replace, on the TPU, the lax.scans of ark_blst_tpu/ops/pallas_lazy.py:41
 // mont_mul_stacked (K1) that run inside one compiled program:
@@ -20,29 +20,34 @@
 // their digits canonical and within 4096. K7-inv's are the strict (24, n)
 // limbs, canonical, equal to its plain version limb for limb.
 //
-// What bounds them: operations. K1-inv makes 608 dependent 12-word CIOS
-// products per element (~912 instructions each) against 240 bytes of
-// traffic; K1-scan 3 products and 3 digit conversions per element against
-// ~2 x 120 bytes. At the widths the paths give the ladder (n <= 8192:
-// the pairing's batch, the MSM's root at 1,024 or 256, 1 for a
-// multi-pairing) the card holds at most a block an SM, so the ladder is
-// bound by the latency of its dependent products, not by the instruction
-// rate; the later lever is a team of threads an element, as K3-K6 do.
+// What bounds them: operations. The ladder made 608 dependent 12-word
+// CIOS products per element (~912 instructions each) against 240 bytes
+// of traffic; K1-inv and K7-inv now invert by a constant-time binary GCD
+// (fp_inv.cuh `inverse`: 780 steps on 64-bit approximations, 26 updates
+// of 12-word values, one product; ~56K instructions, where the shortest
+// window chain for p - 2 needs ~420K), the same canonical result. K1-scan
+// makes 3 products and 3 digit conversions per element against ~2 x 120
+// bytes. At the widths the paths give the inversion (n <= 8192: the
+// pairing's batch, the MSM's root at 1,024 or 256, 1 for a multi-pairing
+// or a to_affine root) the card holds at most a block an SM, one warp a
+// scheduler: a thread's instructions issue one after another, so its
+// instruction count and dependent chain are the time, not the card's rate.
 //
-// Design (fp_inv.cuh): one thread an element (K1-inv) or a column (K1-scan)
-// in 128-thread blocks, no shared memory; the chain's value stays in
-// registers as 12 words, converted from digits once at the start and back
-// once at the end (the scan: each element's digits once a pass). The scan
-// reads the stack in place as g rows x m columns, neighbouring threads on
-// neighbouring columns, so every load and store is coalesced; the up pass's
-// prefix products stay in words in a scratch buffer for the down pass.
+// Design (fp_inv.cuh): one thread an element (K1-inv, K7-inv) or a column
+// (K1-scan) in 128-thread blocks, no shared memory; the chain's values
+// stay in registers as 12 words, converted from digits once at the start
+// and back once at the end (the scan: each element's digits once a pass).
+// The scan reads the stack in place as g rows x m columns, neighbouring
+// threads on neighbouring columns, so every load and store is coalesced;
+// the up pass's prefix products stay in words in a scratch buffer for the
+// down pass.
 #include "fp_inv.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 
-// The ladder on the edge format FMT: digits (K1-inv) or strict limbs
+// The inversion on the edge format FMT: digits (K1-inv) or strict limbs
 // (K7-inv).
 template <int FMT>
 __global__ void __launch_bounds__(kThreads) fp_inv_kernel(const int* __restrict__ x,

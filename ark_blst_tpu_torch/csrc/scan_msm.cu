@@ -1,7 +1,8 @@
 // scan-acc, scan-red, scan-horner: the strict engine's scan Pippenger MSM
 // (curves/msm.py:msm) on Hopper (sm_90a), each of its three scans as
 // hand-written launches (scan-acc three: its points to words, its walk,
-// its split).
+// its split); scan-mul: the strict group's double-and-add ladder
+// (curves/group.py CurveOps.scalar_mul, msm_naive's) as one launch.
 //
 // Replace, on the TPU, the lax.scans of ark_blst_tpu/curves/msm.py:138
 // _scan over ark_blst_tpu/ops/pallas_field.py:66 _block_call (K7-K10),
@@ -12,6 +13,9 @@
 //                total sums over the buckets, highest first;
 //   scan-horner  :227 _horner (its fori_loop at :241), c doublings and one
 //                addition a window, most significant first.
+//   scan-mul     ark_blst_tpu/curves/group.py:257 scalar_mul (its
+//                lax.scan at :276), a doubling, an addition and a select
+//                a bit, per element.
 // Inputs and outputs are the strict engine's (24, ...) limb stacks,
 // canonical, equal to the plain loops (ops/scan_msm.py) limb for limb.
 //
@@ -73,12 +77,27 @@
 // its two products' latency. The shapes are launch arguments
 // (ops/scan_msm.py RED_SHAPE, HORNER_SHAPE, timed by
 // scripts/scan_red_probe.py beside one product's latency on the card).
+//
+// scan-mul's design (scan_msm.cuh mul_team). Each element's ladder is a
+// chain of 2 num_bits dependent group operations (512 at 256 bits), and the
+// elements are independent: a team of threads an element walks it on the
+// chains' doubling and addition programs, as scan-horner walks its one
+// chain, the bit taken by a mask in the addition's last phase. Many teams
+// a block, interleaved: thread t is rank t / E of team t % E (E teams a
+// block), so a warp runs one job of 32 teams, the same code path on every
+// lane (sum jobs, whose paths differ, never share a warp), and each team's
+// operand words lie E | 1 apart in shared memory, a warp's accesses on
+// neighbouring banks. At msm_naive's 2^12 elements the teams fill about a
+// wave (a block an SM): the ladder's latency is its time, as scan-horner's
+// chain's is. The team and block are launch arguments (ops/scan_msm.py
+// MUL_SHAPE; chip_smoke.py times others through this entry).
 #include "scan_msm.cuh"
 
 namespace {
 
 constexpr int kMaxAccBlock = 288;    // threads a block of the walk, at most
 constexpr int kMaxChainBlock = 256;  // of scan-red and scan-horner
+constexpr int kMaxMulBlock = 576;    // of scan-mul: 32 teams of 18
 constexpr long long kMaxSmem = 232448;  // shared bytes a block can have
 
 // A team's share of a phase: jobs rank, rank + size, ...; then the block's
@@ -190,6 +209,27 @@ __global__ void __launch_bounds__(kMaxChainBlock) horner_kernel(const int* __res
   const BlockTeam tm{static_cast<int>(threadIdx.x), team, true};
   const smsm::TeamMem m{smem, 1};
   smsm::horner_team<F>(tm, m, smem + smsm::HORNER_SLOTS<F> * f381::NW, sums, out, W, c);
+}
+
+// scan-mul: blockDim.x / team elements a block, thread t rank t / E of
+// team t % E (E = blockDim.x / team), the teams' slots interleaved E | 1
+// apart.
+template <class F>
+__global__ void __launch_bounds__(kMaxMulBlock) mul_kernel(const int* __restrict__ pts,
+                                                           const int* __restrict__ scalars,
+                                                           int* __restrict__ out, long long n,
+                                                           int num_bits, int team) {
+  extern __shared__ f381::u32 smem[];
+  const int tpb = blockDim.x / team, g = threadIdx.x % tpb;
+  const long long i = static_cast<long long>(blockIdx.x) * tpb + g;
+  const BlockTeam tm{static_cast<int>(threadIdx.x / tpb), team, i < n};
+  const smsm::TeamMem m{smem + g, tpb | 1};
+  smsm::mul_team<F>(tm, m, pts, scalars, out, n, i < n ? i : 0, num_bits);
+}
+
+template <class F>
+long long mul_smem(int team, int block) {
+  return 4LL * smsm::MUL_SLOTS<F> * f381::NW * ((block / team) | 1);
 }
 
 // Shared bytes of a scan-red block (a column of `column` records) and of
@@ -334,19 +374,51 @@ extern "C" int scan_msm_horner(const int* sums, int* out, int W, int c, int nc, 
   return static_cast<int>(err);
 }
 
+template <class F>
+cudaError_t launch_mul(const int* pts, const int* scalars, int* out, long long n, int num_bits,
+                       int team, int block, cudaStream_t s) {
+  const long long smem = mul_smem<F>(team, block);
+  const cudaError_t err = allow_smem(mul_kernel<F>, smem);
+  if (err != cudaSuccess) return err;
+  const long long tpb = block / team;
+  const int grid = static_cast<int>((n + tpb - 1) / tpb);
+  mul_kernel<F><<<grid, block, smem, s>>>(pts, scalars, out, n, num_bits, team);
+  return cudaGetLastError();
+}
+
+// pts (3 nc, 24, n) strict limbs, scalars (16, n) plain Fr limbs -> out
+// (3 nc, 24, n), each point times the low num_bits (<= 256) bits of its
+// scalar by the double-and-add ladder: block / team elements a block of
+// `block` threads (a multiple of team, at most kMaxMulBlock), each walked
+// by `team` threads.
+extern "C" int scan_msm_scalar_mul(const int* pts, const int* scalars, int* out, long long n,
+                                   int num_bits, int nc, int team, int block, void* stream) {
+  if ((nc != 1 && nc != 2) || team < 1 || block < team || block % team != 0 ||
+      block > kMaxMulBlock || num_bits < 0 || num_bits > 16 * smsm::SCALAR_LIMBS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      nc == 1 ? launch_mul<f381::Fp>(pts, scalars, out, n, num_bits, team, block, s)
+              : launch_mul<f381::Fp2>(pts, scalars, out, n, num_bits, team, block, s);
+  return static_cast<int>(err);
+}
+
 // A launch's shape: kind 0 scan-acc's walk (at `team` and `block`), 1
 // scan-red (at `block` and a column of `records` buckets), 2 scan-horner
 // (at `block`, `records` = W window sums), 3
-// scan-acc's point words, 4 its split, on G1 (nc = 1) or G2 (nc = 2): its
+// scan-acc's point words, 4 its split, 5 scan-mul (at `team` and `block`),
+// on G1 (nc = 1) or G2 (nc = 2): its
 // threads a block and the blocks an SM holds at its registers, stack and
 // shared memory (the occupancy API). Returns the CUDA error of the query
 // (0 on success).
 extern "C" int scan_msm_shape(int kind, int nc, int team, int block, int records, int* threads,
                               int* blocks_per_sm) {
-  const bool bad = kind <= 2 && (team < 1 || block < team ||
-                                 block > (kind == 0 ? kMaxAccBlock : kMaxChainBlock) ||
-                                 (kind == 0 && block % team != 0));
-  if ((nc != 1 && nc != 2) || kind < 0 || kind > 4 || bad || records < 0 ||
+  const bool teams = kind <= 2 || kind == 5;
+  const int max_block = kind == 0 ? kMaxAccBlock : kind == 5 ? kMaxMulBlock : kMaxChainBlock;
+  const bool bad = teams && (team < 1 || block < team || block > max_block ||
+                             ((kind == 0 || kind == 5) && block % team != 0));
+  if ((nc != 1 && nc != 2) || kind < 0 || kind > 5 || bad || records < 0 ||
       (kind == 1 && records < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool g1 = nc == 1;
@@ -374,6 +446,13 @@ extern "C" int scan_msm_shape(int kind, int nc, int team, int block, int records
     if (err == cudaSuccess)
       err = g1 ? occupancy(horner_kernel<f381::Fp>, block, smem, blocks_per_sm)
                : occupancy(horner_kernel<f381::Fp2>, block, smem, blocks_per_sm);
+  } else if (kind == 5) {
+    *threads = block;
+    const long long smem = g1 ? mul_smem<f381::Fp>(team, block) : mul_smem<f381::Fp2>(team, block);
+    err = g1 ? allow_smem(mul_kernel<f381::Fp>, smem) : allow_smem(mul_kernel<f381::Fp2>, smem);
+    if (err == cudaSuccess)
+      err = g1 ? occupancy(mul_kernel<f381::Fp>, block, smem, blocks_per_sm)
+               : occupancy(mul_kernel<f381::Fp2>, block, smem, blocks_per_sm);
   } else if (kind == 3) {
     *threads = 128;
     err = g1 ? occupancy(words_kernel<f381::Fp>, 128, 0, blocks_per_sm)

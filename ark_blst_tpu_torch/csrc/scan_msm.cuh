@@ -4,7 +4,9 @@
 // points to words, the walk of each (lane, window) stream by a team of
 // threads, the buckets' split into strict limbs), the running/total walk
 // of one window's buckets (scan-red) and the Horner walk over the window
-// sums (scan-horner), both by a team of threads a chain.
+// sums (scan-horner), both by a team of threads a chain; and the
+// double-and-add ladder of CurveOps.scalar_mul (scan-mul), a team of
+// threads an element.
 //
 // Layouts: a point batch is a stack of its 3 NC Fp components (x, y, z;
 // re before im on G2), each 24 strict 16-bit limbs (R = 2^384, the strict
@@ -888,6 +890,105 @@ __device__ __forceinline__ void horner_team(Team& team, const TeamMem& m, u32* c
     Fp x;
     load_slot(m, q, x);
     t381::words_to_limbs(x, out + static_cast<long long>(q) * LIMBS, 1);
+  });
+}
+
+// --- scan-mul: the double-and-add ladder, a team of threads an element -----------
+//
+// CurveOps.scalar_mul (curves/group.py) for element i: acc <- (0 : 1 : 0);
+// for bit j = num_bits - 1 .. 0: acc <- complete_dbl(acc), then acc <-
+// complete_add(acc, P) if bit j of the scalar is set, else the doubled acc;
+// pts (3 NC, 24, n) strict limbs, scalars (16, n) plain Fr limbs of 16
+// bits (bits above 16 ignored, as the plain loop's shifts do), out
+// (3 NC, 24, n) strict limbs. Every value is canonical and both operations
+// exact, and the chain addition takes acc as its first operand and P as its
+// second, as the loop's `add(acc, pt)` does: the result equals the loop
+// (ops/scan_msm.py scalar_mul_plain) limb for limb.
+//
+// One team walks an element on the chains' programs: the doubling's phases
+// (dbl_phase: DBL1_* / DBL2_*) on acc in slots 0 .. K - 1, then the chain
+// addition's (add_phase) of acc and P in X2 (K .. 2K - 1). P stays in the
+// team's MUL_SAVE_P slots for the whole walk, and the doubling's L2 copies
+// it into X2 (the addition's L1 on G1 and its L0 on G2 overwrite slots
+// 0 .. 2K - 1). The doubling's L2 also stores the doubled acc at
+// MUL_SAVE_D, and the addition's L2 takes X3 or that copy into acc by a
+// mask of the bit: no branch or index depends on the scalar, and teams
+// that share a warp stay converged. The scalar's limbs are read once, into
+// the team's MUL_SCALAR slot as 8 words. K = 3 NC; MUL_SLOTS: the larger
+// program's, the two saves and the scalar.
+template <class F>
+constexpr int MUL_SAVE_D = HORNER_SLOTS<F>;
+template <class F>
+constexpr int MUL_SAVE_P = MUL_SAVE_D<F> + 3 * g381::NC<F>;
+template <class F>
+constexpr int MUL_SCALAR = MUL_SAVE_P<F> + 3 * g381::NC<F>;
+template <class F>
+constexpr int MUL_SLOTS = MUL_SCALAR<F> + 1;
+constexpr int SCALAR_LIMBS = 16;  // 16-bit limbs of a scalar
+
+template <class F, class Team>
+__device__ __forceinline__ void mul_team(Team& team, const TeamMem& m, const int* __restrict__ pts,
+                                         const int* __restrict__ scalars, int* __restrict__ out,
+                                         long long n, long long i, int num_bits) {
+  constexpr int K = 3 * g381::NC<F>;
+  const long long cs = static_cast<long long>(LIMBS) * n;  // a component's rows
+  // the identity into acc, P's components into MUL_SAVE_P, the scalar's
+  // limbs into MUL_SCALAR
+  team.phase(2 * K + 1, [&](int j) {
+    Fp x;
+    if (j < K) {
+      identity_slot<F>(m, j);
+    } else if (j < 2 * K) {
+      t381::limbs_to_words(pts + (j - K) * cs + i, n, x);
+      store_slot(m, MUL_SAVE_P<F> + j - K, x);
+    } else {
+#pragma unroll
+      for (int k = 0; k < NW; ++k) {
+        x.w[k] = 0;
+        if (2 * k + 1 < SCALAR_LIMBS)
+          x.w[k] = (static_cast<u32>(scalars[2 * k * n + i]) & 0xFFFFu) |
+                   ((static_cast<u32>(scalars[(2 * k + 1) * n + i]) & 0xFFFFu) << 16);
+      }
+      store_slot(m, MUL_SCALAR<F>, x);
+    }
+  });
+  const u32* scalar = m.s + static_cast<long long>(MUL_SCALAR<F>) * NW * m.st;
+#pragma unroll 1
+  for (int b = num_bits - 1; b >= 0; --b) {
+#pragma unroll 1
+    for (int d = 0; d < 2; ++d) {  // the doubling, then the addition
+#pragma unroll 1
+      for (int i2 = 0; i2 < CHAIN_PHASES<F>; ++i2) {
+        const PhaseOps ph = d == 0 ? dbl_phase<F>(i2) : add_phase<F>(i2);
+        const bool l2 = i2 == CHAIN_PHASES<F> - 1;
+        team.phase(ph.jobs + (d == 0 && l2 ? K : 0), [&](int j) {
+          Fp x;
+          if (j >= ph.jobs) {  // P into X2
+            load_slot(m, MUL_SAVE_P<F> + j - ph.jobs, x);
+            store_slot(m, K + j - ph.jobs, x);
+          } else if (!l2) {
+            run_job<F>(m, ph, j);
+          } else {
+            const int dst = lin_at<F>(m, ph.at + j, x);
+            if (d == 0) {
+              store_slot(m, MUL_SAVE_D<F> + dst, x);
+            } else {
+              Fp dbl;
+              load_slot(m, MUL_SAVE_D<F> + dst, dbl);
+              const u32 set = 0u - ((scalar[(b / 32) * m.st] >> (b % 32)) & 1u);
+#pragma unroll
+              for (int k = 0; k < NW; ++k) x.w[k] = (x.w[k] & set) | (dbl.w[k] & ~set);
+            }
+            store_slot(m, dst, x);
+          }
+        });
+      }
+    }
+  }
+  team.phase(K, [&](int q) {
+    Fp x;
+    load_slot(m, q, x);
+    t381::words_to_limbs(x, out + q * cs + i, n);
   });
 }
 

@@ -9,9 +9,9 @@ field batches: stacked `(24, *batch)` limb tensors for G1, fp2 pairs of
 them for G2; homogeneous projective in Montgomery form, identity
 (0 : 1 : 0). One `CurveOps` per curve binds a `FieldAdapter`, so G1 and G2
 share all code. Every field op runs through `ops/dispatch.py`, i.e. K7-K10
-for CUDA tensors; the scan MSM's chains (`ops/scan_msm.py`) run the same
-additions and doublings in one launch each, with these as their plain
-versions.
+for CUDA tensors; the scan MSM's chains and the scalar multiplication's
+ladder (`ops/scan_msm.py`) run the same additions and doublings in one
+launch each, with these as their plain versions.
 
 Constructors take the torch device where the JAX package's arrays had none.
 """
@@ -25,6 +25,7 @@ import torch
 
 from ..ops import dispatch as D
 from ..ops import fieldops as FO
+from ..ops import scan_msm as SM
 from ..ops import tower as T
 from ..ops.limbs import FP, int_to_limbs
 
@@ -266,14 +267,10 @@ class CurveOps:
     def scalar_mul(self, pt, scalar_limbs, num_bits: int = 255):
         """Per-element double-and-add over batch scalars (plain Fr limbs,
         stacked (16, *batch)), MSB first, branch-free: every step doubles,
-        adds and selects (the JAX `lax.scan` as a Python loop)."""
-        f = self.f
-        acc = self.identity(f.batch_shape(pt[0]), f.device(pt[0]))
-        for j in range(num_bits - 1, -1, -1):
-            bit = (scalar_limbs[j // 16] >> (j % 16)) & 1
-            acc = self.double(acc)
-            acc = T.select(bit == 1, self.add(acc, pt), acc)
-        return acc
+        adds and selects (the JAX `lax.scan`). CUDA tensors: one scan-mul
+        launch (`ops/scan_msm.py:scalar_mul`); CPU tensors: its plain loop
+        on this group law (`scalar_mul_plain`)."""
+        return SM.scalar_mul(self, pt, scalar_limbs, num_bits)
 
 
 G1 = CurveOps("g1", FP_ADAPTER)

@@ -71,10 +71,10 @@ def fp_pow(a, exponent: int, spec: FieldSpec = FP):
 
 
 def fp_inv(a, spec: FieldSpec = FP):
-    """Fermat inverse (0 -> 0), batch-parallel: over Fp the ladder in one
-    K7-inv launch for a CUDA tensor, its plain version (this module's
-    `fp_pow` loop on the plain product) for a CPU one; over another field
-    `fp_pow`."""
+    """Inverse (0 -> 0), batch-parallel: over Fp one K7-inv launch (a
+    binary GCD) for a CUDA tensor, its plain version (the Fermat ladder,
+    this module's `fp_pow` loop on the plain product) for a CPU one; over
+    another field `fp_pow`."""
     if spec == FP:
         return FI.fp_inv_limbs(a)
     return fp_pow(a, spec.modulus - 2, spec)

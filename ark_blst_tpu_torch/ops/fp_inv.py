@@ -1,5 +1,5 @@
 """K1-inv and K1-scan: the lazy engine's inversion chains, each one CUDA
-launch; K7-inv: the strict engine's Fermat ladder, one launch.
+launch; K7-inv: the strict engine's inversion, one launch.
 
 Counterpart of the `lax.scan`s over `ark_blst_tpu/ops/pallas_lazy.py:41
 mont_mul_stacked` (K1) that the JAX package runs inside one compiled
@@ -17,6 +17,9 @@ batch inversion `curves/msm_pallas2.py:434 _batch_inverse`. The kernels
            stack, one thread an element: the `lax.scan` of
            `ark_blst_tpu/ops/dispatch.py:128 fp_pow` over K7
            (`ops/pallas_field.py:66 _block_call`) that `:143 fp_inv` runs.
+K1-inv and K7-inv compute the inverse by a constant-time binary GCD
+(`csrc/fp_inv.cuh` `inverse`), not by the ladder: the same canonical
+result, a chain of cheap steps instead of 608 dependent products.
 Their plain versions (`fp_inv_plain`, `scan_up_plain`, `scan_down_plain`)
 are the loops of lazy products (`mont_mul_plain`) the port ran before, so on
 CPU tensors every result is digit for digit what it was. A kernel's output
@@ -46,7 +49,7 @@ from .mont_mul import mont_mul_plain
 # MSB-first bits of p - 2 for the Fermat ladder
 P_MINUS_2_BITS = [int(b) for b in bin(P - 2)[2:]]
 WORDS = 12  # 32-bit words of an element in K1-scan's prefix scratch
-ROOT_WIDTH = 2048  # the batch inversion runs the ladder at or below this width
+ROOT_WIDTH = 2048  # the batch inversion runs K1-inv at or below this width
 BLOCK_ROWS = (64, 32, 16, 8, 4, 2)  # the rows g of a level, the first that divides n
 
 _P = ctypes.c_void_p
@@ -75,7 +78,7 @@ def _columns(name: str, z: torch.Tensor, g: int) -> int:
     return z.shape[1] // g
 
 
-# --- K1-inv: the Fermat ladder ------------------------------------------------
+# --- K1-inv: the inversion -----------------------------------------------------
 
 def fp_inv_plain(a: torch.Tensor) -> torch.Tensor:
     """The kernel's plain PyTorch version: the unrolled square-and-multiply
@@ -102,7 +105,7 @@ def fp_inv(a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# --- K7-inv: the strict engine's Fermat ladder ----------------------------------
+# --- K7-inv: the strict engine's inversion ---------------------------------------
 
 def fp_inv_limbs_plain(a: torch.Tensor) -> torch.Tensor:
     """K7-inv's plain PyTorch version: the strict engine's square-and-multiply
@@ -127,6 +130,8 @@ def fp_inv_limbs(a: torch.Tensor) -> torch.Tensor:
     if cpu_operands("fp_inv_limbs", [x]):
         return fp_inv_limbs_plain(a)
     out = torch.empty_like(x)
+    if x.shape[1] == 0:  # nothing to launch
+        return out.reshape(a.shape)
     with torch.cuda.device(x.device):
         KERNEL_INV_LIMBS.launch(x.data_ptr(), out.data_ptr(), x.shape[1], _stream(x))
     return out.reshape(a.shape)
@@ -197,8 +202,8 @@ def scan_down(z: torch.Tensor, pre: torch.Tensor, inv_total: torch.Tensor,
 # --- the blocked batch inversion ----------------------------------------------
 
 def block_rows(n: int) -> int | None:
-    """The rows g of the batch inversion's level at width n, None where the
-    ladder runs (n <= ROOT_WIDTH, or no g divides n)."""
+    """The rows g of the batch inversion's level at width n, None where
+    K1-inv runs (n <= ROOT_WIDTH, or no g divides n)."""
     if n <= ROOT_WIDTH:
         return None
     return next((g for g in BLOCK_ROWS if n % g == 0), None)
@@ -220,9 +225,8 @@ def batch_inverse_plain(z: torch.Tensor) -> torch.Tensor:
 def batch_inverse(z: torch.Tensor) -> torch.Tensor:
     """Blocked Montgomery batch inversion of a lazy Fp vector (30, n): at
     each level the up pass, the inversion of the g-fold narrower column
-    products, the down pass (~3 products an element); the Fermat ladder at
-    the root. The caller substitutes nonzero values for zero entries (a
-    zero poisons its column). Kernels for a CUDA tensor, plain versions for
-    a CPU one."""
+    products, the down pass (~3 products an element); K1-inv at the root.
+    The caller substitutes nonzero values for zero entries (a zero poisons
+    its column). Kernels for a CUDA tensor, plain versions for a CPU one."""
     _check_stack("batch_inverse", z)
     return _blocked(z.contiguous(), scan_up, fp_inv, scan_down)

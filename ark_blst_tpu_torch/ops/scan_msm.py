@@ -1,5 +1,6 @@
 """scan-acc, scan-red and scan-horner: the strict engine's scan MSM's three
-scans as hand-written CUDA launches.
+scans as hand-written CUDA launches; scan-mul: the strict group's
+double-and-add ladder as one.
 
 Counterpart of the `lax.scan`s of `ark_blst_tpu/curves/msm.py:138 _scan`,
 which the JAX package runs inside one compiled program over
@@ -10,7 +11,12 @@ which the JAX package runs inside one compiled program over
   scan-red     `:199 _bucket_reduce`: the running/total suffix sums of
                each window's buckets, highest first, bucket 0 dropped;
   scan-horner  `:227 _horner`: c doublings and one addition a window,
-               most significant first.
+               most significant first;
+and of the `lax.scan` of `ark_blst_tpu/curves/group.py:257 scalar_mul`
+(`:276`) over the same kernels:
+  scan-mul     `scalar_mul`: per element, a doubling and an addition a
+               bit of the scalar, the sum taken where the bit is set
+               (`msm_naive`'s ladder).
 The kernels (`csrc/scan_msm.cu` on `csrc/scan_msm.cuh` and
 `csrc/group381.cuh`) compute on 32-bit Montgomery words and store
 canonical strict limbs. scan-acc is three launches: the points to word
@@ -18,8 +24,10 @@ records (`point_words`), the walk of each stream by a team of threads
 over word-record buckets in a scratch (`accumulate_words`), and the
 buckets' split into the strict limb stack (`split_buckets`); scan-red
 walks each window, scan-horner the window sums, by a team of threads a
-chain (`RED_SHAPE`, `HORNER_SHAPE`). Their plain versions
-(`bucket_accumulate_plain`, `bucket_reduce_plain`, `horner_plain`) are
+chain (`RED_SHAPE`, `HORNER_SHAPE`); scan-mul walks each element's ladder
+by a team of threads (`MUL_SHAPE`). Their plain versions
+(`bucket_accumulate_plain`, `bucket_reduce_plain`, `horner_plain`,
+`scalar_mul_plain`) are
 the loops on the strict group law (`curves/group.py`, K7-K10 a field op)
 that the port ran before, step for step the JAX `fuse=False` branch: every
 value is canonical and the two compute the same expressions, so the
@@ -46,7 +54,7 @@ import torch
 from ..cuda import CudaKernel, cpu_operands
 from . import tower as T
 from . import words as WD
-from .limbs import FP
+from .limbs import FP, FR
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,8 +66,11 @@ KERNEL_SPLIT = CudaKernel("scan_msm.cu", "scan_msm_split", [_P, _P, _L, _I, _P])
 KERNEL_RED = CudaKernel("scan_msm.cu", "scan_msm_reduce",
                         [_P, _P, _I, _I, _I, _I, _I, _I, _P])
 KERNEL_HORNER = CudaKernel("scan_msm.cu", "scan_msm_horner", [_P, _P, _I, _I, _I, _I, _I, _P])
+KERNEL_MUL = CudaKernel("scan_msm.cu", "scan_msm_scalar_mul",
+                        [_P, _P, _P, _L, _I, _I, _I, _I, _P])
 KERNELS = {"scan_acc_words": KERNEL_WORDS, "scan_acc_walk": KERNEL_ACC,
-           "scan_acc_split": KERNEL_SPLIT, "scan_red": KERNEL_RED, "scan_horner": KERNEL_HORNER}
+           "scan_acc_split": KERNEL_SPLIT, "scan_red": KERNEL_RED, "scan_horner": KERNEL_HORNER,
+           "scan_mul": KERNEL_MUL}
 
 RECORD = 3 * WD.WORDS  # words of a G1 point or bucket record (x, y, z); G2's are twice as long
 # scan-acc's walk: (threads a team, threads a block) by nc, timed by
@@ -88,6 +99,11 @@ RED_SHAPE = {1: (12, 192, 128), 2: (36, 192, 128)}
 # ms (6 x 6 1.686, 4 x 192 1.649), G2 18 x 256 2.560 ms (18 x 192 2.608,
 # 18 x 18 2.861, 12 x 256 2.706)
 HORNER_SHAPE = {1: (6, 192), 2: (18, 256)}
+# scan-mul: (threads a team, threads a block) by nc: a team takes a phase's
+# products one a thread (6 on G1, the 18 Karatsuba legs on G2), 32 teams a
+# block, so that each warp runs one job of 32 elements
+MUL_SHAPE = {1: (6, 192), 2: (18, 576)}
+SCALAR_BITS = 16 * FR.num_limbs  # the most bits a (16, *batch) scalar stack holds
 
 
 def _nc(stack: torch.Tensor) -> int:
@@ -358,3 +374,48 @@ def horner(curve, window_sums, c: int):
         KERNEL_HORNER.launch(sums.data_ptr(), out.data_ptr(), sums.shape[2], c, _nc(sums),
                              *HORNER_SHAPE[_nc(sums)], _stream(sums))
     return point_of(out)
+
+
+# --- scan-mul: the double-and-add ladder ------------------------------------------
+
+def scalar_mul_plain(curve, pt, scalar_limbs, num_bits: int = 255):
+    """scan-mul's plain version: per-element double-and-add over batch
+    scalars (plain Fr limbs, stacked (16, *batch)), MSB first, branch-free:
+    every step doubles, adds and selects (the JAX `lax.scan` as a Python
+    loop)."""
+    f = curve.f
+    acc = curve.identity(f.batch_shape(pt[0]), f.device(pt[0]))
+    for j in range(num_bits - 1, -1, -1):
+        bit = (scalar_limbs[j // 16] >> (j % 16)) & 1
+        acc = curve.double(acc)
+        acc = T.select(bit == 1, curve.add(acc, pt), acc)
+    return acc
+
+
+def scalar_mul(curve, pt, scalar_limbs: torch.Tensor, num_bits: int = 255):
+    """The points of `scalar_mul_plain`: one scan-mul launch for CUDA tensors
+    (a team of threads an element, the curve's `MUL_SHAPE`; point and
+    scalar batches broadcast), the plain loop for CPU tensors."""
+    leaves = [x for c in pt for x in (c if isinstance(c, tuple) else (c,))]
+    if leaves[0].dim() < 2 or leaves[0].shape[0] != FP.num_limbs:
+        raise ValueError(f"scalar_mul wants (24, *batch) leaves, got {tuple(leaves[0].shape)}")
+    if scalar_limbs.dim() < 2 or scalar_limbs.shape[0] != FR.num_limbs:
+        raise ValueError(f"scalar_mul wants (16, *batch) scalar limbs, got "
+                         f"{tuple(scalar_limbs.shape)}")
+    if not 0 <= num_bits <= SCALAR_BITS:
+        raise ValueError(f"num_bits must be in [0, {SCALAR_BITS}], got {num_bits}")
+    if all(t.device.type == "cpu" for t in (*leaves, scalar_limbs)):
+        cpu_operands("scalar_mul", [*leaves, scalar_limbs])  # int32 only
+        return scalar_mul_plain(curve, pt, scalar_limbs, num_bits)
+    pts = torch.stack(leaves)
+    batch = torch.broadcast_shapes(pts.shape[2:], scalar_limbs.shape[1:])
+    x = pts.expand(pts.shape[:2] + batch).reshape(pts.shape[0], FP.num_limbs, -1).contiguous()
+    sc = scalar_limbs.expand(scalar_limbs.shape[:1] + batch).reshape(FR.num_limbs, -1)
+    sc = sc.contiguous()
+    cpu_operands("scalar_mul", [x, sc])  # raises unless both lie on one card
+    nc = _nc(x)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        KERNEL_MUL.launch(x.data_ptr(), sc.data_ptr(), out.data_ptr(), x.shape[2], num_bits, nc,
+                          *MUL_SHAPE[nc], _stream(x))
+    return point_of(out.reshape(x.shape[:2] + batch))

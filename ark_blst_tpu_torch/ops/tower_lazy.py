@@ -20,7 +20,7 @@ bookkeeping.
 
 Where the work goes: every Montgomery product is `_mul`, the K1 wrapper
 (`ops/mont_mul.py`), which runs its plain version on CPU tensors; the
-Fermat ladder of `fp_inv` is one K1-inv launch (`ops/fp_inv.py`). The tower
+inverse of `fp_inv` is one K1-inv launch (`ops/fp_inv.py`). The tower
 kernels K3-K6, K11 (`fp12_sqr`) and K12 (`fp12_mul_by_014_many` of one
 item) take stacked operands and are called by the pairing
 (`curves/pairing.py`, `curves/pairing_steps.py`); their plain versions are

@@ -6,24 +6,28 @@ card: the quickest proof that the port builds and runs its main path there.
 
 Phases, one JSON line each:
   1. env      the card's name and power limit; builds the kernels from
-              their thirteen sources (one nvcc per source, all in parallel)
-              and reports build seconds, registers, spills and static SASS
-              counts;
+              their thirteen sources and scripts/fp_inv_probe.cu (one nvcc
+              per source, all in parallel) and reports build seconds,
+              registers, spills and static SASS counts;
   2. k1       K1 (mont_mul) against its plain PyTorch version at 2^22
               elements, bit for bit, random and extreme digit patterns,
               and again timed at the pairing's batch (8192 elements);
      k1_chains  the lazy engine's inversion chains (`ops/fp_inv.py`, one
               launch a chain, 32-bit words inside) against their plain
               versions by canonical value, their digits within 4096, and
-              against the oracle's inverses on a sample: K1-inv (the Fermat
-              ladder) at 8192 (the pairing batch), 1,024 (the G1 MSM's
+              against the oracle's inverses on a sample: K1-inv (the
+              binary-GCD inversion) at 8192 (the pairing batch), 1,024 (the G1 MSM's
               root), 256 (the G2 MSM's) and 1 (a multi-pairing) with X =
               0, 1, p-1 and R mod p in the first lanes; K7-inv (the strict
-              engine's ladder on strict limbs) at 8192, 1000 and 1 on
-              canonical limbs with the same first lanes, limb for limb
-              against its plain version (the strict loop of products on the
-              plain product) and the oracle on a sample, timed beside
-              K1-inv and the 610 K7 launches it replaced; K1-scan's up and
+              engine's inversion on strict limbs, the same body) at 8192,
+              1000 and 1 on canonical limbs with the same first lanes, limb
+              for limb against its plain version (the strict loop of
+              products on the plain product) and the oracle on a sample,
+              timed beside K1-inv, the Fermat ladder's body in turns with
+              it (scripts/fp_inv_probe.cu) and the 610 K7 launches it
+              replaced, with the body's one-thread latencies (a batch of
+              GCD steps, its update, a dependent operation) and the floor
+              of its 780 dependent steps; K1-scan's up and
               down passes at the G1 MSM's two levels (64 rows of 65,536
               and of 1,024 columns) and the G2 MSM's (64 rows of 16,384
               and of 256);
@@ -237,9 +241,18 @@ Phases, one JSON line each:
  12. msm_scan_g2  the same for G2 (the check at 2^12 bases, 256 lanes;
               the run at 2^18 bases, c = 8, 256 lanes); its `to_affine`
               inverts in Fp2, which launches K10;
- 13. msm_naive   a 2^12 G1 instance through `msm_naive` and through `msm`,
-              both checked, and `G1.to_affine` of the 2^12 bases (one batch
-              inversion, one Fermat ladder at batch 1 on K7) checked point
+ 13. msm_naive   scan-mul (`CurveOps.scalar_mul`, one launch) on G1 and
+              G2 against its plain loop (K7-K10 on the card) limb for limb
+              at 32 elements and 256 bits, scalars 0, 1, r - 1 and
+              2^256 - 1 and an identity base in the first lanes, and
+              against the oracle there; its time at 2^12 elements beside
+              the plain loop's, at its launch shape (`MUL_SHAPE`; other
+              shapes: scripts/scan_mul_probe.py); then a 2^12 G1 instance
+              through the ladder alone
+              (one scan-mul launch, no K7-K10: checked), `msm_naive` (one
+              scan-mul launch, K7-K10 only in its fold: checked) and
+              `msm`, both checked, and `G1.to_affine` of the 2^12 bases
+              (one batch inversion, one K7-inv at batch 1) checked point
               for point against the host's affine values;
 phase distributed, the sharded entries on `torch.distributed`, in lines
 `distributed_*` among the phases above, each path's launches counted from
@@ -325,8 +338,12 @@ engine's chains
 the fused strict batch's launches, their times at 8192 with the other
 widths' and the word instantiation's in the same run (`words_ms`), their
 registers; K7-inv (`fp_inv_limbs`) the unfused strict batch's launch, the
-scan MSMs' and `msm_naive`'s, its times at 8192 and the other widths with
-K1-inv's and the K7 loop's it replaced beside; every kernel phase distributed launches gives
+scan MSMs' and `msm_naive`'s `to_affine`'s, its times at 8192 and the other widths with
+K1-inv's, the Fermat body's and the K7 loop's it replaced beside, the
+binary GCD's bound (`bound_ms`), the Fermat work's (`fermat_bound_ms`) and
+the GCD's latency floor; `scan_mul` the
+`msm_naive` launch, its time at 2^12 on G1 (G2's under `g2`) beside its
+bound, plain time, launch shape and ptxas; every kernel phase distributed launches gives
 those launches per path as `launches_distributed`) and, last, {"ok": true, "device": {...}}. Any failure raises: the
 script then exits non-zero and prints no last line. Without CUDA it exits 1.
 
@@ -393,10 +410,15 @@ launch's products
 (conversions included) at the IMAD instructions of one product of their
 own library: its static IMAD count (moves left out) over the CIOS bodies
 it compiles (its wide multiply-adds over the 288 of one product). K1-inv
-counts per element the CIOS products of the shortest sliding-window chain
-for p - 2 (`window_chain_products`: 460 at width 5, 377 squarings and 83
-products with the table, where the kernel's binary ladder runs 608), one
-conversion in and one out, and its digits read and written once; K1-scan
+and K7-inv count per element the binary GCD they run (`gcd_inv_ops`: 26
+batches of 30 steps, the approximations and the four linear updates, one
+product), K1-inv one conversion in and one out besides, and the digits or
+limbs read and written once; beside it (`fermat_bound_ms`) the Fermat
+work they ran before: the CIOS products of the shortest sliding-window
+chain for p - 2 (`window_chain_products`: 460 at width 5, 377 squarings
+and 83 products with the table, where the Fermat ladder runs 608), and
+the GCD's latency floor (780 dependent steps at the time a step that
+scripts/fp_inv_probe.cu measures on one thread, `floor_ms`); K1-scan
 per level of n = g m elements the work the function needs, whatever the
 passes: each element converted in once and its inverse out once, three
 products for each element past the first row (the prefix, the inverse,
@@ -418,7 +440,9 @@ addition a point and window, its bytes the points, digits and buckets
 once (as a function; its point words the conversion, its walk the
 additions on words, its split bytes alone); scan-red 2 (B - 1) additions
 a window; scan-horner W (c doublings and an addition)
-(`scan_chain_work`).
+(`scan_chain_work`); scan-mul num_bits doublings and additions an element,
+its points and scalars read and its results written once as limbs
+(`scan_mul_work`).
 """
 
 from __future__ import annotations
@@ -464,6 +488,7 @@ SCAN = {"g1": (20, 1024, 17), "g2": (18, 256, 19)}
 # per field op): curve -> (log2 bases, lanes, seed), the full width's lanes
 SCAN_CHECK = {"g1": (14, 1024, 47), "g2": (12, 256, 53)}
 NAIVE_LOG_N, NAIVE_SEED = 12, 23
+MUL_CHECK_LOG_N, MUL_SEED = 5, 59  # scan-mul's check: 32 elements (seed + 1 on G2)
 # the API phase: curve -> (log2 bases, seed); G1 is cut from 2^20 (a
 # KZG/Groth16 size) to 2^18 for the time limit: the host codecs took ~45 s
 # of it at 2^20 (2^22 would spend ~2 minutes in them)
@@ -624,7 +649,30 @@ WORD_BYTES = 12 * 4  # one Fp element of words
 # at 2^22 and the G2 MSM's two at 2^20 (rows, columns)
 K1_INV_WIDTHS = (PAIRING_N, 1024, 256, 1)
 K7_INV_WIDTHS = (PAIRING_N, CHAIN_RAGGED_N, 1)
+# The binary-GCD inversion (csrc/fp_inv.cuh `inverse`), int32 instructions
+# an element counted from the code: a step (gcd_steps) 31: the swap's
+# compare and masks on the 64-bit approximations, the masked subtraction,
+# the shift, the four factors' swap, subtraction and doubling; the
+# approximations 100 (nine masked word shifts of six words, the leading
+# zeros, the 96-bit shift); a signed 12-word x 32-bit product 75 (a wide
+# multiply-add, carry, complement and increment a word), a pair of them
+# summed 176; the update of a or b (gcd_lin) the pair, the shift by 30 and
+# the negation, 226; of u or v (gcd_mod) the pair, the Montgomery step, the
+# correction by p and one conditional subtraction, 311; 26 batches of 30
+# steps, the approximations and the four updates, then one CIOS product
+GCD_STEPS, GCD_BATCHES = 30, 26
+GCD_STEP_OPS, GCD_APPROX_OPS = 31, 100
+_GCD_PAIR = 2 * (3 + 12 * 6) + 13 * 2
+GCD_LIN_OPS = _GCD_PAIR + 12 * 4 + 2
+GCD_MOD_OPS = _GCD_PAIR + 1 + 12 * 4 + 2 + 12 * 3 + 12 * 4
+GCD_BATCH_OPS = GCD_APPROX_OPS + GCD_STEPS * GCD_STEP_OPS + 2 * GCD_LIN_OPS + 2 * GCD_MOD_OPS + 8
 K1_SCAN_LEVELS = ((64, 1 << 16), (64, 1 << 10), (64, 1 << 14), (64, 1 << 8))
+
+
+def gcd_inv_ops() -> int:
+    """int32 instructions of one element's binary-GCD inversion on words
+    (GCD_BATCH_OPS a batch, then the product by the final factor)."""
+    return GCD_BATCHES * GCD_BATCH_OPS + MONT_MUL32_OPS
 
 
 def window_chain_products(bits) -> int:
@@ -827,16 +875,30 @@ def _smi() -> list:
     ).stdout.strip().splitlines()
 
 
+@functools.lru_cache(maxsize=None)
+def fp_inv_probe():
+    """scripts/fp_inv_probe.py as a module: the inversion's Fermat body and
+    its one-thread latencies, beside K7-inv."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "fp_inv_probe.py")
+    spec = importlib.util.spec_from_file_location("fp_inv_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def phase_env(torch):
     from ark_blst_tpu_torch import cuda as KC
 
     smi = _smi()
     print(smi[0], flush=True)
     t0 = time.perf_counter()
-    owners = KC.build_all(list(all_kernels().values()))  # one per source
+    # one per source, scripts/fp_inv_probe.cu with them
+    owners = KC.build_all([*all_kernels().values(), fp_inv_probe().PROBE])
     build_s = time.perf_counter() - t0
-    sass = {k.source: _sass_counts(k) for k in owners}
-    ptxas = {k.source: _ptxas_summary(k.build_log) for k in owners}
+    sass = {os.path.basename(k.source): _sass_counts(k) for k in owners}
+    ptxas = {os.path.basename(k.source): _ptxas_summary(k.build_log) for k in owners}
     emit({
         "phase": "env", "gpu": smi[0], "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "sources": len(owners), "ptxas": ptxas, "sass": sass,
@@ -968,19 +1030,26 @@ def strict_limb_stack(torch, gen, dev, n: int):
 
 
 def phase_k7_inv(torch, dev, gen) -> dict:
-    """K7-inv (the strict Fermat ladder, one launch) at K7_INV_WIDTHS on
-    canonical strict limbs, limb for limb against its plain version and on
-    a sample against the oracle's inverses; timed beside K1-inv (the same
-    ladder on digits, `k1_inv_ms`, in turns with it) and the loop of 610 K7
-    launches it replaced (`k7_loop_ms`), with its bound (the shortest
-    window chain's products; the limbs' load and store a repack, counted in
-    the bytes) and launch shape."""
+    """K7-inv (the strict engine's inversion, the binary GCD, one launch) at
+    K7_INV_WIDTHS on canonical strict limbs, limb for limb against its
+    plain version and on a sample against the oracle's inverses; timed
+    beside K1-inv (the same body on digits, `k1_inv_ms`, in turns with it),
+    the Fermat ladder's body (scripts/fp_inv_probe.cu, `fermat_ms`, in
+    turns with K7-inv: K7-inv, Fermat, Fermat, K7-inv; its output equal)
+    and the loop of 610 K7 launches it replaced (`k7_loop_ms`), with its
+    bounds (`bound_ms`: the binary GCD's instructions; `fermat_bound_ms`:
+    the Fermat work, the shortest window chain's products; the limbs' load
+    and store a repack, counted in the bytes), the GCD's latency floor
+    (`floor_ms`, from the probe's one-thread chains, `latency`) and its
+    launch shape."""
     from ark_blst_tpu_torch.ops import convert as CV
     from ark_blst_tpu_torch.ops import dispatch as D
     from ark_blst_tpu_torch.ops import fp_inv as FI
     from ark_blst_tpu_torch.ops import lazy13 as LZ
     from ark_blst_tpu_torch.oracle.field import P
 
+    probe = fp_inv_probe()
+    latency = probe.latencies(torch, dev)
     out = {}
     for n in K7_INV_WIDTHS:
         x = strict_limb_stack(torch, gen, dev, n)
@@ -993,15 +1062,24 @@ def phase_k7_inv(torch, dev, gen) -> dict:
         vals = CV.fp_from_dev(x[:, :64])
         check(CV.fp_from_dev(got[:, :64]) == [pow(v, -1, P) if v else 0 for v in vals],
               "K7-inv differs from the oracle's inverses")
-        bms, by = bound_ms(n * 2 * LIMB_BYTES,
-                           n * window_chain_products(FI.P_MINUS_2_BITS) * MONT_MUL32_OPS)
+        check(torch.equal(probe.body(torch, probe.FERMAT, x), got),
+              "the Fermat body differs from K7-inv")
+        bms, by = bound_ms(n * 2 * LIMB_BYTES, n * gcd_inv_ops())
         k1_ms = cuda_ms(torch, lambda: FI.fp_inv(xd), 3)
         ms = cuda_ms(torch, lambda: FI.fp_inv_limbs(x), 3)
-        out[n] = {"n": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                  "bound_by": by,
+        fermat_ms = [probe.body_ms(torch, probe.FERMAT, x, 3) for _ in range(2)]
+        ms2 = cuda_ms(torch, lambda: FI.fp_inv_limbs(x), 3)
+        out[n] = {"n": n, "max_abs_err": err, "ms": ms, "ms_turns": [ms, ms2],
+                  "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                  "fermat_bound_ms": bound_ms(
+                      n * 2 * LIMB_BYTES,
+                      n * window_chain_products(FI.P_MINUS_2_BITS) * MONT_MUL32_OPS)[0],
+                  "floor_ms": latency["floor_steps_ms"], "fermat_ms": fermat_ms,
                   "k1_inv_ms": [k1_ms, cuda_ms(torch, lambda: FI.fp_inv(xd), 3)],
                   "k7_loop_ms": cuda_ms(torch, lambda: D.fp_pow(x, P - 2), 1),
                   "launch": _launch_shape(torch, FI.KERNEL_INV_LIMBS, n)}
+    out["latency"] = latency
+    out["fermat_ptxas"] = probe.ptxas(probe.PROBE.build_log, "inv_kernelILi1E")
     return out
 
 
@@ -1029,9 +1107,12 @@ def phase_k1_chains(torch, dev, ptxas: dict) -> dict:
         got = FI.fp_inv(x)
         err = _fp_held(torch, "K1-inv", got, want)
         _oracle_sample(torch, "K1-inv", x, got)
-        bms, by = bound_ms(n * 2 * ELEM_BYTES, n * fp_inv_ops(FI.P_MINUS_2_BITS))
+        bms, by = bound_ms(n * 2 * ELEM_BYTES,
+                           n * (gcd_inv_ops() + DIGITS_TO_WORDS_OPS + WORDS_TO_DIGITS_OPS))
         inv[n] = {"n": n, "max_abs_err": err, "ms": cuda_ms(torch, lambda: FI.fp_inv(x), 3),
                   "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                  "fermat_bound_ms": bound_ms(n * 2 * ELEM_BYTES,
+                                              n * fp_inv_ops(FI.P_MINUS_2_BITS))[0],
                   "launch": _launch_shape(torch, FI.KERNEL_INV, n)}
     scan = []
     for g, m in K1_SCAN_LEVELS:
@@ -1074,9 +1155,11 @@ def phase_k1_chains(torch, dev, ptxas: dict) -> dict:
     res = {"fp_inv": {**inv[PAIRING_N], "at_widths": [inv[n] for n in K1_INV_WIDTHS[1:]]},
            "scan": {**scan[0], "levels": scan, "batch_inverse": whole},
            "fp_inv_limbs": {**inv7[PAIRING_N],
-                            "at_widths": [inv7[n] for n in K7_INV_WIDTHS[1:]]}}
+                            "at_widths": [inv7[n] for n in K7_INV_WIDTHS[1:]],
+                            "latency": inv7["latency"]}}
     emit({"phase": "k1_chains", "ok": True, "fp_inv": list(inv.values()), "scan_levels": scan,
-          "batch_inverse": whole, "fp_inv_limbs": list(inv7.values()),
+          "batch_inverse": whole, "fp_inv_limbs": [inv7[n] for n in K7_INV_WIDTHS],
+          "gcd_latency": inv7["latency"], "fermat_ptxas": inv7["fermat_ptxas"],
           "ptxas": ptxas["fp_inv.cu"], "seconds": time.perf_counter() - t_phase})
     return res
 
@@ -3123,11 +3206,6 @@ def _strict_launches() -> dict:
     return {op: k.launches for op, k in _strict_kernels().items()}
 
 
-def _reset_strict_launches() -> None:
-    for k in _strict_kernels().values():
-        k.launches = 0
-
-
 def _affine_of(curve, xa, ya, inf) -> list:
     """Device affine coordinates -> host affine tuples (None = identity)."""
     from ark_blst_tpu_torch.ops import convert as CV
@@ -3165,7 +3243,7 @@ def run_scan_stages(torch, curve, lanes: int, points, scalars, expected, profile
 # split), scan-red, scan-horner
 SCAN_CHAINS = ("scan_acc_words", "scan_acc_walk", "scan_acc_split", "scan_red", "scan_horner")
 SCAN_KIND = {"scan_acc_walk": 0, "scan_red": 1, "scan_horner": 2, "scan_acc_words": 3,
-             "scan_acc_split": 4}  # scan_msm_shape's kinds
+             "scan_acc_split": 4, "scan_mul": 5}  # scan_msm_shape's kinds
 SCAN_ENTRY = {"scan_acc_walk": "walk_kernel", "scan_acc_words": "words_kernel",
               "scan_acc_split": "split_kernel", "scan_red": "reduce_kernel",
               "scan_horner": "horner_kernel"}  # their kernels' names
@@ -3218,8 +3296,8 @@ def _scan_shape(torch, kernel, kind: int, nc: int, total_threads: int, team: int
            "threads_total": total_threads}
     if kind == SCAN_KIND["scan_red"]:
         return {**res, "team": team, "column": records}
-    return {**res, "team": team} if kind in (SCAN_KIND["scan_acc_walk"],
-                                            SCAN_KIND["scan_horner"]) else res
+    return {**res, "team": team} if kind in (SCAN_KIND["scan_acc_walk"], SCAN_KIND["scan_horner"],
+                                            SCAN_KIND["scan_mul"]) else res
 
 
 def check_scan_chains(torch, dev, curve, curve_name: str) -> dict:
@@ -3380,37 +3458,129 @@ def phase_msm_scan(torch, dev, phase: str, curve_name: str, ptxas: dict) -> tupl
     return {**launches, **{"to_affine_" + k: v for k, v in affine_launches.items()}}, chains
 
 
-def phase_msm_naive(torch, dev) -> dict:
-    """msm_naive and msm on a 2^12 G1 instance, then to_affine of its bases."""
+def scan_mul_work(curve_name: str, n: int, num_bits: int) -> tuple:
+    """(bytes, int32 instructions) of scan-mul over n elements: num_bits
+    doublings and additions an element, each point component converted once
+    from limbs; the points and scalars read and the results written once as
+    limbs."""
+    nc = 2 if curve_name == "g2" else 1
+    ops = num_bits * (COMPLETE_DBL32_OPS[curve_name] + COMPLETE_ADD32_OPS[curve_name])
+    return (n * (2 * 3 * nc * LIMB_BYTES + 16 * 4),
+            n * (ops + 3 * nc * LIMBS_TO_WORDS_OPS))
+
+
+def mul_check_instance(torch, dev, curve_name: str, log_n: int, seed: int):
+    """2^log_n bases of `curves/instance.py` with their scalars, the first
+    lanes' scalars 0, 1, r - 1 and 2^256 - 1 (every limb 0xFFFF) and base 4
+    the identity; with the scalars as ints."""
+    from ark_blst_tpu_torch.curves.group import G1, G2
+    from ark_blst_tpu_torch.curves.instance import distinct_bases
+    from ark_blst_tpu_torch.ops import scan_msm as SM
+    from ark_blst_tpu_torch.ops.limbs import int_to_limbs
+    from ark_blst_tpu_torch.oracle.field import R
+
+    curve = G2 if curve_name == "g2" else G1
+    points, scalars, _ = distinct_bases(log_n, seed, dev, curve_name)
+    for col, k in enumerate((0, 1, R - 1, (1 << 256) - 1)):
+        scalars[:, col] = torch.tensor([int(v) for v in int_to_limbs(k, 16)], dtype=torch.int32,
+                                       device=dev)
+    stack = SM.stack_point(points)
+    stack[:, :, 4:5] = SM.stack_point(curve.identity((1,), dev))
+    return curve, SM.point_of(stack), scalars
+
+
+def check_scan_mul(torch, dev, curve_name: str, ptxas: dict) -> dict:
+    """scan-mul (one launch) against its plain loop (K7-K10 on the card)
+    limb for limb and the oracle at the check size (32 elements, 256 bits,
+    the edge scalars and an identity base), then at 2^12 elements: its time
+    beside the plain loop's (one call) and its bound, its launch shape
+    (`MUL_SHAPE`) and ptxas (other shapes: scripts/scan_mul_probe.py)."""
+    from ark_blst_tpu_torch.oracle import curve as OC
+    from ark_blst_tpu_torch.oracle.field import R
+    from ark_blst_tpu_torch.ops import scan_msm as SM
+    from ark_blst_tpu_torch.ops.limbs import limbs_to_ints
+
+    nc = 2 if curve_name == "g2" else 1
+    seed = MUL_SEED + (nc - 1)
+    curve, points, scalars = mul_check_instance(torch, dev, curve_name, MUL_CHECK_LOG_N, seed)
+    before = SM.KERNEL_MUL.launches
+    got = SM.stack_point(curve.scalar_mul(points, scalars, SM.SCALAR_BITS))
+    check(SM.KERNEL_MUL.launches == before + 1, "scan-mul: not one launch")
+    want = SM.stack_point(SM.scalar_mul_plain(curve, points, scalars, SM.SCALAR_BITS))
+    err = _held(torch, f"scan-mul ({curve_name})", got, want)
+    ks = limbs_to_ints(scalars[:, :8].T.cpu().numpy())
+    mul = OC.g2_mul if nc == 2 else OC.scalar_mul
+    check(_affine(curve, SM.point_of(got[..., :8])) == [
+        None if p is None else mul(p, k % R)
+        for p, k in zip(_affine(curve, SM.point_of(SM.stack_point(points)[..., :8])), ks)],
+        f"scan-mul ({curve_name}) differs from the oracle")
+    check_n = scalars.shape[1]
+    check_ms = cuda_ms(torch, lambda: curve.scalar_mul(points, scalars, SM.SCALAR_BITS), 2)
+    curve, points, scalars = mul_check_instance(torch, dev, curve_name, NAIVE_LOG_N, seed)
+    n = scalars.shape[1]
+    plain_ms, want = _once_ms(torch, lambda: SM.scalar_mul_plain(curve, points, scalars,
+                                                                  SM.SCALAR_BITS))
+    got = curve.scalar_mul(points, scalars, SM.SCALAR_BITS)
+    err = max(err, _held(torch, f"scan-mul ({curve_name}) at 2^12", SM.stack_point(got),
+                         SM.stack_point(want)))
+    ms = cuda_ms(torch, lambda: curve.scalar_mul(points, scalars, SM.SCALAR_BITS), 3)
+    work = scan_mul_work(curve_name, n, SM.SCALAR_BITS)
+    bms, by = bound_ms(*work)
+    team, block = SM.MUL_SHAPE[nc]
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "bytes": work[0], "instructions": work[1], "n": n, "num_bits": SM.SCALAR_BITS,
+            "check_n": check_n, "check_ms": check_ms,
+            "launch": _scan_shape(torch, SM.KERNEL_MUL, SCAN_KIND["scan_mul"], nc,
+                                  -(-n // (block // team)) * block, team, block),
+            "ptxas": _ptxas_of(ptxas, "mul_kernel" + ("IN4f3813Fp2E" if nc == 2
+                                                      else "IN4f3812FpE"))}
+
+
+def phase_msm_naive(torch, dev, ptxas: dict) -> tuple:
+    """scan-mul checked and timed on G1 and G2 (`check_scan_mul`); then on a
+    2^12 G1 instance the ladder alone (one scan-mul launch, nothing else),
+    `msm_naive` (the slice's path: one scan-mul launch, K7-K10 only in its
+    fold), `msm`, and `to_affine` of the bases (one K7-inv), each path's
+    launches counted from 0 just before it and read just after. Returns
+    (the launches by path, scan-mul's lines by curve)."""
     from ark_blst_tpu_torch.curves import msm as M
     from ark_blst_tpu_torch.curves.group import G1
     from ark_blst_tpu_torch.curves.instance import distinct_bases
+    from ark_blst_tpu_torch.ops import scan_msm as SM
 
+    t_phase = time.perf_counter()
+    mul = {name: check_scan_mul(torch, dev, name, ptxas) for name in ("g1", "g2")}
     points, scalars, expected = distinct_bases(NAIVE_LOG_N, NAIVE_SEED, dev, "g1")
     torch.cuda.synchronize()
-    _reset_strict_launches()
-    t0 = time.perf_counter()
-    naive = M.msm_naive(points, scalars, G1, device=dev)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    scan = M.msm(points, scalars, G1, c=SCAN_C, device=dev)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    affine = G1.to_affine(points)
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    launches = _strict_launches()
+    strict = {"strict_mont_mul", "strict_add", "strict_sub", "strict_neg"}
+
+    def counted(fn):
+        kernels = _reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {k: v.launches for k, v in kernels.items()
+                                               if v.launches}
+
+    _, ladder_s, ladder = counted(lambda: G1.scalar_mul(points, scalars, SM.SCALAR_BITS))
+    check(ladder == {"scan_mul": 1}, f"the ladder launched {ladder}, expected one scan_mul")
+    naive, naive_s, naive_launches = counted(lambda: M.msm_naive(points, scalars, G1, device=dev))
+    check(naive_launches.get("scan_mul") == 1 and set(naive_launches) <= strict | {"scan_mul"},
+          f"msm_naive launched {naive_launches}, expected one scan_mul and K7-K10")
+    scan, msm_s, msm_launches = counted(lambda: M.msm(points, scalars, G1, c=SCAN_C, device=dev))
+    affine, affine_s, affine_launches = counted(lambda: G1.to_affine(points))
     check(_affine(G1, naive) == [expected], "msm_naive differs from the expected point")
     check(_affine(G1, scan) == [expected], "msm at 2^12 differs from the expected point")
     got = _affine_of(G1, *affine)
     want = _affine(G1, points)  # the host's division of the same points
     bad = sum(g != w for g, w in zip(got, want))
     check(len(got) == len(want) and bad == 0, f"to_affine: {bad} of {len(want)} points differ")
-    res = {"phase": "msm_naive", "n": scalars.shape[1], "ok": True, "naive_s": t1 - t0,
-           "msm_s": t2 - t1, "to_affine_s": t3 - t2, "to_affine_points": len(got),
-           "launches": launches}
-    emit(res)
-    return launches
+    launches = {"naive": naive_launches, "msm": msm_launches, "to_affine": affine_launches}
+    emit({"phase": "msm_naive", "n": scalars.shape[1], "ok": True, "naive_s": naive_s,
+          "ladder_s": ladder_s, "msm_s": msm_s, "to_affine_s": affine_s,
+          "to_affine_points": len(got), "launches": launches, "ladder_launches": ladder,
+          "scan_mul": mul, "seconds": time.perf_counter() - t_phase, "gpu": _smi()[0]})
+    return launches, mul
 
 
 # --- phase distributed: the sharded entries on torch.distributed --------------
@@ -3604,7 +3774,7 @@ def distributed_scan_and_auto(torch, dev, mesh) -> tuple:
     # the host finish: scan-acc (its three launches) and scan-red on the
     # rank, no scan-horner
     check(chain_launches == {"scan_acc_words": 1, "scan_acc_walk": 1, "scan_acc_split": 1,
-                             "scan_red": 1, "scan_horner": 0},
+                             "scan_red": 1, "scan_horner": 0, "scan_mul": 0},
           f"the sharded scan MSM's chains launched {chain_launches}")
     scan_launches.update(chain_launches)
     scan = {"backend": "scan", "collective": str(mesh.backend), "world": mesh.size,
@@ -3873,7 +4043,7 @@ def main() -> int:
         scan[name], scan_chains[name] = phase_msm_scan(torch, dev, phase, name,
                                                        ptxas["scan_msm.cu"])
         torch.cuda.empty_cache()
-    naive = phase_msm_naive(torch, dev)
+    naive, scan_mul = phase_msm_naive(torch, dev, ptxas["scan_msm.cu"])
 
     def scan_strict(curve: str, key: str) -> int:
         """A strict kernel's launches in a scan MSM run: the fold across
@@ -3889,7 +4059,7 @@ def main() -> int:
                      k7_k10[op],
                      launches_msm_scan=scan_strict("g1", "strict_" + op),
                      launches_msm_scan_g2=scan_strict("g2", "strict_" + op),
-                     launches_msm_naive=naive[op],
+                     launches_msm_naive=naive["naive"].get("strict_" + op, 0),
                      launches_distributed={"msm_scan": dist_launches["scan"][op]},
                      launches_pairing_strict=strict_pairing.get("strict_" + op, 0),
                      launches_pairing_strict_fused=strict_fused.get("strict_" + op, 0),
@@ -3923,11 +4093,23 @@ def main() -> int:
         launches_pairing_strict_fused=strict_fused.get("fp_inv_limbs", 0),
         launches_msm_scan=scan_strict("g1", "fp_inv_limbs"),
         launches_msm_scan_g2=scan_strict("g2", "fp_inv_limbs"),
-        launches_msm_naive=naive["inv"],
+        launches_msm_naive_to_affine=naive["to_affine"].get("fp_inv_limbs", 0),
         launches_multi={route: v["launches"].get("fp_inv_limbs", 0)
                         for route, v in strict_multi.items()},
         at_widths=inv7["at_widths"], launch=inv7["launch"],
+        fermat_bound_ms=inv7["fermat_bound_ms"], floor_ms=inv7["floor_ms"],
+        fermat_ms=inv7["fermat_ms"], latency=inv7["latency"],
         ptxas=_ptxas_of(ptxas["fp_inv.cu"], "fp_inv_kernelILi1E")))
+    g1, g2 = scan_mul["g1"], scan_mul["g2"]
+    strict_chain_lines.append(_kernel_line(
+        "scan_mul", "scan_msm.cu",
+        "ark_blst_tpu/ops/pallas_field.py:66 (K7-K10 under the lax.scan of "
+        "ark_blst_tpu/curves/group.py:276, scalar_mul :257; msm_naive's ladder)",
+        naive["naive"].get("scan_mul", 0), g1,
+        **{k: g1[k] for k in ("n", "num_bits", "check_n", "check_ms", "bytes", "instructions",
+                              "launch", "ptxas")},
+        g2={k: g2[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "n",
+                                "check_ms", "launch", "ptxas")}))
     strict_chain_lines.append(_kernel_line(
         "fp12_mul_limbs_limbs", "fp12_mul.cu",
         "ark_blst_tpu/ops/pallas_field.py:66 (K7-K10 in the strict tower's fp12_mul under the "
@@ -3998,6 +4180,7 @@ def main() -> int:
                          ("msm_g1", "g1"), ("msm_g2", "g2"), ("pairing", "pairing"),
                          ("msm_auto", "auto"))},
                      at_widths=chains["fp_inv"]["at_widths"],
+                     fermat_bound_ms=chains["fp_inv"]["fermat_bound_ms"],
                      launch=chains["fp_inv"]["launch"]),
         _kernel_line("batch_inverse_scan", "fp_inv.cu",
                      "ark_blst_tpu/ops/pallas_lazy.py:41 (the up and down lax.scans of "

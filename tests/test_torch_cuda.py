@@ -1,10 +1,10 @@
 """The CUDA kernels on the card against their plain PyTorch versions, and the
 G1 and G2 MSMs, the strict engine's scan MSM (its three chains, scan-acc's
 three launches among them, scan-red's and scan-horner's edge cases and
-launch shapes, `-k scan`)
+launch shapes, scan-mul and `msm_naive`'s one scan-mul launch, `-k scan`)
 and the batched pairing (fused, unfused, and strict on both routes: the
 chains on strict limbs with the multi-pairings' fold on K4's strict limbs,
-`-k strict`, and K7-K10 with the K7-inv ladder) on the card against the
+`-k strict`, and K7-K10 with the K7-inv inversion) on the card against the
 host oracle; the arkworks API's
 device routes against the checked-in vectors and its host route; the
 sharded MSMs and multi-pairing in a world of one over NCCL (`-k
@@ -44,7 +44,7 @@ from ark_blst_tpu_torch.ops import convert as CV
 from ark_blst_tpu_torch.ops import scan_msm as SM
 from ark_blst_tpu_torch.ops import strict_field as SF
 from ark_blst_tpu_torch.ops import words as W
-from ark_blst_tpu_torch.ops.limbs import FP, FR, FieldSpec, ints_to_limbs
+from ark_blst_tpu_torch.ops.limbs import FP, FR, FieldSpec, ints_to_limbs, limbs_to_ints
 from ark_blst_tpu_torch.oracle import curve as OC
 from ark_blst_tpu_torch.oracle import field as OF
 from ark_blst_tpu_torch.oracle import pairing as OP
@@ -817,15 +817,22 @@ def test_strict_chains_equal_to_plain_ragged(dev):
     assert vals == [OP.pairing(ps[i], qs[(i + 1) % 4]) for i in range(4)]
 
 
-@pytest.mark.parametrize("n", [1, 1000, 8192])
+@pytest.mark.parametrize("n", [0, 1, 1000, 8192])
 def test_k7_inv_equal_to_plain(dev, n):
-    """The strict Fermat ladder (K7-inv) on canonical strict limbs, 0, 1,
-    p-1 and R mod p in the first lanes, one launch, limb for limb against
-    its plain version (the strict engine's loop of products) and on a
-    sample against R^2 X^-1 mod p; `ops/dispatch.fp_inv` launches it once
-    and no K7."""
+    """The strict engine's inversion (K7-inv, the binary GCD) on canonical
+    strict limbs, 0, 1, p-1 and R mod p in the first lanes, one launch,
+    limb for limb against its plain version (the strict engine's loop of
+    products) and on a sample against R^2 X^-1 mod p; `ops/dispatch.fp_inv`
+    launches it once and no K7. An empty batch launches nothing."""
     from ark_blst_tpu_torch.ops import dispatch as D
 
+    if n == 0:
+        x = torch.zeros((24, 0), dtype=torch.int32, device=dev)
+        before = FI.KERNEL_INV_LIMBS.launches
+        got = FI.fp_inv_limbs(x)
+        assert got.shape == (24, 0) and torch.equal(got, FI.fp_inv_limbs_plain(x))
+        assert FI.KERNEL_INV_LIMBS.launches == before
+        return
     rng = random.Random(n)
     r = (1 << 384) % OF.P
     vals = ([0, 1, OF.P - 1, r] + [rng.randrange(OF.P) for _ in range(n)])[:n]
@@ -896,7 +903,9 @@ def test_scan_msm_on_card_matches_oracle(dev):
     out = M.msm(CV.g1_to_dev(pts), CV.fr_to_dev(scs), c=4, device=dev)
     torch.cuda.synchronize()
     assert all(SF.KERNELS[k].launches > before[k] for k in ("mont_mul", "add", "sub"))
-    assert all(SM.KERNELS[k].launches == before[k] + 1 for k in SM.KERNELS)
+    chains = [k for k in SM.KERNELS if k != "scan_mul"]  # scan-mul: the ladder's, not the MSM's
+    assert all(SM.KERNELS[k].launches == before[k] + 1 for k in chains)
+    assert SM.KERNEL_MUL.launches == before["scan_mul"]
     assert out[0].is_cuda and CV.g1_from_dev(out) == [OC.msm(base, agg)]
 
 
@@ -922,6 +931,73 @@ def test_scan_chains_equal_to_plain(dev, curve):
     got = _launched_once(SM.KERNEL_HORNER, lambda: SM.horner(cv, sums, 8))
     assert torch.equal(SM.stack_point(got), SM.stack_point(SM.horner_plain(cv, sums, 8)))
     assert (CV.g2_from_dev if curve == "g2" else CV.g1_from_dev)(got) == [expected]
+
+
+def _mul_instance(dev, curve: str):
+    """64 points of `curves/instance.py` (point 5 the identity) and their
+    scalars, the first four 0, 1, r - 1 and 2^256 - 1 (every limb 0xFFFF)."""
+    points, scalars, _ = distinct_bases(6, 8, dev, curve)
+    for col, k in enumerate((0, 1, OF.R - 1, (1 << 256) - 1)):
+        scalars[:, col] = torch.from_numpy(ints_to_limbs([k], 16)[0]).to(dev)
+    return points, scalars
+
+
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_scan_mul_equal_to_plain(dev, curve):
+    """scan-mul (`CurveOps.scalar_mul` on CUDA tensors) one launch, against
+    its plain loop on the card limb for limb at 256 and 8 bits, at 1 and 33
+    elements (a last block that is partly filled: 32 teams a block) at 256
+    bits, one point against every scalar (the batches broadcast), and
+    against the oracle."""
+    from ark_blst_tpu_torch.curves.group import G1 as CG1, G2 as CG2
+
+    cv = CG2 if curve == "g2" else CG1
+    points, scalars = _mul_instance(dev, curve)
+    for bits in (256, 8):
+        got = _launched_once(SM.KERNEL_MUL, lambda: cv.scalar_mul(points, scalars, bits))
+        want = SM.scalar_mul_plain(cv, points, scalars, bits)
+        assert torch.equal(SM.stack_point(got), SM.stack_point(want)), bits
+    for n in (1, 33):  # from lane 2: scalars r - 1, 2^256 - 1, ..., the identity at lane 5
+        pts = SM.point_of(SM.stack_point(points)[..., 2:2 + n].contiguous())
+        sc = scalars[:, 2:2 + n].contiguous()
+        got = _launched_once(SM.KERNEL_MUL, lambda: cv.scalar_mul(pts, sc, 256))
+        want = SM.scalar_mul_plain(cv, pts, sc, 256)
+        assert SM.stack_point(got).shape[-1] == n
+        assert torch.equal(SM.stack_point(got), SM.stack_point(want)), n
+    one = SM.point_of(SM.stack_point(points)[..., 6:7])
+    got = _launched_once(SM.KERNEL_MUL, lambda: cv.scalar_mul(one, scalars, 16))
+    assert SM.stack_point(got).shape[-1] == scalars.shape[1]
+    assert torch.equal(SM.stack_point(got),
+                       SM.stack_point(SM.scalar_mul_plain(cv, one, scalars, 16)))
+    got = cv.scalar_mul(points, scalars, 256)
+    from_dev = CV.g2_from_dev if curve == "g2" else CV.g1_from_dev
+    mul = OC.g2_mul if curve == "g2" else OC.scalar_mul
+    ks = limbs_to_ints(scalars[:, :8].T.cpu().numpy())
+    assert from_dev(SM.point_of(SM.stack_point(got)[..., :8])) == [
+        None if p is None else mul(p, k % OF.R)
+        for p, k in zip(from_dev(SM.point_of(SM.stack_point(points)[..., :8])), ks)]
+
+
+def test_msm_naive_launches_one_scan_mul(dev):
+    """`msm_naive` on the card: its ladder is one scan-mul launch and no
+    K7-K10 (the ladder alone launches nothing else), K7-K10 only in its
+    log fold; the result the instance's point."""
+    from ark_blst_tpu_torch.curves.group import G1 as CG1
+
+    points, scalars, expected = distinct_bases(8, 9, dev, "g1")
+    kernels = {**SF.KERNELS, **SM.KERNELS, "inv": FI.KERNEL_INV_LIMBS}
+    before = {k: v.launches for k, v in kernels.items()}
+    CG1.scalar_mul(points, scalars, 256)
+    torch.cuda.synchronize()
+    moved = {k for k, v in kernels.items() if v.launches != before[k]}
+    assert moved == {"scan_mul"} and SM.KERNEL_MUL.launches == before["scan_mul"] + 1
+    before = {k: v.launches for k, v in kernels.items()}
+    out = M.msm_naive(points, scalars, CG1, device=dev)
+    torch.cuda.synchronize()
+    moved = {k for k, v in kernels.items() if v.launches != before[k]}
+    assert SM.KERNEL_MUL.launches == before["scan_mul"] + 1
+    assert moved <= {"scan_mul", "mont_mul", "add", "sub", "neg"}
+    assert out[0].is_cuda and CV.g1_from_dev(out) == [expected]
 
 
 # scan-acc's card cases: (c, digits, one step a stream): random scalars'
@@ -973,7 +1049,7 @@ def test_scan_acc_cases_equal_to_plain(dev, curve, case):
     torch.cuda.synchronize()
     assert {k: v.launches - before[k] for k, v in SM.KERNELS.items()} == {
         "scan_acc_words": 1, "scan_acc_walk": 1, "scan_acc_split": 1, "scan_red": 0,
-        "scan_horner": 0}
+        "scan_horner": 0, "scan_mul": 0}
     assert torch.equal(got, want)
     pts = SM.stack_point(points)
     pw = _launched_once(SM.KERNEL_WORDS, lambda: SM.point_words(pts))

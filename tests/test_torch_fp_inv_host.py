@@ -2,8 +2,9 @@
 compiled for the CPU with the host C++ compiler and undefined-behaviour
 checks.
 
-The Fermat ladder is held against R13^2 X^-1 mod p (Python `pow`) on
-random digit stacks and on X = 0, 1, p-1 and R mod p; the up and down
+The inversion (the binary GCD of `finv::inverse`) is held against R13^2
+X^-1 mod p (Python `pow`) on random digit stacks and on X = 0, 1, p-1 and
+R mod p; the up and down
 passes of one level of the blocked batch inversion against their plain
 versions (`ops/fp_inv.py`) by value; and a whole blocked inversion at
 8192 elements (one level of 64 rows, the ladder on the 128 column
@@ -11,8 +12,12 @@ products) built from the compiled bodies against the JAX package's exact
 host inversion. Every output's digits are checked to be within 4096. The
 strict engine's ladder (K7-inv, on strict limbs) is held against R^2 X^-1
 mod p and limb for limb against its plain version (`fp_inv_limbs_plain`,
-the strict engine's loop of products), values in [p, 2^384) reduced. The
-kernels themselves run only on the card (tests/test_torch_cuda.py).
+the strict engine's loop of products), values in [p, 2^384) reduced; the
+binary GCD alone word for word against the Fermat ladder (`finv::fermat`)
+and R^2 X^-1 mod p on random values, edge values, powers of 2 and small
+values (its longest runs), its constants (INV_FIX, the batch and step
+counts) pinned against Python ints. The kernels themselves run only on
+the card (tests/test_torch_cuda.py).
 Skipped where no host C++ compiler is installed.
 """
 
@@ -47,14 +52,17 @@ HARNESS = r"""
 // result. n = g m elements. Ops: 0 the ladder on (30, n) digits -> (30, n);
 // 1 the up pass on z (30, n) -> pre (12, n) words, then total (30, m);
 // 2 the down pass on z (30, n), pre (12, n), inv_total (30, m) -> (30, n);
-// 3 the ladder on (24, n) strict limbs -> (24, n).
+// 3 the inversion on (24, n) strict limbs -> (24, n); 4 the binary GCD
+// (`inverse`) and the Fermat ladder (`fermat`) on the words of (24, n)
+// strict limbs (reduced on the load) -> (48, n), the GCD's limbs first.
 int main() {
   long long hdr[4];
   if (fread(hdr, sizeof(long long), 4, stdin) != 4) return 2;
   const long long op = hdr[0], g = hdr[1], m = hdr[2], n = g * m;
-  if (op < 0 || op > 3 || g < 1 || m < 1) return 2;
-  const size_t in_size = op == 3 ? 24 * n : op <= 1 ? 30 * n : 42 * n + 30 * m;
-  const size_t out_size = op == 3 ? 24 * n : op == 1 ? 12 * n + 30 * m : 30 * n;
+  if (op < 0 || op > 4 || g < 1 || m < 1) return 2;
+  const size_t in_size = op >= 3 ? 24 * n : op <= 1 ? 30 * n : 42 * n + 30 * m;
+  const size_t out_size = op == 3 ? 24 * n : op == 4 ? 48 * n : op == 1 ? 12 * n + 30 * m
+                                                                        : 30 * n;
   std::vector<int> in(in_size), out(out_size);
   if (fread(in.data(), sizeof(int), in.size(), stdin) != in.size()) return 3;
   const int* z = in.data();
@@ -63,6 +71,14 @@ int main() {
   if (op == 3)
     for (long long i = 0; i < n; ++i)
       finv::inv_elem<t381::LIMB_ROWS>(z + i, out.data() + i, n);
+  for (long long i = 0; op == 4 && i < n; ++i) {
+    f381::Fp x, r;
+    t381::read_row(z + i, n, t381::LIMB_ROWS, x);
+    finv::inverse(x, r);
+    t381::write_row(r, out.data() + i, n, t381::LIMB_ROWS);
+    finv::fermat(x, r);
+    t381::write_row(r, out.data() + 24 * n + i, n, t381::LIMB_ROWS);
+  }
   auto* pre = reinterpret_cast<f381::u32*>(op == 1 ? out.data() : in.data() + 30 * n);
   for (long long j = 0; op == 1 && j < m; ++j)
     finv::scan_up_col(z, pre, out.data() + 12 * n, static_cast<int>(g), m, j);
@@ -143,6 +159,49 @@ def test_exponent_constant():
     top = int(re.search(r"constexpr int EXP_TOP = (\d+);", text).group(1))
     assert top == (P - 2).bit_length() - 1 == len(FI.P_MINUS_2_BITS) - 1
     assert sum(FI.P_MINUS_2_BITS[1:]) == 228
+
+
+def _header_words(text: str, name: str) -> int:
+    m = re.search(r"__constant__ u32 " + name + r"\[NW\] = \{([^}]*)\};", text)
+    return sum(int(v, 16) << (32 * j) for j, v in enumerate(m.group(1).replace("\n", " ").split(",")))
+
+
+def test_gcd_constants():
+    """The binary GCD's counts and its final factor: 26 batches of 30 steps
+    cover 2 len(p) - 1 = 761 steps; a batch's factors (|f| <= 2^30) fit a
+    signed word; INV_FIX = R^3 2^((32 - 30) 26) mod p (each batch divides u
+    and v by 2^32 and a and b by 2^30)."""
+    text = (KC.CSRC_DIR / "fp_inv.cuh").read_text()
+    steps = int(re.search(r"constexpr int GCD_STEPS = (\d+);", text).group(1))
+    batches = int(re.search(r"constexpr int GCD_BATCHES = (\d+);", text).group(1))
+    assert (steps, batches) == (30, 26)
+    assert steps * batches >= 2 * P.bit_length() - 1 == 761
+    assert steps <= 30  # |f| + |g| <= 2^steps within a signed 32-bit word
+    assert _header_words(text, "INV_FIX") == pow(2, 3 * 384 + (32 - steps) * batches, P)
+
+
+def gcd_values() -> list:
+    """Random values, edge values, values in [p, 2^384), powers of 2 and
+    small values (the binary GCD's longest runs: 2^380 takes all 761
+    steps)."""
+    rng = np.random.default_rng(5)
+    r = (1 << 384) % P
+    return ([0, 1, 2, 3, P - 1, P - 2, r, P, P + 1, (1 << 384) - 1, P + 2]
+            + [1 << k for k in range(0, 381, 7)] + [1 << 380, (1 << 381) - 1, P >> 1]
+            + list(range(4, 40)) + [int.from_bytes(rng.bytes(48), "little") % P
+                                    for _ in range(64)])
+
+
+def test_gcd_inverse_host(harness):
+    """The binary GCD against R^2 X^-1 mod p and word for word against the
+    Fermat ladder on the same loaded words."""
+    vals = gcd_values()
+    x = torch.from_numpy(ints_to_limbs(vals, 24).T.copy())
+    got = run(harness, 4, 1, len(vals), x).reshape(48, -1)
+    r = (1 << 384) % P
+    want = [pow(v, -1, P) * r * r % P if v % P else 0 for v in vals]
+    assert [int(v) for v in limbs_to_ints(got[:24].T.numpy())] == want
+    assert torch.equal(got[:24], got[24:])
 
 
 def test_fermat_ladder_host(harness):

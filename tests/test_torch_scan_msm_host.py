@@ -10,7 +10,12 @@ so everything is held exactly (tolerance: none), limb for limb as
 projective coordinates: `complete_add` and `complete_dbl` against
 `curves/group.py` `G1.add` / `G1.double` and `G2.add` / `G2.double` on
 random points with Z != 1, P + P, P + (-P), the identity on either side
-and the identity doubled; the three walks on a G1 and a G2 instance of 64
+and the identity doubled; scan-mul's team walk (the double-and-add
+ladder, its phases' jobs in order and last first) against
+`scalar_mul_plain` on G1 at 256 and 8 bits and on G2 at 32 and 8 (the
+plain G2 ladder takes ~0.3 s a bit here), with scalars 0, 1, r - 1 and
+2^256 - 1 and an identity base, and on G2 at 256 bits against the
+oracle; the three walks on a G1 and a G2 instance of 64
 points (Z != 1, an identity point and a zero scalar), 8 lanes, c = 4,
 against `bucket_accumulate_plain`, `bucket_reduce_plain` and
 `horner_plain` (scan-red's and scan-horner's team walks with their
@@ -53,6 +58,7 @@ from ark_blst_tpu_torch.ops import dispatch as D
 from ark_blst_tpu_torch.ops import scan_msm as SM
 from ark_blst_tpu_torch.oracle import curve as OC
 from ark_blst_tpu_torch.oracle import field as OF
+from ark_blst_tpu_torch.ops.limbs import ints_to_limbs
 
 CURVES = {"g1": G1, "g2": G2}
 N, LANES, C = 64, 8, 4  # the walks' instance: 8 steps a stream, W = 64, B = 16
@@ -106,7 +112,9 @@ struct HostTeam {
 // (c = a may exceed 16); 5 scan-acc's point words:
 // (3 nc, 24, n) -> (n, 36 nc); 6 its walk: records (n, 36 nc) and digits
 // (a, n), lanes b, B = 2^c -> (b a B, 36 nc); 7 its split: records
-// (n, 36 nc) -> (3 nc, 24, n). rev runs each phase's jobs last first.
+// (n, 36 nc) -> (3 nc, 24, n); 8 scan-mul's team walk: points (3 nc, 24,
+// n) and scalars (16, n), num_bits a -> (3 nc, 24, n), the elements last
+// first. rev runs each phase's jobs last first.
 template <class F>
 void words_pass(const int* pts, int* pw, long long n) {
   for (long long i = 0; i < n; ++i) smsm::point_to_words<F>(pts, pw, n, i);
@@ -180,6 +188,12 @@ int run(long long op, long long n, long long a, long long b, long long c, const 
     words_pass<F>(x, out, n);
   } else if (op == 6) {
     walk_pass<F>(team, x, x + n * PW, out, n, static_cast<int>(b), static_cast<int>(a), B);
+  } else if (op == 8) {
+    // one team's slots, reused element after element (last first)
+    std::vector<f381::u32> sm(smsm::MUL_SLOTS<F> * f381::NW, 0xDEADBEEFu);
+    const smsm::TeamMem m{sm.data(), 1};
+    for (long long i = n - 1; i >= 0; --i)
+      smsm::mul_team<F>(team, m, x, x + R * cs, out, n, i, static_cast<int>(a));
   } else {
     split_pass<F>(team, x, out, n);
   }
@@ -190,8 +204,8 @@ int main() {
   long long hdr[7];
   if (fread(hdr, sizeof(long long), 7, stdin) != 7) return 2;
   const long long op = hdr[0], nc = hdr[1], n = hdr[2], a = hdr[3], b = hdr[4], c = hdr[5];
-  if (op < 0 || op > 7 || (nc != 1 && nc != 2) || n < 1 || c < 0 || c > 16 || b < 0 ||
-      (op == 3 && b < 1))
+  if (op < 0 || op > 8 || (nc != 1 && nc != 2) || n < 1 || c < 0 || c > 16 || b < 0 ||
+      (op == 3 && b < 1) || (op == 8 && (a < 0 || a > 256)))
     return 2;
   const HostTeam team{hdr[6] != 0};
   const long long pt = 3 * nc * 24, rec = 3 * nc * 12;  // rows of a point stack, record words
@@ -204,6 +218,7 @@ int main() {
   if (op == 5) out_size = rec * n;
   if (op == 6) in_size = (rec + a) * n, out_size = rec * b * a * B;
   if (op == 7) in_size = rec * n;
+  if (op == 8) in_size = (pt + 16) * n;
   std::vector<int> in(in_size), out(out_size, -1);
   if (fread(in.data(), sizeof(int), in.size(), stdin) != in.size()) return 3;
   if (nc == 1) run<f381::Fp>(op, n, a, b, c, team, in.data(), out.data());
@@ -306,6 +321,56 @@ def test_complete_add_and_dbl_host(harness, name):
             + ps + ps + [None] * k)
     assert from_dev(SM.point_of(run(harness, 0, curve, SM.stack_point(a), SM.stack_point(b),
                                      n=n, shape=shape))) == want
+
+
+# scan-mul's scalars: 0, 1, r - 1, 2^256 - 1 (every limb 0xFFFF: no
+# reduction mod r), a random scalar on the identity base, a random one
+MUL_SCALARS = (0, 1, OF.R - 1, (1 << 256) - 1, None, None)
+
+
+def mul_instance(name: str, bits: int):
+    """Points in random projective coordinates (point 4 the identity) and
+    their scalars as (16, n) limbs, with the affine points and the ints."""
+    curve = CURVES[name]
+    rng = random.Random(f"mul-{name}-{bits}")
+    pts = affine_points(curve, rng, len(MUL_SCALARS))
+    pts[4] = None
+    ks = [rng.randrange(1 << 256) if k is None else k for k in MUL_SCALARS]
+    points = scaled(curve, to_dev(curve, pts), rng)
+    return points, torch.from_numpy(ints_to_limbs(ks, 16).T.copy()), pts, ks
+
+
+def mul_oracle(name: str, pts, ks, bits: int) -> list:
+    """k P, k taken mod 2^bits, from the oracle."""
+    mul = OC.g2_mul if name == "g2" else OC.scalar_mul
+    return [None if p is None else mul(p, k % (1 << bits)) for p, k in zip(pts, ks)]
+
+
+@pytest.mark.parametrize("name,bits", [("g1", 256), ("g1", 8), ("g2", 32), ("g2", 8)])
+def test_scan_mul_walk_host(harness, name, bits):
+    """scan-mul's team walk under the harness, its phases' jobs in order and
+    last first, against `scalar_mul_plain` limb for limb and the oracle's
+    k P mod 2^bits: the edge scalars, an identity base (point 4), points in
+    random projective coordinates."""
+    curve = CURVES[name]
+    points, scalars, pts, ks = mul_instance(name, bits)
+    plain = SM.stack_point(SM.scalar_mul_plain(curve, points, scalars, bits))
+    stack = SM.stack_point(points)
+    for rev in (False, True):
+        got = run(harness, 8, curve, stack, scalars, n=len(ks), a=bits, rev=rev, shape=plain.shape)
+        assert torch.equal(got, plain), rev
+    from_dev = CV.g2_from_dev if name == "g2" else CV.g1_from_dev
+    assert from_dev(SM.point_of(plain)) == mul_oracle(name, pts, ks, bits)
+
+
+def test_scan_mul_walk_g2_full_ladder_host(harness):
+    """scan-mul's G2 walk over all 256 bits against the oracle (the plain G2
+    ladder would take over a minute here; the card holds the kernel to it
+    limb for limb at 256 bits)."""
+    points, scalars, pts, ks = mul_instance("g2", 256)
+    stack = SM.stack_point(points)
+    got = run(harness, 8, G2, stack, scalars, n=len(ks), a=256, shape=stack.shape)
+    assert CV.g2_from_dev(SM.point_of(got)) == mul_oracle("g2", pts, ks, 256)
 
 
 @pytest.fixture(scope="module")
