@@ -32,38 +32,48 @@
 // 35 fp12 products (54 and ~224) an element against ~1 KB of digits in and
 // out; its values t0-t6 stay as words in an L2-resident scratch stack
 // (576 bytes an element a value). FE-easy makes ~250 products and one
-// Fermat ladder (608 dependent products, one job an element): at the
-// pairing's widths the ladder's latency bounds it, as K1-inv's (1.0 ms).
+// inversion of an Fp norm, one job an element: at the pairing's widths
+// that job's latency bounds it.
 //
 // Design (final_exp.cuh on tower381.cuh): each element's state lives in
-// shared memory as canonical Montgomery words in K4's 30 Fp2 slots (2,880
-// bytes); a block holds E elements, and its threads run each step as
-// phases of independent jobs with a barrier between, on K3's square tables
-// and K4's product tables. FE-hard walks a host-built program of the hard
-// part (ops/final_exp.py: HARD_PROGRAM), the list its plain version walks on
-// digits. Tensor cores do not apply: a 384-bit modular product has no wgmma
-// form here; the IMAD pipe carries the products.
+// shared memory as canonical Montgomery words; a block holds E elements,
+// and its threads run each step as phases of independent jobs with a
+// barrier between. FE-easy: K4's 30 Fp2 slots (2,880 bytes), Fp2 jobs on
+// K4's product tables, the norm inverted by the binary GCD of fp_inv.cuh
+// (finv::inverse, as K1-inv and K7-inv: ~56K instructions where the Fermat
+// ladder ran 608 dependent products). FE-hard walks a host-built program of
+// the hard part (ops/final_exp.py: HARD_PROGRAM), the list its plain
+// version walks on digits, in 72 Fp slots (3,456 bytes), each job one Fp
+// value: a square's 18 Fp products (the nine Fp2 squares' components) in
+// one phase and its 12 components' recombination (3 T -+ 2 a as T + 2 (T
+// -+ a)) in the next; an fp12 product's 54 Karatsuba legs in two phases
+// (36 and 18, the second writing over the halves of A and B the first
+// finished with), t0-t2 from the legs, the result, a move into A; the
+// Frobenius maps an Fp component a job. K3's and K4's Fp2 jobs ran two or
+// three products a job and recombined in chains of up to 22 Fp sums; here a
+// block's phase costs the issue of its products when the block is full, and
+// one product and its operand sums when it holds one element
+// (scripts/fe_hard_probe.py splits the time by phase kind; PERF.md). So
+// the block holds as many elements as spread the batch over the SMs, and
+// runs jobs for those in the batch alone. Tensor cores do not apply: a
+// 384-bit modular product has no wgmma form here; the IMAD pipe carries
+// the products.
 #include "final_exp.cuh"
 
 namespace {
 
 // The launch shapes: E elements a block. FE-easy's threads are K4's (six an
-// element: its phases are products of up to 18 jobs an element), FE-hard's
-// K3's (nine an element: a square's nine products in one round), each
-// bounded for two blocks an SM, as many as shared memory holds at E = 32.
-// scripts/tower_probe.py (--fe) builds FE-hard at other bounds and times it.
+// element: its phases are products of up to 18 jobs an element), bounded
+// for two blocks an SM, as many as shared memory holds at E = 32; FE-hard's
+// follow the batch (final_exp.cuh hard_elems: E up to 32, 18 E threads),
+// bounded for FE_HARD_THREADS threads and FE_HARD_MIN_BLOCKS blocks an SM
+// (scripts/tower_probe.py --fe builds it at other bounds and times it).
 // Each kernel is instantiated for the edge formats its callers use
-// (tower381.cuh EdgeFormat): FE-easy's input digits, words or strict limbs,
-// FE-hard's output digits or strict limbs.
+// (tower381.cuh EdgeFormat): FE-easy's input digits, words or strict
+// limbs, FE-hard's output digits or strict limbs.
 constexpr int kEasyThreads = 192;
 constexpr int kEasyMinBlocks = 2;
-#ifndef FE_HARD_THREADS
-#define FE_HARD_THREADS 288
-#endif
-#ifndef FE_HARD_MIN_BLOCKS
-#define FE_HARD_MIN_BLOCKS 2
-#endif
-constexpr int kElems = 32;
+constexpr int kEasyElems = 32;
 
 template <int IN_FMT>
 __global__ void __launch_bounds__(kEasyThreads, kEasyMinBlocks) easy_kernel(
@@ -74,12 +84,14 @@ __global__ void __launch_bounds__(kEasyThreads, kEasyMinBlocks) easy_kernel(
   fexp::easy_chain<IN_FMT>(b, fexp::EasyChain{f, out, frob}, t381::BlockPhases{E});
 }
 
+// FE-hard: the phases' jobs of the block's elements in the batch alone
+// (BlockPhases numbers the jobs over them; the slots keep the stride E).
 template <int OUT_FMT>
 __global__ void __launch_bounds__(FE_HARD_THREADS, FE_HARD_MIN_BLOCKS) hard_kernel(
     fexp::HardChain c, long long n, int E) {
   extern __shared__ t381::u32 smem[];
   const t381::Block b{smem, E, static_cast<long long>(blockIdx.x) * E, n};
-  fexp::hard_chain<OUT_FMT>(b, c, t381::BlockPhases{E});
+  fexp::hard_chain<OUT_FMT>(b, c, t381::BlockPhases{fexp::active_elems(b)});
 }
 
 using EasyKernel = void (*)(const int*, int*, const int*, long long, int);
@@ -103,23 +115,23 @@ HardKernel hard_for(int out_fmt) {
                                       : nullptr;
 }
 
-int smem_bytes(int E) { return E * fexp::SLOTS * t381::SLOT * 4; }
+int easy_smem_bytes(int E) { return E * fexp::SLOTS * t381::SLOT * 4; }
 
 template <typename Kernel>
-int prepare(Kernel kernel, int E) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(E)));
+int prepare(Kernel kernel, int smem) {
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
 }
 
 template <typename Kernel>
-int shape_of(Kernel kernel, int default_threads, int* elems, int* threads, int* smem,
-             int* blocks_per_sm) {
+int shape_of(Kernel kernel, int default_elems, int default_threads, int (*smem_of)(int),
+             int* elems, int* threads, int* smem, int* blocks_per_sm) {
   if (*elems <= 0 || *threads <= 0) {
-    *elems = kElems;
+    *elems = default_elems;
     *threads = default_threads;
   }
-  *smem = smem_bytes(*elems);
-  const int err = prepare(kernel, *elems);
+  *smem = smem_of(*elems);
+  const int err = prepare(kernel, *smem);
   if (err) return err;
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, *threads, *smem));
@@ -136,10 +148,11 @@ extern "C" int final_exp_easy(const int* f, int* out, const int* frob, long long
   const EasyKernel kernel = easy_for(in_fmt);
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
-  const int err = prepare(kernel, kElems);
+  const int err = prepare(kernel, easy_smem_bytes(kEasyElems));
   if (err) return err;
-  kernel<<<static_cast<unsigned>((n + kElems - 1) / kElems), kEasyThreads, smem_bytes(kElems),
-           static_cast<cudaStream_t>(stream)>>>(f, out, frob, n, kElems);
+  kernel<<<static_cast<unsigned>((n + kEasyElems - 1) / kEasyElems), kEasyThreads,
+           easy_smem_bytes(kEasyElems), static_cast<cudaStream_t>(stream)>>>(f, out, frob, n,
+                                                                         kEasyElems);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -155,30 +168,48 @@ extern "C" int final_exp_hard_shaped(const int* in, int* scratch, int* out,
   const HardKernel kernel = hard_for(out_fmt);
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
-  const int err = prepare(kernel, E);
+  const int err = prepare(kernel, fexp::hard_smem_bytes(E));
   if (err) return err;
   const fexp::HardChain c{in, scratch, out, prog, nops, frob};
-  kernel<<<static_cast<unsigned>((n + E - 1) / E), threads, smem_bytes(E),
+  kernel<<<static_cast<unsigned>((n + E - 1) / E), threads, fexp::hard_smem_bytes(E),
            static_cast<cudaStream_t>(stream)>>>(c, n, E);
   return static_cast<int>(cudaGetLastError());
 }
 
+static int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms;
+}
+
+// FE-hard at the shape for n elements (fexp::hard_elems on this card's SMs).
 extern "C" int final_exp_hard(const int* in, int* scratch, int* out, long long n,
                               const int* prog, int nops, const int* frob, int out_fmt,
                               void* stream) {
-  return final_exp_hard_shaped(in, scratch, out, n, prog, nops, frob, out_fmt, kElems,
-                               FE_HARD_THREADS, stream);
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaGetLastError());
+  const int E = fexp::hard_elems(n, sms);
+  return final_exp_hard_shaped(in, scratch, out, n, prog, nops, frob, out_fmt, E,
+                               fexp::HARD_THREADS_PER_ELEM * E, stream);
 }
 
 // A launch shape and the blocks an SM holds at it (the occupancy API at the
 // fused pairing's builds' registers, FE-easy on words and FE-hard to limbs,
 // and the shape's shared memory): on entry, elems and threads > 0 name the
-// shape, 0 the default, which they then hold. Return the CUDA error of the
-// query (0 on success).
+// shape, 0 the default, which they then hold (FE-hard's for n elements,
+// final_exp_hard's). Return the CUDA error of the query (0 on success).
 extern "C" int final_exp_easy_shape(int* elems, int* threads, int* smem, int* blocks_per_sm) {
-  return shape_of(kEasyWords, kEasyThreads, elems, threads, smem, blocks_per_sm);
+  return shape_of(kEasyWords, kEasyElems, kEasyThreads, easy_smem_bytes, elems, threads, smem,
+                  blocks_per_sm);
 }
 
-extern "C" int final_exp_hard_shape(int* elems, int* threads, int* smem, int* blocks_per_sm) {
-  return shape_of(kHardLimbs, FE_HARD_THREADS, elems, threads, smem, blocks_per_sm);
+extern "C" int final_exp_hard_shape(int n, int* elems, int* threads, int* smem,
+                                    int* blocks_per_sm) {
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaGetLastError());
+  const int E = fexp::hard_elems(n, sms);
+  return shape_of(kHardLimbs, E, fexp::HARD_THREADS_PER_ELEM * E, fexp::hard_smem_bytes, elems,
+                  threads, smem, blocks_per_sm);
 }

@@ -9,10 +9,10 @@
 // the Fermat ladder x^(p-2): its chain is 780 cheap steps on 64-bit
 // approximations, 26 linear updates of 12-word values and one Montgomery
 // product, where the ladder's is 608 dependent products. Both give the
-// same canonical words, so the outputs did not change. The ladder
-// (`fermat`) stays: FE-easy's norm inversion (final_exp.cuh) runs it, and
-// it is the differential reference of tests/test_torch_fp_inv_host.py and
-// scripts/fp_inv_probe.py.
+// same canonical words, so the outputs did not change. FE-easy's norm
+// inversion (final_exp.cuh) runs it too. The ladder (`fermat`) stays as
+// the differential reference of tests/test_torch_fp_inv_host.py and
+// scripts/fp_inv_probe.py; no kernel of the package runs it.
 //
 // Domains: the digit stacks are the lazy engine's (balanced radix-13
 // digits, |d| <= 8191, of a value x R13 with R13 = 2^390).
@@ -51,8 +51,8 @@ constexpr int EXP_TOP = 380;
 // r = x^(p-2) for canonical words x = v R: v^-1 R, and 0 for v = 0: the
 // Fermat ladder, MSB-first square-and-multiply over the exponent's bits;
 // the bit is the same for every thread, so the branch never diverges. r
-// must not alias x: x is read again on every set bit. FE-easy's norm
-// inversion runs it; `inverse` below computes the same words.
+// must not alias x: x is read again on every set bit. The reference of the
+// tests and the probe; `inverse` below computes the same words.
 __device__ __forceinline__ void fermat(const Fp& x, Fp& r) {
   r = x;
 #pragma unroll 1

@@ -23,9 +23,10 @@ Phases, one JSON line each:
               1000 and 1 on canonical limbs with the same first lanes, limb
               for limb against its plain version (the strict loop of
               products on the plain product) and the oracle on a sample,
-              timed beside K1-inv, the Fermat ladder's body in turns with
-              it (scripts/fp_inv_probe.cu) and the 610 K7 launches it
-              replaced, with the body's one-thread latencies (a batch of
+              timed beside K1-inv and the 610 K7 launches it replaced
+              (the Fermat ladder's body is timed by scripts/fp_inv_probe.py,
+              not here: no phase runs it), with the body's one-thread
+              latencies (a batch of
               GCD steps, its update, a dependent operation) and the floor
               of its 780 dependent steps; K1-scan's up and
               down passes at the G1 MSM's two levels (64 rows of 65,536
@@ -120,7 +121,9 @@ Phases, one JSON line each:
               FE-easy on those words and on their digits word for word
               against its plain version, FE-hard storing strict limbs limb
               for limb (on FE-easy's words and on the plain easy part's)
-              and storing digits (within 4096) by value; at 8192 the first
+              and storing digits (within 4096) by value; at 999 both
+              against their first 999 columns at 1000 (partly filled last
+              blocks; FE-hard's block size follows the width); at 8192 the first
               eight results (an identity among them) against the oracle's
               pairings; each timed in the fused pairing's layout beside its
               plain version and its bound, the other layout beside, with
@@ -339,7 +342,7 @@ the fused strict batch's launches, their times at 8192 with the other
 widths' and the word instantiation's in the same run (`words_ms`), their
 registers; K7-inv (`fp_inv_limbs`) the unfused strict batch's launch, the
 scan MSMs' and `msm_naive`'s `to_affine`'s, its times at 8192 and the other widths with
-K1-inv's, the Fermat body's and the K7 loop's it replaced beside, the
+K1-inv's and the K7 loop's it replaced beside, the
 binary GCD's bound (`bound_ms`), the Fermat work's (`fermat_bound_ms`) and
 the GCD's latency floor; `scan_mul` the
 `msm_naive` launch, its time at 2^12 on G1 (G2's under `g2`) beside its
@@ -397,8 +400,8 @@ beside: 12 conversions; `chain_work`), and bytes as those components
 read or written once (96 bytes a limb component, 48 a word one, 120 a
 digit one); beside, the digit entries' edges (R and Q or f and P in, the
 lines out and in, all as converted digits); FE-easy and FE-hard
-count their Fp2 and fp12 work (the inverse by the shortest window chain
-for p - 2, FE-hard's squares and products from its program), f in as
+count their Fp2 and fp12 work (the norm's inverse by the binary GCD it
+runs, `gcd_inv_ops`, FE-hard's squares and products from its program), f in as
 words and the easy part out as words (FE-easy), the easy part in as
 words and the result out as strict limbs, a split of each word
 (FE-hard; `final_exp_work`), the digit layouts beside (f in, the result
@@ -710,20 +713,23 @@ def final_exp_work() -> dict:
     fused pairing's; "easy_digits": from digits, converted), fp12_inv (26
     Fp2 products and 15 Fp2 squares with FE-easy's, 62 Fp2 sums and 13
     products by xi, 3 Fp2 and 1 Fp negations, the norm's 4 products and 1
-    sum, its inverse by the shortest window chain for p - 2), the two fp12
-    products and the Frobenius square's 5 Fp2 products; t2 out as words.
+    sum, its inverse by the binary GCD the kernel runs, `gcd_inv_ops`),
+    the two fp12 products and the Frobenius square's 5 Fp2 products; t2 out
+    as words.
     FE-hard, counted from HARD_PROGRAM: its cyclotomic squares and fp12
     products, each Frobenius map's 5 Fp2 products (6 Fp2 negations for an
-    odd power), each conjugation's 3 Fp2 negations; t2 in as words, the
+    odd power), each conjugation's 3 Fp2 negations (the kernel's Fp jobs
+    make more sums, 117 a square and 365 a product against the 107 and
+    224 counted: each leg sums its own operands; the bound keeps the
+    function's count); t2 in as words, the
     result out as strict limbs (a word split in two: a store; "hard_digits":
     as digits, converted); "easy_limbs": FE-easy with f in as the strict
     engine's limbs (a repack, counted in the bytes alone)."""
     from ark_blst_tpu_torch.ops import final_exp as FE
-    from ark_blst_tpu_torch.ops import fp_inv as FI
 
     fp2_sqr = 2 * MONT_MUL32_OPS + 3 * ADD32_OPS
     easy = (26 * FP2_MUL32_OPS + 15 * fp2_sqr + (62 + 13) * 2 * ADD32_OPS + 7 * NEG32_OPS
-            + (window_chain_products(FI.P_MINUS_2_BITS) + 4) * MONT_MUL32_OPS + ADD32_OPS
+            + gcd_inv_ops() + 4 * MONT_MUL32_OPS + ADD32_OPS
             + 2 * FP12_MUL32_OPS + 5 * FP2_MUL32_OPS)
     prog = FE.HARD_PROGRAM
     conjs = sum(c == FE.CONJ for c, *_ in prog) + sum(
@@ -773,24 +779,26 @@ def cuda_ms(torch, fn, reps: int) -> float:
 
 
 def _ptxas_summary(log: str) -> dict:
-    """Each kernel entry's registers and cumulative stack (`entries`, by
-    mangled name), those of the entry with the most registers, and the
-    spill bytes summed over all functions of the library."""
+    """Each kernel entry's registers, cumulative stack and spill bytes
+    (`entries`, by mangled name), those of the entry with the most
+    registers, and the spill bytes summed over all functions of the
+    library."""
     out = {"spill_store_bytes": 0, "spill_load_bytes": 0, "entries": {}}
-    entry, frame = None, 0
+    entry, frame, spills = None, 0, (0, 0)
     for line in log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         if "spill stores" in line:
             parts = line.replace(",", "").split()
-            frame = int(parts[0])
-            out["spill_store_bytes"] += int(parts[4])
-            out["spill_load_bytes"] += int(parts[8])
+            frame, spills = int(parts[0]), (int(parts[4]), int(parts[8]))
+            out["spill_store_bytes"] += spills[0]
+            out["spill_load_bytes"] += spills[1]
         if "Used" in line and "registers" in line:
             stack = (int(line.split("barriers,")[1].split("bytes")[0])
                      if "cumulative stack size" in line else frame)
             out["entries"][entry] = {
-                "registers": int(line.split("Used")[1].split("registers")[0]), "stack_bytes": stack}
+                "registers": int(line.split("Used")[1].split("registers")[0]), "stack_bytes": stack,
+                "spill_store_bytes": spills[0], "spill_load_bytes": spills[1]}
     big = max(out["entries"].values(), key=lambda e: e["registers"],
               default={"registers": 0, "stack_bytes": 0})
     out.update(registers=big["registers"], registers_max=big["registers"],
@@ -877,8 +885,8 @@ def _smi() -> list:
 
 @functools.lru_cache(maxsize=None)
 def fp_inv_probe():
-    """scripts/fp_inv_probe.py as a module: the inversion's Fermat body and
-    its one-thread latencies, beside K7-inv."""
+    """scripts/fp_inv_probe.py as a module: the binary GCD's one-thread
+    latencies, beside K7-inv."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "fp_inv_probe.py")
@@ -1033,9 +1041,7 @@ def phase_k7_inv(torch, dev, gen) -> dict:
     """K7-inv (the strict engine's inversion, the binary GCD, one launch) at
     K7_INV_WIDTHS on canonical strict limbs, limb for limb against its
     plain version and on a sample against the oracle's inverses; timed
-    beside K1-inv (the same body on digits, `k1_inv_ms`, in turns with it),
-    the Fermat ladder's body (scripts/fp_inv_probe.cu, `fermat_ms`, in
-    turns with K7-inv: K7-inv, Fermat, Fermat, K7-inv; its output equal)
+    beside K1-inv (the same body on digits, `k1_inv_ms`, in turns with it)
     and the loop of 610 K7 launches it replaced (`k7_loop_ms`), with its
     bounds (`bound_ms`: the binary GCD's instructions; `fermat_bound_ms`:
     the Fermat work, the shortest window chain's products; the limbs' load
@@ -1062,24 +1068,20 @@ def phase_k7_inv(torch, dev, gen) -> dict:
         vals = CV.fp_from_dev(x[:, :64])
         check(CV.fp_from_dev(got[:, :64]) == [pow(v, -1, P) if v else 0 for v in vals],
               "K7-inv differs from the oracle's inverses")
-        check(torch.equal(probe.body(torch, probe.FERMAT, x), got),
-              "the Fermat body differs from K7-inv")
         bms, by = bound_ms(n * 2 * LIMB_BYTES, n * gcd_inv_ops())
         k1_ms = cuda_ms(torch, lambda: FI.fp_inv(xd), 3)
         ms = cuda_ms(torch, lambda: FI.fp_inv_limbs(x), 3)
-        fermat_ms = [probe.body_ms(torch, probe.FERMAT, x, 3) for _ in range(2)]
         ms2 = cuda_ms(torch, lambda: FI.fp_inv_limbs(x), 3)
         out[n] = {"n": n, "max_abs_err": err, "ms": ms, "ms_turns": [ms, ms2],
                   "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                   "fermat_bound_ms": bound_ms(
                       n * 2 * LIMB_BYTES,
                       n * window_chain_products(FI.P_MINUS_2_BITS) * MONT_MUL32_OPS)[0],
-                  "floor_ms": latency["floor_steps_ms"], "fermat_ms": fermat_ms,
+                  "floor_ms": latency["floor_steps_ms"],
                   "k1_inv_ms": [k1_ms, cuda_ms(torch, lambda: FI.fp_inv(xd), 3)],
                   "k7_loop_ms": cuda_ms(torch, lambda: D.fp_pow(x, P - 2), 1),
                   "launch": _launch_shape(torch, FI.KERNEL_INV_LIMBS, n)}
     out["latency"] = latency
-    out["fermat_ptxas"] = probe.ptxas(probe.PROBE.build_log, "inv_kernelILi1E")
     return out
 
 
@@ -1159,7 +1161,7 @@ def phase_k1_chains(torch, dev, ptxas: dict) -> dict:
                             "latency": inv7["latency"]}}
     emit({"phase": "k1_chains", "ok": True, "fp_inv": list(inv.values()), "scan_levels": scan,
           "batch_inverse": whole, "fp_inv_limbs": [inv7[n] for n in K7_INV_WIDTHS],
-          "gcd_latency": inv7["latency"], "fermat_ptxas": inv7["fermat_ptxas"],
+          "gcd_latency": inv7["latency"],
           "ptxas": ptxas["fp_inv.cu"], "seconds": time.perf_counter() - t_phase})
     return res
 
@@ -1489,11 +1491,12 @@ def _held_values(torch, name: str, got, want) -> int:
 
 
 def _tower32_shape(torch, kernel, n: int, formats: tuple = ()) -> dict:
-    """The launch shape of K3-K6, K11 or K12 from its C entry
-    `<symbol>_shape` (K4's word layouts: `formats`, its in and out
-    EdgeFormat, first): elements and threads a block, shared bytes a
-    block, the blocks an SM holds (the occupancy API), and the grid's waves
-    and warps an SM at n."""
+    """The launch shape of K3-K6, K11, K12, FE-easy or FE-hard from its C
+    entry `<symbol>_shape` (its leading ints `formats` first: K4's in and
+    out EdgeFormat; FE-hard's width n, whose shape it reports): elements
+    and threads a block, shared bytes a
+    block, the blocks an SM holds (the occupancy API) and their warps
+    (`resident_warps_per_sm`), and the grid's waves and warps an SM at n."""
     fn = getattr(ctypes.CDLL(str(kernel.lib_path)), kernel.symbol + "_shape")
     fn.argtypes = [ctypes.c_int] * len(formats) + [ctypes.POINTER(ctypes.c_int)] * 4
     fn.restype = ctypes.c_int
@@ -1506,6 +1509,7 @@ def _tower32_shape(torch, kernel, n: int, formats: tuple = ()) -> dict:
     return {"elements_per_block": elems, "threads": threads, "smem_bytes": smem,
             "blocks": blocks, "blocks_per_sm": per_sm, "sms": sms,
             "waves": blocks / (sms * per_sm),
+            "resident_warps_per_sm": per_sm * -(-threads // 32),
             "warps_per_sm": min(blocks / sms, per_sm) * -(-threads // 32)}
 
 
@@ -1594,9 +1598,9 @@ K4_REPS = 20  # launches a timing of K4's layouts at 8192 (one of three has read
 
 
 def _ptxas_of(summary: dict, fragment: str) -> dict | None:
-    """Registers and stack of the kernel entry whose mangled name holds
-    `fragment` (an instantiation by its template arguments, as
-    "prepare_chain_kernelILi1ELi1E"; the library's spills are shared)."""
+    """Registers, stack and spills of the kernel entry whose mangled name
+    holds `fragment` (an instantiation by its template arguments, as
+    "prepare_chain_kernelILi1ELi1E")."""
     return next((v for k, v in summary["entries"].items() if fragment in k), None)
 
 
@@ -2028,7 +2032,10 @@ def phase_final_exp_chains(torch, dev, ptxas: dict) -> tuple:
     on those words and on their digits, word for word against `easy_plain`
     (the words canonical); FE-hard storing strict limbs limb for limb
     against `hard_limbs_plain`, also on `easy_plain`'s words, and storing
-    digits (within 4096) by value; at 8192 the first CHAIN_ORACLE_COLS
+    digits (within 4096) by value; at CHAIN_RAGGED_N - 1 elements (FE-hard
+    eight elements a block, its last block holding seven; FE-easy's last
+    block seven of 32) both equal to the first columns at CHAIN_RAGGED_N;
+    at 8192 the first CHAIN_ORACLE_COLS
     results (an identity among them) against the oracle's pairings; each
     timed beside its plain version (on the card the lazy tower's products
     run on K1, its inverse on K1-inv) and its bound, with its launch shape
@@ -2077,6 +2084,11 @@ def phase_final_exp_chains(torch, dev, ptxas: dict) -> tuple:
               "FE-hard's strict limbs differ from hard_limbs_plain")
         check(torch.equal(FE.hard(t2_words, out="limbs"), want),
               "FE-hard on easy_plain's words differs from hard_limbs_plain")
+        if n == CHAIN_RAGGED_N:  # a partly filled last block of each kernel at n - 1
+            check(torch.equal(FE.easy(f[..., :n - 1].contiguous()), words[..., :n - 1])
+                  and torch.equal(FE.hard(words[..., :n - 1].contiguous(), out="limbs"),
+                                  got[..., :n - 1]),
+                  f"FE-easy or FE-hard at {n - 1} elements differs from their first columns at {n}")
         got_digits = FE.hard(words)
         err_digits = int(got_digits.abs().max())
         check(err_digits <= 4096 and torch.equal(
@@ -2098,7 +2110,9 @@ def phase_final_exp_chains(torch, dev, ptxas: dict) -> tuple:
             out[name][n] = {"n": n, "max_abs_err": 0, "ms": cuda_ms(torch, fn, 3),
                             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                             "digits_ms": cuda_ms(torch, digits_fn, 3), "bound_digits_ms": dbms,
-                            "bound_digits_by": dby, "launch": _tower32_shape(torch, kernel, n)}
+                            "bound_digits_by": dby,
+                            "launch": _tower32_shape(torch, kernel, n,
+                                                     (n,) if name == "hard" else ())}
         out["hard"][n]["digits_max_abs_err"] = err_digits
         bms, by = bound_ms(n * work["easy_limbs"][0], n * work["easy_limbs"][1])
         out["easy_limbs"][n] = {"n": n, "max_abs_err": 0,
@@ -4098,7 +4112,7 @@ def main() -> int:
                         for route, v in strict_multi.items()},
         at_widths=inv7["at_widths"], launch=inv7["launch"],
         fermat_bound_ms=inv7["fermat_bound_ms"], floor_ms=inv7["floor_ms"],
-        fermat_ms=inv7["fermat_ms"], latency=inv7["latency"],
+        latency=inv7["latency"],
         ptxas=_ptxas_of(ptxas["fp_inv.cu"], "fp_inv_kernelILi1E")))
     g1, g2 = scan_mul["g1"], scan_mul["g2"]
     strict_chain_lines.append(_kernel_line(
@@ -4256,12 +4270,15 @@ def main() -> int:
                        launches_distributed={
                            "pairing": dist_launches["pairing"]["final_exp_" + part]},
                        at_widths=res["at_widths"], launch=res["launch"],
-                       digits_ms=res["digits_ms"], bound_digits_ms=res["bound_digits_ms"])
-          for part, replaces, res in (
-              ("easy", "ark_blst_tpu/ops/pallas_lazy.py:63 (mul12) and :41 (the easy part of "
+                       digits_ms=res["digits_ms"], bound_digits_ms=res["bound_digits_ms"],
+                       ptxas=_ptxas_of(ptxas["final_exp.cu"], entry))
+          for part, entry, replaces, res in (
+              ("easy", "easy_kernelILi2E",
+               "ark_blst_tpu/ops/pallas_lazy.py:63 (mul12) and :41 (the easy part of "
                        "the fused final exponentiation, ark_blst_tpu/curves/pairing.py:438-443: "
                        "fp12_inv's products and Fermat scan, the Frobenius square)", fe_easy),
-              ("hard", "ark_blst_tpu/ops/pallas_lazy.py:149, :63 (mul12) and :41 (the hard "
+              ("hard", "hard_kernelILi1E",
+               "ark_blst_tpu/ops/pallas_lazy.py:149, :63 (mul12) and :41 (the hard "
                        "part, ark_blst_tpu/curves/pairing.py:444-467: five x-ladders, products, "
                        "Frobenius maps)", fe_hard))],
         _kernel_line("prepare_chain", "prepare_step.cu",

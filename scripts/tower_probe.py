@@ -20,7 +20,7 @@ with its ptxas registers and spills.
     python3 scripts/tower_probe.py [--k3 32x288,16x144] [--k4 32x192] \
         [--k5 32x192,16x96] [--k6 32x256,16x128] [--k11 32x192] \
         [--k12 32x256,24x192] [--chains 32,16,8] [--widths 8192,1024] \
-        [--fe 32x288,16x144]
+        [--fe 32x576,16x288,32x576x1]
 
 An empty list (`--k3 ""`) skips a kernel's shapes. Builds the six kernels
 from the checkout's sources (`cuda.build_all`) and the shapes' builds of
@@ -53,7 +53,8 @@ at its default shape on f as words (the fused pairing's conj(f), the
 identities masked to one) and on its digits, and FE-hard at each shape of
 `--fe` (a build of its own, bounded as K4's: `-DFE_HARD_THREADS=T
 -DFE_HARD_MIN_BLOCKS=M`) on the easy part of the first N pairs' real
-Miller outputs, storing strict limbs (the fused pairing's) and digits:
+Miller outputs, storing strict limbs (the fused pairing's) and digits
+(a shape ExTxM bounds its build for M blocks an SM instead):
 their times, blocks an SM, waves and whether FE-hard's output equals the
 library's bit for bit. Needs a card; imports no JAX.
 """
@@ -76,7 +77,7 @@ K4_SHAPES = "32x192,32x256,32x128,16x128,16x96"
 K5_SHAPES = "32x192,32x128,16x96,16x64,64x384"
 K11_SHAPES = "32x192,32x256,32x384,24x144,16x96,16x192"
 K12_SHAPES = "32x256,32x192,32x320,24x192,24x128,16x128"
-FE_SHAPES = "32x288,32x192,32x384,16x144,16x288"
+FE_SHAPES = "32x576,16x288,32x576x1,16x288x3,32x288,24x432"
 CHAIN_ELEMS = "32,16,8"
 CHAIN_WIDTHS = "8192,1024"
 K5_THREADS_PER_ELEM, K6_THREADS_PER_ELEM = 6, 8
@@ -91,17 +92,20 @@ def _shapes(arg: str) -> list:
 def _bounded_builds(KC, props, kernels: dict) -> tuple:
     """Start one nvcc for each bound that the shapes of K4, K5, K11 and
     K12 ask for; kernels maps "k4", "k5", "k11", "k12" to (source, macro
-    prefix, slot bytes an element, shapes). Returns {(which, E, T): (library, min blocks)} and
+    prefix, bytes an element, shapes: (E, T), or (E, T, M) for a bound of M
+    blocks an SM). Returns {(which, *shape): (library, min blocks)} and
     {library: process}, one build for each bound."""
     smem_sm = getattr(props, "shared_memory_per_multiprocessor", 228 * 1024)
     out_dir = KC.BUILD_DIR.parent / "tower_probe"
     out_dir.mkdir(parents=True, exist_ok=True)
     shapes_of, procs = {}, {}
     for which, (source, macro, elem_bytes, shapes) in kernels.items():
-        for E, T in shapes:
-            blocks = max(1, min(smem_sm // (E * elem_bytes + SMEM_RESERVED), 2048 // T))
+        for shape in shapes:
+            E, T = shape[:2]
+            blocks = shape[2] if len(shape) > 2 else max(
+                1, min(smem_sm // (E * elem_bytes + SMEM_RESERVED), 2048 // T))
             lib = out_dir / f"{which}_{T}x{blocks}.so"
-            shapes_of[(which, E, T)] = (lib, blocks)
+            shapes_of[(which, *shape)] = (lib, blocks)
             if lib not in procs:
                 cmd = [KC._nvcc(), *KC.NVCC_FLAGS, f"-D{macro}_THREADS={T}",
                        f"-D{macro}_MIN_BLOCKS={blocks}", "-I", str(KC.CSRC_DIR), "-o",
@@ -154,7 +158,7 @@ def main() -> int:
         "k5": ("prepare_step.cu", "K5", 26 * slot_bytes, _shapes(args.k5)),
         "k11": ("fp12_sqr.cu", "K11", 30 * slot_bytes, _shapes(args.k11)),
         "k12": ("fp12_mul_by_014.cu", "K12", 27 * slot_bytes, _shapes(args.k12)),
-        "fe": ("final_exp.cu", "FE_HARD", 30 * slot_bytes, _shapes(args.fe))})
+        "fe": ("final_exp.cu", "FE_HARD", 72 * slot_bytes // 2, _shapes(args.fe))})
     KC.build_all(list(kernels.values()))  # the library, while the shapes build
     sms = props.multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream
@@ -192,14 +196,16 @@ def main() -> int:
     def flags(schedule):
         return (ctypes.c_ubyte * len(schedule))(*[int(x) for x in schedule])
 
-    def shaped(which, E, T):
+    def shaped(which, *shape):
         """The shaped entry and the occupancy entry of the build that runs
-        the shape: its own for K4, K5, K11 and K12, the library's for K3
-        and K6."""
-        path = bounded[(which, E, T)][0] if (which, E, T) in bounded \
+        the shape: its own for K4, K5, K11, K12 and FE-hard, the library's
+        for K3 and K6."""
+        path = bounded[(which, *shape)][0] if (which, *shape) in bounded \
             else kernels[which].lib_path
-        return (lib(path, *entries[which]),
-                lib(path, kernels[which].symbol + "_shape", [ctypes.POINTER(ctypes.c_int)] * 4))
+        lead = [ctypes.c_int] if which == "fe" else []  # FE-hard's width (0: E, T given)
+        occ = lib(path, kernels[which].symbol + "_shape",
+                  lead + [ctypes.POINTER(ctypes.c_int)] * 4)
+        return lib(path, *entries[which]), (lambda *a: occ(*[0] * len(lead), *a))
 
     def occupancy(occ, E, T):
         vals = [ctypes.c_int(E), ctypes.c_int(T), ctypes.c_int(), ctypes.c_int()]
@@ -214,12 +220,13 @@ def main() -> int:
     def timed(fn):
         return CS.cuda_ms(torch, fn, 3)
 
-    def shape_line(which, E, T):
-        fn, occ = shaped(which, E, T)
-        res = {"kernel": which, "shape": f"{E}x{T}", **occupancy(occ, E, T)}
+    def shape_line(which, *shape):
+        E, T = shape[:2]
+        fn, occ = shaped(which, *shape)
+        res = {"kernel": which, "shape": "x".join(map(str, shape)), **occupancy(occ, E, T)}
         res["waves"] = -(-N // E) / (sms * max(res["blocks_per_sm"], 1))
-        if (which, E, T) in shape_ptxas:
-            res["ptxas"] = shape_ptxas[(which, E, T)]
+        if (which, *shape) in shape_ptxas:
+            res["ptxas"] = shape_ptxas[(which, *shape)]
         return fn, res
 
     def edges_hold(inputs):
@@ -382,8 +389,9 @@ def main() -> int:
                "easy_equal": bool(torch.equal(FE.easy(f_digits), words))}
         res["easy_launch"] = CS._tower32_shape(torch, FE.KERNEL_EASY, n)
         print(json.dumps(res), flush=True)
-        for E, T in _shapes(args.fe):
-            fn, res = shape_line("fe", E, T)
+        for shape in _shapes(args.fe):
+            E, T = shape[:2]
+            fn, res = shape_line("fe", *shape)
             res["n"], res["blocks"] = n, -(-n // E)
             res["waves"] = res["blocks"] / (sms * max(res["blocks_per_sm"], 1))
             for out_name, fmt in (("limbs", LIM), ("digits", DIG)):

@@ -619,10 +619,12 @@ def _miller_outputs(dev, n):
     return PR._masked_miller(p, PR.prepare_g2(q), p_inf, q_inf), pb, qb
 
 
-@pytest.mark.parametrize("n", [1, 33, 1000])
+@pytest.mark.parametrize("n", [1, 33, 201, 1000])
 def test_final_exp_chains_value_equal_to_plain(dev, n):
     """FE-easy and FE-hard, one launch each, on real Miller outputs (with
-    identity pairs) at N = 1, 33 (a ragged second block) and 1000, by value
+    identity pairs) at N = 1, 33 (FE-easy's ragged second block), 201
+    (FE-hard at two elements a block on an H100's 132 SMs: its last block
+    holds one) and 1000, by value
     against their plain versions: FE-easy's words against `easy_plain`'s
     digits, FE-hard on those words and on the words of `easy_plain`'s
     digits (`digits_to_words_plain`) against `hard_plain`; the first columns against the oracle's pairing."""

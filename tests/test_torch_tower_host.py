@@ -59,6 +59,7 @@ N = 12
 F = LZ.F_BOUND
 
 HARNESS = r"""
+#include <algorithm>
 #include <cstdio>
 #include <cstdlib>
 #include <vector>
@@ -106,7 +107,8 @@ HARNESS = r"""
 // strict lines (p1, 6, 24, n) and strict P (2, 24, n), the schedule after
 // them, result conj(f) as strict limbs (12, 24, n); FE-easy (op 27) on f
 // as strict limbs (12, 24, n) and the Frobenius words, result (12, 12, n)
-// words.
+// words. Op 28: FE-hard as op 16 with the scratch stack's value 1 given,
+// (12, 12, n) words after the Frobenius words.
 // One block program over the batch: blocks of E elements, each phase's jobs
 // in order (reversed if asked), with the slots' memory filled with a
 // pattern first, so that a job reading a slot no earlier phase wrote goes
@@ -173,12 +175,15 @@ int main() {
   long long hdr[4];
   if (fread(hdr, sizeof(long long), 4, stdin) != 4) return 2;
   const long long op = hdr[0], n = hdr[1], param = hdr[2], B = hdr[3];
-  if (op < 0 || op > 27) return 2;
+  if (op < 0 || op > 28) return 2;
   const bool tower = op <= 4 || op == 9 || op == 10;
   const long long plane = 30 * n, S = 1024;
   size_t in_size, out_size;
   const long long frob_ints = fexp::FROB_POWERS * 6 * 2 * 12;
-  if (op == 23 || op == 24) {
+  if (op == 28) {
+    in_size = 2 * 12 * 12 * n + 4 * param + frob_ints;
+    out_size = 12 * 30 * n;
+  } else if (op == 23 || op == 24) {
     in_size = 24 * 12 * n;
     out_size = 12 * (op == 23 ? 12 : 24) * n;
   } else if (op == 15 || op == 16 || op == 21 || op == 22 || op == 27) {
@@ -332,13 +337,18 @@ int main() {
       else fexp::easy_chain<t381::LIMB_ROWS>(b, c, ph);
     });
   }
-  if (op == 16 || op == 22) {
+  if (op == 16 || op == 22 || op == 28) {
     const long long in_len = 12 * 12 * n;
     std::vector<int> scratch(static_cast<size_t>(15 * 12 * 12 * n));
+    if (op == 28)
+      std::copy(x + in_len + 4 * param + frob_ints, x + 2 * in_len + 4 * param + frob_ints,
+                scratch.begin());
     const fexp::HardChain c{x, scratch.data(), o, x + in_len, p1, x + in_len + 4 * param};
-    run_chain(n, B, fexp::SLOTS, [&](const t381::Block& b, const HostPhases& ph) {
-      if (op == 16) fexp::hard_chain(b, c, ph);
-      else fexp::hard_chain<t381::LIMB_ROWS>(b, c, ph);
+    // as the card runs FE-hard: jobs for the block's elements in the batch alone
+    run_chain(n, B, fexp::HARD_SLOTS / 2, [&](const t381::Block& b, const HostPhases& ph) {
+      const HostPhases active{fexp::active_elems(b), ph.reverse};
+      if (op == 22) fexp::hard_chain<t381::LIMB_ROWS>(b, c, active);
+      else fexp::hard_chain(b, c, active);
     });
   }
   fwrite(out.data(), sizeof(int), out.size(), stdout);
@@ -1077,6 +1087,46 @@ def test_final_exp_frobenius_host_oracle(harness, power):
               torch.tensor(program, dtype=torch.int32).reshape(-1), FROB, buckets=BLOCK)
     assert int(got.abs().max()) <= 4096
     assert values(got) == values(fp12_stack([OF.fp12_frobenius(x, power) for x in a]))
+
+
+def test_final_exp_easy_host_zero_norm(harness):
+    """FE-easy on f = 0 beside three real Miller outputs and f = 1 (blocks
+    of 3): the norm of 0 is 0, which the binary GCD inverts to 0 as the
+    Fermat ladder did; word for word `easy_plain` (whose lazy inverse of 0
+    is 0), the easy part of 0 being 0."""
+    fs = miller_fs()
+    fs.insert(1, (((0, 0),) * 3,) * 2)
+    f = fp12_stack(fs)
+    n = f.shape[-1]
+    words = run(harness, 15, 0, f, FROB, shape=(12, FE.WORDS, n), buckets=3)
+    assert torch.equal(words, W.digits_to_words_plain(FE.easy_plain(f)))
+    assert not words[..., 1].any() and words[..., 0].any()
+
+
+@pytest.mark.parametrize("step", ["square", "product"])
+def test_final_exp_hard_step_host_oracle(harness, step):
+    """One whole Granger-Scott square of FE-hard (a program LOAD, SQR 1,
+    OUT) on cyclotomic elements against the oracle's fp12_sqr, and one
+    whole fp12 product (LOAD of the input and of value 1, MUL, OUT) on
+    random elements against its fp12_mul: each step's Fp jobs, run in
+    order and in reverse, by value."""
+    rng = random.Random(41)
+    if step == "square":
+        a = cyclotomic_elements(N)
+        program = [FE._load(FE.T2), FE._op(FE.SQR, 1), FE._op(FE.OUT)]
+        extra, want = (), [OF.fp12_sqr(x) for x in a]
+        op = 16
+    else:
+        a, b = ([random_fp12(rng) for _ in range(N)] for _ in range(2))
+        program = [FE._load(FE.T2, FE.T0), FE._op(FE.MUL), FE._op(FE.OUT)]
+        extra, want = (fp12_words(b).reshape(-1),), [OF.fp12_mul(x, y) for x, y in zip(a, b)]
+        op = 28
+    args = (op, len(program), fp12_words(a), torch.tensor(program, dtype=torch.int32).reshape(-1),
+            FROB, *extra)
+    got = run(harness, *args, buckets=BLOCK)
+    assert int(got.abs().max()) <= 4096
+    assert values(got) == values(fp12_stack(want))
+    assert torch.equal(run(harness, *args, buckets=-BLOCK), got)
 
 
 # --- K2: the bucket addition over Fp and Fp2 (csrc/group381.cuh) -------------
